@@ -5,11 +5,16 @@ head-major qkv, pre-LN blocks, exact-erf GELU, learned positions, the
 LM head tied to ``wte``), as ``torch.nn.Module``s, so a JAX state dict
 maps onto this one name for name (see :mod:`.convert`).
 
-Inference only in this slice: no tensor or sequence parallelism, no
-remat, no scan and no stacked block storage (the serving path needs
-addressable blocks). Attention runs through
+Trains and serves, on one device: no tensor, sequence or context
+parallelism yet. Training adds remat (``use_recompute`` with
+``recompute_granularity`` "full" or "dots", through
+``torch.utils.checkpoint``), stacked ``[L, ...]`` block storage
+(``stacked_blocks``, :mod:`._scan`) and the chunked fused LM-head loss
+(``fused_head_loss``). Attention runs through
 :func:`paddle2_tpu_torch.kernels.scaled_dot_product_attention`, which
-launches the CUDA flash kernel for a CUDA tensor at every length.
+launches the CUDA flash kernels (forward and backward) for a CUDA
+tensor at every length. LayerNorm is :class:`paddle2_tpu_torch.nn.LayerNorm`,
+which keeps the JAX package's rounding order under AMP O2.
 
 Initialisation matches the JAX package's distributions: Normal(0, 0.02)
 for every projection and embedding, the attention out-projection at
@@ -30,7 +35,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import resolve_device
+from ..distributed.recompute import recompute
+from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..kernels.attention import scaled_dot_product_attention
+from ..nn import LayerNorm
+from ._scan import StackedLayerStack
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "gpt3_1p3b", "gpt_small", "gpt_tiny"]
@@ -49,6 +58,15 @@ class GPTConfig:
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
     tie_word_embeddings: bool = True
+    use_recompute: bool = False
+    # "full" keeps each block's input only; "dots" also keeps matrix
+    # products and the flash op's (o, lse) (kernels.attention.remat_policy)
+    recompute_granularity: str = "full"
+    # one [L, ...] parameter per block leaf (models/_scan.py)
+    stacked_blocks: bool = False
+    # forward(labels=...) returns (None, loss) through the chunked fused
+    # head + cross-entropy: the [tokens, vocab] logits are never held
+    fused_head_loss: bool = False
 
     @property
     def ffn_size(self) -> int:
@@ -106,9 +124,9 @@ class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
         eps = cfg.layer_norm_epsilon
-        self.ln_1 = nn.LayerNorm(cfg.hidden_size, eps=eps, **factory)
+        self.ln_1 = LayerNorm(cfg.hidden_size, eps=eps, **factory)
         self.attn = GPTAttention(cfg, **factory)
-        self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=eps, **factory)
+        self.ln_2 = LayerNorm(cfg.hidden_size, eps=eps, **factory)
         self.mlp = GPTMLP(cfg, **factory)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
 
@@ -134,8 +152,8 @@ class GPTModel(nn.Module):
         self.drop = nn.Dropout(cfg.hidden_dropout_prob)
         self.h = nn.ModuleList(GPTBlock(cfg, **factory)
                                for _ in range(cfg.num_layers))
-        self.ln_f = nn.LayerNorm(cfg.hidden_size,
-                                 eps=cfg.layer_norm_epsilon, **factory)
+        self.ln_f = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_epsilon,
+                              **factory)
 
     def _embed(self, input_ids, position_offset: int):
         s = input_ids.shape[1]
@@ -145,9 +163,27 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids):
         x = self._embed(input_ids, 0)
-        for block in self.h:
-            x = block(x)
+        cfg = self.cfg
+        remat = (cfg.recompute_granularity
+                 if cfg.use_recompute and self.training else None)
+        if isinstance(self.h, StackedLayerStack):
+            x = self.h(x, remat=remat)
+        else:
+            for block in self.h:
+                x = block(x) if remat is None else \
+                    recompute(block, x, policy=remat)
         return self.ln_f(x)
+
+    def blocks(self):
+        """Each block in order, bound to its weights while the caller
+        holds it (with stacked storage the template is bound to layer
+        ``i`` for that step of the iteration)."""
+        if isinstance(self.h, StackedLayerStack):
+            for i in range(self.h.n_layers):
+                with self.h.layer(i) as block:
+                    yield block
+        else:
+            yield from self.h
 
     def decode_step(self, input_ids, caches, position_offset: int
                     ) -> Tuple[torch.Tensor, List[tuple]]:
@@ -156,7 +192,7 @@ class GPTModel(nn.Module):
         prefill call). Returns ``(hidden, new_caches)``."""
         x = self._embed(input_ids, position_offset)
         new_caches = []
-        for block, cache in zip(self.h, caches):
+        for block, cache in zip(self.blocks(), caches, strict=True):
             x, c = block(x, cache=cache)
             new_caches.append(c)
         return self.ln_f(x), new_caches
@@ -168,15 +204,18 @@ class GPTForCausalLM(nn.Module):
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` for the plain path. ``dtype`` is the parameter
     dtype (float32 or bfloat16). Weights are drawn from a
-    ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    ``torch.Generator`` on ``device`` seeded with ``seed``, per block,
+    before the blocks are stacked, so stacked and per-block storage hold
+    the same weights from one seed. The model starts in training mode,
+    as the JAX package's layers do."""
 
     def __init__(self, cfg: GPTConfig, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
         if cfg.attention_dropout_prob > 0.0:
             raise NotImplementedError(
-                "attention dropout belongs to the training slice "
-                "(ROADMAP slice 2)")
+                "attention dropout is not ported yet (ROADMAP queue 1 "
+                "item 2)")
         self.cfg = cfg
         device = resolve_device(device)
         factory = {"device": device, "dtype": dtype}
@@ -185,7 +224,8 @@ class GPTForCausalLM(nn.Module):
                         nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                   bias=False, **factory))
         self._init_weights(torch.Generator(device=device).manual_seed(seed))
-        self.eval()
+        if cfg.stacked_blocks:
+            self.gpt.h = StackedLayerStack(list(self.gpt.h))
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
@@ -206,8 +246,25 @@ class GPTForCausalLM(nn.Module):
             return F.linear(hidden, self.gpt.wte.weight)
         return self.lm_head(hidden)
 
-    def forward(self, input_ids):
-        return self._head(self.gpt(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Logits; with ``labels``, ``(logits, loss)``, or ``(None,
+        loss)`` through the fused head when ``fused_head_loss``. The
+        loss is the mean cross-entropy over tokens whose label is not
+        -100."""
+        hidden = self.gpt(input_ids)
+        if labels is not None and self.cfg.fused_head_loss:
+            w = (self.gpt.wte.weight if self.lm_head is None
+                 else self.lm_head.weight)
+            return None, fused_linear_cross_entropy(hidden, w.t(), labels)
+        logits = self._head(hidden)
+        if labels is None:
+            return logits
+        return logits, _cross_entropy(
+            logits.reshape(-1, self.cfg.vocab_size).float(),
+            labels.reshape(-1))
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: int = 32,
@@ -237,6 +294,19 @@ class GPTForCausalLM(nn.Module):
             nxt = torch.argmax(logits, dim=-1)
             ids = torch.cat([ids, nxt[:, None]], dim=1)
         return ids
+
+
+def _cross_entropy(logits, labels, ignore_index: int = -100):
+    """Mean cross-entropy over the labels not ignored, as the JAX
+    package's ``F.cross_entropy`` computes it (nn/functional/loss.py:33):
+    log-softmax, the picked log-probability, a sum over valid tokens
+    over their count (at least 1e-12)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    picked = -logp.gather(-1, safe[:, None].long())[:, 0]
+    picked = torch.where(valid, picked, torch.zeros_like(picked))
+    return picked.sum() / valid.to(picked.dtype).sum().clamp_min(1e-12)
 
 
 def gpt3_1p3b(**overrides) -> GPTConfig:

@@ -109,7 +109,7 @@ class PagedGPTRunner:
         pos = torch.as_tensor(pos_np, device=dev)[:, None]
         ids_t = torch.as_tensor(np.asarray(ids, np.int64), device=dev)
         x = model.gpt.wte(ids_t) + model.gpt.wpe(pos)
-        for li, block in enumerate(model.gpt.h):
+        for li, block in enumerate(model.gpt.blocks()):
             qkv = block.attn.qkv(block.ln_1(x))
             # head-major fused split, as GPTAttention.forward
             q, k, v = qkv.reshape(B, 1, nh, 3, hd).unbind(3)

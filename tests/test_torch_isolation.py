@@ -42,6 +42,8 @@ ctypes.CDLL.__init__ = lambda *a, **k: calls.append(a)
 import paddle2_tpu_torch
 import paddle2_tpu_torch.kernels, paddle2_tpu_torch.models
 import paddle2_tpu_torch.serving
+import paddle2_tpu_torch.optimizer, paddle2_tpu_torch.amp
+import paddle2_tpu_torch.jit
 from paddle2_tpu_torch.kernels import _build
 assert not calls, calls
 assert not _build._LIBS
@@ -72,6 +74,7 @@ def test_resolve_device(monkeypatch):
 def test_kernel_sources_are_found():
     from paddle2_tpu_torch.kernels import _build
     names = _build.sources()
-    assert set(names) == {"flash_fwd", "paged_decode"}
+    assert set(names) == {"flash_fwd", "paged_decode", "flash_bwd",
+                          "adamw_step"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"
