@@ -29,6 +29,17 @@ line) when it fails:
    path's 16 parameter leaves (f32, and bf16 with f32 masters), and
    one step over the 16 f32 leaves timed against
    ``torch._fused_adamw_``.
+   The int8 weight-only matmul at GPT-3 1.3B's five projection shapes
+   (qkv, out_proj, up, down, the tied head) at M 1, 8 and 1008, in bf16
+   and f32, with and without a bias, and at one ragged shape (M 3, K
+   200, N 333), timed against ``torch.mm`` over the weight dequantized
+   beforehand (and ``torch._weight_int8pack_mm`` where this torch has
+   it on CUDA). Then, on the serving model's real weights and the
+   activations that reach them on one prompt: the kernel's product
+   stays within ``weight_quant_error_bound`` of ``x @ W`` (f64, on the
+   host), a 4-bit payload of the same weight breaks that bound, and the
+   bound is below ``max |x @ W|``; and layer 0's payload and scales
+   quantized on the card equal those quantized on the CPU, bitwise.
 4. The engine at full width: GPT-3 1.3B (24 layers kept) from a fixed
    seed serves 8 requests (prompts of 17..1000 tokens, 32 new tokens
    each) in f32, with the global-softmax decode and with split-K
@@ -40,7 +51,15 @@ line) when it fails:
    step of each run is traced with torch.profiler for its device time. Two short prompts'
    first-token logits are held against the same model on the CPU (the
    plain path) at atol 1e-3. Every serving kernel's launch count must
-   rise during the engine runs.
+   rise during the engine runs. Then two runs with
+   ``weight_only_int8=True, weight_only_lm_head=True`` (the engine
+   quantizes the model in place) over the same seed's model, in f32 and
+   in bf16: tokens held against the quantized model's dense
+   ``generate`` by the same near-tie rule, f32 first-token logits
+   against the quantized model on the CPU at atol 1e-3, ``wo_matmul``
+   launched 97 times (96 projections and the head) for every prefill
+   and every decode step; how many tokens agree with the fp runs is
+   printed, not gated.
 5. Training at full width and full depth: ``bench.py``'s default GPT
    (vocab 32768, hidden 1024, 24 layers, 16 heads of 64, seq 1024,
    batch 8, labels = ids) with "dots" remat, stacked blocks, the fused
@@ -86,8 +105,12 @@ from paddle2_tpu_torch.kernels.flash_attn import (
 from paddle2_tpu_torch.kernels.fused_adamw import (adamw_step,
                                                    adamw_step_reference,
                                                    stage_scalars)
+from paddle2_tpu_torch.kernels.quant_matmul import (
+    int8_weight_only_matmul, int8_weight_only_matmul_reference,
+    quantize_channelwise, weight_quant_error_bound)
 from paddle2_tpu_torch.models import GPTConfig, GPTForCausalLM, gpt3_1p3b
 from paddle2_tpu_torch.optimizer import AdamW
+from paddle2_tpu_torch.quantization import weight_only_quantize
 from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
 from paddle2_tpu_torch.serving.paged_attention import (
     _merge_splits, paged_attention_reference,
@@ -143,8 +166,17 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/adamw_step.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:125",
         counter=adamw_step),
+    "wo_matmul": dict(
+        source="paddle2_tpu_torch/kernels/csrc/wo_matmul.cu",
+        replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
+        counter=int8_weight_only_matmul),
 }
 SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_split")
+# GPT-3 1.3B's weight-only projections, K x N ([in, out])
+WO_SHAPES = {"qkv": (2048, 6144), "out_proj": (2048, 2048),
+             "up": (2048, 8192), "down": (8192, 2048), "head": (2048, 50304)}
+# the kernels line's wo_matmul row: a bf16 decode step at batch 8
+WO_LINE_SHAPE = "M8 K2048 N8192 (up) bias"
 # the training path (bench.py bench_gpt's default configuration)
 TRAIN = dict(vocab=32768, hidden=1024, layers=24, heads=16, seq=1024,
              batch=8)
@@ -492,6 +524,142 @@ def check_adamw(shapes, gen, dev):
                 bound_ms=b_ms, bound_by=b_by, library="torch._fused_adamw_")
 
 
+def int8pack_available(dev):
+    """Whether this torch computes ``torch._weight_int8pack_mm`` on
+    CUDA: it takes w as ``[N, K]`` int8 and per-row scales in x's dtype.
+    A yardstick only; the port never calls it."""
+    try:
+        torch._weight_int8pack_mm(
+            torch.ones(1, 32, device=dev), torch.ones(8, 32, device=dev,
+                                                      dtype=torch.int8),
+            torch.ones(8, device=dev))
+        torch.cuda.synchronize()
+        return True
+    except (AttributeError, NotImplementedError, RuntimeError):
+        return False
+
+
+def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
+             timed=True):
+    """The weight-only kernel against its plain version at ``M x K x
+    N``: error absolute below 1 and relative above (one bf16 rounding
+    step of an output of 4 is 0.03); with ``timed``, its times, its bound
+    and the library yardsticks."""
+    x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+    w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+    w8, s8 = quantize_channelwise(w)
+    bias = ((torch.randn(N, generator=gen, device=dev) * 0.02).to(dtype)
+            if with_bias else None)
+    y = int8_weight_only_matmul(x, w8, s8, bias)
+    ref = int8_weight_only_matmul_reference(x, w8, s8, bias)
+    torch.cuda.synchronize()
+    diff = (y.float() - ref.float()).abs()
+    err = diff.max().item()
+    scaled = (diff / ref.float().abs().clamp_min(1.0)).max().item()
+    require(torch.isfinite(y.float()).all().item(), "non-finite output")
+    shape = f"M{M} K{K} N{N} ({label})" + (" bias" if with_bias else "")
+    require(scaled <= TOL[dtype], f"wo_matmul {dname(dtype)} {shape} "
+            f"disagrees with its plain version: {scaled} > {TOL[dtype]}")
+    row = dict(name="wo_matmul", dtype=dname(dtype), shape=shape,
+               max_abs_err=err, scaled_err=scaled, tol=TOL[dtype])
+    if not timed:
+        return row
+
+    def run():
+        return int8_weight_only_matmul(x, w8, s8, bias)
+    ms = cuda_ms(run)
+    dev_ms, kern_ms = device_ms(run, "wo_ge")
+    plain = cuda_ms(lambda: int8_weight_only_matmul_reference(
+        x, w8, s8, bias), iters=10)
+    w_deq = (w8.float() * (s8 / 127.0)).to(dtype)
+    lib = cuda_ms((lambda: torch.addmm(bias, x, w_deq)) if with_bias
+                  else (lambda: torch.mm(x, w_deq)))
+    pack_ms = None
+    if int8pack:
+        w_nk, s_x = w8.t().contiguous(), (s8 / 127.0).to(dtype)
+        pack_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s_x))
+    size = x.element_size()
+    nbytes = (M * K * size + K * N + 4.0 * N + M * N * size
+              + (N * size if with_bias else 0))
+    b_ms, b_by = bound(2.0 * M * N * K, nbytes, dtype)
+    row.update(ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
+               plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+               library="torch.mm over the dequantized weight",
+               int8pack_mm_ms=pack_ms)
+    return row
+
+
+@torch.inference_mode()
+def check_wo_bound(model, prompt):
+    """The analytic bound on the serving model's layer 0 and 23
+    projections and the head, with the activations that reach them on
+    ``prompt``: for each weight the kernel's error against ``x @ W`` in
+    f64 on the host stays within ``weight_quant_error_bound + 1e-4 |y|``
+    and the bound is below ``max |x @ W|``; a 4-bit payload of the same
+    weights breaks the 8-bit bound somewhere. (The l1 bound grows with K
+    and the error of a random payload with its square root: at K 8192
+    the down projection's 4-bit payload can stay inside the bound.)"""
+    caps, hooks = {}, []
+    for li in (0, len(model.gpt.h) - 1):
+        blk = model.gpt.h[li]
+        for name, lin in (("qkv", blk.attn.qkv),
+                          ("out_proj", blk.attn.out_proj),
+                          ("up", blk.mlp.up), ("down", blk.mlp.down)):
+            def pre(mod, inp, key=f"layer{li}.{name}"):
+                caps[key] = (inp[0].reshape(-1, inp[0].shape[-1]).clone(),
+                             mod.weight.t())
+            hooks.append(lin.register_forward_pre_hook(pre))
+
+    def head_in(mod, inp, out):
+        caps["head"] = (out.reshape(-1, out.shape[-1]).clone(),
+                        model.gpt.wte.weight.t())
+    hooks.append(model.gpt.ln_f.register_forward_hook(head_in))
+    dev = model.gpt.wte.weight.device
+    model(torch.as_tensor([prompt], dtype=torch.long, device=dev))
+    for h in hooks:
+        h.remove()
+    rows = []
+    for key, (x, w) in caps.items():
+        w8, s8 = quantize_channelwise(w, 8)
+        w4, s4 = quantize_channelwise(w, 4)
+        y8 = int8_weight_only_matmul(x, w8, s8).double().cpu()
+        y4 = int8_weight_only_matmul(x, w4, s4, quant_bits=4).double().cpu()
+        exact = x.double().cpu() @ w.double().cpu()
+        bnd = weight_quant_error_bound(x, s8).double().cpu()
+        err = (y8 - exact).abs()
+        row = dict(
+            weight=key, shape=f"M{x.shape[0]} K{w.shape[0]} N{w.shape[1]}",
+            max_err=err.max().item(), max_bound=bnd.max().item(),
+            max_abs_y=exact.abs().max().item(),
+            holds=bool((err <= bnd + 1e-4 * y8.abs()).all()),
+            four_bit_violates=bool(((y4 - exact).abs() > bnd).any()))
+        row["informative"] = row["max_bound"] < row["max_abs_y"]
+        say(f"[kernel] wo_matmul bound {row}")
+        require(row["holds"], f"wo_matmul {key}: error past the analytic "
+                f"bound")
+        require(row["informative"], f"wo_matmul {key}: the bound is not "
+                f"below max |x @ W|")
+        rows.append(row)
+    require(any(r["four_bit_violates"] for r in rows),
+            "no 4-bit payload breaks the 8-bit bound: the bound is vacuous")
+    return rows
+
+
+def check_wo_payload(model):
+    """Layer 0 quantized on the card and on the CPU from the same
+    weights: payloads and scales ``torch.equal``."""
+    card = weight_only_quantize(copy.deepcopy(model.gpt.h[0]))
+    cpu = weight_only_quantize(copy.deepcopy(model.gpt.h[0]).cpu())
+    out = {}
+    for name in ("attn.qkv", "attn.out_proj", "mlp.up", "mlp.down"):
+        a, b = card.get_submodule(name), cpu.get_submodule(name)
+        out[name] = (torch.equal(a.weight_int8.cpu(), b.weight_int8)
+                     and torch.equal(a.w_scale.cpu(), b.w_scale))
+        require(out[name], f"layer 0 {name}: the card's payload differs "
+                f"from the CPU's")
+    return out
+
+
 # ------------------------------------------------------------- phase 4
 # the decode step traced with torch.profiler: all 8 requests run by then
 PROFILED_STEP = 20
@@ -515,16 +683,18 @@ def serve(model, econf, prompts, new_tokens):
     eng = ServingEngine(model, econf)
     reset_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t_start = time.perf_counter()
     rids = [eng.submit(p, new_tokens) for p in prompts]
     prefill_s = decode_s = 0.0
     decode_tokens = 0
     ttft = {}
     step_profile = None
-    step = 0
+    step = prefills = 0
     while not eng.idle():
         t0 = time.perf_counter()
         infos = eng.admit_and_prefill(now=float(step))
+        prefills += len(infos)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for info in infos:
@@ -562,11 +732,13 @@ def serve(model, econf, prompts, new_tokens):
                  decode_tok_s=decode_tokens / decode_s,  # untraced steps
                  ttft_mean_s=statistics.mean(ttft.values()),
                  ttft_max_s=max(ttft.values()), ticks=step,
+                 prefills=prefills,
                  decode_steps=eng.decode_steps, prefill_s=prefill_s,
                  decode_s=decode_s,
                  decode_programs=eng.num_decode_programs,
                  program_budget=eng.program_budget,
                  kv_high_water_bytes=eng.kv_high_water_bytes(),
+                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                  step_profile=step_profile)
     require(eng.num_decode_programs <= eng.program_budget,
             "decode buckets past the budget")
@@ -600,6 +772,49 @@ def dense_check(model, prompts, gens, new_tokens, tie):
                 f"dense {dense[i]}, margin {margin:.3g}")
         margins.append((len(p), i, margin))
     return dense_all, margins
+
+
+def serve_int8(make_model, dtype, econf, prompts, new, fp_gens, tag):
+    """One int8 weight-only run over ``make_model()`` (the seed's fp
+    model in ``dtype``; the engine quantizes it in place): tokens against
+    the quantized model's dense path, ``wo_matmul`` launched once a
+    projection and once for the head in every prefill and decode step,
+    and in f32 the first-token logits against the quantized model on the
+    CPU. Returns the run's record and its launches."""
+    model = make_model()
+    g8, l8, st = serve(model, EngineConfig(
+        **econf, kv_dtype=dname(dtype), weight_only_int8=True,
+        weight_only_lm_head=True), prompts, new)
+    _, ties = dense_check(model, prompts, g8, new,
+                          NEAR_TIE if dtype == torch.float32 else
+                          NEAR_TIE_BF16)
+    per_pass = 4 * len(model.gpt.h) + 1
+    want = per_pass * (st["prefills"] + st["decode_steps"])
+    require(l8["wo_matmul"] == want,
+            f"{tag}: wo_matmul launched {l8['wo_matmul']} times, want "
+            f"{want} ({per_pass} a prefill and a decode step)")
+    st.update(near_ties=len(ties), tie_margins=ties, launches=l8,
+              tokens_agreeing_with_fp=sum(
+                  a == b for x, y in zip(g8, fp_gens) for a, b in zip(x, y)),
+              prefix_agreeing_with_fp=[
+                  next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                       new) for x, y in zip(g8, fp_gens)])
+    if dtype == torch.float32:
+        cpu = copy.deepcopy(model).cpu()
+        for p in prompts[:2]:
+            err = (last_logits(model, p).cpu()
+                   - last_logits(cpu, p)).abs().max().item()
+            say(f"[engine {tag}] first-token logits vs CPU ({len(p)} "
+                f"tokens): max abs err {err:.3g} (atol 1e-3)")
+            require(err <= 1e-3, f"{tag}: first-token logits differ from "
+                    f"the CPU")
+    say(f"[engine {tag}] {st}")
+    say(f"[engine {tag}] tokens agreeing with the fp run: "
+        f"{st['tokens_agreeing_with_fp']} of {new * len(prompts)} "
+        f"(information, not a gate)")
+    del model
+    torch.cuda.empty_cache()
+    return st, l8
 
 
 # ---------------------------------------------------------- phases 5, 6
@@ -803,6 +1018,18 @@ def main():
               train_setup(T["layers"], dev, bf16=False)[0].parameters()]
     rows.append(check_adamw(shapes, gen, dev))
     torch.cuda.empty_cache()
+    int8pack = int8pack_available(dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, (K, N) in WO_SHAPES.items():
+            for M in (1, 8, 1008):
+                for with_bias in (False, True):
+                    rows.append(check_wo(dtype, M, K, N, with_bias, gen, dev,
+                                         label, int8pack))
+        torch.cuda.empty_cache()
+    ragged += [check_wo(dtype, 3, 200, 333, with_bias, gen, dev, "ragged",
+                        False, timed=False)
+               for dtype in (torch.bfloat16, torch.float32)
+               for with_bias in (False, True)]
     for r in rows:
         say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
             f"{r['max_abs_err']:.3g} (tol {r['tol']}) ms {r['ms']:.4f} "
@@ -810,8 +1037,17 @@ def main():
             f"plain {r['plain_ms']:.4f} library {r['library_ms']} bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
     for r in ragged:
-        say(f"[kernel] flash_bwd {r['dtype']} {r['shape']}: dq/dk/dv err "
-            f"{r['dq_dk_dv_err']} (tol {r['tol']})")
+        if r["name"] == "wo_matmul":
+            say(f"[kernel] wo_matmul {r['dtype']} {r['shape']}: err "
+                f"{r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, tol "
+                f"{r['tol']})")
+        else:
+            say(f"[kernel] flash_bwd {r['dtype']} {r['shape']}: dq/dk/dv "
+                f"err {r['dq_dk_dv_err']} (tol {r['tol']})")
+    say(f"[kernel] wo_matmul library yardsticks: torch.mm over the weight "
+        f"dequantized beforehand; torch._weight_int8pack_mm (w [N, K] int8, "
+        f"scales in x's dtype): "
+        f"{'timed' if int8pack else 'none on CUDA'}")
 
     # 4. the engine at full width
     cfg = gpt3_1p3b()
@@ -823,6 +1059,11 @@ def main():
     econf = dict(block_size=16, num_blocks=1024, max_batch=8)
     launches = {n: 0 for n in KERNELS}
     runs = {}
+    # phase 3, on the serving model's real weights (before any engine
+    # quantizes it)
+    wo_bound = check_wo_bound(model, prompts[1])
+    wo_payload = check_wo_payload(model)
+    say(f"[kernel] wo_matmul layer-0 payload card == CPU: {wo_payload}")
 
     def add(run_launches):
         for n, c in run_launches.items():
@@ -864,9 +1105,16 @@ def main():
     for n in SERVING_KERNELS:
         require(launches[n] > 0, f"kernel {n} was never launched by the "
                 f"engine")
-    say(f"[engine] launches during the engine runs: {launches}")
+
     del model
     torch.cuda.empty_cache()
+    for tag, dtype, fp_gens in (("int8_f32", torch.float32, gens),
+                                ("int8_bf16", torch.bfloat16, gens16)):
+        runs[tag], l8 = serve_int8(
+            lambda dtype=dtype: GPTForCausalLM(cfg, seed=1234).to(dtype),
+            dtype, econf, prompts, new, fp_gens, tag)
+        add(l8)
+    say(f"[engine] launches during the engine runs: {launches}")
 
     # 5. training at full width and depth
     train, lt = train_bf16(smi)
@@ -890,7 +1138,8 @@ def main():
         r = next(r for r in rows if r["name"] == n
                  and r["dtype"] in ("bfloat16", "float32" if n ==
                                     "adamw_step" else "bfloat16")
-                 and ("B1 H16 S1024" in r["shape"] or n != "flash_fwd"))
+                 and ("B1 H16 S1024" in r["shape"] or n != "flash_fwd")
+                 and (r["shape"] == WO_LINE_SHAPE or n != "wo_matmul"))
         line.append(dict(name=n, route="cuda", source=k["source"],
                          replaces=k["replaces"],
                          **({"also_replaces": k["also_replaces"]}
@@ -905,7 +1154,8 @@ def main():
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(device=kind, nvidia_smi=smi, build_s=build_s, kernels=rows,
-             ragged_flash_bwd=ragged, engine=runs, train_bf16=train,
+             ragged=ragged, wo_bound=wo_bound, wo_payload=wo_payload,
+             int8pack_mm_on_cuda=int8pack, engine=runs, train_bf16=train,
              train_f32_vs_cpu=f32run, launches=launches,
              seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")

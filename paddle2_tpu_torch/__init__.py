@@ -17,6 +17,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from . import quantization  # noqa: E402
 from .device import resolve_device  # noqa: E402
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "quantization"]

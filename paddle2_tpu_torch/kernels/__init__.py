@@ -7,8 +7,14 @@ from .flash_attn import (flash_attention_bshd, flash_bwd,
                          flash_fwd_reference)
 from .fused_adamw import adamw_step, adamw_step_reference
 from .fused_ce import fused_linear_cross_entropy
+from .quant_matmul import (channel_absmax, int8_weight_only_matmul,
+                           int8_weight_only_matmul_reference,
+                           quantize_channelwise, weight_quant_error_bound)
 
 __all__ = ["scaled_dot_product_attention", "remat_policy",
            "flash_attention_bshd", "flash_fwd", "flash_fwd_reference",
            "flash_bwd", "flash_bwd_reference", "adamw_step",
-           "adamw_step_reference", "fused_linear_cross_entropy"]
+           "adamw_step_reference", "fused_linear_cross_entropy",
+           "channel_absmax", "quantize_channelwise",
+           "weight_quant_error_bound", "int8_weight_only_matmul",
+           "int8_weight_only_matmul_reference"]

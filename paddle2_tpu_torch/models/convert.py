@@ -9,6 +9,12 @@ package's attribute names, stacked leaves included
 (``gpt.h.stacked_<name with . -> __>``). The fused qkv columns stay
 head-major ``[H, (q|k|v), D]``: the transpose moves the columns to rows
 without reordering them.
+
+A model quantized to int8 weight-only carries ``<path>.weight_int8``,
+``<path>.w_scale`` and ``<path>.bias`` for each swapped Linear and
+``_wo_head.*`` for the head. Both packages lay the payload out ``[K, N]``
+= ``[in, out]``, so these pass unchanged; :func:`load_weight_only_reference`
+gives the port's model the matching modules and loads them.
 """
 
 import re
@@ -18,7 +24,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["gpt_state_from_reference"]
+from ..quantization import WeightOnlyLinear, WeightOnlyLMHead
+
+__all__ = ["gpt_state_from_reference", "load_weight_only_reference"]
 
 _LINEARS = ("attn.qkv.weight", "attn.out_proj.weight", "mlp.up.weight",
             "mlp.down.weight", "lm_head.weight")
@@ -71,3 +79,34 @@ def gpt_state_from_reference(state: Dict[str, np.ndarray],
     if stacked is None or stacked == is_stacked:
         return out
     return _stack(out) if stacked else _unstack(out)
+
+
+def load_weight_only_reference(model, state: Dict[str, np.ndarray],
+                               quant_bits: int = 8):
+    """Load a quantized JAX model's ``state`` (per-block names) into
+    ``model``, a port ``GPTForCausalLM`` of the same configuration: each
+    ``<path>.weight_int8`` swaps the Linear at ``<path>`` for a
+    ``WeightOnlyLinear`` and ``_wo_head.weight_int8`` installs the
+    ``WeightOnlyLMHead``, then every tensor of ``state`` is loaded.
+    ``quant_bits`` is the payload's width (the state does not hold it).
+    In place; returns ``model``."""
+    param = model.gpt.wte.weight
+    for name in state:
+        if not name.endswith(".weight_int8"):
+            continue
+        path = name[:-len(".weight_int8")]
+        w = torch.from_numpy(np.ascontiguousarray(state[name]))
+        s = torch.from_numpy(np.ascontiguousarray(state[path + ".w_scale"]))
+        if path == "_wo_head":
+            mod = WeightOnlyLMHead(w, s, quant_bits=quant_bits)
+        else:
+            b = state.get(path + ".bias")
+            mod = WeightOnlyLinear(w, s, None if b is None else
+                                   torch.from_numpy(np.asarray(b)).to(
+                                       param.dtype),
+                                   quant_bits=quant_bits)
+        parent, _, attr = path.rpartition(".")
+        (model.get_submodule(parent) if parent else model).add_module(
+            attr, mod.to(param.device))
+    model.load_state_dict(gpt_state_from_reference(state, stacked=False))
+    return model

@@ -242,6 +242,11 @@ class GPTForCausalLM(nn.Module):
                 p.zero_()
 
     def _head(self, hidden):
+        # the int8 payload installed by quantization.quantize_lm_head;
+        # the embedding lookup keeps the fp table
+        wo = self._modules.get("_wo_head")
+        if wo is not None:
+            return wo(hidden)
         if self.lm_head is None:
             return F.linear(hidden, self.gpt.wte.weight)
         return self.lm_head(hidden)

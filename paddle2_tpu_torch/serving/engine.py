@@ -9,10 +9,12 @@ whole running batch (the paged-decode kernels), padded to a
 Greedy decoding; time enters only through the caller's ``now`` stamps.
 
 This slice serves one live ``GPTForCausalLM`` whose parameter dtype
-equals ``kv_dtype``. The options below raise ``NotImplementedError``
-and wait for the serving queue in ROADMAP.md (item numbers in the
-messages): the prefix cache, speculative decoding, KV spill, int8
-weight-only projections and LM head, admission control
+equals ``kv_dtype``. ``weight_only_int8`` and ``weight_only_lm_head``
+quantize the block projections and the logits matmul to int8 weight-only
+(:mod:`paddle2_tpu_torch.quantization`), in place, as the JAX engine
+does. The options below raise ``NotImplementedError`` and wait for the
+serving queue in ROADMAP.md (item numbers in the messages): the prefix
+cache, speculative decoding, KV spill, admission control
 (``reliability``) and loading a saved artifact. The metrics, flight
 recorder and tracing hooks are left out with them.
 """
@@ -25,6 +27,7 @@ from typing import Dict, List, Optional, Sequence as Seq, Tuple
 import numpy as np
 
 from ..device import resolve_device
+from ..quantization import quantize_lm_head, weight_only_quantize
 from .block_cache import (BlockAllocator, PagedKVCache, blocks_for_tokens,
                           GARBAGE_BLOCK)
 from .model_runner import PagedGPTRunner
@@ -40,8 +43,6 @@ _DEFERRED = {
     "enable_prefix_cache": (False, "item 1 (prefix cache)"),
     "spec": (None, "item 2 (speculative decoding)"),
     "enable_kv_spill": (False, "item 3 (KV spill / host tier)"),
-    "weight_only_int8": (False, "item 4 (int8 weight-only serving)"),
-    "weight_only_lm_head": (False, "item 4 (int8 weight-only serving)"),
     "reliability": (None, "item 5 (admission control)"),
 }
 
@@ -88,7 +89,10 @@ class ServingEngine:
     """Continuous-batching serving engine over one GPT model.
 
     ``device`` defaults to ``cuda`` and raises without a GPU; the model
-    must already lie on it."""
+    must already lie on it. With ``weight_only_int8`` the engine swaps
+    every block's ``nn.Linear`` (qkv, out_proj, up, down) for a
+    ``WeightOnlyLinear``, and with ``weight_only_lm_head`` installs the
+    model's ``_wo_head``: it changes the model it is given, in place."""
 
     def __init__(self, model=None, config: Optional[EngineConfig] = None,
                  device=None, *, artifact_path: Optional[str] = None):
@@ -125,6 +129,17 @@ class ServingEngine:
             raise ValueError(
                 f"max_model_len {self.max_model_len} exceeds the model's "
                 f"max_position_embeddings {cfg.max_position_embeddings}")
+        if self.config.weight_only_int8:
+            if cfg.stacked_blocks:
+                raise ValueError(
+                    "weight_only_int8 needs addressable blocks; rebuild "
+                    "the model with stacked_blocks=False")
+            # the projections inside the blocks; the embeddings and the
+            # head stay fp unless weight_only_lm_head opts the head in
+            for block in model.gpt.h:
+                weight_only_quantize(block)
+        if self.config.weight_only_lm_head:
+            quantize_lm_head(model)
         self.allocator = BlockAllocator(self.config.num_blocks,
                                         self.config.block_size)
         max_pages = blocks_for_tokens(self.max_model_len,

@@ -249,8 +249,7 @@ def test_engine_needs_a_device_by_default(models, monkeypatch):
 
 @pytest.mark.parametrize("option,value", [
     ("enable_prefix_cache", True), ("spec", object()),
-    ("enable_kv_spill", True), ("weight_only_int8", True),
-    ("weight_only_lm_head", True), ("reliability", object())])
+    ("enable_kv_spill", True), ("reliability", object())])
 def test_unported_options_raise(models, option, value):
     _, tm = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
