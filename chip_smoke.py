@@ -75,10 +75,43 @@ line) when it fails:
    calls on the card and on the CPU (plain versions) from the same
    weights and ids; both losses agree to 1e-4 relative, and the first
    step's gradients to 1e-4 of each gradient's largest magnitude.
+7. Fine-tuning at full width and full depth with
+   ``FLAGS_pallas_layer_norm`` on: ``bench.py``'s ``bench_ernie``
+   (ERNIE-3.0-base, vocab 40000, hidden 768, 12 layers, 12 heads of 64,
+   dropout off, stacked blocks, AMP O2 bf16, ``AdamW(2e-5,
+   multi_precision=True)`` with ``fused=None``, seq 128, batch 32, ids
+   and labels from ``RandomState(0)``) through ``jit.train_step``: 1
+   warm-up step, 5 timed steps and 1 traced step. Every loss must be
+   finite; each step must launch ``layer_norm_fwd`` and
+   ``layer_norm_bwd`` exactly 25 times (``emb_ln`` with f32 and 24
+   stacked LayerNorms with bf16 scale and shift), ``flash_fwd`` and the
+   bf16 backward route's kernel 12 times, and ``adamw_step`` never.
+   Prints a ``bench_ernie``-style line (tokens/s, step time, MFU
+   against 989 TFLOP/s).
+8. Padded batches: three more steps of that model with an
+   ``attention_mask`` from row lengths 16..128: finite losses, the
+   LayerNorm kernels 25 times each a step, attention on the masked
+   route (no flash launch).
+9. ERNIE on the card against the CPU: ``num_layers=2`` in f32 with the
+   flag on, batch 8: two ``train_step`` calls; losses to 1e-4 relative,
+   the first step's gradients to 1e-4 of each gradient's largest
+   magnitude, and a padded forward (sequence output, pooled output,
+   logits) to 1e-4.
 
-Each main-path run (the serving runs, the bf16 training run, the f32
-training run) starts with every launch count at 0 and is read just
-after; the kernel checks' launches are not counted.
+Phase 3 also holds the fused LayerNorm's forward and backward against
+their plain versions at ERNIE's [4096, 768] (bf16 x with f32 and with
+bf16 scale and shift, and f32), the GPT bench's [8192, 1024] (bf16 and
+f32), ERNIE's shape under AMP float16 (f16 x with f32 and with f16
+scale and shift), and ragged [37, 200], [64, 8192] and [5, 1]: a bf16
+or f16 output within one ulp of its type (plus 1e-5 of the tensor's
+largest magnitude where sums cancel), f32 to 1e-5 (dγ and dβ to 1e-5 of their largest magnitude),
+and two f32 backward runs bitwise equal. Each timed shape records both
+kernels' times, bounds and ``F.layer_norm``'s (forward; backward
+through autograd).
+
+Each main-path run (the serving runs, the training runs, the ERNIE
+runs) starts with every launch count at 0 and is read just after; the
+kernel checks' launches are not counted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A full record of the run is written
@@ -97,7 +130,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from paddle2_tpu_torch import amp, jit
+from paddle2_tpu_torch import amp, flags, jit
 from paddle2_tpu_torch.kernels import _build
 from paddle2_tpu_torch.kernels.flash_attn import (
     bwd_route, flash_bwd, flash_bwd_fused, flash_bwd_reference,
@@ -105,10 +138,15 @@ from paddle2_tpu_torch.kernels.flash_attn import (
 from paddle2_tpu_torch.kernels.fused_adamw import (adamw_step,
                                                    adamw_step_reference,
                                                    stage_scalars)
+from paddle2_tpu_torch.kernels.fused_layer_norm import (
+    bwd_blocks, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
+    layer_norm_fwd_reference)
 from paddle2_tpu_torch.kernels.quant_matmul import (
     int8_weight_only_matmul, int8_weight_only_matmul_reference,
     quantize_channelwise, weight_quant_error_bound)
-from paddle2_tpu_torch.models import GPTConfig, GPTForCausalLM, gpt3_1p3b
+from paddle2_tpu_torch.models import (ErnieForSequenceClassification,
+                                      GPTConfig, GPTForCausalLM, ernie3_base,
+                                      gpt3_1p3b)
 from paddle2_tpu_torch.optimizer import AdamW
 from paddle2_tpu_torch.quantization import weight_only_quantize
 from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
@@ -170,6 +208,14 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/wo_matmul.cu",
         replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
         counter=int8_weight_only_matmul),
+    "layer_norm_fwd": dict(
+        source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
+        replaces="paddle2_tpu/kernels/pallas_ln.py:55",
+        counter=layer_norm_fwd),
+    "layer_norm_bwd": dict(
+        source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
+        replaces="paddle2_tpu/kernels/pallas_ln.py:65",
+        counter=layer_norm_bwd),
 }
 SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_split")
 # GPT-3 1.3B's weight-only projections, K x N ([in, out])
@@ -180,6 +226,29 @@ WO_LINE_SHAPE = "M8 K2048 N8192 (up) bias"
 # the training path (bench.py bench_gpt's default configuration)
 TRAIN = dict(vocab=32768, hidden=1024, layers=24, heads=16, seq=1024,
              batch=8)
+# the fine-tuning path (bench.py bench_ernie at seq 128, batch 32)
+ERNIE = dict(seq=128, batch=32)
+# the fused LayerNorm's checks: rows, H, x dtype, gamma/beta dtype, what.
+# The kernels line reports ERNIE's stacked leaves (24 of its 25 launches)
+LN_CASES = [
+    (4096, 768, torch.bfloat16, torch.float32, "ERNIE emb_ln"),
+    (4096, 768, torch.bfloat16, torch.bfloat16, "ERNIE stacked leaves"),
+    (8192, 1024, torch.bfloat16, torch.bfloat16, "GPT bench"),
+    (4096, 768, torch.float32, torch.float32, "ERNIE f32"),
+    (8192, 1024, torch.float32, torch.float32, "GPT bench f32"),
+    # AMP float16: f16 activations with f32 (emb_ln) or f16 (stacked) g/b
+    (4096, 768, torch.float16, torch.float32, "ERNIE emb_ln, AMP f16"),
+    (4096, 768, torch.float16, torch.float16, "ERNIE stacked, AMP f16"),
+]
+LN_RAGGED = [(37, 200, xd, gd, "ragged") for xd in (torch.float32,
+                                                    torch.bfloat16)
+             for gd in (torch.float32, torch.bfloat16)] + [
+    (64, 8192, torch.bfloat16, torch.float32, "widest H"),
+    (5, 1, torch.float32, torch.float32, "H 1"),
+    (37, 200, torch.float16, torch.float16, "ragged")]
+LINE_SHAPES = {"wo_matmul": WO_LINE_SHAPE,
+               "layer_norm_fwd": "R4096 H768 (ERNIE stacked leaves) g bf16",
+               "layer_norm_bwd": "R4096 H768 (ERNIE stacked leaves) g bf16"}
 
 
 class SmokeFailure(RuntimeError):
@@ -660,6 +729,122 @@ def check_wo_payload(model):
     return out
 
 
+# significant bits of the half-precision types
+HALF_BITS = {torch.bfloat16: 8, torch.float16: 11}
+
+
+def half_ulp(v, dtype):
+    """One ulp of ``dtype`` (bf16 or f16) at |v|."""
+    _, e = torch.frexp(v.abs())
+    return torch.ldexp(torch.ones_like(v), e - HALF_BITS[dtype])
+
+
+def ln_err(got, ref, dtype, rel_to_max=False):
+    """The worst excess over the limit (<= 0 passes) and the largest
+    absolute error. Limits: a bf16 or f16 output within one ulp of its
+    type of the larger of the two values, plus 1e-5 of the tensor's largest
+    magnitude for values that cancel to near zero (the f32 sums before
+    the one rounding run in another order); f32 outputs to 1e-5,
+    absolute below 1 and relative above; f32 dgamma/dbeta to 1e-5 of
+    their largest magnitude."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    amax = ref.abs().max()
+    if dtype in HALF_BITS:
+        lim = half_ulp(torch.maximum(got.abs(), ref.abs()), dtype) \
+            + 1e-5 * amax
+    elif rel_to_max:
+        lim = 1e-5 * amax.clamp_min(1e-30)
+    else:
+        lim = 1e-5 * ref.abs().clamp_min(1.0)
+    return (d - lim).max().item(), d.max().item()
+
+
+def ln_inputs(R, H, xdt, gdt, gen, dev):
+    x = (torch.randn(R, H, generator=gen, device=dev) * 2 + 0.5).to(xdt)
+    g, b = (torch.randn(H, generator=gen, device=dev).to(gdt)
+            for _ in range(2))
+    dy = torch.randn(R, H, generator=gen, device=dev).to(xdt)
+    return x, g, b, dy, (1e-12 if H == 768 else 1e-5)
+
+
+def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
+    """The forward and the backward kernels against their plain
+    versions; in f32 two backward runs bitwise equal (no atomics). With
+    ``timed``, both kernels' times, bounds and library yardsticks."""
+    x, g, b, dy, eps = ln_inputs(R, H, xdt, gdt, gen, dev)
+    short = {torch.float32: "f32", torch.bfloat16: "bf16",
+             torch.float16: "f16"}
+    shape = f"R{R} H{H} ({what}) g {short[gdt]}"
+    y = layer_norm_fwd(x, g, b, eps)
+    dx, dg, db = layer_norm_bwd(x, g, dy, eps)
+    y_ref = layer_norm_fwd_reference(x, g, b, eps)
+    dx_ref, dg_ref, db_ref = layer_norm_bwd_reference(x, g, dy, eps)
+    torch.cuda.synchronize()
+    errs = {"y": ln_err(y, y_ref, xdt), "dx": ln_err(dx, dx_ref, xdt),
+            "dg": ln_err(dg, dg_ref, gdt, True),
+            "db": ln_err(db, db_ref, gdt, True)}
+    for k, (excess, err) in errs.items():
+        require(excess <= 0, f"layer_norm {dname(xdt)} {shape}: {k} "
+                f"disagrees with its plain version (max abs err {err}, "
+                f"{excess} past the limit)")
+    for t in (y, dx, dg, db):
+        require(torch.isfinite(t.float()).all().item(), "non-finite output")
+    reproducible = None
+    if xdt == torch.float32:
+        again = layer_norm_bwd(x, g, dy, eps)
+        reproducible = all(torch.equal(a, c) for a, c in
+                           zip((dx, dg, db), again))
+        require(reproducible, f"layer_norm_bwd f32 {shape}: two runs "
+                f"differ (dgamma/dbeta must not depend on timing)")
+    rows = [dict(name=n, dtype=dname(xdt), shape=shape,
+                 max_abs_err=max(errs[k][1] for k in ks),
+                 excess_over_tol=max(errs[k][0] for k in ks),
+                 tol="bf16/f16: 1 ulp + 1e-5 max; f32: 1e-5 (dg/db of max)",
+                 bitwise_reproducible=reproducible)
+            for n, ks in (("layer_norm_fwd", ("y",)),
+                          ("layer_norm_bwd", ("dx", "dg", "db")))]
+    if not timed:
+        return rows
+    size, gsize = x.element_size(), g.element_size()
+    gx, bx = g.to(xdt), b.to(xdt)
+    xr, gr, br = (t.detach().clone().requires_grad_() for t in (x, gx, bx))
+    out = F.layer_norm(xr, (H,), gr, br, eps)
+    lib_calls = {
+        "fwd": lambda: F.layer_norm(x, (H,), gx, bx, eps),
+        "bwd": lambda: torch.autograd.grad(out, (xr, gr, br), dy,
+                                           retain_graph=True),
+        "fwd+bwd": lambda: torch.autograd.grad(
+            F.layer_norm(xr, (H,), gr, br, eps), (xr, gr, br), dy)}
+    lib = {k: cuda_ms(fn) for k, fn in lib_calls.items()}
+    # the device time of every kernel the library call launches
+    lib_dev = {k: device_ms(fn, "")[0] for k, fn in lib_calls.items()}
+    for row, run, plain, kern, ops, nbytes, which in (
+            (rows[0], lambda: layer_norm_fwd(x, g, b, eps),
+             lambda: layer_norm_fwd_reference(x, g, b, eps),
+             "layer_norm_fwd_kernel", 8.0 * R * H,
+             2.0 * R * H * size + 2.0 * H * gsize, "fwd"),
+            (rows[1], lambda: layer_norm_bwd(x, g, dy, eps),
+             lambda: layer_norm_bwd_reference(x, g, dy, eps),
+             "layer_norm_bwd", 16.0 * R * H,
+             3.0 * R * H * size + 3.0 * H * gsize, "bwd")):
+        dev_ms, kern_ms = device_ms(run, kern)
+        # the arithmetic runs in f32 on the CUDA cores whatever x's type
+        b_ms, b_by = bound(ops, nbytes, torch.float32)
+        row.update(ms=cuda_ms(run), device_ms=dev_ms,
+                   kernel_device_ms=kern_ms,
+                   plain_ms=cuda_ms(plain, iters=10),
+                   library_ms=lib[which], library_device_ms=lib_dev[which],
+                   bound_ms=b_ms, bound_by=b_by,
+                   library="F.layer_norm (weights in x's dtype)"
+                   + (" backward through autograd"
+                      if which == "bwd" else ""),
+                   library_fwd_bwd_ms=lib["fwd+bwd"],
+                   library_fwd_bwd_device_ms=lib_dev["fwd+bwd"],
+                   bwd_blocks=bwd_blocks(R, dev))
+    return rows
+
+
 # ------------------------------------------------------------- phase 4
 # the decode step traced with torch.profiler: all 8 requests run by then
 PROFILED_STEP = 20
@@ -970,6 +1155,213 @@ def train_f32_vs_cpu():
     return out, launches
 
 
+# ------------------------------------------------------- phases 7, 8, 9
+def ernie_setup(layers, device, bf16, seed=0):
+    """``bench_ernie``'s model and step: ERNIE-3.0-base with dropout
+    off and stacked blocks at ``layers`` blocks, AMP O2 bf16 when
+    ``bf16``, ``AdamW(2e-5, multi_precision=True)`` with ``fused=None``
+    (``FLAGS_fused_optimizer_step`` is off: the eager update), through
+    ``jit.train_step``."""
+    cfg = ernie3_base(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                      stacked_blocks=True, num_layers=layers)
+    model = ErnieForSequenceClassification(cfg, device=device, seed=seed)
+    if bf16:
+        model = amp.decorate(model, level="O2", dtype="bfloat16")
+    return model, ernie_step(model)
+
+
+def ernie_step(model):
+    opt = AdamW(learning_rate=2e-5, parameters=model.parameters(),
+                multi_precision=True)
+
+    def train_fn(ids, labels, mask=None):
+        _, loss = model(ids, attention_mask=mask, labels=labels)
+        return loss
+    return jit.train_step(train_fn, opt)
+
+
+def ernie_batches(n, batch, device):
+    """``bench_ernie``'s batches: ids, then labels, from
+    ``RandomState(0)``, as its ``mk`` draws them."""
+    rs = np.random.RandomState(0)
+    vocab = ernie3_base().vocab_size
+    out = []
+    for _ in range(n):
+        ids = rs.randint(0, vocab, (batch, ERNIE["seq"])).astype(np.int32)
+        lbl = rs.randint(0, 2, (batch,)).astype(np.int32)
+        out.append((torch.as_tensor(ids, dtype=torch.long, device=device),
+                    torch.as_tensor(lbl, dtype=torch.long, device=device)))
+    return out
+
+
+def padding_mask(batch, device, seed=1):
+    """SST-2-style padding: row lengths 16..128 from ``seed``."""
+    lens = np.random.default_rng(seed).integers(16, ERNIE["seq"] + 1,
+                                                size=batch)
+    mask = np.arange(ERNIE["seq"])[None, :] < lens[:, None]
+    return torch.as_tensor(mask.astype(np.int32), device=device), lens
+
+
+def ernie_bf16(smi):
+    """Phase 7: ERNIE-3.0-base at full width and depth, bf16 O2, stacked
+    blocks, ``FLAGS_pallas_layer_norm`` on: 1 warm-up step, 5 timed
+    steps, 1 traced step; exact launch counts per step. Returns the run
+    record, its launches and the trained model and step (phase 9 goes on
+    with them)."""
+    model, step = ernie_setup(12, "cuda", bf16=True)
+    cfg = model.cfg
+    n_params = model.num_params()
+    data = ernie_batches(7, ERNIE["batch"], "cuda")
+    route = bwd_route(torch.bfloat16)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = float(step(*data[0]))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses, times = [], []
+    for ids, lbl in data[1:6]:
+        t0 = time.perf_counter()
+        loss = step(ids, lbl)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced = float(step(*data[6]))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    steps = 7
+    require(all(np.isfinite([warm, traced] + losses)),
+            f"non-finite ERNIE loss: {[warm] + losses + [traced]}")
+    n_ln = 1 + 2 * cfg.num_layers
+    want = {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
+            "flash_fwd": cfg.num_layers, "adamw_step": 0}
+    if route == "fused":
+        want["flash_bwd_fused"] = cfg.num_layers
+    else:
+        want["flash_bwd_split_dkv"] = want["flash_bwd_split_dq"] = \
+            cfg.num_layers
+    for n, per_step in want.items():
+        require(launches[n] == steps * per_step,
+                f"ERNIE: {n} launched {launches[n]} times in {steps} "
+                f"steps, want {per_step} a step")
+    step_s = statistics.mean(times)
+    seq, batch = ERNIE["seq"], ERNIE["batch"]
+    tok_s = batch * seq / step_s
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * seq * \
+        cfg.hidden_size
+    bench = dict(metric="ernie_sst2_finetune_tokens_per_sec", value=tok_s,
+                 unit="tokens/s", step_time_s=step_s,
+                 mfu_vs_chip_peak=tok_s * flops_per_token / PEAK_OPS[
+                     torch.bfloat16],
+                 model_params_m=n_params / 1e6,
+                 config=dict(seq=seq, batch=batch, hidden=cfg.hidden_size,
+                             layers=cfg.num_layers),
+                 device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                 loss=losses[-1])
+    run = dict(bench=bench, warmup_loss=warm, losses=losses,
+               traced_loss=traced, step_times_s=times, first_step_s=first_s,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               backward_route=route,
+               launches_per_step={n: launches[n] / steps for n in KERNELS},
+               step_profile=step_profile(prof, wall_ms, step_s * 1e3))
+    return run, launches, model, step
+
+
+def ernie_padded(model, step):
+    """Phase 8: three more bf16 steps of the phase-7 model on padded
+    batches (an ``attention_mask`` from row lengths 16..128): finite
+    losses, the fused LayerNorm 25 + 25 times a step, and attention on
+    the masked route (no flash launch)."""
+    mask, lens = padding_mask(ERNIE["batch"], "cuda")
+    data = ernie_batches(3, ERNIE["batch"], "cuda")
+    reset_counts()
+    losses = [float(step(ids, lbl, mask)) for ids, lbl in data]
+    torch.cuda.synchronize()
+    launches = counts()
+    require(all(np.isfinite(losses)), f"non-finite padded losses {losses}")
+    n_ln = 1 + 2 * model.cfg.num_layers
+    for n in ("layer_norm_fwd", "layer_norm_bwd"):
+        require(launches[n] == 3 * n_ln, f"padded run: {n} launched "
+                f"{launches[n]} times in 3 steps, want {n_ln} a step")
+    require(launches["flash_fwd"] == 0,
+            "padded run: a masked call reached the flash kernel")
+    return dict(losses=losses, row_lengths=lens.tolist(),
+                launches=launches), launches
+
+
+def ernie_f32_vs_cpu():
+    """Phase 9: a 2-layer ERNIE at full width in f32 with the flag on
+    (the split backward route), batch 8: two ``train_step`` calls on the
+    card and on the CPU (plain versions) from the same weights and ids;
+    losses to 1e-4 relative, the first step's gradients to 1e-4 of each
+    gradient's largest magnitude. Then a padded forward (the masked
+    attention route) on both: sequence output, pooled output and logits
+    to 1e-4 (absolute below 1, relative above)."""
+    model, step = ernie_setup(2, "cuda", bf16=False, seed=1)
+    cpu = copy.deepcopy(model).cpu()
+    cpu_step = ernie_step(cpu)
+    data = ernie_batches(2, 8, "cpu")
+    route = bwd_route(torch.float32)
+    reset_counts()
+    out = dict(backward_route=route, losses_card=[], losses_cpu=[])
+    for i, (ids, lbl) in enumerate(data):
+        out["losses_card"].append(float(step(ids.cuda(), lbl.cuda())))
+        out["losses_cpu"].append(float(cpu_step(ids, lbl)))
+        if i == 0:
+            grad_err = max(
+                ((p.grad.cpu() - q.grad).abs().max()
+                 / q.grad.abs().max().clamp_min(1e-30)).item()
+                for p, q in zip(model.parameters(), cpu.parameters()))
+    mask, _ = padding_mask(8, "cpu", seed=2)
+    ids = data[0][0]
+    with torch.no_grad():
+        got = model.ernie(ids.cuda(), attention_mask=mask.cuda())
+        want = cpu.ernie(ids, attention_mask=mask)
+        got += (model.classifier(got[1]),)
+        want += (cpu.classifier(want[1]),)
+    torch.cuda.synchronize()
+    launches = counts()
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["losses_card"],
+                                              out["losses_cpu"])]
+    masked_err = max(((a.cpu() - b).abs() / b.abs().clamp_min(1.0)).max()
+                     .item() for a, b in zip(got, want))
+    out.update(loss_rel_err=rel, grad_rel_err=grad_err,
+               masked_forward_err=masked_err, launches=launches)
+    require(max(rel) <= 1e-4, f"ERNIE f32 loss, card vs CPU: relative "
+            f"errors {rel} > 1e-4")
+    require(grad_err <= 1e-4, f"ERNIE f32 gradients, card vs CPU: "
+            f"{grad_err} > 1e-4 of the largest magnitude")
+    require(masked_err <= 1e-4, f"ERNIE f32 padded forward, card vs CPU: "
+            f"{masked_err} > 1e-4")
+    kernels = (("flash_bwd_fused",) if route == "fused" else
+               ("flash_bwd_split_dkv", "flash_bwd_split_dq"))
+    for n in ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd") + kernels:
+        require(launches[n] > 0, f"{n} was not launched by the ERNIE f32 "
+                f"run")
+    return out, launches
+
+
+def line_row(rows, n):
+    """The row the kernels line reports for kernel ``n``: its main
+    path's bf16 shape (the fused AdamW state is f32)."""
+    def wanted(r):
+        if r["name"] != n:
+            return False
+        if n == "adamw_step":
+            return r["dtype"] == "float32"
+        if r["dtype"] != "bfloat16":
+            return False
+        if n == "flash_fwd":
+            return "B1 H16 S1024" in r["shape"]
+        return r["shape"] == LINE_SHAPES.get(n, r["shape"])
+    return next(r for r in rows if wanted(r))
+
+
 def main():
     t_run = time.perf_counter()
     # 1. device
@@ -1030,6 +1422,11 @@ def main():
                         False, timed=False)
                for dtype in (torch.bfloat16, torch.float32)
                for with_bias in (False, True)]
+    for case in LN_CASES:
+        rows += check_layer_norm(*case, gen, dev, timed=True)
+    for case in LN_RAGGED:
+        ragged += check_layer_norm(*case, gen, dev, timed=False)
+    torch.cuda.empty_cache()
     for r in rows:
         say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
             f"{r['max_abs_err']:.3g} (tol {r['tol']}) ms {r['ms']:.4f} "
@@ -1037,7 +1434,11 @@ def main():
             f"plain {r['plain_ms']:.4f} library {r['library_ms']} bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
     for r in ragged:
-        if r["name"] == "wo_matmul":
+        if r["name"].startswith("layer_norm"):
+            say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
+                f"{r['max_abs_err']:.3g} (past the limit by "
+                f"{r['excess_over_tol']:.3g}; {r['tol']})")
+        elif r["name"] == "wo_matmul":
             say(f"[kernel] wo_matmul {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, tol "
                 f"{r['tol']})")
@@ -1117,15 +1518,32 @@ def main():
     say(f"[engine] launches during the engine runs: {launches}")
 
     # 5. training at full width and depth
-    train, lt = train_bf16(smi)
+    train_rec, lt = train_bf16(smi)
     add(lt)
-    say(f"[train bf16] {json.dumps(train['bench'])}")
-    say(f"[train bf16] {train}")
+    say(f"[train bf16] {json.dumps(train_rec['bench'])}")
+    say(f"[train bf16] {train_rec}")
 
     # 6. the card against the CPU, f32
     f32run, lf = train_f32_vs_cpu()
     add(lf)
     say(f"[train f32 vs cpu] {f32run}")
+
+    # 7-9. fine-tuning ERNIE-3.0-base with the fused LayerNorm
+    flags.set_flags({"pallas_layer_norm": True})
+    ernie, le, ernie_model, ernie_train = ernie_bf16(smi)
+    add(le)
+    say(f"[ernie bf16] {json.dumps(ernie['bench'])}")
+    say(f"[ernie bf16] {ernie}")
+    padded, lp = ernie_padded(ernie_model, ernie_train)
+    add(lp)
+    say(f"[ernie padded] {padded}")
+    del ernie_model, ernie_train
+    torch.cuda.empty_cache()
+    ernie32, l32e = ernie_f32_vs_cpu()
+    add(l32e)
+    say(f"[ernie f32 vs cpu] {ernie32}")
+    flags.set_flags({"pallas_layer_norm": False})
+
     say(f"[main path] launches: {launches}")
     for n in KERNELS:
         require(launches[n] > 0, f"kernel {n} was never launched on the "
@@ -1133,13 +1551,7 @@ def main():
 
     line = []
     for n, k in KERNELS.items():
-        # the line reports each kernel at its main path's bf16 shape
-        # (the fused AdamW state is f32)
-        r = next(r for r in rows if r["name"] == n
-                 and r["dtype"] in ("bfloat16", "float32" if n ==
-                                    "adamw_step" else "bfloat16")
-                 and ("B1 H16 S1024" in r["shape"] or n != "flash_fwd")
-                 and (r["shape"] == WO_LINE_SHAPE or n != "wo_matmul"))
+        r = line_row(rows, n)
         line.append(dict(name=n, route="cuda", source=k["source"],
                          replaces=k["replaces"],
                          **({"also_replaces": k["also_replaces"]}
@@ -1155,8 +1567,10 @@ def main():
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(device=kind, nvidia_smi=smi, build_s=build_s, kernels=rows,
              ragged=ragged, wo_bound=wo_bound, wo_payload=wo_payload,
-             int8pack_mm_on_cuda=int8pack, engine=runs, train_bf16=train,
-             train_f32_vs_cpu=f32run, launches=launches,
+             int8pack_mm_on_cuda=int8pack, engine=runs,
+             train_bf16=train_rec, train_f32_vs_cpu=f32run,
+             ernie_bf16=ernie, ernie_padded=padded,
+             ernie_f32_vs_cpu=ernie32, launches=launches,
              seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")
     say(f"nvidia-smi: {smi}")

@@ -30,8 +30,10 @@ import time
 from pathlib import Path
 from typing import Dict, List, Sequence
 
+import torch
+
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "sources", "build_all", "library",
-           "check"]
+           "check", "on_card"]
 
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "paddle2_tpu_torch"
@@ -130,3 +132,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def on_card(what: str, *tensors: torch.Tensor) -> bool:
+    """Where a wrapper runs: False for CPU tensors (the plain version);
+    True for CUDA tensors, which must be contiguous (the kernel); any
+    other device raises."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} needs contiguous tensors")
+    return True

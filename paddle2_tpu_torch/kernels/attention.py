@@ -4,14 +4,23 @@ policy that goes with it.
 Counterpart of ``paddle2_tpu/kernels/attention.py``. The JAX package
 sent long sequences on an accelerator to its Pallas flash kernel
 (S >= 1024, a TPU VMEM threshold) and everything else to an XLA
-softmax. The port has one route: every call goes through
-:func:`~.flash_attn.flash_attention_bshd`, differentiable, which
-launches the CUDA kernels for a CUDA tensor at every length and runs
-their plain versions for a CPU tensor. Attention masks and attention
-dropout belong to later slices and raise.
+softmax (``_sdpa_xla``). The port sends every call without a mask and
+without dropout through :func:`~.flash_attn.flash_attention_bshd`,
+differentiable, which launches the CUDA kernels for a CUDA tensor at
+every length and runs their plain versions for a CPU tensor.
+
+A call with ``attn_mask`` (an additive bias broadcast to ``[B, H, Sq,
+Sk]``) or with dropout in training takes :func:`_sdpa_plain`, the
+counterpart of ``_sdpa_xla`` in plain torch. The JAX package never
+sends such a call to Pallas (``attention.py:140``), so plain torch here
+is the port of an XLA path, not a stand-in for a kernel. Its dropout
+draws its keep mask from a ``torch.Generator`` (the default one when
+none is given): it cannot give the bits of JAX's keys, so tests hold it
+by its statistics.
 """
 
 import functools
+import math
 from typing import Callable, Optional
 
 import torch
@@ -30,7 +39,8 @@ def _dots_policy(ctx, op, *args, **kwargs):
     dimensions (``mm``/``addmm``, as JAX's
     ``dots_with_no_batch_dims_saveable``) and of the flash op (its
     ``(o, lse)``, as the JAX package's ``flash_out``/``flash_lse``
-    names); recompute everything else."""
+    names); recompute everything else, the fused LayerNorm op among it,
+    as the JAX package's remat re-runs its Pallas LayerNorm."""
     if op in (_aten.mm.default, _aten.addmm.default,
               torch.ops.paddle2_tpu_torch.flash_attn.default):
         return CheckpointPolicy.MUST_SAVE
@@ -54,18 +64,60 @@ def remat_policy(base: str = "dots") -> Optional[Callable]:
         f"item 2); use 'dots' or 'full'")
 
 
+def _sdpa_plain(q, k, v, bias=None, causal: bool = False,
+                scale: Optional[float] = None, dropout_p: float = 0.0,
+                generator: Optional[torch.Generator] = None):
+    """``_sdpa_xla`` on ``(B, S, H, D)``: the scores in the input dtype,
+    ``+ bias``, the bottom-right causal mask by the dtype's finite
+    minimum, softmax in f32 cast back to the input dtype, a Bernoulli
+    keep mask scaling kept probabilities by ``1/(1-p)``, then the
+    product with V."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias
+    if causal:
+        s, t = logits.shape[-2], logits.shape[-1]
+        keep = torch.ones(s, t, dtype=torch.bool,
+                          device=q.device).tril(diagonal=t - s)
+        logits = logits.masked_fill(~keep, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    if dropout_p > 0.0:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) < 1.0 - dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            0.0).to(q.dtype)
+    return torch.matmul(probs, vh).transpose(1, 2)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None,
+                                 training: bool = True,
+                                 generator: Optional[torch.Generator] = None):
     """Attention on ``(batch, seq, num_heads, head_dim)`` tensors. The
     causal mask is aligned to the bottom right, as in the JAX package:
-    with ``Sq < Sk`` row ``r`` sees keys ``c <= r + Sk - Sq``."""
+    with ``Sq < Sk`` row ``r`` sees keys ``c <= r + Sk - Sq``.
+    ``attn_mask`` is an additive bias broadcast to ``[B, H, Sq, Sk]``;
+    dropout applies only when ``training``, drawing from ``generator``."""
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must lie in [0, 1), got {dropout_p}")
+    drop = dropout_p if training else 0.0
+    if attn_mask is None and drop == 0.0:
+        return flash_attention_bshd(query, key, value, causal=is_causal,
+                                    scale=scale)
     if attn_mask is not None:
-        raise NotImplementedError(
-            "attention masks are not ported yet (ROADMAP queue 1)")
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP queue 1 item 2)")
-    return flash_attention_bshd(query, key, value, causal=is_causal,
-                                scale=scale)
+        B, Sq, H, _ = query.shape
+        want = (B, H, Sq, key.shape[1])
+        try:
+            fits = torch.broadcast_shapes(attn_mask.shape, want) == want
+        except RuntimeError:
+            fits = False
+        if not fits:
+            raise ValueError(f"attn_mask {tuple(attn_mask.shape)} does not "
+                             f"broadcast to {want}")
+    return _sdpa_plain(query, key, value, attn_mask, is_causal, scale, drop,
+                       generator)

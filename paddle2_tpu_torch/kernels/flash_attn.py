@@ -73,19 +73,6 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k and v must lie on one device")
 
 
-def _on_card(what, *tensors) -> bool:
-    """False for CPU tensors (the plain version runs); True for CUDA
-    tensors, which must be contiguous; anything else raises."""
-    dev = tensors[0].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{what} needs contiguous tensors")
-    return True
-
-
 def _causal_keep(Sq, Sk, device):
     """Bottom-right aligned causal mask: row r sees keys c <= r + Sk - Sq."""
     return torch.ones(Sq, Sk, dtype=torch.bool,
@@ -122,7 +109,7 @@ def flash_fwd(q, k, v, scale: Optional[float] = None, causal: bool = False
     _check(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _on_card("flash_fwd", q, k, v):
+    if not _build.on_card("flash_fwd", q, k, v):
         return flash_fwd_reference(q, k, v, float(scale), bool(causal))
     B, H, Sq, D = q.shape
     o = torch.empty_like(q)
@@ -264,7 +251,7 @@ def flash_bwd(q, k, v, o, lse, do, scale: Optional[float] = None,
         route = bwd_route(q.dtype)
     if route not in BWD_ROUTES:
         raise ValueError(f"route {route!r} not in {BWD_ROUTES}")
-    if not _on_card("flash_bwd", q, k, v, o, lse, do):
+    if not _build.on_card("flash_bwd", q, k, v, o, lse, do):
         return flash_bwd_reference(q, k, v, o, lse, do, float(scale),
                                    bool(causal))
     delta = (do.float() * o.float()).sum(-1)

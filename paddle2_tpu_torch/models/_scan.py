@@ -17,6 +17,7 @@ has nothing to guard.
 """
 
 import contextlib
+import functools
 from typing import Iterator, List, Optional, Sequence
 
 import torch
@@ -72,25 +73,29 @@ class StackedLayerStack(nn.Module):
             for mod, attr in self._slots:
                 setattr(mod, attr, None)
 
-    def _run(self, x, *tensors):
+    def _run(self, x, *tensors, **kwargs):
         with self._bound(tensors) as block:
-            return block(x)
+            return block(x, **kwargs)
 
-    def forward(self, x, remat: Optional[str] = None):
-        """All layers in order. ``remat`` None runs them plainly; a
-        granularity name checkpoints each layer with that policy."""
+    def forward(self, x, remat: Optional[str] = None, **kwargs):
+        """All layers in order, each called as ``block(x, **kwargs)``
+        (ERNIE passes its ``attn_bias`` so). ``remat`` None runs them
+        plainly; a granularity name checkpoints each layer with that
+        policy."""
         slices = self._slices()
+        run = functools.partial(self._run, **kwargs)
         for i in range(self.n_layers):
             layer = [s[i] for s in slices]
             if remat is None:
-                x = self._run(x, *layer)
+                x = run(x, *layer)
             else:
-                x = recompute(self._run, x, *layer, policy=remat)
+                x = recompute(run, x, *layer, policy=remat)
         return x
 
     def layer(self, i: int):
         """Context manager: the template bound to layer ``i``'s weights.
         The one way to address a single block (the JAX package's
-        ``layer_slice_call``), through ``GPTModel.blocks()``: the
+        ``layer_slice_call``, whose keyword arguments the caller passes
+        to the block it gets), through ``GPTModel.blocks()``: the
         decode path and the paged serving runner."""
         return self._bound([self.stacked_leaf(n)[i] for n in self._names])

@@ -1,4 +1,4 @@
-"""Carry a JAX-package GPT's weights into the port.
+"""Carry a JAX-package GPT's or ERNIE's weights into the port.
 
 The JAX package's ``nn.Linear`` stores its weight ``[in, out]``;
 ``torch.nn.Linear`` stores ``[out, in]``, so linear weights swap their
@@ -6,9 +6,10 @@ last two axes (``[L, in, out]`` -> ``[L, out, in]`` for stacked leaves).
 Everything else (embeddings, LayerNorm, biases) has the same shape in
 both. Names are the same, since the port's modules mirror the JAX
 package's attribute names, stacked leaves included
-(``gpt.h.stacked_<name with . -> __>``). The fused qkv columns stay
-head-major ``[H, (q|k|v), D]``: the transpose moves the columns to rows
-without reordering them.
+(``gpt.h.stacked_<name with . -> __>``, ``ernie.layers.stacked_...``).
+The fused qkv columns keep their layout (GPT's head-major ``[H, (q|k|v),
+D]``, ERNIE's ``(q|k|v)`` thirds): the transpose moves the columns to
+rows without reordering them.
 
 A model quantized to int8 weight-only carries ``<path>.weight_int8``,
 ``<path>.w_scale`` and ``<path>.bias`` for each swapped Linear and
@@ -19,45 +20,62 @@ gives the port's model the matching modules and loads them.
 
 import re
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..quantization import WeightOnlyLinear, WeightOnlyLMHead
 
-__all__ = ["gpt_state_from_reference", "load_weight_only_reference"]
+__all__ = ["gpt_state_from_reference", "ernie_state_from_reference",
+           "load_weight_only_reference"]
 
-_LINEARS = ("attn.qkv.weight", "attn.out_proj.weight", "mlp.up.weight",
-            "mlp.down.weight", "lm_head.weight")
-_STACKED = "gpt.h.stacked_"
-_BLOCK = re.compile(r"^gpt\.h\.(\d+)\.(.+)$")
+_GPT_LINEARS = ("attn.qkv.weight", "attn.out_proj.weight", "mlp.up.weight",
+                "mlp.down.weight", "lm_head.weight")
+_ERNIE_LINEARS = ("attn.qkv.weight", "attn.out.weight", "up.weight",
+                  "down.weight", "pooler.weight", "classifier.weight")
 
 
-def _unstack(state):
+def _unstack(state, stack):
+    prefix = stack + ".stacked_"
     out = {}
     for name, t in state.items():
-        if not name.startswith(_STACKED):
+        if not name.startswith(prefix):
             out[name] = t
             continue
-        leaf = name[len(_STACKED):].replace("__", ".")
+        leaf = name[len(prefix):].replace("__", ".")
         for i in range(t.shape[0]):
-            out[f"gpt.h.{i}.{leaf}"] = t[i]
+            out[f"{stack}.{i}.{leaf}"] = t[i]
     return out
 
 
-def _stack(state):
+def _stack(state, stack):
+    block = re.compile(r"^" + re.escape(stack) + r"\.(\d+)\.(.+)$")
     out, per = {}, defaultdict(dict)
     for name, t in state.items():
-        m = _BLOCK.match(name)
+        m = block.match(name)
         if m is None:
             out[name] = t
         else:
             per[m.group(2)][int(m.group(1))] = t
     for leaf, layers in per.items():
-        out[_STACKED + leaf.replace(".", "__")] = torch.stack(
+        out[f"{stack}.stacked_" + leaf.replace(".", "__")] = torch.stack(
             [layers[i] for i in range(len(layers))])
     return out
+
+
+def _from_reference(state, linears: Sequence[str], stack: str,
+                    stacked: Optional[bool]) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for name, arr in state.items():
+        a = np.asarray(arr)
+        if name.replace("__", ".").endswith(tuple(linears)):
+            a = np.swapaxes(a, -1, -2)
+        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    is_stacked = any(n.startswith(stack + ".stacked_") for n in out)
+    if stacked is None or stacked == is_stacked:
+        return out
+    return _stack(out, stack) if stacked else _unstack(out, stack)
 
 
 def gpt_state_from_reference(state: Dict[str, np.ndarray],
@@ -69,16 +87,18 @@ def gpt_state_from_reference(state: Dict[str, np.ndarray],
     copies them to the model's device and dtype). ``stacked`` is the
     layout of the result: True for ``[L, ...]`` leaves, False for
     per-block names, None for the layout of ``state``."""
-    out: Dict[str, torch.Tensor] = {}
-    for name, arr in state.items():
-        a = np.asarray(arr)
-        if name.replace("__", ".").endswith(_LINEARS):
-            a = np.swapaxes(a, -1, -2)
-        out[name] = torch.from_numpy(np.ascontiguousarray(a))
-    is_stacked = any(n.startswith(_STACKED) for n in out)
-    if stacked is None or stacked == is_stacked:
-        return out
-    return _stack(out) if stacked else _unstack(out)
+    return _from_reference(state, _GPT_LINEARS, "gpt.h", stacked)
+
+
+def ernie_state_from_reference(state: Dict[str, np.ndarray],
+                               stacked: Optional[bool] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """As :func:`gpt_state_from_reference`, for the JAX package's
+    ``ErnieForSequenceClassification``: the encoder's blocks are
+    ``ernie.layers.<i>.*``, stacked ``ernie.layers.stacked_<name with .
+    -> __>``; the ``nn.Linear`` weights (qkv, out, up, down, pooler,
+    classifier) swap ``[in, out]`` to ``[out, in]``."""
+    return _from_reference(state, _ERNIE_LINEARS, "ernie.layers", stacked)
 
 
 def load_weight_only_reference(model, state: Dict[str, np.ndarray],

@@ -104,7 +104,9 @@ class GPTAttention(nn.Module):
                 k = torch.cat([cache[0], k], dim=1)
                 v = torch.cat([cache[1], v], dim=1)
             new_cache = (k, v)
-        out = scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.cfg.attention_dropout_prob, training=self.training)
         out = self.out_proj(out.reshape(b, s, h))
         return (out, new_cache) if cache is not None else out
 
@@ -212,10 +214,6 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        if cfg.attention_dropout_prob > 0.0:
-            raise NotImplementedError(
-                "attention dropout is not ported yet (ROADMAP queue 1 "
-                "item 2)")
         self.cfg = cfg
         device = resolve_device(device)
         factory = {"device": device, "dtype": dtype}

@@ -20,6 +20,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from ..flags import flag_value
+
 __all__ = ["Optimizer"]
 
 
@@ -100,10 +102,12 @@ class Optimizer:
         return False  # AdamW overrides
 
     def _use_fused_step(self) -> bool:
-        """The explicit ``fused=`` ctor kwarg; None follows the default
-        of the JAX package's ``FLAGS_fused_optimizer_step`` (False),
-        whose flag is not ported yet."""
-        return bool(getattr(self, "_fused_step", None))
+        """The explicit ``fused=`` ctor kwarg wins; None follows
+        ``FLAGS_fused_optimizer_step``, as in the JAX package."""
+        explicit = getattr(self, "_fused_step", None)
+        if explicit is not None:
+            return bool(explicit)
+        return bool(flag_value("fused_optimizer_step"))
 
     def _fused_update_builder(self, decay_flags):
         """Subclasses with a one-pass kernel return a drop-in ``update``

@@ -60,8 +60,8 @@ class AdamW(Adam):
     the one-pass kernel (:mod:`paddle2_tpu_torch.kernels.fused_adamw`),
     bitwise equal to the eager chain. Other tensors (a bf16 parameter
     without a master, l1 decay) fall back to the chain on the CPU and
-    raise on the card. ``fused=None`` follows the JAX package's default
-    for ``FLAGS_fused_optimizer_step``: off."""
+    raise on the card. ``fused=None`` follows
+    ``FLAGS_fused_optimizer_step`` (off by default)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,

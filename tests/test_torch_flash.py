@@ -125,8 +125,15 @@ def test_unsupported_shapes_raise(bad):
 
 
 def test_sdpa_rejects_mask_and_dropout():
+    """Masks and dropout are ported (tests/test_torch_ernie.py); what the
+    attention still refuses is a mask that does not broadcast to [B, H,
+    Sq, Sk] and a dropout probability outside [0, 1)."""
     q = torch.zeros(1, 8, 1, 16)
-    with pytest.raises(NotImplementedError):
-        scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8))
-    with pytest.raises(NotImplementedError):
-        scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    with pytest.raises(ValueError, match="broadcast"):
+        scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(3, 8))
+    with pytest.raises(ValueError, match="broadcast"):
+        scaled_dot_product_attention(q, q, q,
+                                     attn_mask=torch.ones(2, 1, 8, 8))
+    for p in (-0.1, 1.0):
+        with pytest.raises(ValueError, match="dropout_p"):
+            scaled_dot_product_attention(q, q, q, dropout_p=p)
