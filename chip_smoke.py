@@ -28,7 +28,11 @@ line) when it fails:
    eager AdamW, bitwise (``torch.equal``), three steps on the training
    path's 16 parameter leaves (f32, and bf16 with f32 masters), and
    one step over the 16 f32 leaves timed against
-   ``torch._fused_adamw_``.
+   ``torch._fused_adamw_``. The fused momentum step against the port's
+   eager Momentum, bitwise, three steps on ResNet-50's 161 parameter
+   shapes (f32 plain, Nesterov, L2 decay 1e-4, and bf16 with f32
+   masters), and one step over the 161 f32 tensors timed against
+   ``torch._fused_sgd_``.
    The int8 weight-only matmul at GPT-3 1.3B's five projection shapes
    (qkv, out_proj, up, down, the tied head) at M 1, 8 and 1008, in bf16
    and f32, with and without a bias, and at one ragged shape (M 3, K
@@ -98,6 +102,27 @@ line) when it fails:
    magnitude, and a padded forward (sequence output, pooled output,
    logits) to 1e-4.
 
+10. Image classification at full width and full depth with
+    ``FLAGS_fused_optimizer_step`` on: ``bench.py``'s
+    ``bench_resnet50`` on its chip profile (BASELINE config 1):
+    ``resnet50(num_classes=1000)`` (25.56 M parameters in 161 tensors),
+    AMP O2 bf16, ``Momentum(0.1, 0.9, multi_precision=True)`` with
+    ``fused=None``, batch 128 of 224x224 images and labels from
+    ``RandomState(0)``, through ``jit.train_step``: 1 warm-up step, 5
+    timed steps and 1 traced step. Every loss must be finite; each step
+    must launch ``momentum_step`` exactly 161 times and no other kernel.
+    Prints a ``bench_resnet50``-style line (images/s, step time, MFU
+    against 989 TFLOP/s by the bench's 4.1 GFLOPs an image and by 2
+    FLOPs a multiply-add), the traced step's device time by kernel
+    group, and the step time with ``torch.backends.cudnn.benchmark`` on.
+11. ResNet on the card against the CPU: ``resnet18(num_classes=10)``
+    in f32, 64x64 images, batch 4 (the bench's CPU profile),
+    ``Momentum(fused=True)``: two ``train_step`` calls; losses to 1e-4
+    relative, the first step's gradients to 1e-4 of each gradient's
+    largest magnitude, every BatchNorm buffer after both steps and an
+    eval-mode forward's logits to 1e-4, ``momentum_step`` 62 times a
+    step; the CPU's own f32 gradients against f64 are recorded beside.
+
 Phase 3 also holds the fused LayerNorm's forward and backward against
 their plain versions at ERNIE's [4096, 768] (bf16 x with f32 and with
 bf16 scale and shift, and f32), the GPT bench's [8192, 1024] (bf16 and
@@ -110,8 +135,8 @@ kernels' times, bounds and ``F.layer_norm``'s (forward; backward
 through autograd).
 
 Each main-path run (the serving runs, the training runs, the ERNIE
-runs) starts with every launch count at 0 and is read just after; the
-kernel checks' launches are not counted.
+runs, the ResNet runs) starts with every launch count at 0 and is read
+just after; the kernel checks' launches are not counted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A full record of the run is written
@@ -141,19 +166,23 @@ from paddle2_tpu_torch.kernels.fused_adamw import (adamw_step,
 from paddle2_tpu_torch.kernels.fused_layer_norm import (
     bwd_blocks, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
     layer_norm_fwd_reference)
+from paddle2_tpu_torch.kernels.fused_momentum import (momentum_step,
+                                                      momentum_step_reference)
 from paddle2_tpu_torch.kernels.quant_matmul import (
     int8_weight_only_matmul, int8_weight_only_matmul_reference,
     quantize_channelwise, weight_quant_error_bound)
 from paddle2_tpu_torch.models import (ErnieForSequenceClassification,
                                       GPTConfig, GPTForCausalLM, ernie3_base,
                                       gpt3_1p3b)
-from paddle2_tpu_torch.optimizer import AdamW
+from paddle2_tpu_torch.nn.functional import cross_entropy
+from paddle2_tpu_torch.optimizer import AdamW, Momentum
 from paddle2_tpu_torch.quantization import weight_only_quantize
 from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
 from paddle2_tpu_torch.serving.paged_attention import (
     _merge_splits, paged_attention_reference,
     paged_attention_split_reference, paged_decode,
     paged_decode_split_partials)
+from paddle2_tpu_torch.vision.models import resnet18, resnet50
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): f32 without TF32
 # runs on the CUDA cores
@@ -216,6 +245,10 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_ln.py:65",
         counter=layer_norm_bwd),
+    "momentum_step": dict(
+        source="paddle2_tpu_torch/kernels/csrc/momentum_step.cu",
+        replaces="paddle2_tpu/kernels/pallas_fused.py:209",
+        counter=momentum_step),
 }
 SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_split")
 # GPT-3 1.3B's weight-only projections, K x N ([in, out])
@@ -228,6 +261,13 @@ TRAIN = dict(vocab=32768, hidden=1024, layers=24, heads=16, seq=1024,
              batch=8)
 # the fine-tuning path (bench.py bench_ernie at seq 128, batch 32)
 ERNIE = dict(seq=128, batch=32)
+# the image-classification path (bench.py bench_resnet50 on its chip
+# profile: BASELINE config 1) and its f32 check copy (the bench's CPU
+# profile: resnet18, 10 classes, 64x64, batch 4)
+RESNET = dict(batch=128, size=224, classes=1000, lr=0.1, momentum=0.9)
+RESNET_CHECK = dict(batch=4, size=64, classes=10)
+# bench.py's forward FLOPs an image (ResNet-50's multiply-adds at 224)
+RESNET_FWD_FLOPS = 4.1e9
 # the fused LayerNorm's checks: rows, H, x dtype, gamma/beta dtype, what.
 # The kernels line reports ERNIE's stacked leaves (24 of its 25 launches)
 LN_CASES = [
@@ -591,6 +631,84 @@ def check_adamw(shapes, gen, dev):
                 max_abs_err=0.0, tol="bitwise", ms=ms, device_ms=dev_ms,
                 kernel_device_ms=kern_ms, plain_ms=plain_ms, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by, library="torch._fused_adamw_")
+
+
+def check_momentum(shapes, gen, dev):
+    """Three steps of the fused Momentum against the eager chain,
+    bitwise, on parameters of ResNet-50's 161 shapes: f32 plain, f32
+    Nesterov, f32 with L2 decay 1e-4, and bf16 with f32 masters. Then
+    one step over f32 state of all 161 (what a training step runs)
+    timed: the kernel, its plain version, and ``torch._fused_sgd_``
+    (dampening 0: the same function) over the same lists."""
+    n_leaves = len(shapes)
+    cases = [("f32", torch.float32, False, 0.0),
+             ("f32 nesterov", torch.float32, True, 0.0),
+             ("f32 L2 1e-4", torch.float32, False, 1e-4),
+             ("bf16 + f32 masters", torch.bfloat16, False, 0.0)]
+    for what, dtype, nesterov, wd in cases:
+        inits = [torch.randn(sh, generator=gen, device=dev).to(dtype)
+                 for sh in shapes]
+        pa = [torch.nn.Parameter(t.clone()) for t in inits]
+        pb = [torch.nn.Parameter(t) for t in inits]
+        kw = dict(learning_rate=RESNET["lr"], momentum=RESNET["momentum"],
+                  use_nesterov=nesterov, weight_decay=wd,
+                  multi_precision=True)
+        oa = Momentum(parameters=pa, fused=True, **kw)
+        ob = Momentum(parameters=pb, fused=False, **kw)
+        before = momentum_step.launches
+        for _ in range(3):
+            for a, b in zip(pa, pb):
+                g = torch.randn(a.shape, generator=gen, device=dev).to(dtype)
+                a.grad, b.grad = g, g.clone()
+            oa.step()
+            ob.step()
+        torch.cuda.synchronize()
+        require(momentum_step.launches - before == 3 * n_leaves,
+                f"the fused Momentum ({what}) did not take the kernel for "
+                f"every parameter")
+        for i, (a, b) in enumerate(zip(pa, pb)):
+            sa, sb = oa._states[id(a)], ob._states[id(b)]
+            pairs = [("param", a, b)]
+            if dtype == torch.bfloat16:
+                pairs.append(("master", sa["master"], sb["master"]))
+                sa, sb = sa["inner"], sb["inner"]
+            pairs.append(("velocity", sa["velocity"], sb["velocity"]))
+            for name, x, y in pairs:
+                require(torch.equal(x, y), f"momentum_step {what} param "
+                        f"{i} {tuple(a.shape)}: {name} differs from the "
+                        f"eager Momentum (max "
+                        f"{(x.float() - y.float()).abs().max().item()})")
+        del inits, pa, pb, oa, ob
+        torch.cuda.empty_cache()
+    P, G, V = [[torch.randn(sh, generator=gen, device=dev) for sh in shapes]
+               for _ in range(3)]
+    lr, mom = RESNET["lr"], RESNET["momentum"]
+
+    def run():
+        for leaf in zip(P, G, V):
+            momentum_step(*leaf, lr, mom, False, 0.0)
+
+    def plain():
+        for leaf in zip(P, G, V):
+            momentum_step_reference(*leaf, lr, mom, False, 0.0)
+    ms = cuda_ms(run)
+    dev_ms, kern_ms = device_ms(run, "momentum_step_kernel")
+    plain_ms = cuda_ms(plain, iters=5)
+    lib = None
+    if hasattr(torch, "_fused_sgd_"):
+        lib = cuda_ms(lambda: torch._fused_sgd_(
+            P, G, V, weight_decay=0.0, momentum=mom, lr=lr, dampening=0.0,
+            nesterov=False, maximize=False, is_first_step=False))
+    N = sum(p.numel() for p in P)
+    # 4 f32 operations an element (mom*v, + g, lr*v, p -); p, g, v read
+    # and p, v written
+    b_ms, b_by = bound(4.0 * N, 20.0 * N, torch.float32)
+    return dict(name="momentum_step", dtype="float32",
+                shape=f"{n_leaves} ResNet-50 parameters, {N} f32 elements "
+                f"(largest {max(p.numel() for p in P)})",
+                max_abs_err=0.0, tol="bitwise", ms=ms, device_ms=dev_ms,
+                kernel_device_ms=kern_ms, plain_ms=plain_ms, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by, library="torch._fused_sgd_")
 
 
 def int8pack_available(dev):
@@ -1346,13 +1464,240 @@ def ernie_f32_vs_cpu():
     return out, launches
 
 
+# ------------------------------------------------------- phases 10, 11
+# device kernels by what they do, from their names in the profile: the
+# convolutions (cuDNN's kernels, its GEMMs and layout transforms),
+# reductions (BatchNorm's mean and variance, the loss), pooling, the
+# momentum kernel; "elementwise" is everything else (BatchNorm's chain,
+# ReLU, the residual adds, casts, copies)
+KERNEL_GROUPS = (("momentum_step", ("momentum_step_kernel",)),
+                 ("convolution", ("cudnn", "xmma", "gemm", "cutlass",
+                                  "implicit", "fprop", "dgrad", "wgrad",
+                                  "nchwtonhwc", "nhwctonchw", "conv2d",
+                                  "convolution")),
+                 ("reduction", ("reduce_kernel",)),
+                 ("pooling", ("pool",)))
+
+
+def device_groups(prof):
+    """Device milliseconds of one traced step by kernel group."""
+    out = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    out["elementwise and other"] = 0.0
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        key = e.key.lower()
+        group = next((g for g, pats in KERNEL_GROUPS
+                      if any(p in key for p in pats)),
+                     "elementwise and other")
+        out[group] += e.device_time_total / 1e3
+    return out
+
+
+def resnet_step(model, fused=None):
+    """``bench_resnet50``'s optimizer and step: ``Momentum(0.1, 0.9,
+    multi_precision=True)`` (``fused=None`` follows
+    ``FLAGS_fused_optimizer_step``) through ``jit.train_step`` over the
+    f32 cross-entropy of the logits."""
+    opt = Momentum(learning_rate=RESNET["lr"], momentum=RESNET["momentum"],
+                   parameters=model.parameters(), multi_precision=True,
+                   fused=fused)
+
+    def train_fn(img, labels):
+        return cross_entropy(model(img).float(), labels)
+    return jit.train_step(train_fn, opt)
+
+
+def resnet_batches(n, batch, size, classes, device, dtype=torch.float32):
+    """``bench_resnet50``'s batches: images ``randn * 0.5``, then int32
+    labels, from ``RandomState(0)``, as its ``mk`` draws them."""
+    rs = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        img = (rs.randn(batch, 3, size, size) * 0.5).astype(np.float32)
+        lbl = rs.randint(0, classes, (batch,)).astype(np.int32)
+        out.append((torch.as_tensor(img, device=device).to(dtype),
+                    torch.as_tensor(lbl, device=device)))
+    return out
+
+
+def resnet50_bf16(smi):
+    """Phase 10: ResNet-50 at full width and depth, AMP O2 bf16,
+    ``Momentum`` with ``FLAGS_fused_optimizer_step`` on, batch 128 at
+    224x224: 1 warm-up step, 5 timed steps, 1 traced step; every loss
+    finite, ``momentum_step`` exactly once a parameter tensor a step and
+    no other kernel. Then the same steps' time with
+    ``torch.backends.cudnn.benchmark`` on (two more warm-up steps absorb
+    its autotuning), for the record."""
+    R = RESNET
+    model = amp.decorate(resnet50(num_classes=R["classes"], seed=0),
+                         level="O2", dtype="bfloat16")
+    n_params = model.num_params()
+    n_tensors = len(list(model.parameters()))
+    step = resnet_step(model)
+    data = resnet_batches(7, R["batch"], R["size"], R["classes"], "cuda",
+                          torch.bfloat16)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = float(step(*data[0]))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses, times = [], []
+    for img, lbl in data[1:6]:
+        t0 = time.perf_counter()
+        loss = step(img, lbl)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced = float(step(*data[6]))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 7
+    require(all(np.isfinite([warm, traced] + losses)),
+            f"non-finite ResNet-50 loss: {[warm] + losses + [traced]}")
+    for n in KERNELS:
+        per_step = n_tensors if n == "momentum_step" else 0
+        require(launches[n] == steps * per_step,
+                f"ResNet-50: {n} launched {launches[n]} times in {steps} "
+                f"steps, want {per_step} a step")
+    step_s = statistics.mean(times)
+    ips = R["batch"] / step_s
+    model_flops = ips * 3 * RESNET_FWD_FLOPS
+    bench = dict(metric="resnet50_imagenet_images_per_sec", value=ips,
+                 unit="images/s", step_time_s=step_s,
+                 mfu_vs_chip_peak=model_flops / PEAK_OPS[torch.bfloat16],
+                 mfu_2_flops_per_multiply_add=2 * model_flops / PEAK_OPS[
+                     torch.bfloat16],
+                 model_params_m=n_params / 1e6, param_tensors=n_tensors,
+                 config=dict(batch=R["batch"], image=R["size"]),
+                 device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                 loss=losses[-1])
+    cudnn_default = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        for img, lbl in data[:2]:
+            step(img, lbl)
+        bench_times = []
+        for img, lbl in data[1:6]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(img, lbl)
+            torch.cuda.synchronize()
+            bench_times.append(time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.benchmark = cudnn_default
+    run = dict(bench=bench, warmup_loss=warm, losses=losses,
+               traced_loss=traced, step_times_s=times, first_step_s=first_s,
+               peak_memory_gib=peak_gb,
+               launches_per_step={n: launches[n] / steps for n in KERNELS},
+               step_profile=step_profile(prof, wall_ms, step_s * 1e3),
+               device_ms_by_group=device_groups(prof),
+               cudnn_benchmark=dict(default=cudnn_default,
+                                    on_step_times_s=bench_times,
+                                    on_step_s=statistics.mean(bench_times)))
+    return run, launches
+
+
+def resnet18_f32_vs_cpu():
+    """Phase 11: ``resnet18`` (10 classes) in f32 on 64x64 images, batch
+    4 (``bench_resnet50``'s CPU profile), ``Momentum(fused=True)``: two
+    ``train_step`` calls on the card and on the CPU (plain versions)
+    from the same weights and images; losses to 1e-4 relative, the first
+    step's gradients to 1e-4 of each gradient's largest magnitude, every
+    ``_mean``/``_variance`` buffer after both steps to 1e-4 (absolute
+    below 1, relative above). Then the CPU model's trained state (its
+    weights and running statistics) is copied to the card, and an
+    eval-mode forward's logits agree to 1e-4 (absolute below 1,
+    relative above): on one set of weights, so that the check measures
+    the forward and not the spread that cuDNN's nondeterministic
+    backward sums leave in each side's weights (two steps from the
+    initial running statistics the eval-mode activations grow to
+    ~1e4-1e5, which amplifies that spread past 1e-4). An f64 copy on the
+    CPU takes the same steps, and the CPU's own f32 gaps to it are
+    recorded beside: a ReLU input within f32 rounding of 0 flips its
+    unit between two f32 runs of the gradients."""
+    C = RESNET_CHECK
+    model = resnet18(num_classes=C["classes"], seed=0)
+    cpu = copy.deepcopy(model).cpu()
+    f64 = copy.deepcopy(cpu).double()
+    step = resnet_step(model, fused=True)
+    cpu_step = resnet_step(cpu, fused=True)
+    f64_step = resnet_step(f64, fused=True)     # the eager chain on f64
+    data = resnet_batches(2, C["batch"], C["size"], C["classes"], "cpu")
+    n_tensors = len(list(model.parameters()))
+    reset_counts()
+    out = dict(losses_card=[], losses_cpu=[])
+    for i, (img, lbl) in enumerate(data):
+        out["losses_card"].append(float(step(img.cuda(), lbl.cuda())))
+        out["losses_cpu"].append(float(cpu_step(img, lbl)))
+        f64_step(img.double(), lbl)
+        if i == 0:
+            grad_err = max(
+                ((p.grad.cpu() - q.grad).abs().max()
+                 / q.grad.abs().max().clamp_min(1e-30)).item()
+                for p, q in zip(model.parameters(), cpu.parameters()))
+            f64_err = max(
+                ((q.grad.double() - r.grad).abs().max()
+                 / r.grad.abs().max().clamp_min(1e-30)).item()
+                for q, r in zip(cpu.parameters(), f64.parameters()))
+    buf_err = max(((a.cpu() - b).abs() / b.abs().clamp_min(1.0)).max().item()
+                  for a, b in zip(model.buffers(), cpu.buffers()))
+    card = copy.deepcopy(cpu).cuda()
+    ref64 = copy.deepcopy(cpu).double()
+    for m in (card, cpu, ref64):
+        m.eval()
+    with torch.no_grad():
+        got = card(data[0][0].cuda()).cpu()
+        want = cpu(data[0][0])
+        ref = ref64(data[0][0].double())
+    torch.cuda.synchronize()
+    launches = counts()
+
+    def of_max(a, b):
+        return ((a.double() - b).abs().max() / b.abs().max()).item()
+
+    def per_element(a, b):
+        return ((a.double() - b).abs() / b.abs().clamp_min(1.0)).max().item()
+    eval_err = per_element(got, want)
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["losses_card"],
+                                              out["losses_cpu"])]
+    out.update(loss_rel_err=rel, grad_rel_err=grad_err,
+               cpu_f32_vs_f64_grad_rel_err=f64_err, buffer_err=buf_err,
+               eval_logits_err=eval_err,
+               eval_logits_of_largest_err=of_max(got, want),
+               eval_logits_largest=want.abs().max().item(),
+               cpu_f32_vs_f64_eval_err=per_element(want, ref),
+               cpu_f32_vs_f64_eval_of_largest_err=of_max(want, ref),
+               launches=launches)
+    require(max(rel) <= 1e-4, f"resnet18 f32 loss, card vs CPU: relative "
+            f"errors {rel} > 1e-4")
+    require(grad_err <= 1e-4, f"resnet18 f32 gradients, card vs CPU: "
+            f"{grad_err} > 1e-4 of the largest magnitude (the CPU's f32 "
+            f"against f64: {f64_err})")
+    require(buf_err <= 1e-4, f"resnet18 BatchNorm buffers, card vs CPU: "
+            f"{buf_err} > 1e-4")
+    require(eval_err <= 1e-4, f"resnet18 eval logits, card vs CPU: "
+            f"{eval_err} > 1e-4")
+    require(launches["momentum_step"] == 2 * n_tensors,
+            f"resnet18: momentum_step launched {launches['momentum_step']} "
+            f"times in 2 steps, want {n_tensors} a step")
+    return out, launches
+
+
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
     path's bf16 shape (the fused AdamW state is f32)."""
     def wanted(r):
         if r["name"] != n:
             return False
-        if n == "adamw_step":
+        if n in ("adamw_step", "momentum_step"):
             return r["dtype"] == "float32"
         if r["dtype"] != "bfloat16":
             return False
@@ -1409,6 +1754,10 @@ def main():
     shapes = [tuple(p.shape) for p in
               train_setup(T["layers"], dev, bf16=False)[0].parameters()]
     rows.append(check_adamw(shapes, gen, dev))
+    torch.cuda.empty_cache()
+    rows.append(check_momentum(
+        [tuple(p.shape) for p in resnet50(device=dev).parameters()], gen,
+        dev))
     torch.cuda.empty_cache()
     int8pack = int8pack_available(dev)
     for dtype in (torch.bfloat16, torch.float32):
@@ -1544,6 +1893,17 @@ def main():
     say(f"[ernie f32 vs cpu] {ernie32}")
     flags.set_flags({"pallas_layer_norm": False})
 
+    # 10-11. ResNet-50 with the fused Momentum step
+    flags.set_flags({"fused_optimizer_step": True})
+    resnet, lr50 = resnet50_bf16(smi)
+    add(lr50)
+    say(f"[resnet50 bf16] {json.dumps(resnet['bench'])}")
+    say(f"[resnet50 bf16] {resnet}")
+    flags.set_flags({"fused_optimizer_step": False})
+    r18, lr18 = resnet18_f32_vs_cpu()
+    add(lr18)
+    say(f"[resnet18 f32 vs cpu] {r18}")
+
     say(f"[main path] launches: {launches}")
     for n in KERNELS:
         require(launches[n] > 0, f"kernel {n} was never launched on the "
@@ -1570,7 +1930,8 @@ def main():
              int8pack_mm_on_cuda=int8pack, engine=runs,
              train_bf16=train_rec, train_f32_vs_cpu=f32run,
              ernie_bf16=ernie, ernie_padded=padded,
-             ernie_f32_vs_cpu=ernie32, launches=launches,
+             ernie_f32_vs_cpu=ernie32, resnet50_bf16=resnet,
+             resnet18_f32_vs_cpu=r18, launches=launches,
              seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")
     say(f"nvidia-smi: {smi}")

@@ -5,10 +5,12 @@
 import torch
 from torch import nn
 
+from ..nn import BatchNorm2D
+
 __all__ = ["decorate"]
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm,
-          nn.RMSNorm)
+          nn.RMSNorm, BatchNorm2D)
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 

@@ -93,6 +93,7 @@ define_flag("pallas_layer_norm", False,
             "tensor, their plain versions for a CPU tensor. Off by "
             "default, as in the JAX package.")
 define_flag("fused_optimizer_step", False,
-            "Route AdamW updates through the one-pass step kernel "
-            "(kernels/fused_adamw.py) when the optimizer's fused= is None; "
-            "an explicit fused= wins either way.")
+            "Route AdamW and Momentum updates through their one-pass step "
+            "kernels (kernels/fused_adamw.py, kernels/fused_momentum.py) "
+            "when the optimizer's fused= is None; an explicit fused= wins "
+            "either way.")

@@ -15,6 +15,13 @@ kernels and launches cost. As in the JAX package, a parameter the loss
 does not reach gets an all-zeros gradient and is still updated (decay
 and moments apply to it); the eager ``optimizer.step()`` skips it.
 
+Module buffers follow the forward. ``fn`` runs once a call, so a
+``BatchNorm2D`` in training mode folds the batch's statistics into its
+``_mean`` and ``_variance`` once a step, in place, as the JAX step
+writes its captured buffers back once
+(``paddle2_tpu/jit/train_step.py:148,308-309``); in eval mode they are
+read, not written. The step leaves the modules' mode to the caller.
+
 Not ported yet, and refused: optimizer wrappers (ZeRO sharding,
 gradient accumulation; ROADMAP queue 1 item 6), the reliability plane
 and ``instrument=`` (queue 1 items 4 and 7). There is no CUDA-graph

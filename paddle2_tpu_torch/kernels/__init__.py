@@ -9,6 +9,7 @@ from .fused_adamw import adamw_step, adamw_step_reference
 from .fused_ce import fused_linear_cross_entropy
 from .fused_layer_norm import (layer_norm_bwd, layer_norm_bwd_reference,
                                layer_norm_fwd, layer_norm_fwd_reference)
+from .fused_momentum import momentum_step, momentum_step_reference
 from .quant_matmul import (channel_absmax, int8_weight_only_matmul,
                            int8_weight_only_matmul_reference,
                            quantize_channelwise, weight_quant_error_bound)
@@ -17,6 +18,7 @@ __all__ = ["scaled_dot_product_attention", "remat_policy",
            "flash_attention_bshd", "flash_fwd", "flash_fwd_reference",
            "flash_bwd", "flash_bwd_reference", "adamw_step",
            "adamw_step_reference", "fused_linear_cross_entropy",
+           "momentum_step", "momentum_step_reference",
            "layer_norm_fwd", "layer_norm_fwd_reference",
            "layer_norm_bwd", "layer_norm_bwd_reference",
            "channel_absmax", "quantize_channelwise",

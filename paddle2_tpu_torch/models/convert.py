@@ -1,4 +1,4 @@
-"""Carry a JAX-package GPT's or ERNIE's weights into the port.
+"""Carry a JAX-package GPT's, ERNIE's or ResNet's weights into the port.
 
 The JAX package's ``nn.Linear`` stores its weight ``[in, out]``;
 ``torch.nn.Linear`` stores ``[out, in]``, so linear weights swap their
@@ -10,6 +10,10 @@ package's attribute names, stacked leaves included
 The fused qkv columns keep their layout (GPT's head-major ``[H, (q|k|v),
 D]``, ERNIE's ``(q|k|v)`` thirds): the transpose moves the columns to
 rows without reordering them.
+
+A ResNet's only Linear is ``fc``; its convolutions (``[O, I/groups, kh,
+kw]`` in both packages), BatchNorm parameters and the ``_mean`` /
+``_variance`` buffers pass unchanged.
 
 A model quantized to int8 weight-only carries ``<path>.weight_int8``,
 ``<path>.w_scale`` and ``<path>.bias`` for each swapped Linear and
@@ -28,7 +32,7 @@ import torch
 from ..quantization import WeightOnlyLinear, WeightOnlyLMHead
 
 __all__ = ["gpt_state_from_reference", "ernie_state_from_reference",
-           "load_weight_only_reference"]
+           "resnet_state_from_reference", "load_weight_only_reference"]
 
 _GPT_LINEARS = ("attn.qkv.weight", "attn.out_proj.weight", "mlp.up.weight",
                 "mlp.down.weight", "lm_head.weight")
@@ -99,6 +103,16 @@ def ernie_state_from_reference(state: Dict[str, np.ndarray],
     -> __>``; the ``nn.Linear`` weights (qkv, out, up, down, pooler,
     classifier) swap ``[in, out]`` to ``[out, in]``."""
     return _from_reference(state, _ERNIE_LINEARS, "ernie.layers", stacked)
+
+
+def resnet_state_from_reference(state: Dict[str, np.ndarray]
+                                ) -> Dict[str, torch.Tensor]:
+    """Map ``{name: ndarray}`` from the JAX package's ResNet
+    ``state_dict()`` (parameters and the BatchNorm buffers) to a state
+    dict for :class:`paddle2_tpu_torch.vision.models.ResNet`: ``fc``'s
+    weight swaps ``[in, out]`` to ``[out, in]``; everything else passes
+    unchanged."""
+    return _from_reference(state, ("fc.weight",), "", stacked=None)
 
 
 def load_weight_only_reference(model, state: Dict[str, np.ndarray],

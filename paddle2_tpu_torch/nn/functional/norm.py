@@ -1,5 +1,20 @@
-"""``layer_norm``: the counterpart of
-``paddle2_tpu/nn/functional/norm.py:72-131``.
+"""``layer_norm`` and ``batch_norm``: the counterparts of
+``paddle2_tpu/nn/functional/norm.py:72-131`` and ``:23-69``.
+
+``batch_norm`` is the JAX function op for op, not
+``torch.nn.functional.batch_norm``, for two reasons. The running
+variance is the population (biased) variance, where torch's is the
+unbiased one; and Paddle's ``momentum=0.9`` keeps 0.9 of the old
+statistic. Under AMP O2 the input is bf16 and γ/β stay f32: the batch
+mean and variance come back in bf16 (each one rounding of an f32
+reduction), ``(x - mean) * rsqrt(var + eps)`` runs in bf16, ``* γ``
+promotes to f32, ``+ β`` stays f32, and the result is cast back to
+bf16; the running update's ``(1 - momentum) * mean`` is a bf16 product
+added to the f32 buffer. cuDNN's BatchNorm computes in f32 throughout
+and gives another result. The running statistics are updated in place
+on the buffers, once a call in training mode.
+
+``layer_norm``:
 
 Two routes, as in the JAX package:
 
@@ -45,7 +60,7 @@ from torch.nn import functional as TF
 from ...flags import flag_value
 from ...kernels import fused_layer_norm as _fused
 
-__all__ = ["layer_norm"]
+__all__ = ["layer_norm", "batch_norm"]
 
 
 def _use_fused(x, n_axes, weight, bias) -> bool:
@@ -74,4 +89,35 @@ def layer_norm(x, normalized_shape: Union[int, Sequence[int]], weight=None,
         out = out * weight
     if bias is not None:
         out = out + bias
+    return out.to(x.dtype)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-5, data_format: str = "NCHW",
+               use_global_stats=None) -> torch.Tensor:
+    """Normalize ``x`` per channel with the batch's statistics in
+    training mode (and fold them into ``running_mean``/``running_var``
+    in place), else with the running ones."""
+    ch = 1 if data_format.startswith("NC") else x.ndim - 1
+    reduce_axes = tuple(i for i in range(x.ndim) if i != ch)
+    shape = [1] * x.ndim
+    shape[ch] = x.shape[ch]
+    use_batch_stats = training and not use_global_stats
+    if use_batch_stats:
+        mean = x.mean(reduce_axes)
+        var = x.var(reduce_axes, correction=0)
+    else:
+        mean, var = running_mean, running_var
+    out = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape)
+                                                  + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    if use_batch_stats:
+        with torch.no_grad():
+            running_mean.copy_(momentum * running_mean
+                               + (1 - momentum) * mean)
+            running_var.copy_(momentum * running_var + (1 - momentum) * var)
     return out.to(x.dtype)

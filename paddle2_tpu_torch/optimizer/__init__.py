@@ -1,7 +1,7 @@
 """Optimizers of the port (counterpart of ``paddle2_tpu.optimizer``):
-the base class, Adam and AdamW so far."""
+the base class, Momentum, Adam and AdamW so far."""
 
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import Adam, AdamW, Momentum
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Momentum", "Adam", "AdamW"]

@@ -1,5 +1,5 @@
-"""Adam and AdamW: the counterpart of
-``paddle2_tpu/optimizer/optimizers.py:74-158``.
+"""Momentum, Adam and AdamW: the counterpart of
+``paddle2_tpu/optimizer/optimizers.py:29-158``.
 
 The update keeps the JAX package's eager op order exactly (one torch op
 per JAX op): ``1-b1`` is a Python constant, ``1-b1**t`` is computed in
@@ -11,6 +11,12 @@ held to this chain bitwise. Division by the bias corrections goes
 through a tensor on the parameter's device, because torch on CUDA turns
 division by a host scalar into a multiplication by its reciprocal.
 
+Momentum keeps its eager order too: ``v = mom*v + g``, then
+``p - lr*v`` (Nesterov: ``p - lr*(g + mom*v)`` with the new ``v``), the
+L2 decay folded into ``g`` first by the base ``_apply_one``; the fused
+kernel (``kernels/csrc/momentum_step.cu``) is held to this chain
+bitwise.
+
 The other optimizers of the JAX module are ROADMAP queue 1 item 2.
 """
 
@@ -19,9 +25,56 @@ import torch
 
 from ..kernels.fused_adamw import (adamw_step, adamw_step_supported,
                                    stage_scalars)
+from ..kernels.fused_momentum import momentum_step, momentum_step_supported
 from .optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["Momentum", "Adam", "AdamW"]
+
+
+class Momentum(Optimizer):
+    """Heavy-ball (or Nesterov) momentum. The velocity is f32 under
+    ``multi_precision`` (for f32 parameters too, as in the JAX package),
+    else in the parameter's dtype. ``fused=True`` routes each f32 update
+    (a plain f32 parameter, or the master of a bf16 one) through the
+    one-pass kernel (:mod:`paddle2_tpu_torch.kernels.fused_momentum`),
+    bitwise equal to the eager chain; other tensors fall back to the
+    chain on the CPU and raise on the card. ``fused=None`` follows
+    ``FLAGS_fused_optimizer_step`` (off by default)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, fused=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+        self._fused_step = fused
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(
+            p, dtype=torch.float32 if self._multi_precision else None,
+            memory_format=torch.contiguous_format)}
+
+    def _update_one(self, param, grad, state, lr, step):
+        v = self._momentum * state["velocity"] + grad
+        if self._nesterov:
+            new_p = param - lr * (grad + self._momentum * v)
+        else:
+            new_p = param - lr * v
+        return new_p, {"velocity": v}
+
+    def _fused_update_builder(self, decay_flags):
+        mom, nesterov = self._momentum, self._nesterov
+
+        def kernel(work, g, inner, lr, step, wd_eff):
+            v = inner.get("velocity")
+            if not (set(inner) == {"velocity"}
+                    and v.dtype == torch.float32 and v.is_contiguous()
+                    and momentum_step_supported(work, g)):
+                return None
+            momentum_step(work, g, v, lr, mom, nesterov, wd_eff)
+            return work, inner
+        return self._fused_paramwise_builder(decay_flags, kernel)
 
 
 class Adam(Optimizer):

@@ -45,6 +45,7 @@ import paddle2_tpu_torch.serving
 import paddle2_tpu_torch.optimizer, paddle2_tpu_torch.amp
 import paddle2_tpu_torch.jit, paddle2_tpu_torch.quantization
 import paddle2_tpu_torch.flags, paddle2_tpu_torch.nn.functional
+import paddle2_tpu_torch.vision.models
 from paddle2_tpu_torch.kernels import _build
 assert not calls, calls
 assert not _build._LIBS
@@ -76,6 +77,7 @@ def test_kernel_sources_are_found():
     from paddle2_tpu_torch.kernels import _build
     names = _build.sources()
     assert set(names) == {"flash_fwd", "paged_decode", "flash_bwd",
-                          "adamw_step", "wo_matmul", "layer_norm"}
+                          "adamw_step", "wo_matmul", "layer_norm",
+                          "momentum_step"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"
