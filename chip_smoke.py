@@ -123,6 +123,41 @@ line) when it fails:
     eval-mode forward's logits to 1e-4, ``momentum_step`` 62 times a
     step; the CPU's own f32 gradients against f64 are recorded beside.
 
+12. Packed varlen attention's three kernels against their plain
+    versions, in phase 3's rows: GPT-3 1.3B's attention geometry (H16
+    D128, causal) in bf16 and f32 on two packed batches, the README's
+    1x2048 + 16x128 (T 4096) and the serving prompt lengths (T 3313),
+    and the bench GPT's H16 D64 on the first; ragged cases (non-causal,
+    a length-1 sequence, ``cu_seqlens_q != cu_seqlens_k`` with a
+    sequence whose rows see no key, a last sequence ending mid-tile) at
+    head dims 16/64/128, not timed. The backward is held against the
+    plain version's f32 sums, beyond half a step of its dtype (the one
+    rounding both do), and in bf16 the plain backward without its P/dS
+    rounding must read past the limit; f32 backward runs twice, bitwise
+    equal. Each timed row has the kernel's CUDA-event and device times,
+    the plain version's, one ``scaled_dot_product_attention`` over the
+    packed rows as ``[1, H, T, D]`` with the block-diagonal causal mask
+    (forward, or its backward) as the library yardstick, its bound and
+    its launches; the densify route's forward time is printed beside
+    the packed route's.
+13. Packed varlen training at full width through the public entry
+    points: two GPT-3 1.3B-width self-attention layers (hidden 2048, 16
+    heads of 128; qkv ``Linear``, ``nn.functional.flash_attn_unpadded``
+    causal, out ``Linear``, no biases, residual), AMP O2 bf16,
+    ``AdamW(1e-4, multi_precision=True, fused=True)`` through
+    ``jit.train_step(..., layers=[model])``, a squared-error loss, 1
+    warm-up step, 5 timed steps, 1 traced step and the first batch
+    again (each batch lengths of 16..2048 from ``RandomState(0)``
+    packed to <= 8192 tokens); every loss finite, each varlen kernel
+    launched 2 times a step, ``adamw_step`` 4 times, no dense flash
+    kernel, the repeated batch hits the ``cu_seqlens`` memo. Then
+    ``flash_attn_varlen_qkvpacked`` equals the unpacked call, and a call
+    with dropout 0.1 in training and one inside
+    ``sdp_kernel(enable_flash=False)`` take the densify route (no varlen
+    launch). Then the card against the CPU in f32 (H4 D64, lengths 1, 7,
+    64, 100, 200, causal and not): the output and the q/k/v gradients to
+    1e-4 of each tensor's largest magnitude.
+
 Phase 3 also holds the fused LayerNorm's forward and backward against
 their plain versions at ERNIE's [4096, 768] (bf16 x with f32 and with
 bf16 scale and shift, and f32), the GPT bench's [8192, 1024] (bf16 and
@@ -135,7 +170,7 @@ kernels' times, bounds and ``F.layer_norm``'s (forward; backward
 through autograd).
 
 Each main-path run (the serving runs, the training runs, the ERNIE
-runs, the ResNet runs) starts with every launch count at 0 and is read
+runs, the ResNet runs, the varlen runs) starts with every launch count at 0 and is read
 just after; the kernel checks' launches are not counted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -160,6 +195,10 @@ from paddle2_tpu_torch.kernels import _build
 from paddle2_tpu_torch.kernels.flash_attn import (
     bwd_route, flash_bwd, flash_bwd_fused, flash_bwd_reference,
     flash_bwd_split_dkv, flash_bwd_split_dq, flash_fwd, flash_fwd_reference)
+from paddle2_tpu_torch.kernels.flash_varlen import (
+    flash_varlen_bwd_dkv, flash_varlen_bwd_dkv_reference, flash_varlen_bwd_dq,
+    flash_varlen_bwd_dq_reference, flash_varlen_fwd,
+    flash_varlen_fwd_reference)
 from paddle2_tpu_torch.kernels.fused_adamw import (adamw_step,
                                                    adamw_step_reference,
                                                    stage_scalars)
@@ -174,7 +213,11 @@ from paddle2_tpu_torch.kernels.quant_matmul import (
 from paddle2_tpu_torch.models import (ErnieForSequenceClassification,
                                       GPTConfig, GPTForCausalLM, ernie3_base,
                                       gpt3_1p3b)
-from paddle2_tpu_torch.nn.functional import cross_entropy
+from paddle2_tpu_torch.nn.functional import (cross_entropy,
+                                             flash_attn_unpadded,
+                                             flash_attn_varlen_qkvpacked,
+                                             sdp_kernel)
+from paddle2_tpu_torch.nn.functional import flash_attention as fa
 from paddle2_tpu_torch.optimizer import AdamW, Momentum
 from paddle2_tpu_torch.quantization import weight_only_quantize
 from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
@@ -249,7 +292,23 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/momentum_step.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:209",
         counter=momentum_step),
+    "flash_varlen_fwd": dict(
+        source="paddle2_tpu_torch/kernels/csrc/flash_varlen.cu",
+        replaces="paddle2_tpu/kernels/pallas_flash.py:546",
+        counter=flash_varlen_fwd),
+    "flash_varlen_bwd_dkv": dict(
+        source="paddle2_tpu_torch/kernels/csrc/flash_varlen.cu",
+        replaces="paddle2_tpu/kernels/pallas_flash.py:578",
+        counter=flash_varlen_bwd_dkv),
+    "flash_varlen_bwd_dq": dict(
+        source="paddle2_tpu_torch/kernels/csrc/flash_varlen.cu",
+        replaces="paddle2_tpu/kernels/pallas_flash.py:620",
+        counter=flash_varlen_bwd_dq),
 }
+VARLEN_KERNELS = ("flash_varlen_fwd", "flash_varlen_bwd_dkv",
+                  "flash_varlen_bwd_dq")
+DENSE_FLASH_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_split_dkv",
+                       "flash_bwd_split_dq")
 SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_split")
 # GPT-3 1.3B's weight-only projections, K x N ([in, out])
 WO_SHAPES = {"qkv": (2048, 6144), "out_proj": (2048, 2048),
@@ -286,7 +345,24 @@ LN_RAGGED = [(37, 200, xd, gd, "ragged") for xd in (torch.float32,
     (64, 8192, torch.bfloat16, torch.float32, "widest H"),
     (5, 1, torch.float32, torch.float32, "H 1"),
     (37, 200, torch.float16, torch.float16, "ragged")]
+# the packed varlen batches of phase 12: the README's ragged batch and
+# the serving path's prompt lengths (T 3313, not a multiple of 8)
+VARLEN_README = [2048] + [128] * 16
+VARLEN_SERVING = [17, 45, 130, 257, 401, 613, 850, 1000]
+VARLEN_LINE_SHAPE = "H16 D128 T4096 (1x2048 + 16x128) causal"
+# ragged cases (lens_q, lens_k, causal): non-causal; a length-1 sequence
+# and a last sequence ending mid-tile (T 209); len_k > len_q, and one
+# sequence with len_k < len_q whose first 20 rows see no key
+VARLEN_RAGGED = [([1, 7, 64, 100, 37], None, False),
+                 ([1, 7, 64, 100, 37], None, True),
+                 ([5, 40, 1, 30, 70], [9, 60, 3, 10, 100], True)]
+# phase 13: GPT-3 1.3B's attention width, packed batches of <= 8192 tokens
+VARLEN_TRAIN = dict(hidden=2048, heads=16, layers=2, max_tokens=8192,
+                    min_len=16, max_len=2048)
 LINE_SHAPES = {"wo_matmul": WO_LINE_SHAPE,
+               "flash_varlen_fwd": VARLEN_LINE_SHAPE,
+               "flash_varlen_bwd_dkv": VARLEN_LINE_SHAPE,
+               "flash_varlen_bwd_dq": VARLEN_LINE_SHAPE,
                "layer_norm_fwd": "R4096 H768 (ERNIE stacked leaves) g bf16",
                "layer_norm_bwd": "R4096 H768 (ERNIE stacked leaves) g bf16"}
 
@@ -1691,6 +1767,418 @@ def resnet18_f32_vs_cpu():
     return out, launches
 
 
+# ------------------------------------------------------- phases 12, 13
+def varlen_meta(lens_q, lens_k, causal, dev):
+    """The port's memoized metadata and tile ranges for one packed
+    batch, and the block-diagonal keep mask ``[Tq, Tk]`` it encodes."""
+    lq = np.asarray(lens_q, np.int64)
+    lk = np.asarray(lens_k if lens_k is not None else lens_q, np.int64)
+    cu_q = np.concatenate([[0], np.cumsum(lq)])
+    cu_k = np.concatenate([[0], np.cumsum(lk)])
+    seg_q, off_q, seg_k, off_k, tiles = fa._seg_off_device(
+        cu_q, cu_k, lq, lk, causal, dev)
+    keep = (seg_q[:, None] == seg_k[None, :]) & \
+        (off_k[None, :] <= off_q[:, None])
+    return (seg_q, off_q, seg_k, off_k), tiles, keep
+
+
+# operations per live (query, key) pair and head-dim element, and the
+# rows each kernel must read and write in the input dtype: forward q,
+# k, v in and o out; dK/dV q, do, k, v in and dk, dv out; dQ q, do, k, v
+# in and dq out. lse (and delta) add 4 (8) bytes a query row and head,
+# the int32 seg/off metadata 8 bytes a row on each side
+VARLEN_WORK = {
+    "flash_varlen_fwd": (4, lambda Tq, Tk: 2 * Tq + 2 * Tk, 4),
+    "flash_varlen_bwd_dkv": (8, lambda Tq, Tk: 2 * Tq + 4 * Tk, 8),
+    "flash_varlen_bwd_dq": (6, lambda Tq, Tk: 3 * Tq + 2 * Tk, 8),
+}
+
+
+def varlen_bound(name, pairs, Tq, Tk, H, D, dtype, size):
+    ops_per, elems, stat_bytes = VARLEN_WORK[name]
+    ops = ops_per * pairs * D * H
+    nbytes = (elems(Tq, Tk) * H * D * size + stat_bytes * Tq * H
+              + 8.0 * (Tq + Tk))
+    return bound(ops, nbytes, dtype)
+
+
+def varlen_bwd_err(got, ref32):
+    """A backward kernel's error against the plain version's f32 sums
+    ``ref32``: absolute below 1 and relative above, as the dense
+    backward's check, counted beyond half a step of ``got``'s dtype at
+    ``ref32`` (the output's own rounding; 0 for f32). The kernel and the
+    plain version sum in different orders: in bf16 their same-dtype
+    outputs differ by a whole step where a sum sits on a rounding
+    boundary (7.3e-3 at 1.07: dV at the serving lengths on an H100),
+    and a few P or dS elements round to the other neighbour (~1e-3 at
+    the README batch in a CPU model of the kernel), while a backward
+    without the P/dS rounding reads ~7e-3 past its half step."""
+    half = 0.0
+    if got.dtype == torch.bfloat16:
+        half = torch.exp2(torch.floor(torch.log2(
+            ref32.abs().clamp_min(1e-30))) - 8)
+    excess = ((got.float() - ref32).abs() - half).clamp_min(0.0)
+    return (excess / ref32.abs().clamp_min(1.0)).max().item()
+
+
+def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
+    """The three varlen kernels against their plain versions on one
+    packed batch; the f32 backward twice, bitwise. With ``timed``, each
+    kernel's row for phase 3's table (the SDPA yardstick over the packed
+    rows with the block-diagonal mask) and the densify route's time."""
+    meta, (q_tiles, k_tiles), keep = varlen_meta(lens_q, lens_k, causal,
+                                                 dev)
+    Tq, Tk = keep.shape
+    q, do = (torch.randn(Tq, H, D, generator=gen, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(Tk, H, D, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    scale = 1.0 / D ** 0.5
+    lens = f"lens {lens_q}" + (f" / k {lens_k}" if lens_k else "")
+    shape = (VARLEN_LINE_SHAPE if (lens_q == VARLEN_README and D == 128
+                                   and causal) else
+             f"H{H} D{D} Tq{Tq} Tk{Tk} " + ("causal" if causal
+                                             else "non-causal")
+             + ("" if timed else f" {lens}"))
+    if timed and lens_q == VARLEN_SERVING:
+        shape += " (serving prompt lengths)"
+    o, lse = flash_varlen_fwd(q, k, v, *meta, q_tiles, scale)
+    o_ref, lse_ref = flash_varlen_fwd_reference(q, k, v, *meta, scale)
+    delta = (do.float() * o.float()).sum(-1).t().contiguous()
+    dk, dv = flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta, k_tiles,
+                                  scale)
+    dq = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta, q_tiles, scale)
+    # the plain backward's f32 sums, before the one rounding the kernel
+    # also does at its end (see varlen_bwd_err)
+    dk_ref, dv_ref = flash_varlen_bwd_dkv_reference(
+        q, k, v, do, lse, delta, *meta, scale, out_dtype=torch.float32)
+    dq_ref = flash_varlen_bwd_dq_reference(q, k, v, do, lse, delta, *meta,
+                                           scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    dead = torch.isinf(lse_ref)
+    require(torch.equal(torch.isinf(lse), dead) and
+            not o[dead.t()].float().abs().any().item(),
+            f"flash_varlen_fwd {dname(dtype)} {shape} {lens}: rows that see "
+            f"no key must give o = 0 and lse = -inf")
+    fin = ~dead
+    fwd_err = max((o.float() - o_ref.float()).abs().max().item(),
+                  (lse[fin] - lse_ref[fin]).abs().max().item()
+                  if fin.any() else 0.0)
+    require(fwd_err <= TOL[dtype], f"flash_varlen_fwd {dname(dtype)} "
+            f"{shape} {lens}: {fwd_err} > {TOL[dtype]}")
+    tol = BWD_TOL[dtype]
+    bwd_err, bwd_abs = {}, {}
+    for name, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                           ("dv", dv, dv_ref)):
+        bwd_abs[name] = (got.float() - ref).abs().max().item()
+        bwd_err[name] = varlen_bwd_err(got, ref)
+    require(max(bwd_err.values()) <= tol, f"flash_varlen backward "
+            f"{dname(dtype)} {shape} {lens}: {bwd_err} > {tol}")
+    unrounded = None
+    if timed and dtype == torch.bfloat16:
+        # what a backward that skips the P/dS rounding reads: the limit
+        # must catch it
+        up = [t.float() for t in (q, k, v, do)]
+        un = flash_varlen_bwd_dkv_reference(*up, lse, delta, *meta, scale)
+        un = (flash_varlen_bwd_dq_reference(*up, lse, delta, *meta, scale),
+              *un)
+        unrounded = [varlen_bwd_err(a.to(dtype), b)
+                     for a, b in zip(un, (dq_ref, dk_ref, dv_ref))]
+        require(max(unrounded) > tol, f"flash_varlen bf16 {shape}: the "
+                f"plain backward without P/dS rounding reads {unrounded}, "
+                f"within the limit {tol}")
+        del up, un
+    bitwise = None
+    if dtype == torch.float32:
+        dk2, dv2 = flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta,
+                                        k_tiles, scale)
+        dq2 = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta, q_tiles,
+                                  scale)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in
+                      ((dk, dk2), (dv, dv2), (dq, dq2)))
+        require(bitwise, f"flash_varlen f32 backward {shape} {lens} is not "
+                f"bitwise reproducible")
+    if not timed:
+        return [dict(name="flash_varlen", dtype=dname(dtype), shape=shape,
+                     fwd_err=fwd_err, dq_dk_dv_err=bwd_err,
+                     dq_dk_dv_abs_err=bwd_abs, tol=(TOL[dtype], tol),
+                     f32_bwd_bitwise=bitwise)]
+    pairs = int(keep.sum().item())
+    mask = keep[None, None]
+
+    def sdpa(qq, kk, vv):
+        return F.scaled_dot_product_attention(
+            qq.transpose(0, 1)[None], kk.transpose(0, 1)[None],
+            vv.transpose(0, 1)[None], attn_mask=mask, scale=scale)
+    lib_fwd = cuda_ms(lambda: sdpa(q, k, v))
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o_lib = sdpa(qr, kr, vr)
+    do_lib = do.transpose(0, 1)[None]
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        o_lib, (qr, kr, vr), do_lib, retain_graph=True))
+    del qr, kr, vr, o_lib
+    runs = {
+        "flash_varlen_fwd": (
+            lambda: flash_varlen_fwd(q, k, v, *meta, q_tiles, scale),
+            lambda: flash_varlen_fwd_reference(q, k, v, *meta, scale),
+            fwd_err, lib_fwd, "SDPA, block-diagonal causal mask"),
+        "flash_varlen_bwd_dkv": (
+            lambda: flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta,
+                                         k_tiles, scale),
+            lambda: flash_varlen_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   *meta, scale),
+            max(bwd_abs["dk"], bwd_abs["dv"]), lib_bwd,
+            "SDPA backward (dq, dk, dv), block-diagonal causal mask"),
+        "flash_varlen_bwd_dq": (
+            lambda: flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta,
+                                        q_tiles, scale),
+            lambda: flash_varlen_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  *meta, scale),
+            bwd_abs["dq"], lib_bwd,
+            "SDPA backward (dq, dk, dv), block-diagonal causal mask"),
+    }
+    rows = []
+    for name, (run, plain, err, lib, lib_what) in runs.items():
+        ms = cuda_ms(run)
+        dev_ms, kern_ms = device_ms(run, name.replace("_bwd", "") + "_kernel")
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        b_ms, b_by = varlen_bound(name, pairs, Tq, Tk, H, D, dtype,
+                                  q.element_size())
+        rows.append(dict(name=name, dtype=dname(dtype), shape=shape,
+                         max_abs_err=err, scaled_err=None if name.endswith(
+                             "fwd") else max(bwd_err.values()),
+                         tol=TOL[dtype] if name.endswith("fwd") else tol,
+                         unrounded_err=unrounded, f32_bwd_bitwise=bitwise,
+                         live_pairs=pairs, ms=ms,
+                         device_ms=dev_ms, kernel_device_ms=kern_ms,
+                         plain_ms=plain_ms, library_ms=lib,
+                         library=lib_what, bound_ms=b_ms, bound_by=b_by))
+        torch.cuda.empty_cache()
+    if lens_q == VARLEN_README and D == 128:
+        cu = torch.as_tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                             dtype=torch.int32, device=dev)
+        mx = max(lens_q)
+
+        def public():
+            return flash_attn_unpadded(q, k, v, cu, cu, mx, mx, scale,
+                                       causal=causal)[0]
+        packed_ms = cuda_ms(public, iters=10)
+        with sdp_kernel(enable_flash=False):
+            densify_ms = cuda_ms(public, iters=5, warmup=1)
+        rows[0].update(route_ms=dict(packed=packed_ms, densify=densify_ms))
+    return rows
+
+
+def varlen_batches(n, device, seed=0):
+    """``n`` packed batches: sequence lengths of ``min_len..max_len``
+    from ``RandomState(seed)``, drawn until the next would pass
+    ``max_tokens``; activations and targets from the same stream."""
+    V = VARLEN_TRAIN
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        lens = []
+        while True:
+            L = int(rs.randint(V["min_len"], V["max_len"] + 1))
+            if sum(lens) + L > V["max_tokens"]:
+                break
+            lens.append(L)
+        T = sum(lens)
+        x = torch.as_tensor(rs.randn(T, V["hidden"]).astype(np.float32),
+                            device=device)
+        y = torch.as_tensor(rs.randn(T, V["hidden"]).astype(np.float32),
+                            device=device)
+        cu = torch.as_tensor(np.concatenate([[0], np.cumsum(lens)]),
+                             dtype=torch.int32, device=device)
+        out.append((x, y, cu, max(lens)))
+    return out
+
+
+class PackedSelfAttention(torch.nn.Module):
+    """A user's self-attention layer over packed sequences: a qkv
+    projection, ``nn.functional.flash_attn_unpadded`` (causal), an out
+    projection, no biases."""
+
+    def __init__(self, hidden, heads):
+        super().__init__()
+        self.heads = heads
+        self.qkv = torch.nn.Linear(hidden, 3 * hidden, bias=False)
+        self.out = torch.nn.Linear(hidden, hidden, bias=False)
+
+    def forward(self, x, cu, max_len, **kw):
+        T, hidden = x.shape
+        d = hidden // self.heads
+        qkv = self.qkv(x).view(T, 3, self.heads, d)
+        o, _ = flash_attn_unpadded(qkv[:, 0], qkv[:, 1], qkv[:, 2], cu, cu,
+                                   max_len, max_len, 1.0 / d ** 0.5,
+                                   causal=True, **kw)
+        return self.out(o.reshape(T, hidden))
+
+
+class PackedModel(torch.nn.Module):
+
+    def __init__(self, hidden, heads, layers):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            PackedSelfAttention(hidden, heads) for _ in range(layers))
+
+    def forward(self, x, cu, max_len):
+        for layer in self.layers:
+            x = x + layer(x, cu, max_len)
+        return x
+
+
+def varlen_setup(device, bf16, seed=0):
+    V = VARLEN_TRAIN
+    torch.manual_seed(seed)
+    model = PackedModel(V["hidden"], V["heads"], V["layers"]).to(device)
+    if bf16:
+        model = amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True,
+                fused=True)
+
+    def train_fn(x, y, cu, max_len):
+        dt = next(model.parameters()).dtype
+        out = model(x.to(dt), cu, max_len)
+        return ((out.float() - y) ** 2).mean()
+    return model, jit.train_step(train_fn, opt, layers=[model])
+
+
+def varlen_train(smi):
+    """Phase 13: the packed model at full width in bf16 O2, 1 warm-up,
+    5 timed and 1 traced step, then the first batch again; launch
+    counts a step, the memo, then the qkvpacked, dropout and
+    ``sdp_kernel`` routes."""
+    V = VARLEN_TRAIN
+    model, step = varlen_setup("cuda", bf16=True)
+    data = varlen_batches(7, "cuda")
+    fa._SEG_CACHE.clear()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = float(step(*data[0]))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses, times = [], []
+    for b in data[1:6]:
+        t0 = time.perf_counter()
+        loss = step(*b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced = float(step(*data[6]))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    memo = len(fa._SEG_CACHE)
+    repeat = float(step(*data[0]))
+    torch.cuda.synchronize()
+    launches = counts()
+    steps = 8
+    all_losses = [warm] + losses + [traced, repeat]
+    require(all(np.isfinite(all_losses)),
+            f"non-finite varlen training loss: {all_losses}")
+    require(len(fa._SEG_CACHE) == memo == 7, f"the cu_seqlens memo: "
+            f"{memo} entries after 7 batches, {len(fa._SEG_CACHE)} after "
+            f"the first again (want 7 and 7)")
+    want = {n: V["layers"] for n in VARLEN_KERNELS}
+    want["adamw_step"] = 2 * V["layers"]
+    want.update({n: 0 for n in DENSE_FLASH_KERNELS})
+    for n, per_step in want.items():
+        require(launches[n] == steps * per_step,
+                f"{n}: {launches[n]} launches in {steps} varlen steps, want "
+                f"{per_step} a step")
+    tokens = [int(b[2][-1]) for b in data[1:6]]
+    step_s = statistics.mean(times)
+    run = dict(config=dict(V, params=sum(p.numel()
+                                         for p in model.parameters())),
+               tokens_per_step=tokens, sequences_per_step=[
+                   len(b[2]) - 1 for b in data[1:6]],
+               tokens_per_s=sum(tokens) / sum(times), step_time_s=step_s,
+               step_times_s=times, first_step_s=first_s, warmup_loss=warm,
+               losses=losses, traced_loss=traced, repeat_loss=repeat,
+               launches_per_step={n: launches[n] / steps for n in KERNELS
+                                  if launches[n]},
+               step_profile=step_profile(prof, wall_ms, step_s * 1e3),
+               device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    # the public routes beside the training path, on the first batch
+    x, _, cu, mx = data[0]
+    T = x.shape[0]
+    qkv = torch.randn(T, 3, V["heads"], V["hidden"] // V["heads"],
+                      device="cuda").to(torch.bfloat16)
+    scale = 1.0 / (V["hidden"] // V["heads"]) ** 0.5
+    args = (cu, cu, mx, mx, scale)
+    packed, _ = flash_attn_varlen_qkvpacked(qkv, *args, causal=True)
+    plain, _ = flash_attn_unpadded(qkv[:, 0], qkv[:, 1], qkv[:, 2], *args,
+                                   causal=True)
+    require(torch.equal(packed, plain), "flash_attn_varlen_qkvpacked "
+            "differs from the unpacked call")
+    before = counts()
+    dropped, _ = flash_attn_unpadded(qkv[:, 0], qkv[:, 1], qkv[:, 2], *args,
+                                     dropout=0.1, causal=True,
+                                     generator=torch.Generator(
+                                         device="cuda").manual_seed(0))
+    with sdp_kernel(enable_flash=False):
+        dense, _ = flash_attn_unpadded(qkv[:, 0], qkv[:, 1], qkv[:, 2],
+                                       *args, causal=True)
+    torch.cuda.synchronize()
+    after = counts()
+    require(all(after[n] == before[n] for n in VARLEN_KERNELS),
+            "dropout or sdp_kernel(enable_flash=False) reached a varlen "
+            "kernel")
+    # the densify route rounds the scores to bf16 before its softmax
+    # (as the JAX package's XLA route): ~1e-2 from the packed route
+    dense_err = (dense.float() - plain.float()).abs().max().item()
+    require(torch.isfinite(dropped.float()).all().item()
+            and dense_err <= 0.1,
+            f"the densify route: finite dropout output, and {dense_err} "
+            f"from the packed route (limit 0.1)")
+    run.update(qkvpacked_equal=True, densify_vs_packed_err=dense_err)
+    del qkv, packed, plain, dropped, dense, model, step
+    torch.cuda.empty_cache()
+    return run, launches
+
+
+def varlen_f32_vs_cpu(dev):
+    """``flash_attn_unpadded``'s output and q/k/v gradients in f32 on
+    the card and on the CPU (plain versions), H4 D64, lengths 1, 7, 64,
+    100, 200, causal and not: to 1e-4 of each tensor's largest
+    magnitude."""
+    lens = [1, 7, 64, 100, 200]
+    T, H, D = sum(lens), 4, 64
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    rs = np.random.RandomState(3)
+    host = [torch.as_tensor(rs.randn(T, H, D).astype(np.float32))
+            for _ in range(4)]
+    out = {}
+    reset_counts()
+    for causal in (True, False):
+        res = []
+        for device in (dev, "cpu"):
+            q, k, v = (t.to(device, copy=True).requires_grad_()
+                       for t in host[:3])
+            o, _ = flash_attn_unpadded(q, k, v, cu, cu, max(lens), max(lens),
+                                       1.0 / D ** 0.5, causal=causal)
+            (o * host[3].to(device)).sum().backward()
+            res.append([t.detach().cpu() for t in (o, q.grad, k.grad,
+                                                   v.grad)])
+        errs = [((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(*res)]
+        out["causal" if causal else "non-causal"] = errs
+        require(max(errs) <= 1e-4, f"varlen f32 card vs CPU (causal="
+                f"{causal}): out/dq/dk/dv errors {errs} > 1e-4 of the "
+                f"largest magnitude")
+    torch.cuda.synchronize()
+    launches = counts()
+    for n in VARLEN_KERNELS:
+        require(launches[n] == 2, f"{n}: {launches[n]} launches in the f32 "
+                f"check, want 2")
+    return out, launches
+
+
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
     path's bf16 shape (the fused AdamW state is f32)."""
@@ -1776,6 +2264,18 @@ def main():
     for case in LN_RAGGED:
         ragged += check_layer_norm(*case, gen, dev, timed=False)
     torch.cuda.empty_cache()
+    # 12. the packed varlen kernels, into phase 3's rows
+    for dtype in (torch.bfloat16, torch.float32):
+        for lens, D in ((VARLEN_README, 128), (VARLEN_SERVING, 128),
+                        (VARLEN_README, 64)):
+            rows += check_varlen(dtype, 16, D, lens, None, True, gen, dev,
+                                 timed=True)
+    ragged += [r for dtype in (torch.bfloat16, torch.float32)
+               for D in (16, 64, 128)
+               for lens_q, lens_k, causal in VARLEN_RAGGED
+               for r in check_varlen(dtype, 4, D, lens_q, lens_k, causal, gen,
+                                     dev, timed=False)]
+    torch.cuda.empty_cache()
     for r in rows:
         say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
             f"{r['max_abs_err']:.3g} (tol {r['tol']}) ms {r['ms']:.4f} "
@@ -1791,9 +2291,18 @@ def main():
             say(f"[kernel] wo_matmul {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, tol "
                 f"{r['tol']})")
+        elif r["name"] == "flash_varlen":
+            say(f"[kernel] flash_varlen {r['dtype']} {r['shape']}: fwd err "
+                f"{r['fwd_err']:.3g}, dq/dk/dv err {r['dq_dk_dv_err']} (tol "
+                f"{r['tol']}), f32 backward bitwise {r['f32_bwd_bitwise']}")
         else:
             say(f"[kernel] flash_bwd {r['dtype']} {r['shape']}: dq/dk/dv "
                 f"err {r['dq_dk_dv_err']} (tol {r['tol']})")
+    for r in rows:
+        if "route_ms" in r:
+            say(f"[kernel] flash_attn_unpadded {r['dtype']} {r['shape']}: "
+                f"packed route {r['route_ms']['packed']:.4f} ms, densify "
+                f"route {r['route_ms']['densify']:.4f} ms (CUDA events)")
     say(f"[kernel] wo_matmul library yardsticks: torch.mm over the weight "
         f"dequantized beforehand; torch._weight_int8pack_mm (w [N, K] int8, "
         f"scales in x's dtype): "
@@ -1904,6 +2413,18 @@ def main():
     add(lr18)
     say(f"[resnet18 f32 vs cpu] {r18}")
 
+    # 13. packed varlen training, the public routes, the card vs the CPU
+    varlen, lv = varlen_train(smi)
+    add(lv)
+    say(f"[varlen bf16] tokens/s {varlen['tokens_per_s']:.1f} step "
+        f"{varlen['step_time_s'] * 1e3:.2f} ms device "
+        f"{varlen['step_profile']['device_ms']:.2f} ms idle "
+        f"{varlen['step_profile']['idle_share']:.3f}")
+    say(f"[varlen bf16] {varlen}")
+    varlen32, lv32 = varlen_f32_vs_cpu(dev)
+    add(lv32)
+    say(f"[varlen f32 vs cpu] {varlen32}")
+
     say(f"[main path] launches: {launches}")
     for n in KERNELS:
         require(launches[n] > 0, f"kernel {n} was never launched on the "
@@ -1931,7 +2452,8 @@ def main():
              train_bf16=train_rec, train_f32_vs_cpu=f32run,
              ernie_bf16=ernie, ernie_padded=padded,
              ernie_f32_vs_cpu=ernie32, resnet50_bf16=resnet,
-             resnet18_f32_vs_cpu=r18, launches=launches,
+             resnet18_f32_vs_cpu=r18, varlen_bf16=varlen,
+             varlen_f32_vs_cpu=varlen32, launches=launches,
              seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")
     say(f"nvidia-smi: {smi}")

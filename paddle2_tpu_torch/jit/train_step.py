@@ -71,16 +71,35 @@ class TrainStepProgram:
 def train_step(fn: Callable, optimizer, layers: Optional[Sequence] = None,
                reliability: Any = None) -> TrainStepProgram:
     """One call of the returned program runs ``fn``, its backward and
-    ``optimizer``'s update. ``layers`` must be None: the JAX package
-    collects the layers' state from it for its traced program, while
-    here the optimizer holds the parameters and the modules hold their
-    buffers."""
-    if layers is not None:
-        raise ValueError(
-            "train_step(layers=...) has no use in the port: the optimizer "
-            "holds the parameters; pass none")
+    ``optimizer``'s update. ``layers`` (a module or a sequence of
+    modules), as the JAX package takes it, names the modules ``fn``
+    trains. The JAX package collects their state for its traced
+    program; here the optimizer holds the parameters and the modules
+    hold their buffers, so ``layers`` changes nothing, but every
+    parameter of theirs that requires a gradient must be in the
+    optimizer's parameter list, or the call raises ``ValueError``
+    naming it: the step would leave it untrained."""
     if reliability not in (None, False):
         raise NotImplementedError(
             "train_step(reliability=...) is not ported yet (ROADMAP "
             "queue 1 item 7)")
-    return TrainStepProgram(fn, optimizer)
+    program = TrainStepProgram(fn, optimizer)
+    if layers is not None:
+        _check_layers(layers, optimizer)
+    return program
+
+
+def _check_layers(layers, optimizer) -> None:
+    if isinstance(layers, torch.nn.Module):
+        layers = [layers]
+    owned = {id(p) for p in optimizer._parameter_list()}
+    for i, layer in enumerate(layers):
+        if not isinstance(layer, torch.nn.Module):
+            raise TypeError(f"train_step(layers=...): item {i} is a "
+                            f"{type(layer).__name__}, not a module")
+        for name, p in layer.named_parameters():
+            if p.requires_grad and id(p) not in owned:
+                raise ValueError(
+                    f"train_step(layers=...): parameter {name!r} of layer "
+                    f"{i} ({type(layer).__name__}) requires a gradient "
+                    f"but is not in the optimizer's parameter list")

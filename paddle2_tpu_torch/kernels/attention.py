@@ -10,7 +10,8 @@ differentiable, which launches the CUDA kernels for a CUDA tensor at
 every length and runs their plain versions for a CPU tensor.
 
 A call with ``attn_mask`` (an additive bias broadcast to ``[B, H, Sq,
-Sk]``) or with dropout in training takes :func:`_sdpa_plain`, the
+Sk]``), with dropout in training, or with the flash kernels turned off
+(:func:`flash_enabled`) takes :func:`_sdpa_plain`, the
 counterpart of ``_sdpa_xla`` in plain torch. The JAX package never
 sends such a call to Pallas (``attention.py:140``), so plain torch here
 is the port of an XLA path, not a stand-in for a kernel. Its dropout
@@ -21,28 +22,45 @@ by its statistics.
 
 import functools
 import math
+import threading
 from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from . import flash_varlen  # noqa: F401  (registers flash_attn_varlen)
 from .flash_attn import flash_attention_bshd
 
-__all__ = ["scaled_dot_product_attention", "remat_policy"]
+__all__ = ["scaled_dot_product_attention", "remat_policy", "flash_enabled",
+           "set_flash_enabled"]
 
 _aten = torch.ops.aten
+_flash_tls = threading.local()  # sdp_kernel toggles it per thread
+
+
+def flash_enabled() -> bool:
+    """Whether the flash kernels serve attention in this thread (on by
+    default; ``nn.functional.sdp_kernel(enable_flash=False)`` turns it
+    off inside its block, as in the JAX package)."""
+    return getattr(_flash_tls, "enabled", True)
+
+
+def set_flash_enabled(flag: bool) -> None:
+    _flash_tls.enabled = bool(flag)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
     """"dots": keep the outputs of matrix products without batch
     dimensions (``mm``/``addmm``, as JAX's
-    ``dots_with_no_batch_dims_saveable``) and of the flash op (its
-    ``(o, lse)``, as the JAX package's ``flash_out``/``flash_lse``
-    names); recompute everything else, the fused LayerNorm op among it,
-    as the JAX package's remat re-runs its Pallas LayerNorm."""
+    ``dots_with_no_batch_dims_saveable``) and of the flash ops, dense and
+    varlen (their ``(o, lse)``, as the JAX package's
+    ``flash_out``/``flash_lse`` names); recompute everything else, the
+    fused LayerNorm op among it, as the JAX package's remat re-runs its
+    Pallas LayerNorm."""
     if op in (_aten.mm.default, _aten.addmm.default,
-              torch.ops.paddle2_tpu_torch.flash_attn.default):
+              torch.ops.paddle2_tpu_torch.flash_attn.default,
+              torch.ops.paddle2_tpu_torch.flash_attn_varlen.default):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -102,11 +120,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     causal mask is aligned to the bottom right, as in the JAX package:
     with ``Sq < Sk`` row ``r`` sees keys ``c <= r + Sk - Sq``.
     ``attn_mask`` is an additive bias broadcast to ``[B, H, Sq, Sk]``;
-    dropout applies only when ``training``, drawing from ``generator``."""
+    dropout applies only when ``training``, drawing from ``generator``.
+    With :func:`flash_enabled` off, every call takes the plain route, as
+    the JAX package's ``use_pallas`` sends it to XLA."""
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must lie in [0, 1), got {dropout_p}")
     drop = dropout_p if training else 0.0
-    if attn_mask is None and drop == 0.0:
+    if attn_mask is None and drop == 0.0 and flash_enabled():
         return flash_attention_bshd(query, key, value, causal=is_causal,
                                     scale=scale)
     if attn_mask is not None:

@@ -11,8 +11,11 @@ cast of the gradient, decoupled decay, the fused-step routing with its
 per-tensor fallback (for CPU tensors; on the card a tensor the fused
 kernel does not take raises), ``step``/``clear_grad``/``state_dict``.
 
-Not ported yet (ROADMAP queue 1 item 2): gradient clipping and LR
-schedulers (only a float learning rate is taken).
+The constructors take the JAX package's parameters in its positional
+order. Not ported yet (ROADMAP queue 1 item 2), and refused with
+``NotImplementedError`` when set: gradient clipping, LR schedulers
+(only a float learning rate is taken), and the options
+:func:`refuse_unported` names.
 """
 
 from typing import Any, Dict, List
@@ -35,7 +38,8 @@ def _clone(state):
 class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, multi_precision=False):
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
         if parameters is None:
             raise ValueError("parameters is required "
                              "(pass model.parameters())")
@@ -58,6 +62,7 @@ class Optimizer:
         else:
             self._param_groups.append({"params": params_list})
         self._lr = float(learning_rate)
+        self._name = name
         self._weight_decay = self._wd_value(weight_decay)
         self._multi_precision = multi_precision
         self._states: Dict[int, Any] = {}
@@ -263,6 +268,16 @@ class Optimizer:
         for g in self._param_groups:
             out.extend(g["params"])
         return out
+
+
+def refuse_unported(**options) -> None:
+    """Raise for an option of the JAX signature that the port takes but
+    does not implement, when it is set (not None or False)."""
+    for name, value in options.items():
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet (ROADMAP queue 1 "
+                f"item 2)")
 
 
 def _f32_mul(a: float, b: float) -> float:

@@ -26,7 +26,7 @@ import torch
 from ..kernels.fused_adamw import (adamw_step, adamw_step_supported,
                                    stage_scalars)
 from ..kernels.fused_momentum import momentum_step, momentum_step_supported
-from .optimizer import Optimizer
+from .optimizer import Optimizer, refuse_unported
 
 __all__ = ["Momentum", "Adam", "AdamW"]
 
@@ -43,9 +43,9 @@ class Momentum(Optimizer):
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
-                 multi_precision=False, fused=None):
+                 multi_precision=False, name=None, fused=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         multi_precision)
+                         name, multi_precision)
         self._momentum = momentum
         self._nesterov = use_nesterov
         self._fused_step = fused
@@ -81,9 +81,11 @@ class Adam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None, amsgrad=False):
+        refuse_unported(lazy_mode=lazy_mode, amsgrad=amsgrad)
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         multi_precision)
+                         name, multi_precision)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
 
     def _init_state(self, p):
@@ -118,9 +120,14 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 grad_clip=None, multi_precision=False, fused=None):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None,
+                 amsgrad=False, fused=None):
+        refuse_unported(lr_ratio=lr_ratio,
+                        apply_decay_param_fun=apply_decay_param_fun)
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, grad_clip, multi_precision)
+                         weight_decay, grad_clip, lazy_mode,
+                         multi_precision, name, amsgrad)
         self._fused_step = fused
 
     def _decoupled_wd(self):

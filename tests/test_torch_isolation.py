@@ -78,6 +78,6 @@ def test_kernel_sources_are_found():
     names = _build.sources()
     assert set(names) == {"flash_fwd", "paged_decode", "flash_bwd",
                           "adamw_step", "wo_matmul", "layer_norm",
-                          "momentum_step"}
+                          "momentum_step", "flash_varlen"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"

@@ -13,6 +13,8 @@ eager chain: bitwise, on the CPU here (the kernel's plain version) and
 on the card in chip_smoke.py (the CUDA kernel).
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +22,7 @@ import torch
 import paddle2_tpu as paddle
 import paddle2_tpu.optimizer as jopt
 from paddle2_tpu_torch.kernels import fused_adamw
-from paddle2_tpu_torch.optimizer import Adam, AdamW
+from paddle2_tpu_torch.optimizer import Adam, AdamW, Momentum, Optimizer
 
 STEPS = 10
 SHAPE = (6, 40)
@@ -226,3 +228,56 @@ def test_unported_options_raise(kwargs):
     args.update(kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AdamW(**args)
+
+
+def _named_parameters(cls):
+    """(name, default) of each named parameter of ``cls.__init__`` in
+    order; the JAX base's trailing ``**kwargs`` is not a parameter."""
+    return [(n, p.default) for n, p in
+            inspect.signature(cls.__init__).parameters.items()
+            if n != "self" and p.kind != inspect.Parameter.VAR_KEYWORD]
+
+
+@pytest.mark.parametrize("name", ["Optimizer", "Momentum", "Adam", "AdamW"])
+def test_signatures_match_the_reference(name):
+    """The port's constructors take the JAX package's parameters, with
+    its defaults, in its positional order (``fused`` last, as there)."""
+    port = {"Optimizer": Optimizer, "Momentum": Momentum, "Adam": Adam,
+            "AdamW": AdamW}[name]
+    assert _named_parameters(port) == _named_parameters(getattr(jopt, name))
+
+
+@pytest.mark.parametrize("cls", [Momentum, Adam, AdamW])
+def test_name_is_taken_and_kept(cls):
+    p = torch.nn.Parameter(torch.ones(2))
+    o = cls(learning_rate=1e-3, parameters=[p], name="opt")
+    assert o._name == "opt"
+    p.grad = torch.ones(2)
+    o.step()
+    assert not torch.equal(p, torch.ones(2))
+
+
+def test_positional_arguments_bind_as_in_the_reference():
+    """AdamW's 7th positional argument is ``lr_ratio`` and Adam's 8th
+    ``lazy_mode``, as in the JAX package; a set one raises."""
+    params = [torch.nn.Parameter(torch.ones(2))]
+    with pytest.raises(NotImplementedError, match="lr_ratio"):
+        AdamW(1e-3, 0.9, 0.999, 1e-8, params, 0.01, 0.5)
+    with pytest.raises(NotImplementedError, match="lazy_mode"):
+        Adam(1e-3, 0.9, 0.999, 1e-8, params, None, None, True)
+    o = AdamW(1e-3, 0.9, 0.999, 1e-8, params, 0.01, None, None, None,
+              False, True, "o")
+    assert o._multi_precision is True and o._name == "o"
+
+
+@pytest.mark.parametrize("cls,kwargs", [
+    (Adam, dict(lazy_mode=True)), (Adam, dict(amsgrad=True)),
+    (AdamW, dict(lazy_mode=True)), (AdamW, dict(amsgrad=True)),
+    (AdamW, dict(lr_ratio=lambda p: 1.0)),
+    (AdamW, dict(apply_decay_param_fun=lambda n: True))],
+    ids=["adam-lazy_mode", "adam-amsgrad", "adamw-lazy_mode",
+         "adamw-amsgrad", "adamw-lr_ratio", "adamw-apply_decay_param_fun"])
+def test_unported_reference_options_raise(cls, kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
+        cls(learning_rate=1e-3, parameters=[torch.nn.Parameter(
+            torch.ones(2))], **kwargs)

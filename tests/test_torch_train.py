@@ -292,8 +292,35 @@ def test_train_step_refuses_unported_options():
         jit.train_step(lambda: None, opt, reliability=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         jit.TrainStepProgram(lambda: None, opt, instrument=True)
-    with pytest.raises(ValueError, match="layers"):
-        jit.train_step(lambda: None, opt, layers=[])
+    # layers= is taken (it was refused before); a parameter of the
+    # layers that the optimizer does not hold is named
+    stray = torch.nn.Linear(2, 2, bias=False)
+    with pytest.raises(ValueError, match="'weight' of layer 0"):
+        jit.train_step(lambda: None, opt, layers=[stray])
+
+
+def test_train_step_with_layers_trains_as_without():
+    """``layers=[model]``, as the JAX package's callers pass it, trains
+    exactly as ``layers=None``: the same losses and parameters, bitwise."""
+    def run(layers):
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.Tanh(),
+                                    torch.nn.Linear(8, 1))
+        opt = AdamW(learning_rate=1e-2, parameters=model.parameters())
+        step = jit.train_step(lambda x, y: ((model(x) - y) ** 2).mean(),
+                              opt, layers=[model] if layers else None)
+        rs = np.random.RandomState(0)
+        losses = [step(torch.tensor(rs.randn(5, 4), dtype=torch.float32),
+                       torch.tensor(rs.randn(5, 1), dtype=torch.float32))
+                  for _ in range(3)]
+        return losses, [p.detach() for p in model.parameters()]
+    (la, pa), (lb, pb) = run(True), run(False)
+    assert la[-1] < la[0]
+    assert all(torch.equal(a, b) for a, b in zip(la + pa, lb + pb))
+    frozen = torch.nn.Linear(2, 2)
+    frozen.weight.requires_grad_(False)
+    opt = AdamW(learning_rate=1e-3, parameters=[frozen.bias])
+    jit.train_step(lambda: None, opt, layers=frozen)   # a bare module
 
 
 def test_num_params_matches_jax():
