@@ -158,6 +158,47 @@ line) when it fails:
     64, 100, 200, causal and not): the output and the q/k/v gradients to
     1e-4 of each tensor's largest magnitude.
 
+14. The incubate slice at full width: a two-layer pre-norm decoder
+    stack at GPT-3 1.3B's width (hidden 2048, 16 heads of 128, SwiGLU
+    FFN ``W_1 [2048, 16384]``, ``W_2 [8192, 2048]``; 134.2 M parameters
+    in 13 tensors), built here from the public functionals
+    (``incubate.nn.functional.fused_rms_norm``, its residual form,
+    ``fused_rotary_position_embedding(use_neox_rotary_style=False)``,
+    ``swiglu``, ``nn.functional.flash_attention`` causal), bf16
+    parameters with f32 masters and f32 m/v, on ``[8, 2048, 2048]`` bf16
+    inputs from a seeded generator and a squared-error loss against
+    targets from ``RandomState(0)``; each step is ``loss.backward()``
+    then one ``fused_adamw_kernel`` (lr 1e-4) a tensor, its outputs
+    copied back: 1 warm-up step, 5 timed steps and 1 traced step. Every
+    loss finite; each step launches exactly 5 RMSNorm forwards, 5
+    RMSNorm backwards, 8 RoPE (4 forward, 4 backward), 13 flat AdamW, 2
+    dense flash forwards and 2 fused flash backwards, and no other
+    kernel. Prints tokens/s, the step time, the traced step's device
+    time by kernel group and the idle share. Then a neox-style call
+    launches no RoPE kernel, and ``position_ids`` 100..103 on a sequence
+    of 4 equal the matching window of a longer sequence.
+15. The stack on the card against the CPU in f32 (hidden 256, 4 heads
+    of 64, seq 256, batch 2, FFN 1024): two loop steps on each device
+    from the same numpy weights; losses to 1e-4 relative, the first
+    step's gradients to 1e-4 of each tensor's largest magnitude, and
+    every parameter, m, v and master after both steps to 1e-5 of its
+    largest magnitude.
+
+Phase 3 also holds the slice's kernels against their plain versions:
+the RMSNorm forward and backward at the ``fused_rms_norm`` docstring's
+[8192, 1024] and the stack's [16384, 2048] (bf16, f32, bf16 x with an
+f32 weight) and ragged [37, 200], [64, 8192] and [5, 1] (bf16 within one
+ulp plus 1e-5 of the largest magnitude, f32 to 1e-5 of the largest
+magnitude, two f32 backward runs bitwise equal), timed against
+``F.rms_norm`` (forward, and its backward through autograd); the RoPE
+forward and backward bitwise at the docstring's [8, 2048, 16, 128] with
+an [S, D] table and a ``position_ids``-gathered [B*S, D] one, and at D
+64 with an odd H, in bf16 and f32 (no single torch call computes it);
+the flat AdamW bitwise on its four outputs at 84 M elements with f32
+and with bf16 params and grads, and at 513, timed against
+``torch._fused_adamw_`` over an f32 master/m/v of the same N (another
+decay order: a yardstick of time only).
+
 Phase 3 also holds the fused LayerNorm's forward and backward against
 their plain versions at ERNIE's [4096, 768] (bf16 x with f32 and with
 bf16 scale and shift, and f32), the GPT bench's [8192, 1024] (bf16 and
@@ -170,7 +211,7 @@ kernels' times, bounds and ``F.layer_norm``'s (forward; backward
 through autograd).
 
 Each main-path run (the serving runs, the training runs, the ERNIE
-runs, the ResNet runs, the varlen runs) starts with every launch count at 0 and is read
+runs, the ResNet runs, the varlen runs, the incubate stack runs) starts with every launch count at 0 and is read
 just after; the kernel checks' launches are not counted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -199,17 +240,23 @@ from paddle2_tpu_torch.kernels.flash_varlen import (
     flash_varlen_bwd_dkv, flash_varlen_bwd_dkv_reference, flash_varlen_bwd_dq,
     flash_varlen_bwd_dq_reference, flash_varlen_fwd,
     flash_varlen_fwd_reference)
-from paddle2_tpu_torch.kernels.fused_adamw import (adamw_step,
-                                                   adamw_step_reference,
-                                                   stage_scalars)
+from paddle2_tpu_torch.kernels.fused_adamw import (
+    adamw_flat, adamw_flat_reference, adamw_step, adamw_step_reference,
+    stage_flat_scalars, stage_scalars)
 from paddle2_tpu_torch.kernels.fused_layer_norm import (
     bwd_blocks, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
     layer_norm_fwd_reference)
 from paddle2_tpu_torch.kernels.fused_momentum import (momentum_step,
                                                       momentum_step_reference)
+from paddle2_tpu_torch.kernels import fused_rms_norm as frn
+from paddle2_tpu_torch.kernels.fused_rms_norm import (
+    rms_norm_bwd, rms_norm_bwd_reference, rms_norm_fwd,
+    rms_norm_fwd_reference)
+from paddle2_tpu_torch.kernels.fused_rope import rope, rope_reference
 from paddle2_tpu_torch.kernels.quant_matmul import (
     int8_weight_only_matmul, int8_weight_only_matmul_reference,
     quantize_channelwise, weight_quant_error_bound)
+from paddle2_tpu_torch.incubate.nn import functional as IF
 from paddle2_tpu_torch.models import (ErnieForSequenceClassification,
                                       GPTConfig, GPTForCausalLM, ernie3_base,
                                       gpt3_1p3b)
@@ -304,7 +351,24 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/flash_varlen.cu",
         replaces="paddle2_tpu/kernels/pallas_flash.py:620",
         counter=flash_varlen_bwd_dq),
+    "rms_norm_fwd": dict(
+        source="paddle2_tpu_torch/kernels/csrc/rms_norm.cu",
+        replaces="paddle2_tpu/kernels/pallas_fused.py:262",
+        counter=rms_norm_fwd),
+    "rms_norm_bwd": dict(
+        source="paddle2_tpu_torch/kernels/csrc/rms_norm.cu",
+        replaces="paddle2_tpu/kernels/pallas_fused.py:290",
+        counter=rms_norm_bwd),
+    "rope": dict(
+        source="paddle2_tpu_torch/kernels/csrc/rope.cu",
+        replaces="paddle2_tpu/kernels/pallas_fused.py:369",
+        counter=rope),
+    "adamw_flat": dict(
+        source="paddle2_tpu_torch/kernels/csrc/adamw_flat.cu",
+        replaces="paddle2_tpu/kernels/pallas_fused.py:32",
+        counter=adamw_flat),
 }
+INCUBATE_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rope", "adamw_flat")
 VARLEN_KERNELS = ("flash_varlen_fwd", "flash_varlen_bwd_dkv",
                   "flash_varlen_bwd_dq")
 DENSE_FLASH_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_split_dkv",
@@ -359,7 +423,45 @@ VARLEN_RAGGED = [([1, 7, 64, 100, 37], None, False),
 # phase 13: GPT-3 1.3B's attention width, packed batches of <= 8192 tokens
 VARLEN_TRAIN = dict(hidden=2048, heads=16, layers=2, max_tokens=8192,
                     min_len=16, max_len=2048)
+# phase 14: a two-layer RMSNorm/RoPE/SwiGLU stack at GPT-3 1.3B's width
+# (24 layers cut to 2); phase 15 its f32 check copy
+STACK = dict(hidden=2048, heads=16, layers=2, ffn=8192, seq=2048, batch=8)
+STACK_CHECK = dict(hidden=256, heads=4, layers=2, ffn=1024, seq=256,
+                   batch=2)
+STACK_LR = 1e-4
+# the slice's kernel checks: the fused_rms_norm docstring's shape and the
+# stack's (rows, H, x dtype, weight dtype, what); ragged ones
+RMS_CASES = [(R, H, xd, wd, what)
+             for R, H, what in ((8192, 1024, "docstring"),
+                                (16384, 2048, "stack"))
+             for xd, wd in ((torch.bfloat16, torch.bfloat16),
+                            (torch.float32, torch.float32),
+                            (torch.bfloat16, torch.float32))]
+RMS_RAGGED = [(37, 200, xd, wd, "ragged")
+              for xd, wd in ((torch.float32, torch.float32),
+                             (torch.bfloat16, torch.bfloat16),
+                             (torch.bfloat16, torch.float32))] + [
+    (64, 8192, torch.bfloat16, torch.float32, "wide"),
+    # the widest row: both kernels past 48 KB of shared memory
+    (4, 16384, torch.bfloat16, torch.float32, "widest H"),
+    (5, 1, torch.float32, torch.float32, "H 1")]
+RMS_LINE_SHAPE = "R16384 H2048 (stack) w bf16"
+# the RoPE checks: B, S, H, D, table ("S": [S, D]; "pos": gathered by
+# position_ids to [B*S, D]); the docstring's shape is timed
+ROPE_CASES = [(8, 2048, 16, 128, "S", True), (8, 2048, 16, 128, "pos", True),
+              (2, 300, 7, 64, "S", False), (3, 17, 5, 64, "pos", False)]
+ROPE_LINE_SHAPE = "B8 S2048 H16 D128, [S, D] table"
+# the flat AdamW checks: N, param and grad dtype, timed
+ADAMW_FLAT_CASES = [(84_000_000, torch.float32, True),
+                    (84_000_000, torch.bfloat16, True),
+                    (513, torch.float32, False),
+                    (513, torch.bfloat16, False)]
+ADAMW_FLAT_LINE_SHAPE = "N 84000000, p/g bf16"
 LINE_SHAPES = {"wo_matmul": WO_LINE_SHAPE,
+               "rms_norm_fwd": RMS_LINE_SHAPE,
+               "rms_norm_bwd": RMS_LINE_SHAPE,
+               "rope": ROPE_LINE_SHAPE,
+               "adamw_flat": ADAMW_FLAT_LINE_SHAPE,
                "flash_varlen_fwd": VARLEN_LINE_SHAPE,
                "flash_varlen_bwd_dkv": VARLEN_LINE_SHAPE,
                "flash_varlen_bwd_dq": VARLEN_LINE_SHAPE,
@@ -401,22 +503,31 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, kernel, iters=10):
+def device_ms(fn, kernel, iters=10, per_call=None):
     """Device time per call from torch.profiler (CUPTI): of every CUDA
     kernel the call launches, and of those whose name holds
-    ``kernel``."""
+    ``kernel``. With ``per_call``, the launches of ``kernel`` one call
+    makes, a window that holds fewer of them (late in a long run the
+    profiler has been seen to drop records) is taken again, up to three
+    windows; if none is whole, both times are None (not measured)."""
+    tries = 3
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_time_total > 0]
-    total = sum(e.device_time_total for e in evs) / iters / 1e3
-    ours = sum(e.device_time_total for e in evs
-               if kernel in e.key) / iters / 1e3
-    return total, ours
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_time_total > 0]
+        ours = [e for e in evs if kernel in e.key]
+        if per_call is None or sum(e.count for e in ours) == \
+                iters * per_call:
+            return (sum(e.device_time_total for e in evs) / iters / 1e3,
+                    sum(e.device_time_total for e in ours) / iters / 1e3)
+    say(f"[profiler] {kernel}: fewer than {iters * per_call} launches "
+        f"recorded in each of {tries} windows: device time not measured")
+    return None, None
 
 
 def bound(ops, nbytes, dtype):
@@ -1039,6 +1150,167 @@ def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
     return rows
 
 
+def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
+    """The RMSNorm forward and backward kernels against their plain
+    versions (the backward on the kernel's saved r, as the plain one is
+    given it); in f32 two backward runs bitwise equal (no atomics). With
+    ``timed``, both kernels' times, bounds and ``F.rms_norm``'s."""
+    x = (torch.randn(R, H, generator=gen, device=dev) * 2 + 0.5).to(xdt)
+    w = torch.randn(H, generator=gen, device=dev).to(wdt)
+    do = torch.randn(R, H, generator=gen, device=dev).to(xdt)
+    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    shape = f"R{R} H{H} ({what}) w {short[wdt]}"
+    o, r = rms_norm_fwd(x, w, eps)
+    dx, dw = rms_norm_bwd(x, w, r, do)
+    o_ref, r_ref = rms_norm_fwd_reference(x, w, eps)
+    dx_ref, dw_ref = rms_norm_bwd_reference(x, w, r, do)
+    torch.cuda.synchronize()
+    errs = {"o": ln_err(o, o_ref, xdt, True),
+            "r": ln_err(r, r_ref, torch.float32, True),
+            "dx": ln_err(dx, dx_ref, xdt, True),
+            "dw": ln_err(dw, dw_ref, wdt, True)}
+    for k, (excess, err) in errs.items():
+        require(excess <= 0, f"rms_norm {dname(xdt)} {shape}: {k} "
+                f"disagrees with its plain version (max abs err {err}, "
+                f"{excess} past the limit)")
+    for t in (o, r, dx, dw):
+        require(torch.isfinite(t.float()).all().item(), "non-finite output")
+    reproducible = None
+    if xdt == torch.float32:
+        again = rms_norm_bwd(x, w, r, do)
+        reproducible = all(torch.equal(a, c) for a, c in
+                           zip((dx, dw), again))
+        require(reproducible, f"rms_norm_bwd f32 {shape}: two runs differ "
+                f"(dw must not depend on timing)")
+    rows = [dict(name=n, dtype=dname(xdt), shape=shape,
+                 max_abs_err=max(errs[k][1] for k in ks),
+                 excess_over_tol=max(errs[k][0] for k in ks),
+                 tol="bf16: 1 ulp + 1e-5 max; f32: 1e-5 of max",
+                 bitwise_reproducible=reproducible)
+            for n, ks in (("rms_norm_fwd", ("o", "r")),
+                          ("rms_norm_bwd", ("dx", "dw")))]
+    if not timed:
+        return rows
+    size, wsize = x.element_size(), w.element_size()
+    wx = w.to(xdt)
+    xr, wr = (t.detach().clone().requires_grad_() for t in (x, wx))
+    out = F.rms_norm(xr, (H,), wr, eps)
+    lib_calls = {
+        "fwd": lambda: F.rms_norm(x, (H,), wx, eps),
+        "bwd": lambda: torch.autograd.grad(out, (xr, wr), do,
+                                           retain_graph=True)}
+    lib = {k: cuda_ms(fn) for k, fn in lib_calls.items()}
+    lib_dev = {k: device_ms(fn, "")[0] for k, fn in lib_calls.items()}
+    for row, run, plain, kern, ops, nbytes, which in (
+            (rows[0], lambda: rms_norm_fwd(x, w, eps),
+             lambda: rms_norm_fwd_reference(x, w, eps),
+             ("rms_norm_fwd_kernel", 1), 4.0 * R * H,
+             2.0 * R * H * size + H * wsize + 4.0 * R, "fwd"),
+            (rows[1], lambda: rms_norm_bwd(x, w, r, do),
+             lambda: rms_norm_bwd_reference(x, w, r, do),
+             # the row kernel and the reduction of its partials
+             ("rms_norm_bwd", 2), 10.0 * R * H,
+             3.0 * R * H * size + 2.0 * H * wsize + 4.0 * R, "bwd")):
+        dev_ms, kern_ms = device_ms(run, kern[0], per_call=kern[1])
+        # the arithmetic runs in f32 on the CUDA cores whatever x's type
+        b_ms, b_by = bound(ops, nbytes, torch.float32)
+        row.update(ms=cuda_ms(run), device_ms=dev_ms,
+                   kernel_device_ms=kern_ms,
+                   plain_ms=cuda_ms(plain, iters=10),
+                   library_ms=lib[which], library_device_ms=lib_dev[which],
+                   bound_ms=b_ms, bound_by=b_by,
+                   library="F.rms_norm (weight in x's dtype)"
+                   + (" backward through autograd"
+                      if which == "bwd" else ""),
+                   bwd_blocks=frn.bwd_blocks(R, dev))
+    return rows
+
+
+def check_rope(B, S, H, D, table, dtype, gen, dev, timed):
+    """The RoPE kernel, forward and backward (``negate_sin``), against
+    its plain version, bitwise, on the ``_angle_table`` route's tables
+    (built in float64, rounded to x's dtype): ``[S, D]``, or gathered by
+    random ``position_ids`` to ``[B*S, D]``. With ``timed``, the
+    forward's times and bound (no single torch call computes it)."""
+    x = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+    cos, sin = IF._angle_table(S, D, 10000.0, False, dtype, dev)
+    if table == "pos":
+        pos = torch.randint(0, S, (B, S), generator=gen, device=dev)
+        cos, sin = (t[pos].reshape(B * S, D) for t in (cos, sin))
+    shape = (f"B{B} S{S} H{H} D{D}, "
+             f"{'[S, D]' if table == 'S' else 'position_ids [B*S, D]'} "
+             f"table")
+    for neg in (False, True):
+        got = rope(x, cos, sin, negate_sin=neg)
+        want = rope_reference(x, cos, sin, negate_sin=neg)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        require(torch.equal(got, want), f"rope {dname(dtype)} {shape} "
+                f"({'backward' if neg else 'forward'}): not bitwise equal "
+                f"to its plain version (max abs err {err})")
+    row = dict(name="rope", dtype=dname(dtype), shape=shape,
+               max_abs_err=0.0, tol="bitwise (forward and backward)")
+    if not timed:
+        return row
+    T = cos.shape[0]
+    n = x.numel()
+    b_ms, b_by = bound(3.0 * n, 2.0 * n * x.element_size()
+                       + 2.0 * T * D * cos.element_size(), torch.float32)
+    run = lambda: rope(x, cos, sin)
+    dev_ms, kern_ms = device_ms(run, "rope_kernel", per_call=1)
+    row.update(ms=cuda_ms(run), device_ms=dev_ms, kernel_device_ms=kern_ms,
+               plain_ms=cuda_ms(lambda: rope_reference(x, cos, sin),
+                                iters=10),
+               library_ms=None, library="none", bound_ms=b_ms,
+               bound_by=b_by)
+    return row
+
+
+def check_adamw_flat(N, pdt, gen, dev, timed):
+    """The flat AdamW against its plain version, bitwise on its four
+    outputs, at N elements with params and grads in ``pdt`` and f32
+    m, v and master. With ``timed``, its times, bound and
+    ``torch._fused_adamw_``'s over an f32 master/m/v of the same N
+    (another decay order, so a yardstick of time only)."""
+    master = torch.randn(N, generator=gen, device=dev)
+    g = torch.randn(N, generator=gen, device=dev).to(pdt)
+    m = torch.randn(N, generator=gen, device=dev) * 0.1
+    v = torch.rand(N, generator=gen, device=dev) * 0.01
+    p = master.to(pdt)
+    sc = stage_flat_scalars(1e-4, 0.9, 0.999, 1e-8, 0.01, 3)
+    got = adamw_flat(p, g, m, v, master, sc)
+    want = adamw_flat_reference(p, g, m, v, master, sc)
+    torch.cuda.synchronize()
+    shape = f"N {N}, p/g {'bf16' if pdt == torch.bfloat16 else 'f32'}"
+    for what, a, b in zip(("p", "m", "v", "master"), got, want):
+        require(torch.equal(a, b), f"adamw_flat {shape}: {what} is not "
+                f"bitwise equal to its plain version (max "
+                f"{(a.float() - b.float()).abs().max().item()})")
+    row = dict(name="adamw_flat", dtype=dname(pdt), shape=shape,
+               max_abs_err=0.0, tol="bitwise (p, m, v, master)")
+    del got, want
+    if not timed:
+        return row
+    run = lambda: adamw_flat(p, g, m, v, master, sc)
+    dev_ms, kern_ms = device_ms(run, "adamw_flat_kernel", per_call=1)
+    row.update(ms=cuda_ms(run), device_ms=dev_ms, kernel_device_ms=kern_ms,
+               plain_ms=cuda_ms(lambda: adamw_flat_reference(
+                   p, g, m, v, master, sc), iters=5))
+    lp, lg, lm, lv = (t.float().clone() for t in (master, g, m, v))
+    steps = [torch.tensor(3.0, device=dev)]
+    row.update(library_ms=cuda_ms(lambda: torch._fused_adamw_(
+        [lp], [lg], [lm], [lv], [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False)),
+        library="torch._fused_adamw_ (f32 master/m/v)")
+    # 16 f32 operations an element; g, m, v, master read and p, m, v,
+    # master written: (psize + gsize + 24) bytes; p is never read
+    size = p.element_size()
+    b_ms, b_by = bound(16.0 * N, (2.0 * size + 24.0) * N, torch.float32)
+    row.update(bound_ms=b_ms, bound_by=b_by)
+    del lp, lg, lm, lv
+    return row
+
+
 # ------------------------------------------------------------- phase 4
 # the decode step traced with torch.profiler: all 8 requests run by then
 PROFILED_STEP = 20
@@ -1555,15 +1827,15 @@ KERNEL_GROUPS = (("momentum_step", ("momentum_step_kernel",)),
                  ("pooling", ("pool",)))
 
 
-def device_groups(prof):
+def device_groups(prof, groups=KERNEL_GROUPS):
     """Device milliseconds of one traced step by kernel group."""
-    out = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    out = {g: 0.0 for g, _ in groups}
     out["elementwise and other"] = 0.0
     for e in prof.key_averages():
         if e.device_time_total <= 0:
             continue
         key = e.key.lower()
-        group = next((g for g, pats in KERNEL_GROUPS
+        group = next((g for g, pats in groups
                       if any(p in key for p in pats)),
                      "elementwise and other")
         out[group] += e.device_time_total / 1e3
@@ -2179,6 +2451,232 @@ def varlen_f32_vs_cpu(dev):
     return out, launches
 
 
+# ------------------------------------------------------- phases 14, 15
+# the stack's device kernels by what they do (cuBLAS's GEMMs by their
+# names' stems); "elementwise and other" is the rest (casts, the residual
+# adds, SwiGLU, the loss, the AdamW copies back)
+STACK_GROUPS = (("flash", ("flash_",)), ("rms_norm", ("rms_norm",)),
+                ("rope", ("rope_kernel",)), ("adamw_flat", ("adamw_flat",)),
+                ("gemm", ("gemm", "cutlass", "xmma", "sm90_xmma", "nvjet",
+                          "cublas")))
+
+
+def stack_params(cfg, seed=0):
+    """The stack's weights, f32 on the CPU from ``torch.Generator``
+    seeded with ``seed``: for each layer ``w_attn [h]``, ``W_qkv [h,
+    3h]``, ``W_o [h, h]``, ``w_mlp [h]``, ``W_1 [h, 2·ffn]`` and ``W_2
+    [ffn, h]``, then the final norm's ``w [h]``. Norm weights ``1 +
+    N(0, 0.1²)``, matrices ``N(0, 0.02²)``."""
+    gen = torch.Generator().manual_seed(seed)
+    h, f = cfg["hidden"], cfg["ffn"]
+    norm = lambda: 1 + 0.1 * torch.randn(h, generator=gen)
+    mat = lambda *shape: 0.02 * torch.randn(*shape, generator=gen)
+    out = []
+    for _ in range(cfg["layers"]):
+        out += [norm(), mat(h, 3 * h), mat(h, h), norm(), mat(h, 2 * f),
+                mat(f, h)]
+    return out + [norm()]
+
+
+def stack_setup(host, device, dtype):
+    """Parameters in ``dtype`` on ``device`` from the f32 ``host``
+    weights, and each one's AdamW state: f32 m and v at 0 and an f32
+    master copy."""
+    params = [t.to(device=device, dtype=dtype, copy=True).requires_grad_()
+              for t in host]
+    state = [dict(m=torch.zeros(t.shape, device=device),
+                  v=torch.zeros(t.shape, device=device),
+                  master=t.to(device=device, copy=True)) for t in host]
+    return params, state
+
+
+def stack_data(cfg, n, seed=0):
+    """``n`` input batches ``[batch, seq, hidden]`` from a
+    ``torch.Generator`` seeded with ``seed`` and one target from
+    ``RandomState(seed)``, f32 on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (cfg["batch"], cfg["seq"], cfg["hidden"])
+    xs = [torch.randn(*shape, generator=gen) for _ in range(n)]
+    tgt = torch.from_numpy(np.random.RandomState(seed).randn(*shape)
+                           .astype(np.float32))
+    return xs, tgt
+
+
+def stack_loss(params, x, tgt, cfg):
+    """The stack from the public functionals: for each layer
+    ``y = fused_rms_norm(h, w_attn)``, ``q, k, v = y @ W_qkv``, half-split
+    RoPE on q and k, causal ``flash_attention``, ``a = out @ W_o``,
+    ``y2, h = fused_rms_norm(a, w_mlp, residual=h)``,
+    ``h = h + swiglu(y2 @ W_1) @ W_2``; then a final ``fused_rms_norm``
+    and the mean squared error against ``tgt`` in f32."""
+    B, S, hid = x.shape
+    nh = cfg["heads"]
+    h = x
+    for i in range(cfg["layers"]):
+        w_attn, w_qkv, w_o, w_mlp, w_1, w_2 = params[6 * i:6 * i + 6]
+        y = IF.fused_rms_norm(h, w_attn)
+        qkv = (y @ w_qkv).reshape(B, S, 3, nh, hid // nh)
+        q, k, _ = IF.fused_rotary_position_embedding(
+            qkv[:, :, 0], qkv[:, :, 1], use_neox_rotary_style=False)
+        o, _ = fa.flash_attention(q, k, qkv[:, :, 2], causal=True)
+        a = o.reshape(B, S, hid) @ w_o
+        y2, h = IF.fused_rms_norm(a, w_mlp, residual=h)
+        h = h + IF.swiglu(y2 @ w_1) @ w_2
+    out = IF.fused_rms_norm(h, params[-1])
+    return ((out.float() - tgt) ** 2).mean()
+
+
+def stack_step(params, state, x, tgt, cfg, t, keep_grads=False):
+    """One loop step: ``loss.backward()``, then one
+    ``fused_adamw_kernel`` (lr ``STACK_LR``, step ``t``) for each tensor,
+    its outputs copied back. Returns the loss and, with ``keep_grads``,
+    the gradients before the update."""
+    loss = stack_loss(params, x, tgt, cfg)
+    loss.backward()
+    grads = [p.grad.clone() for p in params] if keep_grads else None
+    with torch.no_grad():
+        for p, st in zip(params, state):
+            outs = IF.fused_adamw_kernel(p, p.grad, st["m"], st["v"],
+                                         st["master"], STACK_LR, step=t)
+            for dst, src in zip((p, st["m"], st["v"], st["master"]), outs):
+                dst.copy_(src)
+            p.grad = None
+    return loss.detach(), grads
+
+
+def stack_bf16(smi, dev):
+    """Phase 14: the stack at GPT-3 1.3B's width in bf16 with f32
+    masters, 1 warm-up, 5 timed and 1 traced step; the launches a step;
+    then the neox route and ``position_ids`` past S on the card."""
+    cfg = STACK
+    host = stack_params(cfg)
+    n_params = sum(t.numel() for t in host)
+    params, state = stack_setup(host, dev, torch.bfloat16)
+    del host
+    xs, tgt = stack_data(cfg, 7)
+    xs = [x.to(dev, torch.bfloat16) for x in xs]
+    tgt = tgt.to(dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = float(stack_step(params, state, xs[0], tgt, cfg, 1)[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses, times = [], []
+    for t, x in enumerate(xs[1:6], start=2):
+        t0 = time.perf_counter()
+        loss, _ = stack_step(params, state, x, tgt, cfg, t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced = float(stack_step(params, state, xs[6], tgt, cfg, 7)[0])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = 7
+    all_losses = [warm] + losses + [traced]
+    require(all(np.isfinite(all_losses)),
+            f"non-finite incubate stack loss: {all_losses}")
+    L = cfg["layers"]
+    want = {"rms_norm_fwd": 2 * L + 1, "rms_norm_bwd": 2 * L + 1,
+            "rope": 4 * L, "adamw_flat": len(params), "flash_fwd": L,
+            "flash_bwd_fused": L}
+    for n in KERNELS:
+        require(launches[n] == steps * want.get(n, 0),
+                f"incubate stack: {n} launched {launches[n]} times in "
+                f"{steps} steps, want {want.get(n, 0)} a step")
+    step_s = statistics.mean(times)
+    tokens = cfg["batch"] * cfg["seq"]
+    run = dict(config=dict(cfg, params=n_params, param_tensors=len(params),
+                           depth_cut="24 layers to 2"),
+               tokens_per_s=tokens / step_s, step_time_s=step_s,
+               step_times_s=times, first_step_s=first_s, warmup_loss=warm,
+               losses=losses, traced_loss=traced, peak_memory_gib=peak_gb,
+               launches_per_step={n: launches[n] / steps for n in KERNELS
+                                  if launches[n]},
+               step_profile=step_profile(prof, wall_ms, step_s * 1e3),
+               device_ms_by_group=device_groups(prof, STACK_GROUPS),
+               device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    del params, state, xs, tgt
+    torch.cuda.empty_cache()
+    # beside the path: the neox route reaches no RoPE kernel, and
+    # positions past S equal the window of a longer sequence
+    q = torch.randn(1, 4, 16, 128, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    before = rope.launches
+    IF.fused_rotary_position_embedding(q, q, use_neox_rotary_style=True)
+    torch.cuda.synchronize()
+    require(rope.launches == before,
+            "a neox-style RoPE call launched the RoPE kernel")
+    pos = (torch.arange(4, device=dev) + 100)[None]
+    out, _, _ = IF.fused_rotary_position_embedding(
+        q, position_ids=pos, use_neox_rotary_style=False)
+    big = torch.cat([torch.zeros(1, 100, 16, 128, device=dev), q], 1)
+    ref, _, _ = IF.fused_rotary_position_embedding(
+        big, use_neox_rotary_style=False)
+    pos_err = (out - ref[:, 100:]).abs().max().item()
+    require(pos_err <= 1e-6 * ref.abs().max().item(),
+            f"position_ids 100..103: {pos_err} from the window of the "
+            f"longer sequence")
+    run.update(neox_launched_rope=False, position_ids_past_s_err=pos_err)
+    return run, launches
+
+
+def stack_f32_vs_cpu(dev):
+    """Phase 15: the stack at ``STACK_CHECK`` in f32, two loop steps on
+    the card and on the CPU (plain versions) from the same weights and
+    batches; losses to 1e-4 relative, the first step's gradients to
+    1e-4 of each tensor's largest magnitude, every parameter, m, v and
+    master after both steps to 1e-5 of its largest magnitude."""
+    cfg = STACK_CHECK
+    host = stack_params(cfg, seed=1)
+    xs, tgt = stack_data(cfg, 2, seed=1)
+    reset_counts()
+    runs = []
+    for device in (dev, "cpu"):
+        params, state = stack_setup(host, device, torch.float32)
+        losses, grads = [], None
+        for t, x in enumerate(xs, start=1):
+            loss, g = stack_step(params, state, x.to(device),
+                                 tgt.to(device), cfg, t, keep_grads=t == 1)
+            losses.append(float(loss))
+            grads = grads or g
+        runs.append(dict(losses=losses, grads=grads,
+                         tensors=[(p.detach(), st["m"], st["v"],
+                                   st["master"])
+                                  for p, st in zip(params, state)]))
+    torch.cuda.synchronize()
+    launches = counts()
+    card, cpu = runs
+    rel = lambda a, b: ((a.cpu() - b).abs().max()
+                        / b.abs().max().clamp_min(1e-30)).item()
+    loss_err = [abs(a - b) / abs(b) for a, b in
+                zip(card["losses"], cpu["losses"])]
+    grad_err = max(rel(a, b) for a, b in zip(card["grads"], cpu["grads"]))
+    state_err = {what: max(rel(a[i], b[i]) for a, b in
+                           zip(card["tensors"], cpu["tensors"]))
+                 for i, what in enumerate(("param", "m", "v", "master"))}
+    out = dict(config=cfg, losses_card=card["losses"],
+               losses_cpu=cpu["losses"], loss_rel_err=loss_err,
+               grad_rel_err=grad_err, state_rel_err=state_err,
+               launches=launches)
+    require(max(loss_err) <= 1e-4, f"incubate stack f32, card vs CPU: "
+            f"loss relative errors {loss_err} > 1e-4")
+    require(grad_err <= 1e-4, f"incubate stack f32, card vs CPU: first "
+            f"step's gradients {grad_err} > 1e-4 of the largest magnitude")
+    require(max(state_err.values()) <= 1e-5, f"incubate stack f32, card "
+            f"vs CPU: after two steps {state_err} > 1e-5 of the largest "
+            f"magnitude")
+    for n in INCUBATE_KERNELS:
+        require(launches[n] > 0, f"{n} was not launched by the f32 run")
+    return out, launches
+
+
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
     path's bf16 shape (the fused AdamW state is f32)."""
@@ -2221,7 +2719,21 @@ def main():
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
-    rows = []
+    rows, ragged = [], []
+    # the incubate slice's kernels first: late in a long run the profiler
+    # has been seen to drop records of short kernels (see device_ms)
+    for case in RMS_CASES:
+        rows += check_rms_norm(*case, gen, dev, timed=True)
+    for case in RMS_RAGGED:
+        ragged += check_rms_norm(*case, gen, dev, timed=False)
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H, D, table, timed in ROPE_CASES:
+            (rows if timed else ragged).append(
+                check_rope(B, S, H, D, table, dtype, gen, dev, timed))
+    for N, pdt, timed in ADAMW_FLAT_CASES:
+        (rows if timed else ragged).append(
+            check_adamw_flat(N, pdt, gen, dev, timed))
+        torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
         for S in (128, 1024, 2048):
             rows.append(check_flash(dtype, S, gen, dev))
@@ -2235,10 +2747,10 @@ def main():
                                 D=hd))
         rows += check_flash_bwd(dtype, T["batch"], T["heads"], T["seq"],
                                 T["seq"], hd, gen, dev, timed=True)
-    ragged = [r for dtype in (torch.bfloat16, torch.float32)
-              for D in (16, 64, 128)
-              for r in check_flash_bwd(dtype, 2, 4, 200, 333, D, gen, dev,
-                                       timed=False)]
+    ragged += [r for dtype in (torch.bfloat16, torch.float32)
+               for D in (16, 64, 128)
+               for r in check_flash_bwd(dtype, 2, 4, 200, 333, D, gen, dev,
+                                        timed=False)]
     shapes = [tuple(p.shape) for p in
               train_setup(T["layers"], dev, bf16=False)[0].parameters()]
     rows.append(check_adamw(shapes, gen, dev))
@@ -2279,11 +2791,11 @@ def main():
     for r in rows:
         say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
             f"{r['max_abs_err']:.3g} (tol {r['tol']}) ms {r['ms']:.4f} "
-            f"(device {r['device_ms']:.4f}, kernel {r['kernel_device_ms']:.4f}) "
+            f"(device {r['device_ms']}, kernel {r['kernel_device_ms']}) "
             f"plain {r['plain_ms']:.4f} library {r['library_ms']} bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
     for r in ragged:
-        if r["name"].startswith("layer_norm"):
+        if r["name"].startswith(("layer_norm", "rms_norm")):
             say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (past the limit by "
                 f"{r['excess_over_tol']:.3g}; {r['tol']})")
@@ -2291,6 +2803,9 @@ def main():
             say(f"[kernel] wo_matmul {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, tol "
                 f"{r['tol']})")
+        elif r["name"] in ("rope", "adamw_flat"):
+            say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
+                f"{r['max_abs_err']:.3g} ({r['tol']})")
         elif r["name"] == "flash_varlen":
             say(f"[kernel] flash_varlen {r['dtype']} {r['shape']}: fwd err "
                 f"{r['fwd_err']:.3g}, dq/dk/dv err {r['dq_dk_dv_err']} (tol "
@@ -2425,6 +2940,19 @@ def main():
     add(lv32)
     say(f"[varlen f32 vs cpu] {varlen32}")
 
+    # 14-15. the incubate slice: the RMSNorm/RoPE/SwiGLU stack
+    stack, ls = stack_bf16(smi, dev)
+    add(ls)
+    say(f"[incubate bf16] tokens/s {stack['tokens_per_s']:.1f} step "
+        f"{stack['step_time_s'] * 1e3:.2f} ms device "
+        f"{stack['step_profile']['device_ms']:.2f} ms idle "
+        f"{stack['step_profile']['idle_share']:.3f} by group "
+        f"{json.dumps(stack['device_ms_by_group'])}")
+    say(f"[incubate bf16] {stack}")
+    stack32, ls32 = stack_f32_vs_cpu(dev)
+    add(ls32)
+    say(f"[incubate f32 vs cpu] {stack32}")
+
     say(f"[main path] launches: {launches}")
     for n in KERNELS:
         require(launches[n] > 0, f"kernel {n} was never launched on the "
@@ -2453,7 +2981,8 @@ def main():
              ernie_bf16=ernie, ernie_padded=padded,
              ernie_f32_vs_cpu=ernie32, resnet50_bf16=resnet,
              resnet18_f32_vs_cpu=r18, varlen_bf16=varlen,
-             varlen_f32_vs_cpu=varlen32, launches=launches,
+             varlen_f32_vs_cpu=varlen32, incubate_bf16=stack,
+             incubate_f32_vs_cpu=stack32, launches=launches,
              seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")
     say(f"nvidia-smi: {smi}")

@@ -11,11 +11,15 @@ from .flash_varlen import (flash_attention_varlen_packed,
                            flash_varlen_bwd_dkv_reference,
                            flash_varlen_bwd_dq, flash_varlen_bwd_dq_reference,
                            flash_varlen_fwd, flash_varlen_fwd_reference)
-from .fused_adamw import adamw_step, adamw_step_reference
+from .fused_adamw import (adamw_flat, adamw_flat_reference, adamw_step,
+                          adamw_step_reference)
 from .fused_ce import fused_linear_cross_entropy
 from .fused_layer_norm import (layer_norm_bwd, layer_norm_bwd_reference,
                                layer_norm_fwd, layer_norm_fwd_reference)
 from .fused_momentum import momentum_step, momentum_step_reference
+from .fused_rms_norm import (rms_norm_bwd, rms_norm_bwd_reference,
+                             rms_norm_fwd, rms_norm_fwd_reference)
+from .fused_rope import rope, rope_reference
 from .quant_matmul import (channel_absmax, int8_weight_only_matmul,
                            int8_weight_only_matmul_reference,
                            quantize_channelwise, weight_quant_error_bound)
@@ -34,4 +38,7 @@ __all__ = ["scaled_dot_product_attention", "remat_policy",
            "layer_norm_bwd", "layer_norm_bwd_reference",
            "channel_absmax", "quantize_channelwise",
            "weight_quant_error_bound", "int8_weight_only_matmul",
-           "int8_weight_only_matmul_reference"]
+           "int8_weight_only_matmul_reference", "adamw_flat",
+           "adamw_flat_reference", "rms_norm_fwd", "rms_norm_fwd_reference",
+           "rms_norm_bwd", "rms_norm_bwd_reference", "rope",
+           "rope_reference"]

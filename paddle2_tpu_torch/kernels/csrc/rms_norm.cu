@@ -1,0 +1,284 @@
+// Fused RMSNorm, forward and backward, for Hopper (sm_90a).
+//
+// Replaces: paddle2_tpu/kernels/pallas_fused.py `_rmsnorm_fwd_kernel` and
+// `_rmsnorm_bwd_kernel` (through `fused_rms_norm` and its custom_vjp),
+// reached from `incubate.nn.functional.fused_rms_norm`: RMSNorm over the
+// last axis of x [R, H] with a weight w [H].
+//
+// Forward, per row, all arithmetic in f32:
+//   ms = mean(x * x);  r = 1/sqrt(ms + eps)
+//   o = (x * r) * w                 rounded once to x's type
+//   r                               saved, f32 [R]
+// The TPU kernel writes r broadcast over 128 lanes ([R, 128]), which is
+// the TPU's layout; here r is one float a row.
+// Backward, from the saved r (no statistics recomputed):
+//   xh = x * r;  dy = do * w
+//   dx = r * (dy - xh * mean(dy * xh))          in x's type
+//   dw = sum_rows do * xh                       f32, cast to w's type
+// x and do are f32, bf16 or f16; w is f32, bf16 or f16 of its own.
+//
+// What bounds it on the H100: bytes. The forward moves 2*R*H*size bytes
+// against ~4 f32 operations an element, the backward 3*R*H*size against
+// ~10: far below the ~20 operations a byte where the CUDA cores would be
+// the limit. The design reads each element of x (and do) once: one block a
+// row, the row held in shared memory in f32 while the block reduces it
+// (warp shuffles, then one value a warp in shared memory, summed by every
+// thread in the same order). Each thread revisits only its own elements,
+// so the buffers need no barrier; only the reductions synchronise. Every H
+// from 1 to MAX_H is taken: threads stride the row, with no alignment
+// condition.
+//
+// dw is where the TPU design does not carry over. The TPU kernel writes one
+// partial sum a row block and the wrapper adds the blocks' partials in
+// order. Here the backward runs a fixed number of blocks, each walking rows
+// blockIdx.x, blockIdx.x + gridDim.x, ... and summing its do * xh into f32
+// accumulators in shared memory; each block writes its partial sums to its
+// own row of a workspace, and a second kernel adds the partials of each
+// column in block order. No float atomics: the sums do not depend on which
+// block ran first, so f32 runs are bitwise reproducible.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MAX_NT = 256;
+constexpr int MAX_H = 16384;
+constexpr int MAX_DEVICES = 64;
+// the reduction of the partials: 32 columns x 8 slices of the blocks
+constexpr int RED_COLS = 32;
+constexpr int RED_SLICES = 8;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// The sum of v over the block, in every thread. red: one float a warp.
+// The leading barrier keeps a previous call's readers ahead of this
+// call's writers.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int nw = blockDim.x >> 5;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < nw; ++w) s += red[w];
+  return s;
+}
+
+template <typename XT, typename WT>
+__global__ void __launch_bounds__(MAX_NT)
+    rms_norm_fwd_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
+                        XT* __restrict__ o, float* __restrict__ r_out, int H,
+                        float eps) {
+  extern __shared__ float xs[];  // [H], the row in f32
+  __shared__ float red[MAX_NT / 32];
+  const long long base = (long long)blockIdx.x * H;
+  float q = 0.f;
+  for (int i = threadIdx.x; i < H; i += blockDim.x) {
+    const float v = to_f(x[base + i]);
+    xs[i] = v;
+    q += v * v;
+  }
+  const float r = __frsqrt_rn(block_sum(q, red) / (float)H + eps);
+  for (int i = threadIdx.x; i < H; i += blockDim.x)
+    o[base + i] = from_f<XT>(__fmul_rn(__fmul_rn(xs[i], r), to_f(w[i])));
+  if (threadIdx.x == 0) r_out[blockIdx.x] = r;
+}
+
+template <typename XT, typename WT>
+__global__ void __launch_bounds__(MAX_NT)
+    rms_norm_bwd_kernel(const XT* __restrict__ x, const WT* __restrict__ w,
+                        const float* __restrict__ rr,
+                        const XT* __restrict__ dout, XT* __restrict__ dx,
+                        float* __restrict__ ws, long long R, int H) {
+  extern __shared__ float sm[];
+  float* xs = sm;           // [H] xh
+  float* ds = sm + H;       // [H] do * w
+  float* dwa = sm + 2 * H;  // [H] this block's sum of do * xh
+  __shared__ float red[MAX_NT / 32];
+  for (int i = threadIdx.x; i < H; i += blockDim.x) dwa[i] = 0.f;
+  for (long long row = blockIdx.x; row < R; row += gridDim.x) {
+    const long long base = row * H;
+    const float r = rr[row];
+    float s = 0.f;
+    for (int i = threadIdx.x; i < H; i += blockDim.x) {
+      const float xh = __fmul_rn(to_f(x[base + i]), r);
+      const float d = to_f(dout[base + i]);
+      const float dy = __fmul_rn(d, to_f(w[i]));
+      xs[i] = xh;
+      ds[i] = dy;
+      dwa[i] += d * xh;
+      s += dy * xh;
+    }
+    const float mt = block_sum(s, red) / (float)H;
+    for (int i = threadIdx.x; i < H; i += blockDim.x)
+      dx[base + i] = from_f<XT>(
+          __fmul_rn(r, __fsub_rn(ds[i], __fmul_rn(xs[i], mt))));
+  }
+  float* wg = ws + (long long)blockIdx.x * H;
+  for (int i = threadIdx.x; i < H; i += blockDim.x) wg[i] = dwa[i];
+}
+
+// dw[i] = sum over the G blocks' partials, in a fixed order: slice s of
+// the block's 8 adds partials s, s + 8, ...; then slice 0 adds the slices
+// in order. Neighbouring threads read neighbouring columns.
+template <typename WT>
+__global__ void __launch_bounds__(RED_COLS* RED_SLICES)
+    rms_norm_bwd_reduce_kernel(const float* __restrict__ ws,
+                               WT* __restrict__ dw, int G, int H) {
+  __shared__ float pw[RED_SLICES][RED_COLS];
+  const int c = threadIdx.x % RED_COLS;
+  const int sl = threadIdx.x / RED_COLS;
+  const int i = blockIdx.x * RED_COLS + c;
+  float a = 0.f;
+  if (i < H)
+    for (int k = sl; k < G; k += RED_SLICES) a += ws[(long long)k * H + i];
+  pw[sl][c] = a;
+  __syncthreads();
+  if (sl == 0 && i < H) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < RED_SLICES; ++k) t += pw[k][c];
+    dw[i] = from_f<WT>(t);
+  }
+}
+
+// a row's threads: a multiple of 32, about 8 elements each, at most 256
+int threads_for(int H) {
+  int warps = (H + 255) / 256;
+  if (warps < 1) warps = 1;
+  if (warps > MAX_NT / 32) warps = MAX_NT / 32;
+  return warps * 32;
+}
+
+// Above 48 KB of dynamic shared memory a kernel must ask for it: once a
+// device for each instantiation, for the widest row.
+template <typename K>
+cudaError_t grant_smem(K kernel, size_t smem, size_t widest, bool* granted) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)widest);
+  if (err == cudaSuccess) granted[dev] = true;
+  return err;
+}
+
+template <typename XT, typename WT>
+int launch_fwd(const void* x, const void* w, void* o, void* r, long long R,
+               int H, float eps, cudaStream_t st) {
+  static bool granted[MAX_DEVICES] = {};
+  const size_t smem = sizeof(float) * H;
+  cudaError_t err = grant_smem(rms_norm_fwd_kernel<XT, WT>, smem,
+                               sizeof(float) * MAX_H, granted);
+  if (err != cudaSuccess) return err;
+  rms_norm_fwd_kernel<XT, WT><<<(unsigned)R, threads_for(H), smem, st>>>(
+      static_cast<const XT*>(x), static_cast<const WT*>(w),
+      static_cast<XT*>(o), static_cast<float*>(r), H, eps);
+  return cudaGetLastError();
+}
+
+template <typename XT, typename WT>
+int launch_bwd(const void* x, const void* w, const void* r, const void* dout,
+               void* dx, void* dw, void* ws, long long R, int H, int G,
+               cudaStream_t st) {
+  static bool granted[MAX_DEVICES] = {};
+  const size_t smem = sizeof(float) * 3 * H;
+  cudaError_t err = grant_smem(rms_norm_bwd_kernel<XT, WT>, smem,
+                               sizeof(float) * 3 * MAX_H, granted);
+  if (err != cudaSuccess) return err;
+  rms_norm_bwd_kernel<XT, WT><<<G, threads_for(H), smem, st>>>(
+      static_cast<const XT*>(x), static_cast<const WT*>(w),
+      static_cast<const float*>(r), static_cast<const XT*>(dout),
+      static_cast<XT*>(dx), static_cast<float*>(ws), R, H);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rms_norm_bwd_reduce_kernel<WT>
+      <<<(H + RED_COLS - 1) / RED_COLS, RED_COLS * RED_SLICES, 0, st>>>(
+          static_cast<const float*>(ws), static_cast<WT*>(dw), G, H);
+  return cudaGetLastError();
+}
+
+bool bad_shape(long long R, int H) {
+  return R <= 0 || R > 0x7fffffffLL || H <= 0 || H > MAX_H;
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<T>{}) for the element type of a dtype code: 0 f32, 1 bf16, 2 f16
+template <typename F>
+int with_type(int code, F f) {
+  switch (code) {
+    case 0: return f(Tag<float>{});
+    case 1: return f(Tag<__nv_bfloat16>{});
+    case 2: return f(Tag<__half>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x, o: [R, H] contiguous of x_dtype (0 f32, 1 bf16, 2 f16); w: [H] of
+// w_dtype; r: [R] f32, written. One launch of R blocks.
+extern "C" int rms_norm_fwd(const void* x, const void* w, void* o, void* r,
+                            long long R, int H, int x_dtype, int w_dtype,
+                            float eps, void* stream) {
+  if (bad_shape(R, H)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_type(x_dtype, [&](auto xt) {
+    return with_type(w_dtype, [&](auto wt) {
+      return launch_fwd<typename decltype(xt)::type,
+                        typename decltype(wt)::type>(x, w, o, r, R, H, eps,
+                                                     st);
+    });
+  });
+}
+
+// x, dout, dx: [R, H] of x_dtype; w, dw: [H] of w_dtype; r: [R] f32 from
+// the forward; ws: G * H f32 of scratch. G blocks walk the rows; then one
+// reduction launch.
+extern "C" int rms_norm_bwd(const void* x, const void* w, const void* r,
+                            const void* dout, void* dx, void* dw, void* ws,
+                            long long R, int H, int x_dtype, int w_dtype,
+                            int G, void* stream) {
+  if (bad_shape(R, H) || G <= 0 || G > R) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_type(x_dtype, [&](auto xt) {
+    return with_type(w_dtype, [&](auto wt) {
+      return launch_bwd<typename decltype(xt)::type,
+                        typename decltype(wt)::type>(x, w, r, dout, dx, dw,
+                                                     ws, R, H, G, st);
+    });
+  });
+}
+
+extern "C" const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,16 +1,25 @@
-"""The fused AdamW step: the CUDA kernel, its wrapper and its plain
-version.
+"""The two fused AdamW kernels: their wrappers and their plain versions.
 
-Counterpart of ``fused_adamw_step`` and ``adamw_step_supported`` in
-``paddle2_tpu/kernels/pallas_fused.py``. The kernel is
-``csrc/adamw_step.cu``: one pass over flat f32 ``(p, g, m, v)`` that
-writes ``(p, m, v)`` in place, in the exact op order of the port's eager
-AdamW (:mod:`paddle2_tpu_torch.optimizer.optimizers`), so the two agree
+``adamw_step`` is the counterpart of ``fused_adamw_step`` and
+``adamw_step_supported`` in ``paddle2_tpu/kernels/pallas_fused.py``.
+Its kernel is ``csrc/adamw_step.cu``: one pass over flat f32
+``(p, g, m, v)`` that writes ``(p, m, v)`` in place, in the exact op
+order of the port's eager AdamW
+(:mod:`paddle2_tpu_torch.optimizer.optimizers`), so the two agree
 bitwise on f32 state. The scalars are staged on the host in f32 by
 :func:`stage_scalars`, as the Pallas wrapper stages them.
 
-A CPU tensor runs :func:`adamw_step_reference`; a CUDA tensor launches
-the kernel or raises.
+``adamw_flat`` is the counterpart of ``fused_adamw`` (``_adamw_kernel``)
+there, the flat AdamW with an f32 master copy that
+``incubate.nn.functional.fused_adamw_kernel`` calls. Its kernel is
+``csrc/adamw_flat.cu``: one pass reads ``(g, m, v, master)`` and writes
+four new tensors ``(p, m, v, master)``, with the decay folded into the
+update (another rounding order than the eager AdamW's). The param is
+not read: it fixes only p's dtype and shape. Its scalars come from
+:func:`stage_flat_scalars`.
+
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+or raises.
 """
 
 import ctypes
@@ -22,11 +31,17 @@ import torch
 from . import _build
 
 __all__ = ["AdamWScalars", "stage_scalars", "adamw_step_supported",
-           "adamw_step", "adamw_step_reference"]
+           "adamw_step", "adamw_step_reference", "stage_flat_scalars",
+           "adamw_flat", "adamw_flat_reference", "fused_adamw"]
 
 _F = ctypes.c_float
 _SIGNATURES = {"adamw_step": [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                + [_F] * 9 + [ctypes.c_int, ctypes.c_void_p]}
+# g, m, v, master, p', m', v', master', n, p dtype, g dtype, 9 scalars,
+# stream
+_FLAT_SIGNATURES = {"adamw_flat": [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 2 + [_F] * 9 + [ctypes.c_void_p]}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 class AdamWScalars(NamedTuple):
@@ -113,3 +128,90 @@ def adamw_step(p, g, m, v, sc: AdamWScalars, apply_wd: bool) -> None:
 
 
 adamw_step.launches = 0
+
+
+# ------------------------------------------------------------ flat AdamW
+
+def stage_flat_scalars(lr, beta1, beta2, eps, weight_decay, step
+                       ) -> AdamWScalars:
+    """Stage the scalars as ``fused_adamw`` (``pallas_fused.py:74-78``)
+    and ``_adamw_kernel`` have them: every one in f32, ``1 - b`` as the
+    kernel's f32 subtraction ``f32(1) - f32(b)`` (not the rounding of
+    the Python double that :func:`stage_scalars` takes), the bias
+    corrections ``1 - b**t`` in f32 from the step."""
+    f = np.float32
+    t = f(step)
+    return AdamWScalars(*(float(x) for x in (
+        f(lr), f(beta1), f(1) - f(beta1), f(beta2), f(1) - f(beta2),
+        f(eps), f(weight_decay), f(1) - f(beta1) ** t,
+        f(1) - f(beta2) ** t)))
+
+
+def _check_flat(param, grad, m, v, master) -> None:
+    n = param.numel()
+    if any(t.numel() != n for t in (grad, m, v, master)):
+        raise ValueError(
+            f"param, grad, m, v and master must have one size; got "
+            f"{[tuple(t.shape) for t in (param, grad, m, v, master)]}")
+    if any(t.dtype not in _DTYPE_CODE
+           for t in (param, grad, m, v, master)):
+        raise ValueError(
+            f"the flat AdamW takes float32/bfloat16/float16 tensors; got "
+            f"{[t.dtype for t in (param, grad, m, v, master)]}")
+    if len({t.device for t in (param, grad, m, v, master)}) != 1:
+        raise ValueError("param, grad, m, v and master must lie on one "
+                         "device")
+    if not all(t.is_contiguous() for t in (param, grad, m, v, master)):
+        raise ValueError("the flat AdamW needs contiguous tensors")
+
+
+def adamw_flat_reference(param, grad, m, v, master, sc: AdamWScalars):
+    """The plain version, one torch op per kernel operation; returns new
+    ``(p, m, v, master)``: p in param's dtype and shape, the rest f32.
+    The bias corrections divide by a tensor on the state's device, as in
+    :func:`adamw_step_reference`."""
+    bc1 = torch.tensor(sc.bc1, dtype=torch.float32, device=m.device)
+    bc2 = torch.tensor(sc.bc2, dtype=torch.float32, device=m.device)
+    g = grad.reshape(param.shape).float()
+    mw = master.reshape(param.shape).float()
+    m_new = sc.b1 * m.reshape(param.shape).float() + sc.om1 * g
+    v_new = sc.b2 * v.reshape(param.shape).float() + sc.om2 * g * g
+    upd = (m_new / bc1) / (torch.sqrt(v_new / bc2) + sc.eps) + sc.wd * mw
+    mw_new = mw - sc.lr * upd
+    return mw_new.to(param.dtype), m_new, v_new, mw_new
+
+
+def adamw_flat(param, grad, m, v, master, sc: AdamWScalars):
+    """One flat AdamW step; returns new ``(p, m, v, master)`` (p in
+    param's dtype, the rest f32, all of param's shape) and updates
+    nothing in place. m, v and master of a half dtype are widened to f32
+    first (exactly). ``adamw_flat.launches`` counts the kernel's
+    launches."""
+    _check_flat(param, grad, m, v, master)
+    if not _build.on_card("adamw_flat", param, grad, m, v, master):
+        return adamw_flat_reference(param, grad, m, v, master, sc)
+    m, v, master = (t.float() for t in (m, v, master))
+    outs = (torch.empty_like(param),) + tuple(
+        torch.empty(param.shape, dtype=torch.float32, device=param.device)
+        for _ in range(3))
+    lib = _build.library("adamw_flat", _FLAT_SIGNATURES)
+    with torch.cuda.device(param.device):
+        err = lib.adamw_flat(
+            grad.data_ptr(), m.data_ptr(), v.data_ptr(), master.data_ptr(),
+            *(t.data_ptr() for t in outs), param.numel(),
+            _DTYPE_CODE[param.dtype], _DTYPE_CODE[grad.dtype], *sc,
+            torch.cuda.current_stream(param.device).cuda_stream)
+    _build.check(lib, err, "adamw_flat")
+    adamw_flat.launches += 1
+    return outs
+
+
+adamw_flat.launches = 0
+
+
+def fused_adamw(param, grad, m, v, master, lr, beta1=0.9, beta2=0.999,
+                eps=1e-8, weight_decay=0.01, step=1):
+    """``pallas_fused.fused_adamw``'s counterpart: decoupled-decay Adam
+    with an f32 master in one pass; returns ``(p, m, v, master)``."""
+    return adamw_flat(param, grad, m, v, master, stage_flat_scalars(
+        lr, beta1, beta2, eps, weight_decay, step))

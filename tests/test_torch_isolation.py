@@ -46,6 +46,7 @@ import paddle2_tpu_torch.optimizer, paddle2_tpu_torch.amp
 import paddle2_tpu_torch.jit, paddle2_tpu_torch.quantization
 import paddle2_tpu_torch.flags, paddle2_tpu_torch.nn.functional
 import paddle2_tpu_torch.vision.models
+import paddle2_tpu_torch.incubate.nn, paddle2_tpu_torch.incubate.nn.functional
 from paddle2_tpu_torch.kernels import _build
 assert not calls, calls
 assert not _build._LIBS
@@ -78,6 +79,7 @@ def test_kernel_sources_are_found():
     names = _build.sources()
     assert set(names) == {"flash_fwd", "paged_decode", "flash_bwd",
                           "adamw_step", "wo_matmul", "layer_norm",
-                          "momentum_step", "flash_varlen"}
+                          "momentum_step", "flash_varlen", "rms_norm",
+                          "rope", "adamw_flat"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"
