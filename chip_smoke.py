@@ -44,6 +44,14 @@ line) when it fails:
    host), a 4-bit payload of the same weight breaks that bound, and the
    bound is below ``max |x @ W|``; and layer 0's payload and scales
    quantized on the card equal those quantized on the CPU, bitwise.
+   The int8 x int8 matmul at GPT-3 1.3B's four block projections (qkv,
+   out_proj, up, down) at M 8 (a decode step) and M 1008 (a 1000-token
+   prompt's padded prefill), at a ragged shape (M 3, K 200, N 333) and
+   all-+-127 at K 8192 (the largest sums), ``torch.equal`` to its plain
+   version (the integers are exact), timed against ``torch._int_mm``
+   where that call takes the shape (M > 16, K and N multiples of 8); and
+   ``int4_weight_only_matmul`` at the up projection (M 8, bf16 and f32)
+   against the plain weight-only version on the unpacked payload.
 4. The engine at full width: GPT-3 1.3B (24 layers kept) from a fixed
    seed serves 8 requests (prompts of 17..1000 tokens, 32 new tokens
    each) in f32, with the global-softmax decode and with split-K
@@ -183,6 +191,32 @@ line) when it fails:
     step's gradients to 1e-4 of each tensor's largest magnitude, and
     every parameter, m, v and master after both steps to 1e-5 of its
     largest magnitude.
+16. PTQ full-int8 serving at full width (run after phase 4): the seed's
+    GPT-3 1.3B (24 layers, per-block storage) in f32 and in bf16, each
+    block through ``PTQ(QuantConfig(FakeQuanterWithAbsMaxObserver,
+    FakeQuanterChannelWiseAbsMaxObserver)).quantize``, calibrated by one
+    dense forward over each of phase 4's prompts, converted (96
+    ``QuantedInferenceLinear``, checked) and served as in phase 4:
+    ``i8i8_matmul`` launched 96 times a prefill and a decode step,
+    ``wo_matmul`` never, ``flash_fwd`` and ``paged_decode`` launched.
+    Activation quantization makes the model a step function of its f32
+    activations: a value within f32 noise of a rounding boundary rounds
+    one way on one path and the other way on another, and a few such
+    flips move the logits by up to ~0.2. So the tokens are held against
+    the dense path fed the served int8 inputs: the engine is run again
+    one request at a time, recording every ``QuantedInferenceLinear``'s
+    int8 input, and the dense greedy loop of each request multiplies
+    those inputs; its tokens must equal the one-at-a-time run's and the
+    batched run's but at near ties of phase 4's rule (the dense replay's
+    top-2 margin there). The dense path rounding its own inputs is
+    compared too, for information (first mismatches and margins). In
+    f32 two prompts' first-token logits are held against the CPU the
+    same way: with the card's int8 inputs replayed on the CPU to phase
+    4's atol 1e-3 (f32 sums in another order), and free, for
+    information, with the flips counted (layer 0 and all layers).
+    Printed, not gated: decode and prefill tokens/s, TTFT, peak memory,
+    a traced decode step's device time by kernel group with the idle
+    share, and the tokens that agree with phase 4's fp runs.
 
 Phase 3 also holds the slice's kernels against their plain versions:
 the RMSNorm forward and backward at the ``fused_rms_norm`` docstring's
@@ -211,8 +245,10 @@ kernels' times, bounds and ``F.layer_norm``'s (forward; backward
 through autograd).
 
 Each main-path run (the serving runs, the training runs, the ERNIE
-runs, the ResNet runs, the varlen runs, the incubate stack runs) starts with every launch count at 0 and is read
-just after; the kernel checks' launches are not counted.
+runs, the ResNet runs, the varlen runs, the incubate stack runs, the
+PTQ runs) starts with every launch count at 0 and is read just after;
+the kernel checks' launches (and the PTQ phase's one-at-a-time and
+dense replays) are not counted.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A full record of the run is written
@@ -254,8 +290,9 @@ from paddle2_tpu_torch.kernels.fused_rms_norm import (
     rms_norm_fwd_reference)
 from paddle2_tpu_torch.kernels.fused_rope import rope, rope_reference
 from paddle2_tpu_torch.kernels.quant_matmul import (
-    int8_weight_only_matmul, int8_weight_only_matmul_reference,
-    quantize_channelwise, weight_quant_error_bound)
+    i8i8_split, int4_weight_only_matmul, int8_matmul, int8_matmul_reference,
+    int8_weight_only_matmul, int8_weight_only_matmul_reference, pack_int4,
+    quantize_channelwise, unpack_int4, weight_quant_error_bound)
 from paddle2_tpu_torch.incubate.nn import functional as IF
 from paddle2_tpu_torch.models import (ErnieForSequenceClassification,
                                       GPTConfig, GPTForCausalLM, ernie3_base,
@@ -266,7 +303,10 @@ from paddle2_tpu_torch.nn.functional import (cross_entropy,
                                              sdp_kernel)
 from paddle2_tpu_torch.nn.functional import flash_attention as fa
 from paddle2_tpu_torch.optimizer import AdamW, Momentum
-from paddle2_tpu_torch.quantization import weight_only_quantize
+from paddle2_tpu_torch import quantization
+from paddle2_tpu_torch.quantization import (
+    PTQ, FakeQuanterChannelWiseAbsMaxObserver, FakeQuanterWithAbsMaxObserver,
+    QuantConfig, QuantedInferenceLinear, weight_only_quantize)
 from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
 from paddle2_tpu_torch.serving.paged_attention import (
     _merge_splits, paged_attention_reference,
@@ -275,8 +315,9 @@ from paddle2_tpu_torch.serving.paged_attention import (
 from paddle2_tpu_torch.vision.models import resnet18, resnet50
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): f32 without TF32
-# runs on the CUDA cores
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# runs on the CUDA cores; int8 on the tensor cores
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+            torch.int8: 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 # f32: sums of up to 2048 terms in another order than the plain
 # version; bf16: outputs and probabilities are rounded to bf16
@@ -367,6 +408,10 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/adamw_flat.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:32",
         counter=adamw_flat),
+    "i8i8_matmul": dict(
+        source="paddle2_tpu_torch/kernels/csrc/i8i8_matmul.cu",
+        replaces="paddle2_tpu/kernels/pallas_matmul.py:252",
+        counter=int8_matmul),
 }
 INCUBATE_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rope", "adamw_flat")
 VARLEN_KERNELS = ("flash_varlen_fwd", "flash_varlen_bwd_dkv",
@@ -379,6 +424,14 @@ WO_SHAPES = {"qkv": (2048, 6144), "out_proj": (2048, 2048),
              "up": (2048, 8192), "down": (8192, 2048), "head": (2048, 50304)}
 # the kernels line's wo_matmul row: a bf16 decode step at batch 8
 WO_LINE_SHAPE = "M8 K2048 N8192 (up) bias"
+# the int8 x int8 kernel's rows: GPT-3 1.3B's four block projections at a
+# decode step of batch 8 and a 1000-token prompt's prefill (padded to
+# 1008); the kernels line reports the decode step's up projection
+I8_SHAPES = {n: WO_SHAPES[n] for n in ("qkv", "out_proj", "up", "down")}
+I8_LINE_SHAPE = "M8 K2048 N8192 (up)"
+# phase 16: PTQ's quanters (per-tensor activations, per-channel weights)
+PTQ_QUANTERS = dict(activation=FakeQuanterWithAbsMaxObserver,
+                    weight=FakeQuanterChannelWiseAbsMaxObserver)
 # the training path (bench.py bench_gpt's default configuration)
 TRAIN = dict(vocab=32768, hidden=1024, layers=24, heads=16, seq=1024,
              batch=8)
@@ -458,6 +511,7 @@ ADAMW_FLAT_CASES = [(84_000_000, torch.float32, True),
                     (513, torch.bfloat16, False)]
 ADAMW_FLAT_LINE_SHAPE = "N 84000000, p/g bf16"
 LINE_SHAPES = {"wo_matmul": WO_LINE_SHAPE,
+               "i8i8_matmul": I8_LINE_SHAPE,
                "rms_norm_fwd": RMS_LINE_SHAPE,
                "rms_norm_bwd": RMS_LINE_SHAPE,
                "rope": ROPE_LINE_SHAPE,
@@ -1034,6 +1088,89 @@ def check_wo_payload(model):
     return out
 
 
+def int_mm_reason(M, K, N):
+    """Why ``torch._int_mm`` cannot take ``M x K x N`` on CUDA, or None:
+    it wants M > 16 and K and N multiples of 8."""
+    if M <= 16:
+        return "torch._int_mm needs M > 16"
+    if K % 8 or N % 8:
+        return "torch._int_mm needs K and N multiples of 8"
+    return None
+
+
+def check_i8i8(M, K, N, label, gen, dev, timed=True, fill=None):
+    """The int8 x int8 kernel against its plain version at ``M x K x
+    N``, ``torch.equal`` (the products are exact integers). ``fill``
+    "pm127": x all 127 and w +-127 with one all-127 column, which
+    reaches the largest sums. With ``timed``, its times, its bound and
+    ``torch._int_mm``'s time where that call takes the shape."""
+    if fill == "pm127":
+        x = torch.full((M, K), 127, dtype=torch.int8, device=dev)
+        w = (torch.randint(0, 2, (K, N), generator=gen, device=dev,
+                           dtype=torch.int8) * 2 - 1) * 127
+        w[:, 0] = 127
+    else:
+        x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+    y = int8_matmul(x, w)
+    ref = int8_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    shape = f"M{M} K{K} N{N} ({label})"
+    err = (y.double() - ref.double()).abs().max().item()
+    require(torch.equal(y, ref), f"i8i8_matmul {shape} differs from its "
+            f"plain version: max abs err {err}")
+    if fill == "pm127":
+        require(int(y[0, 0]) == 127 * 127 * K, f"i8i8_matmul {shape}: the "
+                f"all-127 column sums to {int(y[0, 0])}")
+    per, splits = i8i8_split(M, K, N, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    row = dict(name="i8i8_matmul", dtype="int8", shape=shape,
+               max_abs_err=err, tol="torch.equal", k_splits=splits,
+               max_abs_sum=int(ref.abs().max()))
+    if not timed:
+        return row
+
+    def run():
+        return int8_matmul(x, w)
+    ms = cuda_ms(run)
+    dev_ms, kern_ms = device_ms(run, "i8i8", per_call=1)
+    plain = cuda_ms(lambda: int8_matmul_reference(x, w), iters=10)
+    reason = int_mm_reason(M, K, N)
+    lib = None if reason else cuda_ms(lambda: torch._int_mm(x, w))
+    b_ms, b_by = bound(2.0 * M * N * K, M * K + K * N + 4.0 * M * N,
+                       torch.int8)
+    row.update(ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
+               plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+               library="torch._int_mm" if lib is not None else reason)
+    return row
+
+
+def check_int4(M, K, N, dtype, gen, dev, label):
+    """``int4_weight_only_matmul`` (the nibble payload unpacked, then the
+    weight-only kernel at ``quant_bits=4``) against the plain weight-only
+    version on the unpacked payload, with ``check_wo``'s tolerance."""
+    x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+    w = torch.randn(K, N, generator=gen, device=dev) * 0.02
+    w4, s4 = quantize_channelwise(w, 4)
+    packed = pack_int4(w4)
+    require(torch.equal(unpack_int4(packed, N), w4), "int4 pack round trip")
+    y = int4_weight_only_matmul(x, packed, s4)
+    ref = int8_weight_only_matmul_reference(x, w4, s4, quant_bits=4)
+    torch.cuda.synchronize()
+    diff = (y.float() - ref.float()).abs()
+    scaled = (diff / ref.float().abs().clamp_min(1.0)).max().item()
+    shape = f"M{M} K{K} N{N} ({label}) int4"
+    require(scaled <= TOL[dtype], f"int4_weight_only_matmul {dname(dtype)} "
+            f"{shape} disagrees with its plain version: {scaled}")
+    return dict(name="int4_weight_only_matmul", dtype=dname(dtype),
+                shape=shape, max_abs_err=diff.max().item(),
+                scaled_err=scaled, tol=TOL[dtype],
+                ms=cuda_ms(lambda: int4_weight_only_matmul(x, packed, s4)),
+                packed_bytes=packed.numel())
+
+
 # significant bits of the half-precision types
 HALF_BITS = {torch.bfloat16: 8, torch.float16: 11}
 
@@ -1324,6 +1461,7 @@ def decode_step_profile(prof, wall_s):
     busy = sum(e.device_time_total for e in evs) / 1e3
     top = sorted(evs, key=lambda e: -e.device_time_total)[:6]
     return dict(traced_wall_ms=wall_s * 1e3, device_ms=busy,
+                by_group=device_groups(prof, SERVING_GROUPS),
                 top=[(e.key[:70], e.device_time_total / 1e3, e.count)
                      for e in top])
 
@@ -1406,8 +1544,9 @@ def last_logits(model, ids):
 def dense_check(model, prompts, gens, new_tokens, tie):
     """Hold served tokens against the dense greedy path. The first
     mismatch of a request must be a near tie (dense top-2 margin below
-    ``tie``); the request is not compared past it. Returns the dense tokens and the margins at the first
-    mismatches."""
+    ``tie``; ``None`` gates nothing); the request is not compared past
+    it. Returns the dense tokens and (prompt length, token, margin) at
+    the first mismatches."""
     margins, dense_all = [], []
     for p, g in zip(prompts, gens):
         dense = model.generate(np.asarray([p]), max_new_tokens=new_tokens)
@@ -1418,7 +1557,7 @@ def dense_check(model, prompts, gens, new_tokens, tie):
         i = next(j for j in range(new_tokens) if dense[j] != g[j])
         top2 = last_logits(model, p + dense[:i]).topk(2).values
         margin = (top2[0] - top2[1]).item()
-        require(margin < tie,
+        require(tie is None or margin < tie,
                 f"token {i} of a {len(p)}-token prompt: served {g[i]}, "
                 f"dense {dense[i]}, margin {margin:.3g}")
         margins.append((len(p), i, margin))
@@ -1466,6 +1605,254 @@ def serve_int8(make_model, dtype, econf, prompts, new, fp_gens, tag):
     del model
     torch.cuda.empty_cache()
     return st, l8
+
+
+# ------------------------------------------------------------- phase 16
+# a decode step's device kernels by what they do; "elementwise and other"
+# is the rest (PTQ's quantize and dequantize chains, LayerNorm, GELU, the
+# residual adds, the KV scatter, argmax)
+SERVING_GROUPS = (("i8i8_matmul", ("i8i8",)), ("wo_matmul", ("wo_ge",)),
+                  ("paged_decode", ("paged_decode",)), ("flash", ("flash_",)),
+                  ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet",
+                            "cublas")))
+
+
+@torch.no_grad()
+def ptq_convert(model, prompts):
+    """PTQ on every block of ``model`` with ``PTQ_QUANTERS``, one dense
+    forward over each prompt to calibrate the observers, then convert;
+    returns the count of ``QuantedInferenceLinear`` in the model."""
+    ptq = PTQ(QuantConfig(**PTQ_QUANTERS))
+    for blk in model.gpt.h:
+        ptq.quantize(blk)
+    dev = model.gpt.wte.weight.device
+    for p in prompts:
+        model(torch.as_tensor([p], dtype=torch.long, device=dev))
+    for blk in model.gpt.h:
+        ptq.convert(blk)
+    return sum(isinstance(m, QuantedInferenceLinear)
+               for m in model.modules())
+
+
+class QInputs:
+    """Stands in for ``quantization.int8_matmul`` while it is entered:
+    "record" keeps a copy of each ``QuantedInferenceLinear``'s int8
+    input, in call order; "count" compares each input with the recorded
+    one (``flips``: the values that differ, per call); "replay" also
+    multiplies the recorded input in its place. A recorded input may
+    have more rows than the call's (a prefill padded to 16 rows): its
+    first rows are the call's."""
+
+    def __init__(self, rec=None, mode="record"):
+        self.rec, self.flips, self.mode, self.i = rec or [], [], mode, 0
+
+    def __enter__(self):
+        self.real = quantization.int8_matmul
+        quantization.int8_matmul = self
+        self.i, self.flips = 0, []
+        return self
+
+    def __exit__(self, *exc):
+        quantization.int8_matmul = self.real
+
+    def __call__(self, q, w):
+        if self.mode == "record":
+            self.rec.append(q.clone())
+        else:
+            card = self.rec[self.i][:q.shape[0]].to(q.device)
+            self.i += 1
+            require(card.shape == q.shape, "a replayed int8 input of "
+                    "another shape")
+            self.flips.append(int((card != q).sum()))
+            if self.mode == "replay":
+                q = card
+        return self.real(q, w)
+
+
+def serve_one_at_a_time(model, econf, dtype, prompts, new):
+    """The engine at ``max_batch=1`` (each request prefilled and decoded
+    alone), recording every ``QuantedInferenceLinear``'s int8 input.
+    Returns the tokens and, per request, its calls' inputs in order (its
+    prefill's, then each decode step's)."""
+    eng = ServingEngine(model, EngineConfig(**{**econf, "max_batch": 1},
+                                            kv_dtype=dname(dtype)))
+    rids = [eng.submit(p, new) for p in prompts]
+    step = 0
+    with QInputs() as qi:
+        while not eng.idle():
+            eng.tick(now=float(step))
+            step += 1
+            require(step < 10_000, "engine did not drain")
+    per = 4 * model.cfg.num_layers * new
+    require(len(qi.rec) == per * len(prompts), f"{len(qi.rec)} int8 "
+            f"inputs recorded, want {per} a request")
+    return ([eng.sequence(r).generated for r in rids],
+            [qi.rec[i * per:(i + 1) * per] for i in range(len(prompts))])
+
+
+@torch.inference_mode()
+def dense_replay(model, prompt, new, rec):
+    """The converted model's dense greedy loop (``generate``'s: the KV
+    cache, the head on the last row, argmax) with every
+    ``QuantedInferenceLinear`` fed the served run's int8 input ``rec``.
+    Then the int32 products are the served ones, and so is everything
+    after them: the two attentions (flash over a contiguous cache, the
+    paged kernel over blocks) differ in f32 sums, but their output is
+    quantized again by out_proj, and the served input replaces it.
+    Returns the tokens, the top-2 logit margin at each step, and how
+    many int8 inputs the dense path would have rounded otherwise."""
+    dev = model.gpt.wte.weight.device
+    ids = torch.as_tensor([prompt], dtype=torch.long, device=dev)
+    caches = [() for _ in range(model.cfg.num_layers)]
+    pos, toks, margins = 0, [], []
+    with QInputs(rec, "replay") as qi:
+        for _ in range(new):
+            hidden, caches = model.gpt.decode_step(ids[:, pos:], caches,
+                                                   pos)
+            pos = ids.shape[1]
+            logits = model._head(hidden[:, -1]).float()
+            top2 = logits[0].topk(2).values
+            margins.append((top2[0] - top2[1]).item())
+            nxt = torch.argmax(logits, dim=-1)
+            toks.append(int(nxt[0]))
+            ids = torch.cat([ids, nxt[:, None]], dim=1)
+    require(qi.i == len(rec), "the dense loop did not use every recorded "
+            "int8 input")
+    return toks, margins, sum(qi.flips)
+
+
+def first_mismatch(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def ptq_vs_cpu(model, prompts):
+    """The converted f32 model's first-token logits on the card against
+    the same model on the CPU, for each prompt. Free, the CPU quantizes
+    its own activations: a value whose ``a / s_in * qmax`` lies within
+    f32 noise of a rounding boundary can round the other way (a flip),
+    which moves each output of that layer by ``(s_in / qmax) *
+    |w_int8[k, n]| * (w_scale[n] / qmax)``, and the logits by what the
+    later layers make of it: counted and printed, not gated. Replayed,
+    the CPU multiplies the card's int8 inputs, so the int32 products are
+    equal and the rest is f32 sums in another order, as phase 4's fp
+    comparison: gated at its atol 1e-3."""
+    cpu = copy.deepcopy(model).cpu()
+    n_lin = sum(isinstance(m, QuantedInferenceLinear)
+                for m in model.modules())
+    out = []
+    for p in prompts:
+        qi = QInputs()
+        with qi:
+            card = last_logits(model, p).cpu()
+        qi.mode = "count"
+        with qi:
+            free = last_logits(cpu, p)
+        qi.mode = "replay"
+        with qi:
+            replayed = last_logits(cpu, p)
+        require(len(qi.rec) == n_lin and qi.i == n_lin,
+                "the forwards did not reach every QuantedInferenceLinear")
+        rec = dict(tokens=len(p),
+                   replayed_err=(card - replayed).abs().max().item(),
+                   free_err=(card - free).abs().max().item(),
+                   layer0_flips=sum(qi.flips[:4]),
+                   layer0_values=sum(t.numel() for t in qi.rec[:4]),
+                   flips=sum(qi.flips),
+                   values=sum(t.numel() for t in qi.rec))
+        say(f"[engine ptq_f32] first-token logits vs CPU ({len(p)} tokens): "
+            f"replayed int8 inputs max abs err {rec['replayed_err']:.3g} "
+            f"(atol 1e-3); free {rec['free_err']:.3g} with "
+            f"{rec['layer0_flips']} of {rec['layer0_values']} layer-0 int8 "
+            f"inputs and {rec['flips']} of {rec['values']} in all layers "
+            f"rounded the other way (information)")
+        require(rec["replayed_err"] <= 1e-3, "ptq_f32: first-token logits "
+                "differ from the CPU on the card's int8 inputs")
+        out.append(rec)
+    del cpu
+    return out
+
+
+def serve_ptq(cfg, dtype, econf, prompts, new, fp_gens, tag):
+    """Phase 16, one run: the seed's GPT-3 1.3B in ``dtype`` through PTQ
+    (calibrated on ``prompts``), converted and served: ``i8i8_matmul``
+    launched 96 times a prefill and a decode step and ``wo_matmul``
+    never; the tokens against the dense path fed the served int8 inputs
+    (``dense_replay``); in f32 the first-token logits against the CPU
+    (``ptq_vs_cpu``). Returns the run's record and its launches."""
+    model = GPTForCausalLM(cfg, seed=1234).to(dtype)
+    t0 = time.perf_counter()
+    n_q = ptq_convert(model, prompts)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    per_pass = 4 * cfg.num_layers
+    require(n_q == per_pass, f"{tag}: {n_q} QuantedInferenceLinear, want "
+            f"{per_pass}")
+    g, lq, st = serve(model, EngineConfig(**econf, kv_dtype=dname(dtype)),
+                      prompts, new)
+    want = per_pass * (st["prefills"] + st["decode_steps"])
+    require(lq["i8i8_matmul"] == want,
+            f"{tag}: i8i8_matmul launched {lq['i8i8_matmul']} times, want "
+            f"{want} ({per_pass} a prefill and a decode step)")
+    require(lq["wo_matmul"] == 0, f"{tag}: wo_matmul launched")
+    for n in ("flash_fwd", "paged_decode"):
+        require(lq[n] > 0, f"{tag}: {n} never launched")
+    # the served tokens against the dense path fed the served int8
+    # inputs (one request at a time, so each call's rows are one
+    # request's): equal but at near ties of the existing rule; the batched
+    # run against the one-at-a-time run (the same int8 inputs row by row):
+    # equal but where the replayed margin is a near tie
+    tie = NEAR_TIE if dtype == torch.float32 else NEAR_TIE_BF16
+    g1, recs = serve_one_at_a_time(model, econf, dtype, prompts, new)
+    ties, flips, margins_all = [], 0, []
+    for p, gs, gb, rec in zip(prompts, g1, g, recs):
+        toks, margins, n_flip = dense_replay(model, p, new, rec)
+        flips += n_flip
+        margins_all.append(min(margins))
+        for what, other in (("one-at-a-time", gs), ("batched", gb)):
+            i = first_mismatch(toks, other)
+            if i is not None:
+                require(margins[i] < tie, f"{tag}: token {i} of a "
+                        f"{len(p)}-token prompt: {what} served {other[i]}, "
+                        f"dense with the served int8 inputs {toks[i]}, "
+                        f"margin {margins[i]:.3g}")
+                ties.append((what, len(p), i, margins[i]))
+    del recs
+    # the dense path rounding its own int8 inputs (information)
+    _, free = dense_check(model, prompts, g, new, None)
+    st.update(calibration_s=calib_s, quanted_linears=n_q,
+              near_ties=len(ties), tie_margins=ties,
+              replay_int8_inputs_rounded_otherwise=flips,
+              replay_smallest_margin=min(margins_all),
+              free_dense_mismatches=free, launches=lq,
+              act_scales_layer0=[model.gpt.h[0].get_submodule(n).act_scale
+                                 for n in ("attn.qkv", "attn.out_proj",
+                                           "mlp.up", "mlp.down")],
+              tokens_agreeing_with_fp=sum(
+                  a == b for x, y in zip(g, fp_gens) for a, b in zip(x, y)),
+              prefix_agreeing_with_fp=[
+                  next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                       new) for x, y in zip(g, fp_gens)])
+    if dtype == torch.float32:
+        st["vs_cpu"] = ptq_vs_cpu(model, prompts[:2])
+    sp = st["step_profile"]
+    say(f"[engine {tag}] decode {st['decode_tok_s']:.1f} tokens/s, prefill "
+        f"{st['prefill_tok_s']:.1f} tokens/s, TTFT mean "
+        f"{st['ttft_mean_s'] * 1e3:.1f} ms max {st['ttft_max_s'] * 1e3:.1f} "
+        f"ms, peak {st['peak_memory_gib']:.2f} GiB; traced decode step "
+        f"{sp['device_ms']:.3f} ms of device work, idle share "
+        f"{sp['idle_share']:.3f}, by group {json.dumps(sp['by_group'])}; "
+        f"tokens agreeing with the fp run {st['tokens_agreeing_with_fp']} of "
+        f"{new * len(prompts)} (information, not gates)")
+    say(f"[engine {tag}] served tokens == the dense path on the served int8 "
+        f"inputs ({st['near_ties']} near ties, smallest replayed margin "
+        f"{st['replay_smallest_margin']:.3g}; the dense path alone would "
+        f"round {flips} int8 inputs the other way); against the dense path "
+        f"rounding its own: first mismatches (prompt, token, margin) "
+        f"{free} (information)")
+    say(f"[engine {tag}] {st}")
+    del model
+    torch.cuda.empty_cache()
+    return st, lq
 
 
 # ---------------------------------------------------------- phases 5, 6
@@ -2685,6 +3072,8 @@ def line_row(rows, n):
             return False
         if n in ("adamw_step", "momentum_step"):
             return r["dtype"] == "float32"
+        if n == "i8i8_matmul":
+            return r["shape"] == I8_LINE_SHAPE
         if r["dtype"] != "bfloat16":
             return False
         if n == "flash_fwd":
@@ -2720,8 +3109,17 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
     rows, ragged = [], []
-    # the incubate slice's kernels first: late in a long run the profiler
-    # has been seen to drop records of short kernels (see device_ms)
+    # the last two slices' kernels first: late in a long run the profiler
+    # has been seen to drop records (see device_ms)
+    for label, (K, N) in I8_SHAPES.items():
+        for M in (8, 1008):
+            rows.append(check_i8i8(M, K, N, label, gen, dev))
+    ragged.append(check_i8i8(3, 200, 333, "ragged", gen, dev, timed=False))
+    ragged.append(check_i8i8(32, 8192, 256, "all +-127", gen, dev,
+                             timed=False, fill="pm127"))
+    ragged += [check_int4(8, 2048, 8192, dtype, gen, dev, "up")
+               for dtype in (torch.bfloat16, torch.float32)]
+    torch.cuda.empty_cache()
     for case in RMS_CASES:
         rows += check_rms_norm(*case, gen, dev, timed=True)
     for case in RMS_RAGGED:
@@ -2806,6 +3204,14 @@ def main():
         elif r["name"] in ("rope", "adamw_flat"):
             say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} ({r['tol']})")
+        elif r["name"] == "i8i8_matmul":
+            say(f"[kernel] i8i8_matmul {r['shape']}: err "
+                f"{r['max_abs_err']:.3g} ({r['tol']}), largest |sum| "
+                f"{r['max_abs_sum']}, {r['k_splits']} K splits")
+        elif r["name"] == "int4_weight_only_matmul":
+            say(f"[kernel] int4_weight_only_matmul {r['dtype']} {r['shape']}: "
+                f"err {r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, "
+                f"tol {r['tol']}) ms {r['ms']:.4f}")
         elif r["name"] == "flash_varlen":
             say(f"[kernel] flash_varlen {r['dtype']} {r['shape']}: fwd err "
                 f"{r['fwd_err']:.3g}, dq/dk/dv err {r['dq_dk_dv_err']} (tol "
@@ -2818,6 +3224,10 @@ def main():
             say(f"[kernel] flash_attn_unpadded {r['dtype']} {r['shape']}: "
                 f"packed route {r['route_ms']['packed']:.4f} ms, densify "
                 f"route {r['route_ms']['densify']:.4f} ms (CUDA events)")
+    for r in rows:
+        if r["name"] == "i8i8_matmul":
+            say(f"[kernel] i8i8_matmul {r['shape']}: library "
+                f"{r['library']}, {r['k_splits']} K splits")
     say(f"[kernel] wo_matmul library yardsticks: torch.mm over the weight "
         f"dequantized beforehand; torch._weight_int8pack_mm (w [N, K] int8, "
         f"scales in x's dtype): "
@@ -2889,6 +3299,13 @@ def main():
             dtype, econf, prompts, new, fp_gens, tag)
         add(l8)
     say(f"[engine] launches during the engine runs: {launches}")
+
+    # 16. PTQ full-int8 serving at full width
+    for tag, dtype, fp_gens in (("ptq_f32", torch.float32, gens),
+                                ("ptq_bf16", torch.bfloat16, gens16)):
+        runs[tag], lq = serve_ptq(cfg, dtype, econf, prompts, new, fp_gens,
+                                  tag)
+        add(lq)
 
     # 5. training at full width and depth
     train_rec, lt = train_bf16(smi)

@@ -20,9 +20,12 @@ from .fused_momentum import momentum_step, momentum_step_reference
 from .fused_rms_norm import (rms_norm_bwd, rms_norm_bwd_reference,
                              rms_norm_fwd, rms_norm_fwd_reference)
 from .fused_rope import rope, rope_reference
-from .quant_matmul import (channel_absmax, int8_weight_only_matmul,
-                           int8_weight_only_matmul_reference,
-                           quantize_channelwise, weight_quant_error_bound)
+from .quant_matmul import (channel_absmax, fp8_matmul,
+                           int4_weight_only_matmul, int8_matmul,
+                           int8_matmul_reference, int8_weight_only_matmul,
+                           int8_weight_only_matmul_reference, pack_int4,
+                           quantize_channelwise, unpack_int4,
+                           weight_quant_error_bound)
 
 __all__ = ["scaled_dot_product_attention", "remat_policy",
            "flash_enabled", "set_flash_enabled",
@@ -38,7 +41,9 @@ __all__ = ["scaled_dot_product_attention", "remat_policy",
            "layer_norm_bwd", "layer_norm_bwd_reference",
            "channel_absmax", "quantize_channelwise",
            "weight_quant_error_bound", "int8_weight_only_matmul",
-           "int8_weight_only_matmul_reference", "adamw_flat",
+           "int8_weight_only_matmul_reference", "int4_weight_only_matmul",
+           "pack_int4", "unpack_int4", "int8_matmul", "int8_matmul_reference",
+           "fp8_matmul", "adamw_flat",
            "adamw_flat_reference", "rms_norm_fwd", "rms_norm_fwd_reference",
            "rms_norm_bwd", "rms_norm_bwd_reference", "rope",
            "rope_reference"]

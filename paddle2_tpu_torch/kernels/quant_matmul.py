@@ -1,23 +1,37 @@
-"""Int8 weight-only matmul: the CUDA kernel, its wrapper, its plain
-version and the quantization primitives around it.
+"""Low-precision matmuls: the int8 weight-only and the int8 x int8 CUDA
+kernels, their wrappers, their plain versions and the quantization
+primitives around them.
 
-Counterpart of the weight-only half of
-``paddle2_tpu/kernels/pallas_matmul.py``: :func:`channel_absmax`,
-:func:`quantize_channelwise` and :func:`weight_quant_error_bound` are
-plain torch; :func:`int8_weight_only_matmul` is the port of the Pallas
-kernel ``_wo_kernel``, as ``csrc/wo_matmul.cu``. Layouts are the JAX
-package's: ``x [..., K]``, ``w_int8 [K, N]`` int8, ``w_scale [N]`` f32
-(per output channel).
+Counterpart of ``paddle2_tpu/kernels/pallas_matmul.py``, whose public
+names it exposes. :func:`channel_absmax`, :func:`quantize_channelwise`,
+:func:`weight_quant_error_bound`, the int4 packers and
+:func:`fp8_matmul` are plain torch, as they are plain jnp there. Two
+functions are ports of Pallas kernels:
 
-A CPU tensor runs :func:`int8_weight_only_matmul_reference`; a CUDA
-tensor launches the kernel or raises. The plain version repeats the
-Pallas kernel's arithmetic, not the XLA fallback's: the product is
-summed in f32 from the unscaled int8 values, each column is scaled by
-``s_j / qmax`` once after the sum, and a bias is added in f32 before the
-one cast to ``x.dtype``.
+* :func:`int8_weight_only_matmul`, of ``_wo_kernel``, as
+  ``csrc/wo_matmul.cu``; :func:`int4_weight_only_matmul` unpacks a
+  nibble payload and reaches it at ``quant_bits=4``.
+* :func:`int8_matmul`, of ``_i8i8_kernel``, as ``csrc/i8i8_matmul.cu``:
+  the product of ``QuantedInferenceLinear`` (PTQ's full-int8 layer).
 
-Unlike the Pallas path there is no ``wo_supported`` gate: the kernel
-masks M, N and K at the ragged edge, so every shape takes it.
+Layouts are the JAX package's: ``x [..., K]``, ``w_int8 [K, N]`` int8,
+``w_scale [N]`` f32 (per output channel).
+
+A CPU tensor runs each kernel's plain version; a CUDA tensor launches
+the kernel or raises. The weight-only plain version repeats the Pallas
+kernel's arithmetic, not the XLA fallback's: the product is summed in
+f32 from the unscaled int8 values, each column is scaled by ``s_j /
+qmax`` once after the sum, and a bias is added in f32 before the one
+cast to ``x.dtype``. The int8 x int8 product is exact, so its plain
+version and the kernel give the same integers.
+
+Unlike the Pallas paths there is no :func:`wo_supported` gate on the
+card: the kernels mask M, N and K at the ragged edge, so every shape
+takes them. The gate stays public for callers that read it.
+
+The collective matmuls (``allgather_matmul``, ``matmul_allgather``,
+``collective_matmul_traffic``) wait for the distributed core and the
+cost model (ROADMAP queue 1 items 6 and 4) and raise.
 """
 
 import ctypes
@@ -29,12 +43,24 @@ from . import _build
 
 __all__ = ["channel_absmax", "quantize_channelwise",
            "weight_quant_error_bound", "int8_weight_only_matmul",
-           "int8_weight_only_matmul_reference"]
+           "int8_weight_only_matmul_reference", "int4_weight_only_matmul",
+           "pack_int4", "unpack_int4", "int8_matmul",
+           "int8_matmul_reference", "fp8_matmul", "fp8_supported",
+           "wo_supported", "allgather_matmul", "matmul_allgather",
+           "collective_matmul_traffic", "DEFAULT_BLOCK_M",
+           "DEFAULT_BLOCK_N", "DEFAULT_BLOCK_K"]
+
+# the Pallas tiling's defaults, which wo_supported reads; the CUDA
+# kernels choose their own tiles
+DEFAULT_BLOCK_M = 256
+DEFAULT_BLOCK_N = 256
+DEFAULT_BLOCK_K = 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"wo_matmul": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _P],
                "wo_gemv_blocks_per_sm": [_I, _I, _I, _P]}
+_I8_SIGNATURES = {"i8i8_matmul": [_P] * 3 + [_I] * 4 + [_P]}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's decode regime (csrc/wo_matmul.cu): M <= 8 rows, computed
 # as 1, 2, 4 or 8; 128-column tiles; a block takes at most 8192 / MT rows
@@ -224,3 +250,191 @@ def _launch(lib, x, w_int8, w_scale, bias, y, M, K, N, qmax):
 
 
 int8_weight_only_matmul.launches = 0
+
+
+def wo_supported(m: int, k: int, n: int, bm: int = DEFAULT_BLOCK_M,
+                 bn: int = DEFAULT_BLOCK_N, bk: int = DEFAULT_BLOCK_K) -> bool:
+    """Whether the JAX package's Pallas tiling takes ``m x k x n``: each
+    dimension a multiple of its block (a block clipped to the
+    dimension). The port's kernels take every shape; this is the same
+    arithmetic, public for callers that read it."""
+    bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
+    return m % bm == 0 and k % bk == 0 and n % bn == 0
+
+
+# ------------------------------------------------------------ int4 storage
+def pack_int4(w_q) -> torch.Tensor:
+    """Pack a ``[..., N]`` int4-valued int8 tensor (values in [-8, 7])
+    into ``[..., N/2]`` uint8 nibbles, the even column in the low nibble.
+    N must be even."""
+    w_q = torch.as_tensor(w_q).to(torch.int8)
+    if w_q.shape[-1] % 2:
+        raise ValueError("pack_int4 needs an even out-channel count")
+    lo = (w_q[..., 0::2] & 0xF).to(torch.uint8)
+    hi = (w_q[..., 1::2] & 0xF).to(torch.uint8)
+    return lo | (hi << 4)
+
+
+def unpack_int4(packed, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: ``[..., N/2]`` uint8 -> ``[..., n]``
+    int8, each nibble sign-extended to [-8, 7]."""
+    packed = torch.as_tensor(packed).to(torch.uint8)
+    lo = (packed & 0xF).to(torch.int8)
+    hi = ((packed >> 4) & 0xF).to(torch.int8)
+    out = torch.stack([torch.where(v >= 8, v - 16, v) for v in (lo, hi)],
+                      dim=-1)
+    return out.reshape(packed.shape[:-1] + (2 * packed.shape[-1],))[..., :n]
+
+
+def int4_weight_only_matmul(x, w_packed, w_scale, bias=None) -> torch.Tensor:
+    """int4 weight-only ``x @ dequant(W)``: the nibble payload
+    ``w_packed [K, N/2]`` (from :func:`pack_int4`) unpacked to int8 and
+    run through :func:`int8_weight_only_matmul` at ``quant_bits=4``
+    (the ``wo_matmul`` kernel on the card). ``w_scale [N]`` f32."""
+    n = 2 * w_packed.shape[-1]
+    w_q = unpack_int4(w_packed, n).contiguous()
+    return int8_weight_only_matmul(x, w_q, w_scale, bias=bias, quant_bits=4)
+
+
+# ------------------------------------------------------ int8 x int8 matmul
+# csrc/i8i8_matmul.cu's tiles: 64 rows of K a stage, 128 columns; 16 rows
+# of M up to M 16, 64 above
+_I8_BK = 64
+_I8_BN = 128
+_I8_SMALL_M = 16
+_I8_BM = {True: 16, False: 64}
+# the plain version's K chunk: each chunk's sum of int8 products is at
+# most 1024 * 128**2 = 2**24 in magnitude, exact in f32
+_I8_CHUNK = 1024
+# device -> SM count
+_SMS: Dict[torch.device, int] = {}
+
+
+def int8_matmul_reference(x_int8: torch.Tensor,
+                          w_int8: torch.Tensor) -> torch.Tensor:
+    """The plain version, the same integers on any device: K is cut in
+    chunks of 1024; each chunk is an f32 matmul of the int8 values,
+    exact because every partial sum is an integer of magnitude at most
+    ``1024 * 128**2 = 2**24`` (TF32 would be exact too: an int8 value
+    needs 8 significant bits). The chunks are converted to int32 and
+    added in int32, which wraps past 2**31 as the kernel's adds do."""
+    M, K = x_int8.shape
+    acc = torch.zeros(M, w_int8.shape[1], dtype=torch.int32,
+                      device=x_int8.device)
+    for k0 in range(0, K, _I8_CHUNK):
+        part = (x_int8[:, k0:k0 + _I8_CHUNK].float()
+                @ w_int8[k0:k0 + _I8_CHUNK].float())
+        acc += part.to(torch.int32)
+    return acc
+
+
+def i8i8_split(M: int, K: int, N: int, sms: int) -> Tuple[int, int]:
+    """``(k_per_split, splits)`` of the int8 x int8 kernel: K is split
+    across blocks when the output tiles fill fewer than ``sms`` SMs,
+    into about two waves of blocks, each split whole 64-row stages and
+    at least two of them. The splits add their int32 partial sums with
+    atomics: integer adds commute, so the result does not depend on
+    their order."""
+    tiles = (-(-M // _I8_BM[M <= _I8_SMALL_M])) * (-(-N // _I8_BN))
+    steps = -(-K // _I8_BK)
+    if tiles >= sms:
+        return steps * _I8_BK, 1
+    per = min(max(2, -(-steps // -(-2 * sms // tiles))), steps)
+    return per * _I8_BK, -(-steps // per)
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def int8_matmul(x_int8: torch.Tensor, w_int8: torch.Tensor) -> torch.Tensor:
+    """Full-int8 ``x_int8 [M, K] @ w_int8 [K, N] -> int32 [M, N]``, the
+    product of ``QuantedInferenceLinear``. Exact while ``K * 128**2 <
+    2**31`` (K < 131,072); past that the int32 sums wrap, as the JAX
+    kernel's do. ``int8_matmul.launches`` counts the kernel's launches."""
+    for name, t in (("x_int8", x_int8), ("w_int8", w_int8)):
+        if t.dtype != torch.int8 or t.dim() != 2:
+            raise ValueError(f"{name} must be a 2-D int8 tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    M, K = x_int8.shape
+    if w_int8.shape[0] != K:
+        raise ValueError(f"x_int8 {tuple(x_int8.shape)} and w_int8 "
+                         f"{tuple(w_int8.shape)} differ in K")
+    if w_int8.device != x_int8.device:
+        raise ValueError("x_int8 and w_int8 must lie on one device")
+    if not _build.on_card("int8_matmul", x_int8, w_int8):
+        return int8_matmul_reference(x_int8, w_int8)
+    N = w_int8.shape[1]
+    if M == 0 or N == 0 or K == 0:
+        return torch.zeros(M, N, dtype=torch.int32, device=x_int8.device)
+    dev = x_int8.device
+    per, splits = i8i8_split(M, K, N, _sm_count(dev))
+    # the splits add into y with atomics, so it starts at 0
+    y = (torch.zeros if splits > 1 else torch.empty)(
+        M, N, dtype=torch.int32, device=dev)
+    lib = _build.library("i8i8_matmul", _I8_SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.i8i8_matmul(x_int8.data_ptr(), w_int8.data_ptr(),
+                              y.data_ptr(), M, K, N, per,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "i8i8_matmul")
+    int8_matmul.launches += 1
+    return y
+
+
+int8_matmul.launches = 0
+
+
+# ------------------------------------------------------------- fp8-shaped
+def fp8_supported() -> bool:
+    """True when this torch has the ``float8_e4m3fn`` dtype."""
+    return hasattr(torch, "float8_e4m3fn")
+
+
+# e4m3fn's largest finite value is 448; XLA's conversion rounds to
+# nearest even, so |v| <= 464 lands on 448 and anything past it is NaN
+# (the format has no infinity). torch's own cast saturates at +-448, so
+# the port marks the overflow itself.
+_FP8_OVERFLOW = 464.0
+
+
+def _to_fp8_and_back(a: torch.Tensor) -> torch.Tensor:
+    a32 = a.float()
+    back = a32.to(torch.float8_e4m3fn).float()
+    return torch.where(a32.abs() > _FP8_OVERFLOW,
+                       torch.full_like(back, float("nan")), back)
+
+
+def fp8_matmul(x, w) -> torch.Tensor:
+    """fp8-shaped matmul: both operands cast to ``float8_e4m3fn`` (as
+    XLA casts them: values past 464 in magnitude become NaN), widened to
+    f32, multiplied over ``x``'s last axis and ``w``'s first, and cast
+    to ``x.dtype``. The JAX package computes it with ``dot_general``
+    outside any Pallas kernel, so plain torch is its port."""
+    if not fp8_supported():
+        raise NotImplementedError(
+            "fp8_matmul: this torch has no float8_e4m3fn dtype")
+    out = torch.tensordot(_to_fp8_and_back(x), _to_fp8_and_back(w),
+                          dims=([x.dim() - 1], [0]))
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------- collective matmul
+def _collective(name: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} is not ported yet: it waits for the distributed core "
+            f"(ROADMAP queue 1 item 6) and the cost model's collective "
+            f"traffic (queue 1 item 4)")
+    fn.__name__ = name
+    fn.__doc__ = (f"``{name}`` of the JAX package; raises until ROADMAP "
+                  f"queue 1 items 6 and 4 land.")
+    return fn
+
+
+allgather_matmul = _collective("allgather_matmul")
+matmul_allgather = _collective("matmul_allgather")
+collective_matmul_traffic = _collective("collective_matmul_traffic")

@@ -19,7 +19,11 @@ A model quantized to int8 weight-only carries ``<path>.weight_int8``,
 ``<path>.w_scale`` and ``<path>.bias`` for each swapped Linear and
 ``_wo_head.*`` for the head. Both packages lay the payload out ``[K, N]``
 = ``[in, out]``, so these pass unchanged; :func:`load_weight_only_reference`
-gives the port's model the matching modules and loads them.
+gives the port's model the matching modules and loads them. A model
+converted by ``PTQ.convert`` carries the same three names for each
+``QuantedInferenceLinear``; its activation scale is a float attribute,
+not state, so :func:`load_quanted_reference` takes those scales beside
+the state.
 """
 
 import re
@@ -29,10 +33,12 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..quantization import WeightOnlyLinear, WeightOnlyLMHead
+from ..quantization import (QuantedInferenceLinear, WeightOnlyLinear,
+                            WeightOnlyLMHead)
 
 __all__ = ["gpt_state_from_reference", "ernie_state_from_reference",
-           "resnet_state_from_reference", "load_weight_only_reference"]
+           "resnet_state_from_reference", "load_weight_only_reference",
+           "load_quanted_reference"]
 
 _GPT_LINEARS = ("attn.qkv.weight", "attn.out_proj.weight", "mlp.up.weight",
                 "mlp.down.weight", "lm_head.weight")
@@ -115,6 +121,27 @@ def resnet_state_from_reference(state: Dict[str, np.ndarray]
     return _from_reference(state, ("fc.weight",), "", stacked=None)
 
 
+def _swap_in_payloads(model, state: Dict[str, np.ndarray], make) -> None:
+    """For each ``<path>.weight_int8`` in ``state``, put ``make(path,
+    w_int8, w_scale, bias)`` at ``<path>`` on the model's device (bias in
+    the model's parameter dtype, None where the state has none), then
+    load every tensor of ``state``."""
+    param = model.gpt.wte.weight
+    for name in state:
+        if not name.endswith(".weight_int8"):
+            continue
+        path = name[:-len(".weight_int8")]
+        w = torch.from_numpy(np.ascontiguousarray(state[name]))
+        s = torch.from_numpy(np.ascontiguousarray(state[path + ".w_scale"]))
+        b = state.get(path + ".bias")
+        b = None if b is None else torch.from_numpy(np.asarray(b)).to(
+            param.dtype)
+        parent, _, attr = path.rpartition(".")
+        (model.get_submodule(parent) if parent else model).add_module(
+            attr, make(path, w, s, b).to(param.device))
+    model.load_state_dict(gpt_state_from_reference(state, stacked=False))
+
+
 def load_weight_only_reference(model, state: Dict[str, np.ndarray],
                                quant_bits: int = 8):
     """Load a quantized JAX model's ``state`` (per-block names) into
@@ -124,23 +151,29 @@ def load_weight_only_reference(model, state: Dict[str, np.ndarray],
     ``WeightOnlyLMHead``, then every tensor of ``state`` is loaded.
     ``quant_bits`` is the payload's width (the state does not hold it).
     In place; returns ``model``."""
-    param = model.gpt.wte.weight
-    for name in state:
-        if not name.endswith(".weight_int8"):
-            continue
-        path = name[:-len(".weight_int8")]
-        w = torch.from_numpy(np.ascontiguousarray(state[name]))
-        s = torch.from_numpy(np.ascontiguousarray(state[path + ".w_scale"]))
+    def make(path, w, s, b):
         if path == "_wo_head":
-            mod = WeightOnlyLMHead(w, s, quant_bits=quant_bits)
-        else:
-            b = state.get(path + ".bias")
-            mod = WeightOnlyLinear(w, s, None if b is None else
-                                   torch.from_numpy(np.asarray(b)).to(
-                                       param.dtype),
-                                   quant_bits=quant_bits)
-        parent, _, attr = path.rpartition(".")
-        (model.get_submodule(parent) if parent else model).add_module(
-            attr, mod.to(param.device))
-    model.load_state_dict(gpt_state_from_reference(state, stacked=False))
+            return WeightOnlyLMHead(w, s, quant_bits=quant_bits)
+        return WeightOnlyLinear(w, s, b, quant_bits=quant_bits)
+    _swap_in_payloads(model, state, make)
+    return model
+
+
+def load_quanted_reference(model, state: Dict[str, np.ndarray],
+                           act_scales: Dict[str, float]):
+    """Load a JAX GPT converted by ``PTQ.convert`` into ``model``, a port
+    ``GPTForCausalLM`` of the same configuration (per-block names): each
+    ``<path>.weight_int8`` in ``state`` swaps the Linear at ``<path>``
+    for a :class:`~paddle2_tpu_torch.quantization.QuantedInferenceLinear`
+    with its payload, scales and bias, then every tensor of ``state`` is
+    loaded. ``act_scales`` maps each such ``<path>`` to the JAX layer's
+    ``act_scale``, which is an attribute and not in ``state_dict()``. In
+    place; returns ``model``."""
+    missing = [n[:-len(".weight_int8")] for n in state
+               if n.endswith(".weight_int8")
+               and n[:-len(".weight_int8")] not in act_scales]
+    if missing:
+        raise ValueError(f"no act_scale for {missing}")
+    _swap_in_payloads(model, state, lambda path, w, s, b:
+                      QuantedInferenceLinear(w, s, b, act_scales[path]))
     return model

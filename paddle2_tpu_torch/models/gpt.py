@@ -10,7 +10,8 @@ parallelism yet. Training adds remat (``use_recompute`` with
 ``recompute_granularity`` "full" or "dots", through
 ``torch.utils.checkpoint``), stacked ``[L, ...]`` block storage
 (``stacked_blocks``, :mod:`._scan`) and the chunked fused LM-head loss
-(``fused_head_loss``). Attention runs through
+(``fused_head_loss``), and the int8 head fake-quantized per vocab
+channel (``quantized_lm_head``). Attention runs through
 :func:`paddle2_tpu_torch.kernels.scaled_dot_product_attention`, which
 launches the CUDA flash kernels (forward and backward) for a CUDA
 tensor at every length. LayerNorm is :class:`paddle2_tpu_torch.nn.LayerNorm`,
@@ -67,6 +68,10 @@ class GPTConfig:
     # forward(labels=...) returns (None, loss) through the chunked fused
     # head + cross-entropy: the [tokens, vocab] logits are never held
     fused_head_loss: bool = False
+    # training-time int8 head: the logits matmul reads the head weight
+    # fake-quantized per vocab channel (straight-through gradients reach
+    # the fp weight and the tied embedding). Not with fused_head_loss
+    quantized_lm_head: bool = False
 
     @property
     def ffn_size(self) -> int:
@@ -215,6 +220,11 @@ class GPTForCausalLM(nn.Module):
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
         self.cfg = cfg
+        if cfg.quantized_lm_head and cfg.fused_head_loss:
+            raise ValueError(
+                "quantized_lm_head and fused_head_loss are mutually "
+                "exclusive: the chunked fused-CE kernel owns the head "
+                "matmul, so there is no logits matmul to quantize")
         device = resolve_device(device)
         factory = {"device": device, "dtype": dtype}
         self.gpt = GPTModel(cfg, **factory)
@@ -245,8 +255,20 @@ class GPTForCausalLM(nn.Module):
         wo = self._modules.get("_wo_head")
         if wo is not None:
             return wo(hidden)
+        if self.cfg.quantized_lm_head:
+            # the head weight [hidden, vocab] fake-quantized per vocab
+            # channel; the scale is a constant of the step, as in JAX
+            from ..quantization import channel_absmax, fake_quant
+            w = (self.gpt.wte.weight if self.lm_head is None
+                 else self.lm_head.weight).t()
+            w = fake_quant(w, channel_absmax(w.detach(), axis=1), bits=8,
+                           quant_axis=1)
+            return torch.matmul(*_promoted(hidden, w))
         if self.lm_head is None:
-            return F.linear(hidden, self.gpt.wte.weight)
+            # f32 hidden states over bf16 weights (a bf16 model
+            # calibrating under PTQ, whose fake-quantized activations are
+            # f32) take the promoted type, as the JAX package's matmul does
+            return F.linear(*_promoted(hidden, self.gpt.wte.weight))
         return self.lm_head(hidden)
 
     def forward(self, input_ids, labels=None):
@@ -297,6 +319,11 @@ class GPTForCausalLM(nn.Module):
             nxt = torch.argmax(logits, dim=-1)
             ids = torch.cat([ids, nxt[:, None]], dim=1)
         return ids
+
+
+def _promoted(a, b):
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
 
 
 def _cross_entropy(logits, labels, ignore_index: int = -100):

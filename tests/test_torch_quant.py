@@ -183,7 +183,8 @@ def _get(layer, path):
 
 def test_observer_matches_jax():
     """One observation, then frozen: later inputs leave the scales as
-    they were; a second observation before the freeze is refused."""
+    they were; a second observation before the freeze takes the JAX
+    observer's moving average."""
     rs = np.random.RandomState(3)
     a, c = (rs.randn(8, 6).astype(np.float32) for _ in range(2))
     jo = JaxObserver(quant_axis=1, channels=6)
@@ -197,9 +198,12 @@ def test_observer_matches_jax():
     to(torch.from_numpy(c * 10))
     assert torch.equal(to.scale(), torch.from_numpy(np.asarray(jo.scale())))
     fresh = ChannelWiseAbsMaxObserver(quant_axis=1)
-    fresh(torch.from_numpy(a))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fresh(torch.from_numpy(c))
+    jfresh = JaxObserver(quant_axis=1, channels=6)
+    for arr in (a, c):
+        fresh(torch.from_numpy(arr))
+        jfresh(Tensor(jnp.asarray(arr)))
+    assert torch.equal(fresh.scale(),
+                       torch.from_numpy(np.asarray(jfresh.scale())))
 
 
 def test_channelwise_primitives_match_jax():
