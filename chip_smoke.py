@@ -10,20 +10,29 @@ line) when it fails:
 
 1. Device: the card's name and power limit.
 2. Build: every kernel under ``paddle2_tpu_torch/**/csrc`` with nvcc,
-   in parallel, from the sources in the checkout.
+   in parallel, from the sources in the checkout; the SASS of the two
+   tensor-core libraries (``flash_fwd_wgmma``, ``flash_bwd_wgmma``)
+   must hold HGMMA (wgmma) instructions, and ptxas's registers and
+   spills for their kernels are printed.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
-   causal), the paged decode and the split-K paged decode (B8 H16
-   D128, block 16, contexts up to 2048), in bf16 and f32. Each prints
-   its error against its tolerance, its median time from CUDA events,
-   its device time from torch.profiler (all kernels of the call, and
-   the port's kernel alone), the plain version's time, one library
-   call's time where one computes the same function, its bound, and
-   its launches.
+   causal; bf16 on the tensor-core kernel, f32 on the CUDA-core one),
+   the paged decode and the split-K paged decode (B8 H16 D128, block
+   16, contexts up to 2048), in bf16 and f32. Each prints its error
+   against its tolerance, its median time from CUDA events, its device
+   time from torch.profiler (all kernels of the call, and the port's
+   kernel alone), the plain version's time, one library call's time
+   where one computes the same function, its bound, and its launches.
    The flash backward (both routes: the fused kernel and the split
    dK/dV + dQ pair) at the training path's shape (B8 H16 S1024 D64,
-   causal) in bf16 and f32, and ragged ``Sq < Sk`` cases at head dims
-   16/64/128, with a bf16 limit that the plain backward without its
+   causal) in bf16 and f32 and at Sq 200 / Sk 333; the fused route
+   alone (the bf16 route) at the serving shapes, at the incubate
+   stack's (B8 H16 S2048 D128, timed with the forward and SDPA beside
+   it) and at S 127 and 129; the forward at those ragged shapes; all
+   at head dims 16/64/128. The bf16 fused backward (tensor cores,
+   another summation order) is held to the plain version's f32 sums
+   beyond half a bf16 step, the split pair to the plain version in the
+   input dtype, both with a limit that the plain backward without its
    P/dS rounding must exceed; the fused AdamW step against the port's
    eager AdamW, bitwise (``torch.equal``), three steps on the training
    path's 16 parameter leaves (f32, and bf16 with f32 masters), and
@@ -257,6 +266,9 @@ to ``chiprun_out/chip_smoke.json``.
 
 import copy
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -323,9 +335,12 @@ HBM_BYTES_PER_S = 3.35e12
 # version; bf16: outputs and probabilities are rounded to bf16
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the flash backward's dq/dk/dv, absolute below 1 and relative above.
-# bf16: sound kernels read 2.0e-3 (fused: q*scale rounded to bf16 first)
-# and 0 (split) at the training shape; the plain backward without the
-# P/dS rounding reads above the limit (checked on every run)
+# bf16: the split pair (CUDA cores, the plain version's summation order)
+# reads 0 at the training shape against the plain version in bf16; the
+# fused tensor-core kernel is held against the plain version's f32 sums
+# beyond half a bf16 step (half_step_err); the plain backward without
+# the P/dS rounding reads above the limit under both (checked on every
+# timed run)
 BWD_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
 NEAR_TIE = 1e-3
 # bf16 logits carry bf16 rounding (2**-6 at magnitudes 2..4), and the
@@ -336,7 +351,8 @@ OUT = Path("chiprun_out")
 
 KERNELS = {
     "flash_fwd": dict(
-        source="paddle2_tpu_torch/kernels/csrc/flash_fwd.cu",
+        source="paddle2_tpu_torch/kernels/csrc/flash_fwd_wgmma.cu",
+        f32_source="paddle2_tpu_torch/kernels/csrc/flash_fwd.cu",
         replaces="paddle2_tpu/kernels/pallas_flash.py:153",
         also_replaces="paddle2_tpu/kernels/pallas_flash.py:122",
         counter=flash_fwd),
@@ -357,7 +373,8 @@ KERNELS = {
         replaces="paddle2_tpu/kernels/pallas_flash.py:354",
         counter=flash_bwd_split_dq),
     "flash_bwd_fused": dict(
-        source="paddle2_tpu_torch/kernels/csrc/flash_bwd.cu",
+        source="paddle2_tpu_torch/kernels/csrc/flash_bwd_wgmma.cu",
+        f32_source="paddle2_tpu_torch/kernels/csrc/flash_bwd.cu",
         replaces="paddle2_tpu/kernels/pallas_flash.py:265",
         counter=flash_bwd_fused),
     "adamw_step": dict(
@@ -418,6 +435,19 @@ VARLEN_KERNELS = ("flash_varlen_fwd", "flash_varlen_bwd_dkv",
                   "flash_varlen_bwd_dq")
 DENSE_FLASH_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_split_dkv",
                        "flash_bwd_split_dq")
+# the CUDA kernel each dense flash wrapper launches, by dtype (the names
+# torch.profiler reports): bf16 on the tensor cores, f32 on the CUDA cores
+FLASH_KERNEL_NAMES = {
+    ("flash_fwd", torch.bfloat16): "flash_fwd_wgmma_kernel",
+    ("flash_fwd", torch.float32): "flash_fwd_kernel",
+    ("flash_bwd_fused", torch.bfloat16): "flash_bwd_fused_wgmma_kernel",
+    ("flash_bwd_fused", torch.float32): "flash_bwd_fused_kernel",
+    ("flash_bwd_split_dkv", torch.bfloat16): "flash_bwd_dkv_kernel",
+    ("flash_bwd_split_dkv", torch.float32): "flash_bwd_dkv_kernel",
+    ("flash_bwd_split_dq", torch.bfloat16): "flash_bwd_dq_kernel",
+    ("flash_bwd_split_dq", torch.float32): "flash_bwd_dq_kernel"}
+# the libraries of the tensor-core kernels, whose SASS must hold HGMMA
+WGMMA_LIBRARIES = ("flash_fwd_wgmma", "flash_bwd_wgmma")
 SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_split")
 # GPT-3 1.3B's weight-only projections, K x N ([in, out])
 WO_SHAPES = {"qkv": (2048, 6144), "out_proj": (2048, 2048),
@@ -433,6 +463,10 @@ I8_LINE_SHAPE = "M8 K2048 N8192 (up)"
 PTQ_QUANTERS = dict(activation=FakeQuanterWithAbsMaxObserver,
                     weight=FakeQuanterChannelWiseAbsMaxObserver)
 # the training path (bench.py bench_gpt's default configuration)
+# ragged flash shapes (Sq, Sk, causal): around the tensor-core kernels'
+# 128-row tiles, and Sq < Sk
+FLASH_RAGGED = [(200, 333, True), (200, 333, False), (127, 127, True),
+                (129, 129, True)]
 TRAIN = dict(vocab=32768, hidden=1024, layers=24, heads=16, seq=1024,
              batch=8)
 # the fine-tuning path (bench.py bench_ernie at seq 128, batch 32)
@@ -510,7 +544,8 @@ ADAMW_FLAT_CASES = [(84_000_000, torch.float32, True),
                     (513, torch.float32, False),
                     (513, torch.bfloat16, False)]
 ADAMW_FLAT_LINE_SHAPE = "N 84000000, p/g bf16"
-LINE_SHAPES = {"wo_matmul": WO_LINE_SHAPE,
+LINE_SHAPES = {"flash_bwd_fused": "B8 H16 Sq1024 Sk1024 D64 causal",
+               "wo_matmul": WO_LINE_SHAPE,
                "i8i8_matmul": I8_LINE_SHAPE,
                "rms_norm_fwd": RMS_LINE_SHAPE,
                "rms_norm_bwd": RMS_LINE_SHAPE,
@@ -616,7 +651,7 @@ def check_flash(dtype, S, gen, dev, B=1, D=128):
     ms = cuda_ms(lambda: flash_fwd(q, k, v, scale=scale, causal=True))
     dev_ms, kern_ms = device_ms(
         lambda: flash_fwd(q, k, v, scale=scale, causal=True),
-        "flash_fwd_kernel")
+        FLASH_KERNEL_NAMES["flash_fwd", dtype])
     plain = cuda_ms(lambda: flash_fwd_reference(q, k, v, scale, True),
                     iters=10)
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
@@ -629,6 +664,26 @@ def check_flash(dtype, S, gen, dev, B=1, D=128):
                 ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
                 plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def check_flash_ragged(dtype, B, H, Sq, Sk, D, causal, gen, dev):
+    """The flash forward against its plain version at lengths that are
+    no multiple of a tile (the tensor-core kernel's are 128 query rows
+    and 64 or 128 keys), ``Sq < Sk``, untimed."""
+    q = torch.randn(B, H, Sq, D, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(B, H, Sk, D, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    scale = 1.0 / D ** 0.5
+    o, lse = flash_fwd(q, k, v, scale=scale, causal=causal)
+    o_ref, lse_ref = flash_fwd_reference(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    err = max((o.float() - o_ref.float()).abs().max().item(),
+              (lse - lse_ref).abs().max().item())
+    shape = f"B{B} H{H} Sq{Sq} Sk{Sk} D{D}" + (" causal" if causal else "")
+    require(err <= TOL[dtype], f"flash_fwd {dname(dtype)} {shape} "
+            f"disagrees with its plain version: {err} > {TOL[dtype]}")
+    return dict(name="flash_fwd", dtype=dname(dtype), shape=shape,
+                max_abs_err=err, tol=TOL[dtype])
 
 
 def paged_inputs(dtype, gen, dev, rng):
@@ -700,6 +755,28 @@ def check_paged(dtype, gen, dev, rng, split):
                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
+def half_step_err(got, ref32):
+    """A backward kernel's error against the plain version's f32 sums
+    ``ref32``: absolute below 1 and relative above, as the dense
+    backward's check, counted beyond half a step of ``got``'s dtype at
+    ``ref32`` (the output's own rounding; 0 for f32). For the kernels
+    that sum in another order than the plain version (the varlen
+    kernels; the dense fused backward on the tensor cores): in bf16
+    their same-dtype outputs differ by a whole step where a sum sits on
+    a rounding boundary (7.3e-3 at 1.07: dV at the serving lengths on an
+    H100; the same backward with float64 sums reads past the limit
+    against the f32 plain one too, as ``check_flash_bwd`` records), and
+    a few P or dS elements round to the
+    other neighbour (~1e-3), while a backward without the P/dS rounding
+    reads ~6-8e-3 past its half step."""
+    half = 0.0
+    if got.dtype == torch.bfloat16:
+        half = torch.exp2(torch.floor(torch.log2(
+            ref32.abs().clamp_min(1e-30))) - 8)
+    excess = ((got.float() - ref32).abs() - half).clamp_min(0.0)
+    return (excess / ref32.abs().clamp_min(1.0)).max().item()
+
+
 def causal_pairs(Sq, Sk):
     """(query, key) pairs the bottom-right causal mask keeps."""
     r = np.arange(Sq)
@@ -734,14 +811,23 @@ def bwd_inputs(dtype, B, H, Sq, Sk, D, gen, dev):
     return q, k, v, o, lse, do, scale
 
 
-def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed):
-    """Both routes against the plain backward; with ``timed``, the
-    route kernels' times, bounds and the SDPA backward's time."""
+def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
+                    routes=("fused", "split")):
+    """The backward ``routes`` against the plain backward; with
+    ``timed``, the route kernels' times, bounds and the SDPA backward's
+    time. The split pair sums in the plain version's order (at the
+    shapes it is held at) and is held to it in the input dtype; the
+    fused route in bf16 runs on the tensor cores, sums in another order,
+    and is held to the plain version's f32 sums beyond half a bf16 step
+    (``half_step_err``), as the varlen kernels are."""
     q, k, v, o, lse, do, scale = bwd_inputs(dtype, B, H, Sq, Sk, D, gen,
                                             dev)
     ref = flash_bwd_reference(q, k, v, o, lse, do, scale, True)
+    ref32 = flash_bwd_reference(q, k, v, o, lse, do, scale, True,
+                                out_dtype=torch.float32)
     shape = f"B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal"
     tol = BWD_TOL[dtype]
+    half_step = dtype == torch.bfloat16
 
     def scaled(got):
         # absolute below 1, relative above: one bf16 rounding step of a
@@ -749,27 +835,45 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed):
         diff = [(g.float() - r.float()).abs() for g, r in zip(got, ref)]
         return ([(d / r.float().abs().clamp_min(1.0)).max().item()
                  for d, r in zip(diff, ref)], [d.max().item() for d in diff])
-    errs, abs_errs = {}, {}
-    for route in ("fused", "split"):
+    errs, abs_errs, same_dtype = {}, {}, {}
+    for route in routes:
         got = flash_bwd(q, k, v, o, lse, do, scale, True, route=route)
         torch.cuda.synchronize()
-        errs[route], abs_errs[route] = scaled(got)
+        same_dtype[route], abs_errs[route] = scaled(got)
+        errs[route] = ([half_step_err(g, r) for g, r in zip(got, ref32)]
+                       if route == "fused" and half_step
+                       else same_dtype[route])
         require(all(e <= tol for e in errs[route]),
                 f"flash_bwd {route} {dname(dtype)} {shape}: dq/dk/dv err "
                 f"{errs[route]} > {tol}")
     if not timed:
         return [dict(name="flash_bwd", dtype=dname(dtype), shape=shape,
-                     dq_dk_dv_err=errs, dq_dk_dv_abs_err=abs_errs, tol=tol)]
+                     dq_dk_dv_err=errs, dq_dk_dv_abs_err=abs_errs,
+                     dq_dk_dv_err_same_dtype=same_dtype, tol=tol)]
     unrounded = None
     if dtype == torch.bfloat16:
-        # what a kernel that skips the P/dS rounding reads: the limit
-        # must catch it
-        unrounded = scaled([t.to(dtype) for t in flash_bwd_reference(
-            q.float(), k.float(), v.float(), o.float(), lse, do.float(),
-            scale, True)])[0]
-        require(max(unrounded) > tol,
-                f"flash_bwd bf16 {shape}: the plain backward without P/dS "
-                f"rounding reads {unrounded}, within the limit {tol}")
+        # what a kernel that skips the P/dS rounding reads under either
+        # metric: the limit must catch it
+        plain32 = flash_bwd_reference(q.float(), k.float(), v.float(),
+                                      o.float(), lse, do.float(), scale, True)
+        unrounded = dict(
+            same_dtype=scaled([t.to(dtype) for t in plain32])[0],
+            half_step=[half_step_err(a.to(dtype), b)
+                       for a, b in zip(plain32, ref32)])
+        del plain32
+        for metric, e in unrounded.items():
+            require(max(e) > tol,
+                    f"flash_bwd bf16 {shape}: the plain backward without P/dS "
+                    f"rounding reads {e} ({metric}), within the limit {tol}")
+        # why the tensor-core route needs the half-step metric: the same
+        # backward with float64 sums, against the f32 plain version in
+        # bf16, reads past the limit too (one bf16 step where a sum sits
+        # on a rounding boundary)
+        unrounded["exact_sums_same_dtype"] = scaled(flash_bwd_reference(
+            q, k, v, o, lse, do, scale, True, sum_dtype=torch.float64))[0]
+        say(f"[kernel] flash_bwd bf16 {shape}: the plain backward without "
+            f"P/dS rounding, and with float64 sums: {unrounded}")
+    del ref32
     delta = (do.float() * o.float()).sum(-1)
     plain = cuda_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do, scale,
                                                 True), iters=5, warmup=1)
@@ -777,23 +881,28 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed):
     o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
     lib = cuda_ms(lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do,
                                               retain_graph=True))
+    del o_lib, qr, kr, vr
     rows = []
     for name, fn, route, outs in (
             ("flash_bwd_fused", flash_bwd_fused, "fused", slice(0, 3)),
             ("flash_bwd_split_dkv", flash_bwd_split_dkv, "split",
              slice(1, 3)),
             ("flash_bwd_split_dq", flash_bwd_split_dq, "split", slice(0, 1))):
+        if route not in routes:
+            continue
         err = max(abs_errs[route][outs])
         scaled_err = max(errs[route][outs])
         def run(fn=fn):
             return fn(q, k, v, do, lse, delta, scale, True)
         ms = cuda_ms(run)
-        dev_ms, kern_ms = device_ms(run, name.replace("_split", "")
-                                    + "_kernel")
+        dev_ms, kern_ms = device_ms(run, FLASH_KERNEL_NAMES[name, dtype])
         b_ms, b_by = bwd_bound(name, B, H, Sq, Sk, D, dtype,
                                q.element_size())
         rows.append(dict(name=name, dtype=dname(dtype), shape=shape,
                          max_abs_err=err, scaled_err=scaled_err,
+                         same_dtype_err=max(same_dtype[route][outs]),
+                         metric="half_step" if route == "fused" and
+                         half_step else "same_dtype",
                          tol=tol, unrounded_err=unrounded, ms=ms,
                          device_ms=dev_ms, kernel_device_ms=kern_ms,
                          plain_ms=plain, library_ms=lib, bound_ms=b_ms,
@@ -1962,12 +2071,15 @@ def train_bf16(smi):
                              vocab=T["vocab"]),
                  device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                  loss=losses[-1])
+    profile = step_profile(prof, wall_ms, step_s * 1e3)
+    groups = device_groups(prof, STACK_GROUPS)
     run = dict(bench=bench, warmup_loss=warm, losses=losses,
                traced_loss=traced, step_times_s=times,
                first_step_s=first_s, peak_memory_gib=peak_gb,
                backward_route=route,
                launches_per_step={n: launches[n] / steps for n in KERNELS},
-               step_profile=step_profile(prof, wall_ms, step_s * 1e3))
+               step_profile=profile, device_ms_by_group=groups,
+               flash_share_of_device=groups["flash"] / profile["device_ms"])
     return run, launches
 
 
@@ -2461,25 +2573,6 @@ def varlen_bound(name, pairs, Tq, Tk, H, D, dtype, size):
     return bound(ops, nbytes, dtype)
 
 
-def varlen_bwd_err(got, ref32):
-    """A backward kernel's error against the plain version's f32 sums
-    ``ref32``: absolute below 1 and relative above, as the dense
-    backward's check, counted beyond half a step of ``got``'s dtype at
-    ``ref32`` (the output's own rounding; 0 for f32). The kernel and the
-    plain version sum in different orders: in bf16 their same-dtype
-    outputs differ by a whole step where a sum sits on a rounding
-    boundary (7.3e-3 at 1.07: dV at the serving lengths on an H100),
-    and a few P or dS elements round to the other neighbour (~1e-3 at
-    the README batch in a CPU model of the kernel), while a backward
-    without the P/dS rounding reads ~7e-3 past its half step."""
-    half = 0.0
-    if got.dtype == torch.bfloat16:
-        half = torch.exp2(torch.floor(torch.log2(
-            ref32.abs().clamp_min(1e-30))) - 8)
-    excess = ((got.float() - ref32).abs() - half).clamp_min(0.0)
-    return (excess / ref32.abs().clamp_min(1.0)).max().item()
-
-
 def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
     """The three varlen kernels against their plain versions on one
     packed batch; the f32 backward twice, bitwise. With ``timed``, each
@@ -2508,7 +2601,7 @@ def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
                                   scale)
     dq = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta, q_tiles, scale)
     # the plain backward's f32 sums, before the one rounding the kernel
-    # also does at its end (see varlen_bwd_err)
+    # also does at its end (see half_step_err)
     dk_ref, dv_ref = flash_varlen_bwd_dkv_reference(
         q, k, v, do, lse, delta, *meta, scale, out_dtype=torch.float32)
     dq_ref = flash_varlen_bwd_dq_reference(q, k, v, do, lse, delta, *meta,
@@ -2530,7 +2623,7 @@ def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
     for name, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
                            ("dv", dv, dv_ref)):
         bwd_abs[name] = (got.float() - ref).abs().max().item()
-        bwd_err[name] = varlen_bwd_err(got, ref)
+        bwd_err[name] = half_step_err(got, ref)
     require(max(bwd_err.values()) <= tol, f"flash_varlen backward "
             f"{dname(dtype)} {shape} {lens}: {bwd_err} > {tol}")
     unrounded = None
@@ -2541,7 +2634,7 @@ def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
         un = flash_varlen_bwd_dkv_reference(*up, lse, delta, *meta, scale)
         un = (flash_varlen_bwd_dq_reference(*up, lse, delta, *meta, scale),
               *un)
-        unrounded = [varlen_bwd_err(a.to(dtype), b)
+        unrounded = [half_step_err(a.to(dtype), b)
                      for a, b in zip(un, (dq_ref, dk_ref, dv_ref))]
         require(max(unrounded) > tol, f"flash_varlen bf16 {shape}: the "
                 f"plain backward without P/dS rounding reads {unrounded}, "
@@ -2989,6 +3082,8 @@ def stack_bf16(smi, dev):
                step_profile=step_profile(prof, wall_ms, step_s * 1e3),
                device_ms_by_group=device_groups(prof, STACK_GROUPS),
                device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    run["flash_share_of_device"] = (run["device_ms_by_group"]["flash"] /
+                                    run["step_profile"]["device_ms"])
     del params, state, xs, tgt
     torch.cuda.empty_cache()
     # beside the path: the neox route reaches no RoPE kernel, and
@@ -3064,6 +3159,45 @@ def stack_f32_vs_cpu(dev):
     return out, launches
 
 
+def ptxas_report(log):
+    """ptxas's lines for each kernel of a build log: the kernel (with its
+    head dim), its registers and its spills."""
+    out, name = {}, None
+    for line in log.splitlines():
+        # the mangled name: <length>flash_..._kernelILi<D>E
+        m = re.search(r"Compiling entry function '\w*?\d(flash_\w+?_kernel)"
+                      r"ILi(\d+)E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+        elif name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.strip())
+    return out
+
+
+def check_wgmma_build():
+    """Phase 2 for the tensor-core kernels: each library's SASS holds
+    HGMMA (wgmma) instructions, and ptxas's register and spill lines for
+    each of their kernels."""
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
+        "cuobjdump")
+    out = {}
+    for name in WGMMA_LIBRARIES:
+        lib = _build._lib_path(_build.sources()[name])
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        report = ptxas_report(lib.with_suffix(".log").read_text())
+        say(f"[build] {name}: {hgmma} HGMMA instructions in the SASS")
+        for kernel, lines in report.items():
+            say(f"[build] {kernel}: {'; '.join(lines)}")
+        require(hgmma > 0, f"{name}: no HGMMA instruction in {lib.name}: "
+                f"the tensor-core kernels do not use wgmma")
+        out[name] = dict(hgmma=hgmma, ptxas=report)
+    return out
+
+
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
     path's bf16 shape (the fused AdamW state is f32)."""
@@ -3104,6 +3238,7 @@ def main():
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 say(f"[build] {log.stem}: {line.strip()}")
+    wgmma = check_wgmma_build()
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3137,6 +3272,11 @@ def main():
             rows.append(check_flash(dtype, S, gen, dev))
         rows.append(check_paged(dtype, gen, dev, rng, split=False))
         rows.append(check_paged(dtype, gen, dev, rng, split=True))
+    # the fused backward (the bf16 route) at the serving shapes
+    ragged += [r for S in (128, 1024, 2048)
+               for r in check_flash_bwd(torch.bfloat16, 1, 16, S, S, 128,
+                                        gen, dev, timed=False,
+                                        routes=("fused",))]
     # the training path's shapes
     T = TRAIN
     hd = T["hidden"] // T["heads"]
@@ -3145,10 +3285,27 @@ def main():
                                 D=hd))
         rows += check_flash_bwd(dtype, T["batch"], T["heads"], T["seq"],
                                 T["seq"], hd, gen, dev, timed=True)
-    ragged += [r for dtype in (torch.bfloat16, torch.float32)
-               for D in (16, 64, 128)
-               for r in check_flash_bwd(dtype, 2, 4, 200, 333, D, gen, dev,
-                                        timed=False)]
+    torch.cuda.empty_cache()
+    # the incubate stack's attention (phase 14), bf16
+    C = STACK
+    rows.append(check_flash(torch.bfloat16, C["seq"], gen, dev,
+                            B=C["batch"], D=C["hidden"] // C["heads"]))
+    rows += check_flash_bwd(torch.bfloat16, C["batch"], C["heads"],
+                            C["seq"], C["seq"], C["hidden"] // C["heads"],
+                            gen, dev, timed=True, routes=("fused",))
+    torch.cuda.empty_cache()
+    # ragged: lengths around the tensor-core kernels' tiles, Sq < Sk
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (16, 64, 128):
+            for Sq, Sk, causal in FLASH_RAGGED:
+                ragged.append(check_flash_ragged(dtype, 2, 4, Sq, Sk, D,
+                                                 causal, gen, dev))
+                if causal:
+                    # the split pair keeps its ragged shape, 200 / 333
+                    ragged += check_flash_bwd(
+                        dtype, 2, 4, Sq, Sk, D, gen, dev, timed=False,
+                        routes=("fused", "split") if Sq == 200
+                        else ("fused",))
     shapes = [tuple(p.shape) for p in
               train_setup(T["layers"], dev, bf16=False)[0].parameters()]
     rows.append(check_adamw(shapes, gen, dev))
@@ -3212,13 +3369,17 @@ def main():
             say(f"[kernel] int4_weight_only_matmul {r['dtype']} {r['shape']}: "
                 f"err {r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, "
                 f"tol {r['tol']}) ms {r['ms']:.4f}")
+        elif r["name"] == "flash_fwd":
+            say(f"[kernel] flash_fwd {r['dtype']} {r['shape']}: err "
+                f"{r['max_abs_err']:.3g} (tol {r['tol']})")
         elif r["name"] == "flash_varlen":
             say(f"[kernel] flash_varlen {r['dtype']} {r['shape']}: fwd err "
                 f"{r['fwd_err']:.3g}, dq/dk/dv err {r['dq_dk_dv_err']} (tol "
                 f"{r['tol']}), f32 backward bitwise {r['f32_bwd_bitwise']}")
         else:
             say(f"[kernel] flash_bwd {r['dtype']} {r['shape']}: dq/dk/dv "
-                f"err {r['dq_dk_dv_err']} (tol {r['tol']})")
+                f"err {r['dq_dk_dv_err']} (tol {r['tol']}; the same in "
+                f"{r['dtype']}: {r['dq_dk_dv_err_same_dtype']})")
     for r in rows:
         if "route_ms" in r:
             say(f"[kernel] flash_attn_unpadded {r['dtype']} {r['shape']}: "
@@ -3311,6 +3472,10 @@ def main():
     train_rec, lt = train_bf16(smi)
     add(lt)
     say(f"[train bf16] {json.dumps(train_rec['bench'])}")
+    say(f"[train bf16] device {train_rec['step_profile']['device_ms']:.2f} "
+        f"ms a step, idle {train_rec['step_profile']['idle_share']:.3f}, "
+        f"flash share {train_rec['flash_share_of_device']:.3f}, by group "
+        f"{json.dumps(train_rec['device_ms_by_group'])}")
     say(f"[train bf16] {train_rec}")
 
     # 6. the card against the CPU, f32
@@ -3363,7 +3528,8 @@ def main():
     say(f"[incubate bf16] tokens/s {stack['tokens_per_s']:.1f} step "
         f"{stack['step_time_s'] * 1e3:.2f} ms device "
         f"{stack['step_profile']['device_ms']:.2f} ms idle "
-        f"{stack['step_profile']['idle_share']:.3f} by group "
+        f"{stack['step_profile']['idle_share']:.3f} flash share "
+        f"{stack['flash_share_of_device']:.3f} by group "
         f"{json.dumps(stack['device_ms_by_group'])}")
     say(f"[incubate bf16] {stack}")
     stack32, ls32 = stack_f32_vs_cpu(dev)
@@ -3380,10 +3546,15 @@ def main():
         r = line_row(rows, n)
         line.append(dict(name=n, route="cuda", source=k["source"],
                          replaces=k["replaces"],
-                         **({"also_replaces": k["also_replaces"]}
-                            if "also_replaces" in k else {}),
+                         **{key: k[key] for key in ("also_replaces",
+                                                    "f32_source")
+                            if key in k},
                          launches=launches[n], shape=r["shape"],
                          dtype=r["dtype"], max_abs_err=r["max_abs_err"],
+                         # the error the limit holds, where it is not
+                         # max_abs_err (the flash backward's)
+                         **{key: r[key] for key in ("scaled_err", "metric")
+                            if r.get(key) is not None},
                          tol=r["tol"], ms=r["ms"], device_ms=r["device_ms"],
                          kernel_device_ms=r["kernel_device_ms"],
                          plain_ms=r["plain_ms"],
@@ -3391,7 +3562,8 @@ def main():
                          library_ms=r["library_ms"]))
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        dict(device=kind, nvidia_smi=smi, build_s=build_s, kernels=rows,
+        dict(device=kind, nvidia_smi=smi, build_s=build_s,
+             wgmma_build=wgmma, kernels=rows,
              ragged=ragged, wo_bound=wo_bound, wo_payload=wo_payload,
              int8pack_mm_on_cuda=int8pack, engine=runs,
              train_bf16=train_rec, train_f32_vs_cpu=f32run,

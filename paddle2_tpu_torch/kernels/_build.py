@@ -2,11 +2,12 @@
 
 Every ``paddle2_tpu_torch/**/csrc/*.cu`` file is one shared library
 with a plain C interface, compiled by ``nvcc`` for Hopper (``sm_90a``)
-and loaded with :mod:`ctypes`. Nothing includes PyTorch's headers, so a
-build takes seconds, not minutes. The libraries land in
-``build/paddle2_tpu_torch/`` at the repository root, named by the hash
-of their source and flags: an edited source builds anew, an unchanged
-one is reused.
+and loaded with :mod:`ctypes`; ``*.cuh`` headers beside them are shared
+building blocks. Nothing includes PyTorch's headers, so a build takes
+seconds, not minutes. The libraries land in ``build/paddle2_tpu_torch/``
+at the repository root, named by the hash of their source, the headers
+beside it and the flags: an edited source builds anew, an unchanged one
+is reused.
 
 The build is lazy. ``import paddle2_tpu_torch`` builds and loads
 nothing; the first launch of any kernel builds every library at once,
@@ -69,6 +70,8 @@ def _nvcc() -> str:
 
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -1,4 +1,6 @@
 // FlashAttention-2 backward for Hopper (sm_90a), on the CUDA cores.
+// The split pair serves f32 and bf16; the fused kernel serves f32 only,
+// bf16 going to the tensor-core kernel of flash_bwd_wgmma.cu.
 //
 // Replaces three kernels of paddle2_tpu/kernels/pallas_flash.py, driven by
 // `_flash_bwd`:
@@ -45,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -409,16 +413,20 @@ cudaError_t launch(Which which, const Args& a) {
         static_cast<T*>(a.o1), a.Sq, a.Sk, a.scale, a.causal);
     return cudaGetLastError();
   }
-  constexpr size_t smem = dkv_smem<D>();
-  err = cudaFuncSetAttribute(flash_bwd_fused_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  flash_bwd_fused_kernel<T, D><<<grid, NT, smem, a.stream>>>(
-      q, k, v, dout, lse, delta, static_cast<float*>(a.o0),
-      static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.Sq, a.Sk, a.scale,
-      a.causal);
-  return cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    return cudaErrorInvalidValue;  // bf16: flash_bwd_fused_wgmma
+  } else {
+    constexpr size_t smem = dkv_smem<D>();
+    err = cudaFuncSetAttribute(flash_bwd_fused_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_fused_kernel<T, D><<<grid, NT, smem, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<float*>(a.o0),
+        static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.Sq, a.Sk, a.scale,
+        a.causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -464,8 +472,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   return run(DQ, D, dtype, a);
 }
 
-// fused route: dq32 [B,H,Sq,D] f32, zeroed by the caller, accumulated with
-// atomics; dk, dv [B,H,Sk,D] in dtype
+// fused route, f32 only (bf16 is flash_bwd_fused_wgmma's): dq32 [B,H,Sq,D]
+// f32, zeroed by the caller, accumulated with atomics; dk, dv [B,H,Sk,D]
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq32, void* dk,

@@ -1,4 +1,5 @@
-// FlashAttention-2 forward for Hopper (sm_90a), on the CUDA cores.
+// FlashAttention-2 forward for Hopper (sm_90a), on the CUDA cores, f32.
+// bf16 inputs go to the tensor-core kernel of flash_fwd_wgmma.cu.
 //
 // Replaces: paddle2_tpu/kernels/pallas_flash.py `_fwd_kernel` (tiled
 // online softmax) and `_fwd_kernel_1blk` (whole row in one tile), both
@@ -236,17 +237,15 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q [B,H,Sq,D], k/v [B,H,Sk,D], o like
-// q, lse [B,H,Sq] f32, all contiguous on the current device.
+// dtype: 0 = float32 (bfloat16, 1, is flash_fwd_wgmma's). q [B,H,Sq,D],
+// k/v [B,H,Sk,D], o like q, lse [B,H,Sq] f32, all contiguous on the
+// current device.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int H, int Sq, int Sk, int D,
                          int dtype, float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, D, scale,
-                                     causal, s);
   return cudaErrorInvalidValue;
 }
 

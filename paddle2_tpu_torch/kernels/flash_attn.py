@@ -3,9 +3,17 @@ wrappers, their plain versions and the differentiable op over them.
 
 Counterpart of ``paddle2_tpu/kernels/pallas_flash.py`` (``_flash_fwd``,
 ``_flash_bwd``, the ``_flash`` custom_vjp and ``flash_attention_bshd``).
-The forward kernel is ``csrc/flash_fwd.cu``, the three backward kernels
-are ``csrc/flash_bwd.cu``; each source note says what bounds it and how
-it is laid out.
+Which kernel serves which dtype:
+
+- forward: bf16 ``csrc/flash_fwd_wgmma.cu`` (tensor cores: wgmma fed by
+  TMA), f32 ``csrc/flash_fwd.cu`` (CUDA cores);
+- fused backward: bf16 ``csrc/flash_bwd_wgmma.cu`` (tensor cores), f32
+  ``csrc/flash_bwd.cu``'s fused kernel (CUDA cores);
+- split backward pair (dK/dV, then dQ): ``csrc/flash_bwd.cu`` in both
+  dtypes (CUDA cores).
+
+Each source note says what bounds it and how it is laid out. One launch
+counter per wrapper counts both of its kernels.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 or raises. There is no third path: shapes and dtypes the kernels do not
@@ -42,15 +50,28 @@ BWD_ROUTES = ("fused", "split")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {"flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _I, _P]}
+# q, k, v, o, lse, B, H, Sq, Sk, D, dtype, scale, causal, stream
+_FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
 # q, k, v, do, lse, delta, <outputs...>, B, H, Sq, Sk, D, dtype, scale,
 # causal, stream
 _BWD_ARGS = [_P] * 6
 _BWD_TAIL = [_I, _I, _I, _I, _I, _I, _F, _I, _P]
-_BWD_SIGNATURES = {"flash_bwd_dkv": _BWD_ARGS + [_P, _P] + _BWD_TAIL,
-                   "flash_bwd_dq": _BWD_ARGS + [_P] + _BWD_TAIL,
-                   "flash_bwd_fused": _BWD_ARGS + [_P, _P, _P] + _BWD_TAIL}
+_FUSED_ARGS = _BWD_ARGS + [_P, _P, _P] + _BWD_TAIL
+# library (the source's stem) -> {C entry: argument types}
+_LIBRARIES = {
+    "flash_fwd": {"flash_fwd": _FWD_ARGS},
+    "flash_fwd_wgmma": {"flash_fwd_wgmma": _FWD_ARGS},
+    "flash_bwd": {"flash_bwd_dkv": _BWD_ARGS + [_P, _P] + _BWD_TAIL,
+                  "flash_bwd_dq": _BWD_ARGS + [_P] + _BWD_TAIL,
+                  "flash_bwd_fused": _FUSED_ARGS},
+    "flash_bwd_wgmma": {"flash_bwd_fused_wgmma": _FUSED_ARGS},
+}
+# (library, C entry) of the forward and the fused backward, by dtype:
+# the tensor-core kernels take bf16, the CUDA-core kernels f32
+_FWD_ENTRY = {torch.bfloat16: ("flash_fwd_wgmma", "flash_fwd_wgmma"),
+              torch.float32: ("flash_fwd", "flash_fwd")}
+_FUSED_ENTRY = {torch.bfloat16: ("flash_bwd_wgmma", "flash_bwd_fused_wgmma"),
+                torch.float32: ("flash_bwd", "flash_bwd_fused")}
 
 
 def _check(q, k, v) -> None:
@@ -71,6 +92,12 @@ def _check(q, k, v) -> None:
                          f"float32 or bfloat16 for all three")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
+
+
+def _tma_aligned(t):
+    """``t``, or a copy of it whose data starts on a 16-byte boundary, as
+    TMA needs (a contiguous view can start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _causal_keep(Sq, Sk, device):
@@ -112,16 +139,19 @@ def flash_fwd(q, k, v, scale: Optional[float] = None, causal: bool = False
     if not _build.on_card("flash_fwd", q, k, v):
         return flash_fwd_reference(q, k, v, float(scale), bool(causal))
     B, H, Sq, D = q.shape
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_aligned(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    lib = _build.library("flash_fwd", _SIGNATURES)
+    name, entry = _FWD_ENTRY[q.dtype]
+    lib = _build.library(name, _LIBRARIES[name])
     with torch.cuda.device(q.device):
-        err = lib.flash_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, H, Sq, k.shape[2], D, _DTYPE_CODE[q.dtype],
             float(scale), int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_fwd")
+    _build.check(lib, err, entry)
     flash_fwd.launches += 1
     return o, lse
 
@@ -146,18 +176,22 @@ def _check_bwd(q, k, v, o, lse, do) -> None:
         raise ValueError("all flash_bwd inputs must lie on one device")
 
 
-def flash_bwd_reference(q, k, v, o, lse, do, scale: float, causal: bool
+def flash_bwd_reference(q, k, v, o, lse, do, scale: float, causal: bool,
+                        out_dtype: Optional[torch.dtype] = None,
+                        sum_dtype: torch.dtype = torch.float32
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain backward, mirroring the split Pallas kernels
     (``_bwd_dkv_kernel``, ``_bwd_dq_kernel``): P recomputed from the
     saved lse with the ``lse == -inf`` guard of ``_bwd_p_ds``,
     ``dS = P∘(dO·Vᵀ − delta)``, P and dS rounded to the input dtype
-    before each product, f32 sums. Returns ``(dq, dk, dv)`` in the
-    input dtype."""
+    before each product, sums in ``sum_dtype`` (f32; float64 gives what
+    exact sums would). Returns ``(dq, dk, dv)`` cast to ``out_dtype``
+    (default the input dtype; ``sum_dtype`` keeps the sums as they
+    are)."""
     Sq, Sk = q.shape[2], k.shape[2]
     dt = q.dtype
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    delta = (dof * o.float()).sum(-1, keepdim=True)
+    qf, kf, vf, dof = (t.to(sum_dtype) for t in (q, k, v, do))
+    delta = (dof * o.to(sum_dtype)).sum(-1, keepdim=True)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     if causal:
         s = s.masked_fill(~_causal_keep(Sq, Sk, q.device), float("-inf"))
@@ -166,16 +200,18 @@ def flash_bwd_reference(q, k, v, o, lse, do, scale: float, causal: bool
     p = torch.exp(s - torch.where(lse == neg, torch.zeros_like(lse), lse))
     p = torch.where((s == neg) | (lse == neg), torch.zeros_like(p), p)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = (p * (dp - delta)).to(dt).float()
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dof)
+    ds = (p * (dp - delta)).to(dt).to(sum_dtype)
+    dv = torch.matmul(p.to(dt).to(sum_dtype).transpose(-1, -2), dof)
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dq = torch.matmul(ds, kf) * scale
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    out = out_dtype or dt
+    return dq.to(out), dk.to(out), dv.to(out)
 
 
-def _bwd_launch(entry, q, k, v, do, lse, delta, outs, scale, causal):
+def _bwd_launch(entry, q, k, v, do, lse, delta, outs, scale, causal,
+                library="flash_bwd"):
     B, H, Sq, D = q.shape
-    lib = _build.library("flash_bwd", _BWD_SIGNATURES)
+    lib = _build.library(library, _LIBRARIES[library])
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -209,15 +245,19 @@ def flash_bwd_split_dq(q, k, v, do, lse, delta, scale, causal):
 
 def flash_bwd_fused(q, k, v, do, lse, delta, scale, causal):
     """The fused route (``_bwd_fused_1blk_kernel``): dQ, dK and dV from
-    one score and probability tile. Each block owns a key tile and adds
-    its dQ share into an f32 buffer with ``atomicAdd``, which is cast
-    to the input dtype after the kernel. The order of those additions
-    changes from run to run, so dQ is not bitwise deterministic (dK and
-    dV are)."""
+    one score and probability tile; bf16 on the tensor cores
+    (``flash_bwd_wgmma.cu``), f32 on the CUDA cores (``flash_bwd.cu``).
+    Each block owns a key tile and adds its dQ share into an f32 buffer
+    with atomics, which is cast to the input dtype after the kernel. The
+    order of those additions changes from run to run, so dQ is not
+    bitwise deterministic (dK and dV are)."""
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_tma_aligned(t) for t in (q, k, v, do))
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("flash_bwd_fused", q, k, v, do, lse, delta, (dq32, dk, dv),
-                scale, causal)
+    library, entry = _FUSED_ENTRY[q.dtype]
+    _bwd_launch(entry, q, k, v, do, lse, delta, (dq32, dk, dv), scale,
+                causal, library)
     flash_bwd_fused.launches += 1
     return dq32.to(q.dtype), dk, dv
 
@@ -230,8 +270,10 @@ def bwd_route(dtype: torch.dtype) -> str:
     """The backward route the port takes when the caller names none:
     "fused" for bf16, "split" for f32. PERF.md gives the H100 times at
     the training path's shape that ground the rule: the fused kernel
-    does 10 of the split pair's 14 products per tile, and the split
-    pair has no atomics, so f32 (the precision a run is checked in)
+    does 10 of the split pair's 14 products per tile, and in bf16 it
+    runs on the tensor cores (``flash_bwd_wgmma.cu``) where the split
+    pair runs on the CUDA cores; the split pair has no atomics, so f32
+    (the precision a run is checked in, on the CUDA cores either way)
     stays bitwise reproducible."""
     return "fused" if dtype == torch.bfloat16 else "split"
 

@@ -80,6 +80,7 @@ def test_kernel_sources_are_found():
     assert set(names) == {"flash_fwd", "paged_decode", "flash_bwd",
                           "adamw_step", "wo_matmul", "layer_norm",
                           "momentum_step", "flash_varlen", "rms_norm",
-                          "rope", "adamw_flat", "i8i8_matmul"}
+                          "rope", "adamw_flat", "i8i8_matmul",
+                          "flash_fwd_wgmma", "flash_bwd_wgmma"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"
