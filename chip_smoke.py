@@ -10,10 +10,10 @@ line) when it fails:
 
 1. Device: the card's name and power limit.
 2. Build: every kernel under ``paddle2_tpu_torch/**/csrc`` with nvcc,
-   in parallel, from the sources in the checkout; the SASS of the two
-   tensor-core libraries (``flash_fwd_wgmma``, ``flash_bwd_wgmma``)
-   must hold HGMMA (wgmma) instructions, and ptxas's registers and
-   spills for their kernels are printed.
+   in parallel, from the sources in the checkout; the SASS of the three
+   tensor-core libraries (``flash_fwd_wgmma``, ``flash_bwd_wgmma``,
+   ``flash_varlen_wgmma``) must hold HGMMA (wgmma) instructions, and
+   ptxas's registers and spills for their kernels are printed.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
    causal; bf16 on the tensor-core kernel, f32 on the CUDA-core one),
@@ -39,9 +39,11 @@ line) when it fails:
    one step over the 16 f32 leaves timed against
    ``torch._fused_adamw_``. The fused momentum step against the port's
    eager Momentum, bitwise, three steps on ResNet-50's 161 parameter
-   shapes (f32 plain, Nesterov, L2 decay 1e-4, and bf16 with f32
-   masters), and one step over the 161 f32 tensors timed against
-   ``torch._fused_sgd_``.
+   shapes (f32 plain, Nesterov, L2 decay 1e-4, bf16 with f32 masters,
+   and ResNet-50's O2 list: bf16 convolutions and fc with f32 masters,
+   f32 BatchNorm, L2 1e-4 but on the 1-D tensors), one launch a step;
+   and one multi-tensor step over the 161 f32 tensors timed against
+   ``torch._fused_sgd_`` (CUDA events and device time for both).
    The int8 weight-only matmul at GPT-3 1.3B's five projection shapes
    (qkv, out_proj, up, down, the tied head) at M 1, 8 and 1008, in bf16
    and f32, with and without a bias, and at one ragged shape (M 3, K
@@ -127,7 +129,8 @@ line) when it fails:
     ``fused=None``, batch 128 of 224x224 images and labels from
     ``RandomState(0)``, through ``jit.train_step``: 1 warm-up step, 5
     timed steps and 1 traced step. Every loss must be finite; each step
-    must launch ``momentum_step`` exactly 161 times and no other kernel.
+    must launch ``momentum_step`` exactly once (every tensor in one
+    multi-tensor launch) and no other kernel.
     Prints a ``bench_resnet50``-style line (images/s, step time, MFU
     against 989 TFLOP/s by the bench's 4.1 GFLOPs an image and by 2
     FLOPs a multiply-add), the traced step's device time by kernel
@@ -137,7 +140,7 @@ line) when it fails:
     ``Momentum(fused=True)``: two ``train_step`` calls; losses to 1e-4
     relative, the first step's gradients to 1e-4 of each gradient's
     largest magnitude, every BatchNorm buffer after both steps and an
-    eval-mode forward's logits to 1e-4, ``momentum_step`` 62 times a
+    eval-mode forward's logits to 1e-4, ``momentum_step`` once a
     step; the CPU's own f32 gradients against f64 are recorded beside.
 
 12. Packed varlen attention's three kernels against their plain
@@ -146,17 +149,23 @@ line) when it fails:
     1x2048 + 16x128 (T 4096) and the serving prompt lengths (T 3313),
     and the bench GPT's H16 D64 on the first; ragged cases (non-causal,
     a length-1 sequence, ``cu_seqlens_q != cu_seqlens_k`` with a
-    sequence whose rows see no key, a last sequence ending mid-tile) at
-    head dims 16/64/128, not timed. The backward is held against the
-    plain version's f32 sums, beyond half a step of its dtype (the one
-    rounding both do), and in bf16 the plain backward without its P/dS
-    rounding must read past the limit; f32 backward runs twice, bitwise
-    equal. Each timed row has the kernel's CUDA-event and device times,
-    the plain version's, one ``scaled_dot_product_attention`` over the
-    packed rows as ``[1, H, T, D]`` with the block-diagonal causal mask
-    (forward, or its backward) as the library yardstick, its bound and
-    its launches; the densify route's forward time is printed beside
-    the packed route's.
+    sequence whose rows see no key, a last sequence ending mid-tile,
+    lengths 1/127/129/255 around the tensor-core forward's 128-row
+    blocks with ``len_k < len_q``, causal and not) at head dims
+    16/64/128, and in bf16 both timed batches at head dims 16/64/128,
+    causal and not, not timed. The bf16 forward runs on the tensor cores
+    (``flash_varlen_wgmma``), the f32 one and the backward pair on the
+    CUDA cores, the backward from the forward's own ``lse``. The
+    backward is held against the plain version's f32 sums, beyond half
+    a step of its dtype (the one rounding both do), and in bf16 the
+    plain backward without its P/dS rounding must read past the limit;
+    f32 backward runs twice, bitwise equal. Each timed row has the
+    kernel's CUDA-event and device times, the plain version's, one
+    ``scaled_dot_product_attention`` over the packed rows as ``[1, H, T,
+    D]`` with the block-diagonal causal mask (forward, or its backward)
+    as the library yardstick, by CUDA events and by device time, its
+    bound and its launches; the densify route's forward time is printed
+    beside the packed route's.
 13. Packed varlen training at full width through the public entry
     points: two GPT-3 1.3B-width self-attention layers (hidden 2048, 16
     heads of 128; qkv ``Linear``, ``nn.functional.flash_attn_unpadded``
@@ -167,7 +176,10 @@ line) when it fails:
     again (each batch lengths of 16..2048 from ``RandomState(0)``
     packed to <= 8192 tokens); every loss finite, each varlen kernel
     launched 2 times a step, ``adamw_step`` 4 times, no dense flash
-    kernel, the repeated batch hits the ``cu_seqlens`` memo. Then
+    kernel, the repeated batch hits the ``cu_seqlens`` memo. One more
+    step, on an eighth batch, is traced on the host alone: its host ops
+    by self CPU time are printed (not gated, and its launches are not
+    counted). Then
     ``flash_attn_varlen_qkvpacked`` equals the unpacked call, and a call
     with dropout 0.1 in training and one inside
     ``sdp_kernel(enable_flash=False)`` take the densify route (no varlen
@@ -294,8 +306,8 @@ from paddle2_tpu_torch.kernels.fused_adamw import (
 from paddle2_tpu_torch.kernels.fused_layer_norm import (
     bwd_blocks, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
     layer_norm_fwd_reference)
-from paddle2_tpu_torch.kernels.fused_momentum import (momentum_step,
-                                                      momentum_step_reference)
+from paddle2_tpu_torch.kernels.fused_momentum import (
+    momentum_step, momentum_step_multi, momentum_step_reference)
 from paddle2_tpu_torch.kernels import fused_rms_norm as frn
 from paddle2_tpu_torch.kernels.fused_rms_norm import (
     rms_norm_bwd, rms_norm_bwd_reference, rms_norm_fwd,
@@ -398,7 +410,8 @@ KERNELS = {
         replaces="paddle2_tpu/kernels/pallas_fused.py:209",
         counter=momentum_step),
     "flash_varlen_fwd": dict(
-        source="paddle2_tpu_torch/kernels/csrc/flash_varlen.cu",
+        source="paddle2_tpu_torch/kernels/csrc/flash_varlen_wgmma.cu",
+        f32_source="paddle2_tpu_torch/kernels/csrc/flash_varlen.cu",
         replaces="paddle2_tpu/kernels/pallas_flash.py:546",
         counter=flash_varlen_fwd),
     "flash_varlen_bwd_dkv": dict(
@@ -446,8 +459,16 @@ FLASH_KERNEL_NAMES = {
     ("flash_bwd_split_dkv", torch.float32): "flash_bwd_dkv_kernel",
     ("flash_bwd_split_dq", torch.bfloat16): "flash_bwd_dq_kernel",
     ("flash_bwd_split_dq", torch.float32): "flash_bwd_dq_kernel"}
+# the CUDA kernel each varlen wrapper launches, by dtype
+VARLEN_KERNEL_NAMES = {
+    ("flash_varlen_fwd", torch.bfloat16): "flash_varlen_fwd_wgmma_kernel",
+    ("flash_varlen_fwd", torch.float32): "flash_varlen_fwd_kernel",
+    ("flash_varlen_bwd_dkv", torch.bfloat16): "flash_varlen_dkv_kernel",
+    ("flash_varlen_bwd_dkv", torch.float32): "flash_varlen_dkv_kernel",
+    ("flash_varlen_bwd_dq", torch.bfloat16): "flash_varlen_dq_kernel",
+    ("flash_varlen_bwd_dq", torch.float32): "flash_varlen_dq_kernel"}
 # the libraries of the tensor-core kernels, whose SASS must hold HGMMA
-WGMMA_LIBRARIES = ("flash_fwd_wgmma", "flash_bwd_wgmma")
+WGMMA_LIBRARIES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_varlen_wgmma")
 SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_split")
 # GPT-3 1.3B's weight-only projections, K x N ([in, out])
 WO_SHAPES = {"qkv": (2048, 6144), "out_proj": (2048, 2048),
@@ -503,10 +524,15 @@ VARLEN_SERVING = [17, 45, 130, 257, 401, 613, 850, 1000]
 VARLEN_LINE_SHAPE = "H16 D128 T4096 (1x2048 + 16x128) causal"
 # ragged cases (lens_q, lens_k, causal): non-causal; a length-1 sequence
 # and a last sequence ending mid-tile (T 209); len_k > len_q, and one
-# sequence with len_k < len_q whose first 20 rows see no key
+# sequence with len_k < len_q whose first 20 rows see no key; lengths
+# around the tensor-core forward's 128-row blocks, with len_k < len_q
 VARLEN_RAGGED = [([1, 7, 64, 100, 37], None, False),
                  ([1, 7, 64, 100, 37], None, True),
-                 ([5, 40, 1, 30, 70], [9, 60, 3, 10, 100], True)]
+                 ([5, 40, 1, 30, 70], [9, 60, 3, 10, 100], True),
+                 ([1, 127, 129, 255], None, False),
+                 ([1, 127, 129, 255], None, True),
+                 ([1, 127, 129, 255], [1, 100, 129, 200], True),
+                 ([1, 127, 129, 255], [1, 100, 129, 200], False)]
 # phase 13: GPT-3 1.3B's attention width, packed batches of <= 8192 tokens
 VARLEN_TRAIN = dict(hidden=2048, heads=16, layers=2, max_tokens=8192,
                     min_len=16, max_len=2048)
@@ -983,23 +1009,31 @@ def check_adamw(shapes, gen, dev):
                 bound_ms=b_ms, bound_by=b_by, library="torch._fused_adamw_")
 
 
-def check_momentum(shapes, gen, dev):
+def check_momentum(shapes, o2_dtypes, gen, dev):
     """Three steps of the fused Momentum against the eager chain,
     bitwise, on parameters of ResNet-50's 161 shapes: f32 plain, f32
-    Nesterov, f32 with L2 decay 1e-4, and bf16 with f32 masters. Then
-    one step over f32 state of all 161 (what a training step runs)
-    timed: the kernel, its plain version, and ``torch._fused_sgd_``
-    (dampening 0: the same function) over the same lists."""
+    Nesterov, f32 with L2 decay 1e-4, bf16 with f32 masters, and the
+    mixed list of ResNet-50 under O2 (``o2_dtypes``: bf16 convolutions
+    and fc with f32 masters, f32 BatchNorm); each step one launch. Then
+    one multi-tensor step over f32 state of all 161 (what a training
+    step runs) timed: the kernel, its plain version, and
+    ``torch._fused_sgd_`` (dampening 0: the same function) over the same
+    lists, by CUDA events and by device time."""
     n_leaves = len(shapes)
-    cases = [("f32", torch.float32, False, 0.0),
-             ("f32 nesterov", torch.float32, True, 0.0),
-             ("f32 L2 1e-4", torch.float32, False, 1e-4),
-             ("bf16 + f32 masters", torch.bfloat16, False, 0.0)]
-    for what, dtype, nesterov, wd in cases:
-        inits = [torch.randn(sh, generator=gen, device=dev).to(dtype)
-                 for sh in shapes]
+    cases = [("f32", [torch.float32] * n_leaves, False, 0.0),
+             ("f32 nesterov", [torch.float32] * n_leaves, True, 0.0),
+             ("f32 L2 1e-4", [torch.float32] * n_leaves, False, 1e-4),
+             ("bf16 + f32 masters", [torch.bfloat16] * n_leaves, False, 0.0),
+             ("ResNet-50 O2 list", o2_dtypes, False, 1e-4)]
+    for what, dtypes, nesterov, wd in cases:
+        inits = [torch.randn(sh, generator=gen, device=dev).to(dt)
+                 for sh, dt in zip(shapes, dtypes)]
         pa = [torch.nn.Parameter(t.clone()) for t in inits]
         pb = [torch.nn.Parameter(t) for t in inits]
+        for a, b in zip(pa, pb):
+            # BatchNorm-like vectors without decay, as a user's
+            # apply_decay_param_fun would mark them
+            a.no_weight_decay = b.no_weight_decay = a.dim() == 1
         kw = dict(learning_rate=RESNET["lr"], momentum=RESNET["momentum"],
                   use_nesterov=nesterov, weight_decay=wd,
                   multi_precision=True)
@@ -1008,18 +1042,20 @@ def check_momentum(shapes, gen, dev):
         before = momentum_step.launches
         for _ in range(3):
             for a, b in zip(pa, pb):
-                g = torch.randn(a.shape, generator=gen, device=dev).to(dtype)
+                g = torch.randn(a.shape, generator=gen, device=dev).to(
+                    a.dtype)
                 a.grad, b.grad = g, g.clone()
             oa.step()
             ob.step()
         torch.cuda.synchronize()
-        require(momentum_step.launches - before == 3 * n_leaves,
-                f"the fused Momentum ({what}) did not take the kernel for "
-                f"every parameter")
+        require(momentum_step.launches - before == 3,
+                f"the fused Momentum ({what}) launched the kernel "
+                f"{momentum_step.launches - before} times in 3 steps, want "
+                f"one a step")
         for i, (a, b) in enumerate(zip(pa, pb)):
             sa, sb = oa._states[id(a)], ob._states[id(b)]
             pairs = [("param", a, b)]
-            if dtype == torch.bfloat16:
+            if "master" in sa:
                 pairs.append(("master", sa["master"], sb["master"]))
                 sa, sb = sa["inner"], sb["inner"]
             pairs.append(("velocity", sa["velocity"], sb["velocity"]))
@@ -1033,32 +1069,45 @@ def check_momentum(shapes, gen, dev):
     P, G, V = [[torch.randn(sh, generator=gen, device=dev) for sh in shapes]
                for _ in range(3)]
     lr, mom = RESNET["lr"], RESNET["momentum"]
+    lows, wds = [None] * n_leaves, [0.0] * n_leaves
 
     def run():
-        for leaf in zip(P, G, V):
-            momentum_step(*leaf, lr, mom, False, 0.0)
+        momentum_step_multi(P, G, V, lows, wds, lr, mom, False)
 
     def plain():
         for leaf in zip(P, G, V):
             momentum_step_reference(*leaf, lr, mom, False, 0.0)
     ms = cuda_ms(run)
-    dev_ms, kern_ms = device_ms(run, "momentum_step_kernel")
+    dev_ms, kern_ms = device_ms(run, "momentum_step_kernel", per_call=1)
+    # the wrapper's host time (checks, the descriptor table, the launch),
+    # which the CUDA-event time holds beside the kernel's
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        run()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     plain_ms = cuda_ms(plain, iters=5)
-    lib = None
+    lib = lib_dev_ms = None
     if hasattr(torch, "_fused_sgd_"):
-        lib = cuda_ms(lambda: torch._fused_sgd_(
-            P, G, V, weight_decay=0.0, momentum=mom, lr=lr, dampening=0.0,
-            nesterov=False, maximize=False, is_first_step=False))
+        def lib_run():
+            torch._fused_sgd_(P, G, V, weight_decay=0.0, momentum=mom, lr=lr,
+                              dampening=0.0, nesterov=False, maximize=False,
+                              is_first_step=False)
+        lib = cuda_ms(lib_run)
+        lib_dev_ms = device_ms(lib_run, "")[0]
     N = sum(p.numel() for p in P)
     # 4 f32 operations an element (mom*v, + g, lr*v, p -); p, g, v read
     # and p, v written
     b_ms, b_by = bound(4.0 * N, 20.0 * N, torch.float32)
     return dict(name="momentum_step", dtype="float32",
                 shape=f"{n_leaves} ResNet-50 parameters, {N} f32 elements "
-                f"(largest {max(p.numel() for p in P)})",
+                f"(largest {max(p.numel() for p in P)}), one launch",
                 max_abs_err=0.0, tol="bitwise", ms=ms, device_ms=dev_ms,
-                kernel_device_ms=kern_ms, plain_ms=plain_ms, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by, library="torch._fused_sgd_")
+                kernel_device_ms=kern_ms, host_ms=statistics.median(host),
+                plain_ms=plain_ms, library_ms=lib,
+                library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
+                library="torch._fused_sgd_")
 
 
 def int8pack_available(dev):
@@ -2372,8 +2421,8 @@ def resnet50_bf16(smi):
     """Phase 10: ResNet-50 at full width and depth, AMP O2 bf16,
     ``Momentum`` with ``FLAGS_fused_optimizer_step`` on, batch 128 at
     224x224: 1 warm-up step, 5 timed steps, 1 traced step; every loss
-    finite, ``momentum_step`` exactly once a parameter tensor a step and
-    no other kernel. Then the same steps' time with
+    finite, ``momentum_step`` exactly once a step (one launch for all
+    161 tensors) and no other kernel. Then the same steps' time with
     ``torch.backends.cudnn.benchmark`` on (two more warm-up steps absorb
     its autotuning), for the record."""
     R = RESNET
@@ -2410,7 +2459,7 @@ def resnet50_bf16(smi):
     require(all(np.isfinite([warm, traced] + losses)),
             f"non-finite ResNet-50 loss: {[warm] + losses + [traced]}")
     for n in KERNELS:
-        per_step = n_tensors if n == "momentum_step" else 0
+        per_step = 1 if n == "momentum_step" else 0
         require(launches[n] == steps * per_step,
                 f"ResNet-50: {n} launched {launches[n]} times in {steps} "
                 f"steps, want {per_step} a step")
@@ -2478,7 +2527,6 @@ def resnet18_f32_vs_cpu():
     cpu_step = resnet_step(cpu, fused=True)
     f64_step = resnet_step(f64, fused=True)     # the eager chain on f64
     data = resnet_batches(2, C["batch"], C["size"], C["classes"], "cpu")
-    n_tensors = len(list(model.parameters()))
     reset_counts()
     out = dict(losses_card=[], losses_cpu=[])
     for i, (img, lbl) in enumerate(data):
@@ -2532,9 +2580,9 @@ def resnet18_f32_vs_cpu():
             f"{buf_err} > 1e-4")
     require(eval_err <= 1e-4, f"resnet18 eval logits, card vs CPU: "
             f"{eval_err} > 1e-4")
-    require(launches["momentum_step"] == 2 * n_tensors,
+    require(launches["momentum_step"] == 2,
             f"resnet18: momentum_step launched {launches['momentum_step']} "
-            f"times in 2 steps, want {n_tensors} a step")
+            f"times in 2 steps, want one a step")
     return out, launches
 
 
@@ -2664,36 +2712,42 @@ def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
             qq.transpose(0, 1)[None], kk.transpose(0, 1)[None],
             vv.transpose(0, 1)[None], attn_mask=mask, scale=scale)
     lib_fwd = cuda_ms(lambda: sdpa(q, k, v))
+    lib_fwd_dev = device_ms(lambda: sdpa(q, k, v), "")[0]
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
     o_lib = sdpa(qr, kr, vr)
     do_lib = do.transpose(0, 1)[None]
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-        o_lib, (qr, kr, vr), do_lib, retain_graph=True))
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_lib, (qr, kr, vr), do_lib,
+                                   retain_graph=True)
+    lib_bwd = cuda_ms(sdpa_bwd)
+    lib_bwd_dev = device_ms(sdpa_bwd, "")[0]
     del qr, kr, vr, o_lib
     runs = {
         "flash_varlen_fwd": (
             lambda: flash_varlen_fwd(q, k, v, *meta, q_tiles, scale),
             lambda: flash_varlen_fwd_reference(q, k, v, *meta, scale),
-            fwd_err, lib_fwd, "SDPA, block-diagonal causal mask"),
+            fwd_err, (lib_fwd, lib_fwd_dev),
+            "SDPA, block-diagonal causal mask"),
         "flash_varlen_bwd_dkv": (
             lambda: flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta,
                                          k_tiles, scale),
             lambda: flash_varlen_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                    *meta, scale),
-            max(bwd_abs["dk"], bwd_abs["dv"]), lib_bwd,
+            max(bwd_abs["dk"], bwd_abs["dv"]), (lib_bwd, lib_bwd_dev),
             "SDPA backward (dq, dk, dv), block-diagonal causal mask"),
         "flash_varlen_bwd_dq": (
             lambda: flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta,
                                         q_tiles, scale),
             lambda: flash_varlen_bwd_dq_reference(q, k, v, do, lse, delta,
                                                   *meta, scale),
-            bwd_abs["dq"], lib_bwd,
+            bwd_abs["dq"], (lib_bwd, lib_bwd_dev),
             "SDPA backward (dq, dk, dv), block-diagonal causal mask"),
     }
     rows = []
-    for name, (run, plain, err, lib, lib_what) in runs.items():
+    for name, (run, plain, err, (lib, lib_dev), lib_what) in runs.items():
         ms = cuda_ms(run)
-        dev_ms, kern_ms = device_ms(run, name.replace("_bwd", "") + "_kernel")
+        dev_ms, kern_ms = device_ms(run, VARLEN_KERNEL_NAMES[name, dtype])
         plain_ms = cuda_ms(plain, iters=3, warmup=1)
         b_ms, b_by = varlen_bound(name, pairs, Tq, Tk, H, D, dtype,
                                   q.element_size())
@@ -2705,7 +2759,8 @@ def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
                          live_pairs=pairs, ms=ms,
                          device_ms=dev_ms, kernel_device_ms=kern_ms,
                          plain_ms=plain_ms, library_ms=lib,
-                         library=lib_what, bound_ms=b_ms, bound_by=b_by))
+                         library_device_ms=lib_dev, library=lib_what,
+                         bound_ms=b_ms, bound_by=b_by))
         torch.cuda.empty_cache()
     if lens_q == VARLEN_README and D == 128:
         cu = torch.as_tensor(np.concatenate([[0], np.cumsum(lens_q)]),
@@ -2800,11 +2855,11 @@ def varlen_setup(device, bf16, seed=0):
 def varlen_train(smi):
     """Phase 13: the packed model at full width in bf16 O2, 1 warm-up,
     5 timed and 1 traced step, then the first batch again; launch
-    counts a step, the memo, then the qkvpacked, dropout and
-    ``sdp_kernel`` routes."""
+    counts a step, the memo; one step on the host's trace; then the
+    qkvpacked, dropout and ``sdp_kernel`` routes."""
     V = VARLEN_TRAIN
     model, step = varlen_setup("cuda", bf16=True)
-    data = varlen_batches(7, "cuda")
+    data = varlen_batches(8, "cuda")
     fa._SEG_CACHE.clear()
     reset_counts()
     torch.cuda.synchronize()
@@ -2843,6 +2898,14 @@ def varlen_train(smi):
         require(launches[n] == steps * per_step,
                 f"{n}: {launches[n]} launches in {steps} varlen steps, want "
                 f"{per_step} a step")
+    # where the host's time goes in a step over a batch of new lengths
+    # (the device trace does not show it): host ops by self CPU time
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as hprof:
+        step(*data[7])
+        torch.cuda.synchronize()
+    host_top = sorted(hprof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)[:8]
     tokens = [int(b[2][-1]) for b in data[1:6]]
     step_s = statistics.mean(times)
     run = dict(config=dict(V, params=sum(p.numel()
@@ -2855,6 +2918,8 @@ def varlen_train(smi):
                launches_per_step={n: launches[n] / steps for n in KERNELS
                                   if launches[n]},
                step_profile=step_profile(prof, wall_ms, step_s * 1e3),
+               host_top_self_cpu_ms=[(e.key[:60], e.self_cpu_time_total / 1e3,
+                                      e.count) for e in host_top],
                device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     # the public routes beside the training path, on the first batch
     x, _, cu, mx = data[0]
@@ -3310,9 +3375,10 @@ def main():
               train_setup(T["layers"], dev, bf16=False)[0].parameters()]
     rows.append(check_adamw(shapes, gen, dev))
     torch.cuda.empty_cache()
-    rows.append(check_momentum(
-        [tuple(p.shape) for p in resnet50(device=dev).parameters()], gen,
-        dev))
+    o2 = amp.decorate(resnet50(device=dev), level="O2", dtype="bfloat16")
+    rows.append(check_momentum([tuple(p.shape) for p in o2.parameters()],
+                               [p.dtype for p in o2.parameters()], gen, dev))
+    del o2
     torch.cuda.empty_cache()
     int8pack = int8pack_available(dev)
     for dtype in (torch.bfloat16, torch.float32):
@@ -3342,12 +3408,19 @@ def main():
                for lens_q, lens_k, causal in VARLEN_RAGGED
                for r in check_varlen(dtype, 4, D, lens_q, lens_k, causal, gen,
                                      dev, timed=False)]
+    # the tensor-core forward (bf16) at the timed batches, every head dim,
+    # causal and not
+    ragged += [r for lens in (VARLEN_README, VARLEN_SERVING)
+               for D in (16, 64, 128) for causal in (True, False)
+               for r in check_varlen(torch.bfloat16, 16, D, lens, None,
+                                     causal, gen, dev, timed=False)]
     torch.cuda.empty_cache()
     for r in rows:
         say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
             f"{r['max_abs_err']:.3g} (tol {r['tol']}) ms {r['ms']:.4f} "
             f"(device {r['device_ms']}, kernel {r['kernel_device_ms']}) "
-            f"plain {r['plain_ms']:.4f} library {r['library_ms']} bound "
+            f"plain {r['plain_ms']:.4f} library {r['library_ms']} "
+            f"(device {r.get('library_device_ms')}) bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
     for r in ragged:
         if r["name"].startswith(("layer_norm", "rms_norm")):
@@ -3517,6 +3590,8 @@ def main():
         f"{varlen['step_time_s'] * 1e3:.2f} ms device "
         f"{varlen['step_profile']['device_ms']:.2f} ms idle "
         f"{varlen['step_profile']['idle_share']:.3f}")
+    say(f"[varlen bf16] host ops by self CPU ms, a step of new lengths: "
+        f"{varlen['host_top_self_cpu_ms']}")
     say(f"[varlen bf16] {varlen}")
     varlen32, lv32 = varlen_f32_vs_cpu(dev)
     add(lv32)

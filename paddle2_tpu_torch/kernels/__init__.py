@@ -16,7 +16,8 @@ from .fused_adamw import (adamw_flat, adamw_flat_reference, adamw_step,
 from .fused_ce import fused_linear_cross_entropy
 from .fused_layer_norm import (layer_norm_bwd, layer_norm_bwd_reference,
                                layer_norm_fwd, layer_norm_fwd_reference)
-from .fused_momentum import momentum_step, momentum_step_reference
+from .fused_momentum import (momentum_step, momentum_step_multi,
+                             momentum_step_reference)
 from .fused_rms_norm import (rms_norm_bwd, rms_norm_bwd_reference,
                              rms_norm_fwd, rms_norm_fwd_reference)
 from .fused_rope import rope, rope_reference
@@ -36,7 +37,7 @@ __all__ = ["scaled_dot_product_attention", "remat_policy",
            "flash_varlen_bwd_dkv_reference", "flash_varlen_bwd_dq",
            "flash_varlen_bwd_dq_reference", "adamw_step",
            "adamw_step_reference", "fused_linear_cross_entropy",
-           "momentum_step", "momentum_step_reference",
+           "momentum_step", "momentum_step_multi", "momentum_step_reference",
            "layer_norm_fwd", "layer_norm_fwd_reference",
            "layer_norm_bwd", "layer_norm_bwd_reference",
            "channel_absmax", "quantize_channelwise",

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu): mbarriers, TMA tile copies,
-// wgmma shared-memory descriptors and the wgmma instructions themselves,
-// and the host-side encoding of TMA tensor maps.
+// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu, flash_varlen_wgmma.cu):
+// mbarriers, TMA tile copies, wgmma shared-memory descriptors and the
+// wgmma instructions themselves, and the host-side encoding of TMA tensor
+// maps.
 //
 // Tiles. A bf16 tile of R rows by D columns lives in shared memory as
 // D / SWE column blocks of R rows by SWE elements (SWE = min(D, 64)), one
@@ -346,20 +347,28 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// a contiguous tensor of dims (d2, d1, d0), d0 innermost, as a 3-D map
+// {d0, d1, d2}, read in boxes of {box0, box1, box2}
 inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type,
-                      int esize, const void* base, int BH, int S, int D,
-                      int cols, int rows, CUtensorMapSwizzle swizzle) {
+                      int esize, const void* base, int d2, int d1, int d0,
+                      int box0, int box1, int box2,
+                      CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  cuuint64_t strides[2] = {(cuuint64_t)D * esize,
-                           (cuuint64_t)S * D * esize};
-  cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  cuuint64_t strides[2] = {(cuuint64_t)d0 * esize,
+                           (cuuint64_t)d1 * d0 * esize};
+  cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, (cuuint32_t)box2};
   cuuint32_t step[3] = {1, 1, 1};
   return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, step,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline CUtensorMapSwizzle swizzle_of(int swe) {
+  return swe * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
 // A contiguous bf16 (BH, S, D) tensor as a 3-D map (D, S, BH), read in
@@ -368,9 +377,18 @@ inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type,
 inline bool tile_map(CUtensorMap* map, const void* base, int BH, int S,
                      int D, int swe, int rows) {
   return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, BH, S, D,
-                   swe, rows,
-                   swe * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                  : CU_TENSOR_MAP_SWIZZLE_32B);
+                   swe, rows, 1, swizzle_of(swe));
+}
+
+// A contiguous bf16 packed (T, H, D) tensor (rows of every head
+// interleaved, as varlen attention keeps them) as a 3-D map (D, H, T),
+// read in boxes of {swe, 1, rows}: one head's `rows` consecutive rows,
+// landing in shared memory exactly as a tile_map box does. One map serves
+// every head; a box may start at any row, and rows past T read zeros.
+inline bool packed_map(CUtensorMap* map, const void* base, int T, int H,
+                       int D, int swe, int rows) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, T, H, D,
+                   swe, 1, rows, swizzle_of(swe));
 }
 
 // A contiguous f32 (BH, S, D) tensor as a 3-D map, boxes of {cols, rows,
@@ -378,7 +396,7 @@ inline bool tile_map(CUtensorMap* map, const void* base, int BH, int S,
 inline bool f32_map(CUtensorMap* map, const void* base, int BH, int S, int D,
                     int cols, int rows) {
   return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, BH, S, D,
-                   cols, rows, CU_TENSOR_MAP_SWIZZLE_NONE);
+                   cols, rows, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

@@ -4,9 +4,12 @@ their wrappers, their plain versions and the differentiable op over them.
 Counterpart of the varlen half of ``paddle2_tpu/kernels/pallas_flash.py``
 (``_fwd_kernel_varlen``, ``_bwd_dkv_kernel_varlen``,
 ``_bwd_dq_kernel_varlen``, the ``_flash_varlen`` custom_vjp and
-``flash_attention_varlen_packed``). The three kernels are
-``csrc/flash_varlen.cu``; its note says what bounds them and how they
-are laid out.
+``flash_attention_varlen_packed``). The forward is
+``csrc/flash_varlen_wgmma.cu`` for bf16 (tensor cores: wgmma fed by TMA,
+reading the packed rows in place) and ``csrc/flash_varlen.cu`` for f32
+(CUDA cores); the backward pair is ``csrc/flash_varlen.cu`` in both
+dtypes. Each source's note says what bounds its kernels and how they are
+laid out.
 
 The ragged batch stays one packed sequence: ``q`` ``[Tq, H, D]``,
 ``k``/``v`` ``[Tk, H, D]``, and per row an int32 segment id and offset.
@@ -44,7 +47,9 @@ __all__ = ["flash_varlen_fwd", "flash_varlen_fwd_reference",
            "flash_attention_varlen_packed", "SUPPORTED_HEAD_DIMS", "TILE"]
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
-# the kernels' query and key tile (BQ = BK in csrc/flash_varlen.cu)
+# the rows of a tile_ranges entry: the CUDA-core kernels' query and key
+# tile (BQ = BK in csrc/flash_varlen.cu); a block of the tensor-core
+# forward (csrc/flash_varlen_wgmma.cu) takes 128 query rows, two entries
 TILE = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -52,14 +57,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # <tensors...>, Tq, Tk, H, D, dtype, scale, stream
 _TAIL = [_I] * 5 + [ctypes.c_float, _P]
+# q, k, v, seg_q, off_q, seg_k, off_k, q_tiles, o, lse
+_FWD_ARGS = [_P] * 10 + _TAIL
 _SIGNATURES = {
-    # q, k, v, seg_q, off_q, seg_k, off_k, q_tiles, o, lse
-    "flash_varlen_fwd": [_P] * 10 + _TAIL,
+    "flash_varlen_fwd": _FWD_ARGS,
     # q, k, v, do, lse, delta, seg_q, off_q, seg_k, off_k, k_tiles, dk, dv
     "flash_varlen_bwd_dkv": [_P] * 13 + _TAIL,
     # q, k, v, do, lse, delta, seg_q, off_q, seg_k, off_k, q_tiles, dq
     "flash_varlen_bwd_dq": [_P] * 12 + _TAIL,
 }
+# library (the source's stem) -> {C entry: argument types}
+_LIBRARIES = {"flash_varlen": _SIGNATURES,
+              "flash_varlen_wgmma": {"flash_varlen_fwd_wgmma": _FWD_ARGS}}
+# (library, C entry) of the forward by dtype: the tensor-core kernel
+# takes bf16, the CUDA-core kernel f32
+_FWD_ENTRY = {torch.bfloat16: ("flash_varlen_wgmma", "flash_varlen_fwd_wgmma"),
+              torch.float32: ("flash_varlen", "flash_varlen_fwd")}
 _NEG = float("-inf")
 
 
@@ -92,6 +105,20 @@ def _check(q, k, v, seg_q, off_q, seg_k, off_k) -> None:
     if not all(t.device == q.device
                for t in (k, v, seg_q, off_q, seg_k, off_k)):
         raise ValueError("all varlen inputs must lie on one device")
+
+
+def _check_tma(*tensors) -> None:
+    """TMA reads a tensor whose base and strides lie on 16-byte
+    boundaries; the bf16 forward raises for a packed view that does not
+    (copy it with ``.clone()`` first)."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                    for st in t.stride()[:-1]):
+            raise ValueError(
+                f"the bf16 varlen forward reads q, k and v with TMA, which "
+                f"needs 16-byte aligned bases and strides; got a "
+                f"{tuple(t.shape)} tensor at {t.data_ptr():#x} with strides "
+                f"{t.stride()}")
 
 
 def _check_tiles(tiles, T, name) -> None:
@@ -255,8 +282,10 @@ def _stream(t):
 def flash_varlen_fwd(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles,
                      scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The varlen forward kernel: ``o`` ``[Tq, H, D]`` in the input dtype
-    and ``lse`` f32 ``[H, Tq]``. ``q_tiles`` is :func:`tile_ranges`'s
-    first table. ``flash_varlen_fwd.launches`` counts its launches."""
+    and ``lse`` f32 ``[H, Tq]``; bf16 on the tensor cores (``q``, ``k``
+    and ``v`` 16-byte aligned, or it raises), f32 on the CUDA cores.
+    ``q_tiles`` is :func:`tile_ranges`'s first table.
+    ``flash_varlen_fwd.launches`` counts its launches."""
     _check(q, k, v, seg_q, off_q, seg_k, off_k)
     _check_tiles(q_tiles, q.shape[0], "q_tiles")
     if not _build.on_card("flash_varlen_fwd", q, k, v, seg_q, off_q, seg_k,
@@ -264,23 +293,26 @@ def flash_varlen_fwd(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles,
         return flash_varlen_fwd_reference(q, k, v, seg_q, off_q, seg_k,
                                           off_k, float(scale))
     Tq, H, D = q.shape
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((H, Tq), dtype=torch.float32, device=q.device)
-    lib = _build.library("flash_varlen", _SIGNATURES)
+    name, entry = _FWD_ENTRY[q.dtype]
+    lib = _build.library(name, _LIBRARIES[name])
     with torch.cuda.device(q.device):
-        err = lib.flash_varlen_fwd(
+        err = getattr(lib, entry)(
             *[t.data_ptr() for t in (q, k, v, seg_q, off_q, seg_k, off_k,
                                      q_tiles, o, lse)],
             Tq, k.shape[0], H, D, _DTYPE_CODE[q.dtype], float(scale),
             _stream(q))
-    _build.check(lib, err, "flash_varlen_fwd")
+    _build.check(lib, err, entry)
     flash_varlen_fwd.launches += 1
     return o, lse
 
 
 def _bwd_launch(entry, q, k, v, do, lse, delta, meta, tiles, outs, scale):
     Tq, H, D = q.shape
-    lib = _build.library("flash_varlen", _SIGNATURES)
+    lib = _build.library("flash_varlen", _LIBRARIES["flash_varlen"])
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             *[t.data_ptr() for t in (q, k, v, do, lse, delta, *meta, tiles,

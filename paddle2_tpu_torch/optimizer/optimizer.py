@@ -121,7 +121,8 @@ class Optimizer:
         return None
 
     def _fused_paramwise_builder(self, decay_flags, kernel):
-        """The fused-update scaffolding every subclass shares: the
+        """The per-tensor fused-update scaffolding (AdamW's; Momentum
+        gathers every tensor into one launch instead): the
         multi-precision master unwrap and re-wrap, the explicit f32 grad
         cast, and the per-tensor fallback to :meth:`_apply_one`.
         ``kernel(work, g, inner, lr, step, wd_eff)`` updates ``work``
@@ -129,9 +130,7 @@ class Optimizer:
         tensor is unsupported. l1 decay takes the fallback for every
         tensor: the kernels implement the l2 form only.
 
-        The fallback serves CPU tensors only. A tensor on the card that
-        the kernel does not take raises ``NotImplementedError``, so
-        ``fused=True`` never runs the eager chain there."""
+        The fallback serves CPU tensors only (:func:`refuse_off_cpu`)."""
         wd_kind, wd = self._weight_decay
         l1 = bool(wd) and wd_kind != "l2"
         multi_prec = self._multi_precision
@@ -148,16 +147,7 @@ class Optimizer:
                 res = None if l1 else kernel(work, g_eff, inner, lr, step,
                                              wd if (wd and decay) else 0.0)
                 if res is None:
-                    if p.device.type != "cpu":
-                        raise NotImplementedError(
-                            f"fused=True: the fused step does not take "
-                            f"this {p.dtype} parameter of shape "
-                            f"{tuple(p.shape)} on {p.device} ("
-                            + ("l1 decay" if l1 else "it needs an f32 "
-                               "update on contiguous tensors: an f32 "
-                               "parameter or multi_precision=True")
-                            + "); pass fused=False (ROADMAP queue 1 "
-                            "item 2)")
+                    refuse_off_cpu(p, l1)
                     np_, ns_ = apply_one(p, g, s, lr, step, decay)
                 elif master is not None:
                     np_, ns_ = res[0].to(p.dtype), {"master": res[0],
@@ -268,6 +258,19 @@ class Optimizer:
         for g in self._param_groups:
             out.extend(g["params"])
         return out
+
+
+def refuse_off_cpu(p, l1: bool) -> None:
+    """The fused route's rule for a tensor its kernel does not take: the
+    eager chain serves it on the CPU; on the card it raises, so
+    ``fused=True`` never runs the eager chain there."""
+    if p.device.type != "cpu":
+        raise NotImplementedError(
+            f"fused=True: the fused step does not take this {p.dtype} "
+            f"parameter of shape {tuple(p.shape)} on {p.device} ("
+            + ("l1 decay" if l1 else "it needs an f32 update on contiguous "
+               "tensors: an f32 parameter or multi_precision=True")
+            + "); pass fused=False (ROADMAP queue 1 item 2)")
 
 
 def refuse_unported(**options) -> None:

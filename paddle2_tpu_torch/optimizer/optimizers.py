@@ -14,8 +14,8 @@ division by a host scalar into a multiplication by its reciprocal.
 Momentum keeps its eager order too: ``v = mom*v + g``, then
 ``p - lr*v`` (Nesterov: ``p - lr*(g + mom*v)`` with the new ``v``), the
 L2 decay folded into ``g`` first by the base ``_apply_one``; the fused
-kernel (``kernels/csrc/momentum_step.cu``) is held to this chain
-bitwise.
+multi-tensor kernel (``kernels/csrc/momentum_step.cu``) is held to this
+chain bitwise, the cast of a master to its bf16/f16 parameter included.
 
 The other optimizers of the JAX module are ROADMAP queue 1 item 2.
 """
@@ -25,8 +25,9 @@ import torch
 
 from ..kernels.fused_adamw import (adamw_step, adamw_step_supported,
                                    stage_scalars)
-from ..kernels.fused_momentum import momentum_step, momentum_step_supported
-from .optimizer import Optimizer, refuse_unported
+from ..kernels.fused_momentum import (momentum_multi_supported,
+                                       momentum_step_multi)
+from .optimizer import Optimizer, refuse_off_cpu, refuse_unported
 
 __all__ = ["Momentum", "Adam", "AdamW"]
 
@@ -35,8 +36,9 @@ class Momentum(Optimizer):
     """Heavy-ball (or Nesterov) momentum. The velocity is f32 under
     ``multi_precision`` (for f32 parameters too, as in the JAX package),
     else in the parameter's dtype. ``fused=True`` routes each f32 update
-    (a plain f32 parameter, or the master of a bf16 one) through the
-    one-pass kernel (:mod:`paddle2_tpu_torch.kernels.fused_momentum`),
+    (a plain f32 parameter, or the master of a bf16/f16 one, whose
+    parameter the same pass writes) through one multi-tensor kernel
+    launch a step (:mod:`paddle2_tpu_torch.kernels.fused_momentum`),
     bitwise equal to the eager chain; other tensors fall back to the
     chain on the CPU and raise on the card. ``fused=None`` follows
     ``FLAGS_fused_optimizer_step`` (off by default)."""
@@ -64,17 +66,46 @@ class Momentum(Optimizer):
         return new_p, {"velocity": v}
 
     def _fused_update_builder(self, decay_flags):
+        """One kernel launch a step for every tensor the kernel takes
+        (:func:`~paddle2_tpu_torch.kernels.fused_momentum.momentum_step_multi`):
+        the f32 update of each, and each bf16/f16 parameter written from
+        its master in the same pass, so the parameter is returned as
+        itself and ``step`` copies nothing. l1 decay and tensors the
+        kernel does not take follow :func:`refuse_off_cpu`: the eager
+        chain per tensor on the CPU, ``NotImplementedError`` on the card.
+        The states are updated in place and keep their layout."""
         mom, nesterov = self._momentum, self._nesterov
+        wd_kind, wd = self._weight_decay
+        l1 = bool(wd) and wd_kind != "l2"
+        multi_prec = self._multi_precision
+        apply_one = self._apply_one
 
-        def kernel(work, g, inner, lr, step, wd_eff):
-            v = inner.get("velocity")
-            if not (set(inner) == {"velocity"}
-                    and v.dtype == torch.float32 and v.is_contiguous()
-                    and momentum_step_supported(work, g)):
-                return None
-            momentum_step(work, g, v, lr, mom, nesterov, wd_eff)
-            return work, inner
-        return self._fused_paramwise_builder(decay_flags, kernel)
+        def update(params, grads, states, lr, step):
+            new_params, new_states = list(params), list(states)
+            works, gs, vels, lows, wds = [], [], [], [], []
+            for i, (p, g, s, decay) in enumerate(zip(params, grads, states,
+                                                     decay_flags)):
+                master, inner = None, s
+                if multi_prec and "master" in s:
+                    master, inner = s["master"], s["inner"]
+                work = master if master is not None else p
+                low = p if master is not None else None
+                v = inner.get("velocity")
+                if l1 or set(inner) != {"velocity"} or \
+                        not momentum_multi_supported(work, g, v, low):
+                    refuse_off_cpu(p, l1)
+                    new_params[i], new_states[i] = apply_one(
+                        p, g, s, lr, step, decay)
+                    continue
+                works.append(work)
+                gs.append(g)
+                vels.append(v)
+                lows.append(low)
+                wds.append(wd if (wd and decay) else 0.0)
+            momentum_step_multi(works, gs, vels, lows, wds, lr, mom,
+                                nesterov)
+            return new_params, new_states
+        return update
 
 
 class Adam(Optimizer):

@@ -81,6 +81,7 @@ def test_kernel_sources_are_found():
                           "adamw_step", "wo_matmul", "layer_norm",
                           "momentum_step", "flash_varlen", "rms_norm",
                           "rope", "adamw_flat", "i8i8_matmul",
-                          "flash_fwd_wgmma", "flash_bwd_wgmma"}
+                          "flash_fwd_wgmma", "flash_bwd_wgmma",
+                          "flash_varlen_wgmma"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"

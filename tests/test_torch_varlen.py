@@ -8,7 +8,10 @@ the Pallas kernels' own semantics, forward and q/k/v gradients. The
 port's ``flash_attn_unpadded`` (packed route on either device) is held
 against the JAX function on the CPU, which densifies, on inputs where
 every row sees a key; the port's own densify route is held against the
-JAX densify route.
+JAX densify route. The wrappers' paths to their C entries run against a
+stand-in library (bf16 forwards reach the tensor-core entry, f32 the
+CUDA-core one), and a host model of the tensor-core forward's blocks is
+held against the mask pair by pair.
 
 Tolerances: f32 output 1e-5 and gradients 1e-4 (f32 sums of up to ~200
 terms in another order; the Pallas kernel's online softmax against one
@@ -385,19 +388,21 @@ def test_tile_ranges_cover_every_live_pair(case):
         assert q_tiles[-1, 1] <= 128 and k_tiles[-1, 1] <= 128
 
 
-def test_wrappers_reach_their_c_entries(monkeypatch):
-    """With the wrappers told their tensors are on the card, a forward
-    and a backward call ``flash_varlen_fwd``, ``flash_varlen_bwd_dkv``
-    and ``flash_varlen_bwd_dq`` in the library once each, with the
-    tensors' pointers, ``Tq, Tk, H, D``, the dtype code and the scale,
-    and count one launch each; no plain version runs."""
+@pytest.fixture
+def stand_in(monkeypatch):
+    """The wrappers told their tensors are on the card, the built
+    libraries replaced by a recorder of (library, entry, arguments), and
+    the plain versions failing if they run."""
     calls = []
 
     class StandIn:
+        def __init__(self, name):
+            self.name = name
+
         def __getattr__(self, entry):
-            return lambda *args: calls.append((entry, args)) or 0
+            return lambda *args: calls.append((self.name, entry, args)) or 0
     monkeypatch.setattr(_build, "on_card", lambda what, *t: True)
-    monkeypatch.setattr(_build, "library", lambda name, sigs: StandIn())
+    monkeypatch.setattr(_build, "library", lambda name, sigs: StandIn(name))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -406,30 +411,152 @@ def test_wrappers_reach_their_c_entries(monkeypatch):
                  "flash_varlen_bwd_dkv_reference",
                  "flash_varlen_bwd_dq_reference"):
         monkeypatch.setattr(fv, name, lambda *a: pytest.fail("plain ran"))
+    return calls
+
+
+def _packed_call(dtype):
+    """A forward and a backward of the differentiable op on the stand-in
+    library; returns (q, k, v, meta)."""
     lens_q, lens_k = [3, 70], [5, 80]
     meta = [torch.as_tensor(a) for a in _meta(lens_q, lens_k, True)]
-    q = torch.zeros(73, 2, 64, dtype=torch.bfloat16, requires_grad=True)
-    k = torch.zeros(85, 2, 64, dtype=torch.bfloat16, requires_grad=True)
-    v = torch.zeros(85, 2, 64, dtype=torch.bfloat16, requires_grad=True)
+    q = torch.zeros(73, 2, 64, dtype=dtype, requires_grad=True)
+    k = torch.zeros(85, 2, 64, dtype=dtype, requires_grad=True)
+    v = torch.zeros(85, 2, 64, dtype=dtype, requires_grad=True)
+    out = fv.flash_attention_varlen_packed(q, k, v, *meta, scale=0.125)
+    out.float().sum().backward()
+    return q, k, v, meta
+
+
+def test_wrappers_reach_their_c_entries(stand_in):
+    """With the wrappers told their tensors are on the card, a bf16
+    forward and backward call ``flash_varlen_fwd_wgmma`` (the tensor-core
+    library), ``flash_varlen_bwd_dkv`` and ``flash_varlen_bwd_dq`` once
+    each, with the tensors' pointers, ``Tq, Tk, H, D``, the dtype code
+    and the scale, and count one launch each; no plain version runs."""
     before = [f.launches for f in (fv.flash_varlen_fwd,
                                    fv.flash_varlen_bwd_dkv,
                                    fv.flash_varlen_bwd_dq)]
-    out = fv.flash_attention_varlen_packed(q, k, v, *meta, scale=0.125)
-    out.float().sum().backward()
+    q, k, v, meta = _packed_call(torch.bfloat16)
     assert [f.launches - b for f, b in zip(
         (fv.flash_varlen_fwd, fv.flash_varlen_bwd_dkv,
          fv.flash_varlen_bwd_dq), before)] == [1, 1, 1]
-    assert [c[0] for c in calls] == ["flash_varlen_fwd",
-                                     "flash_varlen_bwd_dkv",
-                                     "flash_varlen_bwd_dq"]
+    assert [c[:2] for c in stand_in] == [
+        ("flash_varlen_wgmma", "flash_varlen_fwd_wgmma"),
+        ("flash_varlen", "flash_varlen_bwd_dkv"),
+        ("flash_varlen", "flash_varlen_bwd_dq")]
     tail = (73, 85, 2, 64, 1, 0.125, None)
-    fwd, dkv, dq = (c[1] for c in calls)
+    fwd, dkv, dq = (c[2] for c in stand_in)
     assert fwd[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
     assert fwd[3:7] == tuple(m.data_ptr() for m in meta)
     assert len(fwd) == 10 + 7 and fwd[10:] == tail
     assert len(dkv) == 13 + 7 and dkv[13:] == tail
     assert len(dq) == 12 + 7 and dq[12:] == tail
     assert dkv[6:10] == dq[6:10] == fwd[3:7]
+
+
+def test_f32_forward_keeps_the_cuda_core_kernel(stand_in):
+    """An f32 forward reaches ``flash_varlen_fwd`` in the CUDA-core
+    library with the same C signature as the bf16 entry."""
+    _packed_call(torch.float32)
+    assert [c[:2] for c in stand_in] == [
+        ("flash_varlen", "flash_varlen_fwd"),
+        ("flash_varlen", "flash_varlen_bwd_dkv"),
+        ("flash_varlen", "flash_varlen_bwd_dq")]
+    assert stand_in[0][2][10:] == (73, 85, 2, 64, 0, 0.125, None)
+    assert fv._LIBRARIES["flash_varlen_wgmma"]["flash_varlen_fwd_wgmma"] \
+        == fv._LIBRARIES["flash_varlen"]["flash_varlen_fwd"]
+
+
+def test_a_misaligned_bf16_packed_view_raises(stand_in):
+    """TMA reads 16-byte aligned bases: a contiguous bf16 view that
+    starts elsewhere raises before any launch (the f32 kernel takes it);
+    its aligned copy launches."""
+    T, H, D = 10, 2, 16
+    n = T * H * D
+    meta = [torch.as_tensor(a) for a in _meta([4, 6], [4, 6], True)]
+    tiles = fv.tile_ranges(*meta)
+    for dtype, launches in ((torch.bfloat16, 0), (torch.float32, 1)):
+        buf = torch.zeros(3 * n + 1, dtype=dtype)
+        q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(T, H, D)
+                   for i in range(3))
+        assert q.is_contiguous() and q.data_ptr() % 16
+        before = len(stand_in)
+        if launches:
+            fv.flash_varlen_fwd(q, k, v, *meta, tiles[0], 0.25)
+        else:
+            with pytest.raises(ValueError, match="16-byte"):
+                fv.flash_varlen_fwd(q, k, v, *meta, tiles[0], 0.25)
+        assert len(stand_in) - before == launches
+    fv.flash_varlen_fwd(*(t.to(torch.bfloat16).clone() for t in (q, k, v)),
+                        *meta, tiles[0], 0.25)
+    assert stand_in[-1][1] == "flash_varlen_fwd_wgmma"
+
+
+# the tensor-core forward's block rows and key tiles (BQ; BK by head dim)
+# and its sentinel segment ids (csrc/flash_varlen_wgmma.cu)
+_WG_BQ = 128
+_WG_BK = {16: 128, 64: 128, 128: 64}
+_INT_MIN, _INT_MAX = -2 ** 31, 2 ** 31 - 1
+_PAST_K, _PAST_Q, _MIXED_K, _MIXED_Q = (_INT_MIN + i for i in range(4))
+
+
+def _wgmma_forward_pairs(meta, BK):
+    """A host model of the tensor-core forward's index arithmetic: for
+    each 128-row block, the union of its two ``q_tiles`` entries, its
+    key tiles of ``BK`` from the range's first row, and for each warp of
+    16 rows and each key tile the mask-skip rule; returns the [Tq, Tk]
+    pairs the kernel lets into its softmax."""
+    seg_q, off_q, seg_k, off_k = (np.asarray(a, np.int64) for a in meta)
+    Tq, Tk = len(seg_q), len(seg_k)
+    q_tiles, _ = fv.tile_ranges(*(torch.as_tensor(a) for a in meta))
+    q_tiles = q_tiles.numpy()
+    n64 = len(q_tiles)
+    seen = np.zeros((Tq, Tk), np.int64)
+    for t in range(-(-Tq // _WG_BQ)):
+        lo, hi = q_tiles[2 * t]
+        if 2 * t + 1 < n64:
+            lo, hi = min(lo, q_tiles[2 * t + 1, 0]), max(
+                hi, q_tiles[2 * t + 1, 1])
+        n_tiles = -(-(hi - lo) // BK) if hi > lo else 0
+        for i in range(n_tiles):
+            c = lo + i * BK + np.arange(BK)
+            inr = c < hi
+            kseg = np.where(inr, seg_k[np.minimum(c, Tk - 1)], _PAST_K)
+            koff = np.where(inr, off_k[np.minimum(c, Tk - 1)], _INT_MAX)
+            tseg = kseg[0] if (kseg == kseg[0]).all() else _MIXED_K
+            for w in range(_WG_BQ // 16):
+                r = t * _WG_BQ + 16 * w + np.arange(16)
+                rin = r < Tq
+                rseg = np.where(rin, seg_q[np.minimum(r, Tq - 1)], _PAST_Q)
+                roff = np.where(rin, off_q[np.minimum(r, Tq - 1)], _INT_MIN)
+                wseg = rseg[0] if (rseg == rseg[0]).all() else _MIXED_Q
+                if tseg == wseg and koff.max() <= roff.min():
+                    live = np.ones((16, BK), bool)
+                else:
+                    live = (kseg[None] == rseg[:, None]) & \
+                        (koff[None] <= roff[:, None])
+                live &= rin[:, None] & (c < Tk)[None]
+                rr, cc = np.nonzero(live)
+                np.add.at(seen, (r[rr], c[cc]), 1)
+    return seen
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("lens", ["equal", "lk_lt_lq"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_tensor_core_forward_sees_every_live_pair_once(causal, lens, D):
+    """The host model of the tensor-core forward's blocks (the 128-row
+    union of ``q_tiles``, key tiles from the range's first row, the
+    mask-skip rule) lets every live (query, key) pair into the softmax
+    exactly once and no other pair, at sequence lengths 1, 127, 128,
+    129, 255 and 2048 (and ``len_k < len_q``)."""
+    lens_q = [1, 127, 128, 129, 255, 2048]
+    lens_k = lens_q if lens == "equal" else [1, 100, 128, 64, 200, 1000]
+    meta = _meta(lens_q, lens_k, causal)
+    seen = _wgmma_forward_pairs(meta, _WG_BK[D])
+    live = _live(meta).numpy()
+    assert seen.max() <= 1
+    assert np.array_equal(seen.astype(bool), live)
 
 
 def test_dots_remat_keeps_the_varlen_op_outputs():
