@@ -10,10 +10,11 @@ line) when it fails:
 
 1. Device: the card's name and power limit.
 2. Build: every kernel under ``paddle2_tpu_torch/**/csrc`` with nvcc,
-   in parallel, from the sources in the checkout; the SASS of the three
+   in parallel, from the sources in the checkout; the SASS of the four
    tensor-core libraries (``flash_fwd_wgmma``, ``flash_bwd_wgmma``,
-   ``flash_varlen_wgmma``) must hold HGMMA (wgmma) instructions, and
-   ptxas's registers and spills for their kernels are printed.
+   ``flash_varlen_wgmma``, ``wo_matmul_wgmma``) must hold HGMMA (wgmma)
+   instructions, and ptxas's registers and spills for their kernels are
+   printed.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
    causal; bf16 on the tensor-core kernel, f32 on the CUDA-core one),
@@ -45,12 +46,16 @@ line) when it fails:
    and one multi-tensor step over the 161 f32 tensors timed against
    ``torch._fused_sgd_`` (CUDA events and device time for both).
    The int8 weight-only matmul at GPT-3 1.3B's five projection shapes
-   (qkv, out_proj, up, down, the tied head) at M 1, 8 and 1008, in bf16
-   and f32, with and without a bias, and at one ragged shape (M 3, K
-   200, N 333), timed against ``torch.mm`` over the weight dequantized
-   beforehand (and ``torch._weight_int8pack_mm`` where this torch has
-   it on CUDA). Then, on the serving model's real weights and the
-   activations that reach them on one prompt: the kernel's product
+   (qkv, out_proj, up, down, the tied head) at M 1, 8, 128 and 1008, in
+   bf16 and f32, with and without a bias (bf16 at M 128 and 1008 on the
+   tensor-core route), and at ragged shapes (M 3, K 200, N 333 on the
+   CUDA cores; M 37, K 200, N 336 on the tensor cores), timed against
+   ``torch.mm`` over the weight dequantized beforehand (and
+   ``torch._weight_int8pack_mm`` where this torch has it on CUDA), with
+   the wrapper's host time a call; every int8 value through the
+   tensor-core route's widening, ``torch.equal`` to the plain version.
+   Then, on the serving model's real weights and the activations that
+   reach them on one prompt: the kernel's product
    stays within ``weight_quant_error_bound`` of ``x @ W`` (f64, on the
    host), a 4-bit payload of the same weight breaks that bound, and the
    bound is below ``max |x @ W|``; and layer 0's payload and scales
@@ -81,8 +86,9 @@ line) when it fails:
    ``generate`` by the same near-tie rule, f32 first-token logits
    against the quantized model on the CPU at atol 1e-3, ``wo_matmul``
    launched 97 times (96 projections and the head) for every prefill
-   and every decode step; how many tokens agree with the fp runs is
-   printed, not gated.
+   and every decode step, the 96 projections of a bf16 prefill on the
+   tensor-core route (none in f32); how many tokens agree with the fp
+   runs is printed, not gated.
 5. Training at full width and full depth: ``bench.py``'s default GPT
    (vocab 32768, hidden 1024, 24 layers, 16 heads of 64, seq 1024,
    batch 8, labels = ids) with "dots" remat, stacked blocks, the fused
@@ -165,7 +171,10 @@ line) when it fails:
     D]`` with the block-diagonal causal mask (forward, or its backward)
     as the library yardstick, by CUDA events and by device time, its
     bound and its launches; the densify route's forward time is printed
-    beside the packed route's.
+    beside the packed route's. A bf16 packed batch whose q, k and v are
+    contiguous views 2 bytes past a 16-byte boundary goes through
+    ``flash_attention_varlen_packed`` and must equal, bitwise, the same
+    call on aligned copies.
 13. Packed varlen training at full width through the public entry
     points: two GPT-3 1.3B-width self-attention layers (hidden 2048, 16
     heads of 128; qkv ``Linear``, ``nn.functional.flash_attn_unpadded``
@@ -297,7 +306,8 @@ from paddle2_tpu_torch.kernels.flash_attn import (
     bwd_route, flash_bwd, flash_bwd_fused, flash_bwd_reference,
     flash_bwd_split_dkv, flash_bwd_split_dq, flash_fwd, flash_fwd_reference)
 from paddle2_tpu_torch.kernels.flash_varlen import (
-    flash_varlen_bwd_dkv, flash_varlen_bwd_dkv_reference, flash_varlen_bwd_dq,
+    flash_attention_varlen_packed, flash_varlen_bwd_dkv,
+    flash_varlen_bwd_dkv_reference, flash_varlen_bwd_dq,
     flash_varlen_bwd_dq_reference, flash_varlen_fwd,
     flash_varlen_fwd_reference)
 from paddle2_tpu_torch.kernels.fused_adamw import (
@@ -316,7 +326,7 @@ from paddle2_tpu_torch.kernels.fused_rope import rope, rope_reference
 from paddle2_tpu_torch.kernels.quant_matmul import (
     i8i8_split, int4_weight_only_matmul, int8_matmul, int8_matmul_reference,
     int8_weight_only_matmul, int8_weight_only_matmul_reference, pack_int4,
-    quantize_channelwise, unpack_int4, weight_quant_error_bound)
+    quantize_channelwise, unpack_int4, weight_quant_error_bound, wo_route)
 from paddle2_tpu_torch.incubate.nn import functional as IF
 from paddle2_tpu_torch.models import (ErnieForSequenceClassification,
                                       GPTConfig, GPTForCausalLM, ernie3_base,
@@ -393,10 +403,16 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/adamw_step.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:125",
         counter=adamw_step),
+    # every route of the weight-only wrapper (decode, f32 prefill, and
+    # the tensor-core route counted again below)
     "wo_matmul": dict(
         source="paddle2_tpu_torch/kernels/csrc/wo_matmul.cu",
         replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
         counter=int8_weight_only_matmul),
+    "wo_matmul_wgmma": dict(
+        source="paddle2_tpu_torch/kernels/csrc/wo_matmul_wgmma.cu",
+        replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
+        counter=int8_weight_only_matmul, route="wgmma"),
     "layer_norm_fwd": dict(
         source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_ln.py:55",
@@ -468,13 +484,16 @@ VARLEN_KERNEL_NAMES = {
     ("flash_varlen_bwd_dq", torch.bfloat16): "flash_varlen_dq_kernel",
     ("flash_varlen_bwd_dq", torch.float32): "flash_varlen_dq_kernel"}
 # the libraries of the tensor-core kernels, whose SASS must hold HGMMA
-WGMMA_LIBRARIES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_varlen_wgmma")
+WGMMA_LIBRARIES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_varlen_wgmma",
+                   "wo_matmul_wgmma")
 SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_split")
 # GPT-3 1.3B's weight-only projections, K x N ([in, out])
 WO_SHAPES = {"qkv": (2048, 6144), "out_proj": (2048, 2048),
              "up": (2048, 8192), "down": (8192, 2048), "head": (2048, 50304)}
-# the kernels line's wo_matmul row: a bf16 decode step at batch 8
+# the kernels line's wo_matmul rows: a bf16 decode step at batch 8, and
+# a 1000-token prompt's prefill (padded to 1008) on the tensor cores
 WO_LINE_SHAPE = "M8 K2048 N8192 (up) bias"
+WO_WGMMA_LINE_SHAPE = "M1008 K2048 N8192 (up) bias"
 # the int8 x int8 kernel's rows: GPT-3 1.3B's four block projections at a
 # decode step of batch 8 and a 1000-token prompt's prefill (padded to
 # 1008); the kernels line reports the decode step's up projection
@@ -572,6 +591,7 @@ ADAMW_FLAT_CASES = [(84_000_000, torch.float32, True),
 ADAMW_FLAT_LINE_SHAPE = "N 84000000, p/g bf16"
 LINE_SHAPES = {"flash_bwd_fused": "B8 H16 Sq1024 Sk1024 D64 causal",
                "wo_matmul": WO_LINE_SHAPE,
+               "wo_matmul_wgmma": WO_WGMMA_LINE_SHAPE,
                "i8i8_matmul": I8_LINE_SHAPE,
                "rms_norm_fwd": RMS_LINE_SHAPE,
                "rms_norm_bwd": RMS_LINE_SHAPE,
@@ -653,12 +673,15 @@ def bound(ops, nbytes, dtype):
 
 
 def counts():
-    return {n: k["counter"].launches for n, k in KERNELS.items()}
+    return {n: k["counter"].route_launches[k["route"]] if "route" in k
+            else k["counter"].launches for n, k in KERNELS.items()}
 
 
 def reset_counts():
     for k in KERNELS.values():
         k["counter"].launches = 0
+        if "route" in k:
+            k["counter"].route_launches[k["route"]] = 0
 
 
 # ------------------------------------------------------------- phase 3
@@ -1129,14 +1152,21 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
              timed=True):
     """The weight-only kernel against its plain version at ``M x K x
     N``: error absolute below 1 and relative above (one bf16 rounding
-    step of an output of 4 is 0.03); with ``timed``, its times, its bound
-    and the library yardsticks."""
+    step of an output of 4 is 0.03); the call must take the route
+    ``wo_route`` names (the row is named ``wo_matmul_wgmma`` on the
+    tensor-core route). With ``timed``, its times, the wrapper's host
+    time a call, its bound and the library yardsticks."""
     x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
     w = torch.randn(K, N, generator=gen, device=dev) * 0.02
     w8, s8 = quantize_channelwise(w)
     bias = ((torch.randn(N, generator=gen, device=dev) * 0.02).to(dtype)
             if with_bias else None)
+    route = wo_route(M, K, N, dtype)
+    before = int8_weight_only_matmul.route_launches[route]
     y = int8_weight_only_matmul(x, w8, s8, bias)
+    require(int8_weight_only_matmul.route_launches[route] == before + 1,
+            f"wo_matmul M{M} K{K} N{N} {dname(dtype)}: not on the {route} "
+            f"route")
     ref = int8_weight_only_matmul_reference(x, w8, s8, bias)
     torch.cuda.synchronize()
     diff = (y.float() - ref.float()).abs()
@@ -1146,7 +1176,8 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
     shape = f"M{M} K{K} N{N} ({label})" + (" bias" if with_bias else "")
     require(scaled <= TOL[dtype], f"wo_matmul {dname(dtype)} {shape} "
             f"disagrees with its plain version: {scaled} > {TOL[dtype]}")
-    row = dict(name="wo_matmul", dtype=dname(dtype), shape=shape,
+    row = dict(name="wo_matmul_wgmma" if route == "wgmma" else "wo_matmul",
+               route=route, dtype=dname(dtype), shape=shape,
                max_abs_err=err, scaled_err=scaled, tol=TOL[dtype])
     if not timed:
         return row
@@ -1155,6 +1186,14 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
         return int8_weight_only_matmul(x, w8, s8, bias)
     ms = cuda_ms(run)
     dev_ms, kern_ms = device_ms(run, "wo_ge")
+    # the wrapper's host time (checks, the plan, the launch), which the
+    # CUDA-event time holds beside the kernel's
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        run()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     plain = cuda_ms(lambda: int8_weight_only_matmul_reference(
         x, w8, s8, bias), iters=10)
     w_deq = (w8.float() * (s8 / 127.0)).to(dtype)
@@ -1169,10 +1208,36 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
               + (N * size if with_bias else 0))
     b_ms, b_by = bound(2.0 * M * N * K, nbytes, dtype)
     row.update(ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
-               plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+               host_ms=statistics.median(host), plain_ms=plain,
+               library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                library="torch.mm over the dequantized weight",
                int8pack_mm_ms=pack_ms)
     return row
+
+
+def check_wo_all_values(dev):
+    """Every int8 value through the tensor-core route's widening: w holds
+    -128..127 in each column (rotated), x picks one row of w in each of
+    its 16 rows and sums all of them in one more column; with s = qmax
+    the products are integers, so the kernel must equal its plain
+    version exactly."""
+    K, N, M = 256, 128, 16
+    vals = torch.arange(-128, 128, device=dev, dtype=torch.int32).to(
+        torch.int8)
+    w8 = torch.roll(vals[:, None].repeat(1, N).reshape(-1), 37).view(
+        K, N).contiguous()
+    s8 = torch.full((N,), 127.0, device=dev)
+    x = torch.zeros(M, K, device=dev, dtype=torch.bfloat16)
+    x[torch.arange(M, device=dev), torch.arange(M, device=dev) * 16 + 3] = 1
+    x[:, 200] = 1
+    require(wo_route(M, K, N, torch.bfloat16) == "wgmma",
+            "the all-values check is not on the tensor-core route")
+    y = int8_weight_only_matmul(x, w8, s8)
+    exact = torch.equal(y, int8_weight_only_matmul_reference(x, w8, s8))
+    require(exact, "wo_matmul_wgmma: an int8 value widened inexactly")
+    return dict(name="wo_matmul_wgmma", route="wgmma", dtype="bfloat16",
+                shape=f"M{M} K{K} N{N} (every int8 value)", max_abs_err=0.0,
+                scaled_err=0.0, tol="torch.equal")
 
 
 @torch.inference_mode()
@@ -1741,6 +1806,13 @@ def serve_int8(make_model, dtype, econf, prompts, new, fp_gens, tag):
     require(l8["wo_matmul"] == want,
             f"{tag}: wo_matmul launched {l8['wo_matmul']} times, want "
             f"{want} ({per_pass} a prefill and a decode step)")
+    # a bf16 prefill's block projections (M = the padded prompt, > 8) on
+    # the tensor cores; the head (the last row) and decode (M <= 8) not
+    want_tc = ((per_pass - 1) * st["prefills"] if dtype == torch.bfloat16
+               else 0)
+    require(l8["wo_matmul_wgmma"] == want_tc,
+            f"{tag}: the tensor-core route launched "
+            f"{l8['wo_matmul_wgmma']} times, want {want_tc}")
     st.update(near_ties=len(ties), tie_margins=ties, launches=l8,
               tokens_agreeing_with_fp=sum(
                   a == b for x, y in zip(g8, fp_gens) for a, b in zip(x, y)),
@@ -2621,6 +2693,34 @@ def varlen_bound(name, pairs, Tq, Tk, H, D, dtype, size):
     return bound(ops, nbytes, dtype)
 
 
+def check_varlen_misaligned(gen, dev, H=16, D=128):
+    """A bf16 packed batch (the serving lengths) whose q, k and v are
+    contiguous views starting 2 bytes past a 16-byte boundary, which TMA
+    cannot read in place: ``flash_attention_varlen_packed`` copies them
+    and gives, bitwise, what it gives for aligned copies of them."""
+    meta, tiles, keep = varlen_meta(VARLEN_SERVING, None, True, dev)
+    T = keep.shape[0]
+    n = T * H * D
+    buf = torch.randn(3 * n + 1, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(T, H, D)
+               for i in range(3))
+    require(q.is_contiguous() and q.data_ptr() % 16 != 0,
+            "the misaligned varlen check's view is aligned")
+    before = flash_varlen_fwd.launches
+    o = flash_attention_varlen_packed(q, k, v, *meta, tiles=tiles)
+    o_aligned = flash_attention_varlen_packed(
+        *(t.clone() for t in (q, k, v)), *meta, tiles=tiles)
+    torch.cuda.synchronize()
+    require(flash_varlen_fwd.launches == before + 2,
+            "the misaligned varlen check did not launch the kernel twice")
+    same = torch.equal(o, o_aligned)
+    require(same, "a misaligned bf16 packed view differs from its aligned "
+            "copy")
+    return dict(name="flash_varlen_misaligned", dtype="bfloat16",
+                shape=f"T{T} H{H} D{D}, views at +2 bytes", bitwise=same)
+
+
 def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
     """The three varlen kernels against their plain versions on one
     packed batch; the f32 backward twice, bitwise. With ``timed``, each
@@ -3229,11 +3329,16 @@ def ptxas_report(log):
     head dim), its registers and its spills."""
     out, name = {}, None
     for line in log.splitlines():
-        # the mangled name: <length>flash_..._kernelILi<D>E
+        # the mangled name: <length>flash_..._kernelILi<D>E, or the
+        # weight-only kernel's, which has no template argument
         m = re.search(r"Compiling entry function '\w*?\d(flash_\w+?_kernel)"
                       r"ILi(\d+)E", line)
+        w = re.search(r"Compiling entry function "
+                      r"'\w*?\d(wo_gemm_wgmma_kernel)", line)
         if m:
             name = f"{m.group(1)}<{m.group(2)}>"
+        elif w:
+            name = w.group(1)
         elif name and ("registers" in line or "spill" in line):
             out.setdefault(name, []).append(line.strip())
     return out
@@ -3383,15 +3488,17 @@ def main():
     int8pack = int8pack_available(dev)
     for dtype in (torch.bfloat16, torch.float32):
         for label, (K, N) in WO_SHAPES.items():
-            for M in (1, 8, 1008):
+            for M in (1, 8, 128, 1008):
                 for with_bias in (False, True):
                     rows.append(check_wo(dtype, M, K, N, with_bias, gen, dev,
                                          label, int8pack))
         torch.cuda.empty_cache()
-    ragged += [check_wo(dtype, 3, 200, 333, with_bias, gen, dev, "ragged",
+    ragged += [check_wo(dtype, M, 200, N, with_bias, gen, dev, "ragged",
                         False, timed=False)
+               for M, N in ((3, 333), (37, 336))
                for dtype in (torch.bfloat16, torch.float32)
                for with_bias in (False, True)]
+    ragged.append(check_wo_all_values(dev))
     for case in LN_CASES:
         rows += check_layer_norm(*case, gen, dev, timed=True)
     for case in LN_RAGGED:
@@ -3414,6 +3521,7 @@ def main():
                for D in (16, 64, 128) for causal in (True, False)
                for r in check_varlen(torch.bfloat16, 16, D, lens, None,
                                      causal, gen, dev, timed=False)]
+    ragged.append(check_varlen_misaligned(gen, dev))
     torch.cuda.empty_cache()
     for r in rows:
         say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
@@ -3421,13 +3529,15 @@ def main():
             f"(device {r['device_ms']}, kernel {r['kernel_device_ms']}) "
             f"plain {r['plain_ms']:.4f} library {r['library_ms']} "
             f"(device {r.get('library_device_ms')}) bound "
-            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+            f"{r['bound_ms']:.4f} ({r['bound_by']})"
+            + (f" host {r['host_ms']:.4f} int8pack {r['int8pack_mm_ms']}"
+               if r["name"].startswith("wo_matmul") else ""))
     for r in ragged:
         if r["name"].startswith(("layer_norm", "rms_norm")):
             say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (past the limit by "
                 f"{r['excess_over_tol']:.3g}; {r['tol']})")
-        elif r["name"] == "wo_matmul":
+        elif r["name"] in ("wo_matmul", "wo_matmul_wgmma"):
             say(f"[kernel] wo_matmul {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, tol "
                 f"{r['tol']})")
@@ -3445,6 +3555,9 @@ def main():
         elif r["name"] == "flash_fwd":
             say(f"[kernel] flash_fwd {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (tol {r['tol']})")
+        elif r["name"] == "flash_varlen_misaligned":
+            say(f"[kernel] flash_attention_varlen_packed {r['dtype']} "
+                f"{r['shape']}: equal to its aligned copy {r['bitwise']}")
         elif r["name"] == "flash_varlen":
             say(f"[kernel] flash_varlen {r['dtype']} {r['shape']}: fwd err "
                 f"{r['fwd_err']:.3g}, dq/dk/dv err {r['dq_dk_dv_err']} (tol "

@@ -34,7 +34,7 @@ from typing import Dict, List, Sequence
 import torch
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "sources", "build_all", "library",
-           "check", "on_card"]
+           "check", "on_cuda", "on_card", "tma_aligned"]
 
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "paddle2_tpu_torch"
@@ -137,15 +137,29 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+def on_cuda(t: torch.Tensor) -> bool:
+    """Where a router sends ``t``: False on the CPU, True on the card;
+    any other device raises. Unlike :func:`on_card` it takes any
+    layout, since a router may copy before it launches."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
 def on_card(what: str, *tensors: torch.Tensor) -> bool:
     """Where a wrapper runs: False for CPU tensors (the plain version);
     True for CUDA tensors, which must be contiguous (the kernel); any
     other device raises."""
-    dev = tensors[0].device
-    if dev.type == "cpu":
+    if not on_cuda(tensors[0]):
         return False
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} needs contiguous tensors")
     return True
+
+
+def tma_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it whose data starts on a 16-byte boundary, as
+    TMA needs (a contiguous view can start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -41,8 +41,10 @@
 //   128 x 128 output tile a block, 8 x 8 outputs a thread in registers,
 //   tiles of x and of the int8 weight (converted to f32) in shared memory
 //   eight rows of K at a time, the next tile's loads in flight while the
-//   current one is used. Tensor cores (mma.sync / wgmma with TMA) are a
-//   later step.
+//   current one is used. It serves f32 x (the tensor cores would need
+//   TF32, which the f32 contract refuses) and bf16 shapes outside TMA's
+//   16-byte rule; bf16 prefill within it runs on the tensor cores
+//   (wo_matmul_wgmma.cu).
 //
 // Every shape is taken: M, N and K are masked at the ragged edge.
 
@@ -50,46 +52,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wo_common.cuh"
+
 namespace {
 
+using namespace wo;
+
 constexpr int NT = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// The column's scale after the f32 sum, then the bias in f32, then the
-// one cast: the rounding order of the Pallas kernel's epilogue and its
-// wrapper's bias add (pallas_matmul.py:171, :229-237).
-template <typename T>
-__device__ __forceinline__ T epilogue(float acc, float s, float qmax,
-                                      const T* __restrict__ bias, int n) {
-  float v = __fmul_rn(acc, __fdiv_rn(s, qmax));
-  if (bias != nullptr) v = __fadd_rn(v, to_f(bias[n]));
-  return from_f<T>(v);
-}
-
-// Four int8 values in one 32-bit word to four exact floats, without the
-// int-to-float unit: flip each sign bit (the byte becomes b + 128), place
-// the byte in the low mantissa bits of 2^23 and subtract 2^23 + 128.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t word, float* f) {
-  const uint32_t u = word ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
-}
 
 // ------------------------------------------------------------ decode GEMV
 constexpr int GV_COLS = 128;                 // columns of a block

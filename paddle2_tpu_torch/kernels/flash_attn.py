@@ -94,12 +94,6 @@ def _check(q, k, v) -> None:
         raise ValueError("q, k and v must lie on one device")
 
 
-def _tma_aligned(t):
-    """``t``, or a copy of it whose data starts on a 16-byte boundary, as
-    TMA needs (a contiguous view can start anywhere)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _causal_keep(Sq, Sk, device):
     """Bottom-right aligned causal mask: row r sees keys c <= r + Sk - Sq."""
     return torch.ones(Sq, Sk, dtype=torch.bool,
@@ -140,7 +134,7 @@ def flash_fwd(q, k, v, scale: Optional[float] = None, causal: bool = False
         return flash_fwd_reference(q, k, v, float(scale), bool(causal))
     B, H, Sq, D = q.shape
     if q.dtype == torch.bfloat16:
-        q, k, v = (_tma_aligned(t) for t in (q, k, v))
+        q, k, v = (_build.tma_aligned(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     name, entry = _FWD_ENTRY[q.dtype]
@@ -252,7 +246,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, scale, causal):
     order of those additions changes from run to run, so dQ is not
     bitwise deterministic (dK and dV are)."""
     if q.dtype == torch.bfloat16:
-        q, k, v, do = (_tma_aligned(t) for t in (q, k, v, do))
+        q, k, v, do = (_build.tma_aligned(t) for t in (q, k, v, do))
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     library, entry = _FUSED_ENTRY[q.dtype]

@@ -23,7 +23,9 @@ it to a multiple of 8.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 or raises. There is no third path: head dims and dtypes the kernels do
-not take raise on both devices.
+not take (:func:`kernel_gap`) raise on both devices, and the public
+route (``nn.functional.flash_attn_unpadded``) sends them elsewhere on
+the CPU before they reach this module.
 
 The differentiable op is ``torch.ops.paddle2_tpu_torch.flash_attn_varlen``,
 a ``torch.library`` custom op returning ``(o, lse)`` with its backward
@@ -44,7 +46,8 @@ __all__ = ["flash_varlen_fwd", "flash_varlen_fwd_reference",
            "flash_varlen_bwd_dkv", "flash_varlen_bwd_dkv_reference",
            "flash_varlen_bwd_dq", "flash_varlen_bwd_dq_reference",
            "tile_ranges", "flash_attn_varlen",
-           "flash_attention_varlen_packed", "SUPPORTED_HEAD_DIMS", "TILE"]
+           "flash_attention_varlen_packed", "kernel_gap",
+           "SUPPORTED_HEAD_DIMS", "TILE"]
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
 # the rows of a tile_ranges entry: the CUDA-core kernels' query and key
@@ -76,6 +79,22 @@ _FWD_ENTRY = {torch.bfloat16: ("flash_varlen_wgmma", "flash_varlen_fwd_wgmma"),
 _NEG = float("-inf")
 
 
+def kernel_gap(q, k, v) -> Optional[str]:
+    """Why the varlen kernels do not take these ``[T, H, D]`` inputs,
+    naming the ROADMAP item that ports them; None when they do."""
+    D = q.shape[-1]
+    if D not in SUPPORTED_HEAD_DIMS:
+        return (f"head_dim {D}: the varlen kernels take "
+                f"{SUPPORTED_HEAD_DIMS} (the other head dims up to 256 are "
+                f"ROADMAP.md queue 2 A1)")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        return (f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the varlen kernels "
+                f"take float32 or bfloat16 for all three (float16 is "
+                f"ROADMAP.md queue 2 A2)")
+    return None
+
+
 def _check(q, k, v, seg_q, off_q, seg_k, off_k) -> None:
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("varlen flash attention takes packed [T, H, D] "
@@ -87,16 +106,9 @@ def _check(q, k, v, seg_q, off_q, seg_k, off_k) -> None:
                          f"{tuple(q.shape)}")
     if Tq == 0 or Tk == 0:
         raise ValueError(f"need at least one row, got Tq={Tq} Tk={Tk}")
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise NotImplementedError(
-            f"head_dim {D}: the varlen kernels take {SUPPORTED_HEAD_DIMS} "
-            f"(other head dims are ROADMAP queue 2 work)")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise NotImplementedError(
-            f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the varlen kernels take "
-            f"float32 or bfloat16 for all three (others are ROADMAP queue 2 "
-            f"work)")
+    gap = kernel_gap(q, k, v)
+    if gap is not None:
+        raise NotImplementedError(gap)
     for name, t, T in (("seg_q", seg_q, Tq), ("off_q", off_q, Tq),
                        ("seg_k", seg_k, Tk), ("off_k", off_k, Tk)):
         if t.dtype != torch.int32 or t.shape != (T,):
@@ -110,7 +122,8 @@ def _check(q, k, v, seg_q, off_q, seg_k, off_k) -> None:
 def _check_tma(*tensors) -> None:
     """TMA reads a tensor whose base and strides lie on 16-byte
     boundaries; the bf16 forward raises for a packed view that does not
-    (copy it with ``.clone()`` first)."""
+    (:func:`flash_attention_varlen_packed` copies one whose base does
+    not)."""
     for t in tensors:
         if t.data_ptr() % 16 or any(st * t.element_size() % 16
                                     for st in t.stride()[:-1]):
@@ -425,13 +438,17 @@ def flash_attention_varlen_packed(q, k, v, seg_q, off_q, seg_k, off_k,
     D]``. The JAX function's ``block_q``/``block_k``/``interpret`` are
     TPU tuning and are not carried over. ``tiles``, the pair
     :func:`tile_ranges` gives for this metadata, skips recomputing it
-    (the functional layer memoizes it per ``cu_seqlens``)."""
+    (the functional layer memoizes it per ``cu_seqlens``). A bf16 input
+    that TMA cannot read in place (a contiguous view off a 16-byte
+    boundary) is copied first, as the dense wrapper does."""
     meta = [torch.as_tensor(t, dtype=torch.int32, device=q.device)
             for t in (seg_q, off_q, seg_k, off_k)]
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if tiles is None:
         tiles = tile_ranges(*meta)
-    o, _ = flash_attn_varlen(q.contiguous(), k.contiguous(), v.contiguous(),
-                             *meta, *tiles, float(scale))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_build.tma_aligned(t) for t in (q, k, v))
+    o, _ = flash_attn_varlen(q, k, v, *meta, *tiles, float(scale))
     return o

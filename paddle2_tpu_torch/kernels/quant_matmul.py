@@ -8,9 +8,12 @@ names it exposes. :func:`channel_absmax`, :func:`quantize_channelwise`,
 :func:`fp8_matmul` are plain torch, as they are plain jnp there. Two
 functions are ports of Pallas kernels:
 
-* :func:`int8_weight_only_matmul`, of ``_wo_kernel``, as
-  ``csrc/wo_matmul.cu``; :func:`int4_weight_only_matmul` unpacks a
-  nibble payload and reaches it at ``quant_bits=4``.
+* :func:`int8_weight_only_matmul`, of ``_wo_kernel``: bf16 prefill
+  (more than 8 rows) on the tensor cores, ``csrc/wo_matmul_wgmma.cu``;
+  decode (at most 8 rows) and f32 on the CUDA cores,
+  ``csrc/wo_matmul.cu`` (:func:`wo_route` says which);
+  :func:`int4_weight_only_matmul` unpacks a nibble payload and reaches
+  it at ``quant_bits=4``.
 * :func:`int8_matmul`, of ``_i8i8_kernel``, as ``csrc/i8i8_matmul.cu``:
   the product of ``QuantedInferenceLinear`` (PTQ's full-int8 layer).
 
@@ -26,8 +29,10 @@ cast to ``x.dtype``. The int8 x int8 product is exact, so its plain
 version and the kernel give the same integers.
 
 Unlike the Pallas paths there is no :func:`wo_supported` gate on the
-card: the kernels mask M, N and K at the ragged edge, so every shape
-takes them. The gate stays public for callers that read it.
+card: the CUDA-core kernels mask M, N and K at the ragged edge, and the
+tensor-core kernel reads its tiles with TMA, which fills what lies past
+an edge with zeros, so every shape takes a kernel. The gate stays public
+for callers that read it.
 
 The collective matmuls (``allgather_matmul``, ``matmul_allgather``,
 ``collective_matmul_traffic``) wait for the distributed core and the
@@ -46,8 +51,8 @@ __all__ = ["channel_absmax", "quantize_channelwise",
            "int8_weight_only_matmul_reference", "int4_weight_only_matmul",
            "pack_int4", "unpack_int4", "int8_matmul",
            "int8_matmul_reference", "fp8_matmul", "fp8_supported",
-           "wo_supported", "allgather_matmul", "matmul_allgather",
-           "collective_matmul_traffic", "DEFAULT_BLOCK_M",
+           "wo_supported", "wo_route", "WO_ROUTES", "allgather_matmul",
+           "matmul_allgather", "collective_matmul_traffic", "DEFAULT_BLOCK_M",
            "DEFAULT_BLOCK_N", "DEFAULT_BLOCK_K"]
 
 # the Pallas tiling's defaults, which wo_supported reads; the CUDA
@@ -60,6 +65,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"wo_matmul": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _P],
                "wo_gemv_blocks_per_sm": [_I, _I, _I, _P]}
+_WGMMA_SIGNATURES = {"wo_matmul_wgmma": [_P] * 5 + [_I] * 3
+                     + [ctypes.c_float, _P]}
 _I8_SIGNATURES = {"i8i8_matmul": [_P] * 3 + [_I] * 4 + [_P]}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's decode regime (csrc/wo_matmul.cu): M <= 8 rows, computed
@@ -68,11 +75,19 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GEMV_MAX_M = 8
 _GEMV_COLS = 128
 _GEMV_SMEM_FLOATS = 8192
+# the weight-only kernels a CUDA call may take (wo_route)
+WO_ROUTES = ("gemv", "gemm", "wgmma")
 # per device: zeroed u32 counters, one per column tile, that the split-K
-# reduction leaves zeroed (calls on one device are ordered on one stream)
+# reduction leaves zeroed, and the split-K partials' f32 workspace, grown
+# as needed (calls on one device are ordered on one stream)
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 # (device, MT, N % 16 == 0, dtype) -> decode blocks the whole card holds
 _RESIDENT: Dict[tuple, int] = {}
+# (device, M, K, N, dtype) -> (route, k_per_split, splits): a launch's
+# plan, made once per shape (a serving run repeats a few dozen)
+_PLANS: Dict[tuple, tuple] = {}
+_MAX_PLANS = 4096
 
 
 # ------------------------------------------------------------ primitives
@@ -191,29 +206,67 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def _workspace(device: torch.device, n: int) -> torch.Tensor:
+    buf = _WORKSPACE.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.float32, device=device)
+        _WORKSPACE[device] = buf
+    return buf
+
+
+def wo_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of ``M x K x N`` in ``dtype`` takes, chosen
+    from its shape and dtype before the launch: "gemv" for M <= 8
+    (``wo_gemv_kernel``, decode); "wgmma" for bf16 within TMA's 16-byte
+    rule, K % 8 == 0 and N % 16 == 0 (``wo_gemm_wgmma_kernel``, the
+    tensor cores); else "gemm" (``wo_gemm_kernel``, the CUDA cores: f32,
+    whose contract refuses TF32, and bf16 rows of another length). A
+    base off a 16-byte boundary does not change the route: the wrapper
+    copies that operand first."""
+    if M <= _GEMV_MAX_M:
+        return "gemv"
+    if dtype == torch.bfloat16 and K % 8 == 0 and N % 16 == 0:
+        return "wgmma"
+    return "gemm"
+
+
+def _plan(dev: torch.device, M: int, K: int, N: int,
+          dtype: torch.dtype) -> tuple:
+    key = (dev, M, K, N, dtype)
+    plan = _PLANS.get(key)
+    if plan is None:
+        route = wo_route(M, K, N, dtype)
+        per, splits = K, 1
+        if route == "gemv":
+            per, splits = k_split(M, K, N, _resident(
+                _build.library("wo_matmul", _SIGNATURES), dev, M, N, dtype))
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        plan = _PLANS[key] = (route, per, splits)
+    return plan
+
+
 def int8_weight_only_matmul(x, w_int8, w_scale, bias=None,
                             quant_bits: int = 8) -> torch.Tensor:
     """``x @ dequant(w_int8)`` with per-output-channel scales ``w_scale``
     (``qmax = 2**(quant_bits-1) - 1``; a 4-bit payload is stored as
     int8), plus ``bias``, in ``x.dtype``. ``x [..., K]`` float,
     ``w_int8 [K, N]`` int8, ``w_scale [N]`` f32, ``bias [N]``.
-    ``int8_weight_only_matmul.launches`` counts the kernel's launches."""
+    ``int8_weight_only_matmul.launches`` counts the kernels' launches,
+    and ``int8_weight_only_matmul.route_launches`` those of each route
+    (:func:`wo_route`)."""
     K, N = _check(x, w_int8, w_scale, bias)
     qmax = _qmax(quant_bits)
-    if x.device.type == "cpu":
+    if not _build.on_card("int8_weight_only_matmul", x, w_int8, w_scale,
+                          *(() if bias is None else (bias,))):
         return int8_weight_only_matmul_reference(x, w_int8, w_scale, bias,
                                                  quant_bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"the kernel takes float32 or bfloat16 x, got "
                          f"{x.dtype}")
     if bias is not None and bias.dtype != x.dtype:
         raise ValueError(f"bias dtype {bias.dtype} differs from x's "
                          f"{x.dtype}")
-    if not all(t.is_contiguous() for t in (x, w_int8, w_scale)) or (
-            bias is not None and not bias.is_contiguous()):
-        raise ValueError("int8_weight_only_matmul needs contiguous tensors")
     if K == 0:
         raise ValueError("K must be positive")
     M = x.numel() // K
@@ -221,35 +274,43 @@ def int8_weight_only_matmul(x, w_int8, w_scale, bias=None,
     if M == 0 or N == 0:
         return y
     dev = x.device
-    lib = _build.library("wo_matmul", _SIGNATURES)
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return _launch(lib, x, w_int8, w_scale, bias, y, M, K, N, qmax)
-    return _launch(lib, x, w_int8, w_scale, bias, y, M, K, N, qmax)
+            return _launch(x, w_int8, w_scale, bias, y, M, K, N, qmax)
+    return _launch(x, w_int8, w_scale, bias, y, M, K, N, qmax)
 
 
-def _launch(lib, x, w_int8, w_scale, bias, y, M, K, N, qmax):
+def _launch(x, w_int8, w_scale, bias, y, M, K, N, qmax):
     """One launch on ``x``'s device, which is the current one."""
     dev = x.device
-    per, splits = k_split(M, K, N, _resident(lib, dev, M, N, x.dtype)
-                          if M <= _GEMV_MAX_M else 0)
-    ws = counters = None
-    if splits > 1:
-        ws = torch.empty(splits * M * N, dtype=torch.float32, device=dev)
-        counters = _counters(dev, -(-N // _GEMV_COLS))
-    err = lib.wo_matmul(
-        x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(),
-        M, K, N, per, qmax, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "wo_matmul")
+    route, per, splits = _plan(dev, M, K, N, x.dtype)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    b_ptr = None if bias is None else bias.data_ptr()
+    if route == "wgmma":
+        lib = _build.library("wo_matmul_wgmma", _WGMMA_SIGNATURES)
+        err = lib.wo_matmul_wgmma(
+            _build.tma_aligned(x).data_ptr(),
+            _build.tma_aligned(w_int8).data_ptr(),
+            w_scale.data_ptr(), b_ptr, y.data_ptr(), M, K, N, qmax, stream)
+        _build.check(lib, err, "wo_matmul_wgmma")
+    else:
+        lib = _build.library("wo_matmul", _SIGNATURES)
+        ws = counters = None
+        if splits > 1:
+            ws = _workspace(dev, splits * M * N).data_ptr()
+            counters = _counters(dev, -(-N // _GEMV_COLS)).data_ptr()
+        err = lib.wo_matmul(
+            x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(), b_ptr,
+            y.data_ptr(), ws, counters, M, K, N, per, qmax,
+            _DTYPE_CODE[x.dtype], stream)
+        _build.check(lib, err, "wo_matmul")
     int8_weight_only_matmul.launches += 1
+    int8_weight_only_matmul.route_launches[route] += 1
     return y
 
 
 int8_weight_only_matmul.launches = 0
+int8_weight_only_matmul.route_launches = dict.fromkeys(WO_ROUTES, 0)
 
 
 def wo_supported(m: int, k: int, n: int, bm: int = DEFAULT_BLOCK_M,

@@ -10,13 +10,16 @@ in training and head dim <= 256, the ragged batch stays one packed
 sequence and runs the varlen flash kernels
 (:mod:`paddle2_tpu_torch.kernels.flash_varlen`), on a tensor of either
 device: a CUDA tensor launches the kernels, a CPU tensor runs their
-plain versions. Everything else densifies into a padded batch with a
-length mask and runs the plain attention (:func:`_sdpa_plain`, the
-counterpart of ``_sdpa_xla``): the port of an XLA path, not a stand-in
-for a kernel. The two routes differ on a query row that sees no key (a
-causal sequence with ``len_k < len_q``): the packed route gives 0, as
-the JAX package's kernel does; the densify route gives what the JAX
-package's XLA softmax gives, NaN.
+plain versions. A head dim or dtype those kernels do not take
+(``flash_varlen.kernel_gap``) densifies on the CPU, the JAX package's
+CPU route, and raises on the card, naming the ROADMAP item that ports
+it. Everything else densifies into a padded batch with a length mask
+and runs the plain attention (:func:`_sdpa_plain`, the counterpart of
+``_sdpa_xla``): the port of an XLA path, not a stand-in for a kernel.
+The two routes differ on a query row that sees no key (a causal
+sequence with ``len_k < len_q``): the packed route gives 0, as the JAX
+package's kernel does; the densify route gives what the JAX package's
+XLA softmax gives, NaN.
 
 ``flashmask_attention`` and ``sparse_attention`` reach no Pallas kernel
 in the JAX package; they are its jnp bodies in plain torch.
@@ -28,11 +31,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...kernels import _build
 from ...kernels.attention import (_sdpa_plain, flash_enabled,
                                   scaled_dot_product_attention,
                                   set_flash_enabled)
 from ...kernels.flash_varlen import (flash_attention_varlen_packed,
-                                     tile_ranges)
+                                     kernel_gap, tile_ranges)
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flash_attn_qkvpacked",
            "flash_attn_varlen_qkvpacked", "scaled_dot_product_attention",
@@ -120,8 +124,12 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     drop = dropout if training else 0.0
     if flash_enabled() and drop == 0.0 \
             and query.shape[-1] <= PACKED_MAX_HEAD_DIM:
-        return _unpadded_packed(query, key, value, cu_q, cu_k, len_q, len_k,
-                                scale, causal), None
+        gap = kernel_gap(query, key, value)
+        if gap is None:
+            return _unpadded_packed(query, key, value, cu_q, cu_k, len_q,
+                                    len_k, scale, causal), None
+        if _build.on_cuda(query):
+            raise NotImplementedError(f"flash_attn_unpadded: {gap}")
     if len_q.max() > max_seqlen_q or len_k.max() > max_seqlen_k:
         raise ValueError(f"a sequence is longer than max_seqlen "
                          f"({len_q.max()} > {max_seqlen_q} or {len_k.max()} "

@@ -161,6 +161,187 @@ def test_wrapper_reaches_its_c_entry(monkeypatch, M, K, N):
         assert not y.any()
 
 
+# ------------------------------------------------- weight-only routes
+@pytest.fixture
+def wo_card(monkeypatch):
+    """``int8_weight_only_matmul`` told its tensors are on the card, the
+    built libraries replaced by a recorder of (library, entry,
+    arguments), 396 decode blocks a wave, and the plain version failing
+    if it runs."""
+    calls = []
+
+    class StandIn:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, entry):
+            return lambda *args: calls.append((self.name, entry, args)) or 0
+    monkeypatch.setattr(_build, "on_card", lambda what, *t: True)
+    monkeypatch.setattr(_build, "library", lambda name, sigs: StandIn(name))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(qm, "_resident", lambda *a: 396)
+    for name in ("_PLANS", "_WORKSPACE", "_COUNTERS"):
+        monkeypatch.setattr(qm, name, {})
+    monkeypatch.setattr(qm, "int8_weight_only_matmul_reference",
+                        lambda *a: pytest.fail("the plain version ran"))
+    return calls
+
+
+def _wo_operands(M, K, N, dtype, bias=True):
+    x = torch.zeros(M, K, dtype=dtype)
+    w = torch.zeros(K, N, dtype=torch.int8)
+    s = torch.ones(N)
+    return x, w, s, torch.zeros(N, dtype=dtype) if bias else None
+
+
+def _counts():
+    f = qm.int8_weight_only_matmul
+    return f.launches, dict(f.route_launches)
+
+
+def test_bf16_prefill_reaches_the_tensor_core_entry(wo_card):
+    """A bf16 call at M 1008 calls ``wo_matmul_wgmma`` once with the
+    operands' and the output's pointers, M, K, N and qmax, and counts one
+    launch in the total and in the "wgmma" route; an x that starts off a
+    16-byte boundary reaches it as an aligned copy."""
+    x, w, s, b = _wo_operands(1008, 2048, 2048, torch.bfloat16)
+    total, routes = _counts()
+    y = qm.int8_weight_only_matmul(x, w, s, b)
+    assert wo_card == [("wo_matmul_wgmma", "wo_matmul_wgmma", (
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), b.data_ptr(),
+        y.data_ptr(), 1008, 2048, 2048, 127.0, None))]
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (1008, 2048)
+    routes["wgmma"] += 1
+    assert _counts() == (total + 1, routes)
+    buf = torch.zeros(1008 * 2048 + 1, dtype=torch.bfloat16)
+    view = buf[1:].view(1008, 2048)
+    assert view.data_ptr() % 16
+    qm.int8_weight_only_matmul(view, w, s, quant_bits=4)
+    ptr, qmax = wo_card[-1][2][0], wo_card[-1][2][8]
+    assert ptr % 16 == 0 and ptr != view.data_ptr() and qmax == 7.0
+
+
+@pytest.mark.parametrize("M,N,dtype,route", [
+    (1008, 2048, torch.float32, "gemm"),    # f32 keeps the CUDA cores
+    (8, 2048, torch.bfloat16, "gemv"),      # decode
+    (1008, 336 - 3, torch.bfloat16, "gemm"),  # rows past TMA's rule
+])
+def test_other_calls_keep_the_cuda_core_entry(wo_card, M, N, dtype, route):
+    """f32 prefill, bf16 decode and a bf16 N off TMA's 16-byte rule reach
+    ``wo_matmul``'s entry as before: pointers, the split-K workspace and
+    counters (decode) or nulls, M, K, N, the K split, qmax, the dtype
+    code; the route's count moves."""
+    K = 2048
+    x, w, s, b = _wo_operands(M, K, N, dtype)
+    total, routes = _counts()
+    y = qm.int8_weight_only_matmul(x, w, s, b)
+    assert qm.wo_route(M, K, N, dtype) == route
+    (lib, entry, args), = wo_card
+    assert (lib, entry) == ("wo_matmul", "wo_matmul")
+    per, splits = qm.k_split(M, K, N, 396)
+    assert args[:5] == (x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                        b.data_ptr(), y.data_ptr())
+    assert (args[5] is None) == (args[6] is None) == (splits == 1)
+    assert args[7:] == (M, K, N, per, 127.0, qm._DTYPE_CODE[dtype], None)
+    routes[route] += 1
+    assert _counts() == (total + 1, routes)
+
+
+def test_the_route_comes_from_shape_and_dtype():
+    assert [qm.wo_route(M, K, N, torch.bfloat16) for M, K, N in (
+        (8, 2048, 8192), (9, 2048, 8192), (1008, 200, 336),
+        (1008, 204, 336), (1008, 200, 344), (32, 2048, 50304))] == \
+        ["gemv", "wgmma", "wgmma", "gemm", "gemm", "wgmma"]
+    assert qm.wo_route(1008, 2048, 8192, torch.float32) == "gemm"
+    assert set(qm.WO_ROUTES) == set(qm.int8_weight_only_matmul.route_launches)
+
+
+# csrc/wo_matmul_wgmma.cu's tiling, by its index arithmetic
+_BM, _BN, _BK = 128, 128, 64
+
+
+def _wgmma_cover(M, K, N):
+    """How often the kernel's blocks, warpgroups, threads and k16 steps
+    reach each row, column and K index, and whether each reaches only
+    indices TMA fills with zeros past the edge: grid (ceil(M / 128),
+    ceil(N / 128)); warpgroup wg's thread (warp w, lane l) holds rows
+    m0 + 64 wg + 16 (w % 4) + l / 4 + 8 h and columns n0 + 64 cb + 8 j +
+    2 (l % 4) + e; K-step i's k16 step kk covers i * 64 + 16 kk ..
+    + 15. The epilogue stores rows < M and columns < N."""
+    gx, gy, n_k = -(-M // _BM), -(-N // _BN), -(-K // _BK)
+    rows = np.array([bx * _BM + wg * 64 + (w % 4) * 16 + lane // 4 + 8 * h
+                     for bx in range(gx) for wg in range(2)
+                     for w in range(4) for lane in range(0, 32, 4)
+                     for h in range(2)])
+    cols = np.array([by * _BN + 64 * cb + 8 * j + 2 * (lane % 4) + e
+                     for by in range(gy) for cb in range(2)
+                     for j in range(8) for lane in range(4)
+                     for e in range(2)])
+    ks = np.array([i * _BK + 16 * kk + t for i in range(n_k)
+                   for kk in range(4) for t in range(16)])
+    stored = lambda idx, n: np.bincount(idx[idx < n], minlength=n)
+    return stored(rows, M), stored(cols, N), stored(ks, K), (
+        rows.max() < gx * _BM and cols.max() < gy * _BN
+        and ks.max() < n_k * _BK)
+
+
+@pytest.mark.parametrize("N", [336, 2048, 8192])
+@pytest.mark.parametrize("K", [200, 2048, 8192])
+@pytest.mark.parametrize("M", [32, 37, 1008])
+def test_tensor_core_tiling_covers_every_product_once(M, K, N):
+    """Every (m, n, k) of the product is summed exactly once: each row
+    and each column is stored by one thread once, and each k lies in one
+    k16 step of one K-step; the indices past M, N or K that the tiles
+    reach stay inside the boxes TMA fills with zeros. Since each block
+    takes every K-step of its tile, the three covers multiply."""
+    rows, cols, ks, inside = _wgmma_cover(M, K, N)
+    assert (rows == 1).all() and (cols == 1).all() and (ks == 1).all()
+    assert inside
+
+
+def test_widened_tile_is_the_layout_wgmma_reads():
+    """The widening's stores (thread tid's 16-byte chunks tid and tid +
+    256, each two bf16 chunks at (2 c16 + e) % 8 ^ (r % 8) of column
+    block c16 / 4) land every element (k, n) of a 64 x 128 int8 tile
+    where the MN-major 128-byte-swizzled descriptor reads it: column
+    block n / 64, row k, chunk (n % 64) / 8 ^ (k % 8), element n % 8."""
+    tile = np.arange(64 * 128).reshape(64, 128)
+    smem = np.full(2 * 64 * 64, -1)
+    for tid in range(256):
+        for j in range(2):
+            g = tid + 256 * j
+            r, c16 = g // 8, g % 8
+            vals = tile.reshape(-1)[g * 16:g * 16 + 16]
+            for e in range(2):
+                chunk = (2 * c16 + e) % 8
+                at = (c16 // 4) * 64 * 64 + r * 64 + (chunk ^ (r % 8)) * 8
+                smem[at:at + 8] = vals[8 * e:8 * e + 8]
+    k, n = np.meshgrid(np.arange(64), np.arange(128), indexing="ij")
+    read = smem[(n // 64) * 64 * 64 + k * 64 + ((n % 64) // 8 ^ (k % 8)) * 8
+                + n % 8]
+    assert np.array_equal(read, tile)
+
+
+def test_widening_maps_every_int8_value_to_its_exact_bf16():
+    """The widening's bit arithmetic (``wo::i8x4_to_f32``: flip the sign
+    bit, place the byte in the low mantissa of 2**23, subtract 2**23 +
+    128; then round to bf16 pairs), mirrored in torch for all 256 int8
+    values: each lands on its exact bf16 value, lower column in the low
+    half of the packed word."""
+    b = torch.arange(-128, 128, dtype=torch.int32)
+    u = (b & 0xFF) ^ 0x80
+    f = (u | 0x4B000000).view(torch.float32) - 8388736.0
+    bf = f.to(torch.bfloat16)
+    assert torch.equal(bf.float(), b.float())
+    assert torch.equal(bf, b.to(torch.bfloat16))
+    bits = bf.view(torch.int16).to(torch.int32) & 0xFFFF
+    word = bits[0::2] | (bits[1::2] << 16)
+    assert torch.equal(word & 0xFFFF, bits[0::2])
+    assert torch.equal((word >> 16) & 0xFFFF, bits[1::2])
+
+
 def test_cpu_call_launches_no_kernel():
     before = int8_matmul.launches
     int8_matmul(torch.ones(2, 3, dtype=torch.int8),

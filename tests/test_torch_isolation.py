@@ -82,6 +82,6 @@ def test_kernel_sources_are_found():
                           "momentum_step", "flash_varlen", "rms_norm",
                           "rope", "adamw_flat", "i8i8_matmul",
                           "flash_fwd_wgmma", "flash_bwd_wgmma",
-                          "flash_varlen_wgmma"}
+                          "flash_varlen_wgmma", "wo_matmul_wgmma"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"

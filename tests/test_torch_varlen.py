@@ -290,19 +290,61 @@ def test_dropout_takes_the_densify_route_by_its_statistics():
 
 
 def test_return_softmax_raises_and_unsupported_inputs_raise():
+    """``return_softmax`` raises, as in the JAX package. A head dim (32)
+    or a dtype (float16) the varlen kernels do not take computes on the
+    CPU as the JAX function does there (it densifies); on the card (a
+    stand-in: the router told its tensors are there) it raises, naming
+    its ROADMAP queue 2 item. Offsets that do not end at T raise."""
     q = torch.zeros(4, 1, 16)
     cu = [0, 4]
     with pytest.raises(NotImplementedError, match="return_softmax"):
         F.flash_attn_unpadded(q, q, q, cu, cu, 4, 4, 0.25,
                               return_softmax=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        F.flash_attn_unpadded(torch.zeros(4, 1, 32), torch.zeros(4, 1, 32),
-                              torch.zeros(4, 1, 32), cu, cu, 4, 4, 0.25)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        F.flash_attn_unpadded(q.half(), q.half(), q.half(), cu, cu, 4, 4,
-                              0.25)
+    rs = np.random.RandomState(2)
+    cases = ((32, "float32", 1e-5, "A1"), (16, "float16", 1e-2, "A2"))
+    for D, dtype, tol, _ in cases:
+        a = [rs.randn(4, 1, D).astype(np.float32) for _ in range(3)]
+        got, _ = F.flash_attn_unpadded(
+            *(torch.tensor(x).to(getattr(torch, dtype)) for x in a), cu, cu,
+            4, 4, 0.25, causal=True)
+        want, _ = JF.flash_attn_unpadded(
+            *(paddle.to_tensor(x).astype(dtype) for x in a),
+            paddle.to_tensor(np.array(cu, np.int32)),
+            paddle.to_tensor(np.array(cu, np.int32)), 4, 4, 0.25,
+            causal=True)
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want._data.astype(jnp.float32)),
+            atol=tol, rtol=0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_build, "on_cuda", lambda t: True)
+        for D, dtype, _, item in cases:
+            z = torch.zeros(4, 1, D, dtype=getattr(torch, dtype))
+            with pytest.raises(NotImplementedError,
+                               match=f"ROADMAP.md queue 2 {item}"):
+                F.flash_attn_unpadded(z, z, z, cu, cu, 4, 4, 0.25)
     with pytest.raises(ValueError, match="cu_seqlens_q"):
         F.flash_attn_unpadded(q, q, q, [0, 3], cu, 4, 4, 0.25)
+
+
+@pytest.mark.parametrize("D", [32, 96])
+def test_head_dims_outside_the_kernels_match_jax_on_the_cpu(D):
+    """Head dims the varlen kernels do not take (but the JAX package's
+    packed route does, up to 256) take the densify route on the CPU, the
+    JAX package's route there: output and q/k/v gradients agree, and no
+    varlen kernel's plain version runs."""
+    q, k, v, do = _inputs([5, 7], [5, 7], 2, D, seed=D)
+    cu = _cu([5, 7])
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("flash_varlen_fwd_reference",
+                     "flash_varlen_bwd_dkv_reference",
+                     "flash_varlen_bwd_dq_reference"):
+            mp.setattr(fv, name, lambda *a: pytest.fail("a varlen kernel"))
+        got = _torch_unpadded(q, k, v, do, cu, cu, True, "float32", False)
+    want = _jax_unpadded(q, k, v, do, cu, cu, True, "float32")
+    assert got[0].shape == (12, 2, D)
+    for name, g, w, tol in zip(("out", "dq", "dk", "dv"), got, want,
+                               TOL["float32"][:1] + TOL["float32"][1:] * 3):
+        _close(g, w, tol, name)
 
 
 def test_sdp_kernel_toggles_the_route_per_thread():
