@@ -10,6 +10,8 @@ from .flash_varlen import (flash_attention_varlen_packed,
                            flash_varlen_bwd_dkv,
                            flash_varlen_bwd_dkv_reference,
                            flash_varlen_bwd_dq, flash_varlen_bwd_dq_reference,
+                           flash_varlen_bwd_fused,
+                           flash_varlen_bwd_fused_reference,
                            flash_varlen_fwd, flash_varlen_fwd_reference)
 from .fused_adamw import (adamw_flat, adamw_flat_reference, adamw_step,
                           adamw_step_reference)
@@ -35,7 +37,8 @@ __all__ = ["scaled_dot_product_attention", "remat_policy",
            "flash_attention_varlen_packed", "flash_varlen_fwd",
            "flash_varlen_fwd_reference", "flash_varlen_bwd_dkv",
            "flash_varlen_bwd_dkv_reference", "flash_varlen_bwd_dq",
-           "flash_varlen_bwd_dq_reference", "adamw_step",
+           "flash_varlen_bwd_dq_reference", "flash_varlen_bwd_fused",
+           "flash_varlen_bwd_fused_reference", "adamw_step",
            "adamw_step_reference", "fused_linear_cross_entropy",
            "momentum_step", "momentum_step_multi", "momentum_step_reference",
            "layer_norm_fwd", "layer_norm_fwd_reference",

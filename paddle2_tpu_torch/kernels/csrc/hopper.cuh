@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core flash kernels
-// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu, flash_varlen_wgmma.cu):
+// (flash_fwd_wgmma.cu, flash_bwd_wgmma.cu, flash_varlen_wgmma.cu,
+// flash_varlen_bwd_wgmma.cu):
 // mbarriers, TMA tile copies, wgmma shared-memory descriptors and the
 // wgmma instructions themselves, and the host-side encoding of TMA tensor
 // maps.
@@ -397,6 +398,16 @@ inline bool f32_map(CUtensorMap* map, const void* base, int BH, int S, int D,
                     int cols, int rows) {
   return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, BH, S, D,
                    cols, rows, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// A contiguous f32 packed (T, H, D) tensor as a 3-D map (D, H, T), boxes
+// of {cols, 1, rows}: one head's `rows` consecutive rows in plain
+// row-major order (for tma_reduce_add_3d); a box may start at any row,
+// and the rows of it past T are dropped
+inline bool packed_f32_map(CUtensorMap* map, const void* base, int T, int H,
+                           int D, int cols, int rows) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, T, H, D,
+                   cols, 1, rows, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

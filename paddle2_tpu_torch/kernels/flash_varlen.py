@@ -7,9 +7,14 @@ Counterpart of the varlen half of ``paddle2_tpu/kernels/pallas_flash.py``
 ``flash_attention_varlen_packed``). The forward is
 ``csrc/flash_varlen_wgmma.cu`` for bf16 (tensor cores: wgmma fed by TMA,
 reading the packed rows in place) and ``csrc/flash_varlen.cu`` for f32
-(CUDA cores); the backward pair is ``csrc/flash_varlen.cu`` in both
-dtypes. Each source's note says what bounds its kernels and how they are
-laid out.
+(CUDA cores). The backward takes the route :func:`varlen_bwd_route`
+names: for bf16 one fused kernel, ``csrc/flash_varlen_bwd_wgmma.cu``
+(tensor cores, dQ, dK and dV from one score tile, dQ added through an
+f32 buffer), for f32 the split pair of ``csrc/flash_varlen.cu`` (CUDA
+cores, no atomics, bitwise reproducible); the bf16 split pair stays
+callable through :func:`flash_varlen_bwd_dkv` / :func:`flash_varlen_bwd_dq`.
+Each source's note says what bounds its kernels and how they are laid
+out.
 
 The ragged batch stays one packed sequence: ``q`` ``[Tq, H, D]``,
 ``k``/``v`` ``[Tk, H, D]``, and per row an int32 segment id and offset.
@@ -45,7 +50,8 @@ from . import _build
 __all__ = ["flash_varlen_fwd", "flash_varlen_fwd_reference",
            "flash_varlen_bwd_dkv", "flash_varlen_bwd_dkv_reference",
            "flash_varlen_bwd_dq", "flash_varlen_bwd_dq_reference",
-           "tile_ranges", "flash_attn_varlen",
+           "flash_varlen_bwd_fused", "flash_varlen_bwd_fused_reference",
+           "varlen_bwd_route", "tile_ranges", "flash_attn_varlen",
            "flash_attention_varlen_packed", "kernel_gap",
            "SUPPORTED_HEAD_DIMS", "TILE"]
 
@@ -71,7 +77,13 @@ _SIGNATURES = {
 }
 # library (the source's stem) -> {C entry: argument types}
 _LIBRARIES = {"flash_varlen": _SIGNATURES,
-              "flash_varlen_wgmma": {"flash_varlen_fwd_wgmma": _FWD_ARGS}}
+              "flash_varlen_wgmma": {"flash_varlen_fwd_wgmma": _FWD_ARGS},
+              # q, k, v, do, lse, delta, seg_q, off_q, seg_k, off_k,
+              # k_tiles, order (scratch), dq32, dk, dv
+              "flash_varlen_bwd_wgmma": {
+                  "flash_varlen_bwd_fused_wgmma": [_P] * 15 + _TAIL}}
+# the fused kernel's keys a block (csrc/flash_varlen_bwd_wgmma.cu BKEY)
+_FUSED_KEYS = 128
 # (library, C entry) of the forward by dtype: the tensor-core kernel
 # takes bf16, the CUDA-core kernel f32
 _FWD_ENTRY = {torch.bfloat16: ("flash_varlen_wgmma", "flash_varlen_fwd_wgmma"),
@@ -121,14 +133,14 @@ def _check(q, k, v, seg_q, off_q, seg_k, off_k) -> None:
 
 def _check_tma(*tensors) -> None:
     """TMA reads a tensor whose base and strides lie on 16-byte
-    boundaries; the bf16 forward raises for a packed view that does not
-    (:func:`flash_attention_varlen_packed` copies one whose base does
-    not)."""
+    boundaries; the bf16 kernels raise for a packed view that does not
+    (:func:`flash_attention_varlen_packed` and the op's backward copy one
+    whose base does not)."""
     for t in tensors:
         if t.data_ptr() % 16 or any(st * t.element_size() % 16
                                     for st in t.stride()[:-1]):
             raise ValueError(
-                f"the bf16 varlen forward reads q, k and v with TMA, which "
+                f"the bf16 varlen kernels read their inputs with TMA, which "
                 f"needs 16-byte aligned bases and strides; got a "
                 f"{tuple(t.shape)} tensor at {t.data_ptr():#x} with strides "
                 f"{t.stride()}")
@@ -286,6 +298,24 @@ def flash_varlen_bwd_dq_reference(q, k, v, do, lse, delta, seg_q, off_q,
     return dq.to(out_dtype or q.dtype).transpose(0, 1).contiguous()
 
 
+def flash_varlen_bwd_fused_reference(q, k, v, do, lse, delta, seg_q, off_q,
+                                     seg_k, off_k, scale: float,
+                                     out_dtype: Optional[torch.dtype] = None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """The plain fused backward: the two plain versions above on one P
+    and dS (``_bwd_dkv_kernel_varlen`` and ``_bwd_dq_kernel_varlen``
+    together). Returns ``(dq, dk, dv)``, f32 sums cast to ``out_dtype``
+    (default the input dtype)."""
+    p, ds = _p_ds(q, k, v, do, lse, delta, seg_q, off_q, seg_k, off_k,
+                  scale)
+    dq = torch.matmul(ds, _heads(k)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), _heads(q)) * scale
+    dv = torch.matmul(p.transpose(-1, -2), _heads(do))
+    return tuple(t.to(out_dtype or q.dtype).transpose(0, 1).contiguous()
+                 for t in (dq, dk, dv))
+
+
 # -------------------------------------------------------------- wrappers
 
 def _stream(t):
@@ -376,8 +406,62 @@ def flash_varlen_bwd_dq(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
     return dq
 
 
-for _fn in (flash_varlen_fwd, flash_varlen_bwd_dkv, flash_varlen_bwd_dq):
+def flash_varlen_bwd_fused(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
+                           off_k, k_tiles, scale: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The fused backward (``_bwd_dkv_kernel_varlen`` and
+    ``_bwd_dq_kernel_varlen`` in one kernel, on the tensor cores; bf16
+    only): ``(dq, dk, dv)`` in bf16, one block per 128-key tile walking
+    the live query range ``k_tiles`` (:func:`tile_ranges`'s second
+    table). q, k, v and do must be 16-byte aligned (TMA), or it raises.
+    Each block adds its dQ share into an f32 buffer with TMA reductions,
+    cast to bf16 after the kernel; their order changes from run to run,
+    so dq is not bitwise deterministic (dk and dv are)."""
+    meta = (seg_q, off_q, seg_k, off_k)
+    _check(q, k, v, *meta)
+    _check_bwd(q, do, lse, delta)
+    _check_tiles(k_tiles, k.shape[0], "k_tiles")
+    if not _build.on_card("flash_varlen_bwd_fused", q, k, v, do, lse, delta,
+                          *meta, k_tiles):
+        return flash_varlen_bwd_fused_reference(q, k, v, do, lse, delta,
+                                                *meta, float(scale))
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the fused varlen backward takes bfloat16, got "
+                         f"{q.dtype} (f32 takes the split route)")
+    _check_tma(q, k, v, do)
+    Tq, H, D = q.shape
+    Tk = k.shape[0]
+    dq32 = torch.zeros((Tq, H, D), dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    order = torch.empty(-(-Tk // _FUSED_KEYS), dtype=torch.int32,
+                        device=q.device)
+    entry = "flash_varlen_bwd_fused_wgmma"
+    lib = _build.library("flash_varlen_bwd_wgmma",
+                         _LIBRARIES["flash_varlen_bwd_wgmma"])
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            *[t.data_ptr() for t in (q, k, v, do, lse, delta, *meta, k_tiles,
+                                     order, dq32, dk, dv)],
+            Tq, Tk, H, D, _DTYPE_CODE[q.dtype], float(scale), _stream(q))
+    _build.check(lib, err, entry)
+    flash_varlen_bwd_fused.launches += 1
+    return dq32.to(q.dtype), dk, dv
+
+
+for _fn in (flash_varlen_fwd, flash_varlen_bwd_dkv, flash_varlen_bwd_dq,
+            flash_varlen_bwd_fused):
     _fn.launches = 0
+
+
+def varlen_bwd_route(dtype: torch.dtype) -> str:
+    """The packed backward's route: "fused" for bf16 (one tensor-core
+    kernel, ``csrc/flash_varlen_bwd_wgmma.cu``), "split" for f32 (the
+    CUDA-core pair, which has no atomics and so stays bitwise
+    reproducible, the precision a run is checked in). PERF.md gives the
+    H100 times that ground the rule. The choice is made before the
+    launch; a launch that fails raises."""
+    return "fused" if dtype == torch.bfloat16 else "split"
 
 
 # ----------------------------------------------------- differentiable op
@@ -392,7 +476,8 @@ def flash_attn_varlen(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles,
     """Differentiable packed varlen attention on contiguous ``[T, H, D]``
     tensors: ``(o, lse)`` from :func:`flash_varlen_fwd`. Its backward
     takes ``delta = rowsum(dO∘O)`` in f32 (plain torch, as the JAX
-    package's ``_varlen_bwd``), then runs the dK/dV kernel, then dQ."""
+    package's ``_varlen_bwd``), then the route :func:`varlen_bwd_route`
+    names: the fused kernel, or the dK/dV kernel and then dQ."""
     return flash_varlen_fwd(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles,
                             scale)
 
@@ -417,10 +502,15 @@ def _varlen_backward(ctx, do, _dlse):
     do = do.contiguous()
     delta = (do.float() * o.float()).sum(-1).t().contiguous()
     meta = (seg_q, off_q, seg_k, off_k)
-    dk, dv = flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta, k_tiles,
-                                  ctx.scale)
-    dq = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta, q_tiles,
-                             ctx.scale)
+    if varlen_bwd_route(q.dtype) == "fused":
+        dq, dk, dv = flash_varlen_bwd_fused(
+            q, k, v, _build.tma_aligned(do), lse, delta, *meta, k_tiles,
+            ctx.scale)
+    else:
+        dk, dv = flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta,
+                                      k_tiles, ctx.scale)
+        dq = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta, q_tiles,
+                                 ctx.scale)
     return (dq, dk, dv) + (None,) * 7
 
 

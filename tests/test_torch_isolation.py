@@ -1,6 +1,6 @@
 """The port stands alone: no module of paddle2_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package, and importing the port
-builds and loads no kernel."""
+chip_smoke.py or the port's measuring scripts, imports JAX or the JAX
+package, and importing the port builds and loads no kernel."""
 
 import ast
 import subprocess
@@ -11,7 +11,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle2_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "phase_runner.py",
+     ROOT / "wo_wgmma_variants.py"]
 
 
 def _imported_modules(path: Path):
@@ -82,6 +83,7 @@ def test_kernel_sources_are_found():
                           "momentum_step", "flash_varlen", "rms_norm",
                           "rope", "adamw_flat", "i8i8_matmul",
                           "flash_fwd_wgmma", "flash_bwd_wgmma",
-                          "flash_varlen_wgmma", "wo_matmul_wgmma"}
+                          "flash_varlen_wgmma", "flash_varlen_bwd_wgmma",
+                          "wo_matmul_wgmma"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"

@@ -451,7 +451,8 @@ def stand_in(monkeypatch):
                         lambda d: SimpleNamespace(cuda_stream=None))
     for name in ("flash_varlen_fwd_reference",
                  "flash_varlen_bwd_dkv_reference",
-                 "flash_varlen_bwd_dq_reference"):
+                 "flash_varlen_bwd_dq_reference",
+                 "flash_varlen_bwd_fused_reference"):
         monkeypatch.setattr(fv, name, lambda *a: pytest.fail("plain ran"))
     return calls
 
@@ -471,40 +472,60 @@ def _packed_call(dtype):
 
 def test_wrappers_reach_their_c_entries(stand_in):
     """With the wrappers told their tensors are on the card, a bf16
-    forward and backward call ``flash_varlen_fwd_wgmma`` (the tensor-core
-    library), ``flash_varlen_bwd_dkv`` and ``flash_varlen_bwd_dq`` once
+    forward and backward call ``flash_varlen_fwd_wgmma`` and
+    ``flash_varlen_bwd_fused_wgmma`` (the tensor-core libraries) once
     each, with the tensors' pointers, ``Tq, Tk, H, D``, the dtype code
-    and the scale, and count one launch each; no plain version runs."""
-    before = [f.launches for f in (fv.flash_varlen_fwd,
-                                   fv.flash_varlen_bwd_dkv,
-                                   fv.flash_varlen_bwd_dq)]
+    and the scale, and count one launch each; no plain version and no
+    split kernel runs."""
+    wrappers = (fv.flash_varlen_fwd, fv.flash_varlen_bwd_fused,
+                fv.flash_varlen_bwd_dkv, fv.flash_varlen_bwd_dq)
+    before = [f.launches for f in wrappers]
     q, k, v, meta = _packed_call(torch.bfloat16)
-    assert [f.launches - b for f, b in zip(
-        (fv.flash_varlen_fwd, fv.flash_varlen_bwd_dkv,
-         fv.flash_varlen_bwd_dq), before)] == [1, 1, 1]
+    assert [f.launches - b for f, b in zip(wrappers, before)] == \
+        [1, 1, 0, 0]
     assert [c[:2] for c in stand_in] == [
         ("flash_varlen_wgmma", "flash_varlen_fwd_wgmma"),
-        ("flash_varlen", "flash_varlen_bwd_dkv"),
-        ("flash_varlen", "flash_varlen_bwd_dq")]
+        ("flash_varlen_bwd_wgmma", "flash_varlen_bwd_fused_wgmma")]
     tail = (73, 85, 2, 64, 1, 0.125, None)
-    fwd, dkv, dq = (c[2] for c in stand_in)
+    fwd, bwd = (c[2] for c in stand_in)
     assert fwd[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
     assert fwd[3:7] == tuple(m.data_ptr() for m in meta)
     assert len(fwd) == 10 + 7 and fwd[10:] == tail
+    assert len(bwd) == 15 + 7 and bwd[15:] == tail
+    assert bwd[:3] == fwd[:3] and bwd[6:10] == fwd[3:7]
+    # the bf16 CUDA-core pair stays callable: its C arguments, as in f32
+    do = torch.zeros_like(q)
+    lse = delta = torch.zeros(2, 73)
+    tiles = fv.tile_ranges(*meta)
+    args = (q.detach(), k.detach(), v.detach(), do, lse, delta, *meta)
+    fv.flash_varlen_bwd_dkv(*args, tiles[1], 0.125)
+    fv.flash_varlen_bwd_dq(*args, tiles[0], 0.125)
+    assert [c[1] for c in stand_in[2:]] == ["flash_varlen_bwd_dkv",
+                                            "flash_varlen_bwd_dq"]
+    dkv, dq = (c[2] for c in stand_in[2:])
     assert len(dkv) == 13 + 7 and dkv[13:] == tail
     assert len(dq) == 12 + 7 and dq[12:] == tail
     assert dkv[6:10] == dq[6:10] == fwd[3:7]
+    assert dkv[10] == tiles[1].data_ptr() and dq[10] == tiles[0].data_ptr()
 
 
 def test_f32_forward_keeps_the_cuda_core_kernel(stand_in):
     """An f32 forward reaches ``flash_varlen_fwd`` in the CUDA-core
-    library with the same C signature as the bf16 entry."""
+    library with the same C signature as the bf16 entry, and its
+    backward the split pair, with the metadata, ``Tq, Tk, H, D``, the
+    dtype code and the scale."""
     _packed_call(torch.float32)
     assert [c[:2] for c in stand_in] == [
         ("flash_varlen", "flash_varlen_fwd"),
         ("flash_varlen", "flash_varlen_bwd_dkv"),
         ("flash_varlen", "flash_varlen_bwd_dq")]
-    assert stand_in[0][2][10:] == (73, 85, 2, 64, 0, 0.125, None)
+    tail = (73, 85, 2, 64, 0, 0.125, None)
+    fwd, dkv, dq = (c[2] for c in stand_in)
+    assert len(fwd) == 10 + 7 and fwd[10:] == tail
+    assert len(dkv) == 13 + 7 and dkv[13:] == tail
+    assert len(dq) == 12 + 7 and dq[12:] == tail
+    assert dkv[6:10] == dq[6:10] == fwd[3:7]
+    assert dkv[:3] == dq[:3] == fwd[:3]
     assert fv._LIBRARIES["flash_varlen_wgmma"]["flash_varlen_fwd_wgmma"] \
         == fv._LIBRARIES["flash_varlen"]["flash_varlen_fwd"]
 
