@@ -15,7 +15,9 @@ line) when it fails:
    ``flash_varlen_wgmma``, ``flash_varlen_bwd_wgmma``,
    ``wo_matmul_wgmma``) must hold HGMMA (wgmma)
    instructions, and ptxas's registers and spills for their kernels are
-   printed.
+   printed; every instantiation of the norms' vector forwards
+   (``rms_norm_fwd_vec_kernel``, ``layer_norm_fwd_vec_kernel``, 45 each)
+   must hold 16-byte loads (LDG.E.128), with its registers and spills.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
    causal; bf16 on the tensor-core kernel, f32 on the CUDA-core one),
@@ -114,13 +116,15 @@ line) when it fails:
    warm-up step, 5 timed steps and 1 traced step. Every loss must be
    finite; each step must launch ``layer_norm_fwd`` and
    ``layer_norm_bwd`` exactly 25 times (``emb_ln`` with f32 and 24
-   stacked LayerNorms with bf16 scale and shift), ``flash_fwd`` and the
+   stacked LayerNorms with bf16 scale and shift), every forward on the
+   vector route (``layer_norm_fwd_vec_kernel``), ``flash_fwd`` and the
    bf16 backward route's kernel 12 times, and ``adamw_step`` never.
    Prints a ``bench_ernie``-style line (tokens/s, step time, MFU
    against 989 TFLOP/s).
 8. Padded batches: three more steps of that model with an
    ``attention_mask`` from row lengths 16..128: finite losses, the
-   LayerNorm kernels 25 times each a step, attention on the masked
+   LayerNorm kernels 25 times each a step (the forward on the vector
+   route), attention on the masked
    route (no flash launch).
 9. ERNIE on the card against the CPU: ``num_layers=2`` in f32 with the
    flag on, batch 8: two ``train_step`` calls; losses to 1e-4 relative,
@@ -221,11 +225,12 @@ line) when it fails:
     targets from ``RandomState(0)``; each step is ``loss.backward()``
     then one ``fused_adamw_kernel`` (lr 1e-4) a tensor, its outputs
     copied back: 1 warm-up step, 5 timed steps and 1 traced step. Every
-    loss finite; each step launches exactly 5 RMSNorm forwards, 5
-    RMSNorm backwards, 8 RoPE (4 forward, 4 backward), 13 flat AdamW, 2
-    dense flash forwards and 2 fused flash backwards, and no other
-    kernel. Prints tokens/s, the step time, the traced step's device
-    time by kernel group and the idle share. Then a neox-style call
+    loss finite; each step launches exactly 5 RMSNorm forwards (all on
+    the vector route, ``rms_norm_fwd_vec_kernel``), 5 RMSNorm
+    backwards, 8 RoPE (4 forward, 4 backward), 13 flat AdamW, 2 dense
+    flash forwards and 2 fused flash backwards, and no other kernel.
+    Prints tokens/s, the step time, the traced step's device time by
+    kernel group and the idle share. Then a neox-style call
     launches no RoPE kernel, and ``position_ids`` 100..103 on a sequence
     of 4 equal the matching window of a longer sequence.
 15. The stack on the card against the CPU in f32 (hidden 256, 4 heads
@@ -264,10 +269,19 @@ line) when it fails:
 Phase 3 also holds the slice's kernels against their plain versions:
 the RMSNorm forward and backward at the ``fused_rms_norm`` docstring's
 [8192, 1024] and the stack's [16384, 2048] (bf16, f32, bf16 x with an
-f32 weight) and ragged [37, 200], [64, 8192] and [5, 1] (bf16 within one
-ulp plus 1e-5 of the largest magnitude, f32 to 1e-5 of the largest
-magnitude, two f32 backward runs bitwise equal), timed against
-``F.rms_norm`` (forward, and its backward through autograd); the RoPE
+f32 weight) and ragged [37, 200], [64, 8192], [4, 16384] (bf16 and
+f32), [37, 771] and [5, 1] (bf16 within one ulp plus 1e-5 of the
+largest magnitude, f32 to 1e-5 of the largest magnitude, two f32
+backward runs bitwise equal),
+timed against ``F.rms_norm`` (forward, and its backward through
+autograd). The forward runs on both routes at every case: on x as
+given (the vector kernel where 16-byte vectors take the rows, else the
+general one: H 771 and H 1) and on a copy one element past a 16-byte
+boundary (the general kernel); each call must count one launch on the
+route the wrapper's rule names and launch that route's kernel and not
+the other's (torch.profiler), and each route is held and timed (with the
+wrapper's host time a call, the median of 200 calls without a sync).
+The same for the LayerNorm forward below. The RoPE
 forward and backward bitwise at the docstring's [8, 2048, 16, 128] with
 an [S, D] table and a ``position_ids``-gathered [B*S, D] one, and at D
 64 with an odd H, in bf16 and f32 (no single torch call computes it);
@@ -280,11 +294,12 @@ Phase 3 also holds the fused LayerNorm's forward and backward against
 their plain versions at ERNIE's [4096, 768] (bf16 x with f32 and with
 bf16 scale and shift, and f32), the GPT bench's [8192, 1024] (bf16 and
 f32), ERNIE's shape under AMP float16 (f16 x with f32 and with f16
-scale and shift), and ragged [37, 200], [64, 8192] and [5, 1]: a bf16
-or f16 output within one ulp of its type (plus 1e-5 of the tensor's
-largest magnitude where sums cancel), f32 to 1e-5 (dγ and dβ to 1e-5 of their largest magnitude),
-and two f32 backward runs bitwise equal. Each timed shape records both
-kernels' times, bounds and ``F.layer_norm``'s (forward; backward
+scale and shift), and ragged [37, 200], [64, 8192] (bf16 and f32),
+[37, 771] and [5, 1]: a bf16 or f16 output within one ulp of its type
+(plus 1e-5 of the tensor's largest magnitude where sums cancel), f32 to
+1e-5 (dγ and dβ to 1e-5 of their largest magnitude), and two f32
+backward runs bitwise equal. Each timed shape records the kernels' times (both
+forward routes), bounds and ``F.layer_norm``'s (forward; backward
 through autograd).
 
 Each main-path run (the serving runs, the training runs, the ERNIE
@@ -327,6 +342,7 @@ from paddle2_tpu_torch.kernels.flash_varlen import (
 from paddle2_tpu_torch.kernels.fused_adamw import (
     adamw_flat, adamw_flat_reference, adamw_step, adamw_step_reference,
     stage_flat_scalars, stage_scalars)
+from paddle2_tpu_torch.kernels import fused_layer_norm as fln
 from paddle2_tpu_torch.kernels.fused_layer_norm import (
     bwd_blocks, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
     layer_norm_fwd_reference)
@@ -436,10 +452,17 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/wo_matmul_wgmma.cu",
         replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
         counter=int8_weight_only_matmul, route="wgmma"),
+    # every route of the LayerNorm forward wrapper; its kernels-line row
+    # is the general route's kernel (an unaligned view), the vector
+    # route's is counted again below
     "layer_norm_fwd": dict(
         source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_ln.py:55",
         counter=layer_norm_fwd),
+    "layer_norm_fwd_vec": dict(
+        source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
+        replaces="paddle2_tpu/kernels/pallas_ln.py:55",
+        counter=layer_norm_fwd, route="vec"),
     "layer_norm_bwd": dict(
         source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_ln.py:65",
@@ -467,10 +490,15 @@ KERNELS = {
         replaces="paddle2_tpu/kernels/pallas_flash.py:578",
         also_replaces="paddle2_tpu/kernels/pallas_flash.py:620",
         counter=flash_varlen_bwd_fused),
+    # every route of the RMSNorm forward wrapper, as layer_norm_fwd
     "rms_norm_fwd": dict(
         source="paddle2_tpu_torch/kernels/csrc/rms_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:262",
         counter=rms_norm_fwd),
+    "rms_norm_fwd_vec": dict(
+        source="paddle2_tpu_torch/kernels/csrc/rms_norm.cu",
+        replaces="paddle2_tpu/kernels/pallas_fused.py:262",
+        counter=rms_norm_fwd, route="vec"),
     "rms_norm_bwd": dict(
         source="paddle2_tpu_torch/kernels/csrc/rms_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:290",
@@ -488,7 +516,17 @@ KERNELS = {
         replaces="paddle2_tpu/kernels/pallas_matmul.py:252",
         counter=int8_matmul),
 }
-INCUBATE_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "rope", "adamw_flat")
+INCUBATE_KERNELS = ("rms_norm_fwd", "rms_norm_fwd_vec", "rms_norm_bwd",
+                    "rope", "adamw_flat")
+# the CUDA kernel of each route of the norms' forwards (the names
+# torch.profiler reports); the libraries whose vector kernels' SASS must
+# hold 16-byte loads (LDG.E.128)
+NORM_KERNEL_NAMES = {
+    ("rms_norm", "vec"): "rms_norm_fwd_vec_kernel",
+    ("rms_norm", "general"): "rms_norm_fwd_kernel",
+    ("layer_norm", "vec"): "layer_norm_fwd_vec_kernel",
+    ("layer_norm", "general"): "layer_norm_fwd_kernel"}
+NORM_LIBRARIES = ("rms_norm", "layer_norm")
 VARLEN_KERNELS = ("flash_varlen_fwd", "flash_varlen_bwd_dkv",
                   "flash_varlen_bwd_dq", "flash_varlen_bwd_fused")
 DENSE_FLASH_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_split_dkv",
@@ -565,8 +603,12 @@ LN_RAGGED = [(37, 200, xd, gd, "ragged") for xd in (torch.float32,
                                                     torch.bfloat16)
              for gd in (torch.float32, torch.bfloat16)] + [
     (64, 8192, torch.bfloat16, torch.float32, "widest H"),
+    (64, 8192, torch.float32, torch.float32, "widest H"),
     (5, 1, torch.float32, torch.float32, "H 1"),
-    (37, 200, torch.float16, torch.float16, "ragged")]
+    (37, 200, torch.float16, torch.float16, "ragged"),
+    # rows that 16-byte vectors cannot take: the general route
+    (37, 771, torch.bfloat16, torch.bfloat16, "H 771"),
+    (37, 771, torch.float32, torch.float32, "H 771")]
 # the packed varlen batches of phase 12: the README's ragged batch and
 # the serving path's prompt lengths (T 3313, not a multiple of 8)
 VARLEN_README = [2048] + [128] * 16
@@ -605,10 +647,16 @@ RMS_RAGGED = [(37, 200, xd, wd, "ragged")
                              (torch.bfloat16, torch.bfloat16),
                              (torch.bfloat16, torch.float32))] + [
     (64, 8192, torch.bfloat16, torch.float32, "wide"),
-    # the widest row: both kernels past 48 KB of shared memory
+    # the widest row: both kernels past 48 KB of shared memory; in f32
+    # the vector kernel's row spans all 8 warps of its block
     (4, 16384, torch.bfloat16, torch.float32, "widest H"),
-    (5, 1, torch.float32, torch.float32, "H 1")]
+    (4, 16384, torch.float32, torch.float32, "widest H"),
+    (5, 1, torch.float32, torch.float32, "H 1"),
+    # rows that 16-byte vectors cannot take: the general route
+    (37, 771, torch.bfloat16, torch.bfloat16, "H 771"),
+    (37, 771, torch.float32, torch.float32, "H 771")]
 RMS_LINE_SHAPE = "R16384 H2048 (stack) w bf16"
+LN_LINE_SHAPE = "R4096 H768 (ERNIE stacked leaves) g bf16"
 # the RoPE checks: B, S, H, D, table ("S": [S, D]; "pos": gathered by
 # position_ids to [B*S, D]); the docstring's shape is timed
 ROPE_CASES = [(8, 2048, 16, 128, "S", True), (8, 2048, 16, 128, "pos", True),
@@ -624,7 +672,8 @@ LINE_SHAPES = {"flash_bwd_fused": "B8 H16 Sq1024 Sk1024 D64 causal",
                "wo_matmul": WO_LINE_SHAPE,
                "wo_matmul_wgmma": WO_WGMMA_LINE_SHAPE,
                "i8i8_matmul": I8_LINE_SHAPE,
-               "rms_norm_fwd": RMS_LINE_SHAPE,
+               "rms_norm_fwd": RMS_LINE_SHAPE + ", unaligned view",
+               "rms_norm_fwd_vec": RMS_LINE_SHAPE,
                "rms_norm_bwd": RMS_LINE_SHAPE,
                "rope": ROPE_LINE_SHAPE,
                "adamw_flat": ADAMW_FLAT_LINE_SHAPE,
@@ -632,8 +681,9 @@ LINE_SHAPES = {"flash_bwd_fused": "B8 H16 Sq1024 Sk1024 D64 causal",
                "flash_varlen_bwd_dkv": VARLEN_LINE_SHAPE,
                "flash_varlen_bwd_dq": VARLEN_LINE_SHAPE,
                "flash_varlen_bwd_fused": VARLEN_LINE_SHAPE,
-               "layer_norm_fwd": "R4096 H768 (ERNIE stacked leaves) g bf16",
-               "layer_norm_bwd": "R4096 H768 (ERNIE stacked leaves) g bf16"}
+               "layer_norm_fwd": LN_LINE_SHAPE + ", unaligned view",
+               "layer_norm_fwd_vec": LN_LINE_SHAPE,
+               "layer_norm_bwd": LN_LINE_SHAPE}
 
 
 class SmokeFailure(RuntimeError):
@@ -712,8 +762,8 @@ def counts():
 def reset_counts():
     for k in KERNELS.values():
         k["counter"].launches = 0
-        if "route" in k:
-            k["counter"].route_launches[k["route"]] = 0
+        for route in getattr(k["counter"], "route_launches", ()):
+            k["counter"].route_launches[route] = 0
 
 
 # ------------------------------------------------------------- phase 3
@@ -1488,27 +1538,122 @@ def ln_inputs(R, H, xdt, gdt, gen, dev):
     return x, g, b, dy, (1e-12 if H == 768 else 1e-5)
 
 
+def unaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary: the norms' general route takes it."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def launches_kernel(fn, want, other):
+    """Whether one call of ``fn`` launches a CUDA kernel named ``want``
+    and none named ``other`` (torch.profiler), or None when no window
+    recorded either kernel: late in a long run the profiler has been
+    seen to drop records (see device_ms), so a window that holds neither
+    is taken again, up to three windows."""
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_time_total > 0]
+        seen = {k for k in (want, other) if any(k in n for n in names)}
+        if seen:
+            return seen == {want}
+    return None
+
+
+def host_ms(fn, n=200):
+    """The wrapper's host time a call: the median of ``n`` calls without
+    a synchronize (the card runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def norm_fwd_routes(lib, wrapper, route_of, run, x, what):
+    """The norm forward ``run(x)`` on ``x`` and on an unaligned copy of
+    it: each call counts one launch on the route that ``route_of`` (the
+    wrapper's rule, on the call's own tensors) names, launches that
+    route's CUDA kernel and not the other's (torch.profiler), and the
+    copy takes the general route. Returns ``{route: (x, output,
+    kernel seen by name)}``; an aligned x that the general route takes
+    gives one entry."""
+    out = {}
+    for xin in (x, unaligned(x)):
+        before = dict(wrapper.route_launches)
+        res = run(xin)
+        route = route_of(xin, res)
+        if xin is not x:
+            require(route == "general", f"{what}: an unaligned view takes "
+                    f"the {route} route")
+        moved = {k: wrapper.route_launches[k] - before[k] for k in before}
+        require(moved == {k: int(k == route) for k in before},
+                f"{what}: route launches moved by {moved}, want one on "
+                f"{route}")
+        other = "general" if route == "vec" else "vec"
+        seen = launches_kernel(lambda: run(xin),
+                               NORM_KERNEL_NAMES[(lib, route)],
+                               NORM_KERNEL_NAMES[(lib, other)])
+        require(seen is not False, f"{what}: the {route} route did not "
+                f"launch {NORM_KERNEL_NAMES[(lib, route)]} alone")
+        if seen is None:
+            say(f"[profiler] {what}: no kernel recorded in three windows: "
+                f"the {route} route's kernel not checked by name")
+        out.setdefault(route, (xin, res, seen))
+    return out
+
+
+def norm_fwd_timing(row, run, plain, kern, ops, nbytes, lib_ms, lib_dev,
+                    library):
+    """A forward row's times: CUDA events, device time (every kernel of
+    the call, and ``kern`` alone), the host time a call, the plain
+    version's, the library call's, and the bound."""
+    dev_ms, kern_ms = device_ms(run, kern, per_call=1)
+    # the arithmetic runs in f32 on the CUDA cores whatever x's type
+    b_ms, b_by = bound(ops, nbytes, torch.float32)
+    row.update(ms=cuda_ms(run), device_ms=dev_ms, kernel_device_ms=kern_ms,
+               host_ms=host_ms(run), plain_ms=cuda_ms(plain, iters=10),
+               library_ms=lib_ms, library_device_ms=lib_dev,
+               bound_ms=b_ms, bound_by=b_by, library=library)
+
+
 def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
-    """The forward and the backward kernels against their plain
-    versions; in f32 two backward runs bitwise equal (no atomics). With
-    ``timed``, both kernels' times, bounds and library yardsticks."""
+    """The forward on both routes (the vector kernel where 16-byte
+    vectors take the rows, and the general kernel on an unaligned copy)
+    and the backward against their plain versions; in f32 two backward
+    runs bitwise equal (no atomics). With ``timed``, the kernels' times,
+    bounds and library yardsticks."""
     x, g, b, dy, eps = ln_inputs(R, H, xdt, gdt, gen, dev)
     short = {torch.float32: "f32", torch.bfloat16: "bf16",
              torch.float16: "f16"}
     shape = f"R{R} H{H} ({what}) g {short[gdt]}"
-    y = layer_norm_fwd(x, g, b, eps)
+    fwd = norm_fwd_routes(
+        "layer_norm", layer_norm_fwd,
+        lambda xin, y: fln.fwd_route(xin, g, b, y),
+        lambda xin: layer_norm_fwd(xin, g, b, eps), x, f"layer_norm {shape}")
     dx, dg, db = layer_norm_bwd(x, g, dy, eps)
     y_ref = layer_norm_fwd_reference(x, g, b, eps)
     dx_ref, dg_ref, db_ref = layer_norm_bwd_reference(x, g, dy, eps)
     torch.cuda.synchronize()
-    errs = {"y": ln_err(y, y_ref, xdt), "dx": ln_err(dx, dx_ref, xdt),
-            "dg": ln_err(dg, dg_ref, gdt, True),
-            "db": ln_err(db, db_ref, gdt, True)}
+    errs = {f"y_{route}": ln_err(y, y_ref, xdt)
+            for route, (_, y, _) in fwd.items()}
+    errs.update(dx=ln_err(dx, dx_ref, xdt), dg=ln_err(dg, dg_ref, gdt, True),
+                db=ln_err(db, db_ref, gdt, True))
     for k, (excess, err) in errs.items():
         require(excess <= 0, f"layer_norm {dname(xdt)} {shape}: {k} "
                 f"disagrees with its plain version (max abs err {err}, "
                 f"{excess} past the limit)")
-    for t in (y, dx, dg, db):
+    for t in [y for _, y, _ in fwd.values()] + [dx, dg, db]:
         require(torch.isfinite(t.float()).all().item(), "non-finite output")
     reproducible = None
     if xdt == torch.float32:
@@ -1517,13 +1662,20 @@ def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
                            zip((dx, dg, db), again))
         require(reproducible, f"layer_norm_bwd f32 {shape}: two runs "
                 f"differ (dgamma/dbeta must not depend on timing)")
-    rows = [dict(name=n, dtype=dname(xdt), shape=shape,
-                 max_abs_err=max(errs[k][1] for k in ks),
-                 excess_over_tol=max(errs[k][0] for k in ks),
-                 tol="bf16/f16: 1 ulp + 1e-5 max; f32: 1e-5 (dg/db of max)",
-                 bitwise_reproducible=reproducible)
-            for n, ks in (("layer_norm_fwd", ("y",)),
-                          ("layer_norm_bwd", ("dx", "dg", "db")))]
+    tol = "bf16/f16: 1 ulp + 1e-5 max; f32: 1e-5 (dg/db of max)"
+    names = {"vec": "layer_norm_fwd_vec", "general": "layer_norm_fwd"}
+    rows = [dict(name=names[route], dtype=dname(xdt),
+                 shape=shape + ("" if xin is x else ", unaligned view"),
+                 route=route, kernel_seen=seen,
+                 max_abs_err=errs[f"y_{route}"][1],
+                 excess_over_tol=errs[f"y_{route}"][0], tol=tol,
+                 bitwise_reproducible=None)
+            for route, (xin, _, seen) in fwd.items()]
+    rows.append(dict(name="layer_norm_bwd", dtype=dname(xdt), shape=shape,
+                     max_abs_err=max(errs[k][1] for k in ("dx", "dg", "db")),
+                     excess_over_tol=max(errs[k][0]
+                                         for k in ("dx", "dg", "db")),
+                     tol=tol, bitwise_reproducible=reproducible))
     if not timed:
         return rows
     size, gsize = x.element_size(), g.element_size()
@@ -1539,56 +1691,64 @@ def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
     lib = {k: cuda_ms(fn) for k, fn in lib_calls.items()}
     # the device time of every kernel the library call launches
     lib_dev = {k: device_ms(fn, "")[0] for k, fn in lib_calls.items()}
-    for row, run, plain, kern, ops, nbytes, which in (
-            (rows[0], lambda: layer_norm_fwd(x, g, b, eps),
-             lambda: layer_norm_fwd_reference(x, g, b, eps),
-             "layer_norm_fwd_kernel", 8.0 * R * H,
-             2.0 * R * H * size + 2.0 * H * gsize, "fwd"),
-            (rows[1], lambda: layer_norm_bwd(x, g, dy, eps),
-             lambda: layer_norm_bwd_reference(x, g, dy, eps),
-             "layer_norm_bwd", 16.0 * R * H,
-             3.0 * R * H * size + 3.0 * H * gsize, "bwd")):
-        dev_ms, kern_ms = device_ms(run, kern)
-        # the arithmetic runs in f32 on the CUDA cores whatever x's type
-        b_ms, b_by = bound(ops, nbytes, torch.float32)
-        row.update(ms=cuda_ms(run), device_ms=dev_ms,
-                   kernel_device_ms=kern_ms,
-                   plain_ms=cuda_ms(plain, iters=10),
-                   library_ms=lib[which], library_device_ms=lib_dev[which],
-                   bound_ms=b_ms, bound_by=b_by,
-                   library="F.layer_norm (weights in x's dtype)"
-                   + (" backward through autograd"
-                      if which == "bwd" else ""),
-                   library_fwd_bwd_ms=lib["fwd+bwd"],
-                   library_fwd_bwd_device_ms=lib_dev["fwd+bwd"],
-                   bwd_blocks=bwd_blocks(R, dev))
+    library = "F.layer_norm (weights in x's dtype)"
+    for row in rows[:-1]:
+        xin = fwd[row["route"]][0]
+        norm_fwd_timing(
+            row, lambda: layer_norm_fwd(xin, g, b, eps),
+            lambda: layer_norm_fwd_reference(xin, g, b, eps),
+            NORM_KERNEL_NAMES[("layer_norm", row["route"])], 8.0 * R * H,
+            2.0 * R * H * size + 2.0 * H * gsize, lib["fwd"], lib_dev["fwd"],
+            library)
+    row = rows[-1]
+    run = lambda: layer_norm_bwd(x, g, dy, eps)  # noqa: E731
+    dev_ms, kern_ms = device_ms(run, "layer_norm_bwd")
+    b_ms, b_by = bound(16.0 * R * H, 3.0 * R * H * size + 3.0 * H * gsize,
+                       torch.float32)
+    row.update(ms=cuda_ms(run), device_ms=dev_ms, kernel_device_ms=kern_ms,
+               plain_ms=cuda_ms(lambda: layer_norm_bwd_reference(
+                   x, g, dy, eps), iters=10),
+               library_ms=lib["bwd"], library_device_ms=lib_dev["bwd"],
+               bound_ms=b_ms, bound_by=b_by,
+               library=library + " backward through autograd",
+               library_fwd_bwd_ms=lib["fwd+bwd"],
+               library_fwd_bwd_device_ms=lib_dev["fwd+bwd"],
+               bwd_blocks=bwd_blocks(R, dev))
     return rows
 
 
 def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
-    """The RMSNorm forward and backward kernels against their plain
-    versions (the backward on the kernel's saved r, as the plain one is
-    given it); in f32 two backward runs bitwise equal (no atomics). With
-    ``timed``, both kernels' times, bounds and ``F.rms_norm``'s."""
+    """The forward on both routes (the vector kernel where 16-byte
+    vectors take the rows, and the general kernel on an unaligned copy)
+    and the backward (on the vector route's saved r, as the plain one is
+    given it) against their plain versions; in f32 two backward runs
+    bitwise equal (no atomics). With ``timed``, the kernels' times,
+    bounds and ``F.rms_norm``'s."""
     x = (torch.randn(R, H, generator=gen, device=dev) * 2 + 0.5).to(xdt)
     w = torch.randn(H, generator=gen, device=dev).to(wdt)
     do = torch.randn(R, H, generator=gen, device=dev).to(xdt)
     short = {torch.float32: "f32", torch.bfloat16: "bf16"}
     shape = f"R{R} H{H} ({what}) w {short[wdt]}"
-    o, r = rms_norm_fwd(x, w, eps)
+    fwd = norm_fwd_routes(
+        "rms_norm", rms_norm_fwd,
+        lambda xin, res: frn.fwd_route(xin, w, *res),
+        lambda xin: rms_norm_fwd(xin, w, eps), x, f"rms_norm {shape}")
+    r = next(iter(fwd.values()))[1][1]
     dx, dw = rms_norm_bwd(x, w, r, do)
     o_ref, r_ref = rms_norm_fwd_reference(x, w, eps)
     dx_ref, dw_ref = rms_norm_bwd_reference(x, w, r, do)
     torch.cuda.synchronize()
-    errs = {"o": ln_err(o, o_ref, xdt, True),
-            "r": ln_err(r, r_ref, torch.float32, True),
-            "dx": ln_err(dx, dx_ref, xdt, True),
-            "dw": ln_err(dw, dw_ref, wdt, True)}
+    errs = {}
+    for route, (_, (o, ro), _) in fwd.items():
+        errs[f"o_{route}"] = ln_err(o, o_ref, xdt, True)
+        errs[f"r_{route}"] = ln_err(ro, r_ref, torch.float32, True)
+    errs.update(dx=ln_err(dx, dx_ref, xdt, True),
+                dw=ln_err(dw, dw_ref, wdt, True))
     for k, (excess, err) in errs.items():
         require(excess <= 0, f"rms_norm {dname(xdt)} {shape}: {k} "
                 f"disagrees with its plain version (max abs err {err}, "
                 f"{excess} past the limit)")
-    for t in (o, r, dx, dw):
+    for t in [t for _, res, _ in fwd.values() for t in res] + [dx, dw]:
         require(torch.isfinite(t.float()).all().item(), "non-finite output")
     reproducible = None
     if xdt == torch.float32:
@@ -1597,13 +1757,19 @@ def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
                            zip((dx, dw), again))
         require(reproducible, f"rms_norm_bwd f32 {shape}: two runs differ "
                 f"(dw must not depend on timing)")
-    rows = [dict(name=n, dtype=dname(xdt), shape=shape,
-                 max_abs_err=max(errs[k][1] for k in ks),
-                 excess_over_tol=max(errs[k][0] for k in ks),
-                 tol="bf16: 1 ulp + 1e-5 max; f32: 1e-5 of max",
-                 bitwise_reproducible=reproducible)
-            for n, ks in (("rms_norm_fwd", ("o", "r")),
-                          ("rms_norm_bwd", ("dx", "dw")))]
+    tol = "bf16: 1 ulp + 1e-5 max; f32: 1e-5 of max"
+    names = {"vec": "rms_norm_fwd_vec", "general": "rms_norm_fwd"}
+    rows = [dict(name=names[route], dtype=dname(xdt),
+                 shape=shape + ("" if xin is x else ", unaligned view"),
+                 route=route, kernel_seen=seen,
+                 max_abs_err=max(errs[f"{k}_{route}"][1] for k in "or"),
+                 excess_over_tol=max(errs[f"{k}_{route}"][0] for k in "or"),
+                 tol=tol, bitwise_reproducible=None)
+            for route, (xin, _, seen) in fwd.items()]
+    rows.append(dict(name="rms_norm_bwd", dtype=dname(xdt), shape=shape,
+                     max_abs_err=max(errs[k][1] for k in ("dx", "dw")),
+                     excess_over_tol=max(errs[k][0] for k in ("dx", "dw")),
+                     tol=tol, bitwise_reproducible=reproducible))
     if not timed:
         return rows
     size, wsize = x.element_size(), w.element_size()
@@ -1616,28 +1782,29 @@ def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
                                            retain_graph=True)}
     lib = {k: cuda_ms(fn) for k, fn in lib_calls.items()}
     lib_dev = {k: device_ms(fn, "")[0] for k, fn in lib_calls.items()}
-    for row, run, plain, kern, ops, nbytes, which in (
-            (rows[0], lambda: rms_norm_fwd(x, w, eps),
-             lambda: rms_norm_fwd_reference(x, w, eps),
-             ("rms_norm_fwd_kernel", 1), 4.0 * R * H,
-             2.0 * R * H * size + H * wsize + 4.0 * R, "fwd"),
-            (rows[1], lambda: rms_norm_bwd(x, w, r, do),
-             lambda: rms_norm_bwd_reference(x, w, r, do),
-             # the row kernel and the reduction of its partials
-             ("rms_norm_bwd", 2), 10.0 * R * H,
-             3.0 * R * H * size + 2.0 * H * wsize + 4.0 * R, "bwd")):
-        dev_ms, kern_ms = device_ms(run, kern[0], per_call=kern[1])
-        # the arithmetic runs in f32 on the CUDA cores whatever x's type
-        b_ms, b_by = bound(ops, nbytes, torch.float32)
-        row.update(ms=cuda_ms(run), device_ms=dev_ms,
-                   kernel_device_ms=kern_ms,
-                   plain_ms=cuda_ms(plain, iters=10),
-                   library_ms=lib[which], library_device_ms=lib_dev[which],
-                   bound_ms=b_ms, bound_by=b_by,
-                   library="F.rms_norm (weight in x's dtype)"
-                   + (" backward through autograd"
-                      if which == "bwd" else ""),
-                   bwd_blocks=frn.bwd_blocks(R, dev))
+    library = "F.rms_norm (weight in x's dtype)"
+    for row in rows[:-1]:
+        xin = fwd[row["route"]][0]
+        norm_fwd_timing(
+            row, lambda: rms_norm_fwd(xin, w, eps),
+            lambda: rms_norm_fwd_reference(xin, w, eps),
+            NORM_KERNEL_NAMES[("rms_norm", row["route"])], 4.0 * R * H,
+            2.0 * R * H * size + H * wsize + 4.0 * R, lib["fwd"],
+            lib_dev["fwd"], library)
+    row = rows[-1]
+    run = lambda: rms_norm_bwd(x, w, r, do)  # noqa: E731
+    # the row kernel and the reduction of its partials
+    dev_ms, kern_ms = device_ms(run, "rms_norm_bwd", per_call=2)
+    b_ms, b_by = bound(10.0 * R * H,
+                       3.0 * R * H * size + 2.0 * H * wsize + 4.0 * R,
+                       torch.float32)
+    row.update(ms=cuda_ms(run), device_ms=dev_ms, kernel_device_ms=kern_ms,
+               plain_ms=cuda_ms(lambda: rms_norm_bwd_reference(
+                   x, w, r, do), iters=10),
+               library_ms=lib["bwd"], library_device_ms=lib_dev["bwd"],
+               bound_ms=b_ms, bound_by=b_by,
+               library=library + " backward through autograd",
+               bwd_blocks=frn.bwd_blocks(R, dev))
     return rows
 
 
@@ -2379,8 +2546,10 @@ def ernie_bf16(smi):
     require(all(np.isfinite([warm, traced] + losses)),
             f"non-finite ERNIE loss: {[warm] + losses + [traced]}")
     n_ln = 1 + 2 * cfg.num_layers
-    want = {"layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
-            "flash_fwd": cfg.num_layers, "adamw_step": 0}
+    # every LayerNorm forward on the vector route
+    want = {"layer_norm_fwd": n_ln, "layer_norm_fwd_vec": n_ln,
+            "layer_norm_bwd": n_ln, "flash_fwd": cfg.num_layers,
+            "adamw_step": 0}
     if route == "fused":
         want["flash_bwd_fused"] = cfg.num_layers
     else:
@@ -2416,7 +2585,8 @@ def ernie_bf16(smi):
 def ernie_padded(model, step):
     """Phase 8: three more bf16 steps of the phase-7 model on padded
     batches (an ``attention_mask`` from row lengths 16..128): finite
-    losses, the fused LayerNorm 25 + 25 times a step, and attention on
+    losses, the fused LayerNorm 25 + 25 times a step (every forward on
+    the vector route), and attention on
     the masked route (no flash launch)."""
     mask, lens = padding_mask(ERNIE["batch"], "cuda")
     data = ernie_batches(3, ERNIE["batch"], "cuda")
@@ -2426,7 +2596,7 @@ def ernie_padded(model, step):
     launches = counts()
     require(all(np.isfinite(losses)), f"non-finite padded losses {losses}")
     n_ln = 1 + 2 * model.cfg.num_layers
-    for n in ("layer_norm_fwd", "layer_norm_bwd"):
+    for n in ("layer_norm_fwd", "layer_norm_fwd_vec", "layer_norm_bwd"):
         require(launches[n] == 3 * n_ln, f"padded run: {n} launched "
                 f"{launches[n]} times in 3 steps, want {n_ln} a step")
     require(launches["flash_fwd"] == 0,
@@ -3389,7 +3559,9 @@ def stack_bf16(smi, dev):
     require(all(np.isfinite(all_losses)),
             f"non-finite incubate stack loss: {all_losses}")
     L = cfg["layers"]
-    want = {"rms_norm_fwd": 2 * L + 1, "rms_norm_bwd": 2 * L + 1,
+    # every RMSNorm forward on the vector route
+    want = {"rms_norm_fwd": 2 * L + 1, "rms_norm_fwd_vec": 2 * L + 1,
+            "rms_norm_bwd": 2 * L + 1,
             "rope": 4 * L, "adamw_flat": len(params), "flash_fwd": L,
             "flash_bwd_fused": L}
     for n in KERNELS:
@@ -3539,6 +3711,65 @@ def check_wgmma_build():
     return out
 
 
+def vec_args(mangled):
+    """A vector norm kernel's template arguments from its mangled name:
+    x's type, the parameters' type and the vectors a lane."""
+    m = re.search(r"fwd_vec_kernelI(.*?)Li(\d+)EE", mangled)
+    if not m:
+        return mangled
+    types = re.findall(r"13__nv_bfloat16|6__half|S\d*_|f", m.group(1))
+    short = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    named = [short.get(t) for t in types]
+    named = [n if n else named[0] for n in named]
+    return f"<{', '.join(named)}, {m.group(2)}>"
+
+
+def check_norm_build():
+    """Phase 2 for the norms' vector forwards: the SASS of every
+    instantiation of ``rms_norm_fwd_vec_kernel`` and
+    ``layer_norm_fwd_vec_kernel`` holds 16-byte global loads
+    (LDG.E.128), and ptxas's registers and spills for each are
+    printed (x type, parameter type, vectors a lane)."""
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
+        "cuobjdump")
+    out = {}
+    for name in NORM_LIBRARIES:
+        kernel = f"{name}_fwd_vec_kernel"
+        lib = _build._lib_path(_build.sources()[name])
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        ldg, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1) if kernel in m.group(1) else None
+                if fn:
+                    ldg[fn] = 0
+            elif fn and "LDG.E.128" in line:
+                ldg[fn] += 1
+        ptxas, fn = {}, None
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1) if kernel in m.group(1) else None
+            elif fn and ("registers" in line or "spill" in line):
+                ptxas.setdefault(vec_args(fn), []).append(line.strip())
+        require(len(ldg) == 45, f"{name}: {len(ldg)} instantiations of "
+                f"{kernel} in the SASS, want 45 (3 x 3 types x 5 widths)")
+        short = {vec_args(f): n for f, n in ldg.items()}
+        say(f"[build] {kernel}: LDG.E.128 in the SASS of each "
+            f"instantiation: {json.dumps(short)}")
+        for args, lines in sorted(ptxas.items()):
+            say(f"[build] {kernel}{args}: {'; '.join(lines)}")
+        require(all(n > 0 for n in ldg.values()),
+                f"{kernel}: no 16-byte load (LDG.E.128) in "
+                f"{[a for a, n in short.items() if not n]}")
+        out[kernel] = dict(ldg_e_128=short, ptxas=ptxas)
+    return out
+
+
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
     path's bf16 shape (the fused AdamW state is f32)."""
@@ -3580,13 +3811,15 @@ def main():
             if "registers" in line or "spill" in line:
                 say(f"[build] {log.stem}: {line.strip()}")
     wgmma = check_wgmma_build()
+    norm_build = check_norm_build()
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
     rows, ragged = [], []
-    # the last two slices' kernels first: late in a long run the profiler
-    # has been seen to drop records (see device_ms)
+    # the last slices' kernels first (the int8 x int8 matmul, the norms,
+    # whose routes are checked by kernel name): late in a long run the
+    # profiler has been seen to drop records (see device_ms)
     for label, (K, N) in I8_SHAPES.items():
         for M in (8, 1008):
             rows.append(check_i8i8(M, K, N, label, gen, dev))
@@ -3600,6 +3833,11 @@ def main():
         rows += check_rms_norm(*case, gen, dev, timed=True)
     for case in RMS_RAGGED:
         ragged += check_rms_norm(*case, gen, dev, timed=False)
+    for case in LN_CASES:
+        rows += check_layer_norm(*case, gen, dev, timed=True)
+    for case in LN_RAGGED:
+        ragged += check_layer_norm(*case, gen, dev, timed=False)
+    torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, H, D, table, timed in ROPE_CASES:
             (rows if timed else ragged).append(
@@ -3670,11 +3908,6 @@ def main():
                for dtype in (torch.bfloat16, torch.float32)
                for with_bias in (False, True)]
     ragged.append(check_wo_all_values(dev))
-    for case in LN_CASES:
-        rows += check_layer_norm(*case, gen, dev, timed=True)
-    for case in LN_RAGGED:
-        ragged += check_layer_norm(*case, gen, dev, timed=False)
-    torch.cuda.empty_cache()
     # 12. the packed varlen kernels, into phase 3's rows
     for dtype in (torch.bfloat16, torch.float32):
         for lens, D in ((VARLEN_README, 128), (VARLEN_SERVING, 128),
@@ -3713,6 +3946,9 @@ def main():
             f"{r['bound_ms']:.4f} ({r['bound_by']})"
             + (f" host {r['host_ms']:.4f} int8pack {r['int8pack_mm_ms']}"
                if r["name"].startswith("wo_matmul") else "")
+            + (f" host {r['host_ms']:.4f} ({r['route']} route, its kernel "
+               f"seen by name: {r['kernel_seen']})" if "kernel_seen" in r
+               else "")
             + (f" scaled {r['scaled_err']:.3g}, off the rounded sums "
                f"{r['off_share']:.3g}, unrounded {r['unrounded_err']}"
                if r.get("off_share") is not None else ""))
@@ -3720,7 +3956,9 @@ def main():
         if r["name"].startswith(("layer_norm", "rms_norm")):
             say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (past the limit by "
-                f"{r['excess_over_tol']:.3g}; {r['tol']})")
+                f"{r['excess_over_tol']:.3g}; {r['tol']})"
+                + (f"; {r['route']} route, its kernel seen by name: "
+                   f"{r['kernel_seen']}" if "kernel_seen" in r else ""))
         elif r["name"] in ("wo_matmul", "wo_matmul_wgmma"):
             say(f"[kernel] wo_matmul {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, tol "
@@ -3916,6 +4154,12 @@ def main():
     say(f"[incubate f32 vs cpu] {stack32}")
 
     say(f"[main path] launches: {launches}")
+    say(f"[main path] norm forward launches by route: rms_norm_fwd "
+        f"{launches['rms_norm_fwd_vec']} vec, "
+        f"{launches['rms_norm_fwd'] - launches['rms_norm_fwd_vec']} general;"
+        f" layer_norm_fwd {launches['layer_norm_fwd_vec']} vec, "
+        f"{launches['layer_norm_fwd'] - launches['layer_norm_fwd_vec']} "
+        f"general")
     for n in KERNELS:
         require(launches[n] > 0, f"kernel {n} was never launched on the "
                 f"main path")
@@ -3929,6 +4173,8 @@ def main():
                                                     "f32_source")
                             if key in k},
                          launches=launches[n], shape=r["shape"],
+                         **({"wrapper_route": r["route"]} if "route" in r
+                            else {}),
                          dtype=r["dtype"], max_abs_err=r["max_abs_err"],
                          # the error the limit holds, where it is not
                          # max_abs_err (the flash backward's)
@@ -3943,7 +4189,7 @@ def main():
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(device=kind, nvidia_smi=smi, build_s=build_s,
-             wgmma_build=wgmma, kernels=rows,
+             wgmma_build=wgmma, norm_build=norm_build, kernels=rows,
              ragged=ragged, wo_bound=wo_bound, wo_payload=wo_payload,
              int8pack_mm_on_cuda=int8pack, engine=runs,
              train_bf16=train_rec, train_f32_vs_cpu=f32run,

@@ -22,13 +22,28 @@
 // What bounds it on the H100: bytes. The forward moves 2*R*H*size bytes
 // against ~8 f32 operations an element, the backward 3*R*H*size against
 // ~16: far below the ~20 operations a byte where the CUDA cores would be
-// the limit. The design reads each element of x (and dy) once: one block a
-// row, the row held in shared memory in f32 while the block reduces it
-// (warp shuffles, then one value a warp in shared memory, summed by every
-// thread in the same order). Each thread revisits only its own elements,
-// so the buffers need no barrier; only the reductions synchronise. Every H
-// from 1 to 8192 is taken: threads stride the row, there is no alignment
-// condition.
+// the limit. Each element of x (and dy) is read once.
+//
+// The forward has two routes, picked by the C entry from the shape and
+// the addresses alone (the wrapper's fwd_route is the same rule):
+// - the vector route, `layer_norm_fwd_vec_kernel`, for every row that
+//   16-byte vectors can take: H * sizeof(x) % 16 == 0, with x, y, g and
+//   b on 16-byte boundaries. The row stays in registers as it arrived
+//   (row_vec.cuh: each lane issues all of its 16-byte loads before its
+//   first add); the mean and then the centred squares are warp-shuffle
+//   reductions (one exchange in shared memory each where a row spans
+//   warps), the second pass reading the registers again; the output goes
+//   out as 16-byte stores. Blocks are persistent and keep g and b in
+//   shared memory for every row.
+// - the general route, `layer_norm_fwd_kernel`, for every other row (H
+//   not a multiple of 16 / sizeof(x), an address off a 16-byte
+//   boundary, H = 1): one block a row, scalar loads, the row held in
+//   shared memory in f32 while the block reduces it (warp shuffles, then
+//   one value a warp in shared memory, summed by every thread in the
+//   same order). Each thread revisits only its own elements, so the
+//   buffers need no barrier; only the reductions synchronise. Every H
+//   from 1 to 8192 is taken.
+// The backward is the general design, walking the rows with G blocks.
 //
 // dg and db are where the TPU design does not carry over. The TPU's grid
 // runs in order, so `_bwd_kernel` adds each row block's sums into VMEM
@@ -43,6 +58,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "row_vec.cuh"
 
 namespace {
 
@@ -113,6 +130,83 @@ __global__ void __launch_bounds__(MAX_NT)
   const float r = __frsqrt_rn(block_sum(q, red) * inv_h + eps);
   for (int i = threadIdx.x; i < H; i += blockDim.x)
     y[base + i] = from_f<XT>(xs[i] * r * to_f(g[i]) + to_f(b[i]));
+}
+
+// The vector route (see the note at the top and row_vec.cuh): VPL
+// 16-byte vectors a lane, wpr warps a row, g and b in shared memory in
+// their own type (b from the first 16-byte boundary after g). The
+// arithmetic is the general kernel's; only the order of the f32 sums
+// differs.
+template <typename XT, typename GT, int VPL>
+__global__ void __launch_bounds__(rowvec::VEC_NT)
+    layer_norm_fwd_vec_kernel(const XT* __restrict__ x,
+                              const GT* __restrict__ g,
+                              const GT* __restrict__ b, XT* __restrict__ y,
+                              long long R, int H, int wpr, float eps) {
+  constexpr int E = 16 / sizeof(XT);
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  __shared__ float red[2][rowvec::VEC_WARPS];
+  const int gbytes = H * (int)sizeof(GT);
+  const int boff = (gbytes + 15) & ~15;
+  const GT* gs = reinterpret_cast<const GT*>(sm_raw);
+  const GT* bs = reinterpret_cast<const GT*>(sm_raw + boff);
+  rowvec::stage(g, sm_raw, gbytes);
+  rowvec::stage(b, sm_raw + boff, gbytes);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int t = (warp % wpr) * 32 + (threadIdx.x & 31);
+  const int T = 32 * wpr;
+  const int nv = H / E;
+  const int rpb = rowvec::VEC_WARPS / wpr;
+  const float inv_h = 1.f / (float)H;
+  int par = 0;
+  for (long long row = (long long)blockIdx.x * rpb + warp / wpr; row < R;
+       row += (long long)gridDim.x * rpb) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * H);
+    uint4 v[VPL];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      if (t + k * T < nv) v[k] = xr[t + k * T];
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      if (t + k * T < nv) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) s += rowvec::elem<XT>(v[k], j);
+      }
+    }
+    const float m = rowvec::row_sum(s, red, par, wpr) * inv_h;
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      if (t + k * T < nv) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float c = rowvec::elem<XT>(v[k], j) - m;
+          q += c * c;
+        }
+      }
+    }
+    const float r =
+        __frsqrt_rn(rowvec::row_sum(q, red, par, wpr) * inv_h + eps);
+    uint4* yrow = reinterpret_cast<uint4*>(y + row * H);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = t + k * T;
+      if (i < nv) {
+        float gf[E], bf[E];
+        rowvec::chunk_f<XT, GT>(gs + i * E, gf);
+        rowvec::chunk_f<XT, GT>(bs + i * E, bf);
+        uint4 out;
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float c = rowvec::elem<XT>(v[k], j) - m;
+          rowvec::set_elem<XT>(out, j, c * r * gf[j] + bf[j]);
+        }
+        yrow[i] = out;
+      }
+    }
+  }
 }
 
 template <typename XT, typename GT>
@@ -227,6 +321,47 @@ int launch_fwd(const void* x, const void* g, const void* b, void* y,
   return cudaGetLastError();
 }
 
+template <typename XT, typename GT, int VPL>
+int launch_fwd_vec(const void* x, const void* g, const void* b, void* y,
+                   long long R, int H, int wpr, float eps, cudaStream_t st) {
+  const auto kernel = layer_norm_fwd_vec_kernel<XT, GT, VPL>;
+  // g, then b from the first 16-byte boundary after it
+  const size_t smem = 2 * ((sizeof(GT) * H + 15) & ~(size_t)15);
+  const int rpb = rowvec::VEC_WARPS / wpr;
+  static rowvec::GridCache cache;
+  int blocks = 0;
+  cudaError_t err = rowvec::persistent_blocks(
+      kernel, cache, smem, 2 * sizeof(GT) * MAX_H, (R + rpb - 1) / rpb,
+      &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, rowvec::VEC_NT, smem, st>>>(
+      static_cast<const XT*>(x), static_cast<const GT*>(g),
+      static_cast<const GT*>(b), static_cast<XT*>(y), R, H, wpr, eps);
+  return cudaGetLastError();
+}
+
+// the vector route when 16-byte vectors take the row (see the note at
+// the top), else the general one
+template <typename XT, typename GT>
+int launch_fwd_route(const void* x, const void* g, const void* b, void* y,
+                     long long R, int H, float eps, cudaStream_t st) {
+  if ((H * sizeof(XT)) % 16 != 0 || !rowvec::aligned16(x) ||
+      !rowvec::aligned16(g) || !rowvec::aligned16(b) ||
+      !rowvec::aligned16(y))
+    return launch_fwd<XT, GT>(x, g, b, y, R, H, eps, st);
+  int wpr = 0, vpl = 0;
+  rowvec::vec_plan(H / (16 / (int)sizeof(XT)), &wpr, &vpl);
+  switch (vpl) {
+    case 1: return launch_fwd_vec<XT, GT, 1>(x, g, b, y, R, H, wpr, eps, st);
+    case 2: return launch_fwd_vec<XT, GT, 2>(x, g, b, y, R, H, wpr, eps, st);
+    case 4: return launch_fwd_vec<XT, GT, 4>(x, g, b, y, R, H, wpr, eps, st);
+    case 8: return launch_fwd_vec<XT, GT, 8>(x, g, b, y, R, H, wpr, eps, st);
+    case 16:
+      return launch_fwd_vec<XT, GT, 16>(x, g, b, y, R, H, wpr, eps, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename XT, typename GT>
 int launch_bwd(const void* x, const void* g, const void* dy, void* dx,
                void* dg, void* db, void* ws, long long R, int H, float eps,
@@ -285,7 +420,8 @@ int with_type(int code, F f) {
 }  // namespace
 
 // x, y: [R, H] contiguous of x_dtype (0 f32, 1 bf16, 2 f16); g, b: [H] of
-// g_dtype. One launch of R blocks.
+// g_dtype. One launch: the vector route's persistent grid, or the
+// general route's R blocks.
 extern "C" int layer_norm_fwd(const void* x, const void* g, const void* b,
                               void* y, long long R, int H, int x_dtype,
                               int g_dtype, float eps, void* stream) {
@@ -293,9 +429,9 @@ extern "C" int layer_norm_fwd(const void* x, const void* g, const void* b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_type(x_dtype, [&](auto xt) {
     return with_type(g_dtype, [&](auto gt) {
-      return launch_fwd<typename decltype(xt)::type,
-                        typename decltype(gt)::type>(x, g, b, y, R, H, eps,
-                                                     st);
+      return launch_fwd_route<typename decltype(xt)::type,
+                              typename decltype(gt)::type>(x, g, b, y, R, H,
+                                                           eps, st);
     });
   });
 }

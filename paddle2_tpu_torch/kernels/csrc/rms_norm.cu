@@ -20,13 +20,27 @@
 // What bounds it on the H100: bytes. The forward moves 2*R*H*size bytes
 // against ~4 f32 operations an element, the backward 3*R*H*size against
 // ~10: far below the ~20 operations a byte where the CUDA cores would be
-// the limit. The design reads each element of x (and do) once: one block a
-// row, the row held in shared memory in f32 while the block reduces it
-// (warp shuffles, then one value a warp in shared memory, summed by every
-// thread in the same order). Each thread revisits only its own elements,
-// so the buffers need no barrier; only the reductions synchronise. Every H
-// from 1 to MAX_H is taken: threads stride the row, with no alignment
-// condition.
+// the limit. Each element of x (and do) is read once.
+//
+// The forward has two routes, picked by the C entry from the shape and
+// the addresses alone (the wrapper's fwd_route is the same rule):
+// - the vector route, `rms_norm_fwd_vec_kernel`, for every row that
+//   16-byte vectors can take: H * sizeof(x) % 16 == 0, with x, o, w and
+//   r on 16-byte boundaries. The row stays in registers as it arrived
+//   (row_vec.cuh: each lane issues all of its 16-byte loads before its
+//   first add, so a warp has its whole row in flight); the sum of
+//   squares is a warp-shuffle reduction (one exchange in shared memory
+//   where a row spans warps); the output goes out as 16-byte stores.
+//   Blocks are persistent and keep w in shared memory for every row.
+// - the general route, `rms_norm_fwd_kernel`, for every other row (H
+//   not a multiple of 16 / sizeof(x), an address off a 16-byte
+//   boundary, H = 1): one block a row, scalar loads, the row held in
+//   shared memory in f32 while the block reduces it (warp shuffles, then
+//   one value a warp in shared memory, summed by every thread in the
+//   same order). Each thread revisits only its own elements, so the
+//   buffers need no barrier; only the reductions synchronise. Every H
+//   from 1 to MAX_H is taken.
+// The backward is the general design, walking the rows with G blocks.
 //
 // dw is where the TPU design does not carry over. The TPU kernel writes one
 // partial sum a row block and the wrapper adds the blocks' partials in
@@ -40,6 +54,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "row_vec.cuh"
 
 namespace {
 
@@ -103,6 +119,68 @@ __global__ void __launch_bounds__(MAX_NT)
   for (int i = threadIdx.x; i < H; i += blockDim.x)
     o[base + i] = from_f<XT>(__fmul_rn(__fmul_rn(xs[i], r), to_f(w[i])));
   if (threadIdx.x == 0) r_out[blockIdx.x] = r;
+}
+
+// The vector route (see the note at the top and row_vec.cuh): VPL
+// 16-byte vectors a lane, wpr warps a row, w in shared memory in its own
+// type. The arithmetic is the general kernel's; only the order of the
+// f32 sum of squares differs.
+template <typename XT, typename WT, int VPL>
+__global__ void __launch_bounds__(rowvec::VEC_NT)
+    rms_norm_fwd_vec_kernel(const XT* __restrict__ x,
+                            const WT* __restrict__ w, XT* __restrict__ o,
+                            float* __restrict__ r_out, long long R, int H,
+                            int wpr, float eps) {
+  constexpr int E = 16 / sizeof(XT);
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  __shared__ float red[2][rowvec::VEC_WARPS];
+  const WT* ws = reinterpret_cast<const WT*>(sm_raw);
+  rowvec::stage(w, sm_raw, H * (int)sizeof(WT));
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int t = (warp % wpr) * 32 + (threadIdx.x & 31);
+  const int T = 32 * wpr;
+  const int nv = H / E;
+  const int rpb = rowvec::VEC_WARPS / wpr;
+  int par = 0;
+  for (long long row = (long long)blockIdx.x * rpb + warp / wpr; row < R;
+       row += (long long)gridDim.x * rpb) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * H);
+    uint4 v[VPL];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      if (t + k * T < nv) v[k] = xr[t + k * T];
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      if (t + k * T < nv) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float f = rowvec::elem<XT>(v[k], j);
+          q += f * f;
+        }
+      }
+    }
+    const float r =
+        __frsqrt_rn(rowvec::row_sum(q, red, par, wpr) / (float)H + eps);
+    uint4* orow = reinterpret_cast<uint4*>(o + row * H);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = t + k * T;
+      if (i < nv) {
+        float wf[E];
+        rowvec::chunk_f<XT, WT>(ws + i * E, wf);
+        uint4 out;
+#pragma unroll
+        for (int j = 0; j < E; ++j)
+          rowvec::set_elem<XT>(
+              out, j,
+              __fmul_rn(__fmul_rn(rowvec::elem<XT>(v[k], j), r), wf[j]));
+        orow[i] = out;
+      }
+    }
+    if (t == 0) r_out[row] = r;
+  }
 }
 
 template <typename XT, typename WT>
@@ -202,6 +280,45 @@ int launch_fwd(const void* x, const void* w, void* o, void* r, long long R,
   return cudaGetLastError();
 }
 
+template <typename XT, typename WT, int VPL>
+int launch_fwd_vec(const void* x, const void* w, void* o, void* r,
+                   long long R, int H, int wpr, float eps, cudaStream_t st) {
+  const auto kernel = rms_norm_fwd_vec_kernel<XT, WT, VPL>;
+  const size_t smem = sizeof(WT) * H;
+  const int rpb = rowvec::VEC_WARPS / wpr;
+  static rowvec::GridCache cache;
+  int blocks = 0;
+  cudaError_t err = rowvec::persistent_blocks(
+      kernel, cache, smem, sizeof(WT) * MAX_H, (R + rpb - 1) / rpb, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, rowvec::VEC_NT, smem, st>>>(
+      static_cast<const XT*>(x), static_cast<const WT*>(w),
+      static_cast<XT*>(o), static_cast<float*>(r), R, H, wpr, eps);
+  return cudaGetLastError();
+}
+
+// the vector route when 16-byte vectors take the row (see the note at
+// the top), else the general one
+template <typename XT, typename WT>
+int launch_fwd_route(const void* x, const void* w, void* o, void* r,
+                     long long R, int H, float eps, cudaStream_t st) {
+  if ((H * sizeof(XT)) % 16 != 0 || !rowvec::aligned16(x) ||
+      !rowvec::aligned16(w) || !rowvec::aligned16(o) ||
+      !rowvec::aligned16(r))
+    return launch_fwd<XT, WT>(x, w, o, r, R, H, eps, st);
+  int wpr = 0, vpl = 0;
+  rowvec::vec_plan(H / (16 / (int)sizeof(XT)), &wpr, &vpl);
+  switch (vpl) {
+    case 1: return launch_fwd_vec<XT, WT, 1>(x, w, o, r, R, H, wpr, eps, st);
+    case 2: return launch_fwd_vec<XT, WT, 2>(x, w, o, r, R, H, wpr, eps, st);
+    case 4: return launch_fwd_vec<XT, WT, 4>(x, w, o, r, R, H, wpr, eps, st);
+    case 8: return launch_fwd_vec<XT, WT, 8>(x, w, o, r, R, H, wpr, eps, st);
+    case 16:
+      return launch_fwd_vec<XT, WT, 16>(x, w, o, r, R, H, wpr, eps, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename XT, typename WT>
 int launch_bwd(const void* x, const void* w, const void* r, const void* dout,
                void* dx, void* dw, void* ws, long long R, int H, int G,
@@ -246,7 +363,8 @@ int with_type(int code, F f) {
 }  // namespace
 
 // x, o: [R, H] contiguous of x_dtype (0 f32, 1 bf16, 2 f16); w: [H] of
-// w_dtype; r: [R] f32, written. One launch of R blocks.
+// w_dtype; r: [R] f32, written. One launch: the vector route's
+// persistent grid, or the general route's R blocks.
 extern "C" int rms_norm_fwd(const void* x, const void* w, void* o, void* r,
                             long long R, int H, int x_dtype, int w_dtype,
                             float eps, void* stream) {
@@ -254,9 +372,9 @@ extern "C" int rms_norm_fwd(const void* x, const void* w, void* o, void* r,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_type(x_dtype, [&](auto xt) {
     return with_type(w_dtype, [&](auto wt) {
-      return launch_fwd<typename decltype(xt)::type,
-                        typename decltype(wt)::type>(x, w, o, r, R, H, eps,
-                                                     st);
+      return launch_fwd_route<typename decltype(xt)::type,
+                              typename decltype(wt)::type>(x, w, o, r, R, H,
+                                                           eps, st);
     });
   });
 }

@@ -2,14 +2,18 @@
 wrappers, their plain versions and the differentiable op over them.
 
 Counterpart of ``paddle2_tpu/kernels/pallas_ln.py`` (``_fwd_kernel``,
-``_bwd_kernel`` and the ``fused_layer_norm`` custom_vjp). Both kernels
-are in ``csrc/layer_norm.cu``, whose note says what bounds them and how
-dγ and dβ are summed without atomics. LayerNorm over the last axis of
-``x [..., H]`` with an affine ``weight`` and ``bias [H]``: x f32, bf16
-or f16, the parameters f32, bf16 or f16 of their own, any row count and
-``1 <= H <= 8192``. The JAX package's ``supported`` gate (``H % 128 ==
-0`` and a VMEM row budget) is a TPU limit and is not carried over:
-:func:`supported` asks the shape only, as that gate does.
+``_bwd_kernel`` and the ``fused_layer_norm`` custom_vjp). The kernels
+are in ``csrc/layer_norm.cu``, whose note says what bounds them, how dγ
+and dβ are summed without atomics, and the forward's two routes: the
+vector route (``layer_norm_fwd_vec_kernel``, rows in registers, 16-byte
+loads) for every row that 16-byte vectors take, the general route
+(``layer_norm_fwd_kernel``) for the rest (:func:`.row_vec.route`).
+LayerNorm over the last axis of ``x [..., H]`` with an affine
+``weight`` and ``bias [H]``: x f32, bf16 or f16, the parameters f32,
+bf16 or f16 of their own, any row count and ``1 <= H <= 8192``. The
+JAX package's ``supported`` gate (``H % 128 == 0`` and a VMEM row
+budget) is a TPU limit and is not carried over: :func:`supported` asks
+the shape only, as that gate does.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 or raises. Shapes and dtypes the kernels do not take raise on both
@@ -31,11 +35,12 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, row_vec
 
-__all__ = ["MAX_H", "supported", "layer_norm_fwd", "layer_norm_bwd",
-           "layer_norm_fwd_reference", "layer_norm_bwd_reference",
-           "bwd_blocks", "layer_norm", "fused_layer_norm"]
+__all__ = ["MAX_H", "supported", "fwd_route", "layer_norm_fwd",
+           "layer_norm_bwd", "layer_norm_fwd_reference",
+           "layer_norm_bwd_reference", "bwd_blocks", "layer_norm",
+           "fused_layer_norm"]
 
 MAX_H = 8192
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -50,6 +55,16 @@ _SIGNATURES = {
     "layer_norm_bwd": [_P] * 7 + [ctypes.c_longlong, _I, _I, _I,
                                   ctypes.c_float, _I, _P],
 }
+
+
+_lib = None  # the built library, bound at the first launch
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        _lib = _build.library("layer_norm", _SIGNATURES)
+    return _lib
 
 
 def supported(x, weight, bias) -> bool:
@@ -92,9 +107,20 @@ def layer_norm_fwd_reference(x, weight, bias, eps: float) -> torch.Tensor:
     return (xc * r * weight.float() + bias.float()).to(x.dtype)
 
 
+def fwd_route(x, weight, bias, y) -> str:
+    """The forward kernel a CUDA call takes, as the C entry picks it:
+    "vec" (``layer_norm_fwd_vec_kernel``) when 16-byte vectors take x's
+    rows and x, γ, β and y start on 16-byte boundaries, else "general"
+    (``layer_norm_fwd_kernel``)."""
+    return row_vec.route(x.shape[-1] * x.element_size(), x.data_ptr(),
+                         weight.data_ptr(), bias.data_ptr(), y.data_ptr())
+
+
 def layer_norm_fwd(x, weight, bias, eps: float) -> torch.Tensor:
     """LayerNorm over the last axis; returns y in x's dtype.
-    ``layer_norm_fwd.launches`` counts the kernel's launches."""
+    ``layer_norm_fwd.launches`` counts the kernels' launches,
+    ``layer_norm_fwd.route_launches`` those of each route
+    (:func:`fwd_route`)."""
     _check(x, weight, bias)
     if not _build.on_card("layer_norm_fwd", x, weight, bias):
         return layer_norm_fwd_reference(x, weight, bias, float(eps))
@@ -103,18 +129,26 @@ def layer_norm_fwd(x, weight, bias, eps: float) -> torch.Tensor:
     y = torch.empty_like(x)
     if R == 0:
         return y
-    lib = _build.library("layer_norm", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        err = lib.layer_norm_fwd(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+    args = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
             R, H, _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype],
-            float(eps), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "layer_norm_fwd")
+            float(eps))
+    route = row_vec.route(H * x.element_size(), *args[:4])
+    dev = x.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            err = _library().layer_norm_fwd(
+                *args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        err = _library().layer_norm_fwd(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(_lib, err, "layer_norm_fwd")
     layer_norm_fwd.launches += 1
+    layer_norm_fwd.route_launches[route] += 1
     return y
 
 
 layer_norm_fwd.launches = 0
+layer_norm_fwd.route_launches = dict.fromkeys(row_vec.ROUTES, 0)
 
 
 # --------------------------------------------------------------- backward
@@ -174,7 +208,7 @@ def layer_norm_bwd(x, weight, dy, eps: float
     dg, db = torch.empty_like(weight), torch.empty_like(weight)
     G = bwd_blocks(R, x.device)
     ws = torch.empty(2 * G * H, dtype=torch.float32, device=x.device)
-    lib = _build.library("layer_norm", _SIGNATURES)
+    lib = _library()
     with torch.cuda.device(x.device):
         err = lib.layer_norm_bwd(
             x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),

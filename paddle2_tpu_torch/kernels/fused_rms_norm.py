@@ -3,11 +3,15 @@ their plain versions and the differentiable op over them.
 
 Counterpart of ``_rmsnorm_fwd_kernel``, ``_rmsnorm_bwd_kernel``, the
 ``_rmsnorm`` custom_vjp and ``fused_rms_norm`` in
-``paddle2_tpu/kernels/pallas_fused.py``. Both kernels are in
-``csrc/rms_norm.cu``, whose note says what bounds them and how dw is
-summed without atomics. RMSNorm over the last axis of ``x [..., H]``
-with a ``weight [H]``: x f32, bf16 or f16, the weight f32, bf16 or f16
-of its own, any row count and ``1 <= H <= MAX_H``. The output and dx
+``paddle2_tpu/kernels/pallas_fused.py``. The kernels are in
+``csrc/rms_norm.cu``, whose note says what bounds them, how dw is
+summed without atomics, and the forward's two routes: the vector route
+(``rms_norm_fwd_vec_kernel``, rows in registers, 16-byte loads) for
+every row that 16-byte vectors take, the general route
+(``rms_norm_fwd_kernel``) for the rest (:func:`.row_vec.route`).
+RMSNorm over the last axis of ``x [..., H]`` with a ``weight [H]``: x
+f32, bf16 or f16, the weight f32, bf16 or f16 of its own, any row count
+and ``1 <= H <= MAX_H``. The output and dx
 take x's dtype, dw the weight's; the saved ``1/rms`` is f32 ``[R]``.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
@@ -21,10 +25,11 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, row_vec
 
-__all__ = ["MAX_H", "rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_reference",
-           "rms_norm_bwd_reference", "bwd_blocks", "fused_rms_norm"]
+__all__ = ["MAX_H", "fwd_route", "rms_norm_fwd", "rms_norm_bwd",
+           "rms_norm_fwd_reference", "rms_norm_bwd_reference", "bwd_blocks",
+           "fused_rms_norm"]
 
 MAX_H = 16384
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -38,6 +43,16 @@ _SIGNATURES = {
     # x, w, r, do, dx, dw, ws, R, H, x dtype, w dtype, blocks, stream
     "rms_norm_bwd": [_P] * 7 + [ctypes.c_longlong, _I, _I, _I, _I, _P],
 }
+
+
+_lib = None  # the built library, bound at the first launch
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        _lib = _build.library("rms_norm", _SIGNATURES)
+    return _lib
 
 
 def _check(x, weight) -> None:
@@ -71,31 +86,48 @@ def rms_norm_fwd_reference(x, weight, eps: float
     return o.reshape(x.shape), r
 
 
+def fwd_route(x, weight, o, r) -> str:
+    """The forward kernel a CUDA call takes, as the C entry picks it:
+    "vec" (``rms_norm_fwd_vec_kernel``) when 16-byte vectors take x's
+    rows and x, the weight, o and r start on 16-byte boundaries, else
+    "general" (``rms_norm_fwd_kernel``)."""
+    return row_vec.route(x.shape[-1] * x.element_size(), x.data_ptr(),
+                         weight.data_ptr(), o.data_ptr(), r.data_ptr())
+
+
 def rms_norm_fwd(x, weight, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """RMSNorm over the last axis; returns ``(o, r)``: o in x's dtype and
     shape, r = 1/rms f32 ``[R]``. ``rms_norm_fwd.launches`` counts the
-    kernel's launches."""
+    kernels' launches, ``rms_norm_fwd.route_launches`` those of each
+    route (:func:`fwd_route`)."""
     _check(x, weight)
     if not _build.on_card("rms_norm_fwd", x, weight):
         return rms_norm_fwd_reference(x, weight, float(eps))
     H = x.shape[-1]
     R = x.numel() // H
+    dev = x.device
     o = torch.empty_like(x)
-    r = torch.empty(R, dtype=torch.float32, device=x.device)
+    r = torch.empty(R, dtype=torch.float32, device=dev)
     if R == 0:
         return o, r
-    lib = _build.library("rms_norm", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        err = lib.rms_norm_fwd(
-            x.data_ptr(), weight.data_ptr(), o.data_ptr(), r.data_ptr(), R, H,
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype], float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, "rms_norm_fwd")
+    args = (x.data_ptr(), weight.data_ptr(), o.data_ptr(), r.data_ptr(), R,
+            H, _DTYPE_CODE[x.dtype], _DTYPE_CODE[weight.dtype], float(eps))
+    route = row_vec.route(H * x.element_size(), *args[:4])
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            err = _library().rms_norm_fwd(
+                *args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        err = _library().rms_norm_fwd(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(_lib, err, "rms_norm_fwd")
     rms_norm_fwd.launches += 1
+    rms_norm_fwd.route_launches[route] += 1
     return o, r
 
 
 rms_norm_fwd.launches = 0
+rms_norm_fwd.route_launches = dict.fromkeys(row_vec.ROUTES, 0)
 
 
 # --------------------------------------------------------------- backward
@@ -152,7 +184,7 @@ def rms_norm_bwd(x, weight, r, dout) -> Tuple[torch.Tensor, torch.Tensor]:
     dw = torch.empty_like(weight)
     G = bwd_blocks(R, x.device)
     ws = torch.empty(G * H, dtype=torch.float32, device=x.device)
-    lib = _build.library("rms_norm", _SIGNATURES)
+    lib = _library()
     with torch.cuda.device(x.device):
         err = lib.rms_norm_bwd(
             x.data_ptr(), weight.data_ptr(), r.data_ptr(), dout.data_ptr(),

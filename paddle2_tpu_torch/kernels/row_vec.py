@@ -1,0 +1,41 @@
+"""The route rule and launch plan of the norms' vector forwards, on the
+host: the Python side of ``csrc/row_vec.cuh``.
+
+The C entries ``rms_norm_fwd`` and ``layer_norm_fwd`` pick their kernel
+by this rule themselves (from the shape and the addresses alone); the
+wrappers ask :func:`route` only to count each launch on its route, and
+the tests read :func:`vec_plan` to model the kernels' mapping.
+"""
+
+from typing import Tuple
+
+__all__ = ["ROUTES", "VEC_NT", "MAX_VPL", "route", "vec_plan"]
+
+ROUTES = ("vec", "general")
+VEC_NT = 256
+MAX_VPL = 16
+
+
+def route(row_bytes: int, *ptrs: int) -> str:
+    """"vec" when 16-byte vectors take a row of ``row_bytes`` bytes
+    (``H * sizeof(x) % 16 == 0``) and every data pointer in ``ptrs``
+    lies on a 16-byte boundary; else "general"."""
+    bad = row_bytes
+    for p in ptrs:
+        bad |= p
+    return "general" if bad & 15 else "vec"
+
+
+def vec_plan(nv: int) -> Tuple[int, int]:
+    """``(warps a row, vectors a lane)`` for a row of ``nv`` 16-byte
+    vectors: the fewest warps (a power of two) that keep a lane at
+    ``MAX_VPL`` vectors or fewer, then the power of two that covers the
+    row."""
+    w = 1
+    while w * 32 * MAX_VPL < nv:
+        w *= 2
+    per = -(-nv // (32 * w))
+    p = 1
+    while p < per:
+        p *= 2
+    return w, p

@@ -40,6 +40,23 @@ Phases:
   ``chip_smoke.varlen_bwd_stats``: the largest error beyond half a bf16
   step, and the share of elements that are not the reference correctly
   rounded (the smoke's gate for the fused kernel).
+- ``norms``: the RMSNorm and LayerNorm forwards at the main path's
+  shapes (LayerNorm: ERNIE R4096 H768 bf16 with gamma/beta bf16 and f32,
+  the GPT bench's R8192 H1024 bf16; RMSNorm: the incubate stack's R16384
+  H2048 and the ``fused_rms_norm`` docstring's R8192 H1024, bf16 with a
+  bf16 weight), each on an aligned x (the route the wrapper picks) and on
+  a copy one element past a 16-byte boundary (the general route where
+  the wrapper has two), plus a ragged H 771: CUDA events, device time
+  from torch.profiler, the wrapper's host time a call (the median of 200
+  calls without a sync), ``F.layer_norm`` / ``F.rms_norm``'s events and
+  device times, and the bound; the backward kernel's events and device
+  times at ERNIE's stacked shape and the stack's; the host time of
+  ``fused_layer_norm`` (the custom op) at ERNIE's shape, and of the
+  pieces of a LayerNorm forward call there (the allocations, the stream
+  and device queries, a device context, the data pointers); then the
+  smoke's phase-14 stack step and phase-7 ERNIE step (``stack_bf16``,
+  ``ernie_bf16`` with that checkout's own launch gates): tokens/s, the
+  step time and the traced step's idle share.
 """
 
 import argparse
@@ -225,11 +242,152 @@ def varlen_bwd_draws(cs, torch, draws):
                 summary=summary, draws=out)
 
 
+def _host_ms(torch, fn, n=200):
+    """The median host time of ``n`` calls without a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (norm, rows, H, x dtype, parameter dtype, what, eps)
+NORM_SHAPES = [
+    ("layer_norm", 4096, 768, "bfloat16", "bfloat16", "ERNIE stacked", 1e-12),
+    ("layer_norm", 4096, 768, "bfloat16", "float32", "ERNIE emb_ln", 1e-12),
+    ("layer_norm", 8192, 1024, "bfloat16", "bfloat16", "GPT bench", 1e-5),
+    ("layer_norm", 4096, 771, "bfloat16", "bfloat16", "ragged H 771", 1e-5),
+    ("rms_norm", 16384, 2048, "bfloat16", "bfloat16", "stack", 1e-6),
+    ("rms_norm", 8192, 1024, "bfloat16", "bfloat16", "docstring", 1e-6),
+    ("rms_norm", 4096, 771, "bfloat16", "bfloat16", "ragged H 771", 1e-6)]
+
+
+def norms(cs, torch):
+    from torch.nn import functional as F
+    from paddle2_tpu_torch import flags
+    from paddle2_tpu_torch.kernels import fused_layer_norm as fln
+    from paddle2_tpu_torch.kernels import fused_rms_norm as frn
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for norm, R, H, xd, pd, what, eps in NORM_SHAPES:
+        xdt, pdt = getattr(torch, xd), getattr(torch, pd)
+        x = (torch.randn(R, H, generator=gen, device=dev) * 2 + 0.5).to(xdt)
+        p = [torch.randn(H, generator=gen, device=dev).to(pdt)
+             for _ in range(2 if norm == "layer_norm" else 1)]
+        px = [t.to(xdt) for t in p]
+        size, psize = x.element_size(), p[0].element_size()
+        if norm == "layer_norm":
+            def ours(xin, p=p, eps=eps):
+                return fln.layer_norm_fwd(xin, *p, eps)
+
+            def library(x=x, px=px, H=H, eps=eps):
+                return F.layer_norm(x, (H,), *px, eps)
+            ops, nbytes = 8.0 * R * H, 2.0 * R * H * size + 2.0 * H * psize
+        else:
+            def ours(xin, p=p, eps=eps):
+                return frn.rms_norm_fwd(xin, *p, eps)
+
+            def library(x=x, px=px, H=H, eps=eps):
+                return F.rms_norm(x, (H,), *px, eps)
+            ops = 4.0 * R * H
+            nbytes = 2.0 * R * H * size + H * psize + 4.0 * R
+        b_ms, b_by = cs.bound(ops, nbytes, torch.float32)
+        row = dict(norm=norm, shape=f"R{R} H{H} x {xd} params {pd}",
+                   what=what, bound_ms=b_ms, bound_by=b_by,
+                   library_events_ms=cs.cuda_ms(library),
+                   library_device_ms=cs.device_ms(library, "")[0])
+        for label, xin in (("aligned", x),
+                           ("unaligned", _misaligned(torch, x))):
+            def run(xin=xin):
+                return ours(xin)
+            row[label] = dict(events_ms=cs.cuda_ms(run),
+                              device_ms=cs.device_ms(run, "")[0],
+                              host_ms=_host_ms(torch, run))
+        if norm == "layer_norm" and "ERNIE" in what:
+            row["fused_layer_norm_host_ms"] = _host_ms(
+                torch, lambda x=x, p=p, eps=eps: fln.fused_layer_norm(
+                    x, *p, eps))
+        if what in ("ERNIE stacked", "stack"):
+            # the backward kernel beside it, unchanged by the forward's
+            # redesign
+            dy = torch.randn(R, H, generator=gen, device=dev).to(xdt)
+            if norm == "layer_norm":
+                def backward(x=x, p=p, dy=dy, eps=eps):
+                    return fln.layer_norm_bwd(x, p[0], dy, eps)
+            else:
+                r = frn.rms_norm_fwd(x, p[0], eps)[1]
+
+                def backward(x=x, p=p, r=r, dy=dy):
+                    return frn.rms_norm_bwd(x, p[0], r, dy)
+            row["backward"] = dict(events_ms=cs.cuda_ms(backward),
+                                   device_ms=cs.device_ms(backward, "")[0])
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del x, p, px
+    # where a LayerNorm forward call's host time goes, at ERNIE's shape:
+    # each piece alone, the median of 200 calls without a sync
+    x = torch.randn(4096, 768, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn(768, generator=gen, device=dev).to(torch.bfloat16)
+
+    def in_device_context():
+        with torch.cuda.device(dev):
+            pass
+    pieces = dict(
+        layer_norm_fwd=lambda: fln.layer_norm_fwd(x, g, g, 1e-12),
+        library=lambda: F.layer_norm(x, (768,), g, g, 1e-12),
+        empty_like=lambda: torch.empty_like(x),
+        empty_rows=lambda: torch.empty(4096, dtype=torch.float32,
+                                       device=dev),
+        current_stream=lambda: torch.cuda.current_stream(dev).cuda_stream,
+        current_device=torch.cuda.current_device,
+        device_context=in_device_context,
+        data_ptrs=lambda: (x.data_ptr(), g.data_ptr(), g.data_ptr(),
+                           x.data_ptr()))
+    host_pieces = {k: _host_ms(torch, fn) for k, fn in pieces.items()}
+    print(json.dumps(dict(host_pieces_ms=host_pieces)), flush=True)
+    del x, g
+    torch.cuda.empty_cache()
+
+    smi = nvidia_smi()
+    stack, _ = cs.stack_bf16(smi, dev)
+    steps = dict(stack=dict(tokens_per_s=stack["tokens_per_s"],
+                            step_ms=stack["step_time_s"] * 1e3,
+                            step_times_ms=[t * 1e3
+                                           for t in stack["step_times_s"]],
+                            idle_share=stack["step_profile"]["idle_share"]))
+    del stack
+    torch.cuda.empty_cache()
+    flags.set_flags({"pallas_layer_norm": True})
+    ernie, _, model, step = cs.ernie_bf16(smi)
+    flags.set_flags({"pallas_layer_norm": False})
+    steps["ernie"] = dict(tokens_per_s=ernie["bench"]["value"],
+                          step_ms=ernie["bench"]["step_time_s"] * 1e3,
+                          step_times_ms=[t * 1e3
+                                         for t in ernie["step_times_s"]],
+                          idle_share=ernie["step_profile"]["idle_share"])
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(forwards=rows, host_pieces_ms=host_pieces, steps=steps)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", required=True,
                     choices=("int8_serving", "varlen_step",
-                             "varlen_bwd_draws"))
+                             "varlen_bwd_draws", "norms"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -250,6 +408,8 @@ def main():
         result = int8_serving(cs, torch)
     elif args.phase == "varlen_step":
         result = varlen_step(cs, torch)
+    elif args.phase == "norms":
+        result = norms(cs, torch)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

@@ -12,7 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle2_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "phase_runner.py",
-     ROOT / "wo_wgmma_variants.py"]
+     ROOT / "wo_wgmma_variants.py", ROOT / "norm_fwd_variants.py"]
 
 
 def _imported_modules(path: Path):

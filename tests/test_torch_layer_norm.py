@@ -268,7 +268,8 @@ def test_float16_on_the_flag_route_reaches_the_kernels(monkeypatch, flag_on,
     γ's own code."""
     lib = _StandInLibrary()
     monkeypatch.setattr(_build, "on_card", lambda what, *t: True)
-    monkeypatch.setattr(_build, "library", lambda name, sigs: lib)
+    monkeypatch.setattr(fln, "_lib", lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",

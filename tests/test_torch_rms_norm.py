@@ -190,7 +190,8 @@ def test_wrapper_reaches_its_c_entries(monkeypatch, xdt, wdt):
     each; the plain versions do not run."""
     lib = _StandInLibrary()
     monkeypatch.setattr(_build, "on_card", lambda what, *t: True)
-    monkeypatch.setattr(_build, "library", lambda name, sigs: lib)
+    monkeypatch.setattr(frn, "_lib", lib)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
