@@ -17,7 +17,10 @@ line) when it fails:
    instructions, and ptxas's registers and spills for their kernels are
    printed; every instantiation of the norms' vector forwards
    (``rms_norm_fwd_vec_kernel``, ``layer_norm_fwd_vec_kernel``, 45 each)
-   must hold 16-byte loads (LDG.E.128), with its registers and spills.
+   must hold 16-byte loads (LDG.E.128), with its registers and spills;
+   the f32 split backward pair's library (``flash_bwd_tf32x3``) must
+   hold TF32 tensor-core instructions (HMMA ... .TF32) in every kernel,
+   with ptxas's registers and spills for each.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
    causal; bf16 on the tensor-core kernel, f32 on the CUDA-core one),
@@ -29,7 +32,8 @@ line) when it fails:
    where one computes the same function, its bound, and its launches.
    The flash backward (both routes: the fused kernel and the split
    dK/dV + dQ pair) at the training path's shape (B8 H16 S1024 D64,
-   causal) in bf16 and f32 and at Sq 200 / Sk 333; the fused route
+   causal) in bf16 and f32 and at Sq 200 / Sk 333, and in f32 not
+   causal at both; the fused route
    alone (the bf16 route) at the serving shapes, at the incubate
    stack's (B8 H16 S2048 D128, timed with the forward and SDPA beside
    it) and at S 127 and 129; the forward at those ragged shapes; all
@@ -37,7 +41,13 @@ line) when it fails:
    another summation order) is held to the plain version's f32 sums
    beyond half a bf16 step, the split pair to the plain version in the
    input dtype, both with a limit that the plain backward without its
-   P/dS rounding must exceed; the fused AdamW step against the port's
+   P/dS rounding must exceed. The f32 split pair runs on the tensor
+   cores in 3xTF32 (``flash_bwd_tf32x3.cu``): each f32 run of it is
+   repeated and must be bitwise equal, its timed rows are named
+   ``flash_bwd_split_dkv_tf32x3`` / ``flash_bwd_split_dq_tf32x3`` and
+   bounded by 3xTF32 (3 x operations at 494.7 TFLOP/s; the CUDA cores'
+   bound kept beside it), and at the timed shape the plain backward with its products in single-pass
+   TF32 must read past the f32 limit; the fused AdamW step against the port's
    eager AdamW, bitwise (``torch.equal``), three steps on the training
    path's 16 parameter leaves (f32, and bf16 with f32 masters), and
    one step over the 16 f32 leaves timed against
@@ -106,7 +116,11 @@ line) when it fails:
    (which takes the other backward route), batch 2: two ``train_step``
    calls on the card and on the CPU (plain versions) from the same
    weights and ids; both losses agree to 1e-4 relative, and the first
-   step's gradients to 1e-4 of each gradient's largest magnitude.
+   step's gradients to 1e-4 of each gradient's largest magnitude; the
+   traced first card step must run the f32 split pair's tensor-core
+   kernels (``flash_bwd_dkv_tf32x3_kernel``,
+   ``flash_bwd_dq_tf32x3_kernel``), seen by name, and every split
+   launch must be one of theirs (the wrappers' ``route_launches``).
 7. Fine-tuning at full width and full depth with
    ``FLAGS_pallas_layer_norm`` on: ``bench.py``'s ``bench_ernie``
    (ERNIE-3.0-base, vocab 40000, hidden 768, 12 layers, 12 heads of 64,
@@ -308,9 +322,12 @@ PTQ runs) starts with every launch count at 0 and is read just after;
 the kernel checks' launches (and the PTQ phase's one-at-a-time and
 dense replays) are not counted.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. A full record of the run is written
-to ``chiprun_out/chip_smoke.json``.
+The line before the last is ``{"kernels": [...]}``: one row a kernel,
+at its main path's shape. A wrapper with several kernels has a row for
+each, each counting the launches of its own route; the wrapper's first
+row counts every route (``launches_by_route`` splits them). The last
+line is ``{"ok": true, "device": {...}}``. A full record of the run is
+written to ``chiprun_out/chip_smoke.json``.
 """
 
 import copy
@@ -332,7 +349,8 @@ from paddle2_tpu_torch import amp, flags, jit
 from paddle2_tpu_torch.kernels import _build
 from paddle2_tpu_torch.kernels.flash_attn import (
     bwd_route, flash_bwd, flash_bwd_fused, flash_bwd_reference,
-    flash_bwd_split_dkv, flash_bwd_split_dq, flash_fwd, flash_fwd_reference)
+    flash_bwd_split_dkv, flash_bwd_split_dq, flash_fwd, flash_fwd_reference,
+    tf32_matmul)
 from paddle2_tpu_torch.kernels.flash_varlen import (
     flash_attention_varlen_packed, flash_varlen_bwd_dkv,
     flash_varlen_bwd_dkv_reference, flash_varlen_bwd_dq,
@@ -382,6 +400,9 @@ from paddle2_tpu_torch.vision.models import resnet18, resnet50
 # runs on the CUDA cores; int8 on the tensor cores
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
             torch.int8: 1979e12}
+# dense TF32 on the tensor cores: the f32 split pair's three TF32
+# products per f32 product run at this rate
+TF32_OPS = 494.7e12
 HBM_BYTES_PER_S = 3.35e12
 # f32: sums of up to 2048 terms in another order than the plain
 # version; bf16: outputs and probabilities are rounded to bf16
@@ -425,6 +446,10 @@ KERNELS = {
         source="paddle2_tpu_torch/serving/csrc/paged_decode.cu",
         replaces="paddle2_tpu/serving/paged_attention.py:231",
         counter=paged_decode_split_partials),
+    # every route of the split pair's wrappers; their kernels-line rows
+    # are the bf16 CUDA-core kernels, which only route="split" reaches
+    # in bf16 (the fused kernel is bf16's route); the f32 tensor-core
+    # kernels, f32's route, are counted again below
     "flash_bwd_split_dkv": dict(
         source="paddle2_tpu_torch/kernels/csrc/flash_bwd.cu",
         replaces="paddle2_tpu/kernels/pallas_flash.py:305",
@@ -433,6 +458,14 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/flash_bwd.cu",
         replaces="paddle2_tpu/kernels/pallas_flash.py:354",
         counter=flash_bwd_split_dq),
+    "flash_bwd_split_dkv_tf32x3": dict(
+        source="paddle2_tpu_torch/kernels/csrc/flash_bwd_tf32x3.cu",
+        replaces="paddle2_tpu/kernels/pallas_flash.py:305",
+        counter=flash_bwd_split_dkv, route="tf32x3"),
+    "flash_bwd_split_dq_tf32x3": dict(
+        source="paddle2_tpu_torch/kernels/csrc/flash_bwd_tf32x3.cu",
+        replaces="paddle2_tpu/kernels/pallas_flash.py:354",
+        counter=flash_bwd_split_dq, route="tf32x3"),
     "flash_bwd_fused": dict(
         source="paddle2_tpu_torch/kernels/csrc/flash_bwd_wgmma.cu",
         f32_source="paddle2_tpu_torch/kernels/csrc/flash_bwd.cu",
@@ -530,18 +563,24 @@ NORM_LIBRARIES = ("rms_norm", "layer_norm")
 VARLEN_KERNELS = ("flash_varlen_fwd", "flash_varlen_bwd_dkv",
                   "flash_varlen_bwd_dq", "flash_varlen_bwd_fused")
 DENSE_FLASH_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_split_dkv",
-                       "flash_bwd_split_dq")
+                       "flash_bwd_split_dq", "flash_bwd_split_dkv_tf32x3",
+                       "flash_bwd_split_dq_tf32x3")
+# the split pair's wrappers in f32 and their tensor-core kernels' rows
+SPLIT_TF32X3 = {"flash_bwd_split_dkv": "flash_bwd_split_dkv_tf32x3",
+                "flash_bwd_split_dq": "flash_bwd_split_dq_tf32x3"}
 # the CUDA kernel each dense flash wrapper launches, by dtype (the names
-# torch.profiler reports): bf16 on the tensor cores, f32 on the CUDA cores
+# torch.profiler reports): the forward and the fused backward in bf16 on
+# the tensor cores, in f32 on the CUDA cores; the split pair in f32 on the
+# tensor cores (3xTF32), in bf16 on the CUDA cores
 FLASH_KERNEL_NAMES = {
     ("flash_fwd", torch.bfloat16): "flash_fwd_wgmma_kernel",
     ("flash_fwd", torch.float32): "flash_fwd_kernel",
     ("flash_bwd_fused", torch.bfloat16): "flash_bwd_fused_wgmma_kernel",
     ("flash_bwd_fused", torch.float32): "flash_bwd_fused_kernel",
     ("flash_bwd_split_dkv", torch.bfloat16): "flash_bwd_dkv_kernel",
-    ("flash_bwd_split_dkv", torch.float32): "flash_bwd_dkv_kernel",
+    ("flash_bwd_split_dkv", torch.float32): "flash_bwd_dkv_tf32x3_kernel",
     ("flash_bwd_split_dq", torch.bfloat16): "flash_bwd_dq_kernel",
-    ("flash_bwd_split_dq", torch.float32): "flash_bwd_dq_kernel"}
+    ("flash_bwd_split_dq", torch.float32): "flash_bwd_dq_tf32x3_kernel"}
 # the CUDA kernel each varlen wrapper launches, by dtype
 VARLEN_KERNEL_NAMES = {
     ("flash_varlen_fwd", torch.bfloat16): "flash_varlen_fwd_wgmma_kernel",
@@ -552,6 +591,8 @@ VARLEN_KERNEL_NAMES = {
     ("flash_varlen_bwd_dq", torch.float32): "flash_varlen_dq_kernel",
     ("flash_varlen_bwd_fused", torch.bfloat16):
         "flash_varlen_bwd_fused_wgmma_kernel"}
+# the library of the f32 split pair, whose SASS must hold TF32 HMMA
+TF32_LIBRARY = "flash_bwd_tf32x3"
 # the libraries of the tensor-core kernels, whose SASS must hold HGMMA
 WGMMA_LIBRARIES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_varlen_wgmma",
                    "flash_varlen_bwd_wgmma", "wo_matmul_wgmma")
@@ -668,7 +709,12 @@ ADAMW_FLAT_CASES = [(84_000_000, torch.float32, True),
                     (513, torch.float32, False),
                     (513, torch.bfloat16, False)]
 ADAMW_FLAT_LINE_SHAPE = "N 84000000, p/g bf16"
-LINE_SHAPES = {"flash_bwd_fused": "B8 H16 Sq1024 Sk1024 D64 causal",
+TRAIN_BWD_SHAPE = "B8 H16 Sq1024 Sk1024 D64 causal"
+LINE_SHAPES = {"flash_bwd_fused": TRAIN_BWD_SHAPE,
+               "flash_bwd_split_dkv": TRAIN_BWD_SHAPE,
+               "flash_bwd_split_dq": TRAIN_BWD_SHAPE,
+               "flash_bwd_split_dkv_tf32x3": TRAIN_BWD_SHAPE,
+               "flash_bwd_split_dq_tf32x3": TRAIN_BWD_SHAPE,
                "wo_matmul": WO_LINE_SHAPE,
                "wo_matmul_wgmma": WO_WGMMA_LINE_SHAPE,
                "i8i8_matmul": I8_LINE_SHAPE,
@@ -948,38 +994,57 @@ BWD_WORK = {
 }
 
 
-def bwd_bound(name, B, H, Sq, Sk, D, dtype, size):
-    ops_per, elems = BWD_WORK[name]
-    ops = ops_per * causal_pairs(Sq, Sk) * D * H * B
-    nbytes = elems(Sq, Sk) * H * D * B * size + 8.0 * Sq * H * B
-    return bound(ops, nbytes, dtype)
+def bwd_ops(name, B, H, Sq, Sk, D, causal=True):
+    pairs = causal_pairs(Sq, Sk) if causal else Sq * Sk
+    return BWD_WORK[name][0] * pairs * D * H * B
 
 
-def bwd_inputs(dtype, B, H, Sq, Sk, D, gen, dev):
+def bwd_bytes(name, B, H, Sq, Sk, D, size):
+    return BWD_WORK[name][1](Sq, Sk) * H * D * B * size + 8.0 * Sq * H * B
+
+
+def bwd_bound(name, B, H, Sq, Sk, D, dtype, size, causal=True):
+    return bound(bwd_ops(name, B, H, Sq, Sk, D, causal),
+                 bwd_bytes(name, B, H, Sq, Sk, D, size), dtype)
+
+
+def bwd_bound_3xtf32(name, B, H, Sq, Sk, D, size, causal=True):
+    """The f32 split pair's bound on the tensor cores, as ``bwd_bound``
+    with three TF32 products per f32 product at the dense TF32 rate."""
+    t_ops = 3 * bwd_ops(name, B, H, Sq, Sk, D, causal) / TF32_OPS * 1e3
+    t_bytes = bwd_bytes(name, B, H, Sq, Sk, D, size) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def bwd_inputs(dtype, B, H, Sq, Sk, D, gen, dev, causal=True):
     q = torch.randn(B, H, Sq, D, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(B, H, Sk, D, generator=gen, device=dev).to(dtype)
             for _ in range(2))
     do = torch.randn(B, H, Sq, D, generator=gen, device=dev).to(dtype)
     scale = 1.0 / D ** 0.5
-    o, lse = flash_fwd(q, k, v, scale=scale, causal=True)
+    o, lse = flash_fwd(q, k, v, scale=scale, causal=causal)
     return q, k, v, o, lse, do, scale
 
 
 def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
-                    routes=("fused", "split")):
+                    routes=("fused", "split"), causal=True):
     """The backward ``routes`` against the plain backward; with
     ``timed``, the route kernels' times, bounds and the SDPA backward's
-    time. The split pair sums in the plain version's order (at the
-    shapes it is held at) and is held to it in the input dtype; the
+    time. The bf16 split pair sums in the plain version's order (at the
+    shapes it is held at) and is held to it in the input dtype, as is
+    every f32 route (the f32 split pair on the tensor cores in 3xTF32,
+    which must also give bitwise-equal outputs on a second run); the
     fused route in bf16 runs on the tensor cores, sums in another order,
     and is held to the plain version's f32 sums beyond half a bf16 step
     (``half_step_err``), as the varlen kernels are."""
     q, k, v, o, lse, do, scale = bwd_inputs(dtype, B, H, Sq, Sk, D, gen,
-                                            dev)
-    ref = flash_bwd_reference(q, k, v, o, lse, do, scale, True)
-    ref32 = flash_bwd_reference(q, k, v, o, lse, do, scale, True,
+                                            dev, causal)
+    ref = flash_bwd_reference(q, k, v, o, lse, do, scale, causal)
+    ref32 = flash_bwd_reference(q, k, v, o, lse, do, scale, causal,
                                 out_dtype=torch.float32)
-    shape = f"B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal"
+    shape = (f"B{B} H{H} Sq{Sq} Sk{Sk} D{D} "
+             + ("causal" if causal else "non-causal"))
     tol = BWD_TOL[dtype]
     half_step = dtype == torch.bfloat16
 
@@ -989,9 +1054,9 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
         diff = [(g.float() - r.float()).abs() for g, r in zip(got, ref)]
         return ([(d / r.float().abs().clamp_min(1.0)).max().item()
                  for d, r in zip(diff, ref)], [d.max().item() for d in diff])
-    errs, abs_errs, same_dtype = {}, {}, {}
+    errs, abs_errs, same_dtype, bitwise = {}, {}, {}, None
     for route in routes:
-        got = flash_bwd(q, k, v, o, lse, do, scale, True, route=route)
+        got = flash_bwd(q, k, v, o, lse, do, scale, causal, route=route)
         torch.cuda.synchronize()
         same_dtype[route], abs_errs[route] = scaled(got)
         errs[route] = ([half_step_err(g, r) for g, r in zip(got, ref32)]
@@ -1000,11 +1065,33 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
         require(all(e <= tol for e in errs[route]),
                 f"flash_bwd {route} {dname(dtype)} {shape}: dq/dk/dv err "
                 f"{errs[route]} > {tol}")
+        if route == "split" and dtype == torch.float32:
+            # no atomics, a fixed summation order: bitwise reproducible
+            again = flash_bwd(q, k, v, o, lse, do, scale, causal,
+                              route=route)
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            require(bitwise, f"flash_bwd split float32 {shape}: two runs "
+                    f"differ")
+            del again
+        del got
     if not timed:
         return [dict(name="flash_bwd", dtype=dname(dtype), shape=shape,
                      dq_dk_dv_err=errs, dq_dk_dv_abs_err=abs_errs,
-                     dq_dk_dv_err_same_dtype=same_dtype, tol=tol)]
-    unrounded = None
+                     dq_dk_dv_err_same_dtype=same_dtype, tol=tol,
+                     f32_split_bitwise=bitwise)]
+    unrounded = single_pass = None
+    if dtype == torch.float32:
+        # what a kernel with single-pass TF32 products reads: the f32
+        # limit must catch it (3xTF32 keeps each product to ~2**-21)
+        single_pass = scaled(flash_bwd_reference(
+            q, k, v, o, lse, do, scale, causal,
+            matmul=lambda a, b: tf32_matmul(a, b, passes=1)))[0]
+        say(f"[kernel] flash_bwd float32 {shape}: the plain backward with "
+            f"single-pass TF32 products reads {single_pass} (limit {tol})")
+        require(max(single_pass) > tol,
+                f"flash_bwd float32 {shape}: the plain backward with "
+                f"single-pass TF32 products reads {single_pass}, within the "
+                f"limit {tol}")
     if dtype == torch.bfloat16:
         # what a kernel that skips the P/dS rounding reads under either
         # metric: the limit must catch it
@@ -1030,11 +1117,15 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
     del ref32
     delta = (do.float() * o.float()).sum(-1)
     plain = cuda_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do, scale,
-                                                True), iters=5, warmup=1)
+                                                causal), iters=5, warmup=1)
     qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
-    lib = cuda_ms(lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do,
-                                              retain_graph=True))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+
+    def lib_call():
+        return torch.autograd.grad(o_lib, (qr, kr, vr), do,
+                                   retain_graph=True)
+    lib = cuda_ms(lib_call)
+    lib_dev = device_ms(lib_call, "")[0]
     del o_lib, qr, kr, vr
     rows = []
     for name, fn, route, outs in (
@@ -1047,11 +1138,21 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
         err = max(abs_errs[route][outs])
         scaled_err = max(errs[route][outs])
         def run(fn=fn):
-            return fn(q, k, v, do, lse, delta, scale, True)
+            return fn(q, k, v, do, lse, delta, scale, causal)
         ms = cuda_ms(run)
         dev_ms, kern_ms = device_ms(run, FLASH_KERNEL_NAMES[name, dtype])
         b_ms, b_by = bwd_bound(name, B, H, Sq, Sk, D, dtype,
-                               q.element_size())
+                               q.element_size(), causal)
+        tf32 = {}
+        if route == "split" and dtype == torch.float32:
+            # the tensor-core pair's row: its bound is 3xTF32's (the
+            # CUDA cores' kept beside it)
+            tf32 = dict(bound_cuda_core_ms=b_ms,
+                        single_pass_tf32_err=single_pass,
+                        host_ms=host_ms(run), bitwise=bitwise)
+            b_ms, b_by = bwd_bound_3xtf32(name, B, H, Sq, Sk, D,
+                                          q.element_size(), causal)
+            name = SPLIT_TF32X3[name]
         rows.append(dict(name=name, dtype=dname(dtype), shape=shape,
                          max_abs_err=err, scaled_err=scaled_err,
                          same_dtype_err=max(same_dtype[route][outs]),
@@ -1059,9 +1160,10 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
                          half_step else "same_dtype",
                          tol=tol, unrounded_err=unrounded, ms=ms,
                          device_ms=dev_ms, kernel_device_ms=kern_ms,
-                         plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                         bound_by=b_by,
-                         library="SDPA backward (is_causal)"))
+                         plain_ms=plain, library_ms=lib,
+                         library_device_ms=lib_dev, bound_ms=b_ms,
+                         bound_by=b_by, **tf32,
+                         library=f"SDPA backward (is_causal={causal})"))
     return rows
 
 
@@ -2430,16 +2532,30 @@ def train_f32_vs_cpu():
     """Phase 6: a 2-layer copy at full width in f32 (the other backward
     route), two steps on the card and on the CPU from the same weights
     and ids; losses to 1e-4 relative and the first step's gradients to
-    1e-4 of each gradient's largest magnitude."""
+    1e-4 of each gradient's largest magnitude. The first card step is
+    traced: the f32 backward route's kernels must be in it by name."""
     model, step = train_setup(2, "cuda", bf16=False, seed=1)
     cpu = copy.deepcopy(model).cpu()
     cpu_step = optimizer_and_step(cpu)
     ids = batches(2, 2, "cpu")
     route = bwd_route(torch.float32)
+    kernels = (("flash_bwd_fused",) if route == "fused" else
+               ("flash_bwd_split_dkv", "flash_bwd_split_dq"))
+    names = [FLASH_KERNEL_NAMES[n, torch.float32] for n in kernels]
     reset_counts()
     out = dict(backward_route=route, losses_card=[], losses_cpu=[])
     for i, b in enumerate(ids):
-        out["losses_card"].append(float(step(b.cuda(), b.cuda())))
+        if i == 0:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                loss = float(step(b.cuda(), b.cuda()))
+                torch.cuda.synchronize()
+            keys = [e.key for e in prof.key_averages()]
+            out["traced_kernels"] = {n: sum(n in k for k in keys)
+                                     for n in names}
+        else:
+            loss = float(step(b.cuda(), b.cuda()))
+        out["losses_card"].append(loss)
         out["losses_cpu"].append(float(cpu_step(b, b)))
         if i == 0:
             grad_err = max(
@@ -2456,10 +2572,16 @@ def train_f32_vs_cpu():
             f"errors {rel} > 1e-4")
     require(grad_err <= 1e-4, f"f32 gradients, card vs CPU: {grad_err} "
             f"> 1e-4 of the largest magnitude")
-    kernels = (("flash_bwd_fused",) if route == "fused" else
-               ("flash_bwd_split_dkv", "flash_bwd_split_dq"))
+    require(all(out["traced_kernels"].values()),
+            f"the f32 step's trace lacks its backward kernels: "
+            f"{out['traced_kernels']}")
+    # in f32 the split wrappers' launches are their tensor-core kernels'
     for n in ("flash_fwd", "adamw_step") + kernels:
         require(launches[n] > 0, f"{n} was not launched by the f32 run")
+        require(launches.get(SPLIT_TF32X3.get(n), launches[n])
+                == launches[n], f"{n}: {launches[n]} launches in f32, "
+                f"{launches.get(SPLIT_TF32X3.get(n))} of them its "
+                f"tensor-core kernel's")
     return out, launches
 
 
@@ -2654,6 +2776,10 @@ def ernie_f32_vs_cpu():
     for n in ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd") + kernels:
         require(launches[n] > 0, f"{n} was not launched by the ERNIE f32 "
                 f"run")
+        require(launches.get(SPLIT_TF32X3.get(n), launches[n])
+                == launches[n], f"ERNIE f32: {n}: {launches[n]} launches, "
+                f"{launches.get(SPLIT_TF32X3.get(n))} of them its "
+                f"tensor-core kernel's")
     return out, launches
 
 
@@ -3687,20 +3813,25 @@ def ptxas_report(log):
     return out
 
 
+def sass(name):
+    """The built library ``name`` and its SASS (``cuobjdump -sass``)."""
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
+        "cuobjdump")
+    lib = _build._lib_path(_build.sources()[name])
+    return lib, subprocess.run([cuobjdump, "-sass", str(lib)],
+                               capture_output=True, text=True, check=True,
+                               timeout=120).stdout
+
+
 def check_wgmma_build():
     """Phase 2 for the tensor-core kernels: each library's SASS holds
     HGMMA (wgmma) instructions, and ptxas's register and spill lines for
     each of their kernels."""
-    cuobjdump = shutil.which("cuobjdump") or str(
-        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
-        "cuobjdump")
     out = {}
     for name in WGMMA_LIBRARIES:
-        lib = _build._lib_path(_build.sources()[name])
-        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
-        hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        lib, sass_text = sass(name)
+        hgmma = sum("HGMMA" in line for line in sass_text.splitlines())
         report = ptxas_report(lib.with_suffix(".log").read_text())
         say(f"[build] {name}: {hgmma} HGMMA instructions in the SASS")
         for kernel, lines in report.items():
@@ -3709,6 +3840,34 @@ def check_wgmma_build():
                 f"the tensor-core kernels do not use wgmma")
         out[name] = dict(hgmma=hgmma, ptxas=report)
     return out
+
+
+def check_tf32_build():
+    """Phase 2 for the f32 split pair: every kernel of its library holds
+    TF32 tensor-core instructions (HMMA with .TF32) in its SASS, and
+    ptxas's register and spill lines for each."""
+    lib, sass_text = sass(TF32_LIBRARY)
+    hmma, fn = {}, None
+    for line in sass_text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            hmma[fn] = 0
+        elif fn and "HMMA" in line and ".TF32" in line:
+            hmma[fn] += 1
+    report = ptxas_report(lib.with_suffix(".log").read_text())
+    say(f"[build] {TF32_LIBRARY}: TF32 HMMA instructions in the SASS of "
+        f"each kernel: {json.dumps(hmma)}")
+    for kernel, lines in report.items():
+        say(f"[build] {kernel}: {'; '.join(lines)}")
+    want = {f"flash_bwd_{w}_tf32x3_kernel<{D}>" for w in ("dkv", "dq")
+            for D in (16, 64, 128)}
+    require(set(hmma) == want, f"{TF32_LIBRARY}: kernels {sorted(hmma)} in "
+            f"the SASS, want {sorted(want)}")
+    require(all(n > 0 for n in hmma.values()),
+            f"{TF32_LIBRARY}: no TF32 HMMA in "
+            f"{[k for k, n in hmma.items() if not n]}")
+    return dict(hmma_tf32=hmma, ptxas=report)
 
 
 def vec_args(mangled):
@@ -3730,18 +3889,12 @@ def check_norm_build():
     ``layer_norm_fwd_vec_kernel`` holds 16-byte global loads
     (LDG.E.128), and ptxas's registers and spills for each are
     printed (x type, parameter type, vectors a lane)."""
-    cuobjdump = shutil.which("cuobjdump") or str(
-        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
-        "cuobjdump")
     out = {}
     for name in NORM_LIBRARIES:
         kernel = f"{name}_fwd_vec_kernel"
-        lib = _build._lib_path(_build.sources()[name])
-        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
+        lib, sass_text = sass(name)
         ldg, fn = {}, None
-        for line in sass.splitlines():
+        for line in sass_text.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1) if kernel in m.group(1) else None
@@ -3770,14 +3923,31 @@ def check_norm_build():
     return out
 
 
+def launches_by_route(n, launches):
+    """The main-path ``launches`` of wrapper row ``n`` split by route:
+    each route with a row of its own reads that row's count, and what is
+    left goes to the one remaining route (to the remaining routes
+    together, named by ``+``, where several remain)."""
+    counter = KERNELS[n]["counter"]
+    by = {k["route"]: launches[m] for m, k in KERNELS.items()
+          if k["counter"] is counter and "route" in k}
+    rest = [r for r in counter.route_launches if r not in by]
+    if rest:
+        by["+".join(rest)] = launches[n] - sum(by.values())
+    return by
+
+
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
-    path's bf16 shape (the fused AdamW state is f32)."""
+    path's bf16 shape (the fused AdamW state and the split pair's
+    tensor-core kernels are f32)."""
     def wanted(r):
         if r["name"] != n:
             return False
         if n in ("adamw_step", "momentum_step"):
             return r["dtype"] == "float32"
+        if n in SPLIT_TF32X3.values():
+            return r["dtype"] == "float32" and r["shape"] == LINE_SHAPES[n]
         if n == "i8i8_matmul":
             return r["shape"] == I8_LINE_SHAPE
         if r["dtype"] != "bfloat16":
@@ -3812,6 +3982,7 @@ def main():
                 say(f"[build] {log.stem}: {line.strip()}")
     wgmma = check_wgmma_build()
     norm_build = check_norm_build()
+    tf32_build = check_tf32_build()
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3864,6 +4035,10 @@ def main():
                                 D=hd))
         rows += check_flash_bwd(dtype, T["batch"], T["heads"], T["seq"],
                                 T["seq"], hd, gen, dev, timed=True)
+    # f32 not causal at the training shape: every tile of the walks full
+    ragged += check_flash_bwd(torch.float32, T["batch"], T["heads"],
+                              T["seq"], T["seq"], hd, gen, dev, timed=False,
+                              causal=False)
     torch.cuda.empty_cache()
     # the incubate stack's attention (phase 14), bf16
     C = STACK
@@ -3879,12 +4054,13 @@ def main():
             for Sq, Sk, causal in FLASH_RAGGED:
                 ragged.append(check_flash_ragged(dtype, 2, 4, Sq, Sk, D,
                                                  causal, gen, dev))
-                if causal:
+                if causal or (Sq == 200 and dtype == torch.float32):
                     # the split pair keeps its ragged shape, 200 / 333
+                    # (in f32 not causal too)
                     ragged += check_flash_bwd(
                         dtype, 2, 4, Sq, Sk, D, gen, dev, timed=False,
                         routes=("fused", "split") if Sq == 200
-                        else ("fused",))
+                        else ("fused",), causal=causal)
     shapes = [tuple(p.shape) for p in
               train_setup(T["layers"], dev, bf16=False)[0].parameters()]
     rows.append(check_adamw(shapes, gen, dev))
@@ -3951,7 +4127,11 @@ def main():
                else "")
             + (f" scaled {r['scaled_err']:.3g}, off the rounded sums "
                f"{r['off_share']:.3g}, unrounded {r['unrounded_err']}"
-               if r.get("off_share") is not None else ""))
+               if r.get("off_share") is not None else "")
+            + (f" (3xTF32; CUDA-core bound {r['bound_cuda_core_ms']:.4f})"
+               f" host {r['host_ms']:.4f} single-pass TF32 "
+               f"{r['single_pass_tf32_err']} bitwise {r['bitwise']}"
+               if "bound_cuda_core_ms" in r else ""))
     for r in ragged:
         if r["name"].startswith(("layer_norm", "rms_norm")):
             say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
@@ -3994,7 +4174,10 @@ def main():
         else:
             say(f"[kernel] flash_bwd {r['dtype']} {r['shape']}: dq/dk/dv "
                 f"err {r['dq_dk_dv_err']} (tol {r['tol']}; the same in "
-                f"{r['dtype']}: {r['dq_dk_dv_err_same_dtype']})")
+                f"{r['dtype']}: {r['dq_dk_dv_err_same_dtype']})"
+                + (f", f32 split pair bitwise on a second run "
+                   f"{r['f32_split_bitwise']}"
+                   if r["f32_split_bitwise"] is not None else ""))
     for r in rows:
         if "route_ms" in r:
             say(f"[kernel] flash_attn_unpadded {r['dtype']} {r['shape']}: "
@@ -4185,11 +4368,18 @@ def main():
                          kernel_device_ms=r["kernel_device_ms"],
                          plain_ms=r["plain_ms"],
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                         library_ms=r["library_ms"]))
+                         **{key: r[key] for key in ("bound_cuda_core_ms",)
+                            if key in r},
+                         library_ms=r["library_ms"],
+                         **({"launches_by_route": launches_by_route(
+                             n, launches)}
+                            if "route" not in k and hasattr(
+                                k["counter"], "route_launches") else {})))
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(device=kind, nvidia_smi=smi, build_s=build_s,
-             wgmma_build=wgmma, norm_build=norm_build, kernels=rows,
+             wgmma_build=wgmma, norm_build=norm_build,
+             tf32_build=tf32_build, kernels=rows,
              ragged=ragged, wo_bound=wo_bound, wo_payload=wo_payload,
              int8pack_mm_on_cuda=int8pack, engine=runs,
              train_bf16=train_rec, train_f32_vs_cpu=f32run,

@@ -37,13 +37,12 @@ writes them to ``chiprun_out/norm_fwd_variants.json``.
 
 import ctypes
 import json
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
+import variant_harness as vh
+
 ROOT = Path(__file__).resolve().parent
-CSRC = ROOT / "paddle2_tpu_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "norm_fwd_variants"
 
 VARIANT = r"""
@@ -215,42 +214,19 @@ VARIANTS = {
 
 
 def build():
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = (CSRC / "rms_norm.cu").read_text()
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = src + (VARIANT if name == "tma" else "")
-        for old, new in edits:
-            if old not in text:
-                sys.exit(f"variant {name}: the source no longer holds "
-                         f"{old.strip()[:60]!r}")
-            text = text.replace(old, new)
-        cu = OUT / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            ["/usr/local/cuda/bin/nvcc", "-gencode",
-             "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-I", str(CSRC), "-Xptxas", "-v", "-o",
-             str(OUT / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    src = (vh.CSRC / "rms_norm.cu").read_text()
+    logs = vh.build(OUT, {
+        name: vh.edited(src + (VARIANT if name == "tma" else ""), edits,
+                        name)
+        for name, edits in VARIANTS.items()})
     libs, regs = {}, {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            sys.exit(f"variant {name} did not build:\n{log}")
-        kernel = None
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                kernel = line.split("'")[1]
-            elif kernel and ("fwd_vec_kernelI13__nv_bfloat16S" in kernel
-                             or "fwd_tma_kernel" in kernel) \
-                    and ("registers" in line or "spill" in line):
-                regs.setdefault(f"{name} {kernel}", []).append(line.strip())
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
+    for name, log in logs.items():
+        for kernel, lines in vh.ptxas_lines(
+                log, lambda k: "fwd_vec_kernelI13__nv_bfloat16S" in k
+                or "fwd_tma_kernel" in k).items():
+            regs[f"{name} {kernel}"] = lines
         entry = "rms_norm_fwd_tma" if name == "tma" else "rms_norm_fwd"
-        getattr(lib, entry).argtypes = ARGTYPES
-        getattr(lib, entry).restype = ctypes.c_int
-        libs[name] = getattr(lib, entry)
+        libs[name] = vh.load(OUT / f"{name}.so", {entry: ARGTYPES})[entry]
     return libs, regs
 
 
@@ -260,9 +236,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("norm_fwd_variants: no CUDA device")
     from paddle2_tpu_torch.kernels import fused_rms_norm as frn
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
+    smi = vh.nvidia_smi()
     print(f"[device] {smi}", flush=True)
     libs, regs = build()
     for name, lines in regs.items():
@@ -270,22 +244,6 @@ def main():
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-
-    def ms(fn, iters=30):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(10):
-                fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) / 10)
-        return statistics.median(times)
 
     rows = []
     for R, H, what in SHAPES:
@@ -309,10 +267,7 @@ def main():
         equal = {n: torch.equal(o, o0) and torch.equal(r, r0)
                  for n, (o, r) in outs.items()}
         ref_o, _ = frn.rms_norm_fwd_reference(x, w, 1e-6)
-        names = list(runs)
-        times = {n: [] for n in names}
-        for n in names + names[::-1]:
-            times[n].append(ms(runs[n]))
+        times = vh.in_turns(list(runs), lambda n: vh.event_ms(runs[n]))
         row = dict(shape=f"R{R} H{H} ({what}) bf16, w bf16",
                    equal_to_committed=equal,
                    max_abs_err_vs_plain=(o0.float() - ref_o.float()).abs()

@@ -1,6 +1,10 @@
 // FlashAttention-2 backward for Hopper (sm_90a), on the CUDA cores.
-// The split pair serves f32 and bf16; the fused kernel serves f32 only,
-// bf16 going to the tensor-core kernel of flash_bwd_wgmma.cu.
+// The split pair serves bf16 only (reached by route="split"; bf16's default
+// route is flash_bwd_wgmma.cu's fused kernel), f32's split pair being the
+// tensor-core kernels of flash_bwd_tf32x3.cu; the fused kernel serves f32
+// only, bf16 going to flash_bwd_wgmma.cu. Each entry refuses the dtype it
+// does not serve (cudaErrorInvalidValue), so each dtype and route has
+// exactly one kernel.
 //
 // Replaces three kernels of paddle2_tpu/kernels/pallas_flash.py, driven by
 // `_flash_bwd`:
@@ -389,42 +393,44 @@ cudaError_t launch(Which which, const Args& a) {
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
   cudaError_t err;
-  if (which == DQ) {
-    constexpr size_t smem = dq_smem<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
-    flash_bwd_dq_kernel<T, D><<<grid, NT, smem, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.o0), a.Sq, a.Sk,
-        a.scale, a.causal);
-    return cudaGetLastError();
-  }
-  dim3 grid((a.Sk + BK - 1) / BK, a.B * a.H);
-  if (which == DKV) {
-    constexpr size_t smem = dkv_smem<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.o0),
-        static_cast<T*>(a.o1), a.Sq, a.Sk, a.scale, a.causal);
-    return cudaGetLastError();
-  }
-  if constexpr (!std::is_same<T, float>::value) {
-    return cudaErrorInvalidValue;  // bf16: flash_bwd_fused_wgmma
-  } else {
+  if constexpr (std::is_same<T, float>::value) {
+    // f32: the split pair is flash_bwd_tf32x3's
+    if (which != FUSED) return cudaErrorInvalidValue;
     constexpr size_t smem = dkv_smem<D>();
     err = cudaFuncSetAttribute(flash_bwd_fused_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
+    dim3 grid((a.Sk + BK - 1) / BK, a.B * a.H);
     flash_bwd_fused_kernel<T, D><<<grid, NT, smem, a.stream>>>(
         q, k, v, dout, lse, delta, static_cast<float*>(a.o0),
         static_cast<T*>(a.o1), static_cast<T*>(a.o2), a.Sq, a.Sk, a.scale,
         a.causal);
+    return cudaGetLastError();
+  } else {
+    // bf16: the fused route is flash_bwd_fused_wgmma's
+    if (which == FUSED) return cudaErrorInvalidValue;
+    if (which == DQ) {
+      constexpr size_t smem = dq_smem<D>();
+      err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return err;
+      dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+      flash_bwd_dq_kernel<T, D><<<grid, NT, smem, a.stream>>>(
+          q, k, v, dout, lse, delta, static_cast<T*>(a.o0), a.Sq, a.Sk,
+          a.scale, a.causal);
+      return cudaGetLastError();
+    }
+    constexpr size_t smem = dkv_smem<D>();
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Sk + BK - 1) / BK, a.B * a.H);
+    flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, a.stream>>>(
+        q, k, v, dout, lse, delta, static_cast<T*>(a.o0),
+        static_cast<T*>(a.o1), a.Sq, a.Sk, a.scale, a.causal);
     return cudaGetLastError();
   }
 }
@@ -450,7 +456,8 @@ int run(Which which, int D, int dtype, const Args& a) {
 // dtype: 0 = float32, 1 = bfloat16. q/dout [B,H,Sq,D], k/v [B,H,Sk,D] in
 // dtype; lse and delta [B,H,Sq] f32; all contiguous on the current device.
 
-// split route, kernel 1: dk, dv [B,H,Sk,D] in dtype
+// split route, kernel 1, bf16 only (f32 is flash_bwd_dkv_tf32x3's): dk, dv
+// [B,H,Sk,D] in dtype
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, int B,
@@ -461,7 +468,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   return run(DKV, D, dtype, a);
 }
 
-// split route, kernel 2: dq [B,H,Sq,D] in dtype
+// split route, kernel 2, bf16 only (f32 is flash_bwd_dq_tf32x3's): dq
+// [B,H,Sq,D] in dtype
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int H,

@@ -9,8 +9,9 @@ Which kernel serves which dtype:
   TMA), f32 ``csrc/flash_fwd.cu`` (CUDA cores);
 - fused backward: bf16 ``csrc/flash_bwd_wgmma.cu`` (tensor cores), f32
   ``csrc/flash_bwd.cu``'s fused kernel (CUDA cores);
-- split backward pair (dK/dV, then dQ): ``csrc/flash_bwd.cu`` in both
-  dtypes (CUDA cores).
+- split backward pair (dK/dV, then dQ): f32 ``csrc/flash_bwd_tf32x3.cu``
+  (tensor cores, error-compensated TF32: 3 TF32 products per f32
+  product), bf16 ``csrc/flash_bwd.cu`` (CUDA cores).
 
 Each source note says what bounds it and how it is laid out. One launch
 counter per wrapper counts both of its kernels.
@@ -41,7 +42,8 @@ from . import _build
 __all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_split_dkv",
            "flash_bwd_split_dq", "flash_bwd_fused", "bwd_route",
-           "flash_attn", "flash_attention_bshd", "SUPPORTED_HEAD_DIMS"]
+           "flash_attn", "flash_attention_bshd", "SUPPORTED_HEAD_DIMS",
+           "tf32_round", "tf32_split", "tf32_matmul", "SPLIT_ROUTES"]
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -65,6 +67,9 @@ _LIBRARIES = {
                   "flash_bwd_dq": _BWD_ARGS + [_P] + _BWD_TAIL,
                   "flash_bwd_fused": _FUSED_ARGS},
     "flash_bwd_wgmma": {"flash_bwd_fused_wgmma": _FUSED_ARGS},
+    "flash_bwd_tf32x3": {"flash_bwd_dkv_tf32x3": _BWD_ARGS + [_P, _P]
+                         + _BWD_TAIL,
+                         "flash_bwd_dq_tf32x3": _BWD_ARGS + [_P] + _BWD_TAIL},
 }
 # (library, C entry) of the forward and the fused backward, by dtype:
 # the tensor-core kernels take bf16, the CUDA-core kernels f32
@@ -72,6 +77,14 @@ _FWD_ENTRY = {torch.bfloat16: ("flash_fwd_wgmma", "flash_fwd_wgmma"),
               torch.float32: ("flash_fwd", "flash_fwd")}
 _FUSED_ENTRY = {torch.bfloat16: ("flash_bwd_wgmma", "flash_bwd_fused_wgmma"),
                 torch.float32: ("flash_bwd", "flash_bwd_fused")}
+# (library, C entry) of each kernel of the split pair, by dtype: f32 on the
+# tensor cores in 3xTF32, bf16 on the CUDA cores; SPLIT_ROUTES names the
+# two kernels of each wrapper, whose launches ``route_launches`` counts
+_DKV_ENTRY = {torch.bfloat16: ("flash_bwd", "flash_bwd_dkv"),
+              torch.float32: ("flash_bwd_tf32x3", "flash_bwd_dkv_tf32x3")}
+_DQ_ENTRY = {torch.bfloat16: ("flash_bwd", "flash_bwd_dq"),
+             torch.float32: ("flash_bwd_tf32x3", "flash_bwd_dq_tf32x3")}
+SPLIT_ROUTES = {torch.float32: "tf32x3", torch.bfloat16: "cuda_cores"}
 
 
 def _check(q, k, v) -> None:
@@ -170,34 +183,71 @@ def _check_bwd(q, k, v, o, lse, do) -> None:
         raise ValueError("all flash_bwd inputs must lie on one device")
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, on the f32 bits: what ``cvt.rna.tf32.f32`` gives."""
+    bits = (x.float().view(torch.int32) + 0x1000) & -0x2000
+    return torch.where(torch.isnan(x), x.float(), bits.view(torch.float32))
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)``, both TF32, with ``big + small`` within 2⁻²¹ of
+    ``x``: the operand split of ``flash_bwd_tf32x3.cu`` as the tensor
+    cores read it. big is ``x`` rounded (:func:`tf32_round`); small is
+    ``x − big`` (exact in f32) truncated to TF32, since the kernel hands
+    it to the mma unrounded and the tensor cores read its top 19 bits."""
+    big = tf32_round(x)
+    rest = (x.float() - big).view(torch.int32) & -0x2000
+    return big, rest.view(torch.float32)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor,
+                passes: int = 3) -> torch.Tensor:
+    """``a @ b`` with the operands in TF32, summed in f32: ``passes`` 3 is
+    the error-compensated product of ``flash_bwd_tf32x3.cu`` (small·big +
+    big·small + big·big), 1 a single TF32 product. For the plain backward
+    (``flash_bwd_reference(..., matmul=)``) in the CPU tests and the
+    smoke; the main path never calls it."""
+    if passes == 1:
+        return torch.matmul(tf32_round(a), tf32_round(b))
+    if passes != 3:
+        raise ValueError(f"passes {passes} not in (1, 3)")
+    ab, as_ = tf32_split(a)
+    bb, bs = tf32_split(b)
+    return torch.matmul(ab, bb) + (torch.matmul(as_, bb)
+                                   + torch.matmul(ab, bs))
+
+
 def flash_bwd_reference(q, k, v, o, lse, do, scale: float, causal: bool,
                         out_dtype: Optional[torch.dtype] = None,
-                        sum_dtype: torch.dtype = torch.float32
+                        sum_dtype: torch.dtype = torch.float32,
+                        matmul=torch.matmul
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain backward, mirroring the split Pallas kernels
     (``_bwd_dkv_kernel``, ``_bwd_dq_kernel``): P recomputed from the
     saved lse with the ``lse == -inf`` guard of ``_bwd_p_ds``,
     ``dS = P∘(dO·Vᵀ − delta)``, P and dS rounded to the input dtype
     before each product, sums in ``sum_dtype`` (f32; float64 gives what
-    exact sums would). Returns ``(dq, dk, dv)`` cast to ``out_dtype``
+    exact sums would). ``matmul`` computes the five products (e.g.
+    :func:`tf32_matmul`). Returns ``(dq, dk, dv)`` cast to ``out_dtype``
     (default the input dtype; ``sum_dtype`` keeps the sums as they
     are)."""
     Sq, Sk = q.shape[2], k.shape[2]
     dt = q.dtype
     qf, kf, vf, dof = (t.to(sum_dtype) for t in (q, k, v, do))
     delta = (dof * o.to(sum_dtype)).sum(-1, keepdim=True)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = matmul(qf, kf.transpose(-1, -2)) * scale
     if causal:
         s = s.masked_fill(~_causal_keep(Sq, Sk, q.device), float("-inf"))
     lse = lse[..., None]
     neg = float("-inf")
     p = torch.exp(s - torch.where(lse == neg, torch.zeros_like(lse), lse))
     p = torch.where((s == neg) | (lse == neg), torch.zeros_like(p), p)
-    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    dp = matmul(dof, vf.transpose(-1, -2))
     ds = (p * (dp - delta)).to(dt).to(sum_dtype)
-    dv = torch.matmul(p.to(dt).to(sum_dtype).transpose(-1, -2), dof)
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
-    dq = torch.matmul(ds, kf) * scale
+    dv = matmul(p.to(dt).to(sum_dtype).transpose(-1, -2), dof)
+    dk = matmul(ds.transpose(-1, -2), qf) * scale
+    dq = matmul(ds, kf) * scale
     out = out_dtype or dt
     return dq.to(out), dk.to(out), dv.to(out)
 
@@ -216,24 +266,43 @@ def _bwd_launch(entry, q, k, v, do, lse, delta, outs, scale, causal,
     _build.check(lib, err, entry)
 
 
+def _split_inputs(q, k, v, do):
+    """f32 inputs on 16-byte boundaries: the tensor-core pair reads them
+    in 16-byte ``cp.async`` chunks (a contiguous view can start
+    anywhere)."""
+    if q.dtype != torch.float32:
+        return q, k, v, do
+    return tuple(_build.tma_aligned(t) for t in (q, k, v, do))
+
+
 def flash_bwd_split_dkv(q, k, v, do, lse, delta, scale, causal):
     """Kernel 1 of the split route (``_bwd_dkv_kernel``): dK and dV,
-    one block per 64-key tile looping over the query tiles. CUDA
-    tensors only; ``launches`` counts its launches."""
+    one block per key tile looping over the query tiles; f32 on the
+    tensor cores in 3xTF32 (``flash_bwd_tf32x3.cu``), bf16 on the CUDA
+    cores (``flash_bwd.cu``). CUDA tensors only; ``launches`` counts its
+    launches, ``route_launches`` those of each kernel (by
+    :data:`SPLIT_ROUTES`)."""
+    q, k, v, do = _split_inputs(q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale,
-                causal)
+    library, entry = _DKV_ENTRY[q.dtype]
+    _bwd_launch(entry, q, k, v, do, lse, delta, (dk, dv), scale, causal,
+                library)
     flash_bwd_split_dkv.launches += 1
+    flash_bwd_split_dkv.route_launches[SPLIT_ROUTES[q.dtype]] += 1
     return dk, dv
 
 
 def flash_bwd_split_dq(q, k, v, do, lse, delta, scale, causal):
     """Kernel 2 of the split route (``_bwd_dq_kernel``): dQ, one block
-    per 64-row query tile looping over the key tiles."""
+    per query tile looping over the key tiles; the same kernel files by
+    dtype as :func:`flash_bwd_split_dkv`."""
+    q, k, v, do = _split_inputs(q, k, v, do)
     dq = torch.empty_like(q)
-    _bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), scale,
-                causal)
+    library, entry = _DQ_ENTRY[q.dtype]
+    _bwd_launch(entry, q, k, v, do, lse, delta, (dq,), scale, causal,
+                library)
     flash_bwd_split_dq.launches += 1
+    flash_bwd_split_dq.route_launches[SPLIT_ROUTES[q.dtype]] += 1
     return dq
 
 
@@ -258,6 +327,8 @@ def flash_bwd_fused(q, k, v, do, lse, delta, scale, causal):
 
 for _fn in (flash_bwd_split_dkv, flash_bwd_split_dq, flash_bwd_fused):
     _fn.launches = 0
+for _fn in (flash_bwd_split_dkv, flash_bwd_split_dq):
+    _fn.route_launches = dict.fromkeys(SPLIT_ROUTES.values(), 0)
 
 
 def bwd_route(dtype: torch.dtype) -> str:
@@ -265,10 +336,11 @@ def bwd_route(dtype: torch.dtype) -> str:
     "fused" for bf16, "split" for f32. PERF.md gives the H100 times at
     the training path's shape that ground the rule: the fused kernel
     does 10 of the split pair's 14 products per tile, and in bf16 it
-    runs on the tensor cores (``flash_bwd_wgmma.cu``) where the split
-    pair runs on the CUDA cores; the split pair has no atomics, so f32
-    (the precision a run is checked in, on the CUDA cores either way)
-    stays bitwise reproducible."""
+    runs on the tensor cores (``flash_bwd_wgmma.cu``) where the bf16
+    split pair runs on the CUDA cores; in f32 the split pair runs on the
+    tensor cores in 3xTF32 (``flash_bwd_tf32x3.cu``), where the fused
+    kernel stays on the CUDA cores, and it has no atomics, so f32 (the
+    precision a run is checked in) stays bitwise reproducible."""
     return "fused" if dtype == torch.bfloat16 else "split"
 
 

@@ -57,6 +57,22 @@ Phases:
   smoke's phase-14 stack step and phase-7 ERNIE step (``stack_bf16``,
   ``ernie_bf16`` with that checkout's own launch gates): tokens/s, the
   step time and the traced step's idle share.
+- ``flash_bwd_f32``: the f32 flash backward at the training shape (B8
+  H16 S1024 D64, causal): the split pair's two wrappers
+  (``flash_bwd_split_dkv``, ``flash_bwd_split_dq``) and ``flash_bwd``
+  on its default route, each by CUDA events, device time from
+  torch.profiler and the wrapper's host time a call (the median of 200
+  calls without a sync); SDPA's f32 backward (through autograd) and the
+  f32 fused kernel (``route="fused"``) by events and device time, for
+  reference; then the smoke's phase-6 model (the bench GPT at 2 layers
+  in f32, batch 2, ``chip_smoke.train_setup``): 1 warm-up step and 5
+  timed steps, their mean and median step time and tokens/s (from the
+  mean).
+- ``train_bf16``: the smoke's phase 5 (``chip_smoke.train_bf16``: the
+  bench GPT at full width and depth in bf16 O2, batch 8, 1 warm-up, 5
+  timed and 1 traced step, with that checkout's own launch gates):
+  tokens/s, the step times, the traced step's device time and idle
+  share.
 """
 
 import argparse
@@ -383,11 +399,81 @@ def norms(cs, torch):
     return dict(forwards=rows, host_pieces_ms=host_pieces, steps=steps)
 
 
+def flash_bwd_f32(cs, torch):
+    from torch.nn import functional as F
+    from paddle2_tpu_torch.kernels import flash_attn as fa
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, H, S, D = 8, 16, 1024, 64
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen, device=dev)
+                   for _ in range(4))
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, scale=scale, causal=True)
+    delta = (do * o).sum(-1)
+    calls = dict(
+        split_dkv=(lambda: fa.flash_bwd_split_dkv(
+            q, k, v, do, lse, delta, scale, True), "flash_bwd_dkv"),
+        split_dq=(lambda: fa.flash_bwd_split_dq(
+            q, k, v, do, lse, delta, scale, True), "flash_bwd_dq"),
+        flash_bwd=(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale, True),
+                   ""),
+        fused=(lambda: fa.flash_bwd(q, k, v, o, lse, do, scale, True,
+                                    route="fused"), ""))
+    rows = {}
+    for name, (fn, kernel) in calls.items():
+        device, ours = cs.device_ms(fn, kernel)
+        rows[name] = dict(events_ms=cs.cuda_ms(fn), device_ms=device,
+                          kernel_device_ms=ours)
+        if name != "fused":
+            rows[name]["host_ms"] = _host_ms(torch, fn)
+        print(json.dumps({name: rows[name]}), flush=True)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+
+    def sdpa():
+        return torch.autograd.grad(o_lib, (qr, kr, vr), do,
+                                   retain_graph=True)
+    rows["sdpa_backward"] = dict(events_ms=cs.cuda_ms(sdpa),
+                                 device_ms=cs.device_ms(sdpa, "")[0])
+    del q, k, v, do, o, lse, delta, qr, kr, vr, o_lib
+    torch.cuda.empty_cache()
+
+    model, step = cs.train_setup(2, "cuda", bf16=False, seed=1)
+    ids = cs.batches(6, 2, "cuda")
+    warm = float(step(ids[0], ids[0]))
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for b in ids[1:]:
+        t0 = time.perf_counter()
+        losses.append(float(step(b, b)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = statistics.mean(times)
+    rows["f32_step"] = dict(step_ms=step_s * 1e3,
+                            median_step_ms=statistics.median(times) * 1e3,
+                            step_times_ms=[t * 1e3 for t in times],
+                            tokens_per_s=2 * cs.TRAIN["seq"] / step_s,
+                            warmup_loss=warm, losses=losses)
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(shape=f"B{B} H{H} S{S} D{D} causal f32", **rows)
+
+
+def train_bf16(cs, smi):
+    run, _ = cs.train_bf16(smi)
+    return dict(tokens_per_s=run["bench"]["value"],
+                step_time_s=run["bench"]["step_time_s"],
+                step_times_s=run["step_times_s"],
+                first_step_s=run["first_step_s"],
+                step_profile=run["step_profile"])
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", required=True,
                     choices=("int8_serving", "varlen_step",
-                             "varlen_bwd_draws", "norms"))
+                             "varlen_bwd_draws", "norms", "flash_bwd_f32",
+                             "train_bf16"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -410,6 +496,10 @@ def main():
         result = varlen_step(cs, torch)
     elif args.phase == "norms":
         result = norms(cs, torch)
+    elif args.phase == "flash_bwd_f32":
+        result = flash_bwd_f32(cs, torch)
+    elif args.phase == "train_bf16":
+        result = train_bf16(cs, smi)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

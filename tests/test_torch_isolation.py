@@ -12,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle2_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "phase_runner.py",
-     ROOT / "wo_wgmma_variants.py", ROOT / "norm_fwd_variants.py"]
+     ROOT / "wo_wgmma_variants.py", ROOT / "norm_fwd_variants.py",
+     ROOT / "flash_bwd_tf32x3_variants.py", ROOT / "variant_harness.py"]
 
 
 def _imported_modules(path: Path):
@@ -84,6 +85,6 @@ def test_kernel_sources_are_found():
                           "rope", "adamw_flat", "i8i8_matmul",
                           "flash_fwd_wgmma", "flash_bwd_wgmma",
                           "flash_varlen_wgmma", "flash_varlen_bwd_wgmma",
-                          "wo_matmul_wgmma"}
+                          "wo_matmul_wgmma", "flash_bwd_tf32x3"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"

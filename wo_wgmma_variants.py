@@ -27,14 +27,15 @@ variant.
 """
 
 import ctypes
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
+import variant_harness as vh
+
 ROOT = Path(__file__).resolve().parent
-CSRC = ROOT / "paddle2_tpu_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "wo_wgmma_variants"
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float,
+                                                        ctypes.c_void_p]
 
 MMA = "        wgmma_ss<0, 1>(acc[cb], da,"
 PACK = """          make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
@@ -75,37 +76,16 @@ SHAPES = [(128, 2048, 2048), (128, 8192, 2048), (1008, 2048, 8192),
 
 
 def build():
-    src = (CSRC / "wo_matmul_wgmma.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                sys.exit(f"variant {name}: the source no longer holds "
-                         f"{old.strip()[:60]!r}")
-            text = text.replace(old, new)
-        cu = OUT / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            ["/usr/local/cuda/bin/nvcc", "-gencode",
-             "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-I", str(CSRC), "-Xptxas", "-v", "-o",
-             str(OUT / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    src = (vh.CSRC / "wo_matmul_wgmma.cu").read_text()
+    logs = vh.build(OUT, {name: vh.edited(src, edits, name)
+                          for name, edits in VARIANTS.items()})
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            sys.exit(f"variant {name} did not build:\n{log}")
+    for name, log in logs.items():
         regs = [line.strip() for line in log.splitlines()
                 if "registers" in line]
         print(f"[build] {name}: {regs}", flush=True)
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        lib.wo_matmul_wgmma.argtypes = ([ctypes.c_void_p] * 5
-                                        + [ctypes.c_int] * 3
-                                        + [ctypes.c_float, ctypes.c_void_p])
-        libs[name] = lib
+        libs[name] = vh.load(OUT / f"{name}.so", {
+            "wo_matmul_wgmma": ARGTYPES})["wo_matmul_wgmma"]
     return libs
 
 
@@ -115,47 +95,27 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("wo_wgmma_variants: no CUDA device")
     from paddle2_tpu_torch.kernels import quant_matmul as qm
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(f"[device] {smi}", flush=True)
+    print(f"[device] {vh.nvidia_smi()}", flush=True)
     libs = build()
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-
-    def ms(fn, iters=30):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     for M, K, N in SHAPES:
         x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
         w8, s8 = qm.quantize_channelwise(
             torch.randn(K, N, generator=gen, device=dev) * 0.02)
         y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
         ref = qm.int8_weight_only_matmul_reference(x, w8, s8).float()
-        for name, lib in libs.items():
-            def call(lib=lib):
-                err = lib.wo_matmul_wgmma(x.data_ptr(), w8.data_ptr(),
-                                          s8.data_ptr(), None, y.data_ptr(),
-                                          M, K, N, 127.0, stream)
+        for name, fn in libs.items():
+            def call(fn=fn, name=name):
+                err = fn(x.data_ptr(), w8.data_ptr(), s8.data_ptr(), None,
+                         y.data_ptr(), M, K, N, 127.0, stream)
                 if err:
                     sys.exit(f"variant {name}: CUDA error {err}")
             call()
             torch.cuda.synchronize()
             err = ((y.float() - ref).abs() / ref.abs().clamp_min(1.0)).max()
-            t = ms(lambda: [call() for _ in range(10)]) / 10
+            t = vh.event_ms(call)
             print(f"M{M} K{K} N{N} {name}: {t:.4f} ms a launch, scaled err "
                   f"{err.item():.3g}", flush=True)
 
