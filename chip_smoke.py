@@ -20,7 +20,9 @@ line) when it fails:
    must hold 16-byte loads (LDG.E.128), with its registers and spills;
    the f32 split backward pair's library (``flash_bwd_tf32x3``) must
    hold TF32 tensor-core instructions (HMMA ... .TF32) in every kernel,
-   with ptxas's registers and spills for each.
+   with ptxas's registers and spills for each; every instantiation of
+   the bf16 decode kernel ``wo_gemv_mma_kernel`` (in ``wo_matmul``, 4)
+   must hold HMMA, with its registers and spills.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
    causal; bf16 on the tensor-core kernel, f32 on the CUDA-core one),
@@ -49,9 +51,12 @@ line) when it fails:
    bound kept beside it), and at the timed shape the plain backward with its products in single-pass
    TF32 must read past the f32 limit; the fused AdamW step against the port's
    eager AdamW, bitwise (``torch.equal``), three steps on the training
-   path's 16 parameter leaves (f32, and bf16 with f32 masters), and
-   one step over the 16 f32 leaves timed against
-   ``torch._fused_adamw_``. The fused momentum step against the port's
+   path's 16 parameter leaves (f32, bf16 with f32 masters, and their O2
+   dtypes), one multi-tensor launch a step, and one step over the 16
+   leaves timed all f32 and in the O2 dtypes (the kernels-line row),
+   beside the parent's per-leaf chain rebuilt (widen, a one-tensor
+   launch, cast and copy) and ``torch._fused_adamw_`` over the f32
+   state, by events and device time. The fused momentum step against the port's
    eager Momentum, bitwise, three steps on ResNet-50's 161 parameter
    shapes (f32 plain, Nesterov, L2 decay 1e-4, bf16 with f32 masters,
    and ResNet-50's O2 list: bf16 convolutions and fc with f32 masters,
@@ -61,9 +66,13 @@ line) when it fails:
    The int8 weight-only matmul at GPT-3 1.3B's five projection shapes
    (qkv, out_proj, up, down, the tied head) at M 1, 8, 128 and 1008, in
    bf16 and f32, with and without a bias (bf16 at M 128 and 1008 on the
-   tensor-core route), and at ragged shapes (M 3, K 200, N 333 on the
-   CUDA cores; M 37, K 200, N 336 on the tensor cores), timed against
-   ``torch.mm`` over the weight dequantized beforehand (and
+   prefill tensor-core route, rows ``wo_matmul_wgmma``; bf16 at M 1 and 8
+   on the decode tensor-core route, rows ``wo_gemv_mma``), bf16 at M 2,
+   3 and 5 at every projection (not timed), and at ragged shapes (M 3,
+   K 200, N 333 and M 5, K 1030, N 7 on the decode routes; M 37, K 200,
+   N 336 on the tensor cores) and with x and w one element past a
+   16-byte boundary (M 8 and M 2), timed against ``torch.mm`` over the
+   weight dequantized beforehand (by events and device time; and
    ``torch._weight_int8pack_mm`` where this torch has it on CUDA), with
    the wrapper's host time a call; every int8 value through the
    tensor-core route's widening, ``torch.equal`` to the plain version.
@@ -71,7 +80,9 @@ line) when it fails:
    reach them on one prompt: the kernel's product
    stays within ``weight_quant_error_bound`` of ``x @ W`` (f64, on the
    host), a 4-bit payload of the same weight breaks that bound, and the
-   bound is below ``max |x @ W|``; and layer 0's payload and scales
+   bound is below ``max |x @ W|``; the bf16 decode route holds it too on
+   the last 1 and 8 rows cast to bf16 (with one bf16 rounding step of
+   the output beside it); and layer 0's payload and scales
    quantized on the card equal those quantized on the CPU, bitwise.
    The int8 x int8 matmul at GPT-3 1.3B's four block projections (qkv,
    out_proj, up, down) at M 8 (a decode step) and M 1008 (a 1000-token
@@ -99,9 +110,12 @@ line) when it fails:
    ``generate`` by the same near-tie rule, f32 first-token logits
    against the quantized model on the CPU at atol 1e-3, ``wo_matmul``
    launched 97 times (96 projections and the head) for every prefill
-   and every decode step, the 96 projections of a bf16 prefill on the
-   tensor-core route (none in f32); how many tokens agree with the fp
-   runs is printed, not gated.
+   and every decode step, by route: the 96 projections of a prefill on
+   the prefill tensor-core route in bf16 (``wgmma``) and the CUDA cores
+   in f32 (``gemm``), every decode launch and each prefill's head on the
+   decode tensor-core route in bf16 (``gemv_mma``) and the CUDA cores in
+   f32 (``gemv``); how many tokens agree with the fp runs is printed,
+   not gated.
 5. Training at full width and full depth: ``bench.py``'s default GPT
    (vocab 32768, hidden 1024, 24 layers, 16 heads of 64, seq 1024,
    batch 8, labels = ids) with "dots" remat, stacked blocks, the fused
@@ -110,7 +124,8 @@ line) when it fails:
    steps and 1 traced step. Every loss must be finite and the 5th timed
    loss below the 1st; each step must launch ``flash_fwd`` exactly 24
    times, the bf16 backward route's kernels 24 times each and
-   ``adamw_step`` 16 times. Prints a ``bench_gpt``-style line
+   ``adamw_step`` once (its 16 leaves in one launch). Prints a
+   ``bench_gpt``-style line
    (tokens/s, step time, MFU against 989 TFLOP/s).
 6. The card against the CPU: the same model at ``num_layers=2`` in f32
    (which takes the other backward route), batch 2: two ``train_step``
@@ -214,7 +229,7 @@ line) when it fails:
     again (each batch lengths of 16..2048 from ``RandomState(0)``
     packed to <= 8192 tokens); every loss finite, the varlen forward
     and the fused backward launched 2 times a step, the split backward
-    pair never, ``adamw_step`` 4 times, no dense flash kernel, the
+    pair never, ``adamw_step`` once, no dense flash kernel, the
     repeated batch hits the ``cu_seqlens`` memo. One more
     step, on an eighth batch, is traced on the host alone: its host ops
     by self CPU time are printed (not gated, and its launches are not
@@ -358,8 +373,8 @@ from paddle2_tpu_torch.kernels.flash_varlen import (
     flash_varlen_bwd_fused_reference, flash_varlen_fwd,
     flash_varlen_fwd_reference)
 from paddle2_tpu_torch.kernels.fused_adamw import (
-    adamw_flat, adamw_flat_reference, adamw_step, adamw_step_reference,
-    stage_flat_scalars, stage_scalars)
+    adamw_flat, adamw_flat_reference, adamw_step, adamw_step_multi,
+    adamw_step_multi_reference, stage_flat_scalars, stage_scalars)
 from paddle2_tpu_torch.kernels import fused_layer_norm as fln
 from paddle2_tpu_torch.kernels.fused_layer_norm import (
     bwd_blocks, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
@@ -475,8 +490,10 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/adamw_step.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:125",
         counter=adamw_step),
-    # every route of the weight-only wrapper (decode, f32 prefill, and
-    # the tensor-core route counted again below)
+    # every route of the weight-only wrapper; its kernels-line row is the
+    # f32 decode kernel on the CUDA cores (wo_gemv_kernel); the two
+    # tensor-core routes (bf16 prefill, bf16 decode) are counted again
+    # below
     "wo_matmul": dict(
         source="paddle2_tpu_torch/kernels/csrc/wo_matmul.cu",
         replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
@@ -485,6 +502,10 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/wo_matmul_wgmma.cu",
         replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
         counter=int8_weight_only_matmul, route="wgmma"),
+    "wo_gemv_mma": dict(
+        source="paddle2_tpu_torch/kernels/csrc/wo_matmul.cu",
+        replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
+        counter=int8_weight_only_matmul, route="gemv_mma"),
     # every route of the LayerNorm forward wrapper; its kernels-line row
     # is the general route's kernel (an unaligned view), the vector
     # route's is counted again below
@@ -600,8 +621,9 @@ SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_split")
 # GPT-3 1.3B's weight-only projections, K x N ([in, out])
 WO_SHAPES = {"qkv": (2048, 6144), "out_proj": (2048, 2048),
              "up": (2048, 8192), "down": (8192, 2048), "head": (2048, 50304)}
-# the kernels line's wo_matmul rows: a bf16 decode step at batch 8, and
-# a 1000-token prompt's prefill (padded to 1008) on the tensor cores
+# the kernels line's wo_matmul rows: a decode step at batch 8 (bf16 on
+# the tensor cores, f32 on the CUDA cores), and a 1000-token prompt's
+# prefill (padded to 1008) on the tensor cores
 WO_LINE_SHAPE = "M8 K2048 N8192 (up) bias"
 WO_WGMMA_LINE_SHAPE = "M1008 K2048 N8192 (up) bias"
 # the int8 x int8 kernel's rows: GPT-3 1.3B's four block projections at a
@@ -710,12 +732,23 @@ ADAMW_FLAT_CASES = [(84_000_000, torch.float32, True),
                     (513, torch.bfloat16, False)]
 ADAMW_FLAT_LINE_SHAPE = "N 84000000, p/g bf16"
 TRAIN_BWD_SHAPE = "B8 H16 Sq1024 Sk1024 D64 causal"
+# the fused AdamW row the kernels line reports: one step over the training
+# leaves in their O2 dtypes (bf16 parameters with f32 masters and bf16
+# gradients, f32 where the model keeps f32), as the main path runs it
+ADAMW_LINE_DTYPE = "O2"
+# the kernels-line row of each weight-only route
+WO_ROW_NAME = {"gemv": "wo_matmul", "gemm": "wo_matmul",
+               "gemv_mma": "wo_gemv_mma", "wgmma": "wo_matmul_wgmma"}
+# the bf16 decode rows at the batches that only this check takes (the
+# timed ones are M 1 and 8)
+WO_DECODE_ROWS = (2, 3, 5)
 LINE_SHAPES = {"flash_bwd_fused": TRAIN_BWD_SHAPE,
                "flash_bwd_split_dkv": TRAIN_BWD_SHAPE,
                "flash_bwd_split_dq": TRAIN_BWD_SHAPE,
                "flash_bwd_split_dkv_tf32x3": TRAIN_BWD_SHAPE,
                "flash_bwd_split_dq_tf32x3": TRAIN_BWD_SHAPE,
                "wo_matmul": WO_LINE_SHAPE,
+               "wo_gemv_mma": WO_LINE_SHAPE,
                "wo_matmul_wgmma": WO_WGMMA_LINE_SHAPE,
                "i8i8_matmul": I8_LINE_SHAPE,
                "rms_norm_fwd": RMS_LINE_SHAPE + ", unaligned view",
@@ -1167,16 +1200,28 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
     return rows
 
 
-def check_adamw(shapes, gen, dev):
+def check_adamw(leaves, gen, dev):
     """Three steps of the fused AdamW against the eager chain, bitwise,
-    on parameters of the training path's leaf ``shapes``: in f32, and in
-    bf16 with f32 masters. Then one step over the f32 state of all the
-    leaves (what a training step runs) timed: the kernel, its plain
-    version, and ``torch._fused_adamw_`` over the same list."""
-    n_leaves = len(shapes)
-    for dtype in (torch.float32, torch.bfloat16):
-        inits = [torch.randn(sh, generator=gen, device=dev).to(dtype)
-                 for sh in shapes]
+    on parameters of the training path's 16 leaves (``leaves``: shape and
+    O2 dtype of each): all f32, all bf16 with f32 masters, and in their O2
+    dtypes (bf16 parameters with f32 masters and bf16 gradients, f32 where
+    the model keeps f32); one launch a step. Then one step over the 16
+    leaves timed in two forms, all f32 (the form of the earlier rows) and
+    the O2 form the main path runs: the kernel (one launch), the parent's
+    chain of the same step rebuilt (per leaf the gradient widened, a
+    one-tensor launch of the kernel and the master cast into the bf16
+    parameter), the plain version, and ``torch._fused_adamw_`` over the
+    f32 state of the same leaves, each by CUDA events and device time,
+    with the wrapper's host time a call."""
+    n_leaves = len(leaves)
+    shapes = [sh for sh, _ in leaves]
+    o2 = [dt for _, dt in leaves]
+    cases = [("float32", [torch.float32] * n_leaves),
+             ("bf16 + f32 masters", [torch.bfloat16] * n_leaves),
+             (ADAMW_LINE_DTYPE, o2)]
+    for what, dtypes in cases:
+        inits = [torch.randn(sh, generator=gen, device=dev).to(dt)
+                 for sh, dt in zip(shapes, dtypes)]
         pa = [torch.nn.Parameter(t.clone()) for t in inits]
         pb = [torch.nn.Parameter(t) for t in inits]
         oa = AdamW(1e-3, parameters=pa, weight_decay=0.01,
@@ -1186,57 +1231,92 @@ def check_adamw(shapes, gen, dev):
         before = adamw_step.launches
         for _ in range(3):
             for a, b in zip(pa, pb):
-                g = torch.randn(a.shape, generator=gen, device=dev).to(dtype)
+                g = torch.randn(a.shape, generator=gen, device=dev).to(
+                    a.dtype)
                 a.grad, b.grad = g, g.clone()
             oa.step()
             ob.step()
         torch.cuda.synchronize()
-        require(adamw_step.launches - before == 3 * n_leaves,
-                "the fused AdamW did not take the kernel for every leaf")
+        require(adamw_step.launches - before == 3,
+                f"the fused AdamW ({what}) launched the kernel "
+                f"{adamw_step.launches - before} times in 3 steps, want one "
+                f"a step")
         for i, (a, b) in enumerate(zip(pa, pb)):
             sa, sb = oa._states[id(a)], ob._states[id(b)]
             pairs = [("param", a, b)]
-            if dtype == torch.bfloat16:
+            if "master" in sa:
                 pairs.append(("master", sa["master"], sb["master"]))
                 sa, sb = sa["inner"], sb["inner"]
             pairs += [("m", sa["m"], sb["m"]), ("v", sa["v"], sb["v"])]
-            for what, x, y in pairs:
-                require(torch.equal(x, y), f"adamw_step {dname(dtype)} leaf "
-                        f"{i} {tuple(a.shape)}: {what} differs from the "
-                        f"eager AdamW (max "
+            for name, x, y in pairs:
+                require(torch.equal(x, y), f"adamw_step {what} leaf {i} "
+                        f"{tuple(a.shape)}: {name} differs from the eager "
+                        f"AdamW (max "
                         f"{(x.float() - y.float()).abs().max().item()})")
         del inits, pa, pb, oa, ob
         torch.cuda.empty_cache()
-    state = [[torch.randn(sh, generator=gen, device=dev) for sh in shapes]
-             for _ in range(4)]
-    for v in state[3]:
-        v.abs_()
-    P, G, M, V = state
+    rows = []
     sc = stage_scalars(1e-4, 0.9, 0.999, 1e-8, 0.01, 3)
+    for form, dtypes in cases[::2]:
+        W, M, V = [[torch.randn(sh, generator=gen, device=dev)
+                    for sh in shapes] for _ in range(3)]
+        for v in V:
+            v.abs_()
+        G = [torch.randn(sh, generator=gen, device=dev).to(dt)
+             for sh, dt in zip(shapes, dtypes)]
+        G32 = [g.float() for g in G]
+        L = [torch.empty(sh, dtype=dt, device=dev)
+             if dt != torch.float32 else None
+             for sh, dt in zip(shapes, dtypes)]
+        decays = [True] * n_leaves
 
-    def run():
-        for leaf in zip(P, G, M, V):
-            adamw_step(*leaf, sc, True)
+        def run():
+            adamw_step_multi(W, G, M, V, L, decays, sc)
 
-    def plain():
-        for leaf in zip(P, G, M, V):
-            adamw_step_reference(*leaf, sc, True)
-    ms = cuda_ms(run)
-    dev_ms, kern_ms = device_ms(run, "adamw_step_kernel")
-    plain_ms = cuda_ms(plain, iters=5)
-    steps = [torch.tensor(3.0, device=dev) for _ in shapes]
-    lib = cuda_ms(lambda: torch._fused_adamw_(
-        P, G, M, V, [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
-        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False))
-    N = sum(p.numel() for p in P)
-    # 16 f32 operations an element; p, g, m, v read and p, m, v written
-    b_ms, b_by = bound(16.0 * N, 28.0 * N, torch.float32)
-    return dict(name="adamw_step", dtype="float32",
-                shape=f"{n_leaves} leaves, {N} f32 elements (largest "
-                f"{max(p.numel() for p in P)})",
-                max_abs_err=0.0, tol="bitwise", ms=ms, device_ms=dev_ms,
-                kernel_device_ms=kern_ms, plain_ms=plain_ms, library_ms=lib,
-                bound_ms=b_ms, bound_by=b_by, library="torch._fused_adamw_")
+        def chain():
+            # the parent's route: g.float(), the kernel, .to(p.dtype) and
+            # the copy into p, tensor by tensor
+            for w, g, m, v, lo in zip(W, G, M, V, L):
+                adamw_step(w, g.float() if lo is not None else g, m, v, sc,
+                           True)
+                if lo is not None:
+                    lo.copy_(w.to(lo.dtype))
+
+        def plain():
+            adamw_step_multi_reference(W, G, M, V, L, decays, sc)
+        steps = [torch.tensor(3.0, device=dev) for _ in shapes]
+
+        def lib_run():
+            torch._fused_adamw_(W, G32, M, V, [], steps, lr=1e-4, beta1=0.9,
+                                beta2=0.999, weight_decay=0.01, eps=1e-8,
+                                amsgrad=False, maximize=False)
+        ms = cuda_ms(run)
+        dev_ms, kern_ms = device_ms(run, "adamw_step_kernel", per_call=1)
+        host = host_ms(run, n=50)
+        chain_ms = cuda_ms(chain)
+        chain_dev = device_ms(chain, "")[0]
+        plain_ms = cuda_ms(plain, iters=5)
+        lib = cuda_ms(lib_run)
+        lib_dev = device_ms(lib_run, "")[0]
+        N = sum(w.numel() for w in W)
+        n_low = sum(w.numel() for w, lo in zip(W, L) if lo is not None)
+        # 16 f32 operations an element; 28 bytes an element either way:
+        # p, g, m, v read and p, m, v written in f32, or a 2-byte g read
+        # and a 2-byte parameter written beside the f32 master, m and v
+        b_ms, b_by = bound(16.0 * N, 28.0 * N, torch.float32)
+        rows.append(dict(
+            name="adamw_step", dtype=form,
+            shape=f"{n_leaves} leaves, {N} elements ({n_low} of them bf16 "
+            f"parameters with f32 masters), largest "
+            f"{max(w.numel() for w in W)}, one launch", max_abs_err=0.0, tol="bitwise", ms=ms,
+            device_ms=dev_ms, kernel_device_ms=kern_ms, host_ms=host,
+            chain_ms=chain_ms, chain_device_ms=chain_dev, plain_ms=plain_ms,
+            library_ms=lib, library_device_ms=lib_dev, bound_ms=b_ms,
+            bound_by=b_by, library="torch._fused_adamw_ over the f32 "
+            "state"))
+        del W, M, V, G, G32, L
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_momentum(shapes, o2_dtypes, gen, dev):
@@ -1356,16 +1436,20 @@ def int8pack_available(dev):
 
 
 def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
-             timed=True):
+             timed=True, offset=False):
     """The weight-only kernel against its plain version at ``M x K x
     N``: error absolute below 1 and relative above (one bf16 rounding
     step of an output of 4 is 0.03); the call must take the route
-    ``wo_route`` names (the row is named ``wo_matmul_wgmma`` on the
-    tensor-core route). With ``timed``, its times, the wrapper's host
-    time a call, its bound and the library yardsticks."""
+    ``wo_route`` names (the row is named by it: ``wo_gemv_mma`` for bf16
+    decode on the tensor cores, ``wo_matmul_wgmma`` for bf16 prefill).
+    ``offset``: x and w are contiguous views one element past a 16-byte
+    boundary. With ``timed``, its times, the wrapper's host time a call,
+    its bound and the library yardsticks (by events and device time)."""
     x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
     w = torch.randn(K, N, generator=gen, device=dev) * 0.02
     w8, s8 = quantize_channelwise(w)
+    if offset:
+        x, w8 = unaligned(x), unaligned(w8)
     bias = ((torch.randn(N, generator=gen, device=dev) * 0.02).to(dtype)
             if with_bias else None)
     route = wo_route(M, K, N, dtype)
@@ -1380,12 +1464,13 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
     err = diff.max().item()
     scaled = (diff / ref.float().abs().clamp_min(1.0)).max().item()
     require(torch.isfinite(y.float()).all().item(), "non-finite output")
-    shape = f"M{M} K{K} N{N} ({label})" + (" bias" if with_bias else "")
+    shape = (f"M{M} K{K} N{N} ({label})" + (" bias" if with_bias else "")
+             + (", x and w unaligned" if offset else ""))
     require(scaled <= TOL[dtype], f"wo_matmul {dname(dtype)} {shape} "
             f"disagrees with its plain version: {scaled} > {TOL[dtype]}")
-    row = dict(name="wo_matmul_wgmma" if route == "wgmma" else "wo_matmul",
-               route=route, dtype=dname(dtype), shape=shape,
-               max_abs_err=err, scaled_err=scaled, tol=TOL[dtype])
+    row = dict(name=WO_ROW_NAME[route], route=route, dtype=dname(dtype),
+               shape=shape, max_abs_err=err, scaled_err=scaled,
+               tol=TOL[dtype])
     if not timed:
         return row
 
@@ -1395,17 +1480,16 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
     dev_ms, kern_ms = device_ms(run, "wo_ge")
     # the wrapper's host time (checks, the plan, the launch), which the
     # CUDA-event time holds beside the kernel's
-    host = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        run()
-        host.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
+    host = host_ms(run, n=50)
     plain = cuda_ms(lambda: int8_weight_only_matmul_reference(
         x, w8, s8, bias), iters=10)
     w_deq = (w8.float() * (s8 / 127.0)).to(dtype)
-    lib = cuda_ms((lambda: torch.addmm(bias, x, w_deq)) if with_bias
-                  else (lambda: torch.mm(x, w_deq)))
+
+    def lib_run():
+        return torch.addmm(bias, x, w_deq) if with_bias else torch.mm(x,
+                                                                      w_deq)
+    lib = cuda_ms(lib_run)
+    lib_dev = device_ms(lib_run, "")[0]
     pack_ms = None
     if int8pack:
         w_nk, s_x = w8.t().contiguous(), (s8 / 127.0).to(dtype)
@@ -1415,8 +1499,8 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
               + (N * size if with_bias else 0))
     b_ms, b_by = bound(2.0 * M * N * K, nbytes, dtype)
     row.update(ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
-               host_ms=statistics.median(host), plain_ms=plain,
-               library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+               host_ms=host, plain_ms=plain, library_ms=lib,
+               library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
                library="torch.mm over the dequantized weight",
                int8pack_mm_ms=pack_ms)
     return row
@@ -1456,7 +1540,11 @@ def check_wo_bound(model, prompt):
     and the bound is below ``max |x @ W|``; a 4-bit payload of the same
     weights breaks the 8-bit bound somewhere. (The l1 bound grows with K
     and the error of a random payload with its square root: at K 8192
-    the down projection's 4-bit payload can stay inside the bound.)"""
+    the down projection's 4-bit payload can stay inside the bound.) The
+    bf16 decode route (``wo_gemv_mma``, the tensor cores) is held the
+    same way on the last 1 and 8 rows cast to bf16, against ``x @ W`` of
+    those bf16 rows, with one bf16 rounding step of the output (2**-8
+    |y|) beside the bound."""
     caps, hooks = {}, []
     for li in (0, len(model.gpt.h) - 1):
         blk = model.gpt.h[li]
@@ -1498,7 +1586,27 @@ def check_wo_bound(model, prompt):
         require(row["informative"], f"wo_matmul {key}: the bound is not "
                 f"below max |x @ W|")
         rows.append(row)
-    require(any(r["four_bit_violates"] for r in rows),
+        for m in (1, 8):
+            xb = x[-m:].to(torch.bfloat16).contiguous()
+            before = int8_weight_only_matmul.route_launches["gemv_mma"]
+            yb = int8_weight_only_matmul(xb, w8, s8).double().cpu()
+            require(int8_weight_only_matmul.route_launches["gemv_mma"]
+                    == before + 1, f"wo_matmul {key} bf16 M{m}: not on the "
+                    f"tensor-core decode route")
+            exact = xb.double().cpu() @ w.double().cpu()
+            bnd = weight_quant_error_bound(xb, s8).double().cpu()
+            err = (yb - exact).abs()
+            drow = dict(weight=key, route="gemv_mma",
+                        shape=f"M{m} K{w.shape[0]} N{w.shape[1]} bf16",
+                        max_err=err.max().item(), max_bound=bnd.max().item(),
+                        max_abs_y=exact.abs().max().item(),
+                        holds=bool((err <= bnd + (2.0 ** -8 + 1e-4)
+                                    * yb.abs()).all()))
+            say(f"[kernel] wo_gemv_mma bound {drow}")
+            require(drow["holds"], f"wo_gemv_mma {key} M{m}: error past "
+                    f"the analytic bound")
+            rows.append(drow)
+    require(any(r.get("four_bit_violates") for r in rows),
             "no 4-bit payload breaks the 8-bit bound: the bound is vacuous")
     return rows
 
@@ -2052,6 +2160,7 @@ def serve(model, econf, prompts, new_tokens):
         step += 1
         require(step < 10_000, "engine did not drain")
     launches = counts()
+    wo_routes = dict(int8_weight_only_matmul.route_launches)
     gens = [eng.sequence(r).generated for r in rids]
     for g in gens:
         require(len(g) == new_tokens, "a request finished short")
@@ -2075,7 +2184,7 @@ def serve(model, econf, prompts, new_tokens):
                  program_budget=eng.program_budget,
                  kv_high_water_bytes=eng.kv_high_water_bytes(),
                  peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                 step_profile=step_profile)
+                 step_profile=step_profile, wo_route_launches=wo_routes)
     require(eng.num_decode_programs <= eng.program_budget,
             "decode buckets past the budget")
     return gens, launches, stats
@@ -2130,13 +2239,20 @@ def serve_int8(make_model, dtype, econf, prompts, new, fp_gens, tag):
     require(l8["wo_matmul"] == want,
             f"{tag}: wo_matmul launched {l8['wo_matmul']} times, want "
             f"{want} ({per_pass} a prefill and a decode step)")
-    # a bf16 prefill's block projections (M = the padded prompt, > 8) on
-    # the tensor cores; the head (the last row) and decode (M <= 8) not
-    want_tc = ((per_pass - 1) * st["prefills"] if dtype == torch.bfloat16
-               else 0)
-    require(l8["wo_matmul_wgmma"] == want_tc,
-            f"{tag}: the tensor-core route launched "
-            f"{l8['wo_matmul_wgmma']} times, want {want_tc}")
+    # a prefill's block projections (M = the padded prompt, > 8): bf16 on
+    # the tensor cores (wgmma), f32 on the CUDA cores (gemm); every decode
+    # projection and head and each prefill's head (the last row, M <= 8):
+    # bf16 on the tensor cores (gemv_mma), f32 on the CUDA cores (gemv)
+    bf16 = dtype == torch.bfloat16
+    prefill = (per_pass - 1) * st["prefills"]
+    decode = per_pass * st["decode_steps"] + st["prefills"]
+    want_routes = {"wgmma": prefill if bf16 else 0,
+                   "gemm": 0 if bf16 else prefill,
+                   "gemv_mma": decode if bf16 else 0,
+                   "gemv": 0 if bf16 else decode}
+    require(st["wo_route_launches"] == want_routes,
+            f"{tag}: wo_matmul launches by route "
+            f"{st['wo_route_launches']}, want {want_routes}")
     st.update(near_ties=len(ties), tie_margins=ties, launches=l8,
               tokens_agreeing_with_fp=sum(
                   a == b for x, y in zip(g8, fp_gens) for a, b in zip(x, y)),
@@ -2492,7 +2608,8 @@ def train_bf16(smi):
             f"non-finite training loss: {[warm] + losses + [traced]}")
     require(losses[-1] < losses[0],
             f"training loss did not fall: {losses}")
-    want = {"flash_fwd": T["layers"], "adamw_step": 16}
+    # the fused AdamW: one multi-tensor launch a step for the 16 leaves
+    want = {"flash_fwd": T["layers"], "adamw_step": 1}
     if route == "fused":
         want["flash_bwd_fused"] = T["layers"]
     else:
@@ -3448,7 +3565,9 @@ def varlen_train(smi):
                                       "flash_varlen_bwd_fused")}
     want.update({n: 0 for n in ("flash_varlen_bwd_dkv",
                                 "flash_varlen_bwd_dq")})
-    want["adamw_step"] = 2 * V["layers"]
+    # the fused AdamW: one multi-tensor launch a step for the 2 x layers
+    # weights
+    want["adamw_step"] = 1
     want.update({n: 0 for n in DENSE_FLASH_KERNELS})
     for n, per_step in want.items():
         require(launches[n] == steps * per_step,
@@ -3870,6 +3989,41 @@ def check_tf32_build():
     return dict(hmma_tf32=hmma, ptxas=report)
 
 
+def check_wo_mma_build():
+    """Phase 2 for the bf16 decode kernel: every instantiation of
+    ``wo_gemv_mma_kernel`` (16-byte or byte-wise w, 8-byte or element-wise
+    x) in the ``wo_matmul`` library holds bf16 tensor-core instructions
+    (HMMA) in its SASS, and ptxas's registers and spills for each are
+    printed."""
+    lib, sass_text = sass("wo_matmul")
+    hmma, fn = {}, None
+    for line in sass_text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "wo_gemv_mma_kernel" in m.group(1) else None
+            if fn:
+                hmma[fn] = 0
+        elif fn and "HMMA" in line:
+            hmma[fn] += 1
+    ptxas, fn = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1) if "wo_gemv_mma_kernel" in m.group(1) else None
+        elif fn and ("registers" in line or "spill" in line):
+            ptxas.setdefault(fn, []).append(line.strip())
+    say(f"[build] wo_gemv_mma_kernel: HMMA in the SASS of each "
+        f"instantiation: {json.dumps(hmma)}")
+    for kernel, lines in sorted(ptxas.items()):
+        say(f"[build] {kernel}: {'; '.join(lines)}")
+    require(len(hmma) == 4, f"wo_matmul: {len(hmma)} instantiations of "
+            f"wo_gemv_mma_kernel in the SASS, want 4")
+    require(all(n > 0 for n in hmma.values()),
+            f"wo_gemv_mma_kernel: no HMMA in "
+            f"{[k for k, n in hmma.items() if not n]}")
+    return dict(hmma=hmma, ptxas=ptxas)
+
+
 def vec_args(mangled):
     """A vector norm kernel's template arguments from its mangled name:
     x's type, the parameters' type and the vectors a lane."""
@@ -3939,13 +4093,18 @@ def launches_by_route(n, launches):
 
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
-    path's bf16 shape (the fused AdamW state and the split pair's
-    tensor-core kernels are f32)."""
+    path's bf16 shape (the fused AdamW step over the training leaves in
+    their O2 dtypes; the momentum state, the split pair's tensor-core
+    kernels and the CUDA-core decode kernel are f32)."""
     def wanted(r):
         if r["name"] != n:
             return False
-        if n in ("adamw_step", "momentum_step"):
+        if n == "momentum_step":
             return r["dtype"] == "float32"
+        if n == "adamw_step":
+            return r["dtype"] == ADAMW_LINE_DTYPE
+        if n == "wo_matmul":
+            return r["dtype"] == "float32" and r["shape"] == LINE_SHAPES[n]
         if n in SPLIT_TF32X3.values():
             return r["dtype"] == "float32" and r["shape"] == LINE_SHAPES[n]
         if n == "i8i8_matmul":
@@ -3983,6 +4142,7 @@ def main():
     wgmma = check_wgmma_build()
     norm_build = check_norm_build()
     tf32_build = check_tf32_build()
+    wo_mma_build = check_wo_mma_build()
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4061,9 +4221,9 @@ def main():
                         dtype, 2, 4, Sq, Sk, D, gen, dev, timed=False,
                         routes=("fused", "split") if Sq == 200
                         else ("fused",), causal=causal)
-    shapes = [tuple(p.shape) for p in
-              train_setup(T["layers"], dev, bf16=False)[0].parameters()]
-    rows.append(check_adamw(shapes, gen, dev))
+    leaves = [(tuple(p.shape), p.dtype) for p in
+              train_setup(T["layers"], dev, bf16=True)[0].parameters()]
+    rows += check_adamw(leaves, gen, dev)
     torch.cuda.empty_cache()
     o2 = amp.decorate(resnet50(device=dev), level="O2", dtype="bfloat16")
     rows.append(check_momentum([tuple(p.shape) for p in o2.parameters()],
@@ -4083,6 +4243,20 @@ def main():
                for M, N in ((3, 333), (37, 336))
                for dtype in (torch.bfloat16, torch.float32)
                for with_bias in (False, True)]
+    # bf16 decode on the tensor cores at the batches the timed rows skip,
+    # at every projection; then ragged K and N, and x and w one element
+    # past a 16-byte boundary (both decode kernels)
+    ragged += [check_wo(torch.bfloat16, M, K, N, with_bias, gen, dev, label,
+                        False, timed=False)
+               for label, (K, N) in WO_SHAPES.items()
+               for M in WO_DECODE_ROWS for with_bias in (False, True)]
+    ragged += [check_wo(dtype, M, K, N, True, gen, dev, label, False,
+                        timed=False, offset=offset)
+               for M, K, N, label, offset in (
+                   (5, 1030, 7, "ragged", False),
+                   (8, 2048, 2048, "out_proj", True),
+                   (2, 200, 333, "ragged", True))
+               for dtype in (torch.bfloat16, torch.float32)]
     ragged.append(check_wo_all_values(dev))
     # 12. the packed varlen kernels, into phase 3's rows
     for dtype in (torch.bfloat16, torch.float32):
@@ -4121,7 +4295,10 @@ def main():
             f"(device {r.get('library_device_ms')}) bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})"
             + (f" host {r['host_ms']:.4f} int8pack {r['int8pack_mm_ms']}"
-               if r["name"].startswith("wo_matmul") else "")
+               if r["name"] in WO_ROW_NAME.values() else "")
+            + (f" host {r['host_ms']:.4f} parent's chain "
+               f"{r['chain_ms']:.4f} (device {r['chain_device_ms']})"
+               if r["name"] == "adamw_step" else "")
             + (f" host {r['host_ms']:.4f} ({r['route']} route, its kernel "
                f"seen by name: {r['kernel_seen']})" if "kernel_seen" in r
                else "")
@@ -4139,7 +4316,7 @@ def main():
                 f"{r['excess_over_tol']:.3g}; {r['tol']})"
                 + (f"; {r['route']} route, its kernel seen by name: "
                    f"{r['kernel_seen']}" if "kernel_seen" in r else ""))
-        elif r["name"] in ("wo_matmul", "wo_matmul_wgmma"):
+        elif r["name"] in WO_ROW_NAME.values():
             say(f"[kernel] wo_matmul {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, tol "
                 f"{r['tol']})")
@@ -4379,7 +4556,7 @@ def main():
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(device=kind, nvidia_smi=smi, build_s=build_s,
              wgmma_build=wgmma, norm_build=norm_build,
-             tf32_build=tf32_build, kernels=rows,
+             tf32_build=tf32_build, wo_mma_build=wo_mma_build, kernels=rows,
              ragged=ragged, wo_bound=wo_bound, wo_payload=wo_payload,
              int8pack_mm_on_cuda=int8pack, engine=runs,
              train_bf16=train_rec, train_f32_vs_cpu=f32run,

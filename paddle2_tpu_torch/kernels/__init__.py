@@ -14,7 +14,7 @@ from .flash_varlen import (flash_attention_varlen_packed,
                            flash_varlen_bwd_fused_reference,
                            flash_varlen_fwd, flash_varlen_fwd_reference)
 from .fused_adamw import (adamw_flat, adamw_flat_reference, adamw_step,
-                          adamw_step_reference)
+                          adamw_step_multi, adamw_step_reference)
 from .fused_ce import fused_linear_cross_entropy
 from .fused_layer_norm import (layer_norm_bwd, layer_norm_bwd_reference,
                                layer_norm_fwd, layer_norm_fwd_reference)
@@ -39,6 +39,7 @@ __all__ = ["scaled_dot_product_attention", "remat_policy",
            "flash_varlen_bwd_dkv_reference", "flash_varlen_bwd_dq",
            "flash_varlen_bwd_dq_reference", "flash_varlen_bwd_fused",
            "flash_varlen_bwd_fused_reference", "adamw_step",
+           "adamw_step_multi",
            "adamw_step_reference", "fused_linear_cross_entropy",
            "momentum_step", "momentum_step_multi", "momentum_step_reference",
            "layer_norm_fwd", "layer_norm_fwd_reference",

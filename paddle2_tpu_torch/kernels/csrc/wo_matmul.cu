@@ -1,4 +1,5 @@
-// Int8 weight-only matmul for Hopper (sm_90a), on the CUDA cores.
+// Int8 weight-only matmul for Hopper (sm_90a): bf16 decode on the tensor
+// cores (mma.sync), f32 decode and prefill on the CUDA cores.
 //
 // Replaces: paddle2_tpu/kernels/pallas_matmul.py `_wo_kernel` (through
 // `_wo_pallas`), reached from `int8_weight_only_matmul` by every block
@@ -9,34 +10,70 @@
 //
 // x [M, K] f32 or bf16, w [K, N] int8, s [N] f32, b [N] in x's type, y
 // [M, N] in x's type. The sum is taken in f32 from exact products (an int8
-// value is exact in f32, and so is a bf16 times an int8 one), the scale is
-// applied once per column after the sum and the bias is added in f32 before
-// the one cast, as the Pallas kernel and its wrapper do. The kernel and its
-// plain version therefore differ only in the order of summation.
+// value is exact in f32 and in bf16, and a bf16 times an int8 one is exact
+// in f32), the scale is applied once per column after the sum and the bias
+// is added in f32 before the one cast, as the Pallas kernel and its wrapper
+// do. The kernels and their plain version therefore differ only in the
+// order of summation.
 //
 // What bounds it on the H100, and what the design does about it:
 //
 // * Decode (M <= 8) is bound by the weight bytes: K*N int8 bytes against
-//   2*M*K*N operations, at most 16 operations a byte, below the card's ~20
-//   f32 operations a byte of its memory rate. `wo_gemv_kernel` streams w
-//   once: each thread owns 16 neighbouring columns (one 16-byte copy a
+//   2*M*K*N operations. On the CUDA cores that is not so at M 8: every
+//   weight byte costs 8 FMAs and its widening, about as long as the byte
+//   takes to arrive, and 128 f32 accumulators a thread cap the blocks an SM
+//   holds. So bf16 x takes `wo_gemv_mma_kernel`, on the tensor cores:
+//
+//   - The product is swapped, y^T = w^T x^T, on mma.sync m16n8k16 (bf16 in,
+//     f32 sums): 16 columns of w are the A operand's rows, x's <= 8 rows
+//     the n8 side (rows past M are zero), so at M 8 no tensor-core work is
+//     wasted.
+//   - A warp owns a 128-column tile of w and takes 16 rows of K a step. Its
+//     thread (g = lane / 4, t = lane % 4) loads rows 4t .. 4t+3 of the step
+//     at columns 16g .. 16g+15 (four 16-byte loads; a warp reads four whole
+//     128-byte rows each time) and widens them straight into its A
+//     fragments, with no shared-memory transpose, by two maps the mma
+//     leaves free. The column map: in the step's mma j (0..7), A row g
+//     stands for column 16g + 2j of the tile and A row g+8 for 16g + 2j + 1.
+//     The k map: A's (and B's) k slots 2t, 2t+1, 2t+8, 2t+9 stand for the
+//     step's rows 4t, 4t+1, 4t+2, 4t+3. So register a0 of mma j packs rows
+//     4t and 4t+1 at column 16g + 2j, a1 the same rows at the next column,
+//     a2 and a3 rows 4t+2 and 4t+3; and B's registers b0, b1 are x's row g
+//     at the step's k 4t .. 4t+3, one 8-byte load of x (from L2: x is a
+//     few KB). The accumulators come back as rows 2t, 2t+1 of x and the
+//     thread's own 16 columns: 32 registers a thread.
+//   - Widening stays exact: wo::i8x4_to_f32, then a bf16 pair
+//     (cvt.rn.bf16x2.f32, exact for every int8 value).
+//   - Loads go straight to registers, two steps ahead of the mmas (2 KB a
+//     warp a step). A block is 4 warps over one column tile, splitting its
+//     K range step by step; at ~128 registers a thread an SM holds 4 blocks
+//     (16 warps, 64 KB in flight). A first design staged the weights in
+//     shared memory through per-thread cp.async rings (8 warps, 97 KB a
+//     block) and x in shared memory as well, and was slower at every
+//     decode shape: small blocks that hold nothing in shared memory but
+//     their sums start and finish sooner.
+//   - The 4 warps of a block are added through shared memory in warp
+//     order; K is also split across blocks (gridDim.y, at most 8 ways)
+//     until the blocks fill about two an SM. The splits of a column tile
+//     are one thread-block cluster: after a cluster barrier each block
+//     adds the blocks' sums for its share of the tile's outputs in rank
+//     (split) order through distributed shared memory, so the result does
+//     not depend on which block ran first and no partial sum goes through
+//     global memory. (A global workspace with a counter a tile and the
+//     last block adding, the CUDA-core kernel's way, was as fast or up to
+//     17 % slower at every decode shape.)
+//
+//   f32 x keeps `wo_gemv_kernel` on the CUDA cores (its contract refuses
+//   TF32): each thread owns 16 neighbouring columns (one 16-byte copy a
 //   row, neighbouring threads on neighbouring columns, a warp on four
-//   128-byte rows) and keeps its next 8 rows in flight as asynchronous
-//   copies (cp.async) into a ring of its own in shared memory, so the
-//   bytes in flight (32 KB a block) take no registers: at M 8 the 128
-//   accumulators of a thread take those. Each row used is replaced at once
-//   by the copy of the row 8 further on. x's <= 8 rows over the block's K
-//   range are staged in shared memory once, while the first copies fly.
-//   The 32 row lanes of a block split its K range and are reduced through
-//   warp shuffles and shared memory. A 128-column tile gives 16 blocks at
-//   N = 2048, too few for 132 SMs, so K is also split across blocks
-//   (gridDim.y), as many ways as one wave of resident blocks allows: each
-//   block writes its f32 partial sums to a workspace, and the last block of
-//   a column tile to finish (a counter per tile, the threadfence-reduction
-//   pattern) adds the partials in split order, so the result does not
-//   depend on which block ran first. The last block sets its counter back
-//   to 0.
-// * Prefill (M > 8) is bound by operations: 2*M*K*N against ~M*K*size +
+//   128-byte rows) and keeps its next 8 rows in flight as cp.async copies
+//   into a ring of its own, x's <= 8 rows over the block's K range staged
+//   in shared memory once; the 32 row lanes of a block split its K range
+//   and are reduced through warp shuffles and shared memory; K is split
+//   across blocks, each block writing f32 partial sums to a workspace and
+//   the last block of a column tile to finish (a counter per tile) adding
+//   them in split order.
+// * Prefill (M > 8) is bound by operations: 2*M*N*K against ~M*K*size +
 //   K*N bytes. `wo_gemm_kernel` is a tiled product on the CUDA cores: a
 //   128 x 128 output tile a block, 8 x 8 outputs a thread in registers,
 //   tiles of x and of the int8 weight (converted to f32) in shared memory
@@ -46,11 +83,16 @@
 //   16-byte rule; bf16 prefill within it runs on the tensor cores
 //   (wo_matmul_wgmma.cu).
 //
-// Every shape is taken: M, N and K are masked at the ragged edge.
+// Every shape is taken: M, N and K are masked at the ragged edge (a w
+// whose rows are not 16-byte runs, N % 16 != 0 or an unaligned base, is
+// read byte by byte).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wo_common.cuh"
 
@@ -120,6 +162,81 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
+// The block's GV_COLS columns from its warps' partial sums red[w][m][c] (m
+// < MT, added in warp order): with one K split, y through the epilogue;
+// else each block writes its partials to ws, and the last block of the
+// column tile to finish (a counter per tile, the threadfence-reduction
+// pattern) adds them in split order, so the result does not depend on
+// which block ran first, and sets its counter back to 0.
+template <typename T, int MT>
+__device__ __forceinline__ void finish_tile(const float* red,
+                                            const float* __restrict__ s,
+                                            const T* __restrict__ bias,
+                                            T* __restrict__ y,
+                                            float* __restrict__ ws,
+                                            unsigned* __restrict__ counters,
+                                            int M, int N, float qmax) {
+  // outputs a thread: o = tid + NT u
+  constexpr int PER = (MT * GV_COLS + NT - 1) / NT;
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  const bool split = gridDim.y > 1;
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int o = tid + NT * u;
+    const int m = o / GV_COLS, c = o % GV_COLS;
+    const int n = blockIdx.x * GV_COLS + c;
+    if (o >= MT * GV_COLS) break;
+    float v = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < NT / 32; ++wp)
+      v += red[(wp * MT + m) * GV_COLS + c];
+    if (m < M && n < N) {
+      if (split)
+        ws[((size_t)blockIdx.y * M + m) * N + n] = v;
+      else
+        y[(size_t)m * N + n] = epilogue(v, s[n], qmax, bias, n);
+    }
+  }
+  if (!split) return;
+
+  // the last block of this column tile adds the K splits' partials: each
+  // thread's outputs split by split, their loads all independent (and the
+  // scales beside them), so they are in flight together
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(&counters[blockIdx.x], 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float v[PER], sc[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int o = tid + NT * u, n = blockIdx.x * GV_COLS + o % GV_COLS;
+    v[u] = 0.f;
+    sc[u] = o < M * GV_COLS && n < N ? s[n] : 0.f;
+  }
+#pragma unroll 4
+  for (int ks = 0; ks < (int)gridDim.y; ++ks) {
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int o = tid + NT * u, m = o / GV_COLS;
+      const int n = blockIdx.x * GV_COLS + o % GV_COLS;
+      if (o < M * GV_COLS && n < N)
+        v[u] += __ldcg(&ws[((size_t)ks * M + m) * N + n]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int o = tid + NT * u, m = o / GV_COLS;
+    const int n = blockIdx.x * GV_COLS + o % GV_COLS;
+    if (o < M * GV_COLS && n < N)
+      y[(size_t)m * N + n] = epilogue(v[u], sc[u], qmax, bias, n);
+  }
+  if (tid == 0) counters[blockIdx.x] = 0u;
+}
+
 // Grid (ceil(N / 128), K splits of k_per_split <= 8192 / MT rows), dynamic
 // shared memory GV_SMEM_BYTES. MT >= M rows of x are computed (the rows
 // past M are zero). VEC: N % 16 == 0 and w 16-byte aligned. Row lane rl
@@ -132,7 +249,6 @@ __global__ void __launch_bounds__(NT)
                    unsigned* __restrict__ counters, int M, int K, int N,
                    int k_per_split, float qmax) {
   extern __shared__ __align__(16) unsigned char gv_smem[];
-  __shared__ bool last;
   constexpr int KMAX = GV_SMEM_FLOATS / MT;  // rows of K a block may take
   float(*xs)[KMAX] = reinterpret_cast<float(*)[KMAX]>(gv_smem);
   float(*red)[MT][GV_COLS] = reinterpret_cast<float(*)[MT][GV_COLS]>(gv_smem);
@@ -220,40 +336,197 @@ __global__ void __launch_bounds__(NT)
         red[warp][m][cl * GV_LANE_COLS + c] = acc[m][c];
   }
   __syncthreads();
-  const bool split = gridDim.y > 1;
-  for (int o = tid; o < MT * GV_COLS; o += NT) {
-    const int m = o / GV_COLS, c = o % GV_COLS;
-    const int n = blockIdx.x * GV_COLS + c;
+  finish_tile<T, MT>(&red[0][0][0], s, bias, y, ws, counters, M, N, qmax);
+}
+
+// ------------------------------------------- bf16 decode, tensor cores
+constexpr int MMA_NT = 128;            // threads a block
+constexpr int MMA_NW = MMA_NT / 32;    // warps a block
+constexpr int MMA_KSTEP = 16;          // rows of K a warp takes a step
+constexpr int MMA_AHEAD = 2;           // steps a thread keeps in flight
+// the K splits of a column tile form one thread-block cluster, of at most
+// the portable size
+constexpr int MMA_MAX_SPLITS = 8;
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += A * B on one m16n8k16 tile: bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Word q of the thread's four rows of a step (columns 4q .. 4q+3 of its 16)
+// into the A fragments of mmas 2q (columns 4q, 4q+1) and 2q+1 (4q+2, 4q+3),
+// by the column and k maps of the note at the top.
+__device__ __forceinline__ void mma_word(float (&c0)[4], float (&c1)[4],
+                                         uint32_t r0, uint32_t r1,
+                                         uint32_t r2, uint32_t r3,
+                                         uint32_t b0, uint32_t b1) {
+  float f0[4], f1[4], f2[4], f3[4];
+  i8x4_to_f32(r0, f0);
+  i8x4_to_f32(r1, f1);
+  i8x4_to_f32(r2, f2);
+  i8x4_to_f32(r3, f3);
+  mma_bf16(c0, bf16x2(f0[0], f1[0]), bf16x2(f0[1], f1[1]),
+           bf16x2(f2[0], f3[0]), bf16x2(f2[1], f3[1]), b0, b1);
+  mma_bf16(c1, bf16x2(f0[2], f1[2]), bf16x2(f0[3], f1[3]),
+           bf16x2(f2[2], f3[2]), bf16x2(f2[3], f3[3]), b0, b1);
+}
+
+// A step's operands in one thread's registers: its four rows of w at its
+// 16 columns, and x's row g at the step's k 4t .. 4t+3 (B's two registers)
+struct Step {
+  uint4 w[4];
+  uint2 x;
+};
+
+// The block's 128 columns from its warps' partial sums red[w][m][c] when
+// the K splits of the tile are one cluster (rank q = blockIdx.y): each
+// block adds its warps in order into red's first [8][128], then, after
+// the cluster's barrier, rank r adds the ranks' sums in rank order for
+// the outputs o = tid + 128 (r + S i) (S ranks) through distributed shared
+// memory, applies the epilogue and stores them; a second barrier keeps
+// every block's shared memory alive until the others have read it.
+__device__ __forceinline__ void cluster_finish(
+    float* red, const float* __restrict__ s,
+    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+    int M, int N, float qmax) {
+  namespace cg = cooperative_groups;
+  constexpr int OUTS = GV_MAX_M * GV_COLS;
+  constexpr int PER = OUTS / MMA_NT;
+  const int tid = threadIdx.x;
+  float part[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int o = tid + MMA_NT * u;
     float v = 0.f;
 #pragma unroll
-    for (int wp = 0; wp < NT / 32; ++wp) v += red[wp][m][c];
-    if (m < M && n < N) {
-      if (split)
-        ws[((size_t)blockIdx.y * M + m) * N + n] = v;
+    for (int wp = 0; wp < MMA_NW; ++wp) v += red[wp * OUTS + o];
+    part[u] = v;
+  }
+  __syncthreads();                 // every read of the warps' sums is done
+#pragma unroll
+  for (int u = 0; u < PER; ++u) red[tid + MMA_NT * u] = part[u];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int ranks = (int)cluster.num_blocks();
+  const int r = (int)cluster.block_rank();
+  for (int o = tid + MMA_NT * r; o < M * GV_COLS; o += MMA_NT * ranks) {
+    const int n = blockIdx.x * GV_COLS + o % GV_COLS;
+    if (n >= N) continue;
+    float v = 0.f;
+    for (int q = 0; q < ranks; ++q) v += cluster.map_shared_rank(red, q)[o];
+    y[(size_t)(o / GV_COLS) * N + n] = epilogue(v, s[n], qmax, bias, n);
+  }
+  cluster.sync();
+}
+
+// Grid (ceil(N / 128), K splits of k_per_split rows, a multiple of 128), 128
+// threads; the splits of a tile are one cluster (1, splits, 1). Warp w
+// takes the block's steps w, w + 4, ... (16 rows each).
+// VEC: N % 16 == 0 and w 16-byte aligned (16-byte loads of w, else byte by
+// byte); XVEC: K % 4 == 0 and x 8-byte aligned (8-byte loads of x, else
+// element by element).
+template <bool VEC, bool XVEC>
+__global__ void __launch_bounds__(MMA_NT, 512 / MMA_NT)
+    wo_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ s,
+                       const __nv_bfloat16* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ y, int M, int K, int N,
+                       int k_per_split, float qmax) {
+  __shared__ __align__(16) float red[MMA_NW * GV_MAX_M * GV_COLS];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * GV_COLS + 16 * g;  // this thread's columns
+  const int kbeg = blockIdx.y * k_per_split;
+  const int kend = min(K, kbeg + k_per_split);
+  const int steps = (kend - kbeg + MMA_KSTEP - 1) / MMA_KSTEP;
+  const int mine = warp < steps ? (steps - warp + MMA_NW - 1) / MMA_NW : 0;
+  const __nv_bfloat16* xrow = x + (size_t)min(g, M - 1) * K;
+
+  // this warp's step i: rows k .. k+3 of this thread's 16 columns, k =
+  // kbeg + 16 (warp + 4 i) + 4t, and x's row g there (zeros past the
+  // split, N or M)
+  auto load_step = [&](Step& st, int i) {
+    const int k = kbeg + MMA_KSTEP * (warp + MMA_NW * i) + 4 * t;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (!VEC)
+        st.w[r] = load_w16(w, k + r, n0, kend, N);
+      else if (k + r < kend && n0 < N)
+        st.w[r] = __ldg(reinterpret_cast<const uint4*>(
+            w + (size_t)(k + r) * N + n0));
       else
-        y[(size_t)m * N + n] = epilogue(v, s[n], qmax, bias, n);
+        st.w[r] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    st.x = make_uint2(0u, 0u);
+    if (g < M) {
+      if (XVEC) {
+        // k and kend are multiples of 4: the 4 values are wholly in range
+        if (k < kend) st.x = __ldg(reinterpret_cast<const uint2*>(xrow + k));
+      } else {
+        uint32_t h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h[e] = k + e < kend ? __bfloat16_as_ushort(xrow[k + e]) : 0u;
+        st.x = make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
+      }
+    }
+  };
+  Step ahead[MMA_AHEAD];
+#pragma unroll
+  for (int a = 0; a < MMA_AHEAD; ++a) load_step(ahead[a], a);
+
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int i = 0; i < mine; i += MMA_AHEAD) {
+#pragma unroll
+    for (int a = 0; a < MMA_AHEAD; ++a) {
+      if (i + a < mine) {
+        const Step st = ahead[a];
+        mma_word(acc[0], acc[1], st.w[0].x, st.w[1].x, st.w[2].x, st.w[3].x,
+                 st.x.x, st.x.y);
+        mma_word(acc[2], acc[3], st.w[0].y, st.w[1].y, st.w[2].y, st.w[3].y,
+                 st.x.x, st.x.y);
+        mma_word(acc[4], acc[5], st.w[0].z, st.w[1].z, st.w[2].z, st.w[3].z,
+                 st.x.x, st.x.y);
+        mma_word(acc[6], acc[7], st.w[0].w, st.w[1].w, st.w[2].w, st.w[3].w,
+                 st.x.x, st.x.y);
+        // the registers are in the mmas' operands: load the step
+        // MMA_AHEAD further on into them
+        load_step(ahead[a], i + a + MMA_AHEAD);
+      }
     }
   }
-  if (!split) return;
 
-  // the last block of this column tile adds the K splits' partials
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    last = atomicAdd(&counters[blockIdx.x], 1u) == gridDim.y - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int o = tid; o < MT * GV_COLS; o += NT) {
-    const int m = o / GV_COLS, c = o % GV_COLS;
-    const int n = blockIdx.x * GV_COLS + c;
-    if (m >= M || n >= N) continue;
-    float v = 0.f;
-    for (int ks = 0; ks < (int)gridDim.y; ++ks)
-      v += __ldcg(&ws[((size_t)ks * M + m) * N + n]);
-    y[(size_t)m * N + n] = epilogue(v, s[n], qmax, bias, n);
+  // warp w's sums, red[w][m][c]: mma j gives rows 2t, 2t+1 of x at
+  // columns 16g + 2j (c0, c1) and 16g + 2j + 1 (c2, c3)
+  float* mine_red = red + warp * GV_MAX_M * GV_COLS;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 16 * g + 2 * j;
+    *reinterpret_cast<float2*>(&mine_red[(2 * t) * GV_COLS + c]) =
+        make_float2(acc[j][0], acc[j][2]);
+    *reinterpret_cast<float2*>(&mine_red[(2 * t + 1) * GV_COLS + c]) =
+        make_float2(acc[j][1], acc[j][3]);
   }
-  if (tid == 0) counters[blockIdx.x] = 0u;
+  __syncthreads();
+  cluster_finish(red, s, bias, y, M, N, qmax);
 }
 
 // ----------------------------------------------------------- prefill GEMM
@@ -360,28 +633,33 @@ int launch(const void* xv, const void* wv, const void* sv, const void* bv,
   const T* bias = static_cast<const T*>(bv);
   T* y = static_cast<T*>(yv);
   if (M <= GV_MAX_M) {
-    const int mt = M == 1 ? 1 : M == 2 ? 2 : M <= 4 ? 4 : 8;
-    if (k_per_split > GV_SMEM_FLOATS / mt) return cudaErrorInvalidValue;
-    const dim3 grid((N + GV_COLS - 1) / GV_COLS,
-                    (K + k_per_split - 1) / k_per_split);
-    if (grid.y > 1 && (wsv == nullptr || cv == nullptr))
+    // bf16 decode runs on the tensor cores (the wo_gemv_mma entry)
+    if constexpr (!std::is_same<T, float>::value) {
       return cudaErrorInvalidValue;
-    const bool vec =
-        N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    float* ws = static_cast<float*>(wsv);
-    unsigned* counters = static_cast<unsigned*>(cv);
-    if (M == 1)
-      launch_gemv<T, 1>(grid, st, vec, x, w, s, bias, y, ws, counters, M, K,
-                        N, k_per_split, qmax);
-    else if (M == 2)
-      launch_gemv<T, 2>(grid, st, vec, x, w, s, bias, y, ws, counters, M, K,
-                        N, k_per_split, qmax);
-    else if (M <= 4)
-      launch_gemv<T, 4>(grid, st, vec, x, w, s, bias, y, ws, counters, M, K,
-                        N, k_per_split, qmax);
-    else
-      launch_gemv<T, 8>(grid, st, vec, x, w, s, bias, y, ws, counters, M, K,
-                        N, k_per_split, qmax);
+    } else {
+      const int mt = M == 1 ? 1 : M == 2 ? 2 : M <= 4 ? 4 : 8;
+      if (k_per_split > GV_SMEM_FLOATS / mt) return cudaErrorInvalidValue;
+      const dim3 grid((N + GV_COLS - 1) / GV_COLS,
+                      (K + k_per_split - 1) / k_per_split);
+      if (grid.y > 1 && (wsv == nullptr || cv == nullptr))
+        return cudaErrorInvalidValue;
+      const bool vec =
+          N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+      float* ws = static_cast<float*>(wsv);
+      unsigned* counters = static_cast<unsigned*>(cv);
+      if (M == 1)
+        launch_gemv<T, 1>(grid, st, vec, x, w, s, bias, y, ws, counters, M,
+                          K, N, k_per_split, qmax);
+      else if (M == 2)
+        launch_gemv<T, 2>(grid, st, vec, x, w, s, bias, y, ws, counters, M,
+                          K, N, k_per_split, qmax);
+      else if (M <= 4)
+        launch_gemv<T, 4>(grid, st, vec, x, w, s, bias, y, ws, counters, M,
+                          K, N, k_per_split, qmax);
+      else
+        launch_gemv<T, 8>(grid, st, vec, x, w, s, bias, y, ws, counters, M,
+                          K, N, k_per_split, qmax);
+    }
   } else {
     const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     wo_gemm_kernel<T><<<grid, NT, 0, st>>>(x, w, s, bias, y, M, K, N, qmax);
@@ -405,11 +683,11 @@ int gemv_occupancy(int M, bool vec, int* blocks) {
 
 }  // namespace
 
-// x [M, K] (dtype 0: f32, 1: bf16), w [K, N] int8, s [N] f32, bias [N] in
-// x's type or null, y [M, N] in x's type, all contiguous on the current
-// device. For M <= 8 and K > k_per_split, ws holds ceil(K / k_per_split)
-// * M * N f32 and counters ceil(N / 128) zeroed u32 (left zeroed); else
-// both may be null.
+// x [M, K] (dtype 0: f32, 1: bf16; bf16 only for M > 8: its decode is
+// wo_gemv_mma's), w [K, N] int8, s [N] f32, bias [N] in x's type or null, y
+// [M, N] in x's type, all contiguous on the current device. For M <= 8 and
+// K > k_per_split, ws holds ceil(K / k_per_split) * M * N f32 and counters
+// ceil(N / 128) zeroed u32 (left zeroed); else both may be null.
 extern "C" int wo_matmul(const void* x, const void* w, const void* s,
                          const void* bias, void* y, void* ws, void* counters,
                          int M, int K, int N, int k_per_split, float qmax,
@@ -426,15 +704,63 @@ extern "C" int wo_matmul(const void* x, const void* w, const void* s,
   return cudaErrorInvalidValue;
 }
 
-// Blocks of the decode kernel for M (<= 8) rows that one SM holds at
-// once, on the current device; vec: N % 16 == 0. The wrapper splits K so
-// that one wave fills the card.
+// Blocks of the CUDA-core decode kernel (f32, dtype 0) for M (<= 8) rows
+// that one SM holds at once, on the current device; vec: N % 16 == 0. The
+// wrapper splits K so that one wave fills the card.
 extern "C" int wo_gemv_blocks_per_sm(int M, int vec, int dtype,
                                      int* blocks) {
   if (M <= 0 || M > GV_MAX_M) return cudaErrorInvalidValue;
   if (dtype == 0) return gemv_occupancy<float>(M, vec != 0, blocks);
-  if (dtype == 1) return gemv_occupancy<__nv_bfloat16>(M, vec != 0, blocks);
   return cudaErrorInvalidValue;
+}
+
+// The bf16 decode on the tensor cores (wo_gemv_mma_kernel): x [M, K] bf16
+// with 1 <= M <= 8, w [K, N] int8, s [N] f32, bias [N] bf16 or null, y [M,
+// N] bf16, all contiguous on the current device (any alignment). k_per_split
+// is a multiple of 128, and K takes at most MMA_MAX_SPLITS of them (the
+// splits of a column tile are one cluster).
+extern "C" int wo_gemv_mma(const void* x, const void* w, const void* s,
+                           const void* bias, void* y, int M, int K, int N,
+                           int k_per_split, float qmax, void* stream) {
+  if (M <= 0 || M > GV_MAX_M || N <= 0 || K <= 0 || k_per_split <= 0 ||
+      k_per_split % 128 != 0)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + GV_COLS - 1) / GV_COLS,
+                  (K + k_per_split - 1) / k_per_split);
+  if (grid.y > MMA_MAX_SPLITS) return cudaErrorInvalidValue;
+  const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const bool xvec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
+  auto kernel = vec ? (xvec ? wo_gemv_mma_kernel<true, true>
+                            : wo_gemv_mma_kernel<true, false>)
+                    : (xvec ? wo_gemv_mma_kernel<false, true>
+                            : wo_gemv_mma_kernel<false, false>);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(MMA_NT);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = grid.y;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const int8_t*>(w), static_cast<const float*>(s),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(y), M, K, N, k_per_split, qmax);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Blocks of the tensor-core decode kernel that one SM holds at once, on the
+// current device; vec: N % 16 == 0. The wrapper splits K to fill whole
+// waves of them.
+extern "C" int wo_gemv_mma_blocks_per_sm(int vec, int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks,
+      vec ? wo_gemv_mma_kernel<true, true> : wo_gemv_mma_kernel<false, true>,
+      MMA_NT, 0);
 }
 
 extern "C" const char* error_string(int err) {

@@ -8,9 +8,10 @@ names it exposes. :func:`channel_absmax`, :func:`quantize_channelwise`,
 :func:`fp8_matmul` are plain torch, as they are plain jnp there. Two
 functions are ports of Pallas kernels:
 
-* :func:`int8_weight_only_matmul`, of ``_wo_kernel``: bf16 prefill
-  (more than 8 rows) on the tensor cores, ``csrc/wo_matmul_wgmma.cu``;
-  decode (at most 8 rows) and f32 on the CUDA cores,
+* :func:`int8_weight_only_matmul`, of ``_wo_kernel``: bf16 on the
+  tensor cores, prefill (more than 8 rows) in
+  ``csrc/wo_matmul_wgmma.cu`` and decode (at most 8 rows) in
+  ``csrc/wo_matmul.cu`` (``wo_gemv_mma_kernel``); f32 on the CUDA cores,
   ``csrc/wo_matmul.cu`` (:func:`wo_route` says which);
   :func:`int4_weight_only_matmul` unpacks a nibble payload and reaches
   it at ``quant_bits=4``.
@@ -64,7 +65,9 @@ DEFAULT_BLOCK_K = 512
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"wo_matmul": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _P],
-               "wo_gemv_blocks_per_sm": [_I, _I, _I, _P]}
+               "wo_gemv_blocks_per_sm": [_I, _I, _I, _P],
+               "wo_gemv_mma": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
+               "wo_gemv_mma_blocks_per_sm": [_I, _P]}
 _WGMMA_SIGNATURES = {"wo_matmul_wgmma": [_P] * 5 + [_I] * 3
                      + [ctypes.c_float, _P]}
 _I8_SIGNATURES = {"i8i8_matmul": [_P] * 3 + [_I] * 4 + [_P]}
@@ -75,17 +78,25 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GEMV_MAX_M = 8
 _GEMV_COLS = 128
 _GEMV_SMEM_FLOATS = 8192
+# the tensor-core decode kernel (csrc/wo_matmul.cu `wo_gemv_mma_kernel`):
+# K splits of whole 128-row runs (16 rows for each of a block's 4 warps,
+# twice over), at most 8 (the splits of a column tile are one
+# thread-block cluster, of the portable size)
+_MMA_SPLIT_ROWS = 128
+_MMA_MAX_SPLITS = 8
 # the weight-only kernels a CUDA call may take (wo_route)
-WO_ROUTES = ("gemv", "gemm", "wgmma")
+WO_ROUTES = ("gemv", "gemv_mma", "gemm", "wgmma")
 # per device: zeroed u32 counters, one per column tile, that the split-K
 # reduction leaves zeroed, and the split-K partials' f32 workspace, grown
 # as needed (calls on one device are ordered on one stream)
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 # (device, MT, N % 16 == 0, dtype) -> decode blocks the whole card holds
+# (MT "mma" for the tensor-core kernel)
 _RESIDENT: Dict[tuple, int] = {}
-# (device, M, K, N, dtype) -> (route, k_per_split, splits): a launch's
-# plan, made once per shape (a serving run repeats a few dozen)
+# (device, M, K, N, dtype) -> (route, k_per_split, splits, library, C
+# entry): a launch's plan, made once per shape (a serving run repeats a
+# few dozen), with its entry bound once
 _PLANS: Dict[tuple, tuple] = {}
 _MAX_PLANS = 4096
 
@@ -185,14 +196,35 @@ def k_split(M: int, K: int, N: int, resident: int) -> Tuple[int, int]:
     return per, -(-K // per)
 
 
-def _resident(lib, device: torch.device, M: int, N: int,
-              dtype: torch.dtype) -> int:
-    key = (device, _gemv_rows(M), N % 16 == 0, dtype)
+def mma_k_split(M: int, K: int, N: int, resident: int) -> Tuple[int, int]:
+    """``(k_per_split, splits)`` of the tensor-core decode kernel: K is
+    split across blocks until the column tiles times the splits fill half
+    of the ``resident`` blocks the card holds (two blocks of 128 threads
+    an SM, 32 KB of weight loads in flight on each), in whole 128-row
+    runs, at most 8 ways (a tile's splits are one cluster). More splits
+    add partial sums without reading faster; fewer leave SMs idle
+    (``wo_gemv_mma_variants.py`` times every split on the card)."""
+    tiles = -(-N // _GEMV_COLS)
+    want = min(_MMA_MAX_SPLITS, max(1, -(-(resident // 2) // tiles)))
+    rows = -(-K // want)
+    per = -(-rows // _MMA_SPLIT_ROWS) * _MMA_SPLIT_ROWS
+    return per, -(-K // per)
+
+
+def _resident(lib, device: torch.device, M: int, N: int, dtype: torch.dtype,
+              route: str) -> int:
+    mma = route == "gemv_mma"
+    key = (device, "mma" if mma else _gemv_rows(M), N % 16 == 0, dtype)
     if key not in _RESIDENT:
         per_sm = ctypes.c_int(0)
-        _build.check(lib, lib.wo_gemv_blocks_per_sm(
-            M, int(key[2]), _DTYPE_CODE[dtype], ctypes.byref(per_sm)),
-            "wo_gemv_blocks_per_sm")
+        if mma:
+            err = lib.wo_gemv_mma_blocks_per_sm(int(key[2]),
+                                                ctypes.byref(per_sm))
+        else:
+            err = lib.wo_gemv_blocks_per_sm(
+                M, int(key[2]), _DTYPE_CODE[dtype], ctypes.byref(per_sm))
+        _build.check(lib, err, "wo_gemv_mma_blocks_per_sm" if mma
+                     else "wo_gemv_blocks_per_sm")
         _RESIDENT[key] = per_sm.value * torch.cuda.get_device_properties(
             device).multi_processor_count
     return _RESIDENT[key]
@@ -216,18 +248,25 @@ def _workspace(device: torch.device, n: int) -> torch.Tensor:
 
 def wo_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
     """The kernel a CUDA call of ``M x K x N`` in ``dtype`` takes, chosen
-    from its shape and dtype before the launch: "gemv" for M <= 8
-    (``wo_gemv_kernel``, decode); "wgmma" for bf16 within TMA's 16-byte
-    rule, K % 8 == 0 and N % 16 == 0 (``wo_gemm_wgmma_kernel``, the
-    tensor cores); else "gemm" (``wo_gemm_kernel``, the CUDA cores: f32,
-    whose contract refuses TF32, and bf16 rows of another length). A
-    base off a 16-byte boundary does not change the route: the wrapper
-    copies that operand first."""
+    from its shape and dtype before the launch. Decode, M <= 8:
+    "gemv_mma" for bf16 (``wo_gemv_mma_kernel``, the tensor cores; any
+    K, N and alignment), "gemv" for f32 (``wo_gemv_kernel``, the CUDA
+    cores: the f32 contract refuses TF32). Prefill: "wgmma" for bf16
+    within TMA's 16-byte rule, K % 8 == 0 and N % 16 == 0
+    (``wo_gemm_wgmma_kernel``, the tensor cores); else "gemm"
+    (``wo_gemm_kernel``, the CUDA cores: f32, and bf16 rows of another
+    length). A base off a 16-byte boundary does not change the route:
+    the wgmma route copies that operand first, the decode kernels read
+    it byte by byte."""
     if M <= _GEMV_MAX_M:
-        return "gemv"
+        return "gemv_mma" if dtype == torch.bfloat16 else "gemv"
     if dtype == torch.bfloat16 and K % 8 == 0 and N % 16 == 0:
         return "wgmma"
     return "gemm"
+
+
+_ENTRIES = {"gemv": "wo_matmul", "gemm": "wo_matmul",
+            "gemv_mma": "wo_gemv_mma", "wgmma": "wo_matmul_wgmma"}
 
 
 def _plan(dev: torch.device, M: int, K: int, N: int,
@@ -236,13 +275,20 @@ def _plan(dev: torch.device, M: int, K: int, N: int,
     plan = _PLANS.get(key)
     if plan is None:
         route = wo_route(M, K, N, dtype)
+        lib = (_build.library("wo_matmul_wgmma", _WGMMA_SIGNATURES)
+               if route == "wgmma" else
+               _build.library("wo_matmul", _SIGNATURES))
         per, splits = K, 1
         if route == "gemv":
-            per, splits = k_split(M, K, N, _resident(
-                _build.library("wo_matmul", _SIGNATURES), dev, M, N, dtype))
+            per, splits = k_split(M, K, N, _resident(lib, dev, M, N, dtype,
+                                                     route))
+        elif route == "gemv_mma":
+            per, splits = mma_k_split(M, K, N, _resident(lib, dev, M, N,
+                                                         dtype, route))
         if len(_PLANS) >= _MAX_PLANS:
             _PLANS.clear()
-        plan = _PLANS[key] = (route, per, splits)
+        plan = _PLANS[key] = (route, per, splits, lib,
+                              getattr(lib, _ENTRIES[route]))
     return plan
 
 
@@ -280,30 +326,39 @@ def int8_weight_only_matmul(x, w_int8, w_scale, bias=None,
     return _launch(x, w_int8, w_scale, bias, y, M, K, N, qmax)
 
 
+def _raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as the integer handle
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without
+    building a Stream object (a fifth of a decode call's host time)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _launch(x, w_int8, w_scale, bias, y, M, K, N, qmax):
     """One launch on ``x``'s device, which is the current one."""
     dev = x.device
-    route, per, splits = _plan(dev, M, K, N, x.dtype)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    route, per, splits, lib, entry = _plan(dev, M, K, N, x.dtype)
+    stream = _raw_stream(dev.index)
     b_ptr = None if bias is None else bias.data_ptr()
     if route == "wgmma":
-        lib = _build.library("wo_matmul_wgmma", _WGMMA_SIGNATURES)
-        err = lib.wo_matmul_wgmma(
+        err = entry(
             _build.tma_aligned(x).data_ptr(),
             _build.tma_aligned(w_int8).data_ptr(),
             w_scale.data_ptr(), b_ptr, y.data_ptr(), M, K, N, qmax, stream)
-        _build.check(lib, err, "wo_matmul_wgmma")
+    elif route == "gemv_mma":
+        # the K splits of a column tile add through distributed shared
+        # memory, not a workspace
+        err = entry(x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
+                    b_ptr, y.data_ptr(), M, K, N, per, qmax, stream)
     else:
-        lib = _build.library("wo_matmul", _SIGNATURES)
         ws = counters = None
         if splits > 1:
             ws = _workspace(dev, splits * M * N).data_ptr()
             counters = _counters(dev, -(-N // _GEMV_COLS)).data_ptr()
-        err = lib.wo_matmul(
-            x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(), b_ptr,
-            y.data_ptr(), ws, counters, M, K, N, per, qmax,
-            _DTYPE_CODE[x.dtype], stream)
-        _build.check(lib, err, "wo_matmul")
+        err = entry(x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
+                    b_ptr, y.data_ptr(), ws, counters, M, K, N, per, qmax,
+                    _DTYPE_CODE[x.dtype], stream)
+    if err:
+        _build.check(lib, err, _ENTRIES[route])
     int8_weight_only_matmul.launches += 1
     int8_weight_only_matmul.route_launches[route] += 1
     return y

@@ -115,54 +115,15 @@ class Optimizer:
         return bool(flag_value("fused_optimizer_step"))
 
     def _fused_update_builder(self, decay_flags):
-        """Subclasses with a one-pass kernel return a drop-in ``update``
-        here; None falls back to the generic per-op chain. A fused
-        update must equal the generic one bitwise."""
+        """Subclasses with a multi-tensor kernel return a drop-in
+        ``update`` here; None falls back to the generic per-op chain. A
+        fused update must equal the generic one bitwise."""
         return None
-
-    def _fused_paramwise_builder(self, decay_flags, kernel):
-        """The per-tensor fused-update scaffolding (AdamW's; Momentum
-        gathers every tensor into one launch instead): the
-        multi-precision master unwrap and re-wrap, the explicit f32 grad
-        cast, and the per-tensor fallback to :meth:`_apply_one`.
-        ``kernel(work, g, inner, lr, step, wd_eff)`` updates ``work``
-        and ``inner`` in place and returns them, or None when this
-        tensor is unsupported. l1 decay takes the fallback for every
-        tensor: the kernels implement the l2 form only.
-
-        The fallback serves CPU tensors only (:func:`refuse_off_cpu`)."""
-        wd_kind, wd = self._weight_decay
-        l1 = bool(wd) and wd_kind != "l2"
-        multi_prec = self._multi_precision
-        apply_one = self._apply_one
-
-        def update(params, grads, states, lr, step):
-            new_params, new_states = [], []
-            for p, g, s, decay in zip(params, grads, states, decay_flags):
-                master, inner = None, s
-                if multi_prec and "master" in s:
-                    master, inner = s["master"], s["inner"]
-                work = master if master is not None else p
-                g_eff = g.float() if master is not None else g
-                res = None if l1 else kernel(work, g_eff, inner, lr, step,
-                                             wd if (wd and decay) else 0.0)
-                if res is None:
-                    refuse_off_cpu(p, l1)
-                    np_, ns_ = apply_one(p, g, s, lr, step, decay)
-                elif master is not None:
-                    np_, ns_ = res[0].to(p.dtype), {"master": res[0],
-                                                    "inner": res[1]}
-                else:
-                    np_, ns_ = res
-                new_params.append(np_)
-                new_states.append(ns_)
-            return new_params, new_states
-        return update
 
     def _apply_one(self, p, g, s, lr, step, decay):
         """The per-parameter update (weight decay + ``_update_one`` +
         master handling) shared by the generic update and, as the
-        per-tensor fallback, the fused one. ``lr * wd`` is taken in f32,
+        per-tensor fallback, the fused ones. ``lr * wd`` is taken in f32,
         as the JAX package's f32 ``lr`` times the Python ``wd``."""
         wd_kind, wd = self._weight_decay
         decoupled = self._decoupled_wd()

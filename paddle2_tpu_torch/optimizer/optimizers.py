@@ -6,8 +6,9 @@ per JAX op): ``1-b1`` is a Python constant, ``1-b1**t`` is computed in
 f32 from the integer step, and AdamW's decoupled decay is a separate
 subtract against the pre-update parameter. No ``add_(..., alpha=)``,
 ``addcmul_`` or ``lerp_``: on CUDA those fuse a multiply and an add into
-one rounding, and the fused kernel (``kernels/csrc/adamw_step.cu``) is
-held to this chain bitwise. Division by the bias corrections goes
+one rounding, and the fused multi-tensor kernel
+(``kernels/csrc/adamw_step.cu``) is held to this chain bitwise, the cast
+of a master to its bf16/f16 parameter included. Division by the bias corrections goes
 through a tensor on the parameter's device, because torch on CUDA turns
 division by a host scalar into a multiplication by its reciprocal.
 
@@ -23,7 +24,7 @@ The other optimizers of the JAX module are ROADMAP queue 1 item 2.
 import numpy as np
 import torch
 
-from ..kernels.fused_adamw import (adamw_step, adamw_step_supported,
+from ..kernels.fused_adamw import (adamw_multi_supported, adamw_step_multi,
                                    stage_scalars)
 from ..kernels.fused_momentum import (momentum_multi_supported,
                                        momentum_step_multi)
@@ -142,11 +143,12 @@ class Adam(Optimizer):
 
 class AdamW(Adam):
     """Adam with decoupled weight decay. ``fused=True`` routes each f32
-    update (a plain f32 parameter, or the master of a bf16 one) through
-    the one-pass kernel (:mod:`paddle2_tpu_torch.kernels.fused_adamw`),
-    bitwise equal to the eager chain. Other tensors (a bf16 parameter
-    without a master, l1 decay) fall back to the chain on the CPU and
-    raise on the card. ``fused=None`` follows
+    update (a plain f32 parameter, or the master of a bf16/f16 one, whose
+    parameter the same pass writes) through one multi-tensor kernel
+    launch a step (:mod:`paddle2_tpu_torch.kernels.fused_adamw`), bitwise
+    equal to the eager chain. Other tensors (a bf16 parameter without a
+    master, l1 decay, non-contiguous state) fall back to the chain on
+    the CPU and raise on the card. ``fused=None`` follows
     ``FLAGS_fused_optimizer_step`` (off by default)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
@@ -165,17 +167,44 @@ class AdamW(Adam):
         return True
 
     def _fused_update_builder(self, decay_flags):
+        """One kernel launch a step for every tensor the kernel takes
+        (:func:`~paddle2_tpu_torch.kernels.fused_adamw.adamw_step_multi`):
+        the f32 update of each, and each bf16/f16 parameter written from
+        its master in the same pass, so the parameter is returned as
+        itself and ``step`` copies nothing. l1 decay and tensors the
+        kernel does not take follow :func:`refuse_off_cpu`: the eager
+        chain per tensor on the CPU, ``NotImplementedError`` on the card.
+        The states are updated in place and keep their layout."""
         b1, b2, eps = self._beta1, self._beta2, self._eps
+        wd_kind, wd = self._weight_decay
+        l1 = bool(wd) and wd_kind != "l2"
+        multi_prec = self._multi_precision
+        apply_one = self._apply_one
 
-        def kernel(work, g, inner, lr, step, wd_eff):
-            if not (set(inner) == {"m", "v"}
-                    and inner["m"].dtype == torch.float32
-                    and inner["m"].is_contiguous()
-                    and inner["v"].is_contiguous()
-                    and adamw_step_supported(work, g)):
-                return None
-            adamw_step(work, g, inner["m"], inner["v"],
-                       stage_scalars(lr, b1, b2, eps, wd_eff, step),
-                       apply_wd=bool(wd_eff))
-            return work, inner
-        return self._fused_paramwise_builder(decay_flags, kernel)
+        def update(params, grads, states, lr, step):
+            new_params, new_states = list(params), list(states)
+            works, gs, ms, vs, lows, decays = [], [], [], [], [], []
+            for i, (p, g, s, decay) in enumerate(zip(params, grads, states,
+                                                     decay_flags)):
+                master, inner = None, s
+                if multi_prec and "master" in s:
+                    master, inner = s["master"], s["inner"]
+                work = master if master is not None else p
+                low = p if master is not None else None
+                if l1 or set(inner) != {"m", "v"} or \
+                        not adamw_multi_supported(work, g, inner["m"],
+                                                  inner["v"], low):
+                    refuse_off_cpu(p, l1)
+                    new_params[i], new_states[i] = apply_one(
+                        p, g, s, lr, step, decay)
+                    continue
+                works.append(work)
+                gs.append(g)
+                ms.append(inner["m"])
+                vs.append(inner["v"])
+                lows.append(low)
+                decays.append(bool(wd and decay))
+            adamw_step_multi(works, gs, ms, vs, lows, decays,
+                             stage_scalars(lr, b1, b2, eps, wd, step))
+            return new_params, new_states
+        return update

@@ -16,11 +16,16 @@ Phases:
   smoke's phase-4 requests: 8 prompts of 17..1000 tokens, 32 new tokens
   each, ``EngineConfig(block_size=16, num_blocks=1024, max_batch=8)``,
   ``weight_only_int8=True, weight_only_lm_head=True``), served twice on
-  one model, the second run's ``serve()`` figures; then
-  ``int8_weight_only_matmul`` at the up projection (K 2048, N 8192, with
-  a bias) at M 8 (decode) and M 1008 (a padded 1000-token prefill), bf16
-  and f32: CUDA events, device time from torch.profiler, and the
-  wrapper's host time a call (the median of 200 calls without a sync).
+  one model, the second run's ``serve()`` figures (decode and prefill
+  tokens/s, TTFT, and the traced decode step's device time by kernel
+  group and idle share); then ``int8_weight_only_matmul`` at the up
+  projection (K 2048, N 8192, with a bias) at M 8 (decode) and M 1008 (a
+  padded 1000-token prefill), bf16 and f32, and at M 8 in bf16 at all
+  five projections (qkv, out_proj, up and down with a bias, the head
+  without): CUDA events, device time from torch.profiler (all kernels,
+  and the weight-only kernel alone), the wrapper's host time a call (the
+  median of 200 calls without a sync), and ``torch.addmm`` (``torch.mm``
+  for the head) over the dequantized weight by events and device time.
 - ``varlen_step``: the smoke's phase 13 (``chip_smoke.varlen_train``:
   two GPT-3 1.3B-width packed self-attention layers, bf16 O2, batches of
   <= 8,192 tokens, 1 warm-up, 5 timed and 1 traced step, with that
@@ -73,6 +78,17 @@ Phases:
   timed and 1 traced step, with that checkout's own launch gates):
   tokens/s, the step times, the traced step's device time and idle
   share.
+- ``adamw_step``: the fused AdamW step over the bench GPT's 16 training
+  leaves (``chip_smoke.train_setup`` at full depth: 336.9 M elements),
+  through the APIs both sides of a comparison have: the optimizer's step
+  (``AdamW(1e-4, multi_precision=True, fused=True).step()``) on the
+  leaves in their O2 dtypes (bf16 parameters with f32 masters and bf16
+  gradients) and all in f32, with the kernel's launches a step; the
+  kernel per leaf (``fused_adamw.adamw_step``, f32); where the checkout
+  has it, the kernel over all 16 in one call (``adamw_step_multi``, f32
+  and O2); and ``torch._fused_adamw_`` over the f32 state: each by CUDA
+  events and device time from torch.profiler, with the host time a call
+  of the optimizer's step.
 """
 
 import argparse
@@ -106,28 +122,24 @@ def int8_serving(cs, torch):
     runs = []
     for _ in range(2):
         gens, launches, st = cs.serve(model, econf, prompts, 32)
+        prof = st["step_profile"] or {}
         runs.append(dict(prefill_tok_s=st["prefill_tok_s"],
                          ttft_mean_s=st["ttft_mean_s"],
                          ttft_max_s=st["ttft_max_s"],
                          decode_tok_s=st["decode_tok_s"],
                          prefill_s=st["prefill_s"], prefills=st["prefills"],
-                         wo_launches=launches["wo_matmul"]))
+                         decode_steps=st["decode_steps"],
+                         wo_launches=launches["wo_matmul"],
+                         decode_step_device_ms=prof.get("device_ms"),
+                         decode_step_by_group=prof.get("by_group"),
+                         decode_step_idle_share=prof.get("idle_share")))
     del model
     torch.cuda.empty_cache()
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
-    w8, s8 = qm.quantize_channelwise(
-        torch.randn(2048, 8192, generator=gen, device=dev) * 0.02)
-    b32 = torch.randn(8192, generator=gen, device=dev) * 0.02
-    wo = {}
-    for M, dtype in ((8, torch.bfloat16), (1008, torch.bfloat16),
-                     (8, torch.float32), (1008, torch.float32)):
-        x = torch.randn(M, 2048, generator=gen, device=dev).to(dtype)
-        b = b32.to(dtype)
 
-        def run():
-            return qm.int8_weight_only_matmul(x, w8, s8, b)
+    def timed(run, x, w8, s8, b):
         events = cs.cuda_ms(run)
         device, kernel = cs.device_ms(run, "wo_ge")
         host = []
@@ -136,11 +148,79 @@ def int8_serving(cs, torch):
             run()
             host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-        wo[f"M{M} {str(dtype)[6:]}"] = dict(
-            events_ms=events, device_ms=device, kernel_device_ms=kernel,
-            host_ms=statistics.median(host))
+        w_deq = (w8.float() * (s8 / 127.0)).to(x.dtype)
+
+        def library():
+            return (torch.mm(x, w_deq) if b is None
+                    else torch.addmm(b, x, w_deq))
+        return dict(events_ms=events, device_ms=device,
+                    kernel_device_ms=kernel, host_ms=statistics.median(host),
+                    library_events_ms=cs.cuda_ms(library),
+                    library_device_ms=cs.device_ms(library, "")[0])
+    w8, s8 = qm.quantize_channelwise(
+        torch.randn(2048, 8192, generator=gen, device=dev) * 0.02)
+    b32 = torch.randn(8192, generator=gen, device=dev) * 0.02
+    wo = {}
+    for M, dtype in ((8, torch.bfloat16), (1008, torch.bfloat16),
+                     (8, torch.float32), (1008, torch.float32)):
+        x = torch.randn(M, 2048, generator=gen, device=dev).to(dtype)
+        b = b32.to(dtype)
+        wo[f"M{M} {str(dtype)[6:]}"] = timed(
+            lambda: qm.int8_weight_only_matmul(x, w8, s8, b), x, w8, s8, b)
+        print(json.dumps({f"up M{M} {str(dtype)[6:]}":
+                          wo[f"M{M} {str(dtype)[6:]}"]}), flush=True)
+    del w8, s8
+    decode = {}
+    for label, (K, N) in cs.WO_SHAPES.items():
+        w8, s8 = qm.quantize_channelwise(
+            torch.randn(K, N, generator=gen, device=dev) * 0.02)
+        x = torch.randn(8, K, generator=gen, device=dev).to(torch.bfloat16)
+        b = (None if label == "head" else
+             (torch.randn(N, generator=gen, device=dev) * 0.02).to(
+                 torch.bfloat16))
+        decode[label] = dict(shape=f"M8 K{K} N{N} bf16"
+                             + ("" if b is None else " bias"),
+                             route=qm.wo_route(8, K, N, torch.bfloat16),
+                             **timed(lambda: qm.int8_weight_only_matmul(
+                                 x, w8, s8, b), x, w8, s8, b))
+        print(json.dumps({label: decode[label]}), flush=True)
+        del w8, s8
+        torch.cuda.empty_cache()
+    # where a decode call's host time goes (bf16, M 8, the up projection
+    # with a bias): each piece alone, the median of 200 calls without a
+    # sync
+    K, N = cs.WO_SHAPES["up"]
+    w8, s8 = qm.quantize_channelwise(
+        torch.randn(K, N, generator=gen, device=dev) * 0.02)
+    x = torch.randn(8, K, generator=gen, device=dev).to(torch.bfloat16)
+    b = (torch.randn(N, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    y = torch.empty(8, N, dtype=torch.bfloat16, device=dev)
+    w_deq = w8.to(torch.bfloat16)
+    plan = qm._plan(dev, 8, K, N, torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pieces = dict(
+        wrapper=lambda: qm.int8_weight_only_matmul(x, w8, s8, b),
+        check=lambda: qm._check(x, w8, s8, b),
+        on_card=lambda: qm._build.on_card("int8_weight_only_matmul", x, w8,
+                                          s8, b),
+        empty=lambda: torch.empty(x.shape[:-1] + (N,), dtype=x.dtype,
+                                  device=x.device),
+        current_device=torch.cuda.current_device,
+        current_stream=lambda: torch.cuda.current_stream(dev).cuda_stream,
+        raw_stream=lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        plan=lambda: qm._plan(dev, 8, K, N, torch.bfloat16),
+        data_ptrs=lambda: (x.data_ptr(), w8.data_ptr(), s8.data_ptr(),
+                           b.data_ptr(), y.data_ptr()),
+        c_entry=(lambda: plan[4](x.data_ptr(), w8.data_ptr(), s8.data_ptr(),
+                                 b.data_ptr(), y.data_ptr(), None, None, 8,
+                                 K, N, plan[1], 127.0, stream))
+        if len(plan) > 3 else (lambda: None),
+        library=lambda: torch.addmm(b, x, w_deq))
+    host_pieces = {k: _host_ms(torch, fn) for k, fn in pieces.items()}
+    print(json.dumps(dict(host_pieces_ms=host_pieces)), flush=True)
     return dict(serve=runs[1], serve_first=runs[0],
-                wo_up_k2048_n8192_bias=wo)
+                wo_up_k2048_n8192_bias=wo, decode_m8_bf16=decode,
+                host_pieces_ms=host_pieces)
 
 
 def varlen_step(cs, torch):
@@ -459,6 +539,74 @@ def flash_bwd_f32(cs, torch):
     return dict(shape=f"B{B} H{H} S{S} D{D} causal f32", **rows)
 
 
+def adamw_step(cs, torch):
+    from paddle2_tpu_torch.kernels import fused_adamw as fa
+    from paddle2_tpu_torch.optimizer import AdamW
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = cs.train_setup(cs.TRAIN["layers"], "cuda", bf16=True)[0]
+    leaves = [(tuple(p.shape), p.dtype) for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    out = dict(leaves=len(leaves),
+               elements=sum(torch.Size(sh).numel() for sh, _ in leaves))
+
+    def record(name, fn, kernel=""):
+        events = cs.cuda_ms(fn)
+        device, ours = cs.device_ms(fn, kernel)
+        out[name] = dict(events_ms=events, device_ms=device,
+                         kernel_device_ms=ours if kernel else None)
+        print(json.dumps({name: out[name]}), flush=True)
+
+    for form in ("O2", "float32"):
+        params = [torch.nn.Parameter(torch.randn(
+            sh, generator=gen, device=dev).to(dt if form == "O2" else
+                                              torch.float32))
+                  for sh, dt in leaves]
+        opt = AdamW(1e-4, parameters=params, multi_precision=True,
+                    fused=True)
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device=dev).to(
+                p.dtype)
+        before = fa.adamw_step.launches
+        opt.step()
+        torch.cuda.synchronize()
+        launches = fa.adamw_step.launches - before
+        record(f"optimizer_step_{form}", opt.step, "adamw_step_kernel")
+        out[f"optimizer_step_{form}"].update(
+            kernel_launches_a_step=launches,
+            host_ms=_host_ms(torch, opt.step))
+        del params, opt
+        torch.cuda.empty_cache()
+    P, G, M, V = [[torch.randn(sh, generator=gen, device=dev)
+                   for sh, _ in leaves] for _ in range(4)]
+    for v in V:
+        v.abs_()
+    sc = fa.stage_scalars(1e-4, 0.9, 0.999, 1e-8, 0.01, 3)
+
+    def per_leaf():
+        for leaf in zip(P, G, M, V):
+            fa.adamw_step(*leaf, sc, True)
+    record("kernel_per_leaf_float32", per_leaf, "adamw_step_kernel")
+    if hasattr(fa, "adamw_step_multi"):
+        n = len(leaves)
+        record("kernel_one_launch_float32", lambda: fa.adamw_step_multi(
+            P, G, M, V, [None] * n, [True] * n, sc), "adamw_step_kernel")
+        G16 = [g.to(dt) for g, (_, dt) in zip(G, leaves)]
+        L = [torch.empty(sh, dtype=dt, device=dev)
+             if dt != torch.float32 else None for sh, dt in leaves]
+        record("kernel_one_launch_O2", lambda: fa.adamw_step_multi(
+            P, G16, M, V, L, [True] * n, sc), "adamw_step_kernel")
+        del G16, L
+    steps = [torch.tensor(3.0, device=dev) for _ in leaves]
+    record("torch_fused_adamw_float32", lambda: torch._fused_adamw_(
+        P, G, M, V, [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False))
+    del P, G, M, V
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_bf16(cs, smi):
     run, _ = cs.train_bf16(smi)
     return dict(tokens_per_s=run["bench"]["value"],
@@ -473,7 +621,7 @@ def main():
     ap.add_argument("--phase", required=True,
                     choices=("int8_serving", "varlen_step",
                              "varlen_bwd_draws", "norms", "flash_bwd_f32",
-                             "train_bf16"))
+                             "train_bf16", "adamw_step"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -500,6 +648,8 @@ def main():
         result = flash_bwd_f32(cs, torch)
     elif args.phase == "train_bf16":
         result = train_bf16(cs, smi)
+    elif args.phase == "adamw_step":
+        result = adamw_step(cs, torch)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

@@ -102,12 +102,12 @@ def test_adamw_fused_none_follows_the_flag(monkeypatch, restore_flags, flag,
     on; an explicit ``fused=`` wins either way. Both routes give the
     same f32 parameters (the fused step is bitwise the eager chain)."""
     calls = []
-    step = topt.adamw_step
+    step = topt.adamw_step_multi
 
     def counting(*a, **k):
         calls.append(1)
         return step(*a, **k)
-    monkeypatch.setattr(topt, "adamw_step", counting)
+    monkeypatch.setattr(topt, "adamw_step_multi", counting)
     flags.set_flags({"fused_optimizer_step": flag})
     rng = np.random.default_rng(0)
     init = rng.normal(size=(3, 5)).astype(np.float32)

@@ -181,6 +181,7 @@ def wo_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d: SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(qm, "_raw_stream", lambda index: None)
     monkeypatch.setattr(qm, "_resident", lambda *a: 396)
     for name in ("_PLANS", "_WORKSPACE", "_COUNTERS"):
         monkeypatch.setattr(qm, name, {})
@@ -225,11 +226,11 @@ def test_bf16_prefill_reaches_the_tensor_core_entry(wo_card):
 
 @pytest.mark.parametrize("M,N,dtype,route", [
     (1008, 2048, torch.float32, "gemm"),    # f32 keeps the CUDA cores
-    (8, 2048, torch.bfloat16, "gemv"),      # decode
+    (8, 2048, torch.float32, "gemv"),       # f32 decode
     (1008, 336 - 3, torch.bfloat16, "gemm"),  # rows past TMA's rule
 ])
 def test_other_calls_keep_the_cuda_core_entry(wo_card, M, N, dtype, route):
-    """f32 prefill, bf16 decode and a bf16 N off TMA's 16-byte rule reach
+    """f32 prefill, f32 decode and a bf16 N off TMA's 16-byte rule reach
     ``wo_matmul``'s entry as before: pointers, the split-K workspace and
     counters (decode) or nulls, M, K, N, the K split, qmax, the dtype
     code; the route's count moves."""
@@ -253,7 +254,7 @@ def test_the_route_comes_from_shape_and_dtype():
     assert [qm.wo_route(M, K, N, torch.bfloat16) for M, K, N in (
         (8, 2048, 8192), (9, 2048, 8192), (1008, 200, 336),
         (1008, 204, 336), (1008, 200, 344), (32, 2048, 50304))] == \
-        ["gemv", "wgmma", "wgmma", "gemm", "gemm", "wgmma"]
+        ["gemv_mma", "wgmma", "wgmma", "gemm", "gemm", "wgmma"]
     assert qm.wo_route(1008, 2048, 8192, torch.float32) == "gemm"
     assert set(qm.WO_ROUTES) == set(qm.int8_weight_only_matmul.route_launches)
 

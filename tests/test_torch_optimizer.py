@@ -102,7 +102,7 @@ def test_adamw_matches_jax(bf16, wd):
                          ids=["f32", "bf16_master", "bf16_fallback"])
 @pytest.mark.parametrize("wd", [0.01, 0.0], ids=["decay", "no_decay"])
 def test_fused_step_is_bitwise_the_eager_chain(bf16, multi, wd):
-    """``fused=True`` routes every f32 update through ``adamw_step``;
+    """``fused=True`` routes every f32 update through ``adamw_step_multi``;
     on the CPU a bf16 parameter without a master has no f32 update and
     falls back to the eager chain per tensor (on the card it raises:
     see below). Either way the result is bitwise the ``fused=False``
