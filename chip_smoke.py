@@ -18,14 +18,21 @@ line) when it fails:
    printed; every instantiation of the norms' vector forwards
    (``rms_norm_fwd_vec_kernel``, ``layer_norm_fwd_vec_kernel``, 45 each)
    must hold 16-byte loads (LDG.E.128), with its registers and spills;
-   the f32 split backward pair's library (``flash_bwd_tf32x3``) must
-   hold TF32 tensor-core instructions (HMMA ... .TF32) in every kernel,
-   with ptxas's registers and spills for each; every instantiation of
+   every kernel of the f32 libraries on the tensor cores (the split
+   backward pair's ``flash_bwd_tf32x3``, the forward's
+   ``flash_fwd_tf32x3``) and every instantiation of the TF32 prefill
+   GEMM ``wo_gemm_tf32_kernel`` (in ``wo_matmul``, 6) must hold TF32
+   tensor-core instructions (HMMA ... .TF32), with ptxas's registers and
+   spills for each; every instantiation of
    the bf16 decode kernel ``wo_gemv_mma_kernel`` (in ``wo_matmul``, 4)
    must hold HMMA, with its registers and spills.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
-   causal; bf16 on the tensor-core kernel, f32 on the CUDA-core one),
+   causal; bf16 on the wgmma kernel, f32 on the 3xTF32 one, whose rows
+   are named ``flash_fwd_tf32x3``, are bounded by 3xTF32 with the CUDA
+   cores' bound beside them, must be bitwise equal on a second run, and
+   where the plain forward with its products in single-pass TF32 must
+   read past the f32 limit),
    the paged decode and the split-K paged decode (B8 H16 D128, block
    16, contexts up to 2048), in bf16 and f32. Each prints its error
    against its tolerance, its median time from CUDA events, its device
@@ -65,13 +72,22 @@ line) when it fails:
    ``torch._fused_sgd_`` (CUDA events and device time for both).
    The int8 weight-only matmul at GPT-3 1.3B's five projection shapes
    (qkv, out_proj, up, down, the tied head) at M 1, 8, 128 and 1008, in
-   bf16 and f32, with and without a bias (bf16 at M 128 and 1008 on the
-   prefill tensor-core route, rows ``wo_matmul_wgmma``; bf16 at M 1 and 8
-   on the decode tensor-core route, rows ``wo_gemv_mma``), bf16 at M 2,
-   3 and 5 at every projection (not timed), and at ragged shapes (M 3,
-   K 200, N 333 and M 5, K 1030, N 7 on the decode routes; M 37, K 200,
-   N 336 on the tensor cores) and with x and w one element past a
-   16-byte boundary (M 8 and M 2), timed against ``torch.mm`` over the
+   bf16 and f32, and in f32 at M 32 and 144 (the padded prompts of 17
+   and 130 tokens), with and without a bias (bf16 at M 128 and 1008 on
+   the prefill wgmma route, rows ``wo_matmul_wgmma``; f32 prefill on the
+   TF32 tensor-core GEMM, rows ``wo_gemm_tf32``: bounded by two TF32
+   passes with the CUDA cores' bound beside it, bitwise equal on a
+   second run, and the plain version with x in single-pass TF32 must
+   read past the f32 limit; bf16 at M 1 and 8 on the decode tensor-core
+   route, rows ``wo_gemv_mma``), bf16 at M 2, 3 and 5 at every
+   projection (not timed), and at ragged shapes (M 3, K 200, N 333 and
+   M 5, K 1030, N 7 on the decode routes; M 37, K 200, N 336 on the
+   tensor cores; M 37, K 200, N 333, M 1008, K 204, N 336 and M 144, K
+   20484, N 333, off TMA's rule, on the TF32 GEMM in both dtypes, and f32
+   M 1008, K 20480, N 2048, past 8 splits of 2048 rows) and with x and w
+   one element
+   past a 16-byte boundary (M 8, M 2, M 37 and M 144), timed against
+   ``torch.mm`` over the
    weight dequantized beforehand (by events and device time; and
    ``torch._weight_int8pack_mm`` where this torch has it on CUDA), with
    the wrapper's host time a call; every int8 value through the
@@ -90,8 +106,9 @@ line) when it fails:
    all-+-127 at K 8192 (the largest sums), ``torch.equal`` to its plain
    version (the integers are exact), timed against ``torch._int_mm``
    where that call takes the shape (M > 16, K and N multiples of 8); and
-   ``int4_weight_only_matmul`` at the up projection (M 8, bf16 and f32)
-   against the plain weight-only version on the unpacked payload.
+   ``int4_weight_only_matmul`` at the up projection (M 8, bf16 and f32;
+   M 144 f32, on the TF32 GEMM) against the plain weight-only version on
+   the unpacked payload.
 4. The engine at full width: GPT-3 1.3B (24 layers kept) from a fixed
    seed serves 8 requests (prompts of 17..1000 tokens, 32 new tokens
    each) in f32, with the global-softmax decode and with split-K
@@ -111,8 +128,9 @@ line) when it fails:
    against the quantized model on the CPU at atol 1e-3, ``wo_matmul``
    launched 97 times (96 projections and the head) for every prefill
    and every decode step, by route: the 96 projections of a prefill on
-   the prefill tensor-core route in bf16 (``wgmma``) and the CUDA cores
-   in f32 (``gemm``), every decode launch and each prefill's head on the
+   the prefill tensor-core routes, in bf16 ``wgmma`` and in f32 ``gemm``
+   (the TF32 GEMM, row ``wo_gemm_tf32``), every decode launch and each
+   prefill's head on the
    decode tensor-core route in bf16 (``gemv_mma``) and the CUDA cores in
    f32 (``gemv``); how many tokens agree with the fp runs is printed,
    not gated.
@@ -132,10 +150,11 @@ line) when it fails:
    calls on the card and on the CPU (plain versions) from the same
    weights and ids; both losses agree to 1e-4 relative, and the first
    step's gradients to 1e-4 of each gradient's largest magnitude; the
-   traced first card step must run the f32 split pair's tensor-core
-   kernels (``flash_bwd_dkv_tf32x3_kernel``,
-   ``flash_bwd_dq_tf32x3_kernel``), seen by name, and every split
-   launch must be one of theirs (the wrappers' ``route_launches``).
+   traced first card step must run the f32 tensor-core kernels of the
+   forward and the split pair (``flash_fwd_tf32x3_kernel``,
+   ``flash_bwd_dkv_tf32x3_kernel``, ``flash_bwd_dq_tf32x3_kernel``),
+   seen by name, and every forward and split launch must be one of
+   theirs (the wrappers' ``route_launches``).
 7. Fine-tuning at full width and full depth with
    ``FLAGS_pallas_layer_norm`` on: ``bench.py``'s ``bench_ernie``
    (ERNIE-3.0-base, vocab 40000, hidden 768, 12 layers, 12 heads of 64,
@@ -447,12 +466,18 @@ NEAR_TIE_BF16 = 0.0625
 OUT = Path("chiprun_out")
 
 KERNELS = {
+    # every route of the forward's wrapper; its kernels-line row is the
+    # bf16 wgmma kernel, the f32 3xTF32 kernel is counted again below
     "flash_fwd": dict(
         source="paddle2_tpu_torch/kernels/csrc/flash_fwd_wgmma.cu",
-        f32_source="paddle2_tpu_torch/kernels/csrc/flash_fwd.cu",
         replaces="paddle2_tpu/kernels/pallas_flash.py:153",
         also_replaces="paddle2_tpu/kernels/pallas_flash.py:122",
         counter=flash_fwd),
+    "flash_fwd_tf32x3": dict(
+        source="paddle2_tpu_torch/kernels/csrc/flash_fwd_tf32x3.cu",
+        replaces="paddle2_tpu/kernels/pallas_flash.py:153",
+        also_replaces="paddle2_tpu/kernels/pallas_flash.py:122",
+        counter=flash_fwd, route="tf32x3"),
     "paged_decode": dict(
         source="paddle2_tpu_torch/serving/csrc/paged_decode.cu",
         replaces="paddle2_tpu/serving/paged_attention.py:103",
@@ -491,13 +516,17 @@ KERNELS = {
         replaces="paddle2_tpu/kernels/pallas_fused.py:125",
         counter=adamw_step),
     # every route of the weight-only wrapper; its kernels-line row is the
-    # f32 decode kernel on the CUDA cores (wo_gemv_kernel); the two
-    # tensor-core routes (bf16 prefill, bf16 decode) are counted again
-    # below
+    # f32 decode kernel on the CUDA cores (wo_gemv_kernel); the three
+    # tensor-core routes (bf16 prefill, f32 prefill, bf16 decode) are
+    # counted again below
     "wo_matmul": dict(
         source="paddle2_tpu_torch/kernels/csrc/wo_matmul.cu",
         replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
         counter=int8_weight_only_matmul),
+    "wo_gemm_tf32": dict(
+        source="paddle2_tpu_torch/kernels/csrc/wo_matmul.cu",
+        replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
+        counter=int8_weight_only_matmul, route="gemm"),
     "wo_matmul_wgmma": dict(
         source="paddle2_tpu_torch/kernels/csrc/wo_matmul_wgmma.cu",
         replaces="paddle2_tpu/kernels/pallas_matmul.py:155",
@@ -583,19 +612,23 @@ NORM_KERNEL_NAMES = {
 NORM_LIBRARIES = ("rms_norm", "layer_norm")
 VARLEN_KERNELS = ("flash_varlen_fwd", "flash_varlen_bwd_dkv",
                   "flash_varlen_bwd_dq", "flash_varlen_bwd_fused")
-DENSE_FLASH_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_split_dkv",
-                       "flash_bwd_split_dq", "flash_bwd_split_dkv_tf32x3",
+DENSE_FLASH_KERNELS = ("flash_fwd", "flash_fwd_tf32x3", "flash_bwd_fused",
+                       "flash_bwd_split_dkv", "flash_bwd_split_dq",
+                       "flash_bwd_split_dkv_tf32x3",
                        "flash_bwd_split_dq_tf32x3")
 # the split pair's wrappers in f32 and their tensor-core kernels' rows
 SPLIT_TF32X3 = {"flash_bwd_split_dkv": "flash_bwd_split_dkv_tf32x3",
                 "flash_bwd_split_dq": "flash_bwd_split_dq_tf32x3"}
+# every f32 flash wrapper whose f32 kernel has a row of its own
+F32_TC_ROW = {"flash_fwd": "flash_fwd_tf32x3", **SPLIT_TF32X3}
 # the CUDA kernel each dense flash wrapper launches, by dtype (the names
-# torch.profiler reports): the forward and the fused backward in bf16 on
-# the tensor cores, in f32 on the CUDA cores; the split pair in f32 on the
-# tensor cores (3xTF32), in bf16 on the CUDA cores
+# torch.profiler reports): the forward on the tensor cores in both (bf16
+# on wgmma, f32 in 3xTF32); the fused backward in bf16 on the tensor
+# cores, in f32 on the CUDA cores; the split pair in f32 on the tensor
+# cores (3xTF32), in bf16 on the CUDA cores
 FLASH_KERNEL_NAMES = {
     ("flash_fwd", torch.bfloat16): "flash_fwd_wgmma_kernel",
-    ("flash_fwd", torch.float32): "flash_fwd_kernel",
+    ("flash_fwd", torch.float32): "flash_fwd_tf32x3_kernel",
     ("flash_bwd_fused", torch.bfloat16): "flash_bwd_fused_wgmma_kernel",
     ("flash_bwd_fused", torch.float32): "flash_bwd_fused_kernel",
     ("flash_bwd_split_dkv", torch.bfloat16): "flash_bwd_dkv_kernel",
@@ -612,20 +645,42 @@ VARLEN_KERNEL_NAMES = {
     ("flash_varlen_bwd_dq", torch.float32): "flash_varlen_dq_kernel",
     ("flash_varlen_bwd_fused", torch.bfloat16):
         "flash_varlen_bwd_fused_wgmma_kernel"}
-# the library of the f32 split pair, whose SASS must hold TF32 HMMA
-TF32_LIBRARY = "flash_bwd_tf32x3"
+# the f32 kernels on the tensor cores, whose SASS must hold TF32 HMMA:
+# library -> the kernel's name in it and its instantiations (head dims;
+# for the prefill GEMM x's type, the tile it sets and whether x and w are
+# read in 16-byte copies)
+TF32_KERNELS = {
+    "flash_bwd_tf32x3": {f"flash_bwd_{w}_tf32x3_kernel": (16, 64, 128)
+                         for w in ("dkv", "dq")},
+    "flash_fwd_tf32x3": {"flash_fwd_tf32x3_kernel": (16, 64, 128)},
+    "wo_matmul": {"wo_gemm_tf32_kernel": tuple(
+        f"f32 32x512 x{xb} w{wb}" for xb in (16, 1) for wb in (16, 1)) + (
+        "bf16 128x128 x1 w16", "bf16 128x128 x1 w1")}}
+# the instantiation the model's path runs (f32 prefill at its 32 x 512
+# tile, every GPT-3 1.3B projection within the 16-byte rule): ptxas must
+# report no spill there
+TF32_MAIN_PATH = ("wo_gemm_tf32_kernel", "f32 32x512 x16 w16")
 # the libraries of the tensor-core kernels, whose SASS must hold HGMMA
 WGMMA_LIBRARIES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_varlen_wgmma",
                    "flash_varlen_bwd_wgmma", "wo_matmul_wgmma")
-SERVING_KERNELS = ("flash_fwd", "paged_decode", "paged_decode_split")
+SERVING_KERNELS = ("flash_fwd", "flash_fwd_tf32x3", "paged_decode",
+                   "paged_decode_split")
 # GPT-3 1.3B's weight-only projections, K x N ([in, out])
 WO_SHAPES = {"qkv": (2048, 6144), "out_proj": (2048, 2048),
              "up": (2048, 8192), "down": (8192, 2048), "head": (2048, 50304)}
 # the kernels line's wo_matmul rows: a decode step at batch 8 (bf16 on
 # the tensor cores, f32 on the CUDA cores), and a 1000-token prompt's
-# prefill (padded to 1008) on the tensor cores
+# prefill (padded to 1008) on the tensor cores (bf16 on wgmma, f32 on the
+# TF32 GEMM)
 WO_LINE_SHAPE = "M8 K2048 N8192 (up) bias"
 WO_WGMMA_LINE_SHAPE = "M1008 K2048 N8192 (up) bias"
+# the timed rows' batches: decode (1, 8), prefill (128, 1008), and in
+# f32 the padded prompts of 17 and 130 tokens (32, 144), whose prefill
+# the TF32 GEMM splits along K
+WO_ROWS_M = {torch.bfloat16: (1, 8, 128, 1008),
+             torch.float32: (1, 8, 32, 128, 144, 1008)}
+# the f32 forward's kernels-line row: a 1000-token prompt's prefill
+FLASH_TF32_LINE_SHAPE = "B1 H16 S1024 D128 causal"
 # the int8 x int8 kernel's rows: GPT-3 1.3B's four block projections at a
 # decode step of batch 8 and a 1000-token prompt's prefill (padded to
 # 1008); the kernels line reports the decode step's up projection
@@ -737,7 +792,7 @@ TRAIN_BWD_SHAPE = "B8 H16 Sq1024 Sk1024 D64 causal"
 # gradients, f32 where the model keeps f32), as the main path runs it
 ADAMW_LINE_DTYPE = "O2"
 # the kernels-line row of each weight-only route
-WO_ROW_NAME = {"gemv": "wo_matmul", "gemm": "wo_matmul",
+WO_ROW_NAME = {"gemv": "wo_matmul", "gemm": "wo_gemm_tf32",
                "gemv_mma": "wo_gemv_mma", "wgmma": "wo_matmul_wgmma"}
 # the bf16 decode rows at the batches that only this check takes (the
 # timed ones are M 1 and 8)
@@ -750,6 +805,8 @@ LINE_SHAPES = {"flash_bwd_fused": TRAIN_BWD_SHAPE,
                "wo_matmul": WO_LINE_SHAPE,
                "wo_gemv_mma": WO_LINE_SHAPE,
                "wo_matmul_wgmma": WO_WGMMA_LINE_SHAPE,
+               "wo_gemm_tf32": WO_WGMMA_LINE_SHAPE,
+               "flash_fwd_tf32x3": FLASH_TF32_LINE_SHAPE,
                "i8i8_matmul": I8_LINE_SHAPE,
                "rms_norm_fwd": RMS_LINE_SHAPE + ", unaligned view",
                "rms_norm_fwd_vec": RMS_LINE_SHAPE,
@@ -847,39 +904,75 @@ def reset_counts():
 
 # ------------------------------------------------------------- phase 3
 def check_flash(dtype, S, gen, dev, B=1, D=128):
+    """The flash forward (causal) against its plain version, timed with
+    SDPA beside it (by events and device time). f32 runs the 3xTF32
+    kernel: its row (``flash_fwd_tf32x3``) is bounded by three TF32
+    products per f32 product, with the CUDA cores' bound beside it and
+    the wrapper's host time; a second run must be bitwise equal, and the
+    plain forward with its products in single-pass TF32 must read past
+    the f32 limit."""
     H = 16
     q, k, v = (torch.randn(B, H, S, D, generator=gen, device=dev)
                .to(dtype) for _ in range(3))
     scale = 1.0 / D ** 0.5
-    o, lse = flash_fwd(q, k, v, scale=scale, causal=True)
+
+    def run():
+        return flash_fwd(q, k, v, scale=scale, causal=True)
+    o, lse = run()
     o_ref, lse_ref = flash_fwd_reference(q, k, v, scale, True)
     torch.cuda.synchronize()
     err = max((o.float() - o_ref.float()).abs().max().item(),
               (lse - lse_ref).abs().max().item())
-    require(err <= TOL[dtype], f"flash_fwd {dname(dtype)} S{S} disagrees "
-            f"with its plain version: {err} > {TOL[dtype]}")
-    ms = cuda_ms(lambda: flash_fwd(q, k, v, scale=scale, causal=True))
-    dev_ms, kern_ms = device_ms(
-        lambda: flash_fwd(q, k, v, scale=scale, causal=True),
-        FLASH_KERNEL_NAMES["flash_fwd", dtype])
+    shape = f"B{B} H{H} S{S} D{D} causal"
+    require(err <= TOL[dtype], f"flash_fwd {dname(dtype)} {shape} "
+            f"disagrees with its plain version: {err} > {TOL[dtype]}")
+    ms = cuda_ms(run)
+    dev_ms, kern_ms = device_ms(run, FLASH_KERNEL_NAMES["flash_fwd", dtype])
     plain = cuda_ms(lambda: flash_fwd_reference(q, k, v, scale, True),
                     iters=10)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         is_causal=True))
-    ops = 4.0 * S * S * D * H * B / 2
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    lib = cuda_ms(sdpa)
+    lib_dev = device_ms(sdpa, "")[0]
+    ops = 4.0 * causal_pairs(S, S) * D * H * B
     nbytes = 2.0 * (S + S) * H * D * B * q.element_size()
     b_ms, b_by = bound(ops, nbytes, dtype)
-    return dict(name="flash_fwd", dtype=dname(dtype), shape=f"B{B} H{H} "
-                f"S{S} D{D} causal", max_abs_err=err, tol=TOL[dtype],
-                ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
-                plain_ms=plain, library_ms=lib, bound_ms=b_ms,
-                bound_by=b_by)
+    row = dict(name="flash_fwd", dtype=dname(dtype), shape=shape,
+               max_abs_err=err, tol=TOL[dtype], ms=ms, device_ms=dev_ms,
+               kernel_device_ms=kern_ms, plain_ms=plain, library_ms=lib,
+               library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
+               library="SDPA (is_causal=True)")
+    if dtype == torch.float32:
+        again = run()
+        bitwise = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        require(bitwise, f"flash_fwd float32 {shape}: two runs differ")
+        one = flash_fwd_reference(
+            q, k, v, scale, True,
+            matmul=lambda a, b: tf32_matmul(a, b, passes=1))
+        single = max((one[0] - o_ref).abs().max().item(),
+                     (one[1] - lse_ref).abs().max().item())
+        say(f"[kernel] flash_fwd float32 {shape}: the plain forward with "
+            f"single-pass TF32 products reads {single} (limit "
+            f"{TOL[dtype]})")
+        require(single > TOL[dtype], f"flash_fwd float32 {shape}: the "
+                f"plain forward with single-pass TF32 products reads "
+                f"{single}, within the limit {TOL[dtype]}")
+        t_ops = 3 * ops / TF32_OPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row.update(name=F32_TC_ROW["flash_fwd"], bound_cuda_core_ms=b_ms,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   single_pass_tf32_err=single, host_ms=host_ms(run),
+                   bitwise=bitwise)
+    return row
 
 
 def check_flash_ragged(dtype, B, H, Sq, Sk, D, causal, gen, dev):
     """The flash forward against its plain version at lengths that are
-    no multiple of a tile (the tensor-core kernel's are 128 query rows
-    and 64 or 128 keys), ``Sq < Sk``, untimed."""
+    no multiple of a tile (the tensor-core kernels' are 128 or 64 query
+    rows and 32 to 128 keys), ``Sq < Sk``, untimed; in f32 a second run
+    must be bitwise equal."""
     q = torch.randn(B, H, Sq, D, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(B, H, Sk, D, generator=gen, device=dev).to(dtype)
             for _ in range(2))
@@ -892,8 +985,13 @@ def check_flash_ragged(dtype, B, H, Sq, Sk, D, causal, gen, dev):
     shape = f"B{B} H{H} Sq{Sq} Sk{Sk} D{D}" + (" causal" if causal else "")
     require(err <= TOL[dtype], f"flash_fwd {dname(dtype)} {shape} "
             f"disagrees with its plain version: {err} > {TOL[dtype]}")
+    bitwise = None
+    if dtype == torch.float32:
+        o2, lse2 = flash_fwd(q, k, v, scale=scale, causal=causal)
+        bitwise = torch.equal(o, o2) and torch.equal(lse, lse2)
+        require(bitwise, f"flash_fwd float32 {shape}: two runs differ")
     return dict(name="flash_fwd", dtype=dname(dtype), shape=shape,
-                max_abs_err=err, tol=TOL[dtype])
+                max_abs_err=err, tol=TOL[dtype], bitwise=bitwise)
 
 
 def paged_inputs(dtype, gen, dev, rng):
@@ -1443,8 +1541,13 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
     ``wo_route`` names (the row is named by it: ``wo_gemv_mma`` for bf16
     decode on the tensor cores, ``wo_matmul_wgmma`` for bf16 prefill).
     ``offset``: x and w are contiguous views one element past a 16-byte
-    boundary. With ``timed``, its times, the wrapper's host time a call,
-    its bound and the library yardsticks (by events and device time)."""
+    boundary. On the TF32 prefill GEMM (route "gemm", row
+    ``wo_gemm_tf32``) a second run must be bitwise equal. With ``timed``,
+    its times, the wrapper's host time a call, its bound and the library
+    yardsticks (by events and device time); a TF32 GEMM row is bounded by
+    its TF32 passes (two for f32 x) with the CUDA cores' bound beside
+    it, and in f32 the plain version with x in single-pass TF32 must read
+    past the f32 limit."""
     x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
     w = torch.randn(K, N, generator=gen, device=dev) * 0.02
     w8, s8 = quantize_channelwise(w)
@@ -1471,6 +1574,12 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
     row = dict(name=WO_ROW_NAME[route], route=route, dtype=dname(dtype),
                shape=shape, max_abs_err=err, scaled_err=scaled,
                tol=TOL[dtype])
+    if route == "gemm":
+        # no atomics, a fixed summation order: bitwise reproducible
+        row["bitwise"] = torch.equal(y, int8_weight_only_matmul(x, w8, s8,
+                                                                bias))
+        require(row["bitwise"], f"wo_gemm_tf32 {dname(dtype)} {shape}: two "
+                f"runs differ")
     if not timed:
         return row
 
@@ -1493,11 +1602,33 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
     pack_ms = None
     if int8pack:
         w_nk, s_x = w8.t().contiguous(), (s8 / 127.0).to(dtype)
-        pack_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s_x))
+        # a yardstick 90-270x slower than the kernel at prefill M 1008
+        # (0.23 s a call at the head, ~40 s of the smoke at 24 calls a
+        # row): the median of 5 calls
+        pack_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s_x),
+                          iters=5, warmup=1)
     size = x.element_size()
     nbytes = (M * K * size + K * N + 4.0 * N + M * N * size
               + (N * size if with_bias else 0))
     b_ms, b_by = bound(2.0 * M * N * K, nbytes, dtype)
+    if route == "gemm":
+        single = None
+        if dtype == torch.float32:
+            one = int8_weight_only_matmul_reference(
+                x, w8, s8, bias, matmul=lambda a, b: tf32_matmul(a, b, 1))
+            single = ((one - ref).abs() / ref.abs().clamp_min(1.0)).max(
+            ).item()
+            require(single > TOL[dtype], f"wo_gemm_tf32 float32 {shape}: "
+                    f"the plain version with x in single-pass TF32 reads "
+                    f"{single}, within the limit {TOL[dtype]}")
+        t_ops = (2 if dtype == torch.float32 else 1) * 2.0 * M * N * K \
+            / TF32_OPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row.update(bound_cuda_core_ms=bound(2.0 * M * N * K, nbytes,
+                                            torch.float32)[0],
+                   single_pass_tf32_err=single)
+        b_ms = max(t_ops, t_bytes)
+        b_by = "operations" if t_ops >= t_bytes else "bytes"
     row.update(ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
                host_ms=host, plain_ms=plain, library_ms=lib,
                library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
@@ -2240,7 +2371,7 @@ def serve_int8(make_model, dtype, econf, prompts, new, fp_gens, tag):
             f"{tag}: wo_matmul launched {l8['wo_matmul']} times, want "
             f"{want} ({per_pass} a prefill and a decode step)")
     # a prefill's block projections (M = the padded prompt, > 8): bf16 on
-    # the tensor cores (wgmma), f32 on the CUDA cores (gemm); every decode
+    # wgmma, f32 on the TF32 tensor-core GEMM (gemm); every decode
     # projection and head and each prefill's head (the last row, M <= 8):
     # bf16 on the tensor cores (gemv_mma), f32 on the CUDA cores (gemv)
     bf16 = dtype == torch.bfloat16
@@ -2253,6 +2384,10 @@ def serve_int8(make_model, dtype, econf, prompts, new, fp_gens, tag):
     require(st["wo_route_launches"] == want_routes,
             f"{tag}: wo_matmul launches by route "
             f"{st['wo_route_launches']}, want {want_routes}")
+    # the f32 prefill's 96 projections a prefill on the TF32 GEMM
+    require(l8["wo_gemm_tf32"] == want_routes["gemm"],
+            f"{tag}: wo_gemm_tf32 launched {l8['wo_gemm_tf32']} times, want "
+            f"{want_routes['gemm']} ({per_pass - 1} a prefill in f32)")
     st.update(near_ties=len(ties), tie_margins=ties, launches=l8,
               tokens_agreeing_with_fp=sum(
                   a == b for x, y in zip(g8, fp_gens) for a, b in zip(x, y)),
@@ -2658,7 +2793,8 @@ def train_f32_vs_cpu():
     route = bwd_route(torch.float32)
     kernels = (("flash_bwd_fused",) if route == "fused" else
                ("flash_bwd_split_dkv", "flash_bwd_split_dq"))
-    names = [FLASH_KERNEL_NAMES[n, torch.float32] for n in kernels]
+    names = [FLASH_KERNEL_NAMES[n, torch.float32]
+             for n in ("flash_fwd",) + kernels]
     reset_counts()
     out = dict(backward_route=route, losses_card=[], losses_cpu=[])
     for i, b in enumerate(ids):
@@ -2690,14 +2826,15 @@ def train_f32_vs_cpu():
     require(grad_err <= 1e-4, f"f32 gradients, card vs CPU: {grad_err} "
             f"> 1e-4 of the largest magnitude")
     require(all(out["traced_kernels"].values()),
-            f"the f32 step's trace lacks its backward kernels: "
+            f"the f32 step's trace lacks its flash kernels: "
             f"{out['traced_kernels']}")
-    # in f32 the split wrappers' launches are their tensor-core kernels'
+    # in f32 the forward's and the split wrappers' launches are their
+    # tensor-core kernels'
     for n in ("flash_fwd", "adamw_step") + kernels:
         require(launches[n] > 0, f"{n} was not launched by the f32 run")
-        require(launches.get(SPLIT_TF32X3.get(n), launches[n])
+        require(launches.get(F32_TC_ROW.get(n), launches[n])
                 == launches[n], f"{n}: {launches[n]} launches in f32, "
-                f"{launches.get(SPLIT_TF32X3.get(n))} of them its "
+                f"{launches.get(F32_TC_ROW.get(n))} of them its "
                 f"tensor-core kernel's")
     return out, launches
 
@@ -3961,32 +4098,71 @@ def check_wgmma_build():
     return out
 
 
+def tf32_instance(mangled):
+    """A TF32 kernel's (name, instantiation) from its mangled name: the
+    head dim of a flash kernel; x's type, the tile and the bytes a copy
+    of x and of w reads (16, or 1: element by element) of the prefill
+    GEMM."""
+    m = re.search(r"(wo_gemm_tf32_kernel)I(13__nv_bfloat16|f)"
+                  r"Lb([01])ELb([01])E", mangled)
+    if m:
+        f32 = m.group(2) == "f"
+        return m.group(1), (f"{'f32 32x512' if f32 else 'bf16 128x128'} "
+                            f"x{16 if m.group(3) == '1' else 1} "
+                            f"w{16 if m.group(4) == '1' else 1}")
+    m = re.fullmatch(r"(\w+)<(\d+)>", kernel_name(mangled))
+    return (m.group(1), int(m.group(2))) if m else (mangled, None)
+
+
 def check_tf32_build():
-    """Phase 2 for the f32 split pair: every kernel of its library holds
-    TF32 tensor-core instructions (HMMA with .TF32) in its SASS, and
-    ptxas's register and spill lines for each."""
-    lib, sass_text = sass(TF32_LIBRARY)
-    hmma, fn = {}, None
-    for line in sass_text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = kernel_name(m.group(1))
-            hmma[fn] = 0
-        elif fn and "HMMA" in line and ".TF32" in line:
-            hmma[fn] += 1
-    report = ptxas_report(lib.with_suffix(".log").read_text())
-    say(f"[build] {TF32_LIBRARY}: TF32 HMMA instructions in the SASS of "
-        f"each kernel: {json.dumps(hmma)}")
-    for kernel, lines in report.items():
-        say(f"[build] {kernel}: {'; '.join(lines)}")
-    want = {f"flash_bwd_{w}_tf32x3_kernel<{D}>" for w in ("dkv", "dq")
-            for D in (16, 64, 128)}
-    require(set(hmma) == want, f"{TF32_LIBRARY}: kernels {sorted(hmma)} in "
-            f"the SASS, want {sorted(want)}")
-    require(all(n > 0 for n in hmma.values()),
-            f"{TF32_LIBRARY}: no TF32 HMMA in "
-            f"{[k for k, n in hmma.items() if not n]}")
-    return dict(hmma_tf32=hmma, ptxas=report)
+    """Phase 2 for the f32 kernels on the tensor cores (``TF32_KERNELS``:
+    the split backward pair, the forward, the prefill GEMM): every
+    instantiation holds TF32 tensor-core instructions (HMMA with .TF32)
+    in its SASS, ptxas's register and spill lines are printed for each,
+    and the one the model's path runs (``TF32_MAIN_PATH``) spills
+    nothing."""
+    out = {}
+    for name, kernels in TF32_KERNELS.items():
+        lib, sass_text = sass(name)
+        hmma, ptxas, fn = {}, {}, None
+        for line in sass_text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = tf32_instance(m.group(1))
+                fn = fn if fn[0] in kernels else None
+                if fn:
+                    hmma[fn] = 0
+            elif fn and "HMMA" in line and ".TF32" in line:
+                hmma[fn] += 1
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = tf32_instance(m.group(1))
+                fn = fn if fn[0] in kernels else None
+            elif fn and ("registers" in line or "spill" in line):
+                ptxas.setdefault(fn, []).append(line.strip())
+        want = {(k, i) for k, insts in kernels.items() for i in insts}
+        label = {k: f"{k[0]}<{k[1]}>" for k in want}
+        counted = {label.get(k, str(k)): n for k, n in hmma.items()}
+        say(f"[build] {name}: TF32 HMMA instructions in the SASS of each "
+            f"instantiation: {json.dumps(counted)}")
+        for kernel, lines in sorted(ptxas.items(), key=str):
+            say(f"[build] {label.get(kernel, kernel)}: {'; '.join(lines)}")
+        require(set(hmma) == want, f"{name}: TF32 instantiations "
+                f"{sorted(map(str, hmma))} in the SASS, want "
+                f"{sorted(map(str, want))}")
+        require(all(n > 0 for n in hmma.values()),
+                f"{name}: no TF32 HMMA in "
+                f"{[label[k] for k, n in hmma.items() if not n]}")
+        out[name] = dict(hmma_tf32={label[k]: n for k, n in hmma.items()},
+                         ptxas={label[k]: v for k, v in ptxas.items()})
+        if TF32_MAIN_PATH in want:
+            main_path = ptxas.get(TF32_MAIN_PATH, [])
+            require(main_path and not any(
+                re.search(r"\b[1-9]\d* bytes spill", line)
+                for line in main_path), f"{label[TF32_MAIN_PATH]}: the "
+                f"model's path spills: {main_path}")
+    return out
 
 
 def check_wo_mma_build():
@@ -4094,8 +4270,9 @@ def launches_by_route(n, launches):
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
     path's bf16 shape (the fused AdamW step over the training leaves in
-    their O2 dtypes; the momentum state, the split pair's tensor-core
-    kernels and the CUDA-core decode kernel are f32)."""
+    their O2 dtypes; the momentum state, the f32 tensor-core kernels (the
+    forward, the split pair, the prefill GEMM) and the CUDA-core decode
+    kernel are f32)."""
     def wanted(r):
         if r["name"] != n:
             return False
@@ -4105,7 +4282,7 @@ def line_row(rows, n):
             return r["dtype"] == ADAMW_LINE_DTYPE
         if n == "wo_matmul":
             return r["dtype"] == "float32" and r["shape"] == LINE_SHAPES[n]
-        if n in SPLIT_TF32X3.values():
+        if n in F32_TC_ROW.values() or n == "wo_gemm_tf32":
             return r["dtype"] == "float32" and r["shape"] == LINE_SHAPES[n]
         if n == "i8i8_matmul":
             return r["shape"] == I8_LINE_SHAPE
@@ -4119,6 +4296,14 @@ def line_row(rows, n):
 
 def main():
     t_run = time.perf_counter()
+    # seconds from the start at the end of each phase (against the run's
+    # time budget)
+    marks = {}
+
+    def mark(phase):
+        marks[phase] = time.perf_counter() - t_run
+        say(f"[time] {phase} done at {marks[phase]:.1f} s")
+
     # 1. device
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -4143,6 +4328,8 @@ def main():
     norm_build = check_norm_build()
     tf32_build = check_tf32_build()
     wo_mma_build = check_wo_mma_build()
+
+    mark("1-2 device, build")
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4233,7 +4420,7 @@ def main():
     int8pack = int8pack_available(dev)
     for dtype in (torch.bfloat16, torch.float32):
         for label, (K, N) in WO_SHAPES.items():
-            for M in (1, 8, 128, 1008):
+            for M in WO_ROWS_M[dtype]:
                 for with_bias in (False, True):
                     rows.append(check_wo(dtype, M, K, N, with_bias, gen, dev,
                                          label, int8pack))
@@ -4255,9 +4442,25 @@ def main():
                for M, K, N, label, offset in (
                    (5, 1030, 7, "ragged", False),
                    (8, 2048, 2048, "out_proj", True),
-                   (2, 200, 333, "ragged", True))
+                   (2, 200, 333, "ragged", True),
+                   (37, 200, 333, "ragged", True),
+                   (144, 2048, 2048, "out_proj", True))
                for dtype in (torch.bfloat16, torch.float32)]
+    # off TMA's 16-byte rule (N % 16, K % 8): the TF32 GEMM in both dtypes,
+    # and past 8 splits of 2048 rows (each split's accumulators go into a
+    # second sum every 2048 rows)
+    ragged += [check_wo(dtype, M, K, N, with_bias, gen, dev, "ragged", False,
+                        timed=False)
+               for M, K, N in ((37, 200, 333), (1008, 204, 336),
+                               (144, 20484, 333))
+               for dtype in (torch.bfloat16, torch.float32)
+               for with_bias in (False, True)]
+    ragged += [check_wo(torch.float32, 1008, 20480, 2048, True, gen, dev,
+                        "long K", False, timed=False)]
+    ragged.append(check_int4(144, 2048, 8192, torch.float32, gen, dev, "up"))
     ragged.append(check_wo_all_values(dev))
+    mark("3 kernels")
+
     # 12. the packed varlen kernels, into phase 3's rows
     for dtype in (torch.bfloat16, torch.float32):
         for lens, D in ((VARLEN_README, 128), (VARLEN_SERVING, 128),
@@ -4305,7 +4508,8 @@ def main():
             + (f" scaled {r['scaled_err']:.3g}, off the rounded sums "
                f"{r['off_share']:.3g}, unrounded {r['unrounded_err']}"
                if r.get("off_share") is not None else "")
-            + (f" (3xTF32; CUDA-core bound {r['bound_cuda_core_ms']:.4f})"
+            + (f" (TF32 tensor cores; CUDA-core bound "
+               f"{r['bound_cuda_core_ms']:.4f})"
                f" host {r['host_ms']:.4f} single-pass TF32 "
                f"{r['single_pass_tf32_err']} bitwise {r['bitwise']}"
                if "bound_cuda_core_ms" in r else ""))
@@ -4317,9 +4521,11 @@ def main():
                 + (f"; {r['route']} route, its kernel seen by name: "
                    f"{r['kernel_seen']}" if "kernel_seen" in r else ""))
         elif r["name"] in WO_ROW_NAME.values():
-            say(f"[kernel] wo_matmul {r['dtype']} {r['shape']}: err "
+            say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, tol "
-                f"{r['tol']})")
+                f"{r['tol']})" + (f", bitwise on a second run "
+                                  f"{r['bitwise']}" if "bitwise" in r
+                                  else ""))
         elif r["name"] in ("rope", "adamw_flat"):
             say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} ({r['tol']})")
@@ -4333,7 +4539,9 @@ def main():
                 f"tol {r['tol']}) ms {r['ms']:.4f}")
         elif r["name"] == "flash_fwd":
             say(f"[kernel] flash_fwd {r['dtype']} {r['shape']}: err "
-                f"{r['max_abs_err']:.3g} (tol {r['tol']})")
+                f"{r['max_abs_err']:.3g} (tol {r['tol']})"
+                + (f", bitwise on a second run {r['bitwise']}"
+                   if r["bitwise"] is not None else ""))
         elif r["name"] == "flash_varlen_exact":
             say(f"[kernel] flash_varlen_bwd_fused {r['shape']}, inputs in "
                 f"{{-1, 0, 1}}: dq/dk/dv err {r['dq_dk_dv_err']} (tol "
@@ -4368,6 +4576,8 @@ def main():
         f"dequantized beforehand; torch._weight_int8pack_mm (w [N, K] int8, "
         f"scales in x's dtype): "
         f"{'timed' if int8pack else 'none on CUDA'}")
+
+    mark("12 varlen kernels")
 
     # 4. the engine at full width
     cfg = gpt3_1p3b()
@@ -4436,12 +4646,16 @@ def main():
         add(l8)
     say(f"[engine] launches during the engine runs: {launches}")
 
+    mark("4 engine")
+
     # 16. PTQ full-int8 serving at full width
     for tag, dtype, fp_gens in (("ptq_f32", torch.float32, gens),
                                 ("ptq_bf16", torch.bfloat16, gens16)):
         runs[tag], lq = serve_ptq(cfg, dtype, econf, prompts, new, fp_gens,
                                   tag)
         add(lq)
+
+    mark("16 PTQ serving")
 
     # 5. training at full width and depth
     train_rec, lt = train_bf16(smi)
@@ -4453,10 +4667,14 @@ def main():
         f"{json.dumps(train_rec['device_ms_by_group'])}")
     say(f"[train bf16] {train_rec}")
 
+    mark("5 training")
+
     # 6. the card against the CPU, f32
     f32run, lf = train_f32_vs_cpu()
     add(lf)
     say(f"[train f32 vs cpu] {f32run}")
+
+    mark("6 f32 vs the CPU")
 
     # 7-9. fine-tuning ERNIE-3.0-base with the fused LayerNorm
     flags.set_flags({"pallas_layer_norm": True})
@@ -4474,6 +4692,8 @@ def main():
     say(f"[ernie f32 vs cpu] {ernie32}")
     flags.set_flags({"pallas_layer_norm": False})
 
+    mark("7-9 ERNIE")
+
     # 10-11. ResNet-50 with the fused Momentum step
     flags.set_flags({"fused_optimizer_step": True})
     resnet, lr50 = resnet50_bf16(smi)
@@ -4484,6 +4704,8 @@ def main():
     r18, lr18 = resnet18_f32_vs_cpu()
     add(lr18)
     say(f"[resnet18 f32 vs cpu] {r18}")
+
+    mark("10-11 ResNet")
 
     # 13. packed varlen training, the public routes, the card vs the CPU
     varlen, lv = varlen_train(smi)
@@ -4498,6 +4720,8 @@ def main():
     varlen32, lv32 = varlen_f32_vs_cpu(dev)
     add(lv32)
     say(f"[varlen f32 vs cpu] {varlen32}")
+
+    mark("13 varlen training")
 
     # 14-15. the incubate slice: the RMSNorm/RoPE/SwiGLU stack
     stack, ls = stack_bf16(smi, dev)
@@ -4552,6 +4776,7 @@ def main():
                              n, launches)}
                             if "route" not in k and hasattr(
                                 k["counter"], "route_launches") else {})))
+    mark("14-15 incubate, the kernels line")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(device=kind, nvidia_smi=smi, build_s=build_s,
@@ -4565,7 +4790,7 @@ def main():
              resnet18_f32_vs_cpu=r18, varlen_bf16=varlen,
              varlen_f32_vs_cpu=varlen32, incubate_bf16=stack,
              incubate_f32_vs_cpu=stack32, launches=launches,
-             seconds=time.perf_counter() - t_run), indent=1))
+             phase_s=marks, seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")
     say(f"nvidia-smi: {smi}")
     say(json.dumps({"kernels": line}))

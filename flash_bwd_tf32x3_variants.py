@@ -6,7 +6,8 @@
     python3 flash_bwd_tf32x3_variants.py [--only NAME,NAME]
 
 Run from the repository root on a machine with a CUDA GPU and nvcc. It
-copies ``paddle2_tpu_torch/kernels/csrc/flash_bwd_tf32x3.cu`` into
+copies ``paddle2_tpu_torch/kernels/csrc/flash_bwd_tf32x3.cu``, with the
+shared header ``tf32x3.cuh`` inlined, into
 ``build/flash_bwd_tf32x3_variants/`` once a variant, with textual edits
 each, builds the copies with nvcc (sm_90a) in parallel, holds each
 variant's dq/dk/dv against the plain backward (``flash_bwd_reference``,
@@ -223,7 +224,10 @@ def mma_rate(torch):
 
 
 def build(names):
-    src = (vh.CSRC / "flash_bwd_tf32x3.cu").read_text()
+    # the shared helpers (split, mma3, the fragment walks) inlined, so
+    # that the edits reach them in the copy
+    src = (vh.CSRC / "flash_bwd_tf32x3.cu").read_text().replace(
+        '#include "tf32x3.cuh"', (vh.CSRC / "tf32x3.cuh").read_text())
     logs = vh.build(OUT, {
         name: vh.edited(src, [e for edit in VARIANTS[name]
                               for e in EDITS[edit]], name)

@@ -43,7 +43,7 @@
 //
 // Layout: 256 threads as a 16 x 16 grid, 64 x 64 score tiles. For the
 // score products thread (ty, tx) owns rows ty*4..ty*4+3 and columns
-// tx + 16*j, j < 4, as in flash_fwd.cu. For the accumulations it owns four
+// tx + 16*j, j < 4. For the accumulations it owns four
 // rows of the block's own tile and columns tx + 16*jj, jj < D/16, of the
 // head dimension. Shared rows are padded to D+1 (and 65) floats so the
 // column reads of a half-warp hit different banks.

@@ -2,8 +2,8 @@
 //
 // Replaces: paddle2_tpu/kernels/pallas_flash.py `_fwd_kernel` (tiled
 // online softmax) and `_fwd_kernel_1blk` (whole row in one tile), both
-// driven by `_flash_fwd`, for bf16 inputs. f32 inputs keep the CUDA-core
-// kernel of flash_fwd.cu.
+// driven by `_flash_fwd`, for bf16 inputs. f32 inputs take the 3xTF32
+// kernel of flash_fwd_tf32x3.cu.
 //
 // Computes, per (batch, head), o = softmax(q k^T * scale) v and the row
 // log-sum-exp, on contiguous (B, H, S, D) tensors, D in {16, 64, 128},

@@ -16,7 +16,7 @@
 //   backward: P = exp(q k^T * scale - lse), dS = P * (dO V^T - delta),
 //             dV = P^T dO, dK = dS^T Q * scale, dQ = dS K * scale
 // with lse and delta = rowsum(dO * O) f32 [H, Tq], computed outside. As in
-// the Pallas kernels and flash_fwd.cu / flash_bwd.cu, scores, the running
+// the Pallas kernels and the dense flash kernels, scores, the running
 // max and sum and every accumulator are f32; P and dS are rounded to the
 // input dtype before they enter a product. A query row that sees no key
 // (padding, or a causal row of a sequence with len_k < len_q) gets o = 0,

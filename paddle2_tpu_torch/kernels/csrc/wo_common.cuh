@@ -1,5 +1,5 @@
-// The arithmetic the two int8 weight-only kernels share (wo_matmul.cu on
-// the CUDA cores, wo_matmul_wgmma.cu on the tensor cores): the exact
+// The arithmetic the int8 weight-only kernels share (wo_matmul.cu's decode
+// and TF32 prefill kernels, wo_matmul_wgmma.cu's bf16 prefill): the exact
 // widening of int8 weights and the epilogue's rounding order.
 
 #pragma once

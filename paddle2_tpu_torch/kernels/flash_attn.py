@@ -6,15 +6,18 @@ Counterpart of ``paddle2_tpu/kernels/pallas_flash.py`` (``_flash_fwd``,
 Which kernel serves which dtype:
 
 - forward: bf16 ``csrc/flash_fwd_wgmma.cu`` (tensor cores: wgmma fed by
-  TMA), f32 ``csrc/flash_fwd.cu`` (CUDA cores);
+  TMA), f32 ``csrc/flash_fwd_tf32x3.cu`` (tensor cores, error-compensated
+  TF32 on mma.sync: 3 TF32 products per f32 product);
 - fused backward: bf16 ``csrc/flash_bwd_wgmma.cu`` (tensor cores), f32
   ``csrc/flash_bwd.cu``'s fused kernel (CUDA cores);
 - split backward pair (dK/dV, then dQ): f32 ``csrc/flash_bwd_tf32x3.cu``
-  (tensor cores, error-compensated TF32: 3 TF32 products per f32
-  product), bf16 ``csrc/flash_bwd.cu`` (CUDA cores).
+  (tensor cores, 3xTF32), bf16 ``csrc/flash_bwd.cu`` (CUDA cores).
 
-Each source note says what bounds it and how it is laid out. One launch
-counter per wrapper counts both of its kernels.
+The f32 kernels on the tensor cores share their split, products and
+fragment walks through ``csrc/tf32x3.cuh``. Each source note says what
+bounds it and how it is laid out. One launch counter per wrapper counts
+both of its kernels; ``route_launches`` counts each kernel of the
+forward and of the split pair.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 or raises. There is no third path: shapes and dtypes the kernels do not
@@ -43,7 +46,8 @@ __all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_split_dkv",
            "flash_bwd_split_dq", "flash_bwd_fused", "bwd_route",
            "flash_attn", "flash_attention_bshd", "SUPPORTED_HEAD_DIMS",
-           "tf32_round", "tf32_split", "tf32_matmul", "SPLIT_ROUTES"]
+           "tf32_round", "tf32_split", "tf32_matmul", "SPLIT_ROUTES",
+           "FWD_ROUTES"]
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -61,7 +65,7 @@ _BWD_TAIL = [_I, _I, _I, _I, _I, _I, _F, _I, _P]
 _FUSED_ARGS = _BWD_ARGS + [_P, _P, _P] + _BWD_TAIL
 # library (the source's stem) -> {C entry: argument types}
 _LIBRARIES = {
-    "flash_fwd": {"flash_fwd": _FWD_ARGS},
+    "flash_fwd_tf32x3": {"flash_fwd_tf32x3": _FWD_ARGS},
     "flash_fwd_wgmma": {"flash_fwd_wgmma": _FWD_ARGS},
     "flash_bwd": {"flash_bwd_dkv": _BWD_ARGS + [_P, _P] + _BWD_TAIL,
                   "flash_bwd_dq": _BWD_ARGS + [_P] + _BWD_TAIL,
@@ -71,10 +75,14 @@ _LIBRARIES = {
                          + _BWD_TAIL,
                          "flash_bwd_dq_tf32x3": _BWD_ARGS + [_P] + _BWD_TAIL},
 }
-# (library, C entry) of the forward and the fused backward, by dtype:
-# the tensor-core kernels take bf16, the CUDA-core kernels f32
+# (library, C entry) of the forward by dtype, both on the tensor cores:
+# bf16 on wgmma, f32 in 3xTF32 on mma.sync; FWD_ROUTES names each, whose
+# launches ``flash_fwd.route_launches`` counts
 _FWD_ENTRY = {torch.bfloat16: ("flash_fwd_wgmma", "flash_fwd_wgmma"),
-              torch.float32: ("flash_fwd", "flash_fwd")}
+              torch.float32: ("flash_fwd_tf32x3", "flash_fwd_tf32x3")}
+FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
+# (library, C entry) of the fused backward by dtype: bf16 on the tensor
+# cores, f32 on the CUDA cores
 _FUSED_ENTRY = {torch.bfloat16: ("flash_bwd_wgmma", "flash_bwd_fused_wgmma"),
                 torch.float32: ("flash_bwd", "flash_bwd_fused")}
 # (library, C entry) of each kernel of the split pair, by dtype: f32 on the
@@ -115,20 +123,22 @@ def _causal_keep(Sq, Sk, device):
 
 # ---------------------------------------------------------------- forward
 
-def flash_fwd_reference(q, k, v, scale: float, causal: bool
+def flash_fwd_reference(q, k, v, scale: float, causal: bool,
+                        matmul=torch.matmul
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: one softmax over the whole row in f32, the
     probabilities rounded to the input dtype before ``p @ v``, the
-    causal mask aligned to the bottom right. Returns ``(o, lse)``."""
+    causal mask aligned to the bottom right. ``matmul`` computes the two
+    products (e.g. :func:`tf32_matmul`). Returns ``(o, lse)``."""
     Sq, Sk = q.shape[2], k.shape[2]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         s = s.masked_fill(~_causal_keep(Sq, Sk, q.device), float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     safe_m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
     p = torch.exp(s - safe_m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    o = matmul(p.to(v.dtype).float(), v.float())
     safe_l = torch.where(l == 0, torch.ones_like(l), l)
     lse = torch.where(l == 0, torch.full_like(l, float("-inf")),
                       m + torch.log(safe_l))
@@ -139,15 +149,17 @@ def flash_fwd(q, k, v, scale: Optional[float] = None, causal: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash forward on ``(B, H, S, D)``: returns ``o`` (input dtype)
     and ``lse`` (f32, ``(B, H, Sq)``). ``flash_fwd.launches`` counts the
-    kernel's launches."""
+    kernels' launches, ``flash_fwd.route_launches`` those of each
+    (:data:`FWD_ROUTES`). Both kernels read q, k and v from 16-byte
+    boundaries (TMA, cp.async): a view that starts elsewhere is copied
+    first."""
     _check(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not _build.on_card("flash_fwd", q, k, v):
         return flash_fwd_reference(q, k, v, float(scale), bool(causal))
     B, H, Sq, D = q.shape
-    if q.dtype == torch.bfloat16:
-        q, k, v = (_build.tma_aligned(t) for t in (q, k, v))
+    q, k, v = (_build.tma_aligned(t) for t in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     name, entry = _FWD_ENTRY[q.dtype]
@@ -160,10 +172,12 @@ def flash_fwd(q, k, v, scale: Optional[float] = None, causal: bool = False
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, entry)
     flash_fwd.launches += 1
+    flash_fwd.route_launches[FWD_ROUTES[q.dtype]] += 1
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.route_launches = dict.fromkeys(FWD_ROUTES.values(), 0)
 
 
 # --------------------------------------------------------------- backward
@@ -192,8 +206,8 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(big, small)``, both TF32, with ``big + small`` within 2⁻²¹ of
-    ``x``: the operand split of ``flash_bwd_tf32x3.cu`` as the tensor
-    cores read it. big is ``x`` rounded (:func:`tf32_round`); small is
+    ``x``: the operand split of ``csrc/tf32x3.cuh`` as the tensor cores
+    read it. big is ``x`` rounded (:func:`tf32_round`); small is
     ``x − big`` (exact in f32) truncated to TF32, since the kernel hands
     it to the mma unrounded and the tensor cores read its top 19 bits."""
     big = tf32_round(x)
@@ -204,10 +218,11 @@ def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def tf32_matmul(a: torch.Tensor, b: torch.Tensor,
                 passes: int = 3) -> torch.Tensor:
     """``a @ b`` with the operands in TF32, summed in f32: ``passes`` 3 is
-    the error-compensated product of ``flash_bwd_tf32x3.cu`` (small·big +
-    big·small + big·big), 1 a single TF32 product. For the plain backward
-    (``flash_bwd_reference(..., matmul=)``) in the CPU tests and the
-    smoke; the main path never calls it."""
+    the error-compensated product of the f32 flash kernels on the tensor
+    cores (small·big + big·small + big·big), 1 a single TF32 product. For
+    the plain versions (``flash_fwd_reference`` / ``flash_bwd_reference``
+    ``(..., matmul=)``) in the CPU tests and the smoke; the main path
+    never calls it."""
     if passes == 1:
         return torch.matmul(tf32_round(a), tf32_round(b))
     if passes != 3:

@@ -11,8 +11,11 @@ functions are ports of Pallas kernels:
 * :func:`int8_weight_only_matmul`, of ``_wo_kernel``: bf16 on the
   tensor cores, prefill (more than 8 rows) in
   ``csrc/wo_matmul_wgmma.cu`` and decode (at most 8 rows) in
-  ``csrc/wo_matmul.cu`` (``wo_gemv_mma_kernel``); f32 on the CUDA cores,
-  ``csrc/wo_matmul.cu`` (:func:`wo_route` says which);
+  ``csrc/wo_matmul.cu`` (``wo_gemv_mma_kernel``); f32 prefill on the
+  tensor cores in two TF32 passes (``wo_gemm_tf32_kernel``, which also
+  takes bf16 rows off TMA's 16-byte rule), f32 decode on the CUDA cores
+  (``wo_gemv_kernel``), both in ``csrc/wo_matmul.cu`` (:func:`wo_route`
+  says which);
   :func:`int4_weight_only_matmul` unpacks a nibble payload and reaches
   it at ``quant_bits=4``.
 * :func:`int8_matmul`, of ``_i8i8_kernel``, as ``csrc/i8i8_matmul.cu``:
@@ -30,9 +33,9 @@ cast to ``x.dtype``. The int8 x int8 product is exact, so its plain
 version and the kernel give the same integers.
 
 Unlike the Pallas paths there is no :func:`wo_supported` gate on the
-card: the CUDA-core kernels mask M, N and K at the ragged edge, and the
-tensor-core kernel reads its tiles with TMA, which fills what lies past
-an edge with zeros, so every shape takes a kernel. The gate stays public
+card: the ``wo_matmul.cu`` kernels mask M, N and K at the ragged edge,
+and the wgmma kernel reads its tiles with TMA, which fills what lies
+past an edge with zeros, so every shape takes a kernel. The gate stays public
 for callers that read it.
 
 The collective matmuls (``allgather_matmul``, ``matmul_allgather``,
@@ -66,6 +69,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"wo_matmul": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _P],
                "wo_gemv_blocks_per_sm": [_I, _I, _I, _P],
+               "wo_gemm_tf32": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I,
+                                                       _P],
+               "wo_gemm_blocks_per_sm": [_I, _P],
                "wo_gemv_mma": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
                "wo_gemv_mma_blocks_per_sm": [_I, _P]}
 _WGMMA_SIGNATURES = {"wo_matmul_wgmma": [_P] * 5 + [_I] * 3
@@ -84,6 +90,15 @@ _GEMV_SMEM_FLOATS = 8192
 # thread-block cluster, of the portable size)
 _MMA_SPLIT_ROWS = 128
 _MMA_MAX_SPLITS = 8
+# the TF32 prefill kernel (csrc/wo_matmul.cu `wo_gemm_tf32_kernel`): a
+# block's output tile by x's type, 32-row k-steps; K splits of whole
+# k-steps, at least 8 of them (256 rows), at most 8 splits (a tile's
+# splits are one cluster). The kernel adds its tensor-core sums into a
+# second sum every 2048 rows, so a split may take any number of rows.
+_GEMM_TILES = {torch.float32: (32, 512), torch.bfloat16: (128, 128)}
+_GEMM_KSTEP = 32
+_GEMM_MIN_ROWS = 256
+_GEMM_MAX_SPLITS = 8
 # the weight-only kernels a CUDA call may take (wo_route)
 WO_ROUTES = ("gemv", "gemv_mma", "gemm", "wgmma")
 # per device: zeroed u32 counters, one per column tile, that the split-K
@@ -92,7 +107,8 @@ WO_ROUTES = ("gemv", "gemv_mma", "gemm", "wgmma")
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 _WORKSPACE: Dict[torch.device, torch.Tensor] = {}
 # (device, MT, N % 16 == 0, dtype) -> decode blocks the whole card holds
-# (MT "mma" for the tensor-core kernel)
+# (MT "mma" for the tensor-core decode kernel); (device, "gemm", dtype)
+# -> the prefill kernel's
 _RESIDENT: Dict[tuple, int] = {}
 # (device, M, K, N, dtype) -> (route, k_per_split, splits, library, C
 # entry): a launch's plan, made once per shape (a serving run repeats a
@@ -142,10 +158,14 @@ def _qmax(quant_bits: int) -> float:
 
 
 def int8_weight_only_matmul_reference(x, w_int8, w_scale, bias=None,
-                                      quant_bits: int = 8) -> torch.Tensor:
-    """The plain version: the Pallas kernel's arithmetic in torch ops."""
+                                      quant_bits: int = 8,
+                                      matmul=torch.matmul) -> torch.Tensor:
+    """The plain version: the Pallas kernel's arithmetic in torch ops.
+    ``matmul`` computes the f32 product of x and the int8 values (e.g.
+    ``flash_attn.tf32_matmul``, whose passes the TF32 prefill kernel
+    emulates: its w is exact in TF32, so 3 passes are that kernel's 2)."""
     qmax = _qmax(quant_bits)
-    acc = x.float() @ w_int8.float()
+    acc = matmul(x.float(), w_int8.float())
     out = acc * (w_scale.float() / qmax)
     if bias is not None:
         out = out + bias.float()
@@ -211,19 +231,54 @@ def mma_k_split(M: int, K: int, N: int, resident: int) -> Tuple[int, int]:
     return per, -(-K // per)
 
 
+def gemm_tile(dtype: torch.dtype) -> Tuple[int, int]:
+    """The TF32 prefill kernel's output tile ``(rows, columns)`` for x of
+    ``dtype``: 32 x 512 for f32 (8 warps side by side, so that every warp
+    has rows at the padded prompt lengths), 128 x 128 for bf16 x, rows
+    off TMA's 16-byte rule."""
+    return _GEMM_TILES[dtype]
+
+
+def gemm_k_split(M: int, K: int, N: int, resident: int,
+                 dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """``(k_per_split, splits)`` of the TF32 prefill kernel for x of
+    ``dtype`` (:func:`gemm_tile`): its output tiles alone when they fill
+    at least half of the ``resident`` blocks the card holds; else K is
+    split across blocks until the tiles times the splits fill at most one
+    wave of them, up to 8 ways (a tile's splits are one thread-block
+    cluster), each split whole 32-row k-steps and at least 256 rows. At M
+    128 the down projection (K 8192, N 2048) is 16 f32 tiles, 8 splits; at
+    M 1008 it is 128 tiles, 2 splits, and the up projection (N 8192) 512
+    tiles, none. More splits than one wave would run the partial tiles in
+    a second wave; fewer leave SMs idle. Any K takes at most 8 splits: the
+    kernel keeps its error in hand by itself, every 2048 rows."""
+    bm, bn = gemm_tile(dtype)
+    tiles = (-(-M // bm)) * (-(-N // bn))
+    want = max(1, min(_GEMM_MAX_SPLITS, resident // tiles,
+                      K // _GEMM_MIN_ROWS))
+    per = -(-K // want)
+    per = -(-per // _GEMM_KSTEP) * _GEMM_KSTEP
+    return per, -(-K // per)
+
+
 def _resident(lib, device: torch.device, M: int, N: int, dtype: torch.dtype,
               route: str) -> int:
     mma = route == "gemv_mma"
-    key = (device, "mma" if mma else _gemv_rows(M), N % 16 == 0, dtype)
+    key = ((device, "gemm", dtype) if route == "gemm" else
+           (device, "mma" if mma else _gemv_rows(M), N % 16 == 0, dtype))
     if key not in _RESIDENT:
         per_sm = ctypes.c_int(0)
-        if mma:
+        if route == "gemm":
+            err = lib.wo_gemm_blocks_per_sm(_DTYPE_CODE[dtype],
+                                            ctypes.byref(per_sm))
+        elif mma:
             err = lib.wo_gemv_mma_blocks_per_sm(int(key[2]),
                                                 ctypes.byref(per_sm))
         else:
             err = lib.wo_gemv_blocks_per_sm(
                 M, int(key[2]), _DTYPE_CODE[dtype], ctypes.byref(per_sm))
-        _build.check(lib, err, "wo_gemv_mma_blocks_per_sm" if mma
+        _build.check(lib, err, "wo_gemm_blocks_per_sm" if route == "gemm"
+                     else "wo_gemv_mma_blocks_per_sm" if mma
                      else "wo_gemv_blocks_per_sm")
         _RESIDENT[key] = per_sm.value * torch.cuda.get_device_properties(
             device).multi_processor_count
@@ -251,13 +306,14 @@ def wo_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
     from its shape and dtype before the launch. Decode, M <= 8:
     "gemv_mma" for bf16 (``wo_gemv_mma_kernel``, the tensor cores; any
     K, N and alignment), "gemv" for f32 (``wo_gemv_kernel``, the CUDA
-    cores: the f32 contract refuses TF32). Prefill: "wgmma" for bf16
-    within TMA's 16-byte rule, K % 8 == 0 and N % 16 == 0
-    (``wo_gemm_wgmma_kernel``, the tensor cores); else "gemm"
-    (``wo_gemm_kernel``, the CUDA cores: f32, and bf16 rows of another
-    length). A base off a 16-byte boundary does not change the route:
-    the wgmma route copies that operand first, the decode kernels read
-    it byte by byte."""
+    cores: its tensor-core form is still to be written). Prefill:
+    "wgmma" for bf16 within TMA's 16-byte rule, K % 8 == 0 and N % 16 ==
+    0 (``wo_gemm_wgmma_kernel``); else "gemm" (``wo_gemm_tf32_kernel``,
+    the tensor cores in TF32: f32 x in two passes, each product within
+    about 2**-21 of f32, and bf16 rows of another length in one, exact).
+    A base off a 16-byte boundary does not change the route: the wgmma
+    route copies that operand first, the other kernels read it element
+    by element."""
     if M <= _GEMV_MAX_M:
         return "gemv_mma" if dtype == torch.bfloat16 else "gemv"
     if dtype == torch.bfloat16 and K % 8 == 0 and N % 16 == 0:
@@ -265,7 +321,7 @@ def wo_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
     return "gemm"
 
 
-_ENTRIES = {"gemv": "wo_matmul", "gemm": "wo_matmul",
+_ENTRIES = {"gemv": "wo_matmul", "gemm": "wo_gemm_tf32",
             "gemv_mma": "wo_gemv_mma", "wgmma": "wo_matmul_wgmma"}
 
 
@@ -282,6 +338,9 @@ def _plan(dev: torch.device, M: int, K: int, N: int,
         if route == "gemv":
             per, splits = k_split(M, K, N, _resident(lib, dev, M, N, dtype,
                                                      route))
+        elif route == "gemm":
+            per, splits = gemm_k_split(
+                M, K, N, _resident(lib, dev, M, N, dtype, route), dtype)
         elif route == "gemv_mma":
             per, splits = mma_k_split(M, K, N, _resident(lib, dev, M, N,
                                                          dtype, route))
@@ -349,6 +408,11 @@ def _launch(x, w_int8, w_scale, bias, y, M, K, N, qmax):
         # memory, not a workspace
         err = entry(x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
                     b_ptr, y.data_ptr(), M, K, N, per, qmax, stream)
+    elif route == "gemm":
+        # so do the prefill kernel's, a tile's splits one cluster
+        err = entry(x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
+                    b_ptr, y.data_ptr(), M, K, N, per, qmax,
+                    _DTYPE_CODE[x.dtype], stream)
     else:
         ws = counters = None
         if splits > 1:

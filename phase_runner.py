@@ -89,6 +89,25 @@ Phases:
   and O2); and ``torch._fused_adamw_`` over the f32 state: each by CUDA
   events and device time from torch.profiler, with the host time a call
   of the optimizer's step.
+- ``f32_prefill``: the smoke's f32 serving runs of GPT-3 1.3B (its
+  phase-4 requests and engine settings), dense (``f32``) and int8
+  weight-only with the int8 head (``int8_f32``), each served twice on
+  one model: the second run's ``serve()`` figures (prefill tokens/s,
+  TTFT, prefill seconds) and the f32 forward's and the prefill GEMM's
+  launches; then a traced prefill of the 1000-token prompt alone (padded
+  to 1008 rows): its device time by kernel group (the weight-only
+  kernels, the flash kernels, the library's matmuls, the rest) and its
+  wall time. Then the two kernels the f32 prefill runs, at the smoke's
+  shapes: ``flash_fwd`` in f32 (B1 H16 S 128/1024/2048 D128 and B8 H16
+  S1024 D64, causal) against SDPA's f32, and ``int8_weight_only_matmul``
+  in f32 at the four block projections with their bias (M 32, 128, 144
+  and 1008) against ``torch.addmm`` over the dequantized weight: CUDA
+  events, device time from torch.profiler (all kernels of the call and
+  the port's kernel alone) and the wrapper's host time a call. Then the
+  same for two rows off the projections: bf16 M 1008, K 204, N 336 with
+  its bias, off TMA's 16-byte rule (route "gemm" in every checkout), and
+  f32 M 1008, K 20480, N 2048 with its bias, past 8 K splits of 2048
+  rows (a checkout whose kernel refuses a row records its error).
 """
 
 import argparse
@@ -607,6 +626,116 @@ def adamw_step(cs, torch):
     return out
 
 
+def f32_prefill(cs, torch):
+    import numpy as np
+    from torch.nn import functional as F
+    from paddle2_tpu_torch.kernels import flash_attn as fa
+    from paddle2_tpu_torch.kernels import quant_matmul as qm
+    from paddle2_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
+    cfg = gpt3_1p3b()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (17, 45, 130, 257, 401, 613, 850, 1000)]
+    econf = dict(block_size=16, num_blocks=1024, max_batch=8)
+    groups = (("wo_matmul", ("wo_ge",)), ("flash", ("flash_",)),
+              ("library matmul", ("gemm", "gemv", "cutlass", "xmma",
+                                  "nvjet", "cublas")))
+    out = {}
+    for tag, extra in (("f32", {}), ("int8_f32", dict(
+            weight_only_int8=True, weight_only_lm_head=True))):
+        model = GPTForCausalLM(cfg, seed=1234)
+        ec = EngineConfig(**econf, **extra)
+        runs = []
+        for _ in range(2):
+            _, launches, st = cs.serve(model, ec, prompts, 32)
+            runs.append(dict(
+                prefill_tok_s=st["prefill_tok_s"],
+                ttft_mean_s=st["ttft_mean_s"], ttft_max_s=st["ttft_max_s"],
+                prefill_s=st["prefill_s"], prefills=st["prefills"],
+                decode_tok_s=st["decode_tok_s"],
+                launches={n: launches.get(n) for n in (
+                    "flash_fwd", "flash_fwd_tf32x3", "wo_matmul",
+                    "wo_gemm_tf32")},
+                wo_route_launches=st["wo_route_launches"]))
+        eng = ServingEngine(model, ec)
+        eng.submit(prompts[-1], 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eng.admit_and_prefill(now=0.0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_group = cs.device_groups(prof, groups)
+        out[tag] = dict(serve=runs[1], serve_first=runs[0],
+                        traced_prefill_1000=dict(
+                            wall_ms=wall * 1e3,
+                            device_ms=sum(by_group.values()),
+                            by_group=by_group))
+        print(json.dumps({tag: out[tag]}), flush=True)
+        del model, eng
+        torch.cuda.empty_cache()
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def timed(run, library, kernel):
+        device, ours = cs.device_ms(run, kernel)
+        return dict(events_ms=cs.cuda_ms(run), device_ms=device,
+                    kernel_device_ms=ours, host_ms=_host_ms(torch, run),
+                    library_events_ms=cs.cuda_ms(library),
+                    library_device_ms=cs.device_ms(library, "")[0])
+    flash = {}
+    for B, S, D in ((1, 128, 128), (1, 1024, 128), (1, 2048, 128),
+                    (8, 1024, 64)):
+        q, k, v = (torch.randn(B, 16, S, D, generator=gen, device=dev)
+                   for _ in range(3))
+        key = f"B{B} H16 S{S} D{D} causal"
+        flash[key] = timed(
+            lambda: fa.flash_fwd(q, k, v, scale=D ** -0.5, causal=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            "flash_fwd")
+        print(json.dumps({key: flash[key]}), flush=True)
+        del q, k, v
+    wo = {}
+    for label in ("qkv", "out_proj", "up", "down"):
+        K, N = cs.WO_SHAPES[label]
+        w8, s8 = qm.quantize_channelwise(
+            torch.randn(K, N, generator=gen, device=dev) * 0.02)
+        b = torch.randn(N, generator=gen, device=dev) * 0.02
+        w_deq = w8.float() * (s8 / 127.0)
+        for M in (32, 128, 144, 1008):
+            x = torch.randn(M, K, generator=gen, device=dev)
+            key = f"M{M} K{K} N{N} ({label}) bias"
+            wo[key] = timed(
+                lambda: qm.int8_weight_only_matmul(x, w8, s8, b),
+                lambda: torch.addmm(b, x, w_deq), "wo_ge")
+            print(json.dumps({key: wo[key]}), flush=True)
+        del w8, s8, w_deq
+        torch.cuda.empty_cache()
+    for dtype, M, K, N, label in (
+            (torch.bfloat16, 1008, 204, 336, "off TMA"),
+            (torch.float32, 1008, 20480, 2048, "long K")):
+        w8, s8 = qm.quantize_channelwise(
+            torch.randn(K, N, generator=gen, device=dev) * 0.02)
+        b = (torch.randn(N, generator=gen, device=dev) * 0.02).to(dtype)
+        w_deq = (w8.float() * (s8 / 127.0)).to(dtype)
+        x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+        key = (f"M{M} K{K} N{N} ({label}) bias "
+               f"{'bf16' if dtype == torch.bfloat16 else 'f32'}")
+        try:
+            wo[key] = timed(lambda: qm.int8_weight_only_matmul(x, w8, s8, b),
+                            lambda: torch.addmm(b, x, w_deq), "wo_ge")
+        except RuntimeError as e:   # a checkout whose kernel refuses it
+            wo[key] = dict(error=str(e))
+        print(json.dumps({key: wo[key]}), flush=True)
+        del w8, s8, w_deq, x
+        torch.cuda.empty_cache()
+    out.update(flash_fwd_f32=flash, wo_matmul_f32=wo)
+    return out
+
+
 def train_bf16(cs, smi):
     run, _ = cs.train_bf16(smi)
     return dict(tokens_per_s=run["bench"]["value"],
@@ -621,7 +750,7 @@ def main():
     ap.add_argument("--phase", required=True,
                     choices=("int8_serving", "varlen_step",
                              "varlen_bwd_draws", "norms", "flash_bwd_f32",
-                             "train_bf16", "adamw_step"))
+                             "train_bf16", "adamw_step", "f32_prefill"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -650,6 +779,8 @@ def main():
         result = train_bf16(cs, smi)
     elif args.phase == "adamw_step":
         result = adamw_step(cs, torch)
+    elif args.phase == "f32_prefill":
+        result = f32_prefill(cs, torch)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

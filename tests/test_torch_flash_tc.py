@@ -1,7 +1,8 @@
 """The tensor-core flash kernels' contract, held on the CPU.
 
 bf16 CUDA tensors reach ``flash_fwd_wgmma.cu`` and
-``flash_bwd_wgmma.cu``, f32 ones the CUDA-core kernels, with the same
+``flash_bwd_wgmma.cu``, f32 ones the 3xTF32 forward
+(``flash_fwd_tf32x3.cu``) and the CUDA-core fused backward, with the same
 C arguments; a launch error raises (no fallback); and the plain versions
 that chip_smoke.py holds the kernels against on the card agree with the
 JAX package's Pallas kernels (interpret mode) at the new kernels' tile
@@ -35,7 +36,7 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 # (library, C entry) each dtype must reach
 FWD_WANT = {torch.bfloat16: ("flash_fwd_wgmma", "flash_fwd_wgmma"),
-            torch.float32: ("flash_fwd", "flash_fwd")}
+            torch.float32: ("flash_fwd_tf32x3", "flash_fwd_tf32x3")}
 FUSED_WANT = {torch.bfloat16: ("flash_bwd_wgmma", "flash_bwd_fused_wgmma"),
               torch.float32: ("flash_bwd", "flash_bwd_fused")}
 
@@ -141,7 +142,7 @@ def test_bf16_inputs_reach_tma_on_16_byte_boundaries(on_card):
 def test_bf16_and_f32_entries_share_one_c_signature():
     lib = fa._LIBRARIES
     assert lib["flash_fwd_wgmma"]["flash_fwd_wgmma"] == \
-        lib["flash_fwd"]["flash_fwd"]
+        lib["flash_fwd_tf32x3"]["flash_fwd_tf32x3"]
     assert lib["flash_bwd_wgmma"]["flash_bwd_fused_wgmma"] == \
         lib["flash_bwd"]["flash_bwd_fused"]
 

@@ -225,27 +225,37 @@ def test_bf16_prefill_reaches_the_tensor_core_entry(wo_card):
 
 
 @pytest.mark.parametrize("M,N,dtype,route", [
-    (1008, 2048, torch.float32, "gemm"),    # f32 keeps the CUDA cores
+    (1008, 2048, torch.float32, "gemm"),    # f32 prefill: the TF32 GEMM
     (8, 2048, torch.float32, "gemv"),       # f32 decode
     (1008, 336 - 3, torch.bfloat16, "gemm"),  # rows past TMA's rule
 ])
 def test_other_calls_keep_the_cuda_core_entry(wo_card, M, N, dtype, route):
-    """f32 prefill, f32 decode and a bf16 N off TMA's 16-byte rule reach
-    ``wo_matmul``'s entry as before: pointers, the split-K workspace and
-    counters (decode) or nulls, M, K, N, the K split, qmax, the dtype
-    code; the route's count moves."""
+    """f32 decode reaches ``wo_matmul``'s entry as before: pointers, the
+    split-K workspace and counters or nulls, M, K, N, the K split, qmax,
+    the dtype code. f32 prefill and a bf16 N off TMA's 16-byte rule, which
+    took the CUDA-core GEMM through that entry, reach the TF32 prefill
+    kernel's own entry in the same library: pointers, M, K, N, the K
+    split (its splits add through distributed shared memory, so no
+    workspace), qmax, the dtype code (which sets the tile). The route's
+    count moves."""
     K = 2048
     x, w, s, b = _wo_operands(M, K, N, dtype)
     total, routes = _counts()
     y = qm.int8_weight_only_matmul(x, w, s, b)
     assert qm.wo_route(M, K, N, dtype) == route
     (lib, entry, args), = wo_card
-    assert (lib, entry) == ("wo_matmul", "wo_matmul")
-    per, splits = qm.k_split(M, K, N, 396)
     assert args[:5] == (x.data_ptr(), w.data_ptr(), s.data_ptr(),
                         b.data_ptr(), y.data_ptr())
-    assert (args[5] is None) == (args[6] is None) == (splits == 1)
-    assert args[7:] == (M, K, N, per, 127.0, qm._DTYPE_CODE[dtype], None)
+    if route == "gemm":
+        assert (lib, entry) == ("wo_matmul", "wo_gemm_tf32")
+        assert args[5:] == (M, K, N, qm.gemm_k_split(M, K, N, 396, dtype)[0],
+                            127.0, qm._DTYPE_CODE[dtype], None)
+    else:
+        assert (lib, entry) == ("wo_matmul", "wo_matmul")
+        per, splits = qm.k_split(M, K, N, 396)
+        assert (args[5] is None) == (args[6] is None) == (splits == 1)
+        assert args[7:] == (M, K, N, per, 127.0, qm._DTYPE_CODE[dtype],
+                            None)
     routes[route] += 1
     assert _counts() == (total + 1, routes)
 

@@ -14,7 +14,7 @@ PORT_FILES = sorted((ROOT / "paddle2_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "phase_runner.py",
      ROOT / "wo_wgmma_variants.py", ROOT / "norm_fwd_variants.py",
      ROOT / "flash_bwd_tf32x3_variants.py", ROOT / "wo_gemv_mma_variants.py",
-     ROOT / "variant_harness.py"]
+     ROOT / "flash_fwd_tf32x3_variants.py", ROOT / "variant_harness.py"]
 
 
 def _imported_modules(path: Path):
@@ -80,7 +80,7 @@ def test_resolve_device(monkeypatch):
 def test_kernel_sources_are_found():
     from paddle2_tpu_torch.kernels import _build
     names = _build.sources()
-    assert set(names) == {"flash_fwd", "paged_decode", "flash_bwd",
+    assert set(names) == {"flash_fwd_tf32x3", "paged_decode", "flash_bwd",
                           "adamw_step", "wo_matmul", "layer_norm",
                           "momentum_step", "flash_varlen", "rms_norm",
                           "rope", "adamw_flat", "i8i8_matmul",

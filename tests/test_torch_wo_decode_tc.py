@@ -55,8 +55,8 @@ KSTEP = 16           # rows of K a warp takes a step
     (9, torch.float32, "gemm")])
 def test_decode_route_by_dtype(M, dtype, route):
     """bf16 decode takes the tensor cores at any K and N (ragged ones
-    too); f32 decode keeps the CUDA cores (the f32 contract refuses
-    TF32); prefill keeps its routes."""
+    too); f32 decode keeps the CUDA cores (its tensor-core form is still
+    to be written); prefill keeps its routes."""
     assert qm.wo_route(M, 2048, 8192, dtype) == route
     if M <= 8:
         assert qm.wo_route(M, 200, 333, dtype) == route

@@ -1,5 +1,6 @@
 """What the kernel-variant scripts share (``wo_wgmma_variants.py``,
-``norm_fwd_variants.py``, ``flash_bwd_tf32x3_variants.py``): copy a
+``norm_fwd_variants.py``, ``flash_bwd_tf32x3_variants.py``,
+``flash_fwd_tf32x3_variants.py``): copy a
 kernel source once a variant with textual edits, build the copies with
 nvcc (sm_90a) in parallel, load their C entries through ctypes, and time
 them by CUDA events, in turns. Each script keeps only its edit table,
