@@ -25,7 +25,11 @@ line) when it fails:
    tensor-core instructions (HMMA ... .TF32), with ptxas's registers and
    spills for each; every instantiation of
    the bf16 decode kernel ``wo_gemv_mma_kernel`` (in ``wo_matmul``, 4)
-   must hold HMMA, with its registers and spills.
+   must hold HMMA, with its registers and spills; every instantiation of
+   the paged decode's ``paged_decode_cluster_kernel`` (2 dtypes x 3 head
+   dims x 2 routes) must hold cp.async copies (LDGSTS) and every one of
+   the flat AdamW's vector kernel ``adamw_flat_vec_kernel`` (3 x 3
+   types) 16-byte loads (LDG.E.128), with their registers and spills.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
    causal; bf16 on the wgmma kernel, f32 on the 3xTF32 one, whose rows
@@ -33,8 +37,13 @@ line) when it fails:
    cores' bound beside them, must be bitwise equal on a second run, and
    where the plain forward with its products in single-pass TF32 must
    read past the f32 limit),
-   the paged decode and the split-K paged decode (B8 H16 D128, block
-   16, contexts up to 2048), in bf16 and f32. Each prints its error
+   the paged decode on both routes (global, and split-K at 8 pages a
+   split with the torch merge), in bf16 and f32, at H16 block 16 with
+   x7 garbage in every stale slot: B8 D128 with contexts 2048..17 (the
+   kernels line's row), B8 all 2048, B1 2048, B8 contexts 1..17, B1
+   16,384, and the first shape at D 64 and 16; each bitwise equal on a
+   second run, with its cluster plan, and on the first shape the
+   wrapper's host time a call. Each prints its error
    against its tolerance, its median time from CUDA events, its device
    time from torch.profiler (all kernels of the call, and the port's
    kernel alone), the plain version's time, one library call's time
@@ -275,7 +284,8 @@ line) when it fails:
     copied back: 1 warm-up step, 5 timed steps and 1 traced step. Every
     loss finite; each step launches exactly 5 RMSNorm forwards (all on
     the vector route, ``rms_norm_fwd_vec_kernel``), 5 RMSNorm
-    backwards, 8 RoPE (4 forward, 4 backward), 13 flat AdamW, 2 dense
+    backwards, 8 RoPE (4 forward, 4 backward), 13 flat AdamW (all on
+    the vector route, ``adamw_flat_vec_kernel``), 2 dense
     flash forwards and 2 fused flash backwards, and no other kernel.
     Prints tokens/s, the step time, the traced step's device time by
     kernel group and the idle share. Then a neox-style call
@@ -334,9 +344,14 @@ forward and backward bitwise at the docstring's [8, 2048, 16, 128] with
 an [S, D] table and a ``position_ids``-gathered [B*S, D] one, and at D
 64 with an odd H, in bf16 and f32 (no single torch call computes it);
 the flat AdamW bitwise on its four outputs at 84 M elements with f32
-and with bf16 params and grads, and at 513, timed against
-``torch._fused_adamw_`` over an f32 master/m/v of the same N (another
-decay order: a yardstick of time only).
+and with bf16 params and grads, and at 513, on both routes: fresh
+tensors (the vector kernel, row ``adamw_flat_vec``) and copies of g, m,
+v and master one element past a 16-byte boundary (the general kernel,
+row ``adamw_flat``), each call counting one launch on its route and
+launching that route's kernel alone (torch.profiler); timed with the
+wrapper's host time a call, against ``torch._fused_adamw_`` over an
+f32 master/m/v of the same N (another decay order: a yardstick of time
+only).
 
 Phase 3 also holds the fused LayerNorm's forward and backward against
 their plain versions at ERNIE's [4096, 768] (bf16 x with f32 and with
@@ -393,7 +408,8 @@ from paddle2_tpu_torch.kernels.flash_varlen import (
     flash_varlen_fwd_reference)
 from paddle2_tpu_torch.kernels.fused_adamw import (
     adamw_flat, adamw_flat_reference, adamw_step, adamw_step_multi,
-    adamw_step_multi_reference, stage_flat_scalars, stage_scalars)
+    adamw_step_multi_reference, flat_route, stage_flat_scalars,
+    stage_scalars)
 from paddle2_tpu_torch.kernels import fused_layer_norm as fln
 from paddle2_tpu_torch.kernels.fused_layer_norm import (
     bwd_blocks, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
@@ -425,7 +441,7 @@ from paddle2_tpu_torch.quantization import (
     QuantConfig, QuantedInferenceLinear, weight_only_quantize)
 from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
 from paddle2_tpu_torch.serving.paged_attention import (
-    _merge_splits, paged_attention_reference,
+    _merge_splits, cluster_plan, paged_attention_reference,
     paged_attention_split_reference, paged_decode,
     paged_decode_split_partials)
 from paddle2_tpu_torch.vision.models import resnet18, resnet50
@@ -590,17 +606,28 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/rope.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:369",
         counter=rope),
+    # every route of the flat AdamW's wrapper; its kernels-line row is the
+    # general route's kernel (an offset view), the vector route's is
+    # counted again below
     "adamw_flat": dict(
         source="paddle2_tpu_torch/kernels/csrc/adamw_flat.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:32",
         counter=adamw_flat),
+    "adamw_flat_vec": dict(
+        source="paddle2_tpu_torch/kernels/csrc/adamw_flat.cu",
+        replaces="paddle2_tpu/kernels/pallas_fused.py:32",
+        counter=adamw_flat, route="vec"),
     "i8i8_matmul": dict(
         source="paddle2_tpu_torch/kernels/csrc/i8i8_matmul.cu",
         replaces="paddle2_tpu/kernels/pallas_matmul.py:252",
         counter=int8_matmul),
 }
 INCUBATE_KERNELS = ("rms_norm_fwd", "rms_norm_fwd_vec", "rms_norm_bwd",
-                    "rope", "adamw_flat")
+                    "rope", "adamw_flat", "adamw_flat_vec")
+# the CUDA kernel of each route of the flat AdamW (the names torch.profiler
+# reports)
+ADAMW_FLAT_KERNEL_NAMES = {"vec": "adamw_flat_vec_kernel",
+                           "general": "adamw_flat_kernel"}
 # the CUDA kernel of each route of the norms' forwards (the names
 # torch.profiler reports); the libraries whose vector kernels' SASS must
 # hold 16-byte loads (LDG.E.128)
@@ -797,6 +824,27 @@ WO_ROW_NAME = {"gemv": "wo_matmul", "gemm": "wo_gemm_tf32",
 # the bf16 decode rows at the batches that only this check takes (the
 # timed ones are M 1 and 8)
 WO_DECODE_ROWS = (2, 3, 5)
+# the paged decode's shapes: (label, contexts, head dim); bs 16, H 16.
+# The first is the main path's (the serving engine's widest decode
+# batch, cut to 8 sequences of 2048..17 keys); every shape runs on both
+# routes in both dtypes
+PAGED_CTX = [2048, 1900, 1500, 1024, 700, 333, 129, 17]
+PAGED_CASES = [("main", PAGED_CTX, 128),
+               ("B8 all 2048", [2048] * 8, 128),
+               ("B1 2048", [2048], 128),
+               ("B8 short", [1, 2, 3, 5, 8, 13, 16, 17], 128),
+               ("B1 16384", [16384], 128),
+               ("D64", PAGED_CTX, 64),
+               ("D16", PAGED_CTX, 16)]
+PAGED_PPS = 8
+PAGED_KERNEL = "paged_decode_cluster_kernel"
+
+
+def paged_line_shape(ctx, D, split):
+    return (f"B{len(ctx)} H16 D{D} bs16 ctx {sum(ctx)} total (max "
+            f"{max(ctx)})" + (f" pps{PAGED_PPS}" if split else ""))
+
+
 LINE_SHAPES = {"flash_bwd_fused": TRAIN_BWD_SHAPE,
                "flash_bwd_split_dkv": TRAIN_BWD_SHAPE,
                "flash_bwd_split_dq": TRAIN_BWD_SHAPE,
@@ -812,7 +860,10 @@ LINE_SHAPES = {"flash_bwd_fused": TRAIN_BWD_SHAPE,
                "rms_norm_fwd_vec": RMS_LINE_SHAPE,
                "rms_norm_bwd": RMS_LINE_SHAPE,
                "rope": ROPE_LINE_SHAPE,
-               "adamw_flat": ADAMW_FLAT_LINE_SHAPE,
+               "adamw_flat": ADAMW_FLAT_LINE_SHAPE + ", offset view",
+               "adamw_flat_vec": ADAMW_FLAT_LINE_SHAPE,
+               "paged_decode": paged_line_shape(PAGED_CTX, 128, False),
+               "paged_decode_split": paged_line_shape(PAGED_CTX, 128, True),
                "flash_varlen_fwd": VARLEN_LINE_SHAPE,
                "flash_varlen_bwd_dkv": VARLEN_LINE_SHAPE,
                "flash_varlen_bwd_dq": VARLEN_LINE_SHAPE,
@@ -994,47 +1045,59 @@ def check_flash_ragged(dtype, B, H, Sq, Sk, D, causal, gen, dev):
                 max_abs_err=err, tol=TOL[dtype], bitwise=bitwise)
 
 
-def paged_inputs(dtype, gen, dev, rng):
-    B, H, D, bs = 8, 16, 128, 16
-    ctx = np.asarray([2048, 1900, 1500, 1024, 700, 333, 129, 17], np.int32)
+def paged_inputs(dtype, gen, dev, rng, ctx, D, H=16, bs=16):
+    """Pools with x7 garbage in every stale slot (as in the CPU tests),
+    shuffled block tables as wide as the longest context, and the live
+    slots' K and V drawn anew."""
+    B = len(ctx)
+    ctx = np.asarray(ctx, np.int32)
     pages = -(-ctx // bs)
-    n_pages = 128
+    n_pages = int(pages.max())
     nb = int(pages.sum()) + 1
     perm = rng.permutation(np.arange(1, nb))
     tables = np.zeros((B, n_pages), np.int32)
+    blk, slot = [], []
     used = 0
     for b in range(B):
         tables[b, :pages[b]] = perm[used:used + pages[b]]
         used += pages[b]
-    # stale slots hold x7 garbage, as in the CPU tests
+        t = np.arange(int(ctx[b]))
+        blk.append(tables[b, t // bs])
+        slot.append(t % bs)
+    blk = torch.as_tensor(np.concatenate(blk), device=dev).long()
+    slot = torch.as_tensor(np.concatenate(slot), device=dev).long()
     kp = (torch.randn(nb, bs, H, D, generator=gen, device=dev) * 7).to(dtype)
     vp = (torch.randn(nb, bs, H, D, generator=gen, device=dev) * 7).to(dtype)
-    for b in range(B):
-        for i in range(pages[b]):
-            hi = min(bs, int(ctx[b]) - i * bs)
-            blk = int(tables[b, i])
-            kp[blk, :hi] = torch.randn(hi, H, D, generator=gen,
-                                       device=dev).to(dtype)
-            vp[blk, :hi] = torch.randn(hi, H, D, generator=gen,
-                                       device=dev).to(dtype)
+    for pool in (kp, vp):
+        pool[blk, slot] = torch.randn(len(blk), H, D, generator=gen,
+                                      device=dev).to(dtype)
     q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(dtype)
     return (q, kp, vp, torch.as_tensor(tables, device=dev),
-            torch.as_tensor(ctx, device=dev)), int(ctx.sum())
+            torch.as_tensor(ctx, device=dev))
 
 
-def check_paged(dtype, gen, dev, rng, split):
-    args, total_ctx = paged_inputs(dtype, gen, dev, rng)
+def check_paged(dtype, gen, dev, rng, split, label, ctx, D):
+    """The paged decode on one route (global, or split-K with
+    ``PAGED_PPS`` pages a split and the torch merge) against its plain
+    version, with stale x7 garbage past each context: CUDA events, the
+    device time of every kernel of the call and of the decode kernel
+    alone, the plain version's time, the bound (the bytes of K and V the
+    contexts hold), the cluster plan, and on the main shape the
+    wrapper's host time a call."""
+    args = paged_inputs(dtype, gen, dev, rng, ctx, D)
     q = args[0]
     B, _, H, D = q.shape
+    n_pages = args[3].shape[1]
     scale = 1.0 / D ** 0.5
     if split:
         def run():
             return _merge_splits(*paged_decode_split_partials(
-                *args, scale=scale, pages_per_split=8), q.dtype)[:, None]
+                *args, scale=scale, pages_per_split=PAGED_PPS),
+                q.dtype)[:, None]
 
         def plain():
-            return paged_attention_split_reference(*args, scale=scale,
-                                                   pages_per_split=8)
+            return paged_attention_split_reference(
+                *args, scale=scale, pages_per_split=PAGED_PPS)
     else:
         def run():
             return paged_decode(*args, scale=scale)
@@ -1043,24 +1106,33 @@ def check_paged(dtype, gen, dev, rng, split):
             return paged_attention_reference(*args, scale=scale)
     out, ref = run(), plain()
     torch.cuda.synchronize()
+    shape = paged_line_shape(ctx, D, split)
+    what = f"paged decode (split={split}) {dname(dtype)} {label}: {shape}"
+    require(torch.isfinite(out.float()).all().item(),
+            f"{what}: non-finite output")
     err = (out.float() - ref.float()).abs().max().item()
-    require(torch.isfinite(out.float()).all().item(), "non-finite output")
-    require(err <= TOL[dtype], f"paged decode (split={split}) "
-            f"{dname(dtype)} disagrees with its plain version: {err} > "
-            f"{TOL[dtype]}")
+    require(err <= TOL[dtype], f"{what} disagrees with its plain version: "
+            f"{err} > {TOL[dtype]}")
+    again = run()
+    bitwise = torch.equal(out, again)
+    require(bitwise, f"{what}: two runs differ")
     ms = cuda_ms(run)
-    dev_ms, kern_ms = device_ms(run, "paged_decode_split_kernel" if split
-                                else "paged_decode_kernel")
-    plain_ms = cuda_ms(plain, iters=10)
+    dev_ms, kern_ms = device_ms(run, PAGED_KERNEL, per_call=1)
+    plain_ms = cuda_ms(plain, iters=5, warmup=1)
+    total_ctx = sum(ctx)
     ops = 4.0 * total_ctx * H * D
     nbytes = 2.0 * total_ctx * H * D * q.element_size()
     b_ms, b_by = bound(ops, nbytes, dtype)
-    return dict(name="paged_decode_split" if split else "paged_decode",
-                dtype=dname(dtype), shape=f"B{B} H{H} D{D} bs16 ctx "
-                f"{total_ctx} total (max 2048)" + (" pps8" if split else ""),
-                max_abs_err=err, tol=TOL[dtype], ms=ms, device_ms=dev_ms,
-                kernel_device_ms=kern_ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    cluster, chunk = cluster_plan(PAGED_PPS if split else n_pages, 16)
+    row = dict(name="paged_decode_split" if split else "paged_decode",
+               dtype=dname(dtype), shape=shape, label=label,
+               max_abs_err=err, tol=TOL[dtype], bitwise=bitwise, ms=ms,
+               device_ms=dev_ms, kernel_device_ms=kern_ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, cluster=cluster, chunk_pages=chunk)
+    if label == "main":
+        row.update(host_ms=host_ms(run))
+    return row
 
 
 def half_step_err(got, ref32):
@@ -2190,48 +2262,84 @@ def check_rope(B, S, H, D, table, dtype, gen, dev, timed):
 
 
 def check_adamw_flat(N, pdt, gen, dev, timed):
-    """The flat AdamW against its plain version, bitwise on its four
-    outputs, at N elements with params and grads in ``pdt`` and f32
-    m, v and master. With ``timed``, its times, bound and
-    ``torch._fused_adamw_``'s over an f32 master/m/v of the same N
-    (another decay order, so a yardstick of time only)."""
+    """The flat AdamW on both routes against its plain version, bitwise
+    on its four outputs, at N elements with params and grads in ``pdt``
+    and f32 m, v and master: on fresh tensors (the vector route, row
+    ``adamw_flat_vec``) and on copies of g, m, v and master one element
+    past a 16-byte boundary (the general route, row ``adamw_flat``). Each
+    call must count one launch on its route and launch that route's
+    kernel alone (torch.profiler). With ``timed``, each route's times,
+    the bound and ``torch._fused_adamw_``'s over an f32 master/m/v of
+    the same N (another decay order, so a yardstick of time only)."""
     master = torch.randn(N, generator=gen, device=dev)
     g = torch.randn(N, generator=gen, device=dev).to(pdt)
     m = torch.randn(N, generator=gen, device=dev) * 0.1
     v = torch.rand(N, generator=gen, device=dev) * 0.01
     p = master.to(pdt)
     sc = stage_flat_scalars(1e-4, 0.9, 0.999, 1e-8, 0.01, 3)
-    got = adamw_flat(p, g, m, v, master, sc)
     want = adamw_flat_reference(p, g, m, v, master, sc)
-    torch.cuda.synchronize()
-    shape = f"N {N}, p/g {'bf16' if pdt == torch.bfloat16 else 'f32'}"
-    for what, a, b in zip(("p", "m", "v", "master"), got, want):
-        require(torch.equal(a, b), f"adamw_flat {shape}: {what} is not "
-                f"bitwise equal to its plain version (max "
-                f"{(a.float() - b.float()).abs().max().item()})")
-    row = dict(name="adamw_flat", dtype=dname(pdt), shape=shape,
-               max_abs_err=0.0, tol="bitwise (p, m, v, master)")
-    del got, want
+    base = f"N {N}, p/g {'bf16' if pdt == torch.bfloat16 else 'f32'}"
+    rows = []
+    for route, ins in (("vec", (g, m, v, master)),
+                       ("general", tuple(unaligned(t)
+                                         for t in (g, m, v, master)))):
+        shape = base + (", offset view" if route == "general" else "")
+        before = dict(adamw_flat.route_launches)
+        got = adamw_flat(p, *ins, sc)
+        torch.cuda.synchronize()
+        moved = {k: adamw_flat.route_launches[k] - before[k] for k in before}
+        require(moved == {k: int(k == route) for k in before},
+                f"adamw_flat {shape}: route launches moved by {moved}, want "
+                f"one on {route}")
+        require(flat_route(*ins, *got) == route, f"adamw_flat {shape}: "
+                f"the route rule names {flat_route(*ins, *got)}")
+        for what, a, b in zip(("p", "m", "v", "master"), got, want):
+            require(torch.equal(a, b), f"adamw_flat {shape}: {what} is not "
+                    f"bitwise equal to its plain version (max "
+                    f"{(a.float() - b.float()).abs().max().item()})")
+        del got
+        other = "general" if route == "vec" else "vec"
+        run = lambda ins=ins: adamw_flat(p, *ins, sc)
+        seen = launches_kernel(run, ADAMW_FLAT_KERNEL_NAMES[route],
+                               ADAMW_FLAT_KERNEL_NAMES[other])
+        require(seen is not False, f"adamw_flat {shape}: the {route} route "
+                f"did not launch {ADAMW_FLAT_KERNEL_NAMES[route]} alone")
+        row = dict(name="adamw_flat_vec" if route == "vec" else "adamw_flat",
+                   dtype=dname(pdt), shape=shape, route=route,
+                   kernel_seen=seen, max_abs_err=0.0,
+                   tol="bitwise (p, m, v, master)")
+        rows.append(row)
+        if not timed:
+            continue
+        dev_ms, kern_ms = device_ms(run, ADAMW_FLAT_KERNEL_NAMES[route],
+                                    per_call=1)
+        row.update(ms=cuda_ms(run), device_ms=dev_ms,
+                   kernel_device_ms=kern_ms, host_ms=host_ms(run, n=50),
+                   plain_ms=cuda_ms(lambda: adamw_flat_reference(
+                       p, *ins, sc), iters=5))
+    del want
     if not timed:
-        return row
-    run = lambda: adamw_flat(p, g, m, v, master, sc)
-    dev_ms, kern_ms = device_ms(run, "adamw_flat_kernel", per_call=1)
-    row.update(ms=cuda_ms(run), device_ms=dev_ms, kernel_device_ms=kern_ms,
-               plain_ms=cuda_ms(lambda: adamw_flat_reference(
-                   p, g, m, v, master, sc), iters=5))
+        return rows
     lp, lg, lm, lv = (t.float().clone() for t in (master, g, m, v))
     steps = [torch.tensor(3.0, device=dev)]
-    row.update(library_ms=cuda_ms(lambda: torch._fused_adamw_(
-        [lp], [lg], [lm], [lv], [], steps, lr=1e-4, beta1=0.9, beta2=0.999,
-        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False)),
-        library="torch._fused_adamw_ (f32 master/m/v)")
+
+    def library():
+        torch._fused_adamw_(
+            [lp], [lg], [lm], [lv], [], steps, lr=1e-4, beta1=0.9,
+            beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False)
+    lib_ms = cuda_ms(library)
+    lib_dev = device_ms(library, "")[0]
     # 16 f32 operations an element; g, m, v, master read and p, m, v,
     # master written: (psize + gsize + 24) bytes; p is never read
     size = p.element_size()
     b_ms, b_by = bound(16.0 * N, (2.0 * size + 24.0) * N, torch.float32)
-    row.update(bound_ms=b_ms, bound_by=b_by)
+    for row in rows:
+        row.update(library_ms=lib_ms, library_device_ms=lib_dev,
+                   library="torch._fused_adamw_ (f32 master/m/v)",
+                   bound_ms=b_ms, bound_by=b_by)
     del lp, lg, lm, lv
-    return row
+    return rows
 
 
 # ------------------------------------------------------------- phase 4
@@ -3944,7 +4052,8 @@ def stack_bf16(smi, dev):
     # every RMSNorm forward on the vector route
     want = {"rms_norm_fwd": 2 * L + 1, "rms_norm_fwd_vec": 2 * L + 1,
             "rms_norm_bwd": 2 * L + 1,
-            "rope": 4 * L, "adamw_flat": len(params), "flash_fwd": L,
+            "rope": 4 * L, "adamw_flat": len(params),
+            "adamw_flat_vec": len(params), "flash_fwd": L,
             "flash_bwd_fused": L}
     for n in KERNELS:
         require(launches[n] == steps * want.get(n, 0),
@@ -4253,6 +4362,71 @@ def check_norm_build():
     return out
 
 
+def decode_instance(mangled):
+    """A paged decode or flat AdamW vector kernel's instantiation from
+    its mangled name: ``<dtype, D, route>`` or ``<p type, g type>``."""
+    short = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    m = re.search(r"paged_decode_cluster_kernelI(f|13__nv_bfloat16)Li(\d+)"
+                  r"ELb([01])E", mangled)
+    if m:
+        return (f"<{short[m.group(1)]}, {m.group(2)}, "
+                f"{'split' if m.group(3) == '1' else 'global'}>")
+    m = re.search(r"adamw_flat_vec_kernelI(.*?)EEv", mangled)
+    if m:
+        named = [short.get(t) for t in
+                 re.findall(r"13__nv_bfloat16|6__half|S\d*_|f", m.group(1))]
+        named = [n if n else named[0] for n in named]
+        return f"<{', '.join(named)}>"
+    return mangled
+
+
+# the kernels whose SASS phase 2 checks: library, kernel, instantiations,
+# the instruction each must hold (cp.async: LDGSTS; a 16-byte load)
+DECODE_BUILD = (("paged_decode", "paged_decode_cluster_kernel", 12,
+                 "LDGSTS"),
+                ("adamw_flat", "adamw_flat_vec_kernel", 9, "LDG.E.128"))
+
+
+def check_decode_build():
+    """Phase 2 for the paged decode (``paged_decode_cluster_kernel``: 2
+    dtypes x 3 head dims x 2 routes) and the flat AdamW's vector route
+    (``adamw_flat_vec_kernel``: 3 p types x 3 g types): every
+    instantiation's SASS holds its copies (LDGSTS, cp.async) or its
+    16-byte loads (LDG.E.128), and ptxas's registers and spills for each
+    are printed."""
+    out = {}
+    for name, kernel, count, op in DECODE_BUILD:
+        lib, sass_text = sass(name)
+        found, fn = {}, None
+        for line in sass_text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1) if kernel in m.group(1) else None
+                if fn:
+                    found[fn] = 0
+            elif fn and op in line:
+                found[fn] += 1
+        ptxas, fn = {}, None
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1) if kernel in m.group(1) else None
+            elif fn and ("registers" in line or "spill" in line):
+                ptxas.setdefault(decode_instance(fn), []).append(
+                    line.strip())
+        short = {decode_instance(f): n for f, n in found.items()}
+        say(f"[build] {kernel}: {op} in the SASS of each instantiation: "
+            f"{json.dumps(short)}")
+        for args, lines in sorted(ptxas.items()):
+            say(f"[build] {kernel}{args}: {'; '.join(lines)}")
+        require(len(found) == count, f"{name}: {len(found)} instantiations "
+                f"of {kernel} in the SASS, want {count}")
+        require(all(n > 0 for n in found.values()),
+                f"{kernel}: no {op} in {[a for a, n in short.items() if not n]}")
+        out[kernel] = {op: short, "ptxas": ptxas}
+    return out
+
+
 def launches_by_route(n, launches):
     """The main-path ``launches`` of wrapper row ``n`` split by route:
     each route with a row of its own reads that row's count, and what is
@@ -4328,6 +4502,7 @@ def main():
     norm_build = check_norm_build()
     tf32_build = check_tf32_build()
     wo_mma_build = check_wo_mma_build()
+    decode_build = check_decode_build()
 
     mark("1-2 device, build")
 
@@ -4361,14 +4536,17 @@ def main():
             (rows if timed else ragged).append(
                 check_rope(B, S, H, D, table, dtype, gen, dev, timed))
     for N, pdt, timed in ADAMW_FLAT_CASES:
-        (rows if timed else ragged).append(
+        (rows if timed else ragged).extend(
             check_adamw_flat(N, pdt, gen, dev, timed))
         torch.cuda.empty_cache()
     for dtype in (torch.bfloat16, torch.float32):
         for S in (128, 1024, 2048):
             rows.append(check_flash(dtype, S, gen, dev))
-        rows.append(check_paged(dtype, gen, dev, rng, split=False))
-        rows.append(check_paged(dtype, gen, dev, rng, split=True))
+        for label, ctx, D in PAGED_CASES:
+            for split in (False, True):
+                rows.append(check_paged(dtype, gen, dev, rng, split, label,
+                                        ctx, D))
+    torch.cuda.empty_cache()
     # the fused backward (the bf16 route) at the serving shapes
     ragged += [r for S in (128, 1024, 2048)
                for r in check_flash_bwd(torch.bfloat16, 1, 16, S, S, 128,
@@ -4505,6 +4683,10 @@ def main():
             + (f" host {r['host_ms']:.4f} ({r['route']} route, its kernel "
                f"seen by name: {r['kernel_seen']})" if "kernel_seen" in r
                else "")
+            + (f" cluster {r['cluster']} x {r['chunk_pages']} pages, a rerun "
+               f"bitwise {r['bitwise']}" + (f" host {r['host_ms']:.4f}"
+                                            if "host_ms" in r else "")
+               if "cluster" in r else "")
             + (f" scaled {r['scaled_err']:.3g}, off the rounded sums "
                f"{r['off_share']:.3g}, unrounded {r['unrounded_err']}"
                if r.get("off_share") is not None else "")
@@ -4526,7 +4708,7 @@ def main():
                 f"{r['tol']})" + (f", bitwise on a second run "
                                   f"{r['bitwise']}" if "bitwise" in r
                                   else ""))
-        elif r["name"] in ("rope", "adamw_flat"):
+        elif r["name"] in ("rope", "adamw_flat", "adamw_flat_vec"):
             say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} ({r['tol']})")
         elif r["name"] == "i8i8_matmul":
@@ -4781,7 +4963,8 @@ def main():
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(device=kind, nvidia_smi=smi, build_s=build_s,
              wgmma_build=wgmma, norm_build=norm_build,
-             tf32_build=tf32_build, wo_mma_build=wo_mma_build, kernels=rows,
+             tf32_build=tf32_build, wo_mma_build=wo_mma_build,
+             decode_build=decode_build, kernels=rows,
              ragged=ragged, wo_bound=wo_bound, wo_payload=wo_payload,
              int8pack_mm_on_cuda=int8pack, engine=runs,
              train_bf16=train_rec, train_f32_vs_cpu=f32run,

@@ -22,7 +22,11 @@ there, the flat AdamW with an f32 master copy that
 four new tensors ``(p, m, v, master)``, with the decay folded into the
 update (another rounding order than the eager AdamW's). The param is
 not read: it fixes only p's dtype and shape. Its scalars come from
-:func:`stage_flat_scalars`.
+:func:`stage_flat_scalars`. Two routes, one C entry each: "vec"
+(``adamw_flat_vec``, 8 elements a thread a step in 16-byte loads and
+stores) when all eight tensors start on a 16-byte boundary, else
+"general" (``adamw_flat``, one element a thread an iteration); both run
+the same arithmetic.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -39,16 +43,20 @@ from . import _build
 __all__ = ["AdamWScalars", "stage_scalars", "adamw_multi_supported", "adamw_step_multi",
            "adamw_step_multi_reference", "adamw_step",
            "adamw_step_reference", "stage_flat_scalars", "adamw_flat",
-           "adamw_flat_reference", "fused_adamw", "MAX_TENSORS"]
+           "adamw_flat_reference", "flat_route", "fused_adamw",
+           "MAX_TENSORS", "FLAT_ROUTES"]
 
 _F = ctypes.c_float
 # descs, count, the 9 scalars, stream
 _SIGNATURES = {"adamw_step_multi": [ctypes.c_void_p, ctypes.c_int]
                + [_F] * 9 + [ctypes.c_void_p]}
 # g, m, v, master, p', m', v', master', n, p dtype, g dtype, 9 scalars,
-# stream
-_FLAT_SIGNATURES = {"adamw_flat": [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
-                    + [ctypes.c_int] * 2 + [_F] * 9 + [ctypes.c_void_p]}
+# stream; the vector route's entry takes the same
+_FLAT_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+              + [_F] * 9 + [ctypes.c_void_p])
+_FLAT_SIGNATURES = {"adamw_flat": _FLAT_ARGS, "adamw_flat_vec": _FLAT_ARGS}
+# the flat AdamW's routes, by their C entries
+FLAT_ROUTES = {"vec": "adamw_flat_vec", "general": "adamw_flat"}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _F32 = torch.float32
 # one launch takes at most this many tensors (csrc/adamw_step.cu
@@ -284,12 +292,20 @@ def adamw_flat_reference(param, grad, m, v, master, sc: AdamWScalars):
     return mw_new.to(param.dtype), m_new, v_new, mw_new
 
 
+def flat_route(*tensors) -> str:
+    """The flat AdamW's route for its eight tensors (grad, m, v, master
+    and the four outputs): "vec" when every one starts on a 16-byte
+    boundary, else "general"."""
+    return ("vec" if all(t.data_ptr() % 16 == 0 for t in tensors)
+            else "general")
+
+
 def adamw_flat(param, grad, m, v, master, sc: AdamWScalars):
     """One flat AdamW step; returns new ``(p, m, v, master)`` (p in
     param's dtype, the rest f32, all of param's shape) and updates
     nothing in place. m, v and master of a half dtype are widened to f32
     first (exactly). ``adamw_flat.launches`` counts the kernel's
-    launches."""
+    launches, ``adamw_flat.route_launches`` those of each route."""
     _check_flat(param, grad, m, v, master)
     if not _build.on_card("adamw_flat", param, grad, m, v, master):
         return adamw_flat_reference(param, grad, m, v, master, sc)
@@ -297,19 +313,23 @@ def adamw_flat(param, grad, m, v, master, sc: AdamWScalars):
     outs = (torch.empty_like(param),) + tuple(
         torch.empty(param.shape, dtype=torch.float32, device=param.device)
         for _ in range(3))
+    route = flat_route(grad, m, v, master, *outs)
     lib = _build.library("adamw_flat", _FLAT_SIGNATURES)
+    entry = FLAT_ROUTES[route]
     with torch.cuda.device(param.device):
-        err = lib.adamw_flat(
+        err = getattr(lib, entry)(
             grad.data_ptr(), m.data_ptr(), v.data_ptr(), master.data_ptr(),
             *(t.data_ptr() for t in outs), param.numel(),
             _DTYPE_CODE[param.dtype], _DTYPE_CODE[grad.dtype], *sc,
             torch.cuda.current_stream(param.device).cuda_stream)
-    _build.check(lib, err, "adamw_flat")
+    _build.check(lib, err, entry)
     adamw_flat.launches += 1
+    adamw_flat.route_launches[route] += 1
     return outs
 
 
 adamw_flat.launches = 0
+adamw_flat.route_launches = dict.fromkeys(FLAT_ROUTES, 0)
 
 
 def fused_adamw(param, grad, m, v, master, lr, beta1=0.9, beta2=0.999,

@@ -1,39 +1,48 @@
-"""Paged-attention decode: the CUDA kernels, their wrappers and their
+"""Paged-attention decode: the CUDA kernel, its wrappers and their
 plain versions.
 
 Counterpart of ``paddle2_tpu/serving/paged_attention.py``. At decode
 each sequence brings one query token and attends over its whole cached
 context, whose K/V lie scattered across fixed-size blocks of the shared
-pools (:mod:`.block_cache`). Two kernels, both in
-``csrc/paged_decode.cu``, behind one dispatcher
+pools (:mod:`.block_cache`). One kernel template in
+``csrc/paged_decode.cu`` serves both routes, behind one dispatcher
 (:func:`paged_attention_decode`):
 
 * :func:`paged_decode` — one global softmax over the whole context
-  (the JAX package's ``_decode_kernel``). One thread block per
-  (sequence, head) keeps the context's f32 scores in shared memory.
+  (the JAX package's ``_decode_kernel``).
 * :func:`paged_decode_split_partials` — split-K partials
   ``(m, l, o)`` per (sequence, head, split) (``_decode_kernel_split``),
   merged by :func:`_merge_splits` in plain torch, as the JAX package
   merges them in plain XLA.
 
-**The single/split switch, re-derived for the H100.** The TPU rule
-budgeted VMEM for an ``[8, S]`` score buffer plus the gathered V. The
-CUDA kernel gathers nothing: it reads K and V straight from the pools
-and keeps only the f32 scores in shared memory, plus the query row, 8
-warp partials and the p·V group partials (256 threads x 8 floats)::
+**The plan.** One thread-block cluster of ``C`` blocks takes each
+(sequence, head, range): the range is the whole table on the global
+route and one split of ``pages_per_split`` pages on the split route.
+:func:`cluster_plan` picks ``C`` (a power of two, at most
+``MAX_CLUSTER`` = 16, while each block keeps at least ``TARGET_KEYS`` =
+128 keys) and each block's chunk of pages from the range's width alone,
+a host int: the wrapper never reads ``ctx_lens`` back from the card.
+The blocks agree on the softmax through distributed shared memory; a
+block whose chunk lies past the context exits at once.
 
-    smem(S, D) = 4 * (S + D + 8 + 2048) bytes
+**The single/split switch, re-derived for the cluster kernel.** A block
+keeps a ring of 2 tiles of 8 KB, the f32 scores and the page ids of its
+chunk, and fixed scratch (128 p.V partials, the ranks' maxima and sums,
+the o columns the other blocks push to it, 4 warp partials)::
 
-A block may use at most 227 KB = 232,448 bytes of shared memory on the
-H100, so the single kernel takes ``S <= 232448/4 - D - 2056`` keys:
-55,928 at D = 128, far past the 2,048 positions of GPT-3 1.3B. Past
-that the dispatcher halves the pages per split until one split fits.
-``pages_per_split`` forces the split kernel whenever more than one
-split results.
+    smem = 16384 + 4 * (keys + pages + D + 180) bytes
+
+(:func:`decode_scratch_smem_bytes`). A block may use at most 227 KB =
+232,448 bytes on the H100, so a chunk holds up to 3,159 pages of 16 keys
+at D = 128, and the global route takes tables of up to 16 such chunks
+(808,704 keys). Past that the dispatcher halves the pages per split
+until one split's chunk fits (:func:`auto_pages_per_split`).
+``pages_per_split`` forces the split route whenever more than one split
+results.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor
 it launches its kernel or raises. Arithmetic of the plain versions
-follows the kernels (and the Pallas bodies): the global body rounds
+follows the kernel (and the Pallas bodies): the global body rounds
 the score to the input dtype after the dot and after the scale, masks
 with the dtype's most negative finite value, normalises in f32 and
 rounds the probabilities to the input dtype; the split body masks with
@@ -42,8 +51,8 @@ rounding; in bf16 they differ by bf16 rounding (the JAX tests hold
 bf16 at 2e-2).
 
 Precondition: ``ctx_lens >= 1`` for every row that is read (the
-engine's padded rows have context 1 on the garbage block). The kernels
-write zeros for a zero context.
+engine's padded rows have context 1 on the garbage block). The kernel
+writes zeros for a zero context.
 """
 
 from __future__ import annotations
@@ -60,13 +69,20 @@ __all__ = ["paged_attention_decode", "paged_decode",
            "paged_decode_split_partials", "paged_attention_reference",
            "paged_attention_split_reference", "gathered_dense_kv",
            "decode_scratch_smem_bytes", "fits_single_softmax",
-           "auto_pages_per_split", "SMEM_BYTES"]
+           "auto_pages_per_split", "cluster_plan", "SMEM_BYTES",
+           "TARGET_KEYS", "MAX_CLUSTER"]
 
 # shared memory one H100 block may use (dynamic, after opting in)
 SMEM_BYTES = 232448
-# floats of fixed scratch in csrc/paged_decode.cu besides the query row:
-# 8 warp partials and 256 threads x 8 floats of p.V group partials
-_FIXED_FLOATS = 8 + 256 * 8
+# csrc/paged_decode.cu: a cluster grows (in powers of two, to MAX_CLUSTER
+# blocks) while each block keeps at least TARGET_KEYS keys of its range
+TARGET_KEYS = 128
+MAX_CLUSTER = 16
+# csrc/paged_decode.cu: the ring (2 tiles of 8 KB) and the fixed floats
+# besides the scores, page ids and D: 128 p.V partials, the ranks' maxima
+# and sums and MAX_CLUSTER more pushed columns, and 4 warp partials
+_RING_BYTES = 2 * 8192
+_FIXED_FLOATS = 128 + 3 * MAX_CLUSTER + 4
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,21 +97,41 @@ _SIGNATURES = {
 }
 
 
-def decode_scratch_smem_bytes(n_keys: int, head_dim: int) -> int:
-    """Shared memory one decode block needs for ``n_keys`` scores."""
-    return 4 * (int(n_keys) + int(head_dim) + _FIXED_FLOATS)
+def cluster_plan(range_pages: int, block_size: int) -> Tuple[int, int]:
+    """``(C, chunk_pages)`` for a range of ``range_pages`` pages (the
+    table's width on the global route, one split's on the split route):
+    C is the largest power of two up to ``MAX_CLUSTER`` whose blocks keep
+    at least ``TARGET_KEYS`` keys each (1 for a short range), and block r
+    of the cluster takes pages ``[r * chunk, (r + 1) * chunk)``. The rule
+    of ``csrc/paged_decode.cu`` ``plan``."""
+    keys = int(range_pages) * int(block_size)
+    c = 1
+    while c < MAX_CLUSTER and 2 * c * TARGET_KEYS <= keys:
+        c *= 2
+    return c, -(-int(range_pages) // c)
+
+
+def decode_scratch_smem_bytes(n_keys: int, head_dim: int,
+                              block_size: int) -> int:
+    """Shared memory of one decode block whose chunk holds ``n_keys``
+    keys in pages of ``block_size``."""
+    pages = -(-int(n_keys) // int(block_size))
+    return _RING_BYTES + 4 * (int(n_keys) + pages + int(head_dim)
+                              + _FIXED_FLOATS)
 
 
 def fits_single_softmax(n_pages: int, block_size: int,
                         head_dim: int) -> bool:
-    """Can one block hold the scores of ``n_pages`` pages?"""
-    return decode_scratch_smem_bytes(n_pages * block_size,
-                                     head_dim) <= SMEM_BYTES
+    """Does a cluster's block hold its chunk of a range of ``n_pages``
+    pages?"""
+    _, chunk = cluster_plan(n_pages, block_size)
+    return decode_scratch_smem_bytes(chunk * block_size, head_dim,
+                                     block_size) <= SMEM_BYTES
 
 
 def auto_pages_per_split(n_pages: int, block_size: int,
                          head_dim: int) -> int:
-    """Largest halving of ``n_pages`` whose split fits one block."""
+    """Largest halving of ``n_pages`` whose split fits one cluster."""
     pps = max(int(n_pages), 1)
     while pps > 1 and not fits_single_softmax(pps, block_size, head_dim):
         pps = -(-pps // 2)
@@ -127,11 +163,8 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens) -> None:
 
 
 def _kernel_args(q, k_pool, v_pool, block_tables, ctx_lens):
-    for t in (q, k_pool, v_pool, block_tables, ctx_lens):
-        if not t.is_contiguous():
-            raise ValueError("paged decode needs contiguous inputs")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("the kernels read the pools in 16-byte loads: "
+        raise ValueError("the kernel copies the pools in 16-byte pieces: "
                          "pools must be 16-byte aligned")
     return (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), ctx_lens.data_ptr())
@@ -147,7 +180,7 @@ def gathered_dense_kv(pool, block_tables):
 
 def _dense_scores(q, kd, scale):
     """[B, H, S] f32 scores, rounded to q's dtype after the dot and after
-    the scale, as both kernels round them."""
+    the scale, as the kernel rounds them on both routes."""
     s = torch.einsum("bhd,bshd->bhs", q[:, 0].float(), kd.float())
     s = (s.to(q.dtype).float() * scale).to(q.dtype)
     return s.float()
@@ -235,15 +268,16 @@ def paged_decode(q, k_pool, v_pool, block_tables, ctx_lens, scale: float):
     """Global-softmax decode: ``[B, 1, H, D]``. ``paged_decode.launches``
     counts the kernel's launches."""
     _check(q, k_pool, v_pool, block_tables, ctx_lens)
-    if q.device.type == "cpu":
+    if not _build.on_card("paged_decode", q, k_pool, v_pool, block_tables,
+                          ctx_lens):
         return paged_attention_reference(q, k_pool, v_pool, block_tables,
                                          ctx_lens, scale)
     B, _, H, D = q.shape
     bs = k_pool.shape[1]
     n_pages = block_tables.shape[1]
     if not fits_single_softmax(n_pages, bs, D):
-        raise ValueError(f"{n_pages} pages of {bs} exceed one block's "
-                         f"shared memory; use the split kernel")
+        raise ValueError(f"{n_pages} pages of {bs} exceed a cluster's "
+                         f"shared memory; use the split route")
     args = _kernel_args(q, k_pool, v_pool, block_tables, ctx_lens)
     out = torch.empty_like(q)
     lib = _build.library("paged_decode", _SIGNATURES)
@@ -269,15 +303,16 @@ def paged_decode_split_partials(q, k_pool, v_pool, block_tables, ctx_lens,
     launches."""
     _check(q, k_pool, v_pool, block_tables, ctx_lens)
     pps = int(pages_per_split)
-    if q.device.type == "cpu":
+    if not _build.on_card("paged_decode_split", q, k_pool, v_pool,
+                          block_tables, ctx_lens):
         return _split_partials_reference(q, k_pool, v_pool, block_tables,
                                          ctx_lens, float(scale), pps)
     B, _, H, D = q.shape
     bs = k_pool.shape[1]
     n_pages = block_tables.shape[1]
     if not fits_single_softmax(pps, bs, D):
-        raise ValueError(f"a split of {pps} pages of {bs} exceeds one "
-                         f"block's shared memory")
+        raise ValueError(f"a split of {pps} pages of {bs} exceeds a "
+                         f"cluster's shared memory")
     n_splits = -(-n_pages // pps)
     args = _kernel_args(q, k_pool, v_pool, block_tables, ctx_lens)
     o = torch.empty((B, H, n_splits, D), dtype=torch.float32,
@@ -308,8 +343,8 @@ def paged_attention_decode(q, k_pool, v_pool, block_tables, ctx_lens,
     the garbage block); ctx_lens: int32 ``[B]`` valid keys per sequence,
     the token just appended included. Returns ``[B, 1, H, D]``.
 
-    ``pages_per_split=None`` takes the global-softmax kernel whenever one
-    block holds the context's scores (:func:`fits_single_softmax`), else
+    ``pages_per_split=None`` takes the global route whenever one cluster
+    holds the whole table (:func:`fits_single_softmax`), else
     :func:`auto_pages_per_split`. An explicit value forces split-K
     whenever more than one split results.
     """

@@ -108,6 +108,16 @@ Phases:
   its bias, off TMA's 16-byte rule (route "gemm" in every checkout), and
   f32 M 1008, K 20480, N 2048 with its bias, past 8 K splits of 2048
   rows (a checkout whose kernel refuses a row records its error).
+- ``paged_decode``: the paged decode at the smoke's shapes (H16 bs16:
+  B8 contexts 2048..17 at D 128, 64 and 16; B8 all 2048; B1 2048; B8
+  contexts 1..17; B1 16,384), bf16 and f32, on the global route
+  (``paged_decode``), the split route with its torch merge
+  (``pages_per_split=8``) and the split kernel alone: CUDA events,
+  device time from torch.profiler (all kernels of the call, and those
+  named ``paged_decode``) and the wrapper's host time a call (the median
+  of 200 calls without a sync); then ``int8_serving``'s bf16 serving
+  runs: decode tokens/s, and the traced decode step's device time by
+  kernel group (``paged_decode`` among them) and idle share.
 """
 
 import argparse
@@ -125,9 +135,11 @@ def nvidia_smi():
                           text=True, check=True, timeout=60).stdout.strip()
 
 
-def int8_serving(cs, torch):
+def _serve_int8_bf16(cs, torch):
+    """The int8 weight-only bf16 serving runs of ``int8_serving``: the
+    smoke's phase-4 requests served twice on one model; each run's
+    ``serve()`` figures."""
     import numpy as np
-    from paddle2_tpu_torch.kernels import quant_matmul as qm
     from paddle2_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
     from paddle2_tpu_torch.serving import EngineConfig
     cfg = gpt3_1p3b()
@@ -149,11 +161,19 @@ def int8_serving(cs, torch):
                          prefill_s=st["prefill_s"], prefills=st["prefills"],
                          decode_steps=st["decode_steps"],
                          wo_launches=launches["wo_matmul"],
+                         paged_decode_launches=launches["paged_decode"],
                          decode_step_device_ms=prof.get("device_ms"),
                          decode_step_by_group=prof.get("by_group"),
-                         decode_step_idle_share=prof.get("idle_share")))
+                         decode_step_idle_share=prof.get("idle_share"),
+                         decode_step_top=prof.get("top")))
     del model
     torch.cuda.empty_cache()
+    return runs
+
+
+def int8_serving(cs, torch):
+    from paddle2_tpu_torch.kernels import quant_matmul as qm
+    runs = _serve_int8_bf16(cs, torch)
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -376,6 +396,70 @@ def _misaligned(torch, t):
     out = buf[1:1 + t.numel()].view(t.shape)
     out.copy_(t)
     return out
+
+
+# the paged decode's shapes (chip_smoke.py PAGED_CASES): label,
+# contexts, head dim; H 16, bs 16; the split route at 8 pages a split
+PAGED_CTX = [2048, 1900, 1500, 1024, 700, 333, 129, 17]
+PAGED_CASES = [("main", PAGED_CTX, 128), ("B8 all 2048", [2048] * 8, 128),
+               ("B1 2048", [2048], 128),
+               ("B8 short", [1, 2, 3, 5, 8, 13, 16, 17], 128),
+               ("B1 16384", [16384], 128), ("D64", PAGED_CTX, 64),
+               ("D16", PAGED_CTX, 16)]
+
+
+def _paged_args(torch, ctx, D, dtype, seed):
+    """Random pools (x7) and shuffled tables as wide as the longest
+    context (the smoke's layout), from ``seed``: for timing only."""
+    import numpy as np
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    H, bs = 16, 16
+    ctx = np.asarray(ctx, np.int32)
+    pages = -(-ctx // bs)
+    nb = int(pages.sum()) + 1
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((len(ctx), int(pages.max())), np.int32)
+    used = 0
+    for b in range(len(ctx)):
+        tables[b, :pages[b]] = perm[used:used + pages[b]]
+        used += pages[b]
+    kp = (torch.randn(nb, bs, H, D, generator=gen, device=dev) * 7).to(dtype)
+    vp = (torch.randn(nb, bs, H, D, generator=gen, device=dev) * 7).to(dtype)
+    q = torch.randn(len(ctx), 1, H, D, generator=gen, device=dev).to(dtype)
+    return (q, kp, vp, torch.as_tensor(tables, device=dev),
+            torch.as_tensor(ctx, device=dev))
+
+
+def paged_decode(cs, torch):
+    from paddle2_tpu_torch.serving import paged_attention as pa
+    kernels = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, ctx, D in PAGED_CASES:
+            args = _paged_args(torch, ctx, D, dtype, seed=len(kernels))
+            scale = D ** -0.5
+            runs = dict(
+                global_route=lambda: pa.paged_decode(*args, scale=scale),
+                split_route=lambda: pa._merge_splits(
+                    *pa.paged_decode_split_partials(
+                        *args, scale=scale, pages_per_split=8),
+                    args[0].dtype),
+                split_kernel=lambda: pa.paged_decode_split_partials(
+                    *args, scale=scale, pages_per_split=8))
+            for route, run in runs.items():
+                device, kernel = cs.device_ms(run, "paged_decode")
+                key = f"{label} {str(dtype)[6:]} {route}"
+                kernels[key] = dict(events_ms=cs.cuda_ms(run),
+                                    device_ms=device,
+                                    kernel_device_ms=kernel,
+                                    host_ms=_host_ms(torch, run))
+                print(json.dumps({key: kernels[key]}), flush=True)
+            del args
+            torch.cuda.empty_cache()
+    runs = _serve_int8_bf16(cs, torch)
+    print(json.dumps(dict(serve=runs[1])), flush=True)
+    return dict(kernels=kernels, serve=runs[1], serve_first=runs[0])
 
 
 # (norm, rows, H, x dtype, parameter dtype, what, eps)
@@ -750,7 +834,8 @@ def main():
     ap.add_argument("--phase", required=True,
                     choices=("int8_serving", "varlen_step",
                              "varlen_bwd_draws", "norms", "flash_bwd_f32",
-                             "train_bf16", "adamw_step", "f32_prefill"))
+                             "train_bf16", "adamw_step", "f32_prefill",
+                             "paged_decode"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -781,6 +866,8 @@ def main():
         result = adamw_step(cs, torch)
     elif args.phase == "f32_prefill":
         result = f32_prefill(cs, torch)
+    elif args.phase == "paged_decode":
+        result = paged_decode(cs, torch)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

@@ -143,12 +143,10 @@ class _StandInLibrary:
         return lambda *args: self.calls.append((entry, args)) or 0
 
 
-def test_wrapper_reaches_its_c_entry(monkeypatch):
-    """With the wrapper told its tensors are on the card, one call reaches
-    ``adamw_flat`` in the library once, with the grad, m, v and master
-    pointers (m and v given in bf16 are widened to f32 first), four new
-    outputs, the length, the p and g dtype codes and the staged scalars,
-    and counts one launch; the plain version does not run."""
+@pytest.fixture
+def card(monkeypatch):
+    """The wrapper told its tensors are on the card, with a stand-in
+    library in place of the built one; the plain version must not run."""
     lib = _StandInLibrary()
     monkeypatch.setattr(_build, "on_card", lambda what, *t: True)
     monkeypatch.setattr(_build, "library", lambda name, sigs: lib)
@@ -158,15 +156,39 @@ def test_wrapper_reaches_its_c_entry(monkeypatch):
                         lambda d: SimpleNamespace(cuda_stream=None))
     monkeypatch.setattr(fa, "adamw_flat_reference",
                         lambda *a: pytest.fail("the plain version ran"))
+    return lib
+
+
+def _offset(t):
+    """A contiguous view of ``t``'s values one element past a 16-byte
+    boundary."""
+    buf = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def test_wrapper_reaches_its_c_entry(card):
+    """One call on tensors that start on 16-byte boundaries reaches the
+    vector route's entry ``adamw_flat_vec`` in the library once, with the
+    grad, m, v and master pointers (m and v given in bf16 are widened to
+    f32 first), four new outputs, the length, the p and g dtype codes
+    and the staged scalars, and counts one launch on the "vec" route;
+    the plain version does not run."""
+    lib = card
     p, g = (torch.zeros(SHAPE, dtype=torch.bfloat16) for _ in range(2))
     m, v = (torch.zeros(SHAPE, dtype=torch.bfloat16) for _ in range(2))
     master = torch.zeros(SHAPE)
     before = fa.adamw_flat.launches
+    routes = dict(fa.adamw_flat.route_launches)
     outs = TF.fused_adamw_kernel(p, g, m, v, master, 1e-3, step=4)
     assert fa.adamw_flat.launches == before + 1
+    assert fa.adamw_flat.route_launches == dict(routes,
+                                                vec=routes["vec"] + 1)
     ((entry, args),) = lib.calls
     sc = fa.stage_flat_scalars(1e-3, 0.9, 0.999, 1e-8, 0.01, 4)
-    assert entry == "adamw_flat"
+    assert entry == "adamw_flat_vec"
     assert args[0] == g.data_ptr() and args[3] == master.data_ptr()
     assert args[1] not in (m.data_ptr(), v.data_ptr())   # widened copies
     assert args[4:8] == tuple(t.data_ptr() for t in outs)
@@ -185,3 +207,70 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError):
         fa.adamw_flat(*t, fa.stage_flat_scalars(1e-3, 0.9, 0.999, 1e-8,
                                                 0.01, 1))
+
+
+@pytest.mark.parametrize("which", ["grad", "m", "v", "master"])
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_an_offset_view_takes_the_general_entry(card, which, pdt):
+    """One input one element past a 16-byte boundary (an offset view of
+    a larger buffer) sends the call to the general route's entry
+    ``adamw_flat`` with that view's pointer, and counts one launch on
+    the "general" route; the other three inputs and the outputs are as
+    on the vector route."""
+    lib = card
+    master = torch.zeros(SHAPE)
+    t = dict(grad=torch.zeros(SHAPE, dtype=pdt), m=torch.zeros(SHAPE),
+             v=torch.zeros(SHAPE), master=master)
+    t[which] = _offset(t[which])
+    routes = dict(fa.adamw_flat.route_launches)
+    outs = fa.adamw_flat(torch.zeros(SHAPE, dtype=pdt), t["grad"], t["m"],
+                         t["v"], t["master"],
+                         fa.stage_flat_scalars(1e-3, 0.9, 0.999, 1e-8,
+                                               0.01, 2))
+    assert fa.adamw_flat.route_launches == dict(
+        routes, general=routes["general"] + 1)
+    ((entry, args),) = lib.calls
+    assert entry == "adamw_flat"
+    assert args[:4] == tuple(t[k].data_ptr()
+                             for k in ("grad", "m", "v", "master"))
+    assert args[4:8] == tuple(o.data_ptr() for o in outs)
+    assert args[8:11] == (t["grad"].numel(), fa._DTYPE_CODE[pdt],
+                          fa._DTYPE_CODE[pdt])
+
+
+def test_route_rule():
+    """"vec" only when every tensor starts on a 16-byte boundary."""
+    a = torch.zeros(64)
+    assert fa.flat_route(a, a[4:], a[8:]) == "vec"
+    assert fa.flat_route(a, a[1:]) == "general"
+    assert fa.flat_route(a[2:], a) == "general"
+    assert set(fa.FLAT_ROUTES) == set(fa.adamw_flat.route_launches)
+
+
+@pytest.mark.parametrize("N", [1, 7, 8, 513, 4099])
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_plain_version_tracks_the_pallas_kernel_at_odd_sizes(N, pdt):
+    """The plain version (what both routes are held to bitwise on the
+    card) against ``pallas_fused.fused_adamw`` in interpret mode at sizes
+    around the vector route's 8-element steps, on offset views: each f32
+    result to 1e-6 of its largest magnitude, as above (XLA contracts
+    some products and sums, so the two are not bitwise equal), p equal
+    to the master rounded."""
+    rng = np.random.default_rng(N)
+    master = rng.normal(size=N).astype(np.float32)
+    g = rng.normal(size=N).astype(np.float32)
+    m = (rng.normal(size=N) * 0.1).astype(np.float32)
+    v = np.abs(rng.normal(size=N) * 0.01).astype(np.float32)
+    jp, jm, jv, jw = pallas_fused.fused_adamw(
+        jnp.asarray(master, JDT[pdt]), jnp.asarray(g, JDT[pdt]),
+        jnp.asarray(m), jnp.asarray(v), jnp.asarray(master), step=3,
+        interpret=True, **HP)
+    tg = _offset(torch.tensor(g).to(pdt))
+    tm, tv, tw = (_offset(torch.tensor(a)) for a in (m, v, master))
+    tp, tm2, tv2, tw2 = fa.fused_adamw(torch.zeros(N, dtype=pdt), tg, tm,
+                                       tv, tw, step=3, **HP)
+    for what, t, j in (("m", tm2, jm), ("v", tv2, jv), ("master", tw2, jw)):
+        _close(t.numpy(), np.asarray(j), what)
+    assert torch.equal(tp, tw2.to(pdt))

@@ -14,7 +14,8 @@ PORT_FILES = sorted((ROOT / "paddle2_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "phase_runner.py",
      ROOT / "wo_wgmma_variants.py", ROOT / "norm_fwd_variants.py",
      ROOT / "flash_bwd_tf32x3_variants.py", ROOT / "wo_gemv_mma_variants.py",
-     ROOT / "flash_fwd_tf32x3_variants.py", ROOT / "variant_harness.py"]
+     ROOT / "flash_fwd_tf32x3_variants.py", ROOT / "paged_decode_variants.py",
+     ROOT / "adamw_flat_variants.py", ROOT / "variant_harness.py"]
 
 
 def _imported_modules(path: Path):

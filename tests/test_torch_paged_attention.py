@@ -165,15 +165,20 @@ def test_decode_ignores_physical_placement():
 
 
 def test_smem_switch_arithmetic():
-    """The single/split switch follows the H100's 227 KB per block:
-    4 * (S + D + 2056) bytes of scores and scratch."""
-    assert decode_scratch_smem_bytes(2048, 128) == 4 * (2048 + 128 + 2056)
+    """The single/split switch follows the H100's 227 KB per block: a
+    cluster of up to 16 blocks shares the table, and a block holds a
+    16 KB ring plus 4 * (keys + pages + D + 180) bytes of scores, page ids
+    and scratch for its chunk."""
+    assert decode_scratch_smem_bytes(128, 128, 16) == \
+        16384 + 4 * (128 + 8 + 128 + 180)
     assert fits_single_softmax(128, 16, 128)           # 2048 positions
-    max_keys = SMEM_BYTES // 4 - 128 - 2056              # 55,928 at D 128
-    assert fits_single_softmax(max_keys // 8, 8, 128)
-    assert not fits_single_softmax(max_keys // 8 + 1, 8, 128)
-    pps = auto_pages_per_split(4096, 16, 128)            # 65,536 keys
-    assert fits_single_softmax(pps, 16, 128) and pps < 4096
+    # a chunk holds up to 3,159 pages of 16 at D 128; 16 chunks a table
+    max_pages = ((SMEM_BYTES - 16384) // 4 - 128 - 180) // 17
+    assert max_pages == 3159
+    assert fits_single_softmax(16 * max_pages, 16, 128)
+    assert not fits_single_softmax(16 * max_pages + 1, 16, 128)
+    pps = auto_pages_per_split(65536, 16, 128)        # 1,048,576 keys
+    assert fits_single_softmax(pps, 16, 128) and pps < 65536
 
 
 def test_cpu_wrappers_launch_nothing():
