@@ -29,7 +29,11 @@ line) when it fails:
    the paged decode's ``paged_decode_cluster_kernel`` (2 dtypes x 3 head
    dims x 2 routes) must hold cp.async copies (LDGSTS) and every one of
    the flat AdamW's vector kernel ``adamw_flat_vec_kernel`` (3 x 3
-   types) 16-byte loads (LDG.E.128), with their registers and spills.
+   types) 16-byte loads (LDG.E.128), with their registers and spills;
+   both int8 x int8 kernels' instantiations (``i8i8_wgmma_kernel<128,
+   256>`` must hold IGMMA, wgmma with s8 operands;
+   ``i8i8_gemv_mma_kernel``, 8, IMMA, mma.sync s8), with their registers
+   and spills.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
    causal; bf16 on the wgmma kernel, f32 on the 3xTF32 one, whose rows
@@ -110,11 +114,18 @@ line) when it fails:
    the output beside it); and layer 0's payload and scales
    quantized on the card equal those quantized on the CPU, bitwise.
    The int8 x int8 matmul at GPT-3 1.3B's four block projections (qkv,
-   out_proj, up, down) at M 8 (a decode step) and M 1008 (a 1000-token
-   prompt's padded prefill), at a ragged shape (M 3, K 200, N 333) and
-   all-+-127 at K 8192 (the largest sums), ``torch.equal`` to its plain
-   version (the integers are exact), timed against ``torch._int_mm``
-   where that call takes the shape (M > 16, K and N multiples of 8); and
+   out_proj, up, down) at M 1, 8, 9 and 16 (decode batches, on the decode
+   kernel ``i8i8_gemv_mma_kernel``) and 17, 32, 144 and 1008 (padded
+   prefills, on the prefill kernel ``i8i8_wgmma_kernel``), at ragged
+   shapes (M 3 and 37 at K 200, N 333, off TMA's rule, on the decode
+   kernel; M 37 and 1008 at K 208, N 336 on the prefill kernel), all
+   +-127 at K 8192 (the largest sums) and all -128 at K 131,200 (sums
+   past 2**31, which wrap) at M 8 and 32, ``torch.equal`` to its plain
+   version (the integers are exact), each call counted on the route its
+   plan names; M 8, 32, 144 and 1008 timed (events, device time, the
+   wrapper's host time) against ``torch._int_mm`` where that call takes
+   the shape (M > 16, K and N multiples of 8), their rows named by kernel
+   (``i8i8_matmul`` decode, ``i8i8_matmul_wgmma`` prefill); and
    ``int4_weight_only_matmul`` at the up projection (M 8, bf16 and f32;
    M 144 f32, on the TF32 GEMM) against the plain weight-only version on
    the unpacked payload.
@@ -303,8 +314,10 @@ line) when it fails:
     FakeQuanterChannelWiseAbsMaxObserver)).quantize``, calibrated by one
     dense forward over each of phase 4's prompts, converted (96
     ``QuantedInferenceLinear``, checked) and served as in phase 4:
-    ``i8i8_matmul`` launched 96 times a prefill and a decode step,
-    ``wo_matmul`` never, ``flash_fwd`` and ``paged_decode`` launched.
+    ``i8i8_matmul`` launched 96 times a prefill and a decode step (the
+    prefills' on the prefill kernel, the decode steps' on the decode
+    kernel, counted apart), ``wo_matmul`` never, ``flash_fwd`` and
+    ``paged_decode`` launched.
     Activation quantization makes the model a step function of its f32
     activations: a value within f32 noise of a rounding boundary rounds
     one way on one path and the other way on another, and a few such
@@ -417,12 +430,13 @@ from paddle2_tpu_torch.kernels.fused_layer_norm import (
 from paddle2_tpu_torch.kernels.fused_momentum import (
     momentum_step, momentum_step_multi, momentum_step_reference)
 from paddle2_tpu_torch.kernels import fused_rms_norm as frn
+from paddle2_tpu_torch.kernels import quant_matmul
 from paddle2_tpu_torch.kernels.fused_rms_norm import (
     rms_norm_bwd, rms_norm_bwd_reference, rms_norm_fwd,
     rms_norm_fwd_reference)
 from paddle2_tpu_torch.kernels.fused_rope import rope, rope_reference
 from paddle2_tpu_torch.kernels.quant_matmul import (
-    i8i8_split, int4_weight_only_matmul, int8_matmul, int8_matmul_reference,
+    i8i8_route, int4_weight_only_matmul, int8_matmul, int8_matmul_reference,
     int8_weight_only_matmul, int8_weight_only_matmul_reference, pack_int4,
     quantize_channelwise, unpack_int4, weight_quant_error_bound, wo_route)
 from paddle2_tpu_torch.incubate.nn import functional as IF
@@ -617,10 +631,17 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/adamw_flat.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:32",
         counter=adamw_flat, route="vec"),
+    # every route of the int8 x int8 wrapper; its kernels-line row is the
+    # decode kernel's (i8i8_gemv_mma_kernel), the prefill kernel's
+    # (i8i8_wgmma_kernel) is counted again below
     "i8i8_matmul": dict(
         source="paddle2_tpu_torch/kernels/csrc/i8i8_matmul.cu",
         replaces="paddle2_tpu/kernels/pallas_matmul.py:252",
         counter=int8_matmul),
+    "i8i8_matmul_wgmma": dict(
+        source="paddle2_tpu_torch/kernels/csrc/i8i8_matmul.cu",
+        replaces="paddle2_tpu/kernels/pallas_matmul.py:252",
+        counter=int8_matmul, route="wgmma"),
 }
 INCUBATE_KERNELS = ("rms_norm_fwd", "rms_norm_fwd_vec", "rms_norm_bwd",
                     "rope", "adamw_flat", "adamw_flat_vec")
@@ -708,11 +729,23 @@ WO_ROWS_M = {torch.bfloat16: (1, 8, 128, 1008),
              torch.float32: (1, 8, 32, 128, 144, 1008)}
 # the f32 forward's kernels-line row: a 1000-token prompt's prefill
 FLASH_TF32_LINE_SHAPE = "B1 H16 S1024 D128 causal"
-# the int8 x int8 kernel's rows: GPT-3 1.3B's four block projections at a
-# decode step of batch 8 and a 1000-token prompt's prefill (padded to
-# 1008); the kernels line reports the decode step's up projection
+# the int8 x int8 kernels' rows: GPT-3 1.3B's four block projections at
+# decode batches (1, 8; 9 and 16 on two n8 tiles) and prefills (17 and 32
+# around the kernels' boundary, 144 and 1008: the padded prompts of 130
+# and 1000 tokens); the timed ones (I8_TIMED_M) at a decode step of batch
+# 8 and the prefills of 17, 130 and 1000 tokens. The kernels line reports
+# the up projection: the decode kernel's row at M 8, the prefill kernel's
+# at M 1008
 I8_SHAPES = {n: WO_SHAPES[n] for n in ("qkv", "out_proj", "up", "down")}
+I8_ROWS_M = (1, 8, 9, 16, 17, 32, 144, 1008)
+I8_TIMED_M = (8, 32, 144, 1008)
 I8_LINE_SHAPE = "M8 K2048 N8192 (up)"
+I8_WGMMA_LINE_SHAPE = "M1008 K2048 N8192 (up)"
+# the kernels-line row of each int8 x int8 route, and its CUDA kernel (the
+# names torch.profiler reports)
+I8_ROW_NAME = {"mma": "i8i8_matmul", "wgmma": "i8i8_matmul_wgmma"}
+I8_KERNEL_NAMES = {"mma": "i8i8_gemv_mma_kernel",
+                   "wgmma": "i8i8_wgmma_kernel"}
 # phase 16: PTQ's quanters (per-tensor activations, per-channel weights)
 PTQ_QUANTERS = dict(activation=FakeQuanterWithAbsMaxObserver,
                     weight=FakeQuanterChannelWiseAbsMaxObserver)
@@ -856,6 +889,7 @@ LINE_SHAPES = {"flash_bwd_fused": TRAIN_BWD_SHAPE,
                "wo_gemm_tf32": WO_WGMMA_LINE_SHAPE,
                "flash_fwd_tf32x3": FLASH_TF32_LINE_SHAPE,
                "i8i8_matmul": I8_LINE_SHAPE,
+               "i8i8_matmul_wgmma": I8_WGMMA_LINE_SHAPE,
                "rms_norm_fwd": RMS_LINE_SHAPE + ", unaligned view",
                "rms_norm_fwd_vec": RMS_LINE_SHAPE,
                "rms_norm_bwd": RMS_LINE_SHAPE,
@@ -1840,12 +1874,20 @@ def int_mm_reason(M, K, N):
 
 
 def check_i8i8(M, K, N, label, gen, dev, timed=True, fill=None):
-    """The int8 x int8 kernel against its plain version at ``M x K x
-    N``, ``torch.equal`` (the products are exact integers). ``fill``
-    "pm127": x all 127 and w +-127 with one all-127 column, which
-    reaches the largest sums. With ``timed``, its times, its bound and
-    ``torch._int_mm``'s time where that call takes the shape."""
-    if fill == "pm127":
+    """The int8 x int8 kernels against their plain version at ``M x K x
+    N``, ``torch.equal`` (the products are exact integers), on the route
+    the wrapper plans (``i8i8_route``: the decode kernel up to 16 rows and
+    off TMA's rule, the prefill kernel above), which the call's count must
+    show. ``fill`` "pm127": x all 127 and w +-127 with one all-127 column,
+    which reaches the largest sums; "m128": both all -128, whose sums pass
+    2**31 at K 131,200 and wrap. With ``timed``, its times (CUDA events,
+    device time of all kernels and of the route's kernel, the wrapper's
+    host time a call), its bound and ``torch._int_mm``'s time where that
+    call takes the shape."""
+    if fill == "m128":
+        x = torch.full((M, K), -128, dtype=torch.int8, device=dev)
+        w = torch.full((K, N), -128, dtype=torch.int8, device=dev)
+    elif fill == "pm127":
         x = torch.full((M, K), 127, dtype=torch.int8, device=dev)
         w = (torch.randint(0, 2, (K, N), generator=gen, device=dev,
                            dtype=torch.int8) * 2 - 1) * 127
@@ -1855,35 +1897,43 @@ def check_i8i8(M, K, N, label, gen, dev, timed=True, fill=None):
                           dtype=torch.int8)
         w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
                           dtype=torch.int8)
+    route = i8i8_route(M, K, N)
+    before = int8_matmul.route_launches[route]
     y = int8_matmul(x, w)
+    require(int8_matmul.route_launches[route] == before + 1,
+            f"i8i8_matmul M{M} K{K} N{N}: not on the {route} route")
     ref = int8_matmul_reference(x, w)
     torch.cuda.synchronize()
     shape = f"M{M} K{K} N{N} ({label})"
     err = (y.double() - ref.double()).abs().max().item()
-    require(torch.equal(y, ref), f"i8i8_matmul {shape} differs from its "
-            f"plain version: max abs err {err}")
+    require(torch.equal(y, ref), f"i8i8_matmul {shape} ({route}) differs "
+            f"from its plain version: max abs err {err}")
     if fill == "pm127":
         require(int(y[0, 0]) == 127 * 127 * K, f"i8i8_matmul {shape}: the "
                 f"all-127 column sums to {int(y[0, 0])}")
-    per, splits = i8i8_split(M, K, N, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    row = dict(name="i8i8_matmul", dtype="int8", shape=shape,
+    _, tile, per, splits = quant_matmul._i8_plan(dev, M, K, N)[:4]
+    row = dict(name=I8_ROW_NAME[route], dtype="int8", shape=shape,
+               route=route, kernel=I8_KERNEL_NAMES[route], tile_n=tile,
                max_abs_err=err, tol="torch.equal", k_splits=splits,
-               max_abs_sum=int(ref.abs().max()))
+               k_per_split=per, max_abs_sum=int(ref.abs().max()))
     if not timed:
         return row
 
     def run():
         return int8_matmul(x, w)
     ms = cuda_ms(run)
-    dev_ms, kern_ms = device_ms(run, "i8i8", per_call=1)
+    dev_ms, kern_ms = device_ms(run, I8_KERNEL_NAMES[route], per_call=1)
     plain = cuda_ms(lambda: int8_matmul_reference(x, w), iters=10)
     reason = int_mm_reason(M, K, N)
-    lib = None if reason else cuda_ms(lambda: torch._int_mm(x, w))
+    lib = lib_dev = None
+    if not reason:
+        lib = cuda_ms(lambda: torch._int_mm(x, w))
+        lib_dev = device_ms(lambda: torch._int_mm(x, w), "")[0]
     b_ms, b_by = bound(2.0 * M * N * K, M * K + K * N + 4.0 * M * N,
                        torch.int8)
     row.update(ms=ms, device_ms=dev_ms, kernel_device_ms=kern_ms,
-               plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+               host_ms=host_ms(run), plain_ms=plain, library_ms=lib,
+               library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
                library="torch._int_mm" if lib is not None else reason)
     return row
 
@@ -2706,6 +2756,15 @@ def serve_ptq(cfg, dtype, econf, prompts, new, fp_gens, tag):
     require(lq["i8i8_matmul"] == want,
             f"{tag}: i8i8_matmul launched {lq['i8i8_matmul']} times, want "
             f"{want} ({per_pass} a prefill and a decode step)")
+    # by kernel: a prefill's projections (M the padded prompt, 32..1008)
+    # on the prefill kernel, a decode step's (M the batch, <= 8) on the
+    # decode kernel
+    i8_routes = {"wgmma": lq["i8i8_matmul_wgmma"],
+                 "mma": lq["i8i8_matmul"] - lq["i8i8_matmul_wgmma"]}
+    want_routes = {"wgmma": per_pass * st["prefills"],
+                   "mma": per_pass * st["decode_steps"]}
+    require(i8_routes == want_routes, f"{tag}: i8i8_matmul launches by "
+            f"kernel {i8_routes}, want {want_routes}")
     require(lq["wo_matmul"] == 0, f"{tag}: wo_matmul launched")
     for n in ("flash_fwd", "paged_decode"):
         require(lq[n] > 0, f"{tag}: {n} never launched")
@@ -2733,6 +2792,7 @@ def serve_ptq(cfg, dtype, econf, prompts, new, fp_gens, tag):
     # the dense path rounding its own int8 inputs (information)
     _, free = dense_check(model, prompts, g, new, None)
     st.update(calibration_s=calib_s, quanted_linears=n_q,
+              i8i8_route_launches=i8_routes,
               near_ties=len(ties), tie_margins=ties,
               replay_int8_inputs_rounded_otherwise=flips,
               replay_smallest_margin=min(margins_all),
@@ -2754,6 +2814,7 @@ def serve_ptq(cfg, dtype, econf, prompts, new, fp_gens, tag):
         f"ms, peak {st['peak_memory_gib']:.2f} GiB; traced decode step "
         f"{sp['device_ms']:.3f} ms of device work, idle share "
         f"{sp['idle_share']:.3f}, by group {json.dumps(sp['by_group'])}; "
+        f"i8i8_matmul launches by kernel {json.dumps(i8_routes)}; "
         f"tokens agreeing with the fp run {st['tokens_agreeing_with_fp']} of "
         f"{new * len(prompts)} (information, not gates)")
     say(f"[engine {tag}] served tokens == the dense path on the served int8 "
@@ -4363,9 +4424,19 @@ def check_norm_build():
 
 
 def decode_instance(mangled):
-    """A paged decode or flat AdamW vector kernel's instantiation from
-    its mangled name: ``<dtype, D, route>`` or ``<p type, g type>``."""
+    """A paged decode, flat AdamW vector or int8 x int8 kernel's
+    instantiation from its mangled name: ``<dtype, D, route>``, ``<p
+    type, g type>``, ``<BN>`` (the prefill tile's width) or ``<NT8, VEC,
+    XVEC>`` (the decode kernel's n8 tiles, 16-byte w and 8-byte x
+    loads)."""
     short = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    m = re.search(r"i8i8_wgmma_kernelILi(\d+)E", mangled)
+    if m:
+        return f"<{m.group(1)}>"
+    m = re.search(r"i8i8_gemv_mma_kernelILi(\d)ELb([01])ELb([01])E",
+                  mangled)
+    if m:
+        return f"<{m.group(1)}, {m.group(2) == '1'}, {m.group(3) == '1'}>"
     m = re.search(r"paged_decode_cluster_kernelI(f|13__nv_bfloat16)Li(\d+)"
                   r"ELb([01])E", mangled)
     if m:
@@ -4381,19 +4452,24 @@ def decode_instance(mangled):
 
 
 # the kernels whose SASS phase 2 checks: library, kernel, instantiations,
-# the instruction each must hold (cp.async: LDGSTS; a 16-byte load)
+# the instruction each must hold (cp.async: LDGSTS; a 16-byte load; wgmma
+# with s8 operands: IGMMA, the integer form of HGMMA; mma.sync s8: IMMA)
 DECODE_BUILD = (("paged_decode", "paged_decode_cluster_kernel", 12,
                  "LDGSTS"),
-                ("adamw_flat", "adamw_flat_vec_kernel", 9, "LDG.E.128"))
+                ("adamw_flat", "adamw_flat_vec_kernel", 9, "LDG.E.128"),
+                ("i8i8_matmul", "i8i8_wgmma_kernel", 2, "IGMMA"),
+                ("i8i8_matmul", "i8i8_gemv_mma_kernel", 8, "IMMA"))
 
 
 def check_decode_build():
     """Phase 2 for the paged decode (``paged_decode_cluster_kernel``: 2
-    dtypes x 3 head dims x 2 routes) and the flat AdamW's vector route
-    (``adamw_flat_vec_kernel``: 3 p types x 3 g types): every
-    instantiation's SASS holds its copies (LDGSTS, cp.async) or its
-    16-byte loads (LDG.E.128), and ptxas's registers and spills for each
-    are printed."""
+    dtypes x 3 head dims x 2 routes), the flat AdamW's vector route
+    (``adamw_flat_vec_kernel``: 3 p types x 3 g types) and the int8 x
+    int8 kernels (``i8i8_wgmma_kernel``: 2 tile widths;
+    ``i8i8_gemv_mma_kernel``: 2 x 2 x 2): every instantiation's SASS
+    holds its copies (LDGSTS, cp.async), its 16-byte loads (LDG.E.128)
+    or its tensor-core instructions (IGMMA, IMMA), and ptxas's registers
+    and spills for each are printed."""
     out = {}
     for name, kernel, count, op in DECODE_BUILD:
         lib, sass_text = sass(name)
@@ -4458,8 +4534,8 @@ def line_row(rows, n):
             return r["dtype"] == "float32" and r["shape"] == LINE_SHAPES[n]
         if n in F32_TC_ROW.values() or n == "wo_gemm_tf32":
             return r["dtype"] == "float32" and r["shape"] == LINE_SHAPES[n]
-        if n == "i8i8_matmul":
-            return r["shape"] == I8_LINE_SHAPE
+        if n in I8_ROW_NAME.values():
+            return r["shape"] == LINE_SHAPES[n]
         if r["dtype"] != "bfloat16":
             return False
         if n == "flash_fwd":
@@ -4514,11 +4590,19 @@ def main():
     # whose routes are checked by kernel name): late in a long run the
     # profiler has been seen to drop records (see device_ms)
     for label, (K, N) in I8_SHAPES.items():
-        for M in (8, 1008):
-            rows.append(check_i8i8(M, K, N, label, gen, dev))
-    ragged.append(check_i8i8(3, 200, 333, "ragged", gen, dev, timed=False))
-    ragged.append(check_i8i8(32, 8192, 256, "all +-127", gen, dev,
-                             timed=False, fill="pm127"))
+        for M in I8_ROWS_M:
+            (rows if M in I8_TIMED_M else ragged).append(
+                check_i8i8(M, K, N, label, gen, dev, timed=M in I8_TIMED_M))
+    # ragged: both kernels off and on TMA's rule; the largest sums; and
+    # sums past 2**31, which wrap as the plain version's int32 adds do
+    ragged += [check_i8i8(M, K, N, "ragged", gen, dev, timed=False)
+               for M, K, N in ((3, 200, 333), (37, 200, 333), (37, 208, 336),
+                               (1008, 208, 336))]
+    ragged += [check_i8i8(M, K, 256 if K == 8192 else 16, label, gen, dev,
+                          timed=False, fill=fill)
+               for M in (8, 32)
+               for K, label, fill in ((8192, "all +-127", "pm127"),
+                                      (131200, "all -128", "m128"))]
     ragged += [check_int4(8, 2048, 8192, dtype, gen, dev, "up")
                for dtype in (torch.bfloat16, torch.float32)]
     torch.cuda.empty_cache()
@@ -4711,10 +4795,11 @@ def main():
         elif r["name"] in ("rope", "adamw_flat", "adamw_flat_vec"):
             say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} ({r['tol']})")
-        elif r["name"] == "i8i8_matmul":
-            say(f"[kernel] i8i8_matmul {r['shape']}: err "
+        elif r["name"] in I8_ROW_NAME.values():
+            say(f"[kernel] {r['name']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} ({r['tol']}), largest |sum| "
-                f"{r['max_abs_sum']}, {r['k_splits']} K splits")
+                f"{r['max_abs_sum']}, {r['kernel']}, tile {r['tile_n']}, "
+                f"{r['k_splits']} K splits")
         elif r["name"] == "int4_weight_only_matmul":
             say(f"[kernel] int4_weight_only_matmul {r['dtype']} {r['shape']}: "
                 f"err {r['max_abs_err']:.3g} (scaled {r['scaled_err']:.3g}, "
@@ -4751,9 +4836,11 @@ def main():
                 f"packed route {r['route_ms']['packed']:.4f} ms, densify "
                 f"route {r['route_ms']['densify']:.4f} ms (CUDA events)")
     for r in rows:
-        if r["name"] == "i8i8_matmul":
-            say(f"[kernel] i8i8_matmul {r['shape']}: library "
-                f"{r['library']}, {r['k_splits']} K splits")
+        if r["name"] in I8_ROW_NAME.values():
+            say(f"[kernel] {r['name']} {r['shape']}: {r['kernel']}, tile "
+                f"{r['tile_n']}, {r['k_splits']} K splits, host "
+                f"{r['host_ms']:.4f} ms; library {r['library']} (device "
+                f"{r['library_device_ms']})")
     say(f"[kernel] wo_matmul library yardsticks: torch.mm over the weight "
         f"dequantized beforehand; torch._weight_int8pack_mm (w [N, K] int8, "
         f"scales in x's dtype): "

@@ -19,7 +19,9 @@ functions are ports of Pallas kernels:
   :func:`int4_weight_only_matmul` unpacks a nibble payload and reaches
   it at ``quant_bits=4``.
 * :func:`int8_matmul`, of ``_i8i8_kernel``, as ``csrc/i8i8_matmul.cu``:
-  the product of ``QuantedInferenceLinear`` (PTQ's full-int8 layer).
+  the product of ``QuantedInferenceLinear`` (PTQ's full-int8 layer), on
+  the tensor cores, prefill (more than 16 rows) on wgmma and decode as a
+  swapped ``mma.sync`` GEMV (:func:`i8i8_route` says which).
 
 Layouts are the JAX package's: ``x [..., K]``, ``w_int8 [K, N]`` int8,
 ``w_scale [N]`` f32 (per output channel).
@@ -76,7 +78,6 @@ _SIGNATURES = {"wo_matmul": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _P],
                "wo_gemv_mma_blocks_per_sm": [_I, _P]}
 _WGMMA_SIGNATURES = {"wo_matmul_wgmma": [_P] * 5 + [_I] * 3
                      + [ctypes.c_float, _P]}
-_I8_SIGNATURES = {"i8i8_matmul": [_P] * 3 + [_I] * 4 + [_P]}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's decode regime (csrc/wo_matmul.cu): M <= 8 rows, computed
 # as 1, 2, 4 or 8; 128-column tiles; a block takes at most 8192 / MT rows
@@ -477,17 +478,34 @@ def int4_weight_only_matmul(x, w_packed, w_scale, bias=None) -> torch.Tensor:
 
 
 # ------------------------------------------------------ int8 x int8 matmul
-# csrc/i8i8_matmul.cu's tiles: 64 rows of K a stage, 128 columns; 16 rows
-# of M up to M 16, 64 above
-_I8_BK = 64
-_I8_BN = 128
-_I8_SMALL_M = 16
-_I8_BM = {True: 16, False: 64}
+# csrc/i8i8_matmul.cu. The prefill kernel (route "wgmma"): 128-row output
+# tiles of 128 or 256 columns, 128 rows of K a stage, a tile's K splits one
+# cluster of at most 8; it reads x and w with TMA, which wants K and N
+# multiples of 16. The decode kernel (route "mma"), which also takes every
+# shape off that rule: 128-column tiles, 8 or 16 rows of x a block, K splits
+# of whole 128-row runs (32 rows for each of a block's 4 warps), at most 8
+# (one cluster).
+I8I8_ROUTES = ("wgmma", "mma")
+# up to here (and off TMA's rule) the decode kernel; above, the prefill one
+I8I8_DECODE_MAX_M = 16
+_I8_BM = 128
+_I8_BK = 128
+_I8_MIN_STAGES = 4
+_I8_LONG_K = 4096
+_I8_MAX_SPLITS = 8
+_I8_GEMV_COLS = 128
+_I8_GEMV_RUN = 128
+_I8_SIGNATURES = {"i8i8_wgmma": [_P] * 3 + [_I] * 5 + [_P],
+                  "i8i8_gemv_mma": [_P] * 3 + [_I] * 4 + [_P]}
+_I8_ENTRIES = {"wgmma": "i8i8_wgmma", "mma": "i8i8_gemv_mma"}
 # the plain version's K chunk: each chunk's sum of int8 products is at
 # most 1024 * 128**2 = 2**24 in magnitude, exact in f32
 _I8_CHUNK = 1024
 # device -> SM count
 _SMS: Dict[torch.device, int] = {}
+# (device, M, K, N) -> (route, tile columns, k_per_split, splits, library,
+# C entry): a launch's plan, made once per shape
+_I8_PLANS: Dict[tuple, tuple] = {}
 
 
 def int8_matmul_reference(x_int8: torch.Tensor,
@@ -508,19 +526,64 @@ def int8_matmul_reference(x_int8: torch.Tensor,
     return acc
 
 
+def i8i8_route(M: int, K: int, N: int) -> str:
+    """The kernel a CUDA call of ``M x K x N`` takes: "wgmma" (the
+    prefill kernel) above :data:`I8I8_DECODE_MAX_M` rows when K and N are
+    multiples of 16 (TMA's rule; the wrapper copies an operand off a
+    16-byte boundary first), else "mma" (the decode kernel, any shape)."""
+    if M <= I8I8_DECODE_MAX_M or K % 16 or N % 16:
+        return "mma"
+    return "wgmma"
+
+
+def i8i8_tile_n(M: int, K: int, N: int, sms: int) -> int:
+    """The prefill kernel's output tile width: 256 columns when those
+    tiles fill a wave of ``sms`` blocks (one an SM) by themselves, or when
+    K is long (at least 4096 rows: its splits keep long walks), else 128.
+    A 128 x 256 tile moves 48 KB a stage for 32K outputs against 32 KB
+    for 16K, and the kernel is bound by those moves."""
+    if -(-M // _I8_BM) * -(-N // 256) >= sms or K >= _I8_LONG_K:
+        return 256
+    return 128
+
+
 def i8i8_split(M: int, K: int, N: int, sms: int) -> Tuple[int, int]:
-    """``(k_per_split, splits)`` of the int8 x int8 kernel: K is split
-    across blocks when the output tiles fill fewer than ``sms`` SMs,
-    into about two waves of blocks, each split whole 64-row stages and
-    at least two of them. The splits add their int32 partial sums with
-    atomics: integer adds commute, so the result does not depend on
-    their order."""
-    tiles = (-(-M // _I8_BM[M <= _I8_SMALL_M])) * (-(-N // _I8_BN))
-    steps = -(-K // _I8_BK)
-    if tiles >= sms:
-        return steps * _I8_BK, 1
-    per = min(max(2, -(-steps // -(-2 * sms // tiles))), steps)
-    return per * _I8_BK, -(-steps // per)
+    """``(k_per_split, splits)`` of the prefill kernel: K is split (1, 2,
+    4 or 8 ways; a tile's splits are one thread-block cluster, adding
+    through distributed shared memory) as far as every block still runs
+    in one wave (at most ``sms`` blocks in clusters of 2, ``sms / 2`` in
+    clusters of 4 and 8, which the card does not fit 128 at a time) and
+    each split keeps at least 4 stages of 128 rows. Measured on the card
+    (``i8i8_variants.py``): at M 32 the out_proj (16 tiles of 128 x 128)
+    0.0072 ms on 4 splits, 0.0112 on 8 (128 blocks); down at M 1008 (64
+    tiles of 128 x 256) 0.0402 on 2 splits, 0.0646 on 1."""
+    bn = i8i8_tile_n(M, K, N, sms)
+    tiles = -(-M // _I8_BM) * -(-N // bn)
+    stages = -(-K // _I8_BK)
+    splits = 1
+    for s in (2, 4, 8):
+        if stages < _I8_MIN_STAGES * s or \
+                tiles * s > (sms if s <= 2 else sms // 2):
+            break
+        splits = s
+    per = -(-stages // splits) * _I8_BK
+    return per, -(-K // per)
+
+
+def i8i8_mma_split(M: int, K: int, N: int, sms: int) -> Tuple[int, int]:
+    """``(k_per_split, splits)`` of the decode kernel: K is split across
+    blocks as far as the column tiles (times the 8- or 16-row tiles of M)
+    times the splits stay within two blocks an SM of the ``sms``, in
+    whole 128-row runs, at most 8 ways (a tile's splits are one cluster).
+    A serving step reads each weight cold from device memory, where more
+    blocks keep more loads in flight (``i8i8_variants.py``, cold: at M 8
+    the up projection took 0.0122 ms on 4 splits, 0.0130 on 2, 0.0157 on
+    8; warm in L2, 2 splits were faster)."""
+    tiles = -(-N // _I8_GEMV_COLS) * -(-M // (8 if M <= 8 else 16))
+    want = min(_I8_MAX_SPLITS, max(1, 2 * sms // tiles))
+    rows = -(-K // want)
+    per = -(-rows // _I8_GEMV_RUN) * _I8_GEMV_RUN
+    return per, -(-K // per)
 
 
 def _sm_count(device: torch.device) -> int:
@@ -530,11 +593,32 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[device]
 
 
+def _i8_plan(dev: torch.device, M: int, K: int, N: int) -> tuple:
+    key = (dev, M, K, N)
+    plan = _I8_PLANS.get(key)
+    if plan is None:
+        lib = _build.library("i8i8_matmul", _I8_SIGNATURES)
+        route, sms = i8i8_route(M, K, N), _sm_count(dev)
+        if route == "wgmma":
+            bn = i8i8_tile_n(M, K, N, sms)
+            per, splits = i8i8_split(M, K, N, sms)
+        else:
+            bn = _I8_GEMV_COLS
+            per, splits = i8i8_mma_split(M, K, N, sms)
+        if len(_I8_PLANS) >= _MAX_PLANS:
+            _I8_PLANS.clear()
+        plan = _I8_PLANS[key] = (route, bn, per, splits, lib,
+                                 getattr(lib, _I8_ENTRIES[route]))
+    return plan
+
+
 def int8_matmul(x_int8: torch.Tensor, w_int8: torch.Tensor) -> torch.Tensor:
     """Full-int8 ``x_int8 [M, K] @ w_int8 [K, N] -> int32 [M, N]``, the
     product of ``QuantedInferenceLinear``. Exact while ``K * 128**2 <
     2**31`` (K < 131,072); past that the int32 sums wrap, as the JAX
-    kernel's do. ``int8_matmul.launches`` counts the kernel's launches."""
+    kernel's do. ``int8_matmul.launches`` counts the kernels' launches,
+    and ``int8_matmul.route_launches`` those of each kernel
+    (:func:`i8i8_route`)."""
     for name, t in (("x_int8", x_int8), ("w_int8", w_int8)):
         if t.dtype != torch.int8 or t.dim() != 2:
             raise ValueError(f"{name} must be a 2-D int8 tensor, got "
@@ -551,21 +635,36 @@ def int8_matmul(x_int8: torch.Tensor, w_int8: torch.Tensor) -> torch.Tensor:
     if M == 0 or N == 0 or K == 0:
         return torch.zeros(M, N, dtype=torch.int32, device=x_int8.device)
     dev = x_int8.device
-    per, splits = i8i8_split(M, K, N, _sm_count(dev))
-    # the splits add into y with atomics, so it starts at 0
-    y = (torch.zeros if splits > 1 else torch.empty)(
-        M, N, dtype=torch.int32, device=dev)
-    lib = _build.library("i8i8_matmul", _I8_SIGNATURES)
-    with torch.cuda.device(dev):
-        err = lib.i8i8_matmul(x_int8.data_ptr(), w_int8.data_ptr(),
-                              y.data_ptr(), M, K, N, per,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "i8i8_matmul")
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _i8_launch(x_int8, w_int8, M, K, N)
+    return _i8_launch(x_int8, w_int8, M, K, N)
+
+
+def _i8_launch(x, w, M, K, N):
+    """One launch on ``x``'s device, which is the current one; y is
+    written once (the K splits of a tile add through distributed shared
+    memory), so it starts empty."""
+    dev = x.device
+    route, bn, per, splits, lib, entry = _i8_plan(dev, M, K, N)
+    y = torch.empty(M, N, dtype=torch.int32, device=dev)
+    stream = _raw_stream(dev.index)
+    if route == "wgmma":
+        err = entry(_build.tma_aligned(x).data_ptr(),
+                    _build.tma_aligned(w).data_ptr(), y.data_ptr(), M, K, N,
+                    bn, per, stream)
+    else:
+        err = entry(x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N, per,
+                    stream)
+    if err:
+        _build.check(lib, err, _I8_ENTRIES[route])
     int8_matmul.launches += 1
+    int8_matmul.route_launches[route] += 1
     return y
 
 
 int8_matmul.launches = 0
+int8_matmul.route_launches = dict.fromkeys(I8I8_ROUTES, 0)
 
 
 # ------------------------------------------------------------- fp8-shaped

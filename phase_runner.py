@@ -118,6 +118,22 @@ Phases:
   of 200 calls without a sync); then ``int8_serving``'s bf16 serving
   runs: decode tokens/s, and the traced decode step's device time by
   kernel group (``paged_decode`` among them) and idle share.
+- ``ptq_serving``: the smoke's phase-16 model in bf16 (GPT-3 1.3B from
+  seed 1234, every block through PTQ with the smoke's quanters,
+  calibrated on the phase-4 prompts and converted: 96
+  ``QuantedInferenceLinear``), served twice (the phase-4 requests:
+  decode and prefill tokens/s, TTFT, the ``i8i8_matmul`` launches by
+  kernel where the checkout counts them); then a traced prefill of the
+  1000-token prompt alone (padded to 1008 rows) and a traced decode step
+  of all 8 requests (after 5 untimed and 5 timed untraced steps): device
+  time by ``chip_smoke.SERVING_GROUPS`` and the 12 kernels with the most
+  of it, wall time, and the decode step's idle share against the
+  untraced steps' mean; then ``int8_matmul`` at
+  the four block projections at M 8, 32, 144 and 1008 (random int8):
+  CUDA events, device time from torch.profiler (all kernels of the call,
+  and those named ``i8i8``), the wrapper's host time a call (the median
+  of 200 calls without a sync), and ``torch._int_mm`` where it takes the
+  shape (M > 16) by events and device time.
 """
 
 import argparse
@@ -820,6 +836,116 @@ def f32_prefill(cs, torch):
     return out
 
 
+def ptq_serving(cs, torch):
+    import numpy as np
+    from paddle2_tpu_torch.kernels import quant_matmul as qm
+    from paddle2_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
+    cfg = gpt3_1p3b()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (17, 45, 130, 257, 401, 613, 850, 1000)]
+    model = GPTForCausalLM(cfg, seed=1234).to(torch.bfloat16)
+    quanted = cs.ptq_convert(model, prompts)
+    econf = EngineConfig(block_size=16, num_blocks=1024, max_batch=8,
+                         kv_dtype="bfloat16")
+    runs = []
+    for _ in range(2):
+        _, launches, st = cs.serve(model, econf, prompts, 32)
+        prof = st["step_profile"] or {}
+        routes = getattr(qm.int8_matmul, "route_launches", None)
+        runs.append(dict(prefill_tok_s=st["prefill_tok_s"],
+                         decode_tok_s=st["decode_tok_s"],
+                         ttft_mean_s=st["ttft_mean_s"],
+                         ttft_max_s=st["ttft_max_s"],
+                         prefills=st["prefills"],
+                         decode_steps=st["decode_steps"],
+                         i8i8_launches=launches["i8i8_matmul"],
+                         i8i8_route_launches=None if routes is None
+                         else dict(routes),
+                         serve_decode_step_device_ms=prof.get("device_ms"),
+                         serve_decode_step_by_group=prof.get("by_group"),
+                         serve_decode_step_idle_share=prof.get(
+                             "idle_share")))
+    print(json.dumps(dict(quanted_linears=quanted, serve=runs[1])),
+          flush=True)
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_group = cs.device_groups(prof, cs.SERVING_GROUPS)
+        evs = sorted((e for e in prof.key_averages()
+                      if e.device_time_total > 0),
+                     key=lambda e: -e.device_time_total)
+        return out, dict(wall_ms=wall * 1e3, device_ms=sum(by_group.values()),
+                         by_group=by_group,
+                         top=[(e.key[:70], e.device_time_total / 1e3, e.count)
+                              for e in evs[:12]])
+    eng = ServingEngine(model, econf)
+    eng.submit(prompts[-1], 1)
+    _, prefill = traced(lambda: eng.admit_and_prefill(now=0.0))
+    print(json.dumps(dict(traced_prefill_1000=prefill)), flush=True)
+    del eng
+    eng = ServingEngine(model, econf)
+    for p in prompts:
+        eng.submit(p, 32)
+    step = 0
+    while step < 20:
+        eng.admit_and_prefill(now=float(step))
+        d = eng.decode_once(now=float(step))
+        step += 1
+        if d and d["tokens"] == len(prompts):
+            break
+    walls = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = eng.decode_once(now=float(step))
+        torch.cuda.synchronize()
+        if i >= 5:
+            walls.append((time.perf_counter() - t0) * 1e3)
+        step += 1
+    d, decode = traced(lambda: eng.decode_once(now=float(step)))
+    decode.update(batch=d["tokens"], untraced_step_ms=statistics.mean(walls),
+                  idle_share=1.0 - decode["device_ms"]
+                  / statistics.mean(walls))
+    print(json.dumps(dict(traced_decode_step=decode)), flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kernels = {}
+    for label in ("qkv", "out_proj", "up", "down"):
+        K, N = cs.WO_SHAPES[label]
+        w = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        for M in (8, 32, 144, 1008):
+            x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+            run = lambda: qm.int8_matmul(x, w)   # noqa: E731
+            device, kernel = cs.device_ms(run, "i8i8")
+            key = f"M{M} K{K} N{N} ({label})"
+            kernels[key] = dict(events_ms=cs.cuda_ms(run), device_ms=device,
+                                kernel_device_ms=kernel,
+                                host_ms=_host_ms(torch, run))
+            if M > 16:
+                mm = lambda: torch._int_mm(x, w)   # noqa: E731
+                kernels[key].update(int_mm_events_ms=cs.cuda_ms(mm),
+                                    int_mm_device_ms=cs.device_ms(mm, "")[0])
+            print(json.dumps({key: kernels[key]}), flush=True)
+        del w
+        torch.cuda.empty_cache()
+    return dict(quanted_linears=quanted, serve=runs[1], serve_first=runs[0],
+                traced_prefill_1000=prefill, traced_decode_step=decode,
+                kernels=kernels)
+
+
 def train_bf16(cs, smi):
     run, _ = cs.train_bf16(smi)
     return dict(tokens_per_s=run["bench"]["value"],
@@ -835,7 +961,7 @@ def main():
                     choices=("int8_serving", "varlen_step",
                              "varlen_bwd_draws", "norms", "flash_bwd_f32",
                              "train_bf16", "adamw_step", "f32_prefill",
-                             "paged_decode"))
+                             "paged_decode", "ptq_serving"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -868,6 +994,8 @@ def main():
         result = f32_prefill(cs, torch)
     elif args.phase == "paged_decode":
         result = paged_decode(cs, torch)
+    elif args.phase == "ptq_serving":
+        result = ptq_serving(cs, torch)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

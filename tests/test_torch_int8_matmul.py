@@ -11,7 +11,6 @@ orders); ``fp8_matmul`` to f32 rtol 1e-6 / atol 1e-4, NaN where JAX has
 NaN (its operands are exact in f32, only the order of the sums differs).
 The nibble packers are compared bitwise."""
 
-import contextlib
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -105,19 +104,26 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                                    (40, 64, 128), (5, 1, 1)])
 @pytest.mark.parametrize("sms", [132, 16])
 def test_split_covers_k_in_whole_stages(M, K, N, sms):
-    """Each split is whole 64-row stages (at least two where K has
-    them), the splits cover K and none is empty; K is split only when
-    the output tiles fill fewer than the SMs, into at most about two
-    waves of blocks."""
-    per, splits = i8i8_split(M, K, N, sms)
-    steps = -(-K // 64)
-    assert per % 64 == 0 and per >= 64 * min(2, steps)
-    assert (splits - 1) * per < K <= splits * per
-    tiles = -(-M // (16 if M <= 16 else 64)) * -(-N // 128)
-    if tiles >= sms:
-        assert splits == 1
+    """The kernel the shape takes splits K into whole stages that cover it
+    once, none empty, at most 8 (a tile's splits are one cluster): the
+    prefill kernel (``i8i8_split``) into 128-row stages, at least four a
+    split, only as far as its blocks fit one wave (half the SMs for
+    clusters of 4 and 8); the decode kernel
+    (``i8i8_mma_split``) into 128-row runs, as far as the tiles times the
+    splits stay within two blocks an SM."""
+    if qm.i8i8_route(M, K, N) == "wgmma":
+        per, splits = i8i8_split(M, K, N, sms)
+        assert per % 128 == 0 and (splits == 1 or per >= 4 * 128)
+        tiles = -(-M // 128) * -(-N // qm.i8i8_tile_n(M, K, N, sms))
+        assert splits == 1 or tiles * splits <= (
+            sms if splits <= 2 else sms // 2)
     else:
-        assert tiles * splits <= max(2 * sms + tiles, tiles)
+        per, splits = qm.i8i8_mma_split(M, K, N, sms)
+        assert per % 128 == 0
+        tiles = -(-N // 128) * -(-M // (8 if M <= 8 else 16))
+        assert splits == 1 or tiles * splits <= 2 * sms
+    assert 1 <= splits <= 8
+    assert (splits - 1) * per < K <= splits * per
 
 
 class _StandInLibrary:
@@ -133,18 +139,18 @@ class _StandInLibrary:
 @pytest.mark.parametrize("M,K,N", [(8, 2048, 6144), (1008, 2048, 2048)])
 def test_wrapper_reaches_its_c_entry(monkeypatch, M, K, N):
     """With the wrapper told its tensors are on the card, ``int8_matmul``
-    calls ``i8i8_matmul`` once with the operands' and the output's
-    pointers, M, K, N and the K split of :func:`i8i8_split`, on an
-    output of zeros when K is split; one launch is counted and the plain
-    version does not run."""
+    calls one C entry once, with the operands' and the output's pointers,
+    M, K, N, its plan (the decode kernel's split at M 8, the prefill
+    kernel's tile width and split at M 1008) and the stream, on an output
+    that is not zeroed (the K splits add through distributed shared
+    memory); one launch is counted and the plain version does not run."""
     lib = _StandInLibrary()
     monkeypatch.setattr(_build, "on_card", lambda what, *t: True)
     monkeypatch.setattr(_build, "library", lambda name, sigs: lib)
     monkeypatch.setattr(qm, "_sm_count", lambda dev: 132)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d: SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(qm, "_I8_PLANS", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(qm, "_raw_stream", lambda index: None)
     monkeypatch.setattr(qm, "int8_matmul_reference",
                         lambda *a: pytest.fail("the plain version ran"))
     x = torch.ones(M, K, dtype=torch.int8)
@@ -152,13 +158,16 @@ def test_wrapper_reaches_its_c_entry(monkeypatch, M, K, N):
     before = int8_matmul.launches
     y = int8_matmul(x, w)
     assert int8_matmul.launches == before + 1
-    per, splits = i8i8_split(M, K, N, 132)
-    assert (splits > 1) == (M == 8)
-    assert lib.calls == [("i8i8_matmul", (x.data_ptr(), w.data_ptr(),
-                                          y.data_ptr(), M, K, N, per, None))]
+    ptrs = (x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, N)
+    if M == 8:
+        per, splits = qm.i8i8_mma_split(M, K, N, 132)
+        assert splits > 1
+        assert lib.calls == [("i8i8_gemv_mma", ptrs + (per, None))]
+    else:
+        per, splits = i8i8_split(M, K, N, 132)
+        assert lib.calls == [("i8i8_wgmma", ptrs + (
+            qm.i8i8_tile_n(M, K, N, 132), per, None))]
     assert y.dtype == torch.int32 and tuple(y.shape) == (M, N)
-    if splits > 1:
-        assert not y.any()
 
 
 # ------------------------------------------------- weight-only routes
