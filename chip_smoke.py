@@ -21,9 +21,11 @@ line) when it fails:
    every kernel of the f32 libraries on the tensor cores (the split
    backward pair's ``flash_bwd_tf32x3``, the forward's
    ``flash_fwd_tf32x3``) and every instantiation of the TF32 prefill
-   GEMM ``wo_gemm_tf32_kernel`` (in ``wo_matmul``, 6) must hold TF32
-   tensor-core instructions (HMMA ... .TF32), with ptxas's registers and
-   spills for each; every instantiation of
+   GEMM ``wo_gemm_tf32_kernel`` (in ``wo_matmul``, 6) and of the f32
+   decode GEMV ``wo_gemv_tf32_kernel`` (in ``wo_matmul``, 4) must hold
+   TF32 tensor-core instructions (HMMA ... .TF32), with ptxas's registers
+   and spills for each (the instantiations the model's path runs spill
+   nothing); every instantiation of
    the bf16 decode kernel ``wo_gemv_mma_kernel`` (in ``wo_matmul``, 4)
    must hold HMMA, with its registers and spills; every instantiation of
    the paged decode's ``paged_decode_cluster_kernel`` (2 dtypes x 3 head
@@ -88,13 +90,17 @@ line) when it fails:
    bf16 and f32, and in f32 at M 32 and 144 (the padded prompts of 17
    and 130 tokens), with and without a bias (bf16 at M 128 and 1008 on
    the prefill wgmma route, rows ``wo_matmul_wgmma``; f32 prefill on the
-   TF32 tensor-core GEMM, rows ``wo_gemm_tf32``: bounded by two TF32
-   passes with the CUDA cores' bound beside it, bitwise equal on a
-   second run, and the plain version with x in single-pass TF32 must
-   read past the f32 limit; bf16 at M 1 and 8 on the decode tensor-core
-   route, rows ``wo_gemv_mma``), bf16 at M 2, 3 and 5 at every
-   projection (not timed), and at ragged shapes (M 3, K 200, N 333 and
-   M 5, K 1030, N 7 on the decode routes; M 37, K 200, N 336 on the
+   TF32 tensor-core GEMM, rows ``wo_gemm_tf32``, and f32 decode at M 1
+   and 8 on the TF32 decode GEMV ``wo_gemv_tf32_kernel``, rows
+   ``wo_matmul``: both bounded by two TF32 passes with the CUDA cores'
+   bound beside it, bitwise equal on a second run, and the plain version
+   with x in single-pass TF32 must read past the f32 limit; bf16 at M 1
+   and 8 on the decode tensor-core route, rows ``wo_gemv_mma``), both
+   dtypes at M 2, 3, 4 and 5 at every projection (not timed), and at ragged
+   shapes (M 3, K 200, N 333 and M 5, K 1030, N 7 on the decode routes,
+   f32 M 8, K 20480, N 34816 in one K split, whose warps walk 5,120 rows
+   each, past the 512 after which the f32 decode kernel adds its mma sums
+   into a second sum; M 37, K 200, N 336 on the
    tensor cores; M 37, K 200, N 333, M 1008, K 204, N 336 and M 144, K
    20484, N 333, off TMA's rule, on the TF32 GEMM in both dtypes, and f32
    M 1008, K 20480, N 2048, past 8 splits of 2048 rows) and with x and w
@@ -109,9 +115,9 @@ line) when it fails:
    reach them on one prompt: the kernel's product
    stays within ``weight_quant_error_bound`` of ``x @ W`` (f64, on the
    host), a 4-bit payload of the same weight breaks that bound, and the
-   bound is below ``max |x @ W|``; the bf16 decode route holds it too on
-   the last 1 and 8 rows cast to bf16 (with one bf16 rounding step of
-   the output beside it); and layer 0's payload and scales
+   bound is below ``max |x @ W|``; the decode routes hold it too on the
+   last 1 and 8 rows, in f32 and cast to bf16 (with one bf16 rounding
+   step of the output beside it); and layer 0's payload and scales
    quantized on the card equal those quantized on the CPU, bitwise.
    The int8 x int8 matmul at GPT-3 1.3B's four block projections (qkv,
    out_proj, up, down) at M 1, 8, 9 and 16 (decode batches, on the decode
@@ -151,9 +157,9 @@ line) when it fails:
    the prefill tensor-core routes, in bf16 ``wgmma`` and in f32 ``gemm``
    (the TF32 GEMM, row ``wo_gemm_tf32``), every decode launch and each
    prefill's head on the
-   decode tensor-core route in bf16 (``gemv_mma``) and the CUDA cores in
-   f32 (``gemv``); how many tokens agree with the fp runs is printed,
-   not gated.
+   decode tensor-core routes, in bf16 ``gemv_mma`` and in f32 ``gemv``
+   (the TF32 decode GEMV, row ``wo_matmul``); how many tokens agree with
+   the fp runs is printed, not gated.
 5. Training at full width and full depth: ``bench.py``'s default GPT
    (vocab 32768, hidden 1024, 24 layers, 16 heads of 64, seq 1024,
    batch 8, labels = ids) with "dots" remat, stacked blocks, the fused
@@ -295,7 +301,8 @@ line) when it fails:
     copied back: 1 warm-up step, 5 timed steps and 1 traced step. Every
     loss finite; each step launches exactly 5 RMSNorm forwards (all on
     the vector route, ``rms_norm_fwd_vec_kernel``), 5 RMSNorm
-    backwards, 8 RoPE (4 forward, 4 backward), 13 flat AdamW (all on
+    backwards (all on the vector route, ``rms_norm_bwd_vec_kernel``), 8
+    RoPE (4 forward, 4 backward), 13 flat AdamW (all on
     the vector route, ``adamw_flat_vec_kernel``), 2 dense
     flash forwards and 2 fused flash backwards, and no other kernel.
     Prints tokens/s, the step time, the traced step's device time by
@@ -345,13 +352,14 @@ f32), [37, 771] and [5, 1] (bf16 within one ulp plus 1e-5 of the
 largest magnitude, f32 to 1e-5 of the largest magnitude, two f32
 backward runs bitwise equal),
 timed against ``F.rms_norm`` (forward, and its backward through
-autograd). The forward runs on both routes at every case: on x as
-given (the vector kernel where 16-byte vectors take the rows, else the
-general one: H 771 and H 1) and on a copy one element past a 16-byte
-boundary (the general kernel); each call must count one launch on the
-route the wrapper's rule names and launch that route's kernel and not
-the other's (torch.profiler), and each route is held and timed (with the
-wrapper's host time a call, the median of 200 calls without a sync).
+autograd). The forward and the backward run on both routes at every
+case: on x (and do) as given (the vector kernels where 16-byte vectors
+take the rows, else the general ones: H 771 and H 1) and on copies one
+element past a 16-byte boundary (the general kernels); each call must
+count one launch on the route the wrapper's rule names and launch that
+route's kernel and not the other's (torch.profiler), and each route is
+held and timed (with the wrapper's host time a call, the median of 200
+calls without a sync), the f32 backward bitwise on a second run on both.
 The same for the LayerNorm forward below. The RoPE
 forward and backward bitwise at the docstring's [8, 2048, 16, 128] with
 an [S, D] table and a ``position_ids``-gathered [B*S, D] one, and at D
@@ -546,8 +554,8 @@ KERNELS = {
         replaces="paddle2_tpu/kernels/pallas_fused.py:125",
         counter=adamw_step),
     # every route of the weight-only wrapper; its kernels-line row is the
-    # f32 decode kernel on the CUDA cores (wo_gemv_kernel); the three
-    # tensor-core routes (bf16 prefill, f32 prefill, bf16 decode) are
+    # f32 decode kernel (wo_gemv_tf32_kernel, TF32 on the tensor cores);
+    # the three other routes (bf16 prefill, f32 prefill, bf16 decode) are
     # counted again below
     "wo_matmul": dict(
         source="paddle2_tpu_torch/kernels/csrc/wo_matmul.cu",
@@ -612,10 +620,15 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/rms_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:262",
         counter=rms_norm_fwd, route="vec"),
+    # every route of the RMSNorm backward wrapper, as rms_norm_fwd
     "rms_norm_bwd": dict(
         source="paddle2_tpu_torch/kernels/csrc/rms_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:290",
         counter=rms_norm_bwd),
+    "rms_norm_bwd_vec": dict(
+        source="paddle2_tpu_torch/kernels/csrc/rms_norm.cu",
+        replaces="paddle2_tpu/kernels/pallas_fused.py:290",
+        counter=rms_norm_bwd, route="vec"),
     "rope": dict(
         source="paddle2_tpu_torch/kernels/csrc/rope.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:369",
@@ -644,17 +657,20 @@ KERNELS = {
         counter=int8_matmul, route="wgmma"),
 }
 INCUBATE_KERNELS = ("rms_norm_fwd", "rms_norm_fwd_vec", "rms_norm_bwd",
-                    "rope", "adamw_flat", "adamw_flat_vec")
+                    "rms_norm_bwd_vec", "rope", "adamw_flat",
+                    "adamw_flat_vec")
 # the CUDA kernel of each route of the flat AdamW (the names torch.profiler
 # reports)
 ADAMW_FLAT_KERNEL_NAMES = {"vec": "adamw_flat_vec_kernel",
                            "general": "adamw_flat_kernel"}
-# the CUDA kernel of each route of the norms' forwards (the names
-# torch.profiler reports); the libraries whose vector kernels' SASS must
-# hold 16-byte loads (LDG.E.128)
+# the CUDA kernel of each route of the norms' forwards and of the RMSNorm
+# backward (the names torch.profiler reports); the libraries whose vector
+# kernels' SASS must hold 16-byte loads (LDG.E.128)
 NORM_KERNEL_NAMES = {
     ("rms_norm", "vec"): "rms_norm_fwd_vec_kernel",
     ("rms_norm", "general"): "rms_norm_fwd_kernel",
+    ("rms_norm_bwd", "vec"): "rms_norm_bwd_vec_kernel",
+    ("rms_norm_bwd", "general"): "rms_norm_bwd_kernel",
     ("layer_norm", "vec"): "layer_norm_fwd_vec_kernel",
     ("layer_norm", "general"): "layer_norm_fwd_kernel"}
 NORM_LIBRARIES = ("rms_norm", "layer_norm")
@@ -696,18 +712,22 @@ VARLEN_KERNEL_NAMES = {
 # the f32 kernels on the tensor cores, whose SASS must hold TF32 HMMA:
 # library -> the kernel's name in it and its instantiations (head dims;
 # for the prefill GEMM x's type, the tile it sets and whether x and w are
-# read in 16-byte copies)
+# read in 16-byte copies; for the decode GEMV whether w is read in
+# 16-byte loads and x in one 16-byte load a step)
 TF32_KERNELS = {
     "flash_bwd_tf32x3": {f"flash_bwd_{w}_tf32x3_kernel": (16, 64, 128)
                          for w in ("dkv", "dq")},
     "flash_fwd_tf32x3": {"flash_fwd_tf32x3_kernel": (16, 64, 128)},
     "wo_matmul": {"wo_gemm_tf32_kernel": tuple(
         f"f32 32x512 x{xb} w{wb}" for xb in (16, 1) for wb in (16, 1)) + (
-        "bf16 128x128 x1 w16", "bf16 128x128 x1 w1")}}
-# the instantiation the model's path runs (f32 prefill at its 32 x 512
-# tile, every GPT-3 1.3B projection within the 16-byte rule): ptxas must
-# report no spill there
-TF32_MAIN_PATH = ("wo_gemm_tf32_kernel", "f32 32x512 x16 w16")
+        "bf16 128x128 x1 w16", "bf16 128x128 x1 w1"),
+        "wo_gemv_tf32_kernel": tuple(f"f32 decode w{wb} x{xb}"
+                                     for wb in (16, 1) for xb in (16, 1))}}
+# the instantiations the model's path runs (f32 prefill at its 32 x 512
+# tile and f32 decode, every GPT-3 1.3B projection within the 16-byte
+# rule): ptxas must report no spill there
+TF32_MAIN_PATH = (("wo_gemm_tf32_kernel", "f32 32x512 x16 w16"),
+                  ("wo_gemv_tf32_kernel", "f32 decode w16 x16"))
 # the libraries of the tensor-core kernels, whose SASS must hold HGMMA
 WGMMA_LIBRARIES = ("flash_fwd_wgmma", "flash_bwd_wgmma", "flash_varlen_wgmma",
                    "flash_varlen_bwd_wgmma", "wo_matmul_wgmma")
@@ -717,9 +737,9 @@ SERVING_KERNELS = ("flash_fwd", "flash_fwd_tf32x3", "paged_decode",
 WO_SHAPES = {"qkv": (2048, 6144), "out_proj": (2048, 2048),
              "up": (2048, 8192), "down": (8192, 2048), "head": (2048, 50304)}
 # the kernels line's wo_matmul rows: a decode step at batch 8 (bf16 on
-# the tensor cores, f32 on the CUDA cores), and a 1000-token prompt's
-# prefill (padded to 1008) on the tensor cores (bf16 on wgmma, f32 on the
-# TF32 GEMM)
+# mma.sync, f32 on the TF32 decode GEMV), and a 1000-token prompt's
+# prefill (padded to 1008; bf16 on wgmma, f32 on the TF32 GEMM), all on
+# the tensor cores
 WO_LINE_SHAPE = "M8 K2048 N8192 (up) bias"
 WO_WGMMA_LINE_SHAPE = "M1008 K2048 N8192 (up) bias"
 # the timed rows' batches: decode (1, 8), prefill (128, 1008), and in
@@ -854,9 +874,14 @@ ADAMW_LINE_DTYPE = "O2"
 # the kernels-line row of each weight-only route
 WO_ROW_NAME = {"gemv": "wo_matmul", "gemm": "wo_gemm_tf32",
                "gemv_mma": "wo_gemv_mma", "wgmma": "wo_matmul_wgmma"}
-# the bf16 decode rows at the batches that only this check takes (the
-# timed ones are M 1 and 8)
-WO_DECODE_ROWS = (2, 3, 5)
+# the decode rows at the batches that only this check takes (the timed
+# ones are M 1 and 8), in both dtypes
+WO_DECODE_ROWS = (2, 3, 4, 5)
+# the f32 decode GEMV in one K split whose warps walk past the 512 rows
+# after which they add their mma sums into a second sum (5,120 rows a
+# warp; two splits of 272 column tiles would pass three quarters of the
+# card's resident blocks)
+WO_LONG_DECODE = (8, 20480, 34816)
 # the paged decode's shapes: (label, contexts, head dim); bs 16, H 16.
 # The first is the main path's (the serving engine's widest decode
 # batch, cut to 8 sequences of 2048..17 keys); every shape runs on both
@@ -892,7 +917,8 @@ LINE_SHAPES = {"flash_bwd_fused": TRAIN_BWD_SHAPE,
                "i8i8_matmul_wgmma": I8_WGMMA_LINE_SHAPE,
                "rms_norm_fwd": RMS_LINE_SHAPE + ", unaligned view",
                "rms_norm_fwd_vec": RMS_LINE_SHAPE,
-               "rms_norm_bwd": RMS_LINE_SHAPE,
+               "rms_norm_bwd": RMS_LINE_SHAPE + ", unaligned view",
+               "rms_norm_bwd_vec": RMS_LINE_SHAPE,
                "rope": ROPE_LINE_SHAPE,
                "adamw_flat": ADAMW_FLAT_LINE_SHAPE + ", offset view",
                "adamw_flat_vec": ADAMW_FLAT_LINE_SHAPE,
@@ -1647,13 +1673,14 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
     ``wo_route`` names (the row is named by it: ``wo_gemv_mma`` for bf16
     decode on the tensor cores, ``wo_matmul_wgmma`` for bf16 prefill).
     ``offset``: x and w are contiguous views one element past a 16-byte
-    boundary. On the TF32 prefill GEMM (route "gemm", row
-    ``wo_gemm_tf32``) a second run must be bitwise equal. With ``timed``,
+    boundary. On the TF32 kernels (the prefill GEMM, route "gemm", row
+    ``wo_gemm_tf32``; the f32 decode GEMV, route "gemv", row
+    ``wo_matmul``) a second run must be bitwise equal. With ``timed``,
     its times, the wrapper's host time a call, its bound and the library
-    yardsticks (by events and device time); a TF32 GEMM row is bounded by
-    its TF32 passes (two for f32 x) with the CUDA cores' bound beside
-    it, and in f32 the plain version with x in single-pass TF32 must read
-    past the f32 limit."""
+    yardsticks (by events and device time); a TF32 row is bounded by its
+    TF32 passes (two for f32 x) with the CUDA cores' bound beside it, and
+    in f32 the plain version with x in single-pass TF32 must read past
+    the f32 limit."""
     x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
     w = torch.randn(K, N, generator=gen, device=dev) * 0.02
     w8, s8 = quantize_channelwise(w)
@@ -1680,11 +1707,12 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
     row = dict(name=WO_ROW_NAME[route], route=route, dtype=dname(dtype),
                shape=shape, max_abs_err=err, scaled_err=scaled,
                tol=TOL[dtype])
-    if route == "gemm":
+    tf32 = route in ("gemm", "gemv")
+    if tf32:
         # no atomics, a fixed summation order: bitwise reproducible
         row["bitwise"] = torch.equal(y, int8_weight_only_matmul(x, w8, s8,
                                                                 bias))
-        require(row["bitwise"], f"wo_gemm_tf32 {dname(dtype)} {shape}: two "
+        require(row["bitwise"], f"{row['name']} {dname(dtype)} {shape}: two "
                 f"runs differ")
     if not timed:
         return row
@@ -1717,14 +1745,14 @@ def check_wo(dtype, M, K, N, with_bias, gen, dev, label, int8pack,
     nbytes = (M * K * size + K * N + 4.0 * N + M * N * size
               + (N * size if with_bias else 0))
     b_ms, b_by = bound(2.0 * M * N * K, nbytes, dtype)
-    if route == "gemm":
+    if tf32:
         single = None
         if dtype == torch.float32:
             one = int8_weight_only_matmul_reference(
                 x, w8, s8, bias, matmul=lambda a, b: tf32_matmul(a, b, 1))
             single = ((one - ref).abs() / ref.abs().clamp_min(1.0)).max(
             ).item()
-            require(single > TOL[dtype], f"wo_gemm_tf32 float32 {shape}: "
+            require(single > TOL[dtype], f"{row['name']} float32 {shape}: "
                     f"the plain version with x in single-pass TF32 reads "
                     f"{single}, within the limit {TOL[dtype]}")
         t_ops = (2 if dtype == torch.float32 else 1) * 2.0 * M * N * K \
@@ -1778,10 +1806,11 @@ def check_wo_bound(model, prompt):
     weights breaks the 8-bit bound somewhere. (The l1 bound grows with K
     and the error of a random payload with its square root: at K 8192
     the down projection's 4-bit payload can stay inside the bound.) The
-    bf16 decode route (``wo_gemv_mma``, the tensor cores) is held the
-    same way on the last 1 and 8 rows cast to bf16, against ``x @ W`` of
-    those bf16 rows, with one bf16 rounding step of the output (2**-8
-    |y|) beside the bound."""
+    decode routes are held the same way on the last 1 and 8 rows: f32
+    (``wo_matmul``, the TF32 decode GEMV) as they are, bf16
+    (``wo_gemv_mma``) cast to bf16, against ``x @ W`` of those rows, with
+    one bf16 rounding step of the output (2**-8 |y|) beside the bound in
+    bf16."""
     caps, hooks = {}, []
     for li in (0, len(model.gpt.h) - 1):
         blk = model.gpt.h[li]
@@ -1824,25 +1853,31 @@ def check_wo_bound(model, prompt):
                 f"below max |x @ W|")
         rows.append(row)
         for m in (1, 8):
-            xb = x[-m:].to(torch.bfloat16).contiguous()
-            before = int8_weight_only_matmul.route_launches["gemv_mma"]
-            yb = int8_weight_only_matmul(xb, w8, s8).double().cpu()
-            require(int8_weight_only_matmul.route_launches["gemv_mma"]
-                    == before + 1, f"wo_matmul {key} bf16 M{m}: not on the "
-                    f"tensor-core decode route")
-            exact = xb.double().cpu() @ w.double().cpu()
-            bnd = weight_quant_error_bound(xb, s8).double().cpu()
-            err = (yb - exact).abs()
-            drow = dict(weight=key, route="gemv_mma",
-                        shape=f"M{m} K{w.shape[0]} N{w.shape[1]} bf16",
-                        max_err=err.max().item(), max_bound=bnd.max().item(),
-                        max_abs_y=exact.abs().max().item(),
-                        holds=bool((err <= bnd + (2.0 ** -8 + 1e-4)
-                                    * yb.abs()).all()))
-            say(f"[kernel] wo_gemv_mma bound {drow}")
-            require(drow["holds"], f"wo_gemv_mma {key} M{m}: error past "
-                    f"the analytic bound")
-            rows.append(drow)
+            for dtype in (torch.float32, torch.bfloat16):
+                xb = x[-m:].to(dtype).contiguous()
+                route = wo_route(m, *w.shape, dtype)
+                name = WO_ROW_NAME[route]
+                before = int8_weight_only_matmul.route_launches[route]
+                yb = int8_weight_only_matmul(xb, w8, s8).double().cpu()
+                require(int8_weight_only_matmul.route_launches[route]
+                        == before + 1, f"wo_matmul {key} {dname(dtype)} "
+                        f"M{m}: not on the {route} decode route")
+                exact = xb.double().cpu() @ w.double().cpu()
+                bnd = weight_quant_error_bound(xb, s8).double().cpu()
+                err = (yb - exact).abs()
+                step = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+                drow = dict(weight=key, route=route,
+                            shape=f"M{m} K{w.shape[0]} N{w.shape[1]} "
+                            f"{dname(dtype)}",
+                            max_err=err.max().item(),
+                            max_bound=bnd.max().item(),
+                            max_abs_y=exact.abs().max().item(),
+                            holds=bool((err <= bnd + (step + 1e-4)
+                                        * yb.abs()).all()))
+                say(f"[kernel] {name} bound {drow}")
+                require(drow["holds"], f"{name} {key} {dname(dtype)} M{m}: "
+                        f"error past the analytic bound")
+                rows.append(drow)
     require(any(r.get("four_bit_violates") for r in rows),
             "no 4-bit payload breaks the 8-bit bound: the bound is vacuous")
     return rows
@@ -2180,13 +2215,46 @@ def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
     return rows
 
 
+def rms_bwd_routes(x, w, r, do, what):
+    """The RMSNorm backward on ``x`` and ``do`` and on unaligned copies of
+    both: each call counts one launch on one route (the wrapper's rule,
+    ``bwd_route``), launches that route's CUDA kernel and not the other's
+    (torch.profiler), and the copies take the general route. Returns ``{route: (x, do, (dx, dw),
+    kernel seen by name)}``; aligned rows that the general route takes
+    give one entry."""
+    out = {}
+    lib = "rms_norm_bwd"
+    for xin, doin in ((x, do), (unaligned(x), unaligned(do))):
+        before = dict(rms_norm_bwd.route_launches)
+        res = rms_norm_bwd(xin, w, r, doin)
+        moved = {k: rms_norm_bwd.route_launches[k] - before[k]
+                 for k in before}
+        route = next(k for k, n in moved.items() if n)
+        require(moved == {k: int(k == route) for k in before},
+                f"{what}: route launches moved by {moved}, want one")
+        if xin is not x:
+            require(route == "general", f"{what}: an unaligned view takes "
+                    f"the {route} route")
+        other = "general" if route == "vec" else "vec"
+        seen = launches_kernel(lambda: rms_norm_bwd(xin, w, r, doin),
+                               NORM_KERNEL_NAMES[(lib, route)],
+                               NORM_KERNEL_NAMES[(lib, other)])
+        require(seen is not False, f"{what}: the {route} route did not "
+                f"launch {NORM_KERNEL_NAMES[(lib, route)]} alone")
+        if seen is None:
+            say(f"[profiler] {what}: no kernel recorded in three windows: "
+                f"the {route} route's kernel not checked by name")
+        out.setdefault(route, (xin, doin, res, seen))
+    return out
+
+
 def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
-    """The forward on both routes (the vector kernel where 16-byte
-    vectors take the rows, and the general kernel on an unaligned copy)
-    and the backward (on the vector route's saved r, as the plain one is
-    given it) against their plain versions; in f32 two backward runs
-    bitwise equal (no atomics). With ``timed``, the kernels' times,
-    bounds and ``F.rms_norm``'s."""
+    """The forward and the backward, each on both routes (the vector
+    kernels where 16-byte vectors take the rows, and the general kernels
+    on unaligned copies), against their plain versions (the backward on
+    the vector route's saved r, as the plain one is given it); in f32 two
+    backward runs bitwise equal on each route (no atomics). With
+    ``timed``, the kernels' times, bounds and ``F.rms_norm``'s."""
     x = (torch.randn(R, H, generator=gen, device=dev) * 2 + 0.5).to(xdt)
     w = torch.randn(H, generator=gen, device=dev).to(wdt)
     do = torch.randn(R, H, generator=gen, device=dev).to(xdt)
@@ -2197,7 +2265,7 @@ def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
         lambda xin, res: frn.fwd_route(xin, w, *res),
         lambda xin: rms_norm_fwd(xin, w, eps), x, f"rms_norm {shape}")
     r = next(iter(fwd.values()))[1][1]
-    dx, dw = rms_norm_bwd(x, w, r, do)
+    bwd = rms_bwd_routes(x, w, r, do, f"rms_norm_bwd {shape}")
     o_ref, r_ref = rms_norm_fwd_reference(x, w, eps)
     dx_ref, dw_ref = rms_norm_bwd_reference(x, w, r, do)
     torch.cuda.synchronize()
@@ -2205,21 +2273,26 @@ def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
     for route, (_, (o, ro), _) in fwd.items():
         errs[f"o_{route}"] = ln_err(o, o_ref, xdt, True)
         errs[f"r_{route}"] = ln_err(ro, r_ref, torch.float32, True)
-    errs.update(dx=ln_err(dx, dx_ref, xdt, True),
-                dw=ln_err(dw, dw_ref, wdt, True))
+    for route, (_, _, (dx, dw), _) in bwd.items():
+        errs[f"dx_{route}"] = ln_err(dx, dx_ref, xdt, True)
+        errs[f"dw_{route}"] = ln_err(dw, dw_ref, wdt, True)
     for k, (excess, err) in errs.items():
         require(excess <= 0, f"rms_norm {dname(xdt)} {shape}: {k} "
                 f"disagrees with its plain version (max abs err {err}, "
                 f"{excess} past the limit)")
-    for t in [t for _, res, _ in fwd.values() for t in res] + [dx, dw]:
+    for t in ([t for _, res, _ in fwd.values() for t in res]
+              + [t for _, _, res, _ in bwd.values() for t in res]):
         require(torch.isfinite(t.float()).all().item(), "non-finite output")
-    reproducible = None
-    if xdt == torch.float32:
-        again = rms_norm_bwd(x, w, r, do)
-        reproducible = all(torch.equal(a, c) for a, c in
-                           zip((dx, dw), again))
-        require(reproducible, f"rms_norm_bwd f32 {shape}: two runs differ "
-                f"(dw must not depend on timing)")
+    reproducible = {}
+    for route, (xin, doin, res, _) in bwd.items():
+        reproducible[route] = None
+        if xdt == torch.float32:
+            again = rms_norm_bwd(xin, w, r, doin)
+            reproducible[route] = all(torch.equal(a, c) for a, c in
+                                      zip(res, again))
+            require(reproducible[route], f"rms_norm_bwd f32 {shape} "
+                    f"({route} route): two runs differ (dw must not depend "
+                    f"on timing)")
     tol = "bf16: 1 ulp + 1e-5 max; f32: 1e-5 of max"
     names = {"vec": "rms_norm_fwd_vec", "general": "rms_norm_fwd"}
     rows = [dict(name=names[route], dtype=dname(xdt),
@@ -2229,12 +2302,18 @@ def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
                  excess_over_tol=max(errs[f"{k}_{route}"][0] for k in "or"),
                  tol=tol, bitwise_reproducible=None)
             for route, (xin, _, seen) in fwd.items()]
-    rows.append(dict(name="rms_norm_bwd", dtype=dname(xdt), shape=shape,
-                     max_abs_err=max(errs[k][1] for k in ("dx", "dw")),
-                     excess_over_tol=max(errs[k][0] for k in ("dx", "dw")),
-                     tol=tol, bitwise_reproducible=reproducible))
+    bnames = {"vec": "rms_norm_bwd_vec", "general": "rms_norm_bwd"}
+    brows = [dict(name=bnames[route], dtype=dname(xdt),
+                  shape=shape + ("" if xin is x else ", unaligned view"),
+                  route=route, kernel_seen=seen,
+                  max_abs_err=max(errs[f"{k}_{route}"][1]
+                                  for k in ("dx", "dw")),
+                  excess_over_tol=max(errs[f"{k}_{route}"][0]
+                                      for k in ("dx", "dw")),
+                  tol=tol, bitwise_reproducible=reproducible[route])
+             for route, (xin, _, _, seen) in bwd.items()]
     if not timed:
-        return rows
+        return rows + brows
     size, wsize = x.element_size(), w.element_size()
     wx = w.to(xdt)
     xr, wr = (t.detach().clone().requires_grad_() for t in (x, wx))
@@ -2246,7 +2325,7 @@ def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
     lib = {k: cuda_ms(fn) for k, fn in lib_calls.items()}
     lib_dev = {k: device_ms(fn, "")[0] for k, fn in lib_calls.items()}
     library = "F.rms_norm (weight in x's dtype)"
-    for row in rows[:-1]:
+    for row in rows:
         xin = fwd[row["route"]][0]
         norm_fwd_timing(
             row, lambda: rms_norm_fwd(xin, w, eps),
@@ -2254,21 +2333,25 @@ def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
             NORM_KERNEL_NAMES[("rms_norm", row["route"])], 4.0 * R * H,
             2.0 * R * H * size + H * wsize + 4.0 * R, lib["fwd"],
             lib_dev["fwd"], library)
-    row = rows[-1]
-    run = lambda: rms_norm_bwd(x, w, r, do)  # noqa: E731
-    # the row kernel and the reduction of its partials
-    dev_ms, kern_ms = device_ms(run, "rms_norm_bwd", per_call=2)
     b_ms, b_by = bound(10.0 * R * H,
                        3.0 * R * H * size + 2.0 * H * wsize + 4.0 * R,
                        torch.float32)
-    row.update(ms=cuda_ms(run), device_ms=dev_ms, kernel_device_ms=kern_ms,
-               plain_ms=cuda_ms(lambda: rms_norm_bwd_reference(
-                   x, w, r, do), iters=10),
-               library_ms=lib["bwd"], library_device_ms=lib_dev["bwd"],
-               bound_ms=b_ms, bound_by=b_by,
-               library=library + " backward through autograd",
-               bwd_blocks=frn.bwd_blocks(R, dev))
-    return rows
+    for row in brows:
+        xin, doin = bwd[row["route"]][:2]
+
+        def run(xin=xin, doin=doin):
+            return rms_norm_bwd(xin, w, r, doin)
+        # either route's row kernel and the reduction of its partials
+        dev_ms, kern_ms = device_ms(run, "rms_norm_bwd", per_call=2)
+        row.update(ms=cuda_ms(run), device_ms=dev_ms,
+                   kernel_device_ms=kern_ms, host_ms=host_ms(run),
+                   plain_ms=cuda_ms(lambda: rms_norm_bwd_reference(
+                       x, w, r, do), iters=10),
+                   library_ms=lib["bwd"], library_device_ms=lib_dev["bwd"],
+                   bound_ms=b_ms, bound_by=b_by,
+                   library=library + " backward through autograd",
+                   bwd_blocks=frn.bwd_blocks(R, dev))
+    return rows + brows
 
 
 def check_rope(B, S, H, D, table, dtype, gen, dev, timed):
@@ -2531,7 +2614,7 @@ def serve_int8(make_model, dtype, econf, prompts, new, fp_gens, tag):
     # a prefill's block projections (M = the padded prompt, > 8): bf16 on
     # wgmma, f32 on the TF32 tensor-core GEMM (gemm); every decode
     # projection and head and each prefill's head (the last row, M <= 8):
-    # bf16 on the tensor cores (gemv_mma), f32 on the CUDA cores (gemv)
+    # on the decode tensor-core GEMVs, bf16 gemv_mma, f32 gemv (TF32)
     bf16 = dtype == torch.bfloat16
     prefill = (per_pass - 1) * st["prefills"]
     decode = per_pass * st["decode_steps"] + st["prefills"]
@@ -4110,9 +4193,9 @@ def stack_bf16(smi, dev):
     require(all(np.isfinite(all_losses)),
             f"non-finite incubate stack loss: {all_losses}")
     L = cfg["layers"]
-    # every RMSNorm forward on the vector route
+    # every RMSNorm forward and backward on the vector route
     want = {"rms_norm_fwd": 2 * L + 1, "rms_norm_fwd_vec": 2 * L + 1,
-            "rms_norm_bwd": 2 * L + 1,
+            "rms_norm_bwd": 2 * L + 1, "rms_norm_bwd_vec": 2 * L + 1,
             "rope": 4 * L, "adamw_flat": len(params),
             "adamw_flat_vec": len(params), "flash_fwd": L,
             "flash_bwd_fused": L}
@@ -4272,7 +4355,8 @@ def tf32_instance(mangled):
     """A TF32 kernel's (name, instantiation) from its mangled name: the
     head dim of a flash kernel; x's type, the tile and the bytes a copy
     of x and of w reads (16, or 1: element by element) of the prefill
-    GEMM."""
+    GEMM; the bytes a load of w and of x reads (16, or 1) of the decode
+    GEMV."""
     m = re.search(r"(wo_gemm_tf32_kernel)I(13__nv_bfloat16|f)"
                   r"Lb([01])ELb([01])E", mangled)
     if m:
@@ -4280,17 +4364,21 @@ def tf32_instance(mangled):
         return m.group(1), (f"{'f32 32x512' if f32 else 'bf16 128x128'} "
                             f"x{16 if m.group(3) == '1' else 1} "
                             f"w{16 if m.group(4) == '1' else 1}")
+    m = re.search(r"(wo_gemv_tf32_kernel)ILb([01])ELb([01])E", mangled)
+    if m:
+        return m.group(1), (f"f32 decode w{16 if m.group(2) == '1' else 1} "
+                            f"x{16 if m.group(3) == '1' else 1}")
     m = re.fullmatch(r"(\w+)<(\d+)>", kernel_name(mangled))
     return (m.group(1), int(m.group(2))) if m else (mangled, None)
 
 
 def check_tf32_build():
     """Phase 2 for the f32 kernels on the tensor cores (``TF32_KERNELS``:
-    the split backward pair, the forward, the prefill GEMM): every
-    instantiation holds TF32 tensor-core instructions (HMMA with .TF32)
-    in its SASS, ptxas's register and spill lines are printed for each,
-    and the one the model's path runs (``TF32_MAIN_PATH``) spills
-    nothing."""
+    the split backward pair, the forward, the prefill GEMM, the decode
+    GEMV): every instantiation holds TF32 tensor-core instructions (HMMA
+    with .TF32) in its SASS, ptxas's register and spill lines are
+    printed for each, and the ones the model's path runs
+    (``TF32_MAIN_PATH``) spill nothing."""
     out = {}
     for name, kernels in TF32_KERNELS.items():
         lib, sass_text = sass(name)
@@ -4326,11 +4414,13 @@ def check_tf32_build():
                 f"{[label[k] for k, n in hmma.items() if not n]}")
         out[name] = dict(hmma_tf32={label[k]: n for k, n in hmma.items()},
                          ptxas={label[k]: v for k, v in ptxas.items()})
-        if TF32_MAIN_PATH in want:
-            main_path = ptxas.get(TF32_MAIN_PATH, [])
+        for inst in TF32_MAIN_PATH:
+            if inst not in want:
+                continue
+            main_path = ptxas.get(inst, [])
             require(main_path and not any(
                 re.search(r"\b[1-9]\d* bytes spill", line)
-                for line in main_path), f"{label[TF32_MAIN_PATH]}: the "
+                for line in main_path), f"{label[inst]}: the "
                 f"model's path spills: {main_path}")
     return out
 
@@ -4520,9 +4610,9 @@ def launches_by_route(n, launches):
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
     path's bf16 shape (the fused AdamW step over the training leaves in
-    their O2 dtypes; the momentum state, the f32 tensor-core kernels (the
-    forward, the split pair, the prefill GEMM) and the CUDA-core decode
-    kernel are f32)."""
+    their O2 dtypes; the momentum state and the f32 tensor-core kernels
+    (the forward, the split pair, the prefill GEMM, the decode GEMV) are
+    f32)."""
     def wanted(r):
         if r["name"] != n:
             return False
@@ -4692,13 +4782,17 @@ def main():
                for M, N in ((3, 333), (37, 336))
                for dtype in (torch.bfloat16, torch.float32)
                for with_bias in (False, True)]
-    # bf16 decode on the tensor cores at the batches the timed rows skip,
-    # at every projection; then ragged K and N, and x and w one element
-    # past a 16-byte boundary (both decode kernels)
-    ragged += [check_wo(torch.bfloat16, M, K, N, with_bias, gen, dev, label,
+    # decode on the tensor cores at the batches the timed rows skip, at
+    # every projection in both dtypes; then ragged K and N, and x and w
+    # one element past a 16-byte boundary (both decode kernels); the f32
+    # decode in one K split past 512 rows a warp
+    ragged += [check_wo(dtype, M, K, N, with_bias, gen, dev, label,
                         False, timed=False)
+               for dtype in (torch.bfloat16, torch.float32)
                for label, (K, N) in WO_SHAPES.items()
                for M in WO_DECODE_ROWS for with_bias in (False, True)]
+    ragged.append(check_wo(torch.float32, *WO_LONG_DECODE, True, gen, dev,
+                           "long K, one split", False, timed=False))
     ragged += [check_wo(dtype, M, K, N, True, gen, dev, label, False,
                         timed=False, offset=offset)
                for M, K, N, label, offset in (

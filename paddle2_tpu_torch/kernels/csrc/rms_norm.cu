@@ -22,34 +22,43 @@
 // ~10: far below the ~20 operations a byte where the CUDA cores would be
 // the limit. Each element of x (and do) is read once.
 //
-// The forward has two routes, picked by the C entry from the shape and
-// the addresses alone (the wrapper's fwd_route is the same rule):
-// - the vector route, `rms_norm_fwd_vec_kernel`, for every row that
-//   16-byte vectors can take: H * sizeof(x) % 16 == 0, with x, o, w and
-//   r on 16-byte boundaries. The row stays in registers as it arrived
-//   (row_vec.cuh: each lane issues all of its 16-byte loads before its
-//   first add, so a warp has its whole row in flight); the sum of
-//   squares is a warp-shuffle reduction (one exchange in shared memory
-//   where a row spans warps); the output goes out as 16-byte stores.
-//   Blocks are persistent and keep w in shared memory for every row.
-// - the general route, `rms_norm_fwd_kernel`, for every other row (H
-//   not a multiple of 16 / sizeof(x), an address off a 16-byte
-//   boundary, H = 1): one block a row, scalar loads, the row held in
-//   shared memory in f32 while the block reduces it (warp shuffles, then
-//   one value a warp in shared memory, summed by every thread in the
-//   same order). Each thread revisits only its own elements, so the
-//   buffers need no barrier; only the reductions synchronise. Every H
-//   from 1 to MAX_H is taken.
-// The backward is the general design, walking the rows with G blocks.
+// Both directions have two routes, picked by the C entry from the shape
+// and the addresses alone (the wrapper's fwd_route / bwd_route are the
+// same rule):
+// - the vector routes, `rms_norm_fwd_vec_kernel` and
+//   `rms_norm_bwd_vec_kernel`, for every row that 16-byte vectors can
+//   take: H * sizeof(x) % 16 == 0, with x, o, w and r (forward) or x, do,
+//   dx and w (backward) on 16-byte boundaries. The row stays in registers
+//   as it arrived (row_vec.cuh: each lane issues all of its 16-byte loads,
+//   of x and of do, before its first add, so a warp has its whole row in
+//   flight); the row's one sum (of squares; of dy * xh) is a warp-shuffle
+//   reduction (one exchange in shared memory where a row spans warps); the
+//   output goes out as 16-byte stores. Blocks are persistent and keep w in
+//   shared memory for every row.
+// - the general routes, `rms_norm_fwd_kernel` and `rms_norm_bwd_kernel`,
+//   for every other row (H not a multiple of 16 / sizeof(x), an address
+//   off a 16-byte boundary, H = 1): a block a row, scalar loads, the row
+//   held in shared memory in f32 while the block reduces it (warp
+//   shuffles, then one value a warp in shared memory, summed by every
+//   thread in the same order). Every H from 1 to MAX_H is taken.
 //
 // dw is where the TPU design does not carry over. The TPU kernel writes one
 // partial sum a row block and the wrapper adds the blocks' partials in
-// order. Here the backward runs a fixed number of blocks, each walking rows
-// blockIdx.x, blockIdx.x + gridDim.x, ... and summing its do * xh into f32
-// accumulators in shared memory; each block writes its partial sums to its
-// own row of a workspace, and a second kernel adds the partials of each
-// column in block order. No float atomics: the sums do not depend on which
-// block ran first, so f32 runs are bitwise reproducible.
+// order. Here a fixed number of blocks walk the rows (blockIdx.x,
+// blockIdx.x + gridDim.x, ...), each summing its do * xh into f32
+// partial sums and writing them to its own row of a workspace; a second
+// kernel, `rms_norm_bwd_reduce_kernel`, adds the partials of each column
+// in block order (slice s of 8 adds partials s, s + 8, ..., then the 8
+// slices in order). The general route sums a block's rows in shared memory
+// (`dwa`). The vector route keeps a lane's sums in registers across all of
+// its rows (a lane's columns are the same for every row its warp takes)
+// and adds its block's row slots in slot order through shared memory.
+// (Adding the partials in the same launch, a cooperative launch whose
+// blocks meet at a grid-wide barrier, was 0.4-4 % slower than the second
+// kernel at the main shapes in two runs: rms_norm_bwd_variants.py.) No
+// float atomics, and the grid is fixed by the shape and the card: the
+// sums do not depend on which block ran first, so f32 runs are bitwise
+// reproducible.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -61,6 +70,12 @@ namespace {
 
 constexpr int MAX_NT = 256;
 constexpr int MAX_H = 16384;
+// the backward's vector route: at most 4 vectors of x a lane (and 4 of
+// do, and their 4 x E dw sums in registers) before a row takes more warps:
+// two warps a row at the stack's H 2048 in bf16, ~104 registers, two
+// blocks an SM (8 vectors a lane, one warp a row, ~176 registers and one
+// block an SM, were 8 % slower there; rms_norm_bwd_variants.py)
+constexpr int BWD_MAX_VPL = 4;
 constexpr int MAX_DEVICES = 64;
 // the reduction of the partials: 32 columns x 8 slices of the blocks
 constexpr int RED_COLS = 32;
@@ -84,6 +99,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 template <>
 __device__ __forceinline__ __half from_f<__half>(float v) {
   return __float2half_rn(v);
+}
+
+// The vector backward's shared memory: w in its own type, rounded up to 16
+// bytes, then the block's dw sums, H floats.
+template <typename WT>
+__host__ __device__ constexpr int bwd_w_bytes(int H) {
+  return (H * (int)sizeof(WT) + 15) / 16 * 16;
 }
 
 // The sum of v over the block, in every thread. red: one float a warp.
@@ -241,6 +263,106 @@ __global__ void __launch_bounds__(RED_COLS* RED_SLICES)
   }
 }
 
+// The backward's vector route (see the note at the top and row_vec.cuh):
+// VPL 16-byte vectors of x and of do a lane, wpr warps a row; w in shared
+// memory in its own type, then the block's dw sums in f32, written to the
+// block's row of ws for rms_norm_bwd_reduce_kernel. The arithmetic is the
+// general kernel's, with its rounded products (x̂ = x·r, dy = do·w, dx =
+// r·(dy − x̂·mean)); only the order of the f32 sums differs.
+template <typename XT, typename WT, int VPL>
+__global__ void __launch_bounds__(rowvec::VEC_NT)
+    rms_norm_bwd_vec_kernel(const XT* __restrict__ x,
+                            const WT* __restrict__ w,
+                            const float* __restrict__ rr,
+                            const XT* __restrict__ dout, XT* __restrict__ dx,
+                            float* __restrict__ ws, long long R, int H,
+                            int wpr) {
+  constexpr int E = 16 / sizeof(XT);
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  __shared__ float red[2][rowvec::VEC_WARPS];
+  const WT* wsm = reinterpret_cast<const WT*>(sm_raw);
+  float* dwb = reinterpret_cast<float*>(sm_raw + bwd_w_bytes<WT>(H));
+  rowvec::stage(w, sm_raw, H * (int)sizeof(WT));
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int slot = warp / wpr;
+  const int t = (warp % wpr) * 32 + (threadIdx.x & 31);
+  const int T = 32 * wpr;
+  const int nv = H / E;
+  const int rpb = rowvec::VEC_WARPS / wpr;
+  float dwa[VPL][E];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k)
+#pragma unroll
+    for (int j = 0; j < E; ++j) dwa[k][j] = 0.f;
+  int par = 0;
+  for (long long row = (long long)blockIdx.x * rpb + slot; row < R;
+       row += (long long)gridDim.x * rpb) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * H);
+    const uint4* dr = reinterpret_cast<const uint4*>(dout + row * H);
+    uint4 xv[VPL], dv[VPL];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      if (t + k * T < nv) {
+        xv[k] = xr[t + k * T];
+        dv[k] = dr[t + k * T];
+      }
+    const float r = rr[row];
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = t + k * T;
+      if (i < nv) {
+        float wf[E];
+        rowvec::chunk_f<XT, WT>(wsm + i * E, wf);
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float xh = __fmul_rn(rowvec::elem<XT>(xv[k], j), r);
+          const float d = rowvec::elem<XT>(dv[k], j);
+          s += __fmul_rn(d, wf[j]) * xh;
+          dwa[k][j] += d * xh;
+        }
+      }
+    }
+    const float mt = rowvec::row_sum(s, red, par, wpr) / (float)H;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + row * H);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = t + k * T;
+      if (i < nv) {
+        float wf[E];
+        rowvec::chunk_f<XT, WT>(wsm + i * E, wf);
+        uint4 out;
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float xh = __fmul_rn(rowvec::elem<XT>(xv[k], j), r);
+          const float dy = __fmul_rn(rowvec::elem<XT>(dv[k], j), wf[j]);
+          rowvec::set_elem<XT>(out, j,
+                               __fmul_rn(r, __fsub_rn(dy, __fmul_rn(xh, mt))));
+        }
+        dxr[i] = out;
+      }
+    }
+  }
+  // the block's dw: its row slots' sums added in slot order
+  for (int sl = 0; sl < rpb; ++sl) {
+    if (slot == sl) {
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        const int i = t + k * T;
+        if (i < nv)
+#pragma unroll
+          for (int j = 0; j < E; ++j)
+            dwb[i * E + j] = sl == 0 ? dwa[k][j] : dwb[i * E + j] + dwa[k][j];
+      }
+    }
+    __syncthreads();
+  }
+  float4* wg = reinterpret_cast<float4*>(ws + (long long)blockIdx.x * H);
+  for (int i = threadIdx.x; i < H / 4; i += blockDim.x)
+    wg[i] = reinterpret_cast<const float4*>(dwb)[i];
+}
+
 // a row's threads: a multiple of 32, about 8 elements each, at most 256
 int threads_for(int H) {
   int warps = (H + 255) / 256;
@@ -340,6 +462,67 @@ int launch_bwd(const void* x, const void* w, const void* r, const void* dout,
   return cudaGetLastError();
 }
 
+template <typename XT, typename WT, int VPL>
+int launch_bwd_vec(const void* x, const void* w, const void* r,
+                   const void* dout, void* dx, void* dw, void* ws,
+                   long long R, int H, int wpr, int G, cudaStream_t st) {
+  const auto kernel = rms_norm_bwd_vec_kernel<XT, WT, VPL>;
+  const size_t smem = bwd_w_bytes<WT>(H) + sizeof(float) * H;
+  const int rpb = rowvec::VEC_WARPS / wpr;
+  static rowvec::GridCache cache;
+  int blocks = 0;
+  cudaError_t err = rowvec::persistent_blocks(
+      kernel, cache, smem, bwd_w_bytes<WT>(MAX_H) + sizeof(float) * MAX_H,
+      (R + rpb - 1) / rpb, &blocks);
+  if (err != cudaSuccess) return err;
+  // ws holds G partial rows
+  if (blocks > G) blocks = G;
+  kernel<<<blocks, rowvec::VEC_NT, smem, st>>>(
+      static_cast<const XT*>(x), static_cast<const WT*>(w),
+      static_cast<const float*>(r), static_cast<const XT*>(dout),
+      static_cast<XT*>(dx), static_cast<float*>(ws), R, H, wpr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rms_norm_bwd_reduce_kernel<WT>
+      <<<(H + RED_COLS - 1) / RED_COLS, RED_COLS * RED_SLICES, 0, st>>>(
+          static_cast<const float*>(ws), static_cast<WT*>(dw), blocks, H);
+  return cudaGetLastError();
+}
+
+// the vector route when 16-byte vectors take the rows (see the note at
+// the top), else the general one
+template <typename XT, typename WT>
+int launch_bwd_route(const void* x, const void* w, const void* r,
+                     const void* dout, void* dx, void* dw, void* ws,
+                     long long R, int H, int G, cudaStream_t st) {
+  if ((H * sizeof(XT)) % 16 != 0 || !rowvec::aligned16(x) ||
+      !rowvec::aligned16(w) || !rowvec::aligned16(dout) ||
+      !rowvec::aligned16(dx) || !rowvec::aligned16(ws))
+    return launch_bwd<XT, WT>(x, w, r, dout, dx, dw, ws, R, H, G, st);
+  int wpr = 0, vpl = 0;
+  rowvec::vec_plan(H / (16 / (int)sizeof(XT)), &wpr, &vpl, BWD_MAX_VPL);
+  switch (vpl) {
+    case 1:
+      return launch_bwd_vec<XT, WT, 1>(x, w, r, dout, dx, dw, ws, R, H, wpr,
+                                       G, st);
+    case 2:
+      return launch_bwd_vec<XT, WT, 2>(x, w, r, dout, dx, dw, ws, R, H, wpr,
+                                       G, st);
+    case 4:
+      return launch_bwd_vec<XT, WT, 4>(x, w, r, dout, dx, dw, ws, R, H, wpr,
+                                       G, st);
+    case 8:
+      return launch_bwd_vec<XT, WT, 8>(x, w, r, dout, dx, dw, ws, R, H, wpr,
+                                       G, st);
+    case 16:
+      // only f32 rows take 16 vectors a lane (H 16384 on 8 warps)
+      if constexpr (sizeof(XT) == 4)
+        return launch_bwd_vec<XT, WT, 16>(x, w, r, dout, dx, dw, ws, R, H,
+                                          wpr, G, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 bool bad_shape(long long R, int H) {
   return R <= 0 || R > 0x7fffffffLL || H <= 0 || H > MAX_H;
 }
@@ -380,7 +563,8 @@ extern "C" int rms_norm_fwd(const void* x, const void* w, void* o, void* r,
 }
 
 // x, dout, dx: [R, H] of x_dtype; w, dw: [H] of w_dtype; r: [R] f32 from
-// the forward; ws: G * H f32 of scratch. G blocks walk the rows; then one
+// the forward; ws: G * H f32 of scratch. The vector route: at most G
+// persistent blocks walk the rows; the general route: G blocks; then one
 // reduction launch.
 extern "C" int rms_norm_bwd(const void* x, const void* w, const void* r,
                             const void* dout, void* dx, void* dw, void* ws,
@@ -390,9 +574,9 @@ extern "C" int rms_norm_bwd(const void* x, const void* w, const void* r,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_type(x_dtype, [&](auto xt) {
     return with_type(w_dtype, [&](auto wt) {
-      return launch_bwd<typename decltype(xt)::type,
-                        typename decltype(wt)::type>(x, w, r, dout, dx, dw,
-                                                     ws, R, H, G, st);
+      return launch_bwd_route<typename decltype(xt)::type,
+                              typename decltype(wt)::type>(
+          x, w, r, dout, dx, dw, ws, R, H, G, st);
     });
   });
 }

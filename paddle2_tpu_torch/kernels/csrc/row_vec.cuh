@@ -1,15 +1,18 @@
-// The row-in-registers design shared by the vector forwards of the two
-// norms (rms_norm.cu `rms_norm_fwd_vec_kernel`, layer_norm.cu
-// `layer_norm_fwd_vec_kernel`): a row of x is read as 16-byte vectors,
-// held in registers while it is reduced, and written as 16-byte vectors.
+// The row-in-registers design shared by the vector kernels of the two
+// norms (rms_norm.cu `rms_norm_fwd_vec_kernel` and `rms_norm_bwd_vec_kernel`,
+// layer_norm.cu `layer_norm_fwd_vec_kernel`): a row of x is read as
+// 16-byte vectors, held in registers while it is reduced, and written as
+// 16-byte vectors.
 //
 // Mapping. A row of H elements of type T is NV = H / E vectors (E = 16 /
 // sizeof(T)). It belongs to WPR warps (a power of two); its lanes are
 // t = (warp % WPR) * 32 + lane, 0 <= t < T = 32 * WPR, and lane t holds
 // vectors t, t + T, ..., t + (VPL - 1) * T, those below NV. vec_plan
-// picks the fewest warps that keep a lane at MAX_VPL vectors or fewer
-// (one warp for NV <= 512: H <= 4096 in bf16, H <= 2048 in f32), then
-// VPL, the power of two that covers the row. Neighbouring lanes read
+// picks the fewest warps, at most VEC_WARPS, that keep a lane at a
+// kernel's most vectors or fewer (the forwards MAX_VPL: one warp for NV
+// <= 512, H <= 4096 in bf16, H <= 2048 in f32; the RMSNorm backward, which
+// holds x, do and its dw sums, 4), then VPL, the power of two that covers
+// the row. Neighbouring lanes read
 // neighbouring vectors, so a warp instruction moves 512 bytes.
 //
 // A block is VEC_NT threads: RPB = VEC_WARPS / WPR rows at a time. Blocks
@@ -128,10 +131,11 @@ __device__ __forceinline__ float row_sum(float v, float (*red)[VEC_WARPS],
 
 // ----------------------------------------------------------- host side
 
-// warps a row and vectors a lane for a row of nv 16-byte vectors
-inline void vec_plan(int nv, int* wpr, int* vpl) {
+// warps a row and vectors a lane for a row of nv 16-byte vectors, a lane
+// holding at most max_vpl of them where VEC_WARPS warps allow it
+inline void vec_plan(int nv, int* wpr, int* vpl, int max_vpl = MAX_VPL) {
   int w = 1;
-  while (w * 32 * MAX_VPL < nv) w *= 2;
+  while (w * 32 * max_vpl < nv && w < VEC_WARPS) w *= 2;
   const int per = (nv + 32 * w - 1) / (32 * w);
   int p = 1;
   while (p < per) p *= 2;

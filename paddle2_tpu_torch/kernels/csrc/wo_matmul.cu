@@ -1,6 +1,7 @@
-// Int8 weight-only matmul for Hopper (sm_90a): bf16 decode and every
-// prefill on the tensor cores (mma.sync; f32 prefill in two TF32 passes),
-// f32 decode on the CUDA cores.
+// Int8 weight-only matmul for Hopper (sm_90a), on the tensor cores
+// (mma.sync): decode in bf16 (`wo_gemv_mma_kernel`) and in f32 in two TF32
+// passes (`wo_gemv_tf32_kernel`), prefill in f32 in two TF32 passes and in
+// bf16 off TMA's rule (`wo_gemm_tf32_kernel`).
 //
 // Replaces: paddle2_tpu/kernels/pallas_matmul.py `_wo_kernel` (through
 // `_wo_pallas`), reached from `int8_weight_only_matmul` by every block
@@ -11,71 +12,83 @@
 //
 // x [M, K] f32 or bf16, w [K, N] int8, s [N] f32, b [N] in x's type, y
 // [M, N] in x's type. The sum is taken in f32 from exact products (an int8
-// value is exact in f32 and in bf16, and a bf16 times an int8 one is exact
-// in f32), the scale is applied once per column after the sum and the bias
-// is added in f32 before the one cast, as the Pallas kernel and its wrapper
-// do. The kernels and their plain version therefore differ only in the
-// order of summation, and on f32 prefill in the TF32 products (each within
-// about 2^-21 of its f32 value, below).
+// value is exact in f32, bf16 and TF32, and a bf16 times an int8 one is
+// exact in f32), the scale is applied once per column after the sum and the
+// bias is added in f32 before the one cast, as the Pallas kernel and its
+// wrapper do. The kernels and their plain version therefore differ only in
+// the order of summation, and in f32 in the TF32 products: an f32 x is
+// split once as it enters a fragment into big (rounded to TF32) and small
+// = x - big (tf32x3.cuh's split), and each product is x_small*w + x_big*w,
+// two mma a product (not the three of error-compensated TF32 with two
+// inexact operands), within about 2^-21 of its f32 value. One pass on f32
+// x (about 2^-11) reads past the f32 limit; chip_smoke.py gates that.
 //
 // What bounds it on the H100, and what the design does about it:
 //
 // * Decode (M <= 8) is bound by the weight bytes: K*N int8 bytes against
 //   2*M*K*N operations. On the CUDA cores that is not so at M 8: every
 //   weight byte costs 8 FMAs and its widening, about as long as the byte
-//   takes to arrive, and 128 f32 accumulators a thread cap the blocks an SM
-//   holds. So bf16 x takes `wo_gemv_mma_kernel`, on the tensor cores:
+//   takes to arrive, and 128 f32 accumulators a thread cap the blocks an
+//   SM holds. So both decode kernels run on the tensor cores, one body
+//   (`decode_tile`) for both types:
 //
-//   - The product is swapped, y^T = w^T x^T, on mma.sync m16n8k16 (bf16 in,
-//     f32 sums): 16 columns of w are the A operand's rows, x's <= 8 rows
-//     the n8 side (rows past M are zero), so at M 8 no tensor-core work is
-//     wasted.
+//   - The product is swapped, y^T = w^T x^T: 16 columns of w are the A
+//     operand's rows, x's <= 8 rows the n8 side (rows past M are zero), so
+//     at M 8 no tensor-core work is wasted. bf16 runs mma.sync m16n8k16
+//     (bf16 in, f32 sums), f32 m16n8k8 with TF32 operands in two passes
+//     into the same accumulators (x_small, then x_big).
 //   - A warp owns a 128-column tile of w and takes 16 rows of K a step. Its
 //     thread (g = lane / 4, t = lane % 4) loads rows 4t .. 4t+3 of the step
 //     at columns 16g .. 16g+15 (four 16-byte loads; a warp reads four whole
 //     128-byte rows each time) and widens them straight into its A
-//     fragments, with no shared-memory transpose, by two maps the mma
-//     leaves free. The column map: in the step's mma j (0..7), A row g
-//     stands for column 16g + 2j of the tile and A row g+8 for 16g + 2j + 1.
-//     The k map: A's (and B's) k slots 2t, 2t+1, 2t+8, 2t+9 stand for the
-//     step's rows 4t, 4t+1, 4t+2, 4t+3. So register a0 of mma j packs rows
-//     4t and 4t+1 at column 16g + 2j, a1 the same rows at the next column,
-//     a2 and a3 rows 4t+2 and 4t+3; and B's registers b0, b1 are x's row g
-//     at the step's k 4t .. 4t+3, one 8-byte load of x (from L2: x is a
-//     few KB). The accumulators come back as rows 2t, 2t+1 of x and the
-//     thread's own 16 columns: 32 registers a thread.
+//     fragments (wo::i8x4_to_f32), with no shared-memory transpose, by two
+//     maps the mma leaves free. The column map: in the step's mma j
+//     (0..7), A row g stands for column 16g + 2j of the tile and A row g+8
+//     for 16g + 2j + 1. The k map, bf16: A's (and B's) k slots 2t, 2t+1,
+//     2t+8, 2t+9 stand for the step's rows 4t, 4t+1, 4t+2, 4t+3, so
+//     register a0 of mma j packs rows 4t and 4t+1 at column 16g + 2j, a1
+//     the same rows at the next column, a2 and a3 rows 4t+2 and 4t+3, and
+//     B's registers b0, b1 are x's row g at the step's k 4t .. 4t+3, one
+//     8-byte load of x (from L2: x is a few KB). The k map, f32: the step's
+//     16 rows are two k8 mmas; in the first, k slots t and t+4 stand for
+//     rows 4t and 4t+1, in the second for rows 4t+2 and 4t+3, so B's two
+//     registers are neighbouring values of x's row g and one 16-byte load
+//     of x feeds both. The accumulators come back as rows 2t, 2t+1 of x and
+//     the thread's own 16 columns: 32 registers a thread, in both types.
 //   - Widening stays exact: wo::i8x4_to_f32, then a bf16 pair
-//     (cvt.rn.bf16x2.f32, exact for every int8 value).
-//   - Loads go straight to registers, two steps ahead of the mmas (2 KB a
-//     warp a step). A block is 4 warps over one column tile, splitting its
-//     K range step by step; at ~128 registers a thread an SM holds 4 blocks
-//     (16 warps, 64 KB in flight). A first design staged the weights in
-//     shared memory through per-thread cp.async rings (8 warps, 97 KB a
+//     (cvt.rn.bf16x2.f32, exact for every int8 value); in f32 the widened
+//     floats are TF32 operands as they are.
+//   - Loads go straight to registers, ahead of the mmas (2 KB a warp a
+//     step): two steps in bf16, one in f32, whose two passes and 16-byte x
+//     take more registers (two steps spilled there and were 3-8 % slower
+//     at the decode shapes read cold; wo_gemv_mma_variants.py). A block is
+//     4 warps over one column tile, splitting its K range step by step; at
+//     <= 128 registers a thread an SM holds 4 blocks (16 warps). A first bf16 design staged the weights
+//     in shared memory through per-thread cp.async rings (8 warps, 97 KB a
 //     block) and x in shared memory as well, and was slower at every
 //     decode shape: small blocks that hold nothing in shared memory but
 //     their sums start and finish sooner.
 //   - The 4 warps of a block are added through shared memory in warp
-//     order; K is also split across blocks (gridDim.y, at most 8 ways)
-//     until the blocks fill about two an SM. The splits of a column tile
-//     are one thread-block cluster: after a cluster barrier each block
+//     order; K is also split across blocks (gridDim.y; quant_matmul.
+//     mma_k_split, at most 8 ways, and tf32_k_split, up to 16 where a
+//     split keeps 512 rows: the down projection's 16 column tiles read
+//     cold in 0.0152 ms on 16 splits, 0.0187 on 8). The splits of a column
+//     tile are one thread-block cluster: after a cluster barrier each block
 //     adds the blocks' sums for its share of the tile's outputs in rank
 //     (split) order through distributed shared memory, so the result does
-//     not depend on which block ran first and no partial sum goes through
-//     global memory. (A global workspace with a counter a tile and the
-//     last block adding, the CUDA-core kernel's way, was as fast or up to
-//     17 % slower at every decode shape.)
+//     not depend on which block ran first, no partial sum goes through
+//     global memory and y is written once, from torch.empty. (A global
+//     workspace with a counter a tile and the last block adding, the
+//     CUDA-core f32 kernel's way before these, was as fast or up to 17 %
+//     slower at every bf16 decode shape.)
+//   - The tensor cores' f32 sums drift with the rows one accumulator
+//     takes (the prefill below): in f32, a warp whose walk passes TF_CHUNK
+//     steps (512 rows) adds its mma accumulators into a second sum, in
+//     local memory, every TF_CHUNK steps. At M 8, K 20480, N 34816 in one
+//     split (5,120 rows a warp) the error against the f32 sums reads
+//     1.3e-5 so, 4.8e-5 every 2048 rows and 1.3e-4, past the f32 limit,
+//     with no second sum; no GPT-3 1.3B shape walks that far.
 //
-//   f32 x keeps `wo_gemv_kernel` on the CUDA cores (a tensor-core form in
-//   two TF32 passes, as the prefill below, is still to be written): each
-//   thread owns 16 neighbouring columns (one 16-byte copy a
-//   row, neighbouring threads on neighbouring columns, a warp on four
-//   128-byte rows) and keeps its next 8 rows in flight as cp.async copies
-//   into a ring of its own, x's <= 8 rows over the block's K range staged
-//   in shared memory once; the 32 row lanes of a block split its K range
-//   and are reduced through warp shuffles and shared memory; K is split
-//   across blocks, each block writing f32 partial sums to a workspace and
-//   the last block of a column tile to finish (a counter per tile) adding
-//   them in split order.
 // * Prefill (M > 8) is bound by operations: 2*M*N*K against ~M*K*size +
 //   K*N bytes. bf16 prefill within TMA's 16-byte rule runs on wgmma
 //   (wo_matmul_wgmma.cu); f32 prefill, and bf16 rows of another length,
@@ -83,12 +96,7 @@
 //   f32 sums:
 //
 //   - Every int8 value is exact in TF32 (10 mantissa bits), and so is every
-//     bf16 value, so a bf16 x needs one TF32 pass. An f32 x is split once
-//     as it enters a fragment into big (rounded to TF32) and small = x - big
-//     (tf32x3.cuh's split), and each product is x_small*w + x_big*w: two
-//     mma a product, not the three of error-compensated TF32 with two
-//     inexact operands, within about 2^-21 of its f32 value. One pass on
-//     f32 x (about 2^-11) reads past the f32 limit; chip_smoke.py gates that.
+//     bf16 value, so a bf16 x needs one TF32 pass, an f32 x two (above).
 //   - Bound: 2 passes * 2*M*N*K / 494.7e12 on the tensor cores (0.137 ms
 //     at M 1008 K 2048 N 8192) against 2*M*N*K / 67e12 on the CUDA cores
 //     (0.505 ms), where the kernel this one replaces ran (a 128 x 128 tile a
@@ -140,24 +148,22 @@ namespace {
 using namespace tf32x3;
 using namespace wo;
 
-constexpr int GV_NT = 256;
-
-// ------------------------------------------------------------ decode GEMV
-constexpr int GV_COLS = 128;                 // columns of a block
-constexpr int GV_LANE_COLS = 16;             // columns of a thread
-constexpr int GV_COL_LANES = GV_COLS / GV_LANE_COLS;   // 8
-constexpr int GV_ROW_LANES = GV_NT / GV_COL_LANES;        // 32
-constexpr int GV_MAX_M = 8;
-// A block's shared memory: x's MT rows over the block's K range of at
-// most 8192 / MT rows (32 KB, later reused for the 8 warps' partial sums,
-// 8 * MT * 128 floats), then a ring of GV_STAGES 16-byte slots for each
-// thread, which asynchronous copies fill with the thread's next rows of
-// w: the bytes in flight live in shared memory, not in registers (at MT 8
-// the 128 accumulators take those).
-constexpr int GV_SMEM_FLOATS = 8192;
-constexpr int GV_STAGES = 8;
-constexpr int GV_SMEM_BYTES = GV_SMEM_FLOATS * 4 + GV_STAGES * GV_NT * 16;
-constexpr int GV_X_LOADS = 16;               // x loads in flight a thread
+// ------------------------------------------------ decode, tensor cores
+constexpr int GV_COLS = 128;           // columns of a block (and of a warp)
+constexpr int GV_MAX_M = 8;            // rows of x: the mma's n8 side
+constexpr int MMA_NT = 128;            // threads a block
+constexpr int MMA_NW = MMA_NT / 32;    // warps a block
+constexpr int MMA_KSTEP = 16;          // rows of K a warp takes a step
+constexpr int MMA_AHEAD = 2;           // bf16: steps a thread keeps in flight
+constexpr int TF_AHEAD = 1;            // f32: steps a thread keeps in flight
+// the K splits of a column tile form one thread-block cluster: in bf16 of
+// at most the portable size, in f32 of up to 16 blocks, the non-portable
+// size the H100 allows (narrow N: 16 column tiles take 256 blocks)
+constexpr int MMA_MAX_SPLITS = 8;
+constexpr int TF_MAX_SPLITS = 16;
+// f32: a warp's steps (512 rows of K) that its mma accumulators take
+// before they are added into the second sum
+constexpr int TF_CHUNK = 32;
 
 // Row k, columns n0..n0+15 of w as 16 bytes, byte by byte (any N and
 // alignment); zero past kend or N.
@@ -167,217 +173,56 @@ __device__ __forceinline__ uint4 load_w16(const int8_t* __restrict__ w,
   const int8_t* p = w + (size_t)k * N + n0;
   uint32_t q[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int c = 0; c < GV_LANE_COLS; ++c)
+  for (int c = 0; c < 16; ++c)
     if (n0 + c < N)
       q[c >> 2] |= (uint32_t)(uint8_t)__ldg(p + c) << (8 * (c & 3));
   return make_uint4(q[0], q[1], q[2], q[3]);
 }
 
-// The same 16 bytes into this thread's ring slot: an asynchronous copy
-// (cp.async, zero-filled past kend or N) when VEC, else a masked load
-// and a store. Only the thread that fills a slot reads it, so the ring
-// needs no barrier: cp.async.wait_group makes a thread's own copies
-// visible to it.
-template <bool VEC>
-__device__ __forceinline__ void fetch_w16(uint4* slot,
-                                          const int8_t* __restrict__ w,
-                                          int k, int n0, int kend, int N) {
-  if (!VEC) {
-    *slot = load_w16(w, k, n0, kend, N);
-    return;
-  }
-  const bool in = k < kend && n0 < N;
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(slot));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(in ? w + (size_t)k * N + n0 : w), "r"(in ? 16 : 0)
-               : "memory");
+// x's row at k .. k+3, a step's B operand: bf16 as B's two registers (one
+// 8-byte load), f32 as four floats (one 16-byte load)
+template <typename T>
+struct XQuad {
+  using type = uint2;
+};
+template <>
+struct XQuad<float> {
+  using type = float4;
+};
+
+// A step's operands in one thread's registers: its four rows of w at its
+// 16 columns, and x's row g at the step's k 4t .. 4t+3
+template <typename T>
+struct Step {
+  uint4 w[4];
+  typename XQuad<T>::type x;
+};
+
+// x's row at k .. k+3, zero past kend: one load where XVEC (K % 4 == 0
+// and the row's base aligned to the 4 values' size; k and kend are
+// multiples of 4, so the 4 lie wholly in range or out), else element by
+// element
+template <bool XVEC>
+__device__ __forceinline__ uint2 load_x4(const __nv_bfloat16* xrow, int k,
+                                         int kend) {
+  if (XVEC) return k < kend ? __ldg(reinterpret_cast<const uint2*>(xrow + k))
+                            : make_uint2(0u, 0u);
+  uint32_t h[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    h[e] = k + e < kend ? __bfloat16_as_ushort(xrow[k + e]) : 0u;
+  return make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
 }
-
-// The block's GV_COLS columns from its warps' partial sums red[w][m][c] (m
-// < MT, added in warp order): with one K split, y through the epilogue;
-// else each block writes its partials to ws, and the last block of the
-// column tile to finish (a counter per tile, the threadfence-reduction
-// pattern) adds them in split order, so the result does not depend on
-// which block ran first, and sets its counter back to 0.
-template <typename T, int MT>
-__device__ __forceinline__ void finish_tile(const float* red,
-                                            const float* __restrict__ s,
-                                            const T* __restrict__ bias,
-                                            T* __restrict__ y,
-                                            float* __restrict__ ws,
-                                            unsigned* __restrict__ counters,
-                                            int M, int N, float qmax) {
-  // outputs a thread: o = tid + GV_NT u
-  constexpr int PER = (MT * GV_COLS + GV_NT - 1) / GV_NT;
-  __shared__ bool last;
-  const int tid = threadIdx.x;
-  const bool split = gridDim.y > 1;
+template <bool XVEC>
+__device__ __forceinline__ float4 load_x4(const float* xrow, int k,
+                                          int kend) {
+  if (XVEC) return k < kend ? __ldg(reinterpret_cast<const float4*>(xrow + k))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+  float h[4];
 #pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int o = tid + GV_NT * u;
-    const int m = o / GV_COLS, c = o % GV_COLS;
-    const int n = blockIdx.x * GV_COLS + c;
-    if (o >= MT * GV_COLS) break;
-    float v = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < GV_NT / 32; ++wp)
-      v += red[(wp * MT + m) * GV_COLS + c];
-    if (m < M && n < N) {
-      if (split)
-        ws[((size_t)blockIdx.y * M + m) * N + n] = v;
-      else
-        y[(size_t)m * N + n] = epilogue(v, s[n], qmax, bias, n);
-    }
-  }
-  if (!split) return;
-
-  // the last block of this column tile adds the K splits' partials: each
-  // thread's outputs split by split, their loads all independent (and the
-  // scales beside them), so they are in flight together
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    last = atomicAdd(&counters[blockIdx.x], 1u) == gridDim.y - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float v[PER], sc[PER];
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int o = tid + GV_NT * u, n = blockIdx.x * GV_COLS + o % GV_COLS;
-    v[u] = 0.f;
-    sc[u] = o < M * GV_COLS && n < N ? s[n] : 0.f;
-  }
-#pragma unroll 4
-  for (int ks = 0; ks < (int)gridDim.y; ++ks) {
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-      const int o = tid + GV_NT * u, m = o / GV_COLS;
-      const int n = blockIdx.x * GV_COLS + o % GV_COLS;
-      if (o < M * GV_COLS && n < N)
-        v[u] += __ldcg(&ws[((size_t)ks * M + m) * N + n]);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < PER; ++u) {
-    const int o = tid + GV_NT * u, m = o / GV_COLS;
-    const int n = blockIdx.x * GV_COLS + o % GV_COLS;
-    if (o < M * GV_COLS && n < N)
-      y[(size_t)m * N + n] = epilogue(v[u], sc[u], qmax, bias, n);
-  }
-  if (tid == 0) counters[blockIdx.x] = 0u;
+  for (int e = 0; e < 4; ++e) h[e] = k + e < kend ? __ldg(xrow + k + e) : 0.f;
+  return make_float4(h[0], h[1], h[2], h[3]);
 }
-
-// Grid (ceil(N / 128), K splits of k_per_split <= 8192 / MT rows), dynamic
-// shared memory GV_SMEM_BYTES. MT >= M rows of x are computed (the rows
-// past M are zero). VEC: N % 16 == 0 and w 16-byte aligned. Row lane rl
-// takes rows kbeg + rl + 32 t.
-template <typename T, int MT, bool VEC>
-__global__ void __launch_bounds__(GV_NT)
-    wo_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ s, const T* __restrict__ bias,
-                   T* __restrict__ y, float* __restrict__ ws,
-                   unsigned* __restrict__ counters, int M, int K, int N,
-                   int k_per_split, float qmax) {
-  extern __shared__ __align__(16) unsigned char gv_smem[];
-  constexpr int KMAX = GV_SMEM_FLOATS / MT;  // rows of K a block may take
-  float(*xs)[KMAX] = reinterpret_cast<float(*)[KMAX]>(gv_smem);
-  float(*red)[MT][GV_COLS] = reinterpret_cast<float(*)[MT][GV_COLS]>(gv_smem);
-  uint4* ring = reinterpret_cast<uint4*>(gv_smem + GV_SMEM_FLOATS * 4);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int cl = tid % GV_COL_LANES, rl = tid / GV_COL_LANES;
-  const int n0 = blockIdx.x * GV_COLS + cl * GV_LANE_COLS;
-  const int kbeg = blockIdx.y * k_per_split;
-  const int kend = min(K, kbeg + k_per_split);
-  const int kp = kend - kbeg;
-  const int steps = (kp + GV_ROW_LANES - 1) / GV_ROW_LANES;
-
-  // this thread's first GV_STAGES rows of w in flight while x is staged
-#pragma unroll
-  for (int t = 0; t < GV_STAGES; ++t) {
-    fetch_w16<VEC>(&ring[t * GV_NT + tid], w, kbeg + rl + GV_ROW_LANES * t, n0,
-                   kend, N);
-    cp_async_commit();
-  }
-  for (int base = 0; base < MT * kp; base += GV_X_LOADS * GV_NT) {
-    float v[GV_X_LOADS];
-#pragma unroll
-    for (int u = 0; u < GV_X_LOADS; ++u) {
-      const int i = base + u * GV_NT + tid, m = i / kp;
-      v[u] = (i < MT * kp && m < M)
-                 ? to_f(x[(size_t)m * K + kbeg + i - m * kp]) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < GV_X_LOADS; ++u) {
-      const int i = base + u * GV_NT + tid, m = i / kp;
-      if (i < MT * kp) xs[m][i - m * kp] = v[u];
-    }
-  }
-  __syncthreads();
-
-  float acc[MT][GV_LANE_COLS];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GV_LANE_COLS; ++c) acc[m][c] = 0.f;
-
-  // each row used frees its slot for the row GV_STAGES further on
-  for (int t = 0; t < steps; ++t) {
-    cp_async_wait<GV_STAGES - 1>();
-    uint4* slot = &ring[(t % GV_STAGES) * GV_NT + tid];
-    const uint4 cur = *slot;
-    const int kk = rl + GV_ROW_LANES * t;
-    if (kk < kp) {
-      float wf[GV_LANE_COLS];
-      i8x4_to_f32(cur.x, wf);
-      i8x4_to_f32(cur.y, wf + 4);
-      i8x4_to_f32(cur.z, wf + 8);
-      i8x4_to_f32(cur.w, wf + 12);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xv = xs[m][kk];
-#pragma unroll
-        for (int c = 0; c < GV_LANE_COLS; ++c)
-          acc[m][c] = fmaf(xv, wf[c], acc[m][c]);
-      }
-    }
-    fetch_w16<VEC>(slot, w, kbeg + kk + GV_ROW_LANES * GV_STAGES, n0, kend,
-                   N);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-
-  // the 4 row lanes of a warp (lanes 8 apart), then the 8 warps in order
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GV_LANE_COLS; ++c) {
-      float v = acc[m][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][c] = v;
-    }
-  __syncthreads();                 // every read of xs is done
-  if (lane < GV_COL_LANES) {
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < GV_LANE_COLS; ++c)
-        red[warp][m][cl * GV_LANE_COLS + c] = acc[m][c];
-  }
-  __syncthreads();
-  finish_tile<T, MT>(&red[0][0][0], s, bias, y, ws, counters, M, N, qmax);
-}
-
-// ------------------------------------------- bf16 decode, tensor cores
-constexpr int MMA_NT = 128;            // threads a block
-constexpr int MMA_NW = MMA_NT / 32;    // warps a block
-constexpr int MMA_KSTEP = 16;          // rows of K a warp takes a step
-constexpr int MMA_AHEAD = 2;           // steps a thread keeps in flight
-// the K splits of a column tile form one thread-block cluster, of at most
-// the portable size
-constexpr int MMA_MAX_SPLITS = 8;
 
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -414,12 +259,64 @@ __device__ __forceinline__ void mma_word(float (&c0)[4], float (&c1)[4],
            bf16x2(f2[2], f3[2]), bf16x2(f2[3], f3[3]), b0, b1);
 }
 
-// A step's operands in one thread's registers: its four rows of w at its
-// 16 columns, and x's row g at the step's k 4t .. 4t+3 (B's two registers)
-struct Step {
-  uint4 w[4];
-  uint2 x;
-};
+// The f32 form of mma_word, on m16n8k8 with TF32 operands: the step's
+// rows 4t, 4t+1 are k slots t, t+4 of a first k8 mma and rows 4t+2, 4t+3
+// those of a second (the k map of the note at the top), each in two
+// passes, x_small (xs) then x_big (xb). An int8 value is exact in TF32,
+// so the widened floats are A as they are.
+__device__ __forceinline__ void tf32_word(float (&c0)[4], float (&c1)[4],
+                                          uint32_t r0, uint32_t r1,
+                                          uint32_t r2, uint32_t r3,
+                                          const uint32_t (&xb)[4],
+                                          const uint32_t (&xs)[4]) {
+  float f[4][4];
+  i8x4_to_f32(r0, f[0]);
+  i8x4_to_f32(r1, f[1]);
+  i8x4_to_f32(r2, f[2]);
+  i8x4_to_f32(r3, f[3]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {       // rows 4t + 2h, 4t + 2h + 1
+    const float(&lo)[4] = f[2 * h];
+    const float(&hi)[4] = f[2 * h + 1];
+    const uint32_t a0[4] = {__float_as_uint(lo[0]), __float_as_uint(lo[1]),
+                            __float_as_uint(hi[0]), __float_as_uint(hi[1])};
+    const uint32_t a1[4] = {__float_as_uint(lo[2]), __float_as_uint(lo[3]),
+                            __float_as_uint(hi[2]), __float_as_uint(hi[3])};
+    mma_tf32(c0, a0, xs[2 * h], xs[2 * h + 1]);
+    mma_tf32(c0, a0, xb[2 * h], xb[2 * h + 1]);
+    mma_tf32(c1, a1, xs[2 * h], xs[2 * h + 1]);
+    mma_tf32(c1, a1, xb[2 * h], xb[2 * h + 1]);
+  }
+}
+
+// One step's mmas: bf16 x as B as it is, f32 x split once into big + small
+__device__ __forceinline__ void step_mmas(float (&acc)[8][4],
+                                          const Step<__nv_bfloat16>& st) {
+  mma_word(acc[0], acc[1], st.w[0].x, st.w[1].x, st.w[2].x, st.w[3].x,
+           st.x.x, st.x.y);
+  mma_word(acc[2], acc[3], st.w[0].y, st.w[1].y, st.w[2].y, st.w[3].y,
+           st.x.x, st.x.y);
+  mma_word(acc[4], acc[5], st.w[0].z, st.w[1].z, st.w[2].z, st.w[3].z,
+           st.x.x, st.x.y);
+  mma_word(acc[6], acc[7], st.w[0].w, st.w[1].w, st.w[2].w, st.w[3].w,
+           st.x.x, st.x.y);
+}
+__device__ __forceinline__ void step_mmas(float (&acc)[8][4],
+                                          const Step<float>& st) {
+  uint32_t xb[4], xs[4];
+  split(st.x.x, xb[0], xs[0]);
+  split(st.x.y, xb[1], xs[1]);
+  split(st.x.z, xb[2], xs[2]);
+  split(st.x.w, xb[3], xs[3]);
+  tf32_word(acc[0], acc[1], st.w[0].x, st.w[1].x, st.w[2].x, st.w[3].x, xb,
+            xs);
+  tf32_word(acc[2], acc[3], st.w[0].y, st.w[1].y, st.w[2].y, st.w[3].y, xb,
+            xs);
+  tf32_word(acc[4], acc[5], st.w[0].z, st.w[1].z, st.w[2].z, st.w[3].z, xb,
+            xs);
+  tf32_word(acc[6], acc[7], st.w[0].w, st.w[1].w, st.w[2].w, st.w[3].w, xb,
+            xs);
+}
 
 // The block's 128 columns from its warps' partial sums red[w][m][c] when
 // the K splits of the tile are one cluster (rank q = blockIdx.y): each
@@ -428,10 +325,12 @@ struct Step {
 // the outputs o = tid + 128 (r + S i) (S ranks) through distributed shared
 // memory, applies the epilogue and stores them; a second barrier keeps
 // every block's shared memory alive until the others have read it.
-__device__ __forceinline__ void cluster_finish(
-    float* red, const float* __restrict__ s,
-    const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-    int M, int N, float qmax) {
+template <typename T>
+__device__ __forceinline__ void cluster_finish(float* red,
+                                               const float* __restrict__ s,
+                                               const T* __restrict__ bias,
+                                               T* __restrict__ y, int M,
+                                               int N, float qmax) {
   namespace cg = cooperative_groups;
   constexpr int OUTS = GV_MAX_M * GV_COLS;
   constexpr int PER = OUTS / MMA_NT;
@@ -462,20 +361,24 @@ __device__ __forceinline__ void cluster_finish(
   cluster.sync();
 }
 
-// Grid (ceil(N / 128), K splits of k_per_split rows, a multiple of 128), 128
-// threads; the splits of a tile are one cluster (1, splits, 1). Warp w
-// takes the block's steps w, w + 4, ... (16 rows each).
-// VEC: N % 16 == 0 and w 16-byte aligned (16-byte loads of w, else byte by
-// byte); XVEC: K % 4 == 0 and x 8-byte aligned (8-byte loads of x, else
-// element by element).
-template <bool VEC, bool XVEC>
-__global__ void __launch_bounds__(MMA_NT, 512 / MMA_NT)
-    wo_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                       const int8_t* __restrict__ w,
-                       const float* __restrict__ s,
-                       const __nv_bfloat16* __restrict__ bias,
-                       __nv_bfloat16* __restrict__ y, int M, int K, int N,
-                       int k_per_split, float qmax) {
+// The decode kernels' body, for x of type T (bf16: wo_gemv_mma_kernel;
+// f32: wo_gemv_tf32_kernel). Grid (ceil(N / 128), K splits of
+// k_per_split rows, a multiple of 128), 128 threads; the splits of a tile
+// are one cluster (1, splits, 1). Warp w takes the block's steps w, w +
+// 4, ... (16 rows each). VEC: N % 16 == 0 and w 16-byte aligned (16-byte
+// loads of w, else byte by byte); XVEC: K % 4 == 0 and x aligned to 4
+// values (one load of x a step, else element by element). In f32 a warp
+// adds its mma accumulators into a second sum every TF_CHUNK steps.
+template <typename T, bool VEC, bool XVEC>
+__device__ __forceinline__ void decode_tile(const T* __restrict__ x,
+                                            const int8_t* __restrict__ w,
+                                            const float* __restrict__ s,
+                                            const T* __restrict__ bias,
+                                            T* __restrict__ y, int M, int K,
+                                            int N, int k_per_split,
+                                            float qmax) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int AHEAD = F32 ? TF_AHEAD : MMA_AHEAD;
   __shared__ __align__(16) float red[MMA_NW * GV_MAX_M * GV_COLS];
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -485,12 +388,12 @@ __global__ void __launch_bounds__(MMA_NT, 512 / MMA_NT)
   const int kend = min(K, kbeg + k_per_split);
   const int steps = (kend - kbeg + MMA_KSTEP - 1) / MMA_KSTEP;
   const int mine = warp < steps ? (steps - warp + MMA_NW - 1) / MMA_NW : 0;
-  const __nv_bfloat16* xrow = x + (size_t)min(g, M - 1) * K;
+  const T* xrow = x + (size_t)min(g, M - 1) * K;
 
   // this warp's step i: rows k .. k+3 of this thread's 16 columns, k =
   // kbeg + 16 (warp + 4 i) + 4t, and x's row g there (zeros past the
   // split, N or M)
-  auto load_step = [&](Step& st, int i) {
+  auto load_step = [&](Step<T>& st, int i) {
     const int k = kbeg + MMA_KSTEP * (warp + MMA_NW * i) + 4 * t;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -502,48 +405,52 @@ __global__ void __launch_bounds__(MMA_NT, 512 / MMA_NT)
       else
         st.w[r] = make_uint4(0u, 0u, 0u, 0u);
     }
-    st.x = make_uint2(0u, 0u);
-    if (g < M) {
-      if (XVEC) {
-        // k and kend are multiples of 4: the 4 values are wholly in range
-        if (k < kend) st.x = __ldg(reinterpret_cast<const uint2*>(xrow + k));
-      } else {
-        uint32_t h[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          h[e] = k + e < kend ? __bfloat16_as_ushort(xrow[k + e]) : 0u;
-        st.x = make_uint2(h[0] | h[1] << 16, h[2] | h[3] << 16);
-      }
-    }
+    if (g < M)
+      st.x = load_x4<XVEC>(xrow, k, kend);
+    else
+      st.x = {};
   };
-  Step ahead[MMA_AHEAD];
+  Step<T> ahead[AHEAD];
 #pragma unroll
-  for (int a = 0; a < MMA_AHEAD; ++a) load_step(ahead[a], a);
+  for (int a = 0; a < AHEAD; ++a) load_step(ahead[a], a);
 
   float acc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  for (int i = 0; i < mine; i += MMA_AHEAD) {
+  // f32's second sum for a walk past TF_CHUNK steps: in local memory,
+  // touched once a chunk (the prefill GEMM's way)
+  volatile float outer[32];
+  const bool chunked = F32 && mine > TF_CHUNK;
+  if (chunked)
 #pragma unroll
-    for (int a = 0; a < MMA_AHEAD; ++a) {
+    for (int o = 0; o < 32; ++o) outer[o] = 0.f;
+  for (int i = 0; i < mine; i += AHEAD) {
+#pragma unroll
+    for (int a = 0; a < AHEAD; ++a) {
       if (i + a < mine) {
-        const Step st = ahead[a];
-        mma_word(acc[0], acc[1], st.w[0].x, st.w[1].x, st.w[2].x, st.w[3].x,
-                 st.x.x, st.x.y);
-        mma_word(acc[2], acc[3], st.w[0].y, st.w[1].y, st.w[2].y, st.w[3].y,
-                 st.x.x, st.x.y);
-        mma_word(acc[4], acc[5], st.w[0].z, st.w[1].z, st.w[2].z, st.w[3].z,
-                 st.x.x, st.x.y);
-        mma_word(acc[6], acc[7], st.w[0].w, st.w[1].w, st.w[2].w, st.w[3].w,
-                 st.x.x, st.x.y);
-        // the registers are in the mmas' operands: load the step
-        // MMA_AHEAD further on into them
-        load_step(ahead[a], i + a + MMA_AHEAD);
+        const Step<T> st = ahead[a];
+        step_mmas(acc, st);
+        // the registers are in the mmas' operands: load the step AHEAD
+        // further on into them
+        load_step(ahead[a], i + a + AHEAD);
       }
     }
+    if (chunked && (i + AHEAD) % TF_CHUNK == 0 && i + AHEAD < mine)
+#pragma unroll
+      for (int o = 0; o < 32; ++o) {
+        float& c = acc[o / 4][o % 4];
+        outer[o] = outer[o] + c;
+        c = 0.f;
+      }
   }
+  if (chunked)
+#pragma unroll
+    for (int o = 0; o < 32; ++o) {
+      float& c = acc[o / 4][o % 4];
+      c = outer[o] + c;
+    }
 
   // warp w's sums, red[w][m][c]: mma j gives rows 2t, 2t+1 of x at
   // columns 16g + 2j (c0, c1) and 16g + 2j + 1 (c2, c3)
@@ -558,6 +465,32 @@ __global__ void __launch_bounds__(MMA_NT, 512 / MMA_NT)
   }
   __syncthreads();
   cluster_finish(red, s, bias, y, M, N, qmax);
+}
+
+// bf16 decode: mma.sync m16n8k16, bf16 operands (see decode_tile)
+template <bool VEC, bool XVEC>
+__global__ void __launch_bounds__(MMA_NT, 512 / MMA_NT)
+    wo_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ s,
+                       const __nv_bfloat16* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ y, int M, int K, int N,
+                       int k_per_split, float qmax) {
+  decode_tile<__nv_bfloat16, VEC, XVEC>(x, w, s, bias, y, M, K, N,
+                                        k_per_split, qmax);
+}
+
+// f32 decode: mma.sync m16n8k8, TF32 operands, x in two passes (see
+// decode_tile)
+template <bool VEC, bool XVEC>
+__global__ void __launch_bounds__(MMA_NT, 512 / MMA_NT)
+    wo_gemv_tf32_kernel(const float* __restrict__ x,
+                        const int8_t* __restrict__ w,
+                        const float* __restrict__ s,
+                        const float* __restrict__ bias, float* __restrict__ y,
+                        int M, int K, int N, int k_per_split, float qmax) {
+  decode_tile<float, VEC, XVEC>(x, w, s, bias, y, M, K, N, k_per_split,
+                                qmax);
 }
 
 // ---------------------------------------------- prefill GEMM, TF32 mma
@@ -957,99 +890,7 @@ int gemm_occupancy(int* blocks) {
       blocks, kernel, GM_NT, GemmTileOf<T>::SMEM_BYTES);
 }
 
-// The decode kernel for (T, MT, vec), allowed its dynamic shared memory
-// on the current device.
-template <typename T, int MT>
-auto gemv_kernel(bool vec) {
-  auto kernel = vec ? wo_gemv_kernel<T, MT, true> : wo_gemv_kernel<T, MT, false>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       GV_SMEM_BYTES);
-  return kernel;
-}
-
-template <typename T, int MT>
-void launch_gemv(dim3 grid, cudaStream_t st, bool vec, const T* x,
-                 const int8_t* w, const float* s, const T* bias, T* y,
-                 float* ws, unsigned* counters, int M, int K, int N,
-                 int k_per_split, float qmax) {
-  gemv_kernel<T, MT>(vec)<<<grid, GV_NT, GV_SMEM_BYTES, st>>>(
-      x, w, s, bias, y, ws, counters, M, K, N, k_per_split, qmax);
-}
-
-// The f32 decode kernel for M <= 8 rows (bf16 decode is wo_gemv_mma's,
-// prefill wo_gemm_tf32's)
-int launch_gemv_f32(const float* x, const int8_t* w, const float* s,
-                    const float* bias, float* y, float* ws,
-                    unsigned* counters, int M, int K, int N, int k_per_split,
-                    float qmax, cudaStream_t st) {
-  const int mt = M == 1 ? 1 : M == 2 ? 2 : M <= 4 ? 4 : 8;
-  if (k_per_split > GV_SMEM_FLOATS / mt) return cudaErrorInvalidValue;
-  const dim3 grid((N + GV_COLS - 1) / GV_COLS,
-                  (K + k_per_split - 1) / k_per_split);
-  if (grid.y > 1 && (ws == nullptr || counters == nullptr))
-    return cudaErrorInvalidValue;
-  const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  if (M == 1)
-    launch_gemv<float, 1>(grid, st, vec, x, w, s, bias, y, ws, counters, M,
-                          K, N, k_per_split, qmax);
-  else if (M == 2)
-    launch_gemv<float, 2>(grid, st, vec, x, w, s, bias, y, ws, counters, M,
-                          K, N, k_per_split, qmax);
-  else if (M <= 4)
-    launch_gemv<float, 4>(grid, st, vec, x, w, s, bias, y, ws, counters, M,
-                          K, N, k_per_split, qmax);
-  else
-    launch_gemv<float, 8>(grid, st, vec, x, w, s, bias, y, ws, counters, M,
-                          K, N, k_per_split, qmax);
-  return cudaGetLastError();
-}
-
-template <typename T, int MT>
-int gemv_occupancy(bool vec, int* blocks) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, gemv_kernel<T, MT>(vec), GV_NT, GV_SMEM_BYTES);
-}
-
-template <typename T>
-int gemv_occupancy(int M, bool vec, int* blocks) {
-  if (M == 1) return gemv_occupancy<T, 1>(vec, blocks);
-  if (M == 2) return gemv_occupancy<T, 2>(vec, blocks);
-  if (M <= 4) return gemv_occupancy<T, 4>(vec, blocks);
-  return gemv_occupancy<T, 8>(vec, blocks);
-}
-
 }  // namespace
-
-// The f32 decode on the CUDA cores (wo_gemv_kernel): x [M, K] f32 (dtype 0;
-// bf16 decode is wo_gemv_mma's, prefill wo_gemm_tf32's) with 1 <= M <= 8, w
-// [K, N] int8, s [N] f32, bias [N] f32 or null, y [M, N] f32, all contiguous
-// on the current device. For K > k_per_split, ws holds ceil(K / k_per_split)
-// * M * N f32 and counters ceil(N / 128) zeroed u32 (left zeroed); else both
-// may be null.
-extern "C" int wo_matmul(const void* x, const void* w, const void* s,
-                         const void* bias, void* y, void* ws, void* counters,
-                         int M, int K, int N, int k_per_split, float qmax,
-                         int dtype, void* stream) {
-  if (M <= 0 || M > GV_MAX_M || N <= 0 || K <= 0 || k_per_split <= 0 ||
-      dtype != 0)
-    return cudaErrorInvalidValue;
-  return launch_gemv_f32(
-      static_cast<const float*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<const float*>(bias),
-      static_cast<float*>(y), static_cast<float*>(ws),
-      static_cast<unsigned*>(counters), M, K, N, k_per_split, qmax,
-      static_cast<cudaStream_t>(stream));
-}
-
-// Blocks of the CUDA-core decode kernel (f32, dtype 0) for M (<= 8) rows
-// that one SM holds at once, on the current device; vec: N % 16 == 0. The
-// wrapper splits K so that one wave fills the card.
-extern "C" int wo_gemv_blocks_per_sm(int M, int vec, int dtype,
-                                     int* blocks) {
-  if (M <= 0 || M > GV_MAX_M) return cudaErrorInvalidValue;
-  if (dtype == 0) return gemv_occupancy<float>(M, vec != 0, blocks);
-  return cudaErrorInvalidValue;
-}
 
 // The prefill GEMM on the tensor cores (wo_gemm_tf32_kernel): x [M, K] (dtype
 // 0: f32, any M, a 32 x 512 tile a block; 1: bf16, for rows off TMA's
@@ -1088,26 +929,46 @@ extern "C" int wo_gemm_blocks_per_sm(int dtype, int* blocks) {
   return cudaErrorInvalidValue;
 }
 
-// The bf16 decode on the tensor cores (wo_gemv_mma_kernel): x [M, K] bf16
-// with 1 <= M <= 8, w [K, N] int8, s [N] f32, bias [N] bf16 or null, y [M,
-// N] bf16, all contiguous on the current device (any alignment). k_per_split
-// is a multiple of 128, and K takes at most MMA_MAX_SPLITS of them (the
-// splits of a column tile are one cluster).
-extern "C" int wo_gemv_mma(const void* x, const void* w, const void* s,
-                           const void* bias, void* y, int M, int K, int N,
-                           int k_per_split, float qmax, void* stream) {
+namespace {
+
+// The decode kernel for x of type T (bf16 wo_gemv_mma_kernel, f32
+// wo_gemv_tf32_kernel) with 16-byte loads of w (vec) and one load of x a
+// step (xvec) or not
+template <typename T>
+auto decode_kernel(bool vec, bool xvec) {
+  if constexpr (std::is_same<T, float>::value)
+    return vec ? (xvec ? wo_gemv_tf32_kernel<true, true>
+                       : wo_gemv_tf32_kernel<true, false>)
+               : (xvec ? wo_gemv_tf32_kernel<false, true>
+                       : wo_gemv_tf32_kernel<false, false>);
+  else
+    return vec ? (xvec ? wo_gemv_mma_kernel<true, true>
+                       : wo_gemv_mma_kernel<true, false>)
+               : (xvec ? wo_gemv_mma_kernel<false, true>
+                       : wo_gemv_mma_kernel<false, false>);
+}
+
+template <typename T>
+int launch_decode(const void* x, const void* w, const void* s,
+                  const void* bias, void* y, int M, int K, int N,
+                  int k_per_split, float qmax, void* stream) {
   if (M <= 0 || M > GV_MAX_M || N <= 0 || K <= 0 || k_per_split <= 0 ||
       k_per_split % 128 != 0)
     return cudaErrorInvalidValue;
   const dim3 grid((N + GV_COLS - 1) / GV_COLS,
                   (K + k_per_split - 1) / k_per_split);
-  if (grid.y > MMA_MAX_SPLITS) return cudaErrorInvalidValue;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  if (grid.y > (F32 ? TF_MAX_SPLITS : MMA_MAX_SPLITS))
+    return cudaErrorInvalidValue;
   const bool vec = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const bool xvec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0;
-  auto kernel = vec ? (xvec ? wo_gemv_mma_kernel<true, true>
-                            : wo_gemv_mma_kernel<true, false>)
-                    : (xvec ? wo_gemv_mma_kernel<false, true>
-                            : wo_gemv_mma_kernel<false, false>);
+  const bool xvec =
+      K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  const auto kernel = decode_kernel<T>(vec, xvec);
+  if (grid.y > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(MMA_NT);
@@ -1120,21 +981,50 @@ extern "C" int wo_gemv_mma(const void* x, const void* w, const void* s,
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+      &cfg, kernel, static_cast<const T*>(x),
       static_cast<const int8_t*>(w), static_cast<const float*>(s),
-      static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(y), M, K, N, k_per_split, qmax);
+      static_cast<const T*>(bias), static_cast<T*>(y), M, K, N, k_per_split,
+      qmax);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Blocks of the tensor-core decode kernel that one SM holds at once, on the
-// current device; vec: N % 16 == 0. The wrapper splits K to fill whole
-// waves of them.
-extern "C" int wo_gemv_mma_blocks_per_sm(int vec, int* blocks) {
+template <typename T>
+int decode_occupancy(int vec, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks,
-      vec ? wo_gemv_mma_kernel<true, true> : wo_gemv_mma_kernel<false, true>,
-      MMA_NT, 0);
+      blocks, decode_kernel<T>(vec != 0, true), MMA_NT, 0);
+}
+
+}  // namespace
+
+// The decode on the tensor cores: x [M, K] with 1 <= M <= 8 (wo_gemv_mma:
+// bf16, wo_gemv_mma_kernel; wo_gemv_tf32: f32, wo_gemv_tf32_kernel), w
+// [K, N] int8, s [N] f32, bias [N] in x's type or null, y [M, N] in x's
+// type, all contiguous on the current device (any alignment). k_per_split
+// is a multiple of 128, and K takes at most MMA_MAX_SPLITS of them in bf16,
+// TF_MAX_SPLITS in f32 (the splits of a column tile are one cluster).
+extern "C" int wo_gemv_mma(const void* x, const void* w, const void* s,
+                           const void* bias, void* y, int M, int K, int N,
+                           int k_per_split, float qmax, void* stream) {
+  return launch_decode<__nv_bfloat16>(x, w, s, bias, y, M, K, N,
+                                      k_per_split, qmax, stream);
+}
+
+extern "C" int wo_gemv_tf32(const void* x, const void* w, const void* s,
+                            const void* bias, void* y, int M, int K, int N,
+                            int k_per_split, float qmax, void* stream) {
+  return launch_decode<float>(x, w, s, bias, y, M, K, N, k_per_split, qmax,
+                              stream);
+}
+
+// Blocks of a decode kernel (bf16 or f32) that one SM holds at once, on
+// the current device; vec: N % 16 == 0. The wrapper splits K to fill the
+// card with them.
+extern "C" int wo_gemv_mma_blocks_per_sm(int vec, int* blocks) {
+  return decode_occupancy<__nv_bfloat16>(vec, blocks);
+}
+
+extern "C" int wo_gemv_tf32_blocks_per_sm(int vec, int* blocks) {
+  return decode_occupancy<float>(vec, blocks);
 }
 
 extern "C" const char* error_string(int err) {

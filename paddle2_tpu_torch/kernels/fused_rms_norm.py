@@ -5,10 +5,11 @@ Counterpart of ``_rmsnorm_fwd_kernel``, ``_rmsnorm_bwd_kernel``, the
 ``_rmsnorm`` custom_vjp and ``fused_rms_norm`` in
 ``paddle2_tpu/kernels/pallas_fused.py``. The kernels are in
 ``csrc/rms_norm.cu``, whose note says what bounds them, how dw is
-summed without atomics, and the forward's two routes: the vector route
-(``rms_norm_fwd_vec_kernel``, rows in registers, 16-byte loads) for
-every row that 16-byte vectors take, the general route
-(``rms_norm_fwd_kernel``) for the rest (:func:`.row_vec.route`).
+summed without atomics, and each direction's two routes: the vector
+routes (``rms_norm_fwd_vec_kernel``, ``rms_norm_bwd_vec_kernel``: rows in
+registers, 16-byte loads) for every row that 16-byte vectors take, the
+general routes (``rms_norm_fwd_kernel``; ``rms_norm_bwd_kernel`` and
+``rms_norm_bwd_reduce_kernel``) for the rest (:func:`.row_vec.route`).
 RMSNorm over the last axis of ``x [..., H]`` with a ``weight [H]``: x
 f32, bf16 or f16, the weight f32, bf16 or f16 of its own, any row count
 and ``1 <= H <= MAX_H``. The output and dx
@@ -27,7 +28,8 @@ import torch
 
 from . import _build, row_vec
 
-__all__ = ["MAX_H", "fwd_route", "rms_norm_fwd", "rms_norm_bwd",
+__all__ = ["MAX_H", "fwd_route", "bwd_route", "rms_norm_fwd",
+           "rms_norm_bwd",
            "rms_norm_fwd_reference", "rms_norm_bwd_reference", "bwd_blocks",
            "fused_rms_norm"]
 
@@ -152,20 +154,34 @@ def _sm_count(index: int) -> int:
 
 
 def bwd_blocks(rows: int, device) -> int:
-    """The backward's block count: four a streaming multiprocessor, at
-    most one a row. It fixes which rows each block sums into dw, so it
-    depends on the shape and the card only, never on timing."""
+    """The backward's block count, four a streaming multiprocessor and at
+    most one a row: the general route's grid, and the most blocks (rows
+    of partial dw sums) the vector route's persistent grid may take. Each
+    grid fixes which rows each block sums into dw, so it depends on the
+    shape and the card only, never on timing."""
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
     return max(1, min(rows, 4 * _sm_count(index)))
 
 
+def bwd_route(x, weight, dout, dx, ws) -> str:
+    """The backward kernel a CUDA call takes, as the C entry picks it:
+    "vec" (``rms_norm_bwd_vec_kernel``) when 16-byte vectors take x's
+    rows and x, the weight, do, dx and the partials' workspace start on
+    16-byte boundaries, else "general" (``rms_norm_bwd_kernel``)."""
+    return row_vec.route(x.shape[-1] * x.element_size(), x.data_ptr(),
+                         weight.data_ptr(), dout.data_ptr(), dx.data_ptr(),
+                         ws.data_ptr())
+
+
 def rms_norm_bwd(x, weight, r, dout) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dw)`` from x, the weight, the forward's r and the output
     gradient: dx in x's dtype, dw in the weight's.
-    ``rms_norm_bwd.launches`` counts the kernel's launches (the row
-    kernel and the reduction of its partials, one call)."""
+    ``rms_norm_bwd.launches`` counts the kernels' launches (a call of the
+    general route, the row kernel and the reduction of its partials, is
+    one), ``rms_norm_bwd.route_launches`` those of each route
+    (:func:`bwd_route`)."""
     _check(x, weight)
     if (dout.shape != x.shape or dout.dtype != x.dtype
             or dout.device != x.device):
@@ -193,10 +209,12 @@ def rms_norm_bwd(x, weight, r, dout) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "rms_norm_bwd")
     rms_norm_bwd.launches += 1
+    rms_norm_bwd.route_launches[bwd_route(x, weight, dout, dx, ws)] += 1
     return dx, dw
 
 
 rms_norm_bwd.launches = 0
+rms_norm_bwd.route_launches = dict.fromkeys(row_vec.ROUTES, 0)
 
 
 # ----------------------------------------------------- differentiable op

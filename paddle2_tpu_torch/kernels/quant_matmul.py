@@ -8,14 +8,13 @@ names it exposes. :func:`channel_absmax`, :func:`quantize_channelwise`,
 :func:`fp8_matmul` are plain torch, as they are plain jnp there. Two
 functions are ports of Pallas kernels:
 
-* :func:`int8_weight_only_matmul`, of ``_wo_kernel``: bf16 on the
-  tensor cores, prefill (more than 8 rows) in
-  ``csrc/wo_matmul_wgmma.cu`` and decode (at most 8 rows) in
-  ``csrc/wo_matmul.cu`` (``wo_gemv_mma_kernel``); f32 prefill on the
-  tensor cores in two TF32 passes (``wo_gemm_tf32_kernel``, which also
-  takes bf16 rows off TMA's 16-byte rule), f32 decode on the CUDA cores
-  (``wo_gemv_kernel``), both in ``csrc/wo_matmul.cu`` (:func:`wo_route`
-  says which);
+* :func:`int8_weight_only_matmul`, of ``_wo_kernel``, on the tensor
+  cores: bf16 prefill (more than 8 rows) in ``csrc/wo_matmul_wgmma.cu``;
+  in ``csrc/wo_matmul.cu`` the decode (at most 8 rows) in bf16
+  (``wo_gemv_mma_kernel``) and in f32 in two TF32 passes
+  (``wo_gemv_tf32_kernel``), and f32 prefill in two TF32 passes
+  (``wo_gemm_tf32_kernel``, which also takes bf16 rows off TMA's 16-byte
+  rule) (:func:`wo_route` says which);
   :func:`int4_weight_only_matmul` unpacks a nibble payload and reaches
   it at ``quant_bits=4``.
 * :func:`int8_matmul`, of ``_i8i8_kernel``, as ``csrc/i8i8_matmul.cu``:
@@ -69,27 +68,27 @@ DEFAULT_BLOCK_K = 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"wo_matmul": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _P],
-               "wo_gemv_blocks_per_sm": [_I, _I, _I, _P],
-               "wo_gemm_tf32": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I,
+_SIGNATURES = {"wo_gemm_tf32": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I,
                                                        _P],
                "wo_gemm_blocks_per_sm": [_I, _P],
                "wo_gemv_mma": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
-               "wo_gemv_mma_blocks_per_sm": [_I, _P]}
+               "wo_gemv_mma_blocks_per_sm": [_I, _P],
+               "wo_gemv_tf32": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
+               "wo_gemv_tf32_blocks_per_sm": [_I, _P]}
 _WGMMA_SIGNATURES = {"wo_matmul_wgmma": [_P] * 5 + [_I] * 3
                      + [ctypes.c_float, _P]}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel's decode regime (csrc/wo_matmul.cu): M <= 8 rows, computed
-# as 1, 2, 4 or 8; 128-column tiles; a block takes at most 8192 / MT rows
-# of K (x's rows for them fill its 32 KB of shared memory)
+# the decode kernels (csrc/wo_matmul.cu `wo_gemv_mma_kernel`, bf16, and
+# `wo_gemv_tf32_kernel`, f32): M <= 8 rows (the mma's n8 side), 128-column
+# tiles, K splits of whole 128-row runs (16 rows for each of a block's 4
+# warps, twice over), at most 8 in bf16 (the splits of a column tile are
+# one thread-block cluster, of the portable size) and 16 in f32 (the
+# H100's non-portable size), where a split keeps at least 512 rows
 _GEMV_MAX_M = 8
 _GEMV_COLS = 128
-_GEMV_SMEM_FLOATS = 8192
-# the tensor-core decode kernel (csrc/wo_matmul.cu `wo_gemv_mma_kernel`):
-# K splits of whole 128-row runs (16 rows for each of a block's 4 warps,
-# twice over), at most 8 (the splits of a column tile are one
-# thread-block cluster, of the portable size)
 _MMA_SPLIT_ROWS = 128
+_TF_MAX_SPLITS = 16
+_TF_WIDE_SPLIT_ROWS = 512
 _MMA_MAX_SPLITS = 8
 # the TF32 prefill kernel (csrc/wo_matmul.cu `wo_gemm_tf32_kernel`): a
 # block's output tile by x's type, 32-row k-steps; K splits of whole
@@ -102,14 +101,8 @@ _GEMM_MIN_ROWS = 256
 _GEMM_MAX_SPLITS = 8
 # the weight-only kernels a CUDA call may take (wo_route)
 WO_ROUTES = ("gemv", "gemv_mma", "gemm", "wgmma")
-# per device: zeroed u32 counters, one per column tile, that the split-K
-# reduction leaves zeroed, and the split-K partials' f32 workspace, grown
-# as needed (calls on one device are ordered on one stream)
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
-_WORKSPACE: Dict[torch.device, torch.Tensor] = {}
-# (device, MT, N % 16 == 0, dtype) -> decode blocks the whole card holds
-# (MT "mma" for the tensor-core decode kernel); (device, "gemm", dtype)
-# -> the prefill kernel's
+# (device, route, N % 16 == 0, dtype) -> the decode kernel's blocks the
+# whole card holds; (device, "gemm", dtype) -> the prefill kernel's
 _RESIDENT: Dict[tuple, int] = {}
 # (device, M, K, N, dtype) -> (route, k_per_split, splits, library, C
 # entry): a launch's plan, made once per shape (a serving run repeats a
@@ -197,36 +190,39 @@ def _check(x, w_int8, w_scale, bias) -> Tuple[int, int]:
     return K, N
 
 
-def _gemv_rows(M: int) -> int:
-    return 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
-
-
-def k_split(M: int, K: int, N: int, resident: int) -> Tuple[int, int]:
-    """``(k_per_split, splits)`` of the decode kernel: as many K splits as
-    one wave of ``resident`` blocks allows next to the column tiles, but
-    no block under 256 rows (8 for each row lane, the copies it keeps in
-    flight), and at least enough that a block's rows of x fit its shared
-    memory; whole 32-row steps (one row for each row lane)."""
-    if M > _GEMV_MAX_M:
-        return K, 1
-    tiles = -(-N // _GEMV_COLS)
-    max_k = _GEMV_SMEM_FLOATS // _gemv_rows(M)
-    splits = max(min(resident // tiles, -(-K // 256)), -(-K // max_k), 1)
-    per = -(-K // splits)
-    per = -(-per // 32) * 32
-    return per, -(-K // per)
-
-
 def mma_k_split(M: int, K: int, N: int, resident: int) -> Tuple[int, int]:
-    """``(k_per_split, splits)`` of the tensor-core decode kernel: K is
-    split across blocks until the column tiles times the splits fill half
-    of the ``resident`` blocks the card holds (two blocks of 128 threads
-    an SM, 32 KB of weight loads in flight on each), in whole 128-row
-    runs, at most 8 ways (a tile's splits are one cluster). More splits
-    add partial sums without reading faster; fewer leave SMs idle
+    """``(k_per_split, splits)`` of the bf16 decode kernel: K is split
+    across blocks until the column tiles times the splits fill half of
+    the ``resident`` blocks the card holds (two blocks of 128 threads an
+    SM, 32 KB of weight loads in flight on each), in whole 128-row runs,
+    at most 8 ways (a tile's splits are one cluster). More splits add
+    partial sums without reading faster; fewer leave SMs idle
     (``wo_gemv_mma_variants.py`` times every split on the card)."""
     tiles = -(-N // _GEMV_COLS)
     want = min(_MMA_MAX_SPLITS, max(1, -(-(resident // 2) // tiles)))
+    rows = -(-K // want)
+    per = -(-rows // _MMA_SPLIT_ROWS) * _MMA_SPLIT_ROWS
+    return per, -(-K // per)
+
+
+def tf32_k_split(M: int, K: int, N: int, resident: int) -> Tuple[int, int]:
+    """``(k_per_split, splits)`` of the f32 decode kernel: the most K
+    splits, a power of two (a tile's splits are one cluster), whose
+    blocks (the column tiles times the splits) stay within three quarters
+    of the ``resident`` blocks the card holds, up to 8, and up to 16 (the
+    H100's non-portable cluster size) where each split keeps at least 512
+    rows; in whole 128-row runs. Timed on the card with every split, read
+    cold (``wo_gemv_mma_variants.py --dtype float32``, M 8): qkv (48
+    tiles) 0.0133 ms on 8 splits against 0.0142 on the bf16 rule's 6, up
+    (64) 0.0146 on 4 against 0.0186 on 8, down (16, K 8192) 0.0152 on 16
+    against 0.0187 on 8, out_proj (16, K 2048) 0.0102 on 8 and on 16 (128
+    rows a split), the head's 393 tiles none."""
+    tiles = -(-N // _GEMV_COLS)
+    want = 1
+    while (want < _TF_MAX_SPLITS and 2 * want * tiles <= 3 * resident // 4
+           and (2 * want <= _MMA_MAX_SPLITS
+                or K >= 2 * want * _TF_WIDE_SPLIT_ROWS)):
+        want *= 2
     rows = -(-K // want)
     per = -(-rows // _MMA_SPLIT_ROWS) * _MMA_SPLIT_ROWS
     return per, -(-K // per)
@@ -262,52 +258,31 @@ def gemm_k_split(M: int, K: int, N: int, resident: int,
     return per, -(-K // per)
 
 
-def _resident(lib, device: torch.device, M: int, N: int, dtype: torch.dtype,
+def _resident(lib, device: torch.device, N: int, dtype: torch.dtype,
               route: str) -> int:
-    mma = route == "gemv_mma"
     key = ((device, "gemm", dtype) if route == "gemm" else
-           (device, "mma" if mma else _gemv_rows(M), N % 16 == 0, dtype))
+           (device, route, N % 16 == 0, dtype))
     if key not in _RESIDENT:
         per_sm = ctypes.c_int(0)
         if route == "gemm":
+            entry = "wo_gemm_blocks_per_sm"
             err = lib.wo_gemm_blocks_per_sm(_DTYPE_CODE[dtype],
                                             ctypes.byref(per_sm))
-        elif mma:
-            err = lib.wo_gemv_mma_blocks_per_sm(int(key[2]),
-                                                ctypes.byref(per_sm))
         else:
-            err = lib.wo_gemv_blocks_per_sm(
-                M, int(key[2]), _DTYPE_CODE[dtype], ctypes.byref(per_sm))
-        _build.check(lib, err, "wo_gemm_blocks_per_sm" if route == "gemm"
-                     else "wo_gemv_mma_blocks_per_sm" if mma
-                     else "wo_gemv_blocks_per_sm")
+            entry = f"{_ENTRIES[route]}_blocks_per_sm"
+            err = getattr(lib, entry)(int(key[2]), ctypes.byref(per_sm))
+        _build.check(lib, err, entry)
         _RESIDENT[key] = per_sm.value * torch.cuda.get_device_properties(
             device).multi_processor_count
     return _RESIDENT[key]
 
 
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 512), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
-
-
-def _workspace(device: torch.device, n: int) -> torch.Tensor:
-    buf = _WORKSPACE.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.empty(n, dtype=torch.float32, device=device)
-        _WORKSPACE[device] = buf
-    return buf
-
-
 def wo_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
     """The kernel a CUDA call of ``M x K x N`` in ``dtype`` takes, chosen
-    from its shape and dtype before the launch. Decode, M <= 8:
-    "gemv_mma" for bf16 (``wo_gemv_mma_kernel``, the tensor cores; any
-    K, N and alignment), "gemv" for f32 (``wo_gemv_kernel``, the CUDA
-    cores: its tensor-core form is still to be written). Prefill:
+    from its shape and dtype before the launch. Decode, M <= 8, on the
+    tensor cores at any K, N and alignment: "gemv_mma" for bf16
+    (``wo_gemv_mma_kernel``), "gemv" for f32 (``wo_gemv_tf32_kernel``, two
+    TF32 passes, each product within about 2**-21 of f32). Prefill:
     "wgmma" for bf16 within TMA's 16-byte rule, K % 8 == 0 and N % 16 ==
     0 (``wo_gemm_wgmma_kernel``); else "gemm" (``wo_gemm_tf32_kernel``,
     the tensor cores in TF32: f32 x in two passes, each product within
@@ -322,7 +297,7 @@ def wo_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
     return "gemm"
 
 
-_ENTRIES = {"gemv": "wo_matmul", "gemm": "wo_gemm_tf32",
+_ENTRIES = {"gemv": "wo_gemv_tf32", "gemm": "wo_gemm_tf32",
             "gemv_mma": "wo_gemv_mma", "wgmma": "wo_matmul_wgmma"}
 
 
@@ -336,15 +311,13 @@ def _plan(dev: torch.device, M: int, K: int, N: int,
                if route == "wgmma" else
                _build.library("wo_matmul", _SIGNATURES))
         per, splits = K, 1
-        if route == "gemv":
-            per, splits = k_split(M, K, N, _resident(lib, dev, M, N, dtype,
-                                                     route))
+        if route in ("gemv", "gemv_mma"):
+            split = mma_k_split if route == "gemv_mma" else tf32_k_split
+            per, splits = split(M, K, N, _resident(lib, dev, N, dtype,
+                                                   route))
         elif route == "gemm":
             per, splits = gemm_k_split(
-                M, K, N, _resident(lib, dev, M, N, dtype, route), dtype)
-        elif route == "gemv_mma":
-            per, splits = mma_k_split(M, K, N, _resident(lib, dev, M, N,
-                                                         dtype, route))
+                M, K, N, _resident(lib, dev, N, dtype, route), dtype)
         if len(_PLANS) >= _MAX_PLANS:
             _PLANS.clear()
         plan = _PLANS[key] = (route, per, splits, lib,
@@ -404,24 +377,16 @@ def _launch(x, w_int8, w_scale, bias, y, M, K, N, qmax):
             _build.tma_aligned(x).data_ptr(),
             _build.tma_aligned(w_int8).data_ptr(),
             w_scale.data_ptr(), b_ptr, y.data_ptr(), M, K, N, qmax, stream)
-    elif route == "gemv_mma":
-        # the K splits of a column tile add through distributed shared
-        # memory, not a workspace
-        err = entry(x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
-                    b_ptr, y.data_ptr(), M, K, N, per, qmax, stream)
     elif route == "gemm":
-        # so do the prefill kernel's, a tile's splits one cluster
+        # the K splits of a tile add through distributed shared memory,
+        # not a workspace (one cluster)
         err = entry(x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
                     b_ptr, y.data_ptr(), M, K, N, per, qmax,
                     _DTYPE_CODE[x.dtype], stream)
     else:
-        ws = counters = None
-        if splits > 1:
-            ws = _workspace(dev, splits * M * N).data_ptr()
-            counters = _counters(dev, -(-N // _GEMV_COLS)).data_ptr()
+        # so do the decode kernels' (a column tile's splits one cluster)
         err = entry(x.data_ptr(), w_int8.data_ptr(), w_scale.data_ptr(),
-                    b_ptr, y.data_ptr(), ws, counters, M, K, N, per, qmax,
-                    _DTYPE_CODE[x.dtype], stream)
+                    b_ptr, y.data_ptr(), M, K, N, per, qmax, stream)
     if err:
         _build.check(lib, err, _ENTRIES[route])
     int8_weight_only_matmul.launches += 1

@@ -54,14 +54,19 @@ Phases:
   the wrapper has two), plus a ragged H 771: CUDA events, device time
   from torch.profiler, the wrapper's host time a call (the median of 200
   calls without a sync), ``F.layer_norm`` / ``F.rms_norm``'s events and
-  device times, and the bound; the backward kernel's events and device
-  times at ERNIE's stacked shape and the stack's; the host time of
+  device times, and the bound; the LayerNorm backward's events and
+  device times at ERNIE's stacked shape; the RMSNorm backward at its
+  three shapes, on x and do as given and on copies one element past a
+  16-byte boundary (each route the checkout has), by events, device
+  time, the wrapper's host time a call and the bound, beside
+  ``F.rms_norm``'s backward through autograd; the host time of
   ``fused_layer_norm`` (the custom op) at ERNIE's shape, and of the
   pieces of a LayerNorm forward call there (the allocations, the stream
   and device queries, a device context, the data pointers); then the
   smoke's phase-14 stack step and phase-7 ERNIE step (``stack_bf16``,
   ``ernie_bf16`` with that checkout's own launch gates): tokens/s, the
-  step time and the traced step's idle share.
+  step time, the traced step's idle share, and for the stack the traced
+  step's device time and its split by kernel group.
 - ``flash_bwd_f32``: the f32 flash backward at the training shape (B8
   H16 S1024 D64, causal): the split pair's two wrappers
   (``flash_bwd_split_dkv``, ``flash_bwd_split_dq``) and ``flash_bwd``
@@ -134,6 +139,23 @@ Phases:
   and those named ``i8i8``), the wrapper's host time a call (the median
   of 200 calls without a sync), and ``torch._int_mm`` where it takes the
   shape (M > 16) by events and device time.
+- ``f32_decode``: the smoke's int8 weight-only f32 serving of GPT-3
+  1.3B (``int8_f32``: its phase-4 requests and engine settings,
+  ``weight_only_int8=True, weight_only_lm_head=True``), served twice on
+  one model (the second run's decode and prefill tokens/s, TTFT and
+  launches by route); then a traced decode step of all 8 requests (after
+  5 untimed and 5 timed untraced steps): its device time by
+  ``chip_smoke.SERVING_GROUPS`` (the weight-only group is the step's 97
+  ``int8_weight_only_matmul`` launches), its launches by kernel name,
+  wall time and idle share against the untraced steps' mean. Then
+  ``int8_weight_only_matmul`` in f32 at the five projections (qkv,
+  out_proj, up and down with a bias, the head without) at M 1 and 8:
+  CUDA events, device time from torch.profiler (all kernels of the call,
+  and the weight-only kernel alone), the wrapper's host time a call, and
+  ``torch.addmm`` / ``torch.mm`` over the dequantized f32 weight by
+  events and device time; and M 8 at up and the head read cold (a new
+  weight each call from copies that together pass 100 MB, as a decode
+  step meets its 97 weights) against ``torch.mm`` read the same way.
 """
 
 import argparse
@@ -478,6 +500,134 @@ def paged_decode(cs, torch):
     return dict(kernels=kernels, serve=runs[1], serve_first=runs[0])
 
 
+def f32_decode(cs, torch):
+    import numpy as np
+    from paddle2_tpu_torch.kernels import quant_matmul as qm
+    from paddle2_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
+    cfg = gpt3_1p3b()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (17, 45, 130, 257, 401, 613, 850, 1000)]
+    model = GPTForCausalLM(cfg, seed=1234)
+    econf = EngineConfig(block_size=16, num_blocks=1024, max_batch=8,
+                         weight_only_int8=True, weight_only_lm_head=True)
+    runs = []
+    for _ in range(2):
+        _, launches, st = cs.serve(model, econf, prompts, 32)
+        runs.append(dict(decode_tok_s=st["decode_tok_s"],
+                         prefill_tok_s=st["prefill_tok_s"],
+                         ttft_mean_s=st["ttft_mean_s"],
+                         prefills=st["prefills"],
+                         decode_steps=st["decode_steps"],
+                         wo_launches=launches["wo_matmul"],
+                         wo_route_launches=st["wo_route_launches"]))
+    print(json.dumps(dict(serve=runs[1])), flush=True)
+    eng = ServingEngine(model, econf)
+    for p in prompts:
+        eng.submit(p, 32)
+    step = 0
+    while step < 20:
+        eng.admit_and_prefill(now=float(step))
+        d = eng.decode_once(now=float(step))
+        step += 1
+        if d and d["tokens"] == len(prompts):
+            break
+    walls = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.decode_once(now=float(step))
+        torch.cuda.synchronize()
+        if i >= 5:
+            walls.append((time.perf_counter() - t0) * 1e3)
+        step += 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        d = eng.decode_once(now=float(step))
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_group = cs.device_groups(prof, cs.SERVING_GROUPS)
+    evs = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
+                 key=lambda e: -e.device_time_total)
+    device = sum(by_group.values())
+    decode = dict(batch=d["tokens"], wall_ms=wall, device_ms=device,
+                  by_group=by_group,
+                  untraced_step_ms=statistics.mean(walls),
+                  idle_share=1.0 - device / statistics.mean(walls),
+                  wo_launches={e.key[:60]: e.count for e in evs
+                               if "wo_ge" in e.key},
+                  top=[(e.key[:70], e.device_time_total / 1e3, e.count)
+                       for e in evs[:12]])
+    print(json.dumps(dict(traced_decode_step=decode)), flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kernels = {}
+    for label, (K, N) in cs.WO_SHAPES.items():
+        w8, s8 = qm.quantize_channelwise(
+            torch.randn(K, N, generator=gen, device=dev) * 0.02)
+        b = (None if label == "head" else
+             torch.randn(N, generator=gen, device=dev) * 0.02)
+        w_deq = w8.float() * (s8 / 127.0)
+        for M in (1, 8):
+            x = torch.randn(M, K, generator=gen, device=dev)
+
+            def run(x=x, w8=w8, s8=s8, b=b):
+                return qm.int8_weight_only_matmul(x, w8, s8, b)
+
+            def library(x=x, w_deq=w_deq, b=b):
+                return (torch.mm(x, w_deq) if b is None
+                        else torch.addmm(b, x, w_deq))
+            device, kernel = cs.device_ms(run, "wo_ge")
+            key = f"M{M} K{K} N{N} ({label})" + ("" if b is None else " bias")
+            kernels[key] = dict(events_ms=cs.cuda_ms(run), device_ms=device,
+                                kernel_device_ms=kernel,
+                                host_ms=_host_ms(torch, run),
+                                library_events_ms=cs.cuda_ms(library),
+                                library_device_ms=cs.device_ms(library,
+                                                               "")[0])
+            print(json.dumps({key: kernels[key]}), flush=True)
+        del w8, s8, w_deq
+        torch.cuda.empty_cache()
+    # read cold: a new weight each call, from copies past 100 MB
+    cold = {}
+    for label in ("up", "head"):
+        K, N = cs.WO_SHAPES[label]
+        copies = max(2, -(-(100 << 20) // (K * N)))
+        ws = [qm.quantize_channelwise(
+            torch.randn(K, N, generator=gen, device=dev) * 0.02)
+            for _ in range(copies)]
+        deq = [(w8.float() * (s8 / 127.0)) for w8, s8 in
+               ws[:max(2, copies // 4)]]
+        x = torch.randn(8, K, generator=gen, device=dev)
+        turn = {"i": 0, "j": 0}
+
+        def run(ws=ws, x=x, turn=turn):
+            turn["i"] = (turn["i"] + 1) % len(ws)
+            return qm.int8_weight_only_matmul(x, *ws[turn["i"]])
+
+        def library(deq=deq, x=x, turn=turn):
+            turn["j"] = (turn["j"] + 1) % len(deq)
+            return torch.mm(x, deq[turn["j"]])
+        device, kernel = cs.device_ms(run, "wo_ge")
+        key = f"M8 K{K} N{N} ({label}) cold"
+        cold[key] = dict(events_ms=cs.cuda_ms(run), device_ms=device,
+                         kernel_device_ms=kernel, copies=len(ws),
+                         library_events_ms=cs.cuda_ms(library),
+                         library_device_ms=cs.device_ms(library, "")[0],
+                         library_copies=len(deq))
+        print(json.dumps({key: cold[key]}), flush=True)
+        del ws, deq
+        torch.cuda.empty_cache()
+    return dict(serve=runs[1], serve_first=runs[0], traced_decode_step=decode,
+                kernels=kernels, cold=cold)
+
+
 # (norm, rows, H, x dtype, parameter dtype, what, eps)
 NORM_SHAPES = [
     ("layer_norm", 4096, 768, "bfloat16", "bfloat16", "ERNIE stacked", 1e-12),
@@ -535,20 +685,43 @@ def norms(cs, torch):
             row["fused_layer_norm_host_ms"] = _host_ms(
                 torch, lambda x=x, p=p, eps=eps: fln.fused_layer_norm(
                     x, *p, eps))
-        if what in ("ERNIE stacked", "stack"):
-            # the backward kernel beside it, unchanged by the forward's
-            # redesign
+        if what == "ERNIE stacked":
+            # the LayerNorm backward kernel beside it
             dy = torch.randn(R, H, generator=gen, device=dev).to(xdt)
-            if norm == "layer_norm":
-                def backward(x=x, p=p, dy=dy, eps=eps):
-                    return fln.layer_norm_bwd(x, p[0], dy, eps)
-            else:
-                r = frn.rms_norm_fwd(x, p[0], eps)[1]
 
-                def backward(x=x, p=p, r=r, dy=dy):
-                    return frn.rms_norm_bwd(x, p[0], r, dy)
+            def backward(x=x, p=p, dy=dy, eps=eps):
+                return fln.layer_norm_bwd(x, p[0], dy, eps)
             row["backward"] = dict(events_ms=cs.cuda_ms(backward),
                                    device_ms=cs.device_ms(backward, "")[0])
+        if norm == "rms_norm":
+            # the backward on both routes, F.rms_norm's autograd backward
+            # beside it
+            dy = torch.randn(R, H, generator=gen, device=dev).to(xdt)
+            r = frn.rms_norm_fwd(x, p[0], eps)[1]
+            xr, wr = (t.detach().clone().requires_grad_()
+                      for t in (x, px[0]))
+            out = F.rms_norm(xr, (H,), wr, eps)
+
+            def lib_bwd(out=out, xr=xr, wr=wr, dy=dy):
+                return torch.autograd.grad(out, (xr, wr), dy,
+                                           retain_graph=True)
+            b_ms, b_by = cs.bound(10.0 * R * H, 3.0 * R * H * size
+                                  + 2.0 * H * psize + 4.0 * R, torch.float32)
+            row["backward"] = dict(
+                bound_ms=b_ms, bound_by=b_by,
+                library_events_ms=cs.cuda_ms(lib_bwd),
+                library_device_ms=cs.device_ms(lib_bwd, "")[0])
+            for label, xin, din in (
+                    ("aligned", x, dy),
+                    ("unaligned", _misaligned(torch, x),
+                     _misaligned(torch, dy))):
+                def backward(xin=xin, din=din, p=p, r=r):
+                    return frn.rms_norm_bwd(xin, p[0], r, din)
+                row["backward"][label] = dict(
+                    events_ms=cs.cuda_ms(backward),
+                    device_ms=cs.device_ms(backward, "")[0],
+                    host_ms=_host_ms(torch, backward))
+            del xr, wr, out
         rows.append(row)
         print(json.dumps(row), flush=True)
         del x, p, px
@@ -582,7 +755,9 @@ def norms(cs, torch):
                             step_ms=stack["step_time_s"] * 1e3,
                             step_times_ms=[t * 1e3
                                            for t in stack["step_times_s"]],
-                            idle_share=stack["step_profile"]["idle_share"]))
+                            idle_share=stack["step_profile"]["idle_share"],
+                            device_ms=stack["step_profile"]["device_ms"],
+                            device_ms_by_group=stack["device_ms_by_group"]))
     del stack
     torch.cuda.empty_cache()
     flags.set_flags({"pallas_layer_norm": True})
@@ -961,7 +1136,7 @@ def main():
                     choices=("int8_serving", "varlen_step",
                              "varlen_bwd_draws", "norms", "flash_bwd_f32",
                              "train_bf16", "adamw_step", "f32_prefill",
-                             "paged_decode", "ptq_serving"))
+                             "paged_decode", "ptq_serving", "f32_decode"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -996,6 +1171,8 @@ def main():
         result = paged_decode(cs, torch)
     elif args.phase == "ptq_serving":
         result = ptq_serving(cs, torch)
+    elif args.phase == "f32_decode":
+        result = f32_decode(cs, torch)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

@@ -192,8 +192,7 @@ def wo_card(monkeypatch):
                         lambda d: SimpleNamespace(cuda_stream=None))
     monkeypatch.setattr(qm, "_raw_stream", lambda index: None)
     monkeypatch.setattr(qm, "_resident", lambda *a: 396)
-    for name in ("_PLANS", "_WORKSPACE", "_COUNTERS"):
-        monkeypatch.setattr(qm, name, {})
+    monkeypatch.setattr(qm, "_PLANS", {})
     monkeypatch.setattr(qm, "int8_weight_only_matmul_reference",
                         lambda *a: pytest.fail("the plain version ran"))
     return calls
@@ -239,13 +238,13 @@ def test_bf16_prefill_reaches_the_tensor_core_entry(wo_card):
     (1008, 336 - 3, torch.bfloat16, "gemm"),  # rows past TMA's rule
 ])
 def test_other_calls_keep_the_cuda_core_entry(wo_card, M, N, dtype, route):
-    """f32 decode reaches ``wo_matmul``'s entry as before: pointers, the
-    split-K workspace and counters or nulls, M, K, N, the K split, qmax,
-    the dtype code. f32 prefill and a bf16 N off TMA's 16-byte rule, which
-    took the CUDA-core GEMM through that entry, reach the TF32 prefill
-    kernel's own entry in the same library: pointers, M, K, N, the K
-    split (its splits add through distributed shared memory, so no
-    workspace), qmax, the dtype code (which sets the tile). The route's
+    """The f32 calls and a bf16 N off TMA's 16-byte rule reach the
+    tensor-core kernels' own entries in the ``wo_matmul`` library. f32
+    decode: ``wo_gemv_tf32`` (the TF32 decode kernel) with pointers, M, K, N, the
+    K split of ``tf32_k_split``, qmax and the stream. f32 prefill and the
+    bf16 row: ``wo_gemm_tf32`` with pointers, M, K, N, the K split, qmax,
+    the dtype code (which sets the tile). Neither takes a workspace: the
+    K splits of a tile add through distributed shared memory. The route's
     count moves."""
     K = 2048
     x, w, s, b = _wo_operands(M, K, N, dtype)
@@ -260,11 +259,9 @@ def test_other_calls_keep_the_cuda_core_entry(wo_card, M, N, dtype, route):
         assert args[5:] == (M, K, N, qm.gemm_k_split(M, K, N, 396, dtype)[0],
                             127.0, qm._DTYPE_CODE[dtype], None)
     else:
-        assert (lib, entry) == ("wo_matmul", "wo_matmul")
-        per, splits = qm.k_split(M, K, N, 396)
-        assert (args[5] is None) == (args[6] is None) == (splits == 1)
-        assert args[7:] == (M, K, N, per, 127.0, qm._DTYPE_CODE[dtype],
-                            None)
+        assert (lib, entry) == ("wo_matmul", "wo_gemv_tf32")
+        assert args[5:] == (M, K, N, qm.tf32_k_split(M, K, N, 396)[0],
+                            127.0, None)
     routes[route] += 1
     assert _counts() == (total + 1, routes)
 

@@ -24,9 +24,10 @@ from paddle2_tpu.quantization import quantize_lm_head as jax_quantize_head
 from paddle2_tpu.quantization import weight_only_quantize as jax_quantize
 from paddle2_tpu.serving import EngineConfig as JaxEngineConfig
 from paddle2_tpu.serving import ServingEngine as JaxEngine
+from paddle2_tpu_torch.kernels import quant_matmul as qm
 from paddle2_tpu_torch.kernels.quant_matmul import (
     channel_absmax, int8_weight_only_matmul,
-    int8_weight_only_matmul_reference, k_split, quantize_channelwise,
+    int8_weight_only_matmul_reference, quantize_channelwise,
     weight_quant_error_bound)
 from paddle2_tpu_torch.models import (GPTForCausalLM, gpt_state_from_reference,
                                       gpt_tiny, load_weight_only_reference)
@@ -290,18 +291,17 @@ def test_stacked_blocks_are_refused():
                                  (8192, 2048), (2048, 50304), (200, 333)])
 @pytest.mark.parametrize("M,resident", [(1, 396), (8, 132)])
 def test_decode_k_split_covers_k_in_one_wave(M, resident, K, N):
-    """The decode kernel's K splits: whole 32-row steps that cover K, at
-    most 8192 / MT rows a block (its shared memory), at least 256 rows
-    unless K is shorter, and no more blocks than one wave holds unless
-    the shared memory forces them."""
-    per, splits = k_split(M, K, N, resident)
-    assert per % 32 == 0 and per * splits >= K > per * (splits - 1)
-    max_k = 8192 // (1 if M == 1 else 8)
-    assert min(256, -(-K // 32) * 32) <= per <= max_k
+    """The f32 decode kernel's K splits (``tf32_k_split``): whole 128-row
+    runs that cover K once, at most 16 (a column tile's splits are one
+    cluster), and within one wave: the column tiles times the splits stay
+    within three quarters of the resident blocks, or one split takes them
+    all; more than 8 splits only where each keeps 512 rows."""
+    per, splits = qm.tf32_k_split(M, K, N, resident)
+    assert per % 128 == 0 and per * splits >= K > per * (splits - 1)
+    assert 1 <= splits <= 16 and (splits <= 8 or per >= 512)
     tiles = -(-N // 128)
-    assert tiles * splits <= max(resident, tiles * -(-K // max_k))
-    assert 2 * tiles * splits > min(resident, tiles * -(-K // 256))
-    assert k_split(9, K, N, resident) == (K, 1)       # the tiled kernel
+    assert splits == 1 or tiles * splits <= 3 * resident // 4
+    assert qm.tf32_k_split(M, K, N, resident) == (per, splits)
 
 
 # ------------------------------------------------------------------ (f)

@@ -370,4 +370,7 @@ def test_the_smoke_names_every_instantiation():
     want = cs.TF32_KERNELS["wo_matmul"]["wo_gemm_tf32_kernel"]
     assert len(want) == 6
     assert names == {("wo_gemm_tf32_kernel", i) for i in want}
-    assert cs.TF32_MAIN_PATH in names
+    assert [p for p in cs.TF32_MAIN_PATH
+            if p[0] == "wo_gemm_tf32_kernel"] == [(
+                "wo_gemm_tf32_kernel", "f32 32x512 x16 w16")]
+    assert cs.TF32_MAIN_PATH[0] in names
