@@ -35,7 +35,10 @@ line) when it fails:
    both int8 x int8 kernels' instantiations (``i8i8_wgmma_kernel<128,
    256>`` must hold IGMMA, wgmma with s8 operands;
    ``i8i8_gemv_mma_kernel``, 8, IMMA, mma.sync s8), with their registers
-   and spills.
+   and spills; every instantiation of the LayerNorm vector backward
+   ``layer_norm_bwd_vec_kernel`` (30) and of RoPE's vector kernel
+   ``rope_vec_kernel`` (18) must hold 16-byte loads (LDG.E.128), with
+   their registers and spills.
 3. Kernels against their plain versions, on the card, at the main
    path's shapes: the flash forward (B1 H16 D128, S 128/1024/2048,
    causal; bf16 on the wgmma kernel, f32 on the 3xTF32 one, whose rows
@@ -190,15 +193,18 @@ line) when it fails:
    warm-up step, 5 timed steps and 1 traced step. Every loss must be
    finite; each step must launch ``layer_norm_fwd`` and
    ``layer_norm_bwd`` exactly 25 times (``emb_ln`` with f32 and 24
-   stacked LayerNorms with bf16 scale and shift), every forward on the
-   vector route (``layer_norm_fwd_vec_kernel``), ``flash_fwd`` and the
+   stacked LayerNorms with bf16 scale and shift), every forward and
+   every backward on the vector route (``layer_norm_fwd_vec_kernel``,
+   ``layer_norm_bwd_vec_kernel``), ``flash_fwd`` and the
    bf16 backward route's kernel 12 times, and ``adamw_step`` never.
    Prints a ``bench_ernie``-style line (tokens/s, step time, MFU
-   against 989 TFLOP/s).
+   against 989 TFLOP/s) and the traced step's device time by kernel
+   group (the LayerNorm forwards, the LayerNorm backwards, flash, the
+   GEMMs, the rest) with its idle share.
 8. Padded batches: three more steps of that model with an
    ``attention_mask`` from row lengths 16..128: finite losses, the
-   LayerNorm kernels 25 times each a step (the forward on the vector
-   route), attention on the masked
+   LayerNorm kernels 25 times each a step (both directions on the
+   vector route), attention on the masked
    route (no flash launch).
 9. ERNIE on the card against the CPU: ``num_layers=2`` in f32 with the
    flag on, batch 8: two ``train_step`` calls; losses to 1e-4 relative,
@@ -302,7 +308,8 @@ line) when it fails:
     loss finite; each step launches exactly 5 RMSNorm forwards (all on
     the vector route, ``rms_norm_fwd_vec_kernel``), 5 RMSNorm
     backwards (all on the vector route, ``rms_norm_bwd_vec_kernel``), 8
-    RoPE (4 forward, 4 backward), 13 flat AdamW (all on
+    RoPE (4 forward, 4 backward, all on the vector route,
+    ``rope_vec_kernel``), 13 flat AdamW (all on
     the vector route, ``adamw_flat_vec_kernel``), 2 dense
     flash forwards and 2 fused flash backwards, and no other kernel.
     Prints tokens/s, the step time, the traced step's device time by
@@ -360,10 +367,16 @@ count one launch on the route the wrapper's rule names and launch that
 route's kernel and not the other's (torch.profiler), and each route is
 held and timed (with the wrapper's host time a call, the median of 200
 calls without a sync), the f32 backward bitwise on a second run on both.
-The same for the LayerNorm forward below. The RoPE
+The same for the LayerNorm forward and backward below. The RoPE
 forward and backward bitwise at the docstring's [8, 2048, 16, 128] with
-an [S, D] table and a ``position_ids``-gathered [B*S, D] one, and at D
-64 with an odd H, in bf16 and f32 (no single torch call computes it);
+an [S, D] table and a ``position_ids``-gathered [B*S, D] one, at D 64
+with an odd H, and at D 6 (a half row that 16-byte vectors cannot
+take), in bf16 and f32 (no single torch call computes it), on both
+routes the same way: x as given (the vector kernel where 16-byte
+vectors take a half row) and a copy one element past a 16-byte boundary
+(the general kernel), each call counting one launch on its route and
+launching that route's kernel alone, both routes timed (rows
+``rope_vec`` and ``rope``);
 the flat AdamW bitwise on its four outputs at 84 M elements with f32
 and with bf16 params and grads, and at 513, on both routes: fresh
 tensors (the vector kernel, row ``adamw_flat_vec``) and copies of g, m,
@@ -382,9 +395,12 @@ scale and shift), and ragged [37, 200], [64, 8192] (bf16 and f32),
 [37, 771] and [5, 1]: a bf16 or f16 output within one ulp of its type
 (plus 1e-5 of the tensor's largest magnitude where sums cancel), f32 to
 1e-5 (dγ and dβ to 1e-5 of their largest magnitude), and two f32
-backward runs bitwise equal. Each timed shape records the kernels' times (both
-forward routes), bounds and ``F.layer_norm``'s (forward; backward
-through autograd).
+backward runs bitwise equal on each route. Both directions run on both
+routes as the RMSNorm's do (rows ``layer_norm_bwd_vec`` and
+``layer_norm_bwd`` for the backward; H 771 and H 1 take the general
+routes on aligned tensors too). Each timed shape records the kernels'
+times (both routes of both directions), bounds and ``F.layer_norm``'s
+(forward; backward through autograd).
 
 Each main-path run (the serving runs, the training runs, the ERNIE
 runs, the ResNet runs, the varlen runs, the incubate stack runs, the
@@ -442,6 +458,7 @@ from paddle2_tpu_torch.kernels import quant_matmul
 from paddle2_tpu_torch.kernels.fused_rms_norm import (
     rms_norm_bwd, rms_norm_bwd_reference, rms_norm_fwd,
     rms_norm_fwd_reference)
+from paddle2_tpu_torch.kernels import fused_rope as fr
 from paddle2_tpu_torch.kernels.fused_rope import rope, rope_reference
 from paddle2_tpu_torch.kernels.quant_matmul import (
     i8i8_route, int4_weight_only_matmul, int8_matmul, int8_matmul_reference,
@@ -584,10 +601,15 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_ln.py:55",
         counter=layer_norm_fwd, route="vec"),
+    # every route of the LayerNorm backward wrapper, as layer_norm_fwd
     "layer_norm_bwd": dict(
         source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_ln.py:65",
         counter=layer_norm_bwd),
+    "layer_norm_bwd_vec": dict(
+        source="paddle2_tpu_torch/kernels/csrc/layer_norm.cu",
+        replaces="paddle2_tpu/kernels/pallas_ln.py:65",
+        counter=layer_norm_bwd, route="vec"),
     "momentum_step": dict(
         source="paddle2_tpu_torch/kernels/csrc/momentum_step.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:209",
@@ -629,10 +651,15 @@ KERNELS = {
         source="paddle2_tpu_torch/kernels/csrc/rms_norm.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:290",
         counter=rms_norm_bwd, route="vec"),
+    # every route of the RoPE wrapper, as layer_norm_fwd
     "rope": dict(
         source="paddle2_tpu_torch/kernels/csrc/rope.cu",
         replaces="paddle2_tpu/kernels/pallas_fused.py:369",
         counter=rope),
+    "rope_vec": dict(
+        source="paddle2_tpu_torch/kernels/csrc/rope.cu",
+        replaces="paddle2_tpu/kernels/pallas_fused.py:369",
+        counter=rope, route="vec"),
     # every route of the flat AdamW's wrapper; its kernels-line row is the
     # general route's kernel (an offset view), the vector route's is
     # counted again below
@@ -657,22 +684,26 @@ KERNELS = {
         counter=int8_matmul, route="wgmma"),
 }
 INCUBATE_KERNELS = ("rms_norm_fwd", "rms_norm_fwd_vec", "rms_norm_bwd",
-                    "rms_norm_bwd_vec", "rope", "adamw_flat",
+                    "rms_norm_bwd_vec", "rope", "rope_vec", "adamw_flat",
                     "adamw_flat_vec")
 # the CUDA kernel of each route of the flat AdamW (the names torch.profiler
 # reports)
 ADAMW_FLAT_KERNEL_NAMES = {"vec": "adamw_flat_vec_kernel",
                            "general": "adamw_flat_kernel"}
-# the CUDA kernel of each route of the norms' forwards and of the RMSNorm
-# backward (the names torch.profiler reports); the libraries whose vector
-# kernels' SASS must hold 16-byte loads (LDG.E.128)
+# the CUDA kernel of each route of the norms' forwards and backwards and
+# of RoPE (the names torch.profiler reports); the libraries whose vector
+# forwards' SASS must hold 16-byte loads (LDG.E.128)
 NORM_KERNEL_NAMES = {
     ("rms_norm", "vec"): "rms_norm_fwd_vec_kernel",
     ("rms_norm", "general"): "rms_norm_fwd_kernel",
     ("rms_norm_bwd", "vec"): "rms_norm_bwd_vec_kernel",
     ("rms_norm_bwd", "general"): "rms_norm_bwd_kernel",
     ("layer_norm", "vec"): "layer_norm_fwd_vec_kernel",
-    ("layer_norm", "general"): "layer_norm_fwd_kernel"}
+    ("layer_norm", "general"): "layer_norm_fwd_kernel",
+    ("layer_norm_bwd", "vec"): "layer_norm_bwd_vec_kernel",
+    ("layer_norm_bwd", "general"): "layer_norm_bwd_kernel",
+    ("rope", "vec"): "rope_vec_kernel",
+    ("rope", "general"): "rope_kernel"}
 NORM_LIBRARIES = ("rms_norm", "layer_norm")
 VARLEN_KERNELS = ("flash_varlen_fwd", "flash_varlen_bwd_dkv",
                   "flash_varlen_bwd_dq", "flash_varlen_bwd_fused")
@@ -856,9 +887,14 @@ RMS_RAGGED = [(37, 200, xd, wd, "ragged")
 RMS_LINE_SHAPE = "R16384 H2048 (stack) w bf16"
 LN_LINE_SHAPE = "R4096 H768 (ERNIE stacked leaves) g bf16"
 # the RoPE checks: B, S, H, D, table ("S": [S, D]; "pos": gathered by
-# position_ids to [B*S, D]); the docstring's shape is timed
+# position_ids to [B*S, D]); the docstring's shape is timed; ragged: an
+# odd head count on the vector route (D 64)
 ROPE_CASES = [(8, 2048, 16, 128, "S", True), (8, 2048, 16, 128, "pos", True),
               (2, 300, 7, 64, "S", False), (3, 17, 5, 64, "pos", False)]
+# a half row that 16-byte vectors cannot take (D 6: the general route even
+# on aligned tensors). These draw from a generator of their own, so the
+# checks after them keep the inputs they had before these cases existed
+ROPE_GENERAL_CASES = [(2, 33, 3, 6, "S"), (2, 33, 3, 6, "pos")]
 ROPE_LINE_SHAPE = "B8 S2048 H16 D128, [S, D] table"
 # the flat AdamW checks: N, param and grad dtype, timed
 ADAMW_FLAT_CASES = [(84_000_000, torch.float32, True),
@@ -919,7 +955,8 @@ LINE_SHAPES = {"flash_bwd_fused": TRAIN_BWD_SHAPE,
                "rms_norm_fwd_vec": RMS_LINE_SHAPE,
                "rms_norm_bwd": RMS_LINE_SHAPE + ", unaligned view",
                "rms_norm_bwd_vec": RMS_LINE_SHAPE,
-               "rope": ROPE_LINE_SHAPE,
+               "rope": ROPE_LINE_SHAPE + ", unaligned view",
+               "rope_vec": ROPE_LINE_SHAPE,
                "adamw_flat": ADAMW_FLAT_LINE_SHAPE + ", offset view",
                "adamw_flat_vec": ADAMW_FLAT_LINE_SHAPE,
                "paged_decode": paged_line_shape(PAGED_CTX, 128, False),
@@ -930,7 +967,8 @@ LINE_SHAPES = {"flash_bwd_fused": TRAIN_BWD_SHAPE,
                "flash_varlen_bwd_fused": VARLEN_LINE_SHAPE,
                "layer_norm_fwd": LN_LINE_SHAPE + ", unaligned view",
                "layer_norm_fwd_vec": LN_LINE_SHAPE,
-               "layer_norm_bwd": LN_LINE_SHAPE}
+               "layer_norm_bwd": LN_LINE_SHAPE + ", unaligned view",
+               "layer_norm_bwd_vec": LN_LINE_SHAPE}
 
 
 class SmokeFailure(RuntimeError):
@@ -2126,11 +2164,11 @@ def norm_fwd_timing(row, run, plain, kern, ops, nbytes, lib_ms, lib_dev,
 
 
 def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
-    """The forward on both routes (the vector kernel where 16-byte
-    vectors take the rows, and the general kernel on an unaligned copy)
-    and the backward against their plain versions; in f32 two backward
-    runs bitwise equal (no atomics). With ``timed``, the kernels' times,
-    bounds and library yardsticks."""
+    """The forward and the backward, each on both routes (the vector
+    kernels where 16-byte vectors take the rows, and the general kernels
+    on unaligned copies), against their plain versions; in f32 two
+    backward runs bitwise equal on each route (no atomics). With
+    ``timed``, the kernels' times, bounds and library yardsticks."""
     x, g, b, dy, eps = ln_inputs(R, H, xdt, gdt, gen, dev)
     short = {torch.float32: "f32", torch.bfloat16: "bf16",
              torch.float16: "f16"}
@@ -2139,27 +2177,35 @@ def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
         "layer_norm", layer_norm_fwd,
         lambda xin, y: fln.fwd_route(xin, g, b, y),
         lambda xin: layer_norm_fwd(xin, g, b, eps), x, f"layer_norm {shape}")
-    dx, dg, db = layer_norm_bwd(x, g, dy, eps)
+    bwd = bwd_routes("layer_norm_bwd", layer_norm_bwd,
+                     lambda xin, din: layer_norm_bwd(xin, g, din, eps), x,
+                     dy, f"layer_norm_bwd {shape}")
     y_ref = layer_norm_fwd_reference(x, g, b, eps)
     dx_ref, dg_ref, db_ref = layer_norm_bwd_reference(x, g, dy, eps)
     torch.cuda.synchronize()
     errs = {f"y_{route}": ln_err(y, y_ref, xdt)
             for route, (_, y, _) in fwd.items()}
-    errs.update(dx=ln_err(dx, dx_ref, xdt), dg=ln_err(dg, dg_ref, gdt, True),
-                db=ln_err(db, db_ref, gdt, True))
+    for route, (_, _, (dx, dg, db), _) in bwd.items():
+        errs.update({f"dx_{route}": ln_err(dx, dx_ref, xdt),
+                     f"dg_{route}": ln_err(dg, dg_ref, gdt, True),
+                     f"db_{route}": ln_err(db, db_ref, gdt, True)})
     for k, (excess, err) in errs.items():
         require(excess <= 0, f"layer_norm {dname(xdt)} {shape}: {k} "
                 f"disagrees with its plain version (max abs err {err}, "
                 f"{excess} past the limit)")
-    for t in [y for _, y, _ in fwd.values()] + [dx, dg, db]:
+    for t in ([y for _, y, _ in fwd.values()]
+              + [t for _, _, res, _ in bwd.values() for t in res]):
         require(torch.isfinite(t.float()).all().item(), "non-finite output")
-    reproducible = None
-    if xdt == torch.float32:
-        again = layer_norm_bwd(x, g, dy, eps)
-        reproducible = all(torch.equal(a, c) for a, c in
-                           zip((dx, dg, db), again))
-        require(reproducible, f"layer_norm_bwd f32 {shape}: two runs "
-                f"differ (dgamma/dbeta must not depend on timing)")
+    reproducible = {}
+    for route, (xin, din, res, _) in bwd.items():
+        reproducible[route] = None
+        if xdt == torch.float32:
+            again = layer_norm_bwd(xin, g, din, eps)
+            reproducible[route] = all(torch.equal(a, c) for a, c in
+                                      zip(res, again))
+            require(reproducible[route], f"layer_norm_bwd f32 {shape} "
+                    f"({route} route): two runs differ (dgamma/dbeta must "
+                    f"not depend on timing)")
     tol = "bf16/f16: 1 ulp + 1e-5 max; f32: 1e-5 (dg/db of max)"
     names = {"vec": "layer_norm_fwd_vec", "general": "layer_norm_fwd"}
     rows = [dict(name=names[route], dtype=dname(xdt),
@@ -2169,13 +2215,18 @@ def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
                  excess_over_tol=errs[f"y_{route}"][0], tol=tol,
                  bitwise_reproducible=None)
             for route, (xin, _, seen) in fwd.items()]
-    rows.append(dict(name="layer_norm_bwd", dtype=dname(xdt), shape=shape,
-                     max_abs_err=max(errs[k][1] for k in ("dx", "dg", "db")),
-                     excess_over_tol=max(errs[k][0]
-                                         for k in ("dx", "dg", "db")),
-                     tol=tol, bitwise_reproducible=reproducible))
+    bnames = {"vec": "layer_norm_bwd_vec", "general": "layer_norm_bwd"}
+    brows = [dict(name=bnames[route], dtype=dname(xdt),
+                  shape=shape + ("" if xin is x else ", unaligned view"),
+                  route=route, kernel_seen=seen,
+                  max_abs_err=max(errs[f"{k}_{route}"][1]
+                                  for k in ("dx", "dg", "db")),
+                  excess_over_tol=max(errs[f"{k}_{route}"][0]
+                                      for k in ("dx", "dg", "db")),
+                  tol=tol, bitwise_reproducible=reproducible[route])
+             for route, (xin, _, _, seen) in bwd.items()]
     if not timed:
-        return rows
+        return rows + brows
     size, gsize = x.element_size(), g.element_size()
     gx, bx = g.to(xdt), b.to(xdt)
     xr, gr, br = (t.detach().clone().requires_grad_() for t in (x, gx, bx))
@@ -2190,7 +2241,7 @@ def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
     # the device time of every kernel the library call launches
     lib_dev = {k: device_ms(fn, "")[0] for k, fn in lib_calls.items()}
     library = "F.layer_norm (weights in x's dtype)"
-    for row in rows[:-1]:
+    for row in rows:
         xin = fwd[row["route"]][0]
         norm_fwd_timing(
             row, lambda: layer_norm_fwd(xin, g, b, eps),
@@ -2198,37 +2249,41 @@ def check_layer_norm(R, H, xdt, gdt, what, gen, dev, timed):
             NORM_KERNEL_NAMES[("layer_norm", row["route"])], 8.0 * R * H,
             2.0 * R * H * size + 2.0 * H * gsize, lib["fwd"], lib_dev["fwd"],
             library)
-    row = rows[-1]
-    run = lambda: layer_norm_bwd(x, g, dy, eps)  # noqa: E731
-    dev_ms, kern_ms = device_ms(run, "layer_norm_bwd")
     b_ms, b_by = bound(16.0 * R * H, 3.0 * R * H * size + 3.0 * H * gsize,
                        torch.float32)
-    row.update(ms=cuda_ms(run), device_ms=dev_ms, kernel_device_ms=kern_ms,
-               plain_ms=cuda_ms(lambda: layer_norm_bwd_reference(
-                   x, g, dy, eps), iters=10),
-               library_ms=lib["bwd"], library_device_ms=lib_dev["bwd"],
-               bound_ms=b_ms, bound_by=b_by,
-               library=library + " backward through autograd",
-               library_fwd_bwd_ms=lib["fwd+bwd"],
-               library_fwd_bwd_device_ms=lib_dev["fwd+bwd"],
-               bwd_blocks=bwd_blocks(R, dev))
-    return rows
+    for row in brows:
+        xin, din = bwd[row["route"]][:2]
+
+        def run(xin=xin, din=din):
+            return layer_norm_bwd(xin, g, din, eps)
+        # either route's row kernel and the reduction of its partials
+        dev_ms, kern_ms = device_ms(run, "layer_norm_bwd", per_call=2)
+        row.update(ms=cuda_ms(run), device_ms=dev_ms,
+                   kernel_device_ms=kern_ms, host_ms=host_ms(run),
+                   plain_ms=cuda_ms(lambda: layer_norm_bwd_reference(
+                       x, g, dy, eps), iters=10),
+                   library_ms=lib["bwd"], library_device_ms=lib_dev["bwd"],
+                   bound_ms=b_ms, bound_by=b_by,
+                   library=library + " backward through autograd",
+                   library_fwd_bwd_ms=lib["fwd+bwd"],
+                   library_fwd_bwd_device_ms=lib_dev["fwd+bwd"],
+                   bwd_blocks=bwd_blocks(R, dev))
+    return rows + brows
 
 
-def rms_bwd_routes(x, w, r, do, what):
-    """The RMSNorm backward on ``x`` and ``do`` and on unaligned copies of
-    both: each call counts one launch on one route (the wrapper's rule,
-    ``bwd_route``), launches that route's CUDA kernel and not the other's
-    (torch.profiler), and the copies take the general route. Returns ``{route: (x, do, (dx, dw),
+def bwd_routes(lib, wrapper, run, x, d, what):
+    """The backward ``run(x, d)`` (``d`` the output gradient) on ``x`` and
+    ``d`` and on unaligned copies of both: each call counts one launch on
+    one route (the wrapper's rule, on the call's own tensors), launches
+    that route's CUDA kernel and not the other's (torch.profiler), and the
+    copies take the general route. Returns ``{route: (x, d, outputs,
     kernel seen by name)}``; aligned rows that the general route takes
     give one entry."""
     out = {}
-    lib = "rms_norm_bwd"
-    for xin, doin in ((x, do), (unaligned(x), unaligned(do))):
-        before = dict(rms_norm_bwd.route_launches)
-        res = rms_norm_bwd(xin, w, r, doin)
-        moved = {k: rms_norm_bwd.route_launches[k] - before[k]
-                 for k in before}
+    for xin, din in ((x, d), (unaligned(x), unaligned(d))):
+        before = dict(wrapper.route_launches)
+        res = run(xin, din)
+        moved = {k: wrapper.route_launches[k] - before[k] for k in before}
         route = next(k for k, n in moved.items() if n)
         require(moved == {k: int(k == route) for k in before},
                 f"{what}: route launches moved by {moved}, want one")
@@ -2236,7 +2291,7 @@ def rms_bwd_routes(x, w, r, do, what):
             require(route == "general", f"{what}: an unaligned view takes "
                     f"the {route} route")
         other = "general" if route == "vec" else "vec"
-        seen = launches_kernel(lambda: rms_norm_bwd(xin, w, r, doin),
+        seen = launches_kernel(lambda: run(xin, din),
                                NORM_KERNEL_NAMES[(lib, route)],
                                NORM_KERNEL_NAMES[(lib, other)])
         require(seen is not False, f"{what}: the {route} route did not "
@@ -2244,7 +2299,7 @@ def rms_bwd_routes(x, w, r, do, what):
         if seen is None:
             say(f"[profiler] {what}: no kernel recorded in three windows: "
                 f"the {route} route's kernel not checked by name")
-        out.setdefault(route, (xin, doin, res, seen))
+        out.setdefault(route, (xin, din, res, seen))
     return out
 
 
@@ -2265,7 +2320,9 @@ def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
         lambda xin, res: frn.fwd_route(xin, w, *res),
         lambda xin: rms_norm_fwd(xin, w, eps), x, f"rms_norm {shape}")
     r = next(iter(fwd.values()))[1][1]
-    bwd = rms_bwd_routes(x, w, r, do, f"rms_norm_bwd {shape}")
+    bwd = bwd_routes("rms_norm_bwd", rms_norm_bwd,
+                     lambda xin, din: rms_norm_bwd(xin, w, r, din), x, do,
+                     f"rms_norm_bwd {shape}")
     o_ref, r_ref = rms_norm_fwd_reference(x, w, eps)
     dx_ref, dw_ref = rms_norm_bwd_reference(x, w, r, do)
     torch.cuda.synchronize()
@@ -2355,11 +2412,16 @@ def check_rms_norm(R, H, xdt, wdt, what, gen, dev, timed, eps=1e-6):
 
 
 def check_rope(B, S, H, D, table, dtype, gen, dev, timed):
-    """The RoPE kernel, forward and backward (``negate_sin``), against
-    its plain version, bitwise, on the ``_angle_table`` route's tables
+    """The RoPE kernels, forward and backward (``negate_sin``), against
+    their plain version, bitwise, on the ``_angle_table`` route's tables
     (built in float64, rounded to x's dtype): ``[S, D]``, or gathered by
-    random ``position_ids`` to ``[B*S, D]``. With ``timed``, the
-    forward's times and bound (no single torch call computes it)."""
+    random ``position_ids`` to ``[B*S, D]``. Both routes: x as given (the
+    vector kernel where 16-byte vectors take a half row) and a copy one
+    element past a 16-byte boundary (the general kernel); each call
+    counts one launch on the route the wrapper's rule names and launches
+    that route's kernel and not the other's (torch.profiler). With
+    ``timed``, each route's times and bound (no single torch call
+    computes it)."""
     x = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
     cos, sin = IF._angle_table(S, D, 10000.0, False, dtype, dev)
     if table == "pos":
@@ -2368,30 +2430,68 @@ def check_rope(B, S, H, D, table, dtype, gen, dev, timed):
     shape = (f"B{B} S{S} H{H} D{D}, "
              f"{'[S, D]' if table == 'S' else 'position_ids [B*S, D]'} "
              f"table")
-    for neg in (False, True):
-        got = rope(x, cos, sin, negate_sin=neg)
-        want = rope_reference(x, cos, sin, negate_sin=neg)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        require(torch.equal(got, want), f"rope {dname(dtype)} {shape} "
-                f"({'backward' if neg else 'forward'}): not bitwise equal "
-                f"to its plain version (max abs err {err})")
-    row = dict(name="rope", dtype=dname(dtype), shape=shape,
-               max_abs_err=0.0, tol="bitwise (forward and backward)")
-    if not timed:
-        return row
-    T = cos.shape[0]
-    n = x.numel()
-    b_ms, b_by = bound(3.0 * n, 2.0 * n * x.element_size()
-                       + 2.0 * T * D * cos.element_size(), torch.float32)
-    run = lambda: rope(x, cos, sin)
-    dev_ms, kern_ms = device_ms(run, "rope_kernel", per_call=1)
-    row.update(ms=cuda_ms(run), device_ms=dev_ms, kernel_device_ms=kern_ms,
-               plain_ms=cuda_ms(lambda: rope_reference(x, cos, sin),
-                                iters=10),
-               library_ms=None, library="none", bound_ms=b_ms,
-               bound_by=b_by)
-    return row
+    rows, done = [], set()
+    for xin in (x, unaligned(x)):
+        for neg in (False, True):
+            before = dict(rope.route_launches)
+            got = rope(xin, cos, sin, negate_sin=neg)
+            moved = {k: rope.route_launches[k] - before[k] for k in before}
+            route = next(k for k, n in moved.items() if n)
+            require(moved == {k: int(k == route) for k in before},
+                    f"rope {shape}: route launches moved by {moved}, "
+                    f"want one")
+            require(route == fr.route(xin, cos, sin, got),
+                    f"rope {shape}: counted on {route}, the rule names "
+                    f"{fr.route(xin, cos, sin, got)}")
+            if xin is not x:
+                require(route == "general", f"rope {shape}: an unaligned "
+                        f"view takes the {route} route")
+            want = rope_reference(xin, cos, sin, negate_sin=neg)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            require(torch.equal(got, want), f"rope {dname(dtype)} {shape} "
+                    f"({'backward' if neg else 'forward'}, {route} route): "
+                    f"not bitwise equal to its plain version (max abs err "
+                    f"{err})")
+        if route in done:
+            continue
+        done.add(route)
+        other = "general" if route == "vec" else "vec"
+        seen = launches_kernel(lambda: rope(xin, cos, sin),
+                               NORM_KERNEL_NAMES[("rope", route)],
+                               NORM_KERNEL_NAMES[("rope", other)])
+        require(seen is not False, f"rope {shape}: the {route} route did "
+                f"not launch {NORM_KERNEL_NAMES[('rope', route)]} alone")
+        if seen is None:
+            say(f"[profiler] rope {shape}: no kernel recorded in three "
+                f"windows: the {route} route's kernel not checked by name")
+        rows.append(dict(
+            name="rope_vec" if route == "vec" else "rope",
+            dtype=dname(dtype),
+            shape=shape + ("" if xin is x else ", unaligned view"),
+            route=route, kernel_seen=seen, max_abs_err=0.0,
+            tol="bitwise (forward and backward)", x=xin))
+    if timed:
+        T = cos.shape[0]
+        n = x.numel()
+        b_ms, b_by = bound(3.0 * n, 2.0 * n * x.element_size()
+                           + 2.0 * T * D * cos.element_size(), torch.float32)
+        for row in rows:
+            xin = row["x"]
+
+            def run(xin=xin):
+                return rope(xin, cos, sin)
+            dev_ms, kern_ms = device_ms(
+                run, NORM_KERNEL_NAMES[("rope", row["route"])], per_call=1)
+            row.update(ms=cuda_ms(run), device_ms=dev_ms,
+                       kernel_device_ms=kern_ms, host_ms=host_ms(run),
+                       plain_ms=cuda_ms(lambda: rope_reference(x, cos, sin),
+                                        iters=10),
+                       library_ms=None, library="none", bound_ms=b_ms,
+                       bound_by=b_by)
+    for row in rows:
+        del row["x"]
+    return rows
 
 
 def check_adamw_flat(N, pdt, gen, dev, timed):
@@ -3174,10 +3274,10 @@ def ernie_bf16(smi):
     require(all(np.isfinite([warm, traced] + losses)),
             f"non-finite ERNIE loss: {[warm] + losses + [traced]}")
     n_ln = 1 + 2 * cfg.num_layers
-    # every LayerNorm forward on the vector route
+    # every LayerNorm forward and backward on the vector route
     want = {"layer_norm_fwd": n_ln, "layer_norm_fwd_vec": n_ln,
-            "layer_norm_bwd": n_ln, "flash_fwd": cfg.num_layers,
-            "adamw_step": 0}
+            "layer_norm_bwd": n_ln, "layer_norm_bwd_vec": n_ln,
+            "flash_fwd": cfg.num_layers, "adamw_step": 0}
     if route == "fused":
         want["flash_bwd_fused"] = cfg.num_layers
     else:
@@ -3206,15 +3306,16 @@ def ernie_bf16(smi):
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                backward_route=route,
                launches_per_step={n: launches[n] / steps for n in KERNELS},
-               step_profile=step_profile(prof, wall_ms, step_s * 1e3))
+               step_profile=step_profile(prof, wall_ms, step_s * 1e3),
+               device_ms_by_group=device_groups(prof, ERNIE_GROUPS))
     return run, launches, model, step
 
 
 def ernie_padded(model, step):
     """Phase 8: three more bf16 steps of the phase-7 model on padded
     batches (an ``attention_mask`` from row lengths 16..128): finite
-    losses, the fused LayerNorm 25 + 25 times a step (every forward on
-    the vector route), and attention on
+    losses, the fused LayerNorm 25 + 25 times a step (every forward and
+    every backward on the vector route), and attention on
     the masked route (no flash launch)."""
     mask, lens = padding_mask(ERNIE["batch"], "cuda")
     data = ernie_batches(3, ERNIE["batch"], "cuda")
@@ -3224,7 +3325,8 @@ def ernie_padded(model, step):
     launches = counts()
     require(all(np.isfinite(losses)), f"non-finite padded losses {losses}")
     n_ln = 1 + 2 * model.cfg.num_layers
-    for n in ("layer_norm_fwd", "layer_norm_fwd_vec", "layer_norm_bwd"):
+    for n in ("layer_norm_fwd", "layer_norm_fwd_vec", "layer_norm_bwd",
+              "layer_norm_bwd_vec"):
         require(launches[n] == 3 * n_ln, f"padded run: {n} launched "
                 f"{launches[n]} times in 3 steps, want {n_ln} a step")
     require(launches["flash_fwd"] == 0,
@@ -3302,6 +3404,16 @@ KERNEL_GROUPS = (("momentum_step", ("momentum_step_kernel",)),
                                   "convolution")),
                  ("reduction", ("reduce_kernel",)),
                  ("pooling", ("pool",)))
+
+
+# phase 7's traced ERNIE step by kernel group: the LayerNorm kernels by
+# direction (the backward's row kernels and the reduction of their
+# partials), the flash kernels, cuBLAS's GEMMs by their names' stems
+ERNIE_GROUPS = (("layer_norm_fwd", ("layer_norm_fwd",)),
+                ("layer_norm_bwd", ("layer_norm_bwd",)),
+                ("flash", ("flash_",)),
+                ("gemm", ("gemm", "cutlass", "xmma", "sm90_xmma", "nvjet",
+                          "cublas")))
 
 
 def device_groups(prof, groups=KERNEL_GROUPS):
@@ -4066,7 +4178,8 @@ def varlen_f32_vs_cpu(dev):
 # names' stems); "elementwise and other" is the rest (casts, the residual
 # adds, SwiGLU, the loss, the AdamW copies back)
 STACK_GROUPS = (("flash", ("flash_",)), ("rms_norm", ("rms_norm",)),
-                ("rope", ("rope_kernel",)), ("adamw_flat", ("adamw_flat",)),
+                ("rope", ("rope_kernel", "rope_vec_kernel")),
+                ("adamw_flat", ("adamw_flat",)),
                 ("gemm", ("gemm", "cutlass", "xmma", "sm90_xmma", "nvjet",
                           "cublas")))
 
@@ -4193,10 +4306,11 @@ def stack_bf16(smi, dev):
     require(all(np.isfinite(all_losses)),
             f"non-finite incubate stack loss: {all_losses}")
     L = cfg["layers"]
-    # every RMSNorm forward and backward on the vector route
+    # every RMSNorm forward and backward and every RoPE on the vector
+    # route
     want = {"rms_norm_fwd": 2 * L + 1, "rms_norm_fwd_vec": 2 * L + 1,
             "rms_norm_bwd": 2 * L + 1, "rms_norm_bwd_vec": 2 * L + 1,
-            "rope": 4 * L, "adamw_flat": len(params),
+            "rope": 4 * L, "rope_vec": 4 * L, "adamw_flat": len(params),
             "adamw_flat_vec": len(params), "flash_fwd": L,
             "flash_bwd_fused": L}
     for n in KERNELS:
@@ -4463,7 +4577,7 @@ def check_wo_mma_build():
 def vec_args(mangled):
     """A vector norm kernel's template arguments from its mangled name:
     x's type, the parameters' type and the vectors a lane."""
-    m = re.search(r"fwd_vec_kernelI(.*?)Li(\d+)EE", mangled)
+    m = re.search(r"(?:fwd|bwd)_vec_kernelI(.*?)Li(\d+)EE", mangled)
     if not m:
         return mangled
     types = re.findall(r"13__nv_bfloat16|6__half|S\d*_|f", m.group(1))
@@ -4514,12 +4628,21 @@ def check_norm_build():
 
 
 def decode_instance(mangled):
-    """A paged decode, flat AdamW vector or int8 x int8 kernel's
-    instantiation from its mangled name: ``<dtype, D, route>``, ``<p
-    type, g type>``, ``<BN>`` (the prefill tile's width) or ``<NT8, VEC,
-    XVEC>`` (the decode kernel's n8 tiles, 16-byte w and 8-byte x
-    loads)."""
+    """A paged decode, flat AdamW vector, int8 x int8, LayerNorm vector
+    backward or RoPE vector kernel's instantiation from its mangled name:
+    ``<dtype, D, route>``, ``<p type, g type>``, ``<BN>`` (the prefill
+    tile's width), ``<NT8, VEC, XVEC>`` (the decode kernel's n8 tiles,
+    16-byte w and 8-byte x loads), ``<x type, g type, vectors a lane>``
+    or ``<x type, table type, backward>``."""
     short = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+    m = re.search(r"rope_vec_kernelI(.*?)Lb([01])EE", mangled)
+    if m:
+        named = [short.get(t) for t in
+                 re.findall(r"13__nv_bfloat16|6__half|S\d*_|f", m.group(1))]
+        named = [n if n else named[0] for n in named]
+        return f"<{', '.join(named)}, {m.group(2) == '1'}>"
+    if "layer_norm_bwd_vec_kernel" in mangled:
+        return vec_args(mangled)
     m = re.search(r"i8i8_wgmma_kernelILi(\d+)E", mangled)
     if m:
         return f"<{m.group(1)}>"
@@ -4543,20 +4666,27 @@ def decode_instance(mangled):
 
 # the kernels whose SASS phase 2 checks: library, kernel, instantiations,
 # the instruction each must hold (cp.async: LDGSTS; a 16-byte load; wgmma
-# with s8 operands: IGMMA, the integer form of HGMMA; mma.sync s8: IMMA)
+# with s8 operands: IGMMA, the integer form of HGMMA; mma.sync s8: IMMA).
+# The LayerNorm vector backward: 3 x types x 3 g types x vectors a lane 1,
+# 2, 4 (and 8 for f32 x); the RoPE vector kernel: 3 x 3 types x 2
+# directions
 DECODE_BUILD = (("paged_decode", "paged_decode_cluster_kernel", 12,
                  "LDGSTS"),
                 ("adamw_flat", "adamw_flat_vec_kernel", 9, "LDG.E.128"),
                 ("i8i8_matmul", "i8i8_wgmma_kernel", 2, "IGMMA"),
-                ("i8i8_matmul", "i8i8_gemv_mma_kernel", 8, "IMMA"))
+                ("i8i8_matmul", "i8i8_gemv_mma_kernel", 8, "IMMA"),
+                ("layer_norm", "layer_norm_bwd_vec_kernel", 30, "LDG.E.128"),
+                ("rope", "rope_vec_kernel", 18, "LDG.E.128"))
 
 
 def check_decode_build():
     """Phase 2 for the paged decode (``paged_decode_cluster_kernel``: 2
     dtypes x 3 head dims x 2 routes), the flat AdamW's vector route
-    (``adamw_flat_vec_kernel``: 3 p types x 3 g types) and the int8 x
-    int8 kernels (``i8i8_wgmma_kernel``: 2 tile widths;
-    ``i8i8_gemv_mma_kernel``: 2 x 2 x 2): every instantiation's SASS
+    (``adamw_flat_vec_kernel``: 3 p types x 3 g types), the int8 x int8
+    kernels (``i8i8_wgmma_kernel``: 2 tile widths;
+    ``i8i8_gemv_mma_kernel``: 2 x 2 x 2), the LayerNorm vector backward
+    (``layer_norm_bwd_vec_kernel``: 30) and RoPE's vector route
+    (``rope_vec_kernel``: 18): every instantiation's SASS
     holds its copies (LDGSTS, cp.async), its 16-byte loads (LDG.E.128)
     or its tensor-core instructions (IGMMA, IMMA), and ptxas's registers
     and spills for each are printed."""
@@ -4705,10 +4835,14 @@ def main():
     for case in LN_RAGGED:
         ragged += check_layer_norm(*case, gen, dev, timed=False)
     torch.cuda.empty_cache()
+    rope_gen = torch.Generator(device=dev).manual_seed(1)
     for dtype in (torch.bfloat16, torch.float32):
         for B, S, H, D, table, timed in ROPE_CASES:
-            (rows if timed else ragged).append(
+            (rows if timed else ragged).extend(
                 check_rope(B, S, H, D, table, dtype, gen, dev, timed))
+        for B, S, H, D, table in ROPE_GENERAL_CASES:
+            ragged += check_rope(B, S, H, D, table, dtype, rope_gen, dev,
+                                 False)
     for N, pdt, timed in ADAMW_FLAT_CASES:
         (rows if timed else ragged).extend(
             check_adamw_flat(N, pdt, gen, dev, timed))
@@ -4886,9 +5020,12 @@ def main():
                 f"{r['tol']})" + (f", bitwise on a second run "
                                   f"{r['bitwise']}" if "bitwise" in r
                                   else ""))
-        elif r["name"] in ("rope", "adamw_flat", "adamw_flat_vec"):
+        elif r["name"] in ("rope", "rope_vec", "adamw_flat",
+                           "adamw_flat_vec"):
             say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
-                f"{r['max_abs_err']:.3g} ({r['tol']})")
+                f"{r['max_abs_err']:.3g} ({r['tol']})"
+                + (f"; {r['route']} route, its kernel seen by name: "
+                   f"{r['kernel_seen']}" if "kernel_seen" in r else ""))
         elif r["name"] in I8_ROW_NAME.values():
             say(f"[kernel] {r['name']} {r['shape']}: err "
                 f"{r['max_abs_err']:.3g} ({r['tol']}), largest |sum| "
@@ -5044,6 +5181,10 @@ def main():
     ernie, le, ernie_model, ernie_train = ernie_bf16(smi)
     add(le)
     say(f"[ernie bf16] {json.dumps(ernie['bench'])}")
+    say(f"[ernie bf16] traced step: device "
+        f"{ernie['step_profile']['device_ms']:.2f} ms, idle "
+        f"{ernie['step_profile']['idle_share']:.3f}, by group "
+        f"{json.dumps(ernie['device_ms_by_group'])}")
     say(f"[ernie bf16] {ernie}")
     padded, lp = ernie_padded(ernie_model, ernie_train)
     add(lp)
@@ -5101,12 +5242,11 @@ def main():
     say(f"[incubate f32 vs cpu] {stack32}")
 
     say(f"[main path] launches: {launches}")
-    say(f"[main path] norm forward launches by route: rms_norm_fwd "
-        f"{launches['rms_norm_fwd_vec']} vec, "
-        f"{launches['rms_norm_fwd'] - launches['rms_norm_fwd_vec']} general;"
-        f" layer_norm_fwd {launches['layer_norm_fwd_vec']} vec, "
-        f"{launches['layer_norm_fwd'] - launches['layer_norm_fwd_vec']} "
-        f"general")
+    say("[main path] launches by route: " + "; ".join(
+        f"{n} {launches[n + '_vec']} vec, "
+        f"{launches[n] - launches[n + '_vec']} general"
+        for n in ("rms_norm_fwd", "rms_norm_bwd", "layer_norm_fwd",
+                  "layer_norm_bwd", "rope", "adamw_flat")))
     for n in KERNELS:
         require(launches[n] > 0, f"kernel {n} was never launched on the "
                 f"main path")

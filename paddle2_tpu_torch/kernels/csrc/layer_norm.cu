@@ -43,17 +43,34 @@
 //   same order). Each thread revisits only its own elements, so the
 //   buffers need no barrier; only the reductions synchronise. Every H
 //   from 1 to 8192 is taken.
-// The backward is the general design, walking the rows with G blocks.
+// The backward has the same two routes, by the same rule (x, dy, dx, g
+// and the partials' workspace on 16-byte boundaries; the wrapper's
+// bwd_route):
+// - the vector route, `layer_norm_bwd_vec_kernel`: x and dy stay in
+//   registers as they arrived (each lane issues all of its 16-byte loads
+//   of both before its first add). The mean, then the variance of the
+//   centred row from the same registers, as the vector forward takes
+//   them; then mean(dxh) and mean(dxh * xh) in one exchange
+//   (row_vec.cuh row_sum2): three reductions a row, none a block barrier
+//   where a row fits one warp. A lane keeps its sums of dy * xh and dy in
+//   registers across all of its rows (its columns are the same in every
+//   row); the block adds its row slots in slot order through shared
+//   memory. Blocks are persistent, at most G, and keep g in shared memory
+//   in its own type. A lane holds at most BWD_MAX_VPL vectors of x (and
+//   of dy) before a row takes more warps.
+// - the general route, `layer_norm_bwd_kernel`, for every other call:
+//   one block a row at a time on G blocks, scalar loads, the row held in
+//   shared memory in f32, dg and db summed in shared memory.
 //
 // dg and db are where the TPU design does not carry over. The TPU's grid
 // runs in order, so `_bwd_kernel` adds each row block's sums into VMEM
 // scratch and writes them at its last step. Here the backward runs a fixed
-// number of blocks, each walking rows blockIdx.x, blockIdx.x + gridDim.x,
-// ... and summing its dy * xh and dy into f32 accumulators in shared
-// memory; each block writes its partial sums to its own row of a workspace,
-// and a second kernel adds the partials of each column in block order. No
-// float atomics: the sums do not depend on which block ran first, so f32
-// runs are bitwise reproducible.
+// number of blocks, each walking rows with a grid stride and summing its
+// dy * xh and dy in f32; each block writes its partial sums to its own row
+// of a workspace, and a second kernel, `layer_norm_bwd_reduce_kernel`,
+// adds the partials of each column in block order. No float atomics, and
+// the grid is fixed by the shape and the card: the sums do not depend on
+// which block ran first, so f32 runs are bitwise reproducible.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -66,9 +83,24 @@ namespace {
 constexpr int MAX_NT = 256;
 constexpr int MAX_H = 8192;
 constexpr int MAX_DEVICES = 64;
-// the reduction of the partials: 32 columns x 8 slices of the blocks
+// the reduction of the partials: 32 columns x 8 slices of the blocks,
+// dg's and db's columns in blocks of their own
 constexpr int RED_COLS = 32;
 constexpr int RED_SLICES = 8;
+// the backward's vector route: at most 2 vectors of x a lane (and 2 of
+// dy, and their 2 x 2 x E dg and db sums in registers) before a row takes
+// more warps: ERNIE's H 768 and the GPT bench's H 1024 in bf16 are two
+// warps a row, ~80 registers, three blocks an SM. At most 4 (one warp a
+// row, ~156 registers, one block an SM) was 20-27 % slower there in bf16
+// and f16, 9 % faster at H 768 in f32 (layer_norm_bwd_variants.py)
+constexpr int BWD_MAX_VPL = 2;
+
+// The vector backward's shared memory: g in its own type, rounded up to 16
+// bytes, then the block's dg and db sums, H floats each.
+template <typename GT>
+__host__ __device__ constexpr int bwd_g_bytes(int H) {
+  return (H * (int)sizeof(GT) + 15) / 16 * 16;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -268,7 +300,8 @@ __global__ void __launch_bounds__(MAX_NT)
   }
 }
 
-// dg[i] = sum over the G blocks' partials, in a fixed order: slice s of
+// dg[i] (blockIdx.y 0) or db[i] (1) = the sum of the G blocks' partials
+// (ws rows 0..G-1 for dg, G..2G-1 for db), in a fixed order: slice s of
 // the block's 8 adds partials s, s + 8, ...; then slice 0 adds the slices
 // in order. Neighbouring threads read neighbouring columns.
 template <typename GT>
@@ -276,30 +309,150 @@ __global__ void __launch_bounds__(RED_COLS* RED_SLICES)
     layer_norm_bwd_reduce_kernel(const float* __restrict__ ws,
                                  GT* __restrict__ dg, GT* __restrict__ db,
                                  int G, int H) {
-  __shared__ float pg[RED_SLICES][RED_COLS];
-  __shared__ float pb[RED_SLICES][RED_COLS];
+  __shared__ float part[RED_SLICES][RED_COLS];
   const int c = threadIdx.x % RED_COLS;
   const int sl = threadIdx.x / RED_COLS;
   const int i = blockIdx.x * RED_COLS + c;
-  float a = 0.f, e = 0.f;
-  if (i < H) {
-    for (int k = sl; k < G; k += RED_SLICES) {
-      a += ws[(long long)k * H + i];
-      e += ws[(long long)(G + k) * H + i];
-    }
-  }
-  pg[sl][c] = a;
-  pb[sl][c] = e;
+  const float* w = ws + (long long)blockIdx.y * G * H;
+  float a = 0.f;
+  if (i < H)
+    for (int k = sl; k < G; k += RED_SLICES) a += w[(long long)k * H + i];
+  part[sl][c] = a;
   __syncthreads();
   if (sl == 0 && i < H) {
-    float ta = 0.f, te = 0.f;
+    float t = 0.f;
 #pragma unroll
-    for (int k = 0; k < RED_SLICES; ++k) {
-      ta += pg[k][c];
-      te += pb[k][c];
+    for (int k = 0; k < RED_SLICES; ++k) t += part[k][c];
+    (blockIdx.y ? db : dg)[i] = from_f<GT>(t);
+  }
+}
+
+// The backward's vector route (see the note at the top and row_vec.cuh):
+// VPL 16-byte vectors of x and of dy a lane, wpr warps a row; g in shared
+// memory in its own type, then the block's dg and db sums in f32, written
+// to the block's rows of ws (dg's row b, db's row gridDim.x + b) for
+// layer_norm_bwd_reduce_kernel. The arithmetic is the general kernel's;
+// only the order of the f32 sums differs.
+template <typename XT, typename GT, int VPL>
+__global__ void __launch_bounds__(rowvec::VEC_NT)
+    layer_norm_bwd_vec_kernel(const XT* __restrict__ x,
+                              const GT* __restrict__ g,
+                              const XT* __restrict__ dy, XT* __restrict__ dx,
+                              float* __restrict__ ws, long long R, int H,
+                              int wpr, float eps) {
+  constexpr int E = 16 / sizeof(XT);
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  __shared__ float red[2][rowvec::VEC_WARPS];
+  __shared__ float red2[2][2 * rowvec::VEC_WARPS];
+  const GT* gs = reinterpret_cast<const GT*>(sm_raw);
+  float* dgb = reinterpret_cast<float*>(sm_raw + bwd_g_bytes<GT>(H));
+  float* dbb = dgb + H;
+  rowvec::stage(g, sm_raw, H * (int)sizeof(GT));
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int slot = warp / wpr;
+  const int t = (warp % wpr) * 32 + (threadIdx.x & 31);
+  const int T = 32 * wpr;
+  const int nv = H / E;
+  const int rpb = rowvec::VEC_WARPS / wpr;
+  const float inv_h = 1.f / (float)H;
+  float dga[VPL][E], dba[VPL][E];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k)
+#pragma unroll
+    for (int j = 0; j < E; ++j) dga[k][j] = dba[k][j] = 0.f;
+  int par = 0, par2 = 0;
+  for (long long row = (long long)blockIdx.x * rpb + slot; row < R;
+       row += (long long)gridDim.x * rpb) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + row * H);
+    const uint4* dr = reinterpret_cast<const uint4*>(dy + row * H);
+    uint4 xv[VPL], dv[VPL];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      if (t + k * T < nv) {
+        xv[k] = xr[t + k * T];
+        dv[k] = dr[t + k * T];
+      }
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      if (t + k * T < nv)
+#pragma unroll
+        for (int j = 0; j < E; ++j) s += rowvec::elem<XT>(xv[k], j);
+    const float m = rowvec::row_sum(s, red, par, wpr) * inv_h;
+    float q = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      if (t + k * T < nv)
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float c = rowvec::elem<XT>(xv[k], j) - m;
+          q += c * c;
+        }
+    const float r =
+        __frsqrt_rn(rowvec::row_sum(q, red, par, wpr) * inv_h + eps);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = t + k * T;
+      if (i < nv) {
+        float gf[E];
+        rowvec::chunk_f<XT, GT>(gs + i * E, gf);
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float xh = (rowvec::elem<XT>(xv[k], j) - m) * r;
+          const float d = rowvec::elem<XT>(dv[k], j);
+          const float dxh = d * gf[j];
+          dga[k][j] += d * xh;
+          dba[k][j] += d;
+          s1 += dxh;
+          s2 += dxh * xh;
+        }
+      }
     }
-    dg[i] = from_f<GT>(ta);
-    db[i] = from_f<GT>(te);
+    rowvec::row_sum2(s1, s2, red2, par2, wpr);
+    const float m1 = s1 * inv_h, m2 = s2 * inv_h;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + row * H);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = t + k * T;
+      if (i < nv) {
+        float gf[E];
+        rowvec::chunk_f<XT, GT>(gs + i * E, gf);
+        uint4 out;
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          const float xh = (rowvec::elem<XT>(xv[k], j) - m) * r;
+          const float dxh = rowvec::elem<XT>(dv[k], j) * gf[j];
+          rowvec::set_elem<XT>(out, j, (dxh - m1 - xh * m2) * r);
+        }
+        dxr[i] = out;
+      }
+    }
+  }
+  // the block's dg and db: its row slots' sums added in slot order
+  for (int sl = 0; sl < rpb; ++sl) {
+    if (slot == sl) {
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        const int i = t + k * T;
+        if (i < nv)
+#pragma unroll
+          for (int j = 0; j < E; ++j) {
+            const int c = i * E + j;
+            dgb[c] = sl == 0 ? dga[k][j] : dgb[c] + dga[k][j];
+            dbb[c] = sl == 0 ? dba[k][j] : dbb[c] + dba[k][j];
+          }
+      }
+    }
+    __syncthreads();
+  }
+  float4* wg = reinterpret_cast<float4*>(ws + (long long)blockIdx.x * H);
+  float4* wb =
+      reinterpret_cast<float4*>(ws + (long long)(gridDim.x + blockIdx.x) * H);
+  for (int i = threadIdx.x; i < H / 4; i += blockDim.x) {
+    wg[i] = reinterpret_cast<const float4*>(dgb)[i];
+    wb[i] = reinterpret_cast<const float4*>(dbb)[i];
   }
 }
 
@@ -362,6 +515,17 @@ int launch_fwd_route(const void* x, const void* g, const void* b, void* y,
   return cudaErrorInvalidValue;
 }
 
+// the partials' sums: dg's columns in blockIdx.y 0, db's in 1
+template <typename GT>
+int launch_reduce(void* ws, void* dg, void* db, int G, int H,
+                  cudaStream_t st) {
+  layer_norm_bwd_reduce_kernel<GT>
+      <<<dim3((H + RED_COLS - 1) / RED_COLS, 2), RED_COLS * RED_SLICES, 0,
+         st>>>(static_cast<const float*>(ws), static_cast<GT*>(dg),
+               static_cast<GT*>(db), G, H);
+  return cudaGetLastError();
+}
+
 template <typename XT, typename GT>
 int launch_bwd(const void* x, const void* g, const void* dy, void* dx,
                void* dg, void* db, void* ws, long long R, int H, float eps,
@@ -390,11 +554,62 @@ int launch_bwd(const void* x, const void* g, const void* dy, void* dx,
       static_cast<float*>(ws), R, H, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  layer_norm_bwd_reduce_kernel<GT>
-      <<<(H + RED_COLS - 1) / RED_COLS, RED_COLS * RED_SLICES, 0, st>>>(
-          static_cast<const float*>(ws), static_cast<GT*>(dg),
-          static_cast<GT*>(db), G, H);
-  return cudaGetLastError();
+  return launch_reduce<GT>(ws, dg, db, G, H, st);
+}
+
+template <typename XT, typename GT, int VPL>
+int launch_bwd_vec(const void* x, const void* g, const void* dy, void* dx,
+                   void* dg, void* db, void* ws, long long R, int H, int wpr,
+                   float eps, int G, cudaStream_t st) {
+  const auto kernel = layer_norm_bwd_vec_kernel<XT, GT, VPL>;
+  const size_t smem = bwd_g_bytes<GT>(H) + 2 * sizeof(float) * H;
+  const int rpb = rowvec::VEC_WARPS / wpr;
+  static rowvec::GridCache cache;
+  int blocks = 0;
+  cudaError_t err = rowvec::persistent_blocks(
+      kernel, cache, smem, bwd_g_bytes<GT>(MAX_H) + 2 * sizeof(float) * MAX_H,
+      (R + rpb - 1) / rpb, &blocks);
+  if (err != cudaSuccess) return err;
+  // ws holds G partial rows of each sum
+  if (blocks > G) blocks = G;
+  kernel<<<blocks, rowvec::VEC_NT, smem, st>>>(
+      static_cast<const XT*>(x), static_cast<const GT*>(g),
+      static_cast<const XT*>(dy), static_cast<XT*>(dx),
+      static_cast<float*>(ws), R, H, wpr, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<GT>(ws, dg, db, blocks, H, st);
+}
+
+// the vector route when 16-byte vectors take the rows (see the note at
+// the top), else the general one
+template <typename XT, typename GT>
+int launch_bwd_route(const void* x, const void* g, const void* dy, void* dx,
+                     void* dg, void* db, void* ws, long long R, int H,
+                     float eps, int G, cudaStream_t st) {
+  if ((H * sizeof(XT)) % 16 != 0 || !rowvec::aligned16(x) ||
+      !rowvec::aligned16(g) || !rowvec::aligned16(dy) ||
+      !rowvec::aligned16(dx) || !rowvec::aligned16(ws))
+    return launch_bwd<XT, GT>(x, g, dy, dx, dg, db, ws, R, H, eps, G, st);
+  int wpr = 0, vpl = 0;
+  rowvec::vec_plan(H / (16 / (int)sizeof(XT)), &wpr, &vpl, BWD_MAX_VPL);
+  switch (vpl) {
+    case 1:
+      return launch_bwd_vec<XT, GT, 1>(x, g, dy, dx, dg, db, ws, R, H, wpr,
+                                       eps, G, st);
+    case 2:
+      return launch_bwd_vec<XT, GT, 2>(x, g, dy, dx, dg, db, ws, R, H, wpr,
+                                       eps, G, st);
+    case 4:
+      return launch_bwd_vec<XT, GT, 4>(x, g, dy, dx, dg, db, ws, R, H, wpr,
+                                       eps, G, st);
+    case 8:
+      // only f32 rows take 8 vectors a lane (H > 4096 on 8 warps)
+      if constexpr (sizeof(XT) == 4)
+        return launch_bwd_vec<XT, GT, 8>(x, g, dy, dx, dg, db, ws, R, H,
+                                         wpr, eps, G, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 bool bad_shape(long long R, int H) {
@@ -437,7 +652,8 @@ extern "C" int layer_norm_fwd(const void* x, const void* g, const void* b,
 }
 
 // x, dy, dx: [R, H] of x_dtype; g, dg, db: [H] of g_dtype; ws: 2 * G * H
-// f32 of scratch. G blocks walk the rows; then one reduction launch.
+// f32 of scratch. The vector route: at most G persistent blocks walk the
+// rows; the general route: G blocks; then one reduction launch.
 extern "C" int layer_norm_bwd(const void* x, const void* g, const void* dy,
                               void* dx, void* dg, void* db, void* ws,
                               long long R, int H, int x_dtype, int g_dtype,
@@ -446,9 +662,9 @@ extern "C" int layer_norm_bwd(const void* x, const void* g, const void* dy,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_type(x_dtype, [&](auto xt) {
     return with_type(g_dtype, [&](auto gt) {
-      return launch_bwd<typename decltype(xt)::type,
-                        typename decltype(gt)::type>(x, g, dy, dx, dg, db, ws,
-                                                     R, H, eps, G, st);
+      return launch_bwd_route<typename decltype(xt)::type,
+                              typename decltype(gt)::type>(
+          x, g, dy, dx, dg, db, ws, R, H, eps, G, st);
     });
   });
 }

@@ -1,8 +1,9 @@
 // The row-in-registers design shared by the vector kernels of the two
 // norms (rms_norm.cu `rms_norm_fwd_vec_kernel` and `rms_norm_bwd_vec_kernel`,
-// layer_norm.cu `layer_norm_fwd_vec_kernel`): a row of x is read as
-// 16-byte vectors, held in registers while it is reduced, and written as
-// 16-byte vectors.
+// layer_norm.cu `layer_norm_fwd_vec_kernel` and `layer_norm_bwd_vec_kernel`):
+// a row of x is read as 16-byte vectors, held in registers while it is
+// reduced, and written as 16-byte vectors. rope.cu `rope_vec_kernel`
+// reads its angle tables with chunk_f.
 //
 // Mapping. A row of H elements of type T is NV = H / E vectors (E = 16 /
 // sizeof(T)). It belongs to WPR warps (a power of two); its lanes are
@@ -10,9 +11,9 @@
 // vectors t, t + T, ..., t + (VPL - 1) * T, those below NV. vec_plan
 // picks the fewest warps, at most VEC_WARPS, that keep a lane at a
 // kernel's most vectors or fewer (the forwards MAX_VPL: one warp for NV
-// <= 512, H <= 4096 in bf16, H <= 2048 in f32; the RMSNorm backward, which
-// holds x, do and its dw sums, 4), then VPL, the power of two that covers
-// the row. Neighbouring lanes read
+// <= 512, H <= 4096 in bf16, H <= 2048 in f32; the backwards, which hold
+// x, the output gradient and their parameter sums, their own cap), then
+// VPL, the power of two that covers the row. Neighbouring lanes read
 // neighbouring vectors, so a warp instruction moves 512 bytes.
 //
 // A block is VEC_NT threads: RPB = VEC_WARPS / WPR rows at a time. Blocks
@@ -29,7 +30,9 @@
 // order. The buffer alternates between two halves, one a reduction, so
 // one barrier an exchange suffices: a warp can write a half again only
 // after every warp of its row has passed the next barrier, that is after
-// they all read the half. The sums do not depend on timing.
+// they all read the half. row_sum2 exchanges two sums at once through a
+// buffer of its own, alternating the same way. The sums do not depend on
+// timing.
 
 #pragma once
 
@@ -76,8 +79,8 @@ __device__ __forceinline__ void set_elem(uint4& u, int j, float v) {
 }
 
 // The E = 16 / sizeof(XT) parameters of x's vector, in f32, from
-// shared memory: E * sizeof(PT) is 8, 16 or 32 bytes, and p lies on a
-// multiple of that size.
+// shared or global memory: E * sizeof(PT) is 8, 16 or 32 bytes, and p
+// lies on a multiple of the smaller of that size and 16.
 template <typename XT, typename PT>
 __device__ __forceinline__ void chunk_f(const PT* p, float* f) {
   constexpr int E = 16 / sizeof(XT);
@@ -127,6 +130,37 @@ __device__ __forceinline__ float row_sum(float v, float (*red)[VEC_WARPS],
   float s = 0.f;
   for (int i = 0; i < wpr; ++i) s += half[first + i];
   return s;
+}
+
+// The sums of a and of b over the row's lanes, in every lane, in one
+// exchange (each the sum row_sum would give). red: two halves of
+// 2 x VEC_WARPS floats, a warp's pair side by side; par picks the half.
+__device__ __forceinline__ void row_sum2(float& a, float& b,
+                                         float (*red)[2 * VEC_WARPS],
+                                         int& par, int wpr) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+  if (wpr == 1) return;
+  const int warp = threadIdx.x >> 5;
+  const int first = warp - warp % wpr;
+  float* half = red[par];
+  par ^= 1;
+  if ((threadIdx.x & 31) == 0) {
+    half[2 * warp] = a;
+    half[2 * warp + 1] = b;
+  }
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + warp / wpr), "r"(32 * wpr)
+               : "memory");
+  float sa = 0.f, sb = 0.f;
+  for (int i = 0; i < wpr; ++i) {
+    sa += half[2 * (first + i)];
+    sb += half[2 * (first + i) + 1];
+  }
+  a = sa;
+  b = sb;
 }
 
 // ----------------------------------------------------------- host side

@@ -4,10 +4,13 @@ wrappers, their plain versions and the differentiable op over them.
 Counterpart of ``paddle2_tpu/kernels/pallas_ln.py`` (``_fwd_kernel``,
 ``_bwd_kernel`` and the ``fused_layer_norm`` custom_vjp). The kernels
 are in ``csrc/layer_norm.cu``, whose note says what bounds them, how dγ
-and dβ are summed without atomics, and the forward's two routes: the
-vector route (``layer_norm_fwd_vec_kernel``, rows in registers, 16-byte
-loads) for every row that 16-byte vectors take, the general route
-(``layer_norm_fwd_kernel``) for the rest (:func:`.row_vec.route`).
+and dβ are summed without atomics, and each direction's two routes: the
+vector routes (``layer_norm_fwd_vec_kernel``,
+``layer_norm_bwd_vec_kernel``: rows in registers, 16-byte loads) for
+every row that 16-byte vectors take, the general routes
+(``layer_norm_fwd_kernel``; ``layer_norm_bwd_kernel``) for the rest
+(:func:`.row_vec.route`); both backwards end with
+``layer_norm_bwd_reduce_kernel``.
 LayerNorm over the last axis of ``x [..., H]`` with an affine
 ``weight`` and ``bias [H]``: x f32, bf16 or f16, the parameters f32,
 bf16 or f16 of their own, any row count and ``1 <= H <= 8192``. The
@@ -37,8 +40,8 @@ import torch
 
 from . import _build, row_vec
 
-__all__ = ["MAX_H", "supported", "fwd_route", "layer_norm_fwd",
-           "layer_norm_bwd", "layer_norm_fwd_reference",
+__all__ = ["MAX_H", "supported", "fwd_route", "bwd_route",
+           "layer_norm_fwd", "layer_norm_bwd", "layer_norm_fwd_reference",
            "layer_norm_bwd_reference", "bwd_blocks", "layer_norm",
            "fused_layer_norm"]
 
@@ -180,20 +183,34 @@ def _sm_count(index: int) -> int:
 
 
 def bwd_blocks(rows: int, device) -> int:
-    """The backward's block count: four a streaming multiprocessor, at
-    most one a row. It fixes which rows each block sums, so it depends
-    on the shape and the card only, never on timing."""
+    """The backward's block count, four a streaming multiprocessor and at
+    most one a row: the general route's grid, and the most blocks (rows
+    of partial dγ and dβ sums) the vector route's persistent grid may
+    take. Each grid fixes which rows each block sums, so it depends on
+    the shape and the card only, never on timing."""
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
     return max(1, min(rows, 4 * _sm_count(index)))
 
 
+def bwd_route(x, weight, dy, dx, ws) -> str:
+    """The backward kernel a CUDA call takes, as the C entry picks it:
+    "vec" (``layer_norm_bwd_vec_kernel``) when 16-byte vectors take x's
+    rows and x, γ, dy, dx and the partials' workspace start on 16-byte
+    boundaries, else "general" (``layer_norm_bwd_kernel``)."""
+    return row_vec.route(x.shape[-1] * x.element_size(), x.data_ptr(),
+                         weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                         ws.data_ptr())
+
+
 def layer_norm_bwd(x, weight, dy, eps: float
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx, dγ, dβ)``: dx in x's dtype, dγ and dβ in γ's.
-    ``layer_norm_bwd.launches`` counts the kernel's launches (the row
-    kernel and the reduction of its partials, one call)."""
+    ``layer_norm_bwd.launches`` counts the kernels' launches (a call, the
+    row kernel and the reduction of its partials, is one),
+    ``layer_norm_bwd.route_launches`` those of each route
+    (:func:`bwd_route`)."""
     _check(x, weight, weight)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {dy.dtype} {tuple(dy.shape)} must have x's "
@@ -217,10 +234,12 @@ def layer_norm_bwd(x, weight, dy, eps: float
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
+    layer_norm_bwd.route_launches[bwd_route(x, weight, dy, dx, ws)] += 1
     return dx, dg, db
 
 
 layer_norm_bwd.launches = 0
+layer_norm_bwd.route_launches = dict.fromkeys(row_vec.ROUTES, 0)
 
 
 # ----------------------------------------------------- differentiable op

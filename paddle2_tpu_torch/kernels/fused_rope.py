@@ -10,6 +10,12 @@ x[..., :D/2])`` and rounds once to x's dtype. x f32, bf16 or f16; the
 tables f32, bf16 or f16 of their own (the kernel widens them to f32);
 D even.
 
+Two kernels, picked by the C entry from the shape and the addresses
+(:func:`route` states the same rule): the vector route
+(``rope_vec_kernel``: one warp a (b, s) row, 16-byte loads of x, one
+row of angles loaded once for all of a lane's heads) when 16-byte
+vectors take a half row, else the general route (``rope_kernel``).
+
 The backward is the same kernel rotating by ``-sin``, as the Pallas
 custom_vjp has it, and gives no gradient for the tables. That
 backward is the transpose of the forward only when the two halves of
@@ -26,9 +32,9 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, row_vec
 
-__all__ = ["rope", "rope_reference", "fused_rope"]
+__all__ = ["route", "rope", "rope_reference", "fused_rope"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
@@ -78,9 +84,19 @@ def rope_reference(x, cos, sin, negate_sin: bool = False) -> torch.Tensor:
     return (x32 * c + rot * s).to(x.dtype)
 
 
+def route(x, cos, sin, o) -> str:
+    """The kernel a CUDA call takes, as the C entry picks it: "vec"
+    (``rope_vec_kernel``) when 16-byte vectors take a half row
+    (``(D/2)·sizeof(x) % 16 == 0``) and x, cos, sin and o start on
+    16-byte boundaries, else "general" (``rope_kernel``)."""
+    return row_vec.route(x.shape[-1] // 2 * x.element_size(), x.data_ptr(),
+                         cos.data_ptr(), sin.data_ptr(), o.data_ptr())
+
+
 def rope(x, cos, sin, negate_sin: bool = False) -> torch.Tensor:
     """RoPE over ``x [B, S, H, D]``; ``negate_sin`` rotates by ``-sin``
-    (the backward). ``rope.launches`` counts the kernel's launches."""
+    (the backward). ``rope.launches`` counts the kernels' launches,
+    ``rope.route_launches`` those of each route (:func:`route`)."""
     _check(x, cos, sin)
     if not _build.on_card("rope", x, cos, sin):
         return rope_reference(x, cos, sin, negate_sin)
@@ -97,10 +113,12 @@ def rope(x, cos, sin, negate_sin: bool = False) -> torch.Tensor:
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "rope")
     rope.launches += 1
+    rope.route_launches[route(x, cos, sin, o)] += 1
     return o
 
 
 rope.launches = 0
+rope.route_launches = dict.fromkeys(row_vec.ROUTES, 0)
 
 
 class _Rope(torch.autograd.Function):

@@ -1,25 +1,28 @@
 """The route rule and launch plan of the norms' vector kernels, on the
 host: the Python side of ``csrc/row_vec.cuh``.
 
-The C entries ``rms_norm_fwd``, ``rms_norm_bwd`` and ``layer_norm_fwd``
-pick their kernel by this rule themselves (from the shape and the
-addresses alone); the wrappers ask :func:`route` only to count each
-launch on its route, and the tests read :func:`vec_plan` to model the
-kernels' mapping.
+The C entries ``rms_norm_fwd``, ``rms_norm_bwd``, ``layer_norm_fwd``,
+``layer_norm_bwd`` and ``rope`` pick their kernel by this rule
+themselves (from the shape and the addresses alone); the wrappers ask
+:func:`route` only to count each launch on its route, and the tests read
+:func:`vec_plan` to model the kernels' mapping.
 """
 
 from typing import Tuple
 
 __all__ = ["ROUTES", "VEC_NT", "VEC_WARPS", "MAX_VPL", "BWD_MAX_VPL",
-           "route", "vec_plan"]
+           "LN_BWD_MAX_VPL", "route", "vec_plan"]
 
 ROUTES = ("vec", "general")
 VEC_NT = 256
 VEC_WARPS = VEC_NT // 32
 # the vectors a lane holds at most: the forwards; the RMSNorm backward
-# (csrc/rms_norm.cu), whose lanes hold x, do and their dw sums
+# (csrc/rms_norm.cu), whose lanes hold x, do and their dw sums; the
+# LayerNorm backward (csrc/layer_norm.cu), whose lanes hold x, dy and
+# their dγ and dβ sums
 MAX_VPL = 16
 BWD_MAX_VPL = 4
+LN_BWD_MAX_VPL = 2
 
 
 def route(row_bytes: int, *ptrs: int) -> str:

@@ -54,19 +54,29 @@ Phases:
   the wrapper has two), plus a ragged H 771: CUDA events, device time
   from torch.profiler, the wrapper's host time a call (the median of 200
   calls without a sync), ``F.layer_norm`` / ``F.rms_norm``'s events and
-  device times, and the bound; the LayerNorm backward's events and
-  device times at ERNIE's stacked shape; the RMSNorm backward at its
+  device times, and the bound; the RMSNorm backward at its
   three shapes, on x and do as given and on copies one element past a
   16-byte boundary (each route the checkout has), by events, device
   time, the wrapper's host time a call and the bound, beside
   ``F.rms_norm``'s backward through autograd; the host time of
   ``fused_layer_norm`` (the custom op) at ERNIE's shape, and of the
   pieces of a LayerNorm forward call there (the allocations, the stream
-  and device queries, a device context, the data pointers); then the
-  smoke's phase-14 stack step and phase-7 ERNIE step (``stack_bf16``,
+  and device queries, a device context, the data pointers); the
+  LayerNorm backward at the smoke's ``LN_CASES`` (ERNIE R4096 H768: bf16
+  x with bf16 and f32 γ, f32, f16 x with f16 and f32 γ; the GPT bench's
+  R8192 H1024 bf16 and f32) on x and dy as given and on copies one
+  element past a 16-byte boundary (each route the checkout has), by
+  events, device time and the wrapper's host time a call, beside
+  ``F.layer_norm``'s backward through autograd and the bound; RoPE at
+  the stack's B8 S2048 H16 D128 in bf16 and f32, with an [S, D] and a
+  gathered [B*S, D] table, on x as given and on a copy one element past
+  a 16-byte boundary, the same way, with the bound; then the smoke's
+  phase-14 stack step and phase-7 ERNIE step (``stack_bf16``,
   ``ernie_bf16`` with that checkout's own launch gates): tokens/s, the
-  step time, the traced step's idle share, and for the stack the traced
-  step's device time and its split by kernel group.
+  step time, the traced step's idle share, for the stack the traced
+  step's device time and its split by kernel group (RoPE among them),
+  and for ERNIE one more traced step's device time of the LayerNorm
+  kernels by direction.
 - ``flash_bwd_f32``: the f32 flash backward at the training shape (B8
   H16 S1024 D64, causal): the split pair's two wrappers
   (``flash_bwd_split_dkv``, ``flash_bwd_split_dq``) and ``flash_bwd``
@@ -685,14 +695,6 @@ def norms(cs, torch):
             row["fused_layer_norm_host_ms"] = _host_ms(
                 torch, lambda x=x, p=p, eps=eps: fln.fused_layer_norm(
                     x, *p, eps))
-        if what == "ERNIE stacked":
-            # the LayerNorm backward kernel beside it
-            dy = torch.randn(R, H, generator=gen, device=dev).to(xdt)
-
-            def backward(x=x, p=p, dy=dy, eps=eps):
-                return fln.layer_norm_bwd(x, p[0], dy, eps)
-            row["backward"] = dict(events_ms=cs.cuda_ms(backward),
-                                   device_ms=cs.device_ms(backward, "")[0])
         if norm == "rms_norm":
             # the backward on both routes, F.rms_norm's autograd backward
             # beside it
@@ -748,6 +750,8 @@ def norms(cs, torch):
     print(json.dumps(dict(host_pieces_ms=host_pieces)), flush=True)
     del x, g
     torch.cuda.empty_cache()
+    ln_bwd = _layer_norm_backwards(cs, torch, gen, dev)
+    ropes = _ropes(cs, torch, gen, dev)
 
     smi = nvidia_smi()
     stack, _ = cs.stack_bf16(smi, dev)
@@ -762,15 +766,115 @@ def norms(cs, torch):
     torch.cuda.empty_cache()
     flags.set_flags({"pallas_layer_norm": True})
     ernie, _, model, step = cs.ernie_bf16(smi)
+    # one more traced step, its device time by LayerNorm direction
+    ids, lbl = cs.ernie_batches(1, cs.ERNIE["batch"], "cuda")[0]
+    step(ids, lbl)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(ids, lbl)
+        torch.cuda.synchronize()
     flags.set_flags({"pallas_layer_norm": False})
+    groups = cs.device_groups(prof, ERNIE_LN_GROUPS)
     steps["ernie"] = dict(tokens_per_s=ernie["bench"]["value"],
                           step_ms=ernie["bench"]["step_time_s"] * 1e3,
                           step_times_ms=[t * 1e3
                                          for t in ernie["step_times_s"]],
-                          idle_share=ernie["step_profile"]["idle_share"])
+                          idle_share=ernie["step_profile"]["idle_share"],
+                          traced_device_ms=sum(groups.values()),
+                          traced_device_ms_by_group=groups)
     del model, step
     torch.cuda.empty_cache()
-    return dict(forwards=rows, host_pieces_ms=host_pieces, steps=steps)
+    return dict(forwards=rows, host_pieces_ms=host_pieces,
+                layer_norm_backwards=ln_bwd, ropes=ropes, steps=steps)
+
+
+# a traced ERNIE step's LayerNorm kernels by direction (the backward's row
+# kernels and the reduction of their partials), in every checkout
+ERNIE_LN_GROUPS = (("layer_norm_fwd", ("layer_norm_fwd",)),
+                   ("layer_norm_bwd", ("layer_norm_bwd",)))
+
+
+def _layer_norm_backwards(cs, torch, gen, dev):
+    """The LayerNorm backward at ``chip_smoke.LN_CASES``, on x and dy as
+    given and on copies one element past a 16-byte boundary: events,
+    device time of every kernel of the call, the wrapper's host time;
+    ``F.layer_norm``'s backward through autograd; the bound."""
+    from torch.nn import functional as F
+    from paddle2_tpu_torch.kernels import fused_layer_norm as fln
+    out = []
+    for R, H, xdt, gdt, what in cs.LN_CASES:
+        x, g, b, dy, eps = cs.ln_inputs(R, H, xdt, gdt, gen, dev)
+        size, gsize = x.element_size(), g.element_size()
+        b_ms, b_by = cs.bound(16.0 * R * H, 3.0 * R * H * size
+                              + 3.0 * H * gsize, torch.float32)
+        xr, gr, br = (t.detach().clone().requires_grad_()
+                      for t in (x, g.to(xdt), b.to(xdt)))
+        y = F.layer_norm(xr, (H,), gr, br, eps)
+
+        def lib_bwd(y=y, xr=xr, gr=gr, br=br, dy=dy):
+            return torch.autograd.grad(y, (xr, gr, br), dy,
+                                       retain_graph=True)
+        row = dict(shape=f"R{R} H{H} x {cs.dname(xdt)} g {cs.dname(gdt)}",
+                   what=what, bound_ms=b_ms, bound_by=b_by,
+                   library_events_ms=cs.cuda_ms(lib_bwd),
+                   library_device_ms=cs.device_ms(lib_bwd, "")[0])
+        for label, xin, din in (("aligned", x, dy),
+                                ("unaligned", _misaligned(torch, x),
+                                 _misaligned(torch, dy))):
+            def run(xin=xin, din=din, g=g, eps=eps):
+                return fln.layer_norm_bwd(xin, g, din, eps)
+            row[label] = dict(events_ms=cs.cuda_ms(run),
+                              device_ms=cs.device_ms(run, "")[0],
+                              host_ms=_host_ms(torch, run))
+        print(json.dumps(row), flush=True)
+        out.append(row)
+        del x, dy, xr, gr, br, y
+    torch.cuda.empty_cache()
+    return out
+
+
+# the stack's RoPE: B, S, H, D
+ROPE_SHAPE = (8, 2048, 16, 128)
+
+
+def _ropes(cs, torch, gen, dev):
+    """RoPE at the stack's shape (B8 S2048 H16 D128), bf16 and f32, with
+    an [S, D] table and a ``position_ids``-gathered [B*S, D] one, on x as
+    given and on a copy one element past a 16-byte boundary: events,
+    device time of every kernel of the call, the wrapper's host time; the
+    bound."""
+    from paddle2_tpu_torch.incubate.nn import functional as IF
+    from paddle2_tpu_torch.kernels import fused_rope as fr
+    B, S, H, D = ROPE_SHAPE
+    out = []
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        for table in ("S", "pos"):
+            x = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+            cos, sin = IF._angle_table(S, D, 10000.0, False, dtype, dev)
+            if table == "pos":
+                pos = torch.randint(0, S, (B, S), generator=gen, device=dev)
+                cos, sin = (t[pos].reshape(B * S, D) for t in (cos, sin))
+            n = x.numel()
+            b_ms, b_by = cs.bound(3.0 * n, 2.0 * n * x.element_size()
+                                  + 2.0 * cos.shape[0] * D
+                                  * cos.element_size(), torch.float32)
+            row = dict(shape=f"B{B} S{S} H{H} D{D} {dt}, "
+                       f"{'[S, D]' if table == 'S' else '[B*S, D]'} table",
+                       bound_ms=b_ms, bound_by=b_by)
+            for label, xin in (("aligned", x),
+                               ("unaligned", _misaligned(torch, x))):
+                def run(xin=xin, cos=cos, sin=sin):
+                    return fr.rope(xin, cos, sin)
+                row[label] = dict(events_ms=cs.cuda_ms(run),
+                                  device_ms=cs.device_ms(run, "")[0],
+                                  host_ms=_host_ms(torch, run))
+            print(json.dumps(row), flush=True)
+            out.append(row)
+            del x, cos, sin
+    torch.cuda.empty_cache()
+    return out
 
 
 def flash_bwd_f32(cs, torch):

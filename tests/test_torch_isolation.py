@@ -12,10 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle2_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "phase_runner.py",
-     ROOT / "wo_wgmma_variants.py", ROOT / "norm_fwd_variants.py",
-     ROOT / "flash_bwd_tf32x3_variants.py", ROOT / "wo_gemv_mma_variants.py",
-     ROOT / "flash_fwd_tf32x3_variants.py", ROOT / "paged_decode_variants.py",
-     ROOT / "adamw_flat_variants.py", ROOT / "variant_harness.py"]
+     ROOT / "variant_harness.py"] + sorted(ROOT.glob("*_variants.py"))
 
 
 def _imported_modules(path: Path):
