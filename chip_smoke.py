@@ -350,6 +350,53 @@ line) when it fails:
     Printed, not gated: decode and prefill tokens/s, TTFT, peak memory,
     a traced decode step's device time by kernel group with the idle
     share, and the tokens that agree with phase 4's fp runs.
+17. Prefix cache, drafts and admission on GPT-3 1.3B (run after phase
+    15): the seed's model with ``EngineConfig(block_size=16,
+    num_blocks=1024, max_batch=8)``, in bf16 and then in f32, each with
+    (a) the prefix cache: 8 requests of one 512-token system prompt (32
+    blocks) and private tails of 17..488 tokens, 32 new tokens each; the
+    first misses and the other seven hit all 32 shared blocks (fewer
+    blocks allocated by exactly 7 x 32), the shared blocks' K and V in
+    all 24 layers stay bitwise as the first prefill wrote them after
+    every later round and at the end, ``audit_kv_ledger`` is clean at the
+    end, and the tokens equal the cache-off run's but at near ties (the
+    dense path's top-2 margin at the first mismatch, phase 4's rule;
+    each divergence printed); (b) speculative decoding on phase 4's
+    prompts: n-gram drafts (k 3, n-gram 2), an oracle drafter built from
+    the plain run's tokens (every draft accepted, fewer decode steps)
+    and a wrong one (every draft rejected, the same steps), and n-gram
+    drafts on prompts that write a random 64-token span out twice with
+    the model's own continuation between the copies (the best 8 of 64
+    candidates; the drafter must
+    draft, have drafts accepted and take fewer decode steps than its
+    plain run), each stream equal to its plain run's but at near ties,
+    in no more decode steps;
+    (c) the paged decode at a verify step's shape, on both routes: 32
+    query rows in groups of 4 that share a block table, at contexts
+    p0+1..p0+4, against its plain version at the main shape's tolerance,
+    one launch a call, bitwise on a second run, timed with its bound;
+    (d) ``swap_weights`` between decode steps to a second seed's weights:
+    the requests in flight finish, the later requests' tokens equal a
+    fresh engine on the second model's but at near ties, and swapping
+    the returned weights back restores the first bitwise. Every run
+    launches one flash forward a layer a prefill and one global-route
+    paged decode a layer a decode step. After both dtypes an int8
+    weight-only f32 engine drafts on every step (the last token
+    repeated): its ``wo_matmul`` launches are gated by route step by
+    step (verify batches past 8 rows on the TF32 tensor-core GEMM
+    ``wo_gemm_tf32_kernel``, the rest on the decode GEMV) and its tokens
+    held against the quantized dense path at f32's near-tie rule. Printed with the option on and
+    off: decode tokens/s, decode steps, TTFT, peak memory, the
+    ``paged_decode`` launches, a traced step's idle share, drafting's
+    host time a step, and the host time a step of the engine's table
+    check (``_validate_tables``; phase 4's runs print it too).
+
+Phase 12 also holds the bf16 split pair of the packed varlen backward
+(``flash_varlen_dkv_kernel``, ``flash_varlen_dq_kernel``) on inputs
+from {-1, 0, 1} at the fused kernel's exact cases (to 1e-5 beyond half
+a bf16 step), and over 8 random draws each of the README batch and the
+serving lengths (their own seeds): each draw's largest error beyond
+half a bf16 step must be within 5e-3.
 
 Phase 3 also holds the slice's kernels against their plain versions:
 the RMSNorm forward and backward at the ``fused_rms_norm`` docstring's
@@ -404,12 +451,15 @@ times (both routes of both directions), bounds and ``F.layer_norm``'s
 
 Each main-path run (the serving runs, the training runs, the ERNIE
 runs, the ResNet runs, the varlen runs, the incubate stack runs, the
-PTQ runs) starts with every launch count at 0 and is read just after;
+PTQ runs, phase 17's serving runs) starts with every launch count at 0 and is read just after;
 the kernel checks' launches (and the PTQ phase's one-at-a-time and
 dense replays) are not counted.
 
 The line before the last is ``{"kernels": [...]}``: one row a kernel,
-at its main path's shape. A wrapper with several kernels has a row for
+at its main path's shape; the paged decode's rows carry the verify
+shape (``verify_shape``: bf16, its time, bound and the main path's
+launches in verify steps), ``wo_matmul_wgmma`` its launches past 8 rows
+in verify steps. A wrapper with several kernels has a row for
 each, each counting the launches of its own route; the wrapper's first
 row counts every route (``launches_by_route`` splits them). The last
 line is ``{"ok": true, "device": {...}}``. A full record of the run is
@@ -478,7 +528,8 @@ from paddle2_tpu_torch import quantization
 from paddle2_tpu_torch.quantization import (
     PTQ, FakeQuanterChannelWiseAbsMaxObserver, FakeQuanterWithAbsMaxObserver,
     QuantConfig, QuantedInferenceLinear, weight_only_quantize)
-from paddle2_tpu_torch.serving import EngineConfig, ServingEngine
+from paddle2_tpu_torch.serving import (EngineConfig, ServingEngine,
+                                       SpeculativeConfig, audit_kv_ledger)
 from paddle2_tpu_torch.serving.paged_attention import (
     _merge_splits, cluster_plan, paged_attention_reference,
     paged_attention_split_reference, paged_decode,
@@ -2593,10 +2644,26 @@ def decode_step_profile(prof, wall_s):
                      for e in top])
 
 
-def serve(model, econf, prompts, new_tokens):
+def serve(model, econf, prompts, new_tokens, probe=None):
     """Serve every prompt to completion; returns the generated tokens,
-    the launch counts of this run alone, and its timings."""
+    the launch counts of this run alone, and its timings. ``probe(event,
+    eng, data)``, if given, is called with ``"start"`` before the first
+    round, ``"round"`` after each (``data``: the round's admissions and
+    decode info; outside the timed spans) and ``"end"``. The host time
+    of the engine's table check (``_validate_tables``, every decode
+    step) is timed apart."""
     eng = ServingEngine(model, econf)
+    validate = dict(s=0.0)
+    checked = eng._validate_tables
+
+    def timed_check(active):
+        t0 = time.perf_counter()
+        out = checked(active)
+        validate["s"] += time.perf_counter() - t0
+        return out
+    eng._validate_tables = timed_check
+    if probe is not None:
+        probe("start", eng, None)
     reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2631,6 +2698,12 @@ def serve(model, econf, prompts, new_tokens):
         prefill_s += t1 - t0
         step += 1
         require(step < 10_000, "engine did not drain")
+        if probe is not None:
+            probe("round", eng, (infos, d))
+    if probe is not None:
+        probe("end", eng, None)
+    # the timer holds the engine: drop it, so the engine goes on return
+    del eng._validate_tables, checked
     launches = counts()
     wo_routes = dict(int8_weight_only_matmul.route_launches)
     gens = [eng.sequence(r).generated for r in rids]
@@ -2652,11 +2725,21 @@ def serve(model, econf, prompts, new_tokens):
                  prefills=prefills,
                  decode_steps=eng.decode_steps, prefill_s=prefill_s,
                  decode_s=decode_s,
+                 validate_host_ms_a_step=1e3 * validate["s"]
+                 / max(eng.decode_steps, 1),
                  decode_programs=eng.num_decode_programs,
                  program_budget=eng.program_budget,
                  kv_high_water_bytes=eng.kv_high_water_bytes(),
                  peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                  step_profile=step_profile, wo_route_launches=wo_routes)
+    if eng.prefix_cache is not None:
+        stats.update(prefix_hits=eng.prefix_cache.hits,
+                     prefix_misses=eng.prefix_cache.misses,
+                     prefix_evictions=eng.prefix_cache.evictions,
+                     kv_blocks_allocated=eng.allocator.total_allocated)
+    if eng.config.spec is not None:
+        stats.update(spec_accepted=eng.spec_accepted,
+                     spec_rejected=eng.spec_rejected)
     require(eng.num_decode_programs <= eng.program_budget,
             "decode buckets past the budget")
     return gens, launches, stats
@@ -3013,6 +3096,485 @@ def serve_ptq(cfg, dtype, econf, prompts, new, fp_gens, tag):
 
 
 # ---------------------------------------------------------- phases 5, 6
+# ------------------------------------------------------------- phase 17
+# the prefix traffic: one 512-token system prompt (32 blocks of 16) and
+# eight private tails of 17..488 tokens; the drafts; the swap's seed
+PREFIX_SYSTEM = 512
+PREFIX_TAILS = [17, 488, 45, 130, 257, 401, 96, 333]
+SPEC_K, SPEC_NGRAM = 3, 2
+# prompt-lookup traffic for the n-gram drafter: a random span written
+# out twice with the model's own continuation between the copies, the
+# best of SPAN_POOL candidates a prompt
+SPAN_LEN, SPAN_COPY, SPAN_ROUNDS, SPAN_POOL = 64, 16, 6, 8
+SWAP_SEED = 4321
+
+
+def first_divergences(model, prompts, got, want, tie):
+    """Hold two served streams against each other: each request's first
+    mismatch must be a near tie of the dense path (top-2 margin below
+    ``tie`` on the context the two share); the request is not compared
+    past it. Returns (request, token, margin) at each."""
+    out = []
+    for r, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        top2 = last_logits(model, p + b[:i]).topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        require(margin < tie, f"request {r} token {i}: {a[i]} against "
+                f"{b[i]}, dense margin {margin:.3g} >= {tie}")
+        out.append((r, i, margin))
+    return out
+
+
+def gate_engine_launches(tag, model, st, launches):
+    """One flash forward a layer a prefill, one global-route paged
+    decode a layer a decode step, no split route."""
+    L = model.cfg.num_layers
+    want = dict(flash_fwd=L * st["prefills"],
+                paged_decode=L * st["decode_steps"], paged_decode_split=0)
+    got = {n: launches[n] for n in want}
+    require(got == want, f"{tag}: launches {got}, want {want}")
+
+
+def option_figures(st, launches):
+    """What phase 17 prints for a run, option on or off."""
+    sp = st["step_profile"] or {}
+    return dict(decode_tok_s=st["decode_tok_s"],
+                decode_steps=st["decode_steps"],
+                ttft_mean_s=st["ttft_mean_s"], ttft_max_s=st["ttft_max_s"],
+                peak_memory_gib=st["peak_memory_gib"],
+                paged_decode_launches=launches["paged_decode"],
+                validate_host_ms_a_step=st["validate_host_ms_a_step"],
+                traced_step_device_ms=sp.get("device_ms"),
+                idle_share=sp.get("idle_share"))
+
+
+def prefix17(model, dtype, econf, new, tie):
+    """Check (a): eight requests sharing one 512-token system prompt,
+    the cache off and on. The first misses and the other seven hit all
+    32 shared blocks; the shared blocks' K and V, all layers, stay
+    bitwise as the first prefill wrote them after every later round and
+    at the end; the ledger audits clean; the tokens equal the cache-off
+    run but at near ties."""
+    V = model.cfg.vocab_size
+    bs = econf["block_size"]
+    rng = np.random.default_rng(17)
+    system = rng.integers(0, V, size=PREFIX_SYSTEM).tolist()
+    prompts = [system + rng.integers(0, V, size=n).tolist()
+               for n in PREFIX_TAILS]
+    base = dict(econf, kv_dtype=dname(dtype))
+    allocated = {}
+
+    def count_off(event, eng, data):
+        if event == "end":
+            allocated["off"] = eng.allocator.total_allocated
+    g_off, l_off, st_off = serve(model, EngineConfig(**base), prompts, new,
+                                 probe=count_off)
+    w = dict(cached=[], checks=0)
+
+    def watch(event, eng, data):
+        if event == "round":
+            for info in data[0]:
+                w["cached"].append(info["cached_tokens"])
+                if "idx" not in w:
+                    blocks = info["seq"].table.blocks[:PREFIX_SYSTEM // bs]
+                    w["idx"] = torch.as_tensor(blocks, device=eng.cache.k
+                                               .device)
+                    w["k"] = eng.cache.k[:, w["idx"]].clone()
+                    w["v"] = eng.cache.v[:, w["idx"]].clone()
+        if "idx" in w and event in ("round", "end"):
+            require(torch.equal(eng.cache.k[:, w["idx"]], w["k"]) and
+                    torch.equal(eng.cache.v[:, w["idx"]], w["v"]),
+                    f"prefix {dname(dtype)}: a shared block's K/V changed "
+                    f"after round {w['checks']}")
+            w["checks"] += 1
+        if event == "end":
+            w["audit"] = audit_kv_ledger(
+                eng.allocator, [s.table.blocks for s in
+                                eng.scheduler.running()],
+                prefix_cache=eng.prefix_cache)
+            allocated["on"] = eng.allocator.total_allocated
+    g_on, l_on, st_on = serve(model, EngineConfig(
+        **base, enable_prefix_cache=True), prompts, new, probe=watch)
+    tag = f"prefix {dname(dtype)}"
+    require(w["cached"] == [0] + [PREFIX_SYSTEM] * (len(prompts) - 1),
+            f"{tag}: cached tokens by admission {w['cached']}")
+    require(st_on["prefix_hits"] == len(prompts) - 1 and
+            st_on["prefix_misses"] == 1, f"{tag}: {st_on['prefix_hits']} "
+            f"hits, {st_on['prefix_misses']} misses")
+    shared = PREFIX_SYSTEM // bs * (len(prompts) - 1)
+    require(allocated["off"] - allocated["on"] == shared,
+            f"{tag}: blocks allocated {allocated}, want {shared} fewer")
+    for t, st, l in ((f"{tag} off", st_off, l_off), (tag, st_on, l_on)):
+        gate_engine_launches(t, model, st, l)
+    div = first_divergences(model, prompts, g_on, g_off, tie)
+    rec = dict(on=option_figures(st_on, l_on),
+               off=option_figures(st_off, l_off),
+               prefill_s=dict(on=st_on["prefill_s"], off=st_off["prefill_s"]),
+               cached_tokens=w["cached"], shared_block_checks=w["checks"],
+               audit=w["audit"], blocks_allocated=allocated,
+               divergences=div, hits=st_on["prefix_hits"],
+               misses=st_on["prefix_misses"])
+    say(f"[phase 17 {tag}] {rec}")
+    return rec, (l_off, l_on)
+
+
+def span_prompts(model, n, seed=171):
+    """``n`` prompts of the traffic prompt-lookup drafting is made for:
+    a random ``SPAN_LEN``-token span written out twice, with between
+    the copies ``SPAN_COPY`` tokens ``D``. A trained model continues
+    such a prompt by copying what followed the span's first copy;
+    random weights do not copy, so ``D`` is made of the model's own
+    dense greedy continuation: starting from the continuation of
+    ``span + span``, each of ``SPAN_ROUNDS`` rounds replaces ``D`` by
+    the continuation of ``span + D + span``. That map need not reach a
+    fixed point (``D`` is part of the context it continues), so a
+    candidate keeps its best round, the one whose ``D`` agrees with its
+    own continuation for the most leading tokens, and the ``n`` best of
+    ``SPAN_POOL * n`` candidates are served, in the candidates' order.
+    Returns the prompts and, for each, that count of leading tokens."""
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(seed)
+    span = rng.integers(0, V, size=(SPAN_POOL * n, SPAN_LEN))
+
+    def cont(ctx):
+        return model.generate(ctx, max_new_tokens=SPAN_COPY)[
+            :, ctx.shape[1]:].cpu().numpy()
+    d = cont(np.concatenate([span, span], 1))
+    best, stood = d.copy(), np.full(len(span), -1)
+    for _ in range(SPAN_ROUNDS):
+        nxt = cont(np.concatenate([span, d, span], 1))
+        agree = np.argmin(np.concatenate(
+            [nxt == d, np.zeros((len(d), 1), bool)], 1), 1)
+        better = agree > stood
+        best[better], stood[better] = d[better], agree[better]
+        d = nxt
+    keep = np.sort(np.argsort(-stood, kind="stable")[:n])
+    prompts = np.concatenate([span, best, span], 1)[keep]
+    return prompts.tolist(), stood[keep].tolist()
+
+
+def spec17(model, dtype, econf, prompts, new, tie):
+    """Check (b): n-gram drafts (k 3, n-gram 2) on phase 4's prompts,
+    then an oracle drafter from the plain run's tokens (every draft it
+    makes is accepted) and a wrong one (every draft rejected), then
+    n-gram drafts on ``span_prompts``, where the drafter must draft and
+    save decode steps. Each stream equals its plain run's but at near
+    ties, in no more decode steps. Returns the records, the runs'
+    launches and the count of paged-decode launches in verify steps."""
+    V = model.cfg.vocab_size
+    L = model.cfg.num_layers
+    base = dict(econf, kv_dtype=dname(dtype))
+    tag = f"spec {dname(dtype)}"
+    g_off, l_off, st_off = serve(model, EngineConfig(**base), prompts, new)
+    gate_engine_launches(f"{tag} off", model, st_off, l_off)
+    truth = g_off
+    verify = dict(steps=0, rows=[])
+
+    def timed(host):
+        def probe(event, eng, data):
+            if event == "start":
+                inner = eng._drafts
+
+                def drafts(active):
+                    t0 = time.perf_counter()
+                    out = inner(active)
+                    host["draft_s"] += time.perf_counter() - t0
+                    return out
+                eng._drafts = drafts
+            elif event == "round" and data[1] is not None:
+                if data[1]["rows"] > data[1]["n_active"]:
+                    verify["steps"] += 1
+                    verify["rows"].append(data[1]["rows"])
+            elif event == "end":
+                # the wrapper holds the engine: drop it, so the engine
+                # (and its KV pools) go when the run returns
+                del eng._drafts
+        return probe
+
+    def oracle(seq):
+        t, done = truth[seq.req_id], len(seq.generated)
+        if seq.generated != t[:done]:
+            return []                    # past a near-tie divergence
+        return t[done:done + SPEC_K]
+
+    def wrong(seq):
+        t, done = truth[seq.req_id], len(seq.generated)
+        if seq.generated != t[:done] or done >= len(t):
+            return []
+        return [(t[done] + 1) % V] * SPEC_K
+
+    out, runs = {}, [l_off]
+    for name, fn in (("ngram", None), ("oracle", oracle), ("wrong", wrong)):
+        host = dict(draft_s=0.0)
+        g, l, st = serve(model, EngineConfig(**base, spec=SpeculativeConfig(
+            num_draft_tokens=SPEC_K, ngram=SPEC_NGRAM, draft_fn=fn)),
+            prompts, new, probe=timed(host))
+        runs.append(l)
+        gate_engine_launches(f"{tag} {name}", model, st, l)
+        div = first_divergences(model, prompts, g, truth, tie)
+        acc, rej = st["spec_accepted"], st["spec_rejected"]
+        require(st["decode_steps"] <= st_off["decode_steps"],
+                f"{tag} {name}: {st['decode_steps']} decode steps, the "
+                f"plain run {st_off['decode_steps']}")
+        if name == "oracle":
+            require(acc > 0 and rej <= SPEC_K * len(div) and
+                    st["decode_steps"] < st_off["decode_steps"],
+                    f"{tag} oracle: {acc} accepted, {rej} rejected, "
+                    f"{len(div)} divergences, {st['decode_steps']} steps")
+        if name == "wrong":
+            require(acc == 0 and rej > 0 and
+                    st["decode_steps"] == st_off["decode_steps"],
+                    f"{tag} wrong drafts: {acc} accepted, {rej} rejected, "
+                    f"{st['decode_steps']} steps")
+        out[name] = dict(option_figures(st, l), accepted=acc, rejected=rej,
+                         divergences=div,
+                         draft_host_ms_a_step=1e3 * host["draft_s"]
+                         / max(st["decode_steps"], 1))
+        say(f"[phase 17 {tag} {name}] {out[name]}")
+    # the default drafter on traffic it drafts for: its verify rows,
+    # acceptance and truncation must run, and save decode steps
+    spans, stood = span_prompts(model, len(prompts))
+    g_soff, l_soff, st_soff = serve(model, EngineConfig(**base), spans, new)
+    gate_engine_launches(f"{tag} span off", model, st_soff, l_soff)
+    host = dict(draft_s=0.0)
+    g, l, st = serve(model, EngineConfig(**base, spec=SpeculativeConfig(
+        num_draft_tokens=SPEC_K, ngram=SPEC_NGRAM)), spans, new,
+        probe=timed(host))
+    runs += [l_soff, l]
+    gate_engine_launches(f"{tag} ngram span", model, st, l)
+    div = first_divergences(model, spans, g, g_soff, tie)
+    acc, rej = st["spec_accepted"], st["spec_rejected"]
+    require(acc + rej > 0 and acc > 0 and
+            st["decode_steps"] < st_soff["decode_steps"],
+            f"{tag} ngram span: {acc} accepted, {rej} rejected, "
+            f"{st['decode_steps']} decode steps, the plain run "
+            f"{st_soff['decode_steps']}; continuations standing {stood}")
+    out["ngram_span"] = dict(
+        option_figures(st, l), accepted=acc, rejected=rej,
+        divergences=div, copy_tokens_standing=stood,
+        draft_host_ms_a_step=1e3 * host["draft_s"]
+        / max(st["decode_steps"], 1))
+    out["span_off"] = option_figures(st_soff, l_soff)
+    say(f"[phase 17 {tag} ngram span] {out['ngram_span']}")
+    say(f"[phase 17 {tag} span off] {out['span_off']}")
+    out["off"] = option_figures(st_off, l_off)
+    out["verify_steps"] = verify["steps"]
+    out["verify_rows"] = sorted(set(verify["rows"]))
+    say(f"[phase 17 {tag} off] {out['off']}")
+    return out, runs, L * verify["steps"]
+
+
+def spec_int8_17(cfg, econf, prompts, new):
+    """Weight-only int8 f32 with drafts on every step (the last token
+    repeated, k 3): verify batches of 16 and 32 rows move the block
+    projections and the head from the decode GEMV (route "gemv", M <= 8)
+    to the tensor-core GEMM (route "gemm", ``wo_gemm_tf32_kernel``,
+    M > 8). The launches by route are gated step by step; the tokens
+    are held against the quantized model's dense path at near ties."""
+    model = GPTForCausalLM(cfg, seed=1234)
+    buckets = []
+
+    def probe(event, eng, data):
+        if event == "round" and data[1] is not None:
+            buckets.append(data[1]["bucket"][0])
+    g, l, st = serve(model, EngineConfig(
+        **econf, weight_only_int8=True, weight_only_lm_head=True,
+        spec=SpeculativeConfig(num_draft_tokens=SPEC_K,
+                               draft_fn=lambda s: [s.tokens[-1]] * SPEC_K)),
+        prompts, new, probe=probe)
+    _, ties = dense_check(model, prompts, g, new, NEAR_TIE)
+    per_pass = 4 * len(model.gpt.h) + 1
+    big = sum(1 for b in buckets if b > 8)
+    small = len(buckets) - big
+    want = {"wgmma": 0, "gemv_mma": 0,
+            "gemm": (per_pass - 1) * st["prefills"] + per_pass * big,
+            "gemv": st["prefills"] + per_pass * small}
+    require(st["wo_route_launches"] == want, f"int8 spec f32: wo_matmul "
+            f"launches by route {st['wo_route_launches']}, want {want}")
+    require(l["wo_gemm_tf32"] == want["gemm"], f"int8 spec f32: "
+            f"wo_gemm_tf32 launched {l['wo_gemm_tf32']} times, want "
+            f"{want['gemm']}")
+    require(big > 0, "int8 spec f32: no verify step past 8 rows")
+    gate_engine_launches("int8 spec f32", model, st, l)
+    rec = dict(option_figures(st, l), accepted=st["spec_accepted"],
+               rejected=st["spec_rejected"], near_ties=len(ties),
+               tie_margins=ties, step_buckets=sorted(set(buckets)),
+               wo_route_launches=st["wo_route_launches"],
+               wo_launches_past_8_rows=per_pass * big)
+    say(f"[phase 17 int8 spec f32] {rec}")
+    del model
+    torch.cuda.empty_cache()
+    return rec, l
+
+
+def swap17(model, model_b, dtype, econf, prompts, new, tie):
+    """Check (d): four requests in flight, ``swap_weights`` to the second
+    seed's weights between decode steps, four more requests: the first
+    four finish (nothing dropped), the new weights are the live ones,
+    the four later requests' tokens equal a fresh engine on the second
+    seed's model but at near ties, and swapping the returned weights
+    back restores the first model bitwise."""
+    base = dict(econf, kv_dtype=dname(dtype))
+    tag = f"swap {dname(dtype)}"
+    half = len(prompts) // 2
+    eng = ServingEngine(model, EngineConfig(**base))
+    first = [eng.submit(p, new) for p in prompts[:half]]
+    step = 0
+    while step < 6 or eng.scheduler.waiting:
+        eng.tick(float(step))
+        step += 1
+    require(all(0 < len(eng.sequence(r).generated) < new for r in first),
+            f"{tag}: the first requests are not in flight at the swap")
+    t0 = time.perf_counter()
+    prev = eng.swap_weights(model_b)
+    torch.cuda.synchronize()
+    swap_ms = 1e3 * (time.perf_counter() - t0)
+    live = eng.runner.weights()
+    require(all(torch.equal(a, b) for a, b in zip(
+        live, eng.runner.state_of(model_b))), f"{tag}: weights not swapped")
+    later = [eng.submit(p, new) for p in prompts[half:]]
+    while not eng.idle():
+        eng.tick(float(step))
+        step += 1
+    require(all(len(eng.sequence(r).generated) == new
+                for r in first + later), f"{tag}: a request finished short")
+    g_fresh, l_fresh, _ = serve(model_b, EngineConfig(**base),
+                                prompts[half:], new)
+    div = first_divergences(model_b, prompts[half:],
+                            [eng.sequence(r).generated for r in later],
+                            g_fresh, tie)
+    eng.swap_weights(prev)
+    require(all(torch.equal(a, b) for a, b in zip(eng.runner.weights(),
+                                                  prev)),
+            f"{tag}: the rollback did not restore the weights")
+    rec = dict(swap_ms=swap_ms, swapped_tensors=len(prev),
+               divergences=div, hot_swaps=eng.hot_swaps,
+               decode_steps=eng.decode_steps)
+    say(f"[phase 17 {tag}] {rec}")
+    del prev, eng
+    torch.cuda.empty_cache()
+    return rec, l_fresh
+
+
+def check_paged_verify(dtype, gen, dev, rng, split):
+    """Check (c): the paged decode at a verify step's shape, k 3: 32
+    query rows in groups of 4 that share a block table, the group's
+    rows at contexts p0+1 .. p0+4 (p0 = the main shape's contexts less
+    4), against its plain version at the main shape's tolerance; one
+    launch a call (exact), bitwise on a second run; events, device time,
+    plain time and the bound (the unique K and V bytes the groups hold,
+    each read once; the operations of every row)."""
+    k1 = SPEC_K + 1
+    p0 = [c - k1 for c in PAGED_CTX]
+    _, kp, vp, tables8, _ = paged_inputs(dtype, gen, dev, rng,
+                                         [p + k1 for p in p0], 128)
+    B, H, D = len(p0) * k1, 16, 128
+    tables = tables8.repeat_interleave(k1, 0).contiguous()
+    ctx_rows = [p + 1 + i for p in p0 for i in range(k1)]
+    ctx = torch.as_tensor(ctx_rows, dtype=torch.int32, device=dev)
+    q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(dtype)
+    args = (q, kp, vp, tables, ctx)
+    scale = 1.0 / D ** 0.5
+    if split:
+        counter = paged_decode_split_partials
+
+        def run():
+            return _merge_splits(*paged_decode_split_partials(
+                *args, scale=scale, pages_per_split=PAGED_PPS),
+                q.dtype)[:, None]
+
+        def plain():
+            return paged_attention_split_reference(
+                *args, scale=scale, pages_per_split=PAGED_PPS)
+    else:
+        counter = paged_decode
+
+        def run():
+            return paged_decode(*args, scale=scale)
+
+        def plain():
+            return paged_attention_reference(*args, scale=scale)
+    n0 = counter.launches
+    out = run()
+    launches = counter.launches - n0
+    ref = plain()
+    torch.cuda.synchronize()
+    shape = (f"B{B} (8 x {k1} rows a table) H16 D128 bs16 ctx "
+             f"{sum(ctx_rows)} total (max {max(ctx_rows)})"
+             + (f" pps{PAGED_PPS}" if split else ""))
+    what = f"paged decode verify (split={split}) {dname(dtype)} {shape}"
+    require(launches == 1, f"{what}: {launches} launches a call, want 1")
+    require(torch.isfinite(out.float()).all().item(),
+            f"{what}: non-finite output")
+    err = (out.float() - ref.float()).abs().max().item()
+    require(err <= TOL[dtype], f"{what} disagrees with its plain version: "
+            f"{err} > {TOL[dtype]}")
+    bitwise = torch.equal(out, run())
+    require(bitwise, f"{what}: two runs differ")
+    ms = cuda_ms(run)
+    dev_ms, kern_ms = device_ms(run, PAGED_KERNEL, per_call=1)
+    plain_ms = cuda_ms(plain, iters=5, warmup=1)
+    ops = 4.0 * sum(ctx_rows) * H * D
+    nbytes = 2.0 * sum(p + k1 for p in p0) * H * D * q.element_size()
+    b_ms, b_by = bound(ops, nbytes, dtype)
+    return dict(name="paged_decode_split" if split else "paged_decode",
+                dtype=dname(dtype), shape=shape, label="verify",
+                max_abs_err=err, tol=TOL[dtype], bitwise=bitwise,
+                launches_a_call=launches, ms=ms, device_ms=dev_ms,
+                kernel_device_ms=kern_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase17(dev, prompts, new, rng_seed=170):
+    """Prefix cache, drafts and admission on GPT-3 1.3B (seed 1234) at
+    full width and depth, bf16 then f32: checks (a)-(d) per dtype on
+    phase 4's ``prompts`` (``new`` tokens each), the int8 weight-only
+    verify routes in bf16. Returns the record, the launches of every
+    engine run (for the main path's counts) and the paged-decode
+    launches in verify steps."""
+    cfg = gpt3_1p3b()
+    econf = dict(block_size=16, num_blocks=1024, max_batch=8)
+    gen = torch.Generator(device=dev).manual_seed(rng_seed)
+    krng = np.random.default_rng(rng_seed)
+    rec = dict(verify_kernel=[], runs={})
+    all_launches = []
+    verify_launches = 0
+    model32 = GPTForCausalLM(cfg, seed=1234)
+    model_b32 = GPTForCausalLM(cfg, seed=SWAP_SEED)
+    for dtype in (torch.bfloat16, torch.float32):
+        tie = NEAR_TIE_BF16 if dtype == torch.bfloat16 else NEAR_TIE
+        for split in (False, True):
+            rec["verify_kernel"].append(check_paged_verify(
+                dtype, gen, dev, krng, split))
+        if dtype == torch.bfloat16:
+            model = copy.deepcopy(model32).to(dtype)
+            model_b = copy.deepcopy(model_b32).to(dtype)
+        else:
+            model, model_b = model32, model_b32
+        r = rec["runs"][dname(dtype)] = {}
+        # one short run first: the first engine run of a model pays for
+        # cuBLAS's first calls, which would land on the option-off run
+        serve(model, EngineConfig(**econf, kv_dtype=dname(dtype)),
+              prompts[:2], 4)
+        r["prefix"], ls = prefix17(model, dtype, econf, new, tie)
+        all_launches += ls
+        r["spec"], ls, v = spec17(model, dtype, econf, prompts, new, tie)
+        all_launches += ls
+        verify_launches += v
+        r["swap"], l = swap17(model, model_b, dtype, econf, prompts, new,
+                              tie)
+        all_launches.append(l)
+        del model, model_b
+        torch.cuda.empty_cache()
+    del model32, model_b32
+    torch.cuda.empty_cache()
+    rec["int8_spec_f32"], l = spec_int8_17(cfg, econf, prompts, new)
+    all_launches.append(l)
+    return rec, all_launches, verify_launches
+
+
 def train_setup(layers, device, bf16, seed=0):
     """``bench_gpt``'s default model, optimizer and fused step (the
     ``BENCH_FUSED_OPT=1`` variant), at ``layers`` blocks."""
@@ -3944,6 +4506,93 @@ def check_varlen_exact(H, D, lens_q, lens_k, causal, gen, dev):
             f"sees dk = dv = 0")
     return dict(name="flash_varlen_exact", dtype="bfloat16", shape=shape,
                 dq_dk_dv_err=err, tol=EXACT_TOL)
+
+
+def check_varlen_split_exact(H, D, lens_q, lens_k, causal, gen, dev):
+    """The bf16 split pair (``flash_varlen_dkv_kernel`` and
+    ``flash_varlen_dq_kernel``, the CUDA cores) on q, k, v and dO from
+    {-1, 0, 1}, as ``check_varlen_exact`` holds the fused kernel: every
+    score and dP sum is exact in any order, so P and dS round as the
+    plain version's do and the pair must equal the plain f32 sums to
+    ``EXACT_TOL`` beyond half a bf16 step."""
+    meta, (q_tiles, k_tiles), keep = varlen_meta(lens_q, lens_k, causal,
+                                                 dev)
+    Tq, Tk = keep.shape
+
+    def draw(T):
+        return torch.randint(-1, 2, (T, H, D), generator=gen,
+                             device=dev).to(torch.bfloat16)
+    q, do, k, v = draw(Tq), draw(Tq), draw(Tk), draw(Tk)
+    scale = 1.0 / D ** 0.5
+    o, lse = flash_varlen_fwd(q, k, v, *meta, q_tiles, scale)
+    delta = (do.float() * o.float()).sum(-1).t().contiguous()
+    dk, dv = flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta, k_tiles,
+                                  scale)
+    dq = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta, q_tiles, scale)
+    dk_ref, dv_ref = flash_varlen_bwd_dkv_reference(
+        q, k, v, do, lse, delta, *meta, scale, out_dtype=torch.float32)
+    dq_ref = flash_varlen_bwd_dq_reference(q, k, v, do, lse, delta, *meta,
+                                           scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = {n: half_step_err(g, r) for n, g, r in
+           (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+    shape = (f"H{H} D{D} Tq{Tq} Tk{Tk} "
+             + ("causal" if causal else "non-causal") + f" lens {lens_q}"
+             + (f" / k {lens_k}" if lens_k else ""))
+    require(max(err.values()) <= EXACT_TOL, f"flash_varlen split pair "
+            f"{shape}, inputs in {{-1, 0, 1}}: {err} > {EXACT_TOL}")
+    return dict(name="flash_varlen_split_exact", dtype="bfloat16",
+                shape=shape, dq_dk_dv_err=err, tol=EXACT_TOL)
+
+
+# the bf16 split pair over random draws: seeds of their own generators,
+# so no earlier draw of the smoke moves
+SPLIT_DRAW_SEEDS = tuple(range(1000, 1008))
+
+
+def check_varlen_split_draws(dev):
+    """The bf16 split pair over ``SPLIT_DRAW_SEEDS`` draws of the README
+    batch and of the serving lengths (H16 D128, causal): each draw's
+    largest error beyond half a bf16 step against the plain f32 sums
+    (``half_step_err``) must be within ``BWD_TOL``."""
+    out = []
+    for lens in (VARLEN_README, VARLEN_SERVING):
+        meta, (q_tiles, k_tiles), keep = varlen_meta(lens, None, True, dev)
+        Tq, Tk = keep.shape
+        H, D = 16, 128
+        scale = 1.0 / D ** 0.5
+        for seed in SPLIT_DRAW_SEEDS:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            q, do = (torch.randn(Tq, H, D, generator=g, device=dev)
+                     .to(torch.bfloat16) for _ in range(2))
+            k, v = (torch.randn(Tk, H, D, generator=g, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+            o, lse = flash_varlen_fwd(q, k, v, *meta, q_tiles, scale)
+            delta = (do.float() * o.float()).sum(-1).t().contiguous()
+            dk, dv = flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta,
+                                          k_tiles, scale)
+            dq = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta,
+                                     q_tiles, scale)
+            dk_ref, dv_ref = flash_varlen_bwd_dkv_reference(
+                q, k, v, do, lse, delta, *meta, scale,
+                out_dtype=torch.float32)
+            dq_ref = flash_varlen_bwd_dq_reference(
+                q, k, v, do, lse, delta, *meta, scale,
+                out_dtype=torch.float32)
+            err = {n: half_step_err(got, ref) for n, got, ref in
+                   (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                    ("dv", dv, dv_ref))}
+            what = ("README" if lens == VARLEN_README else "serving")
+            row = dict(name="flash_varlen_split_draw", batch=what,
+                       seed=seed, err=err)
+            require(max(err.values()) <= BWD_TOL[torch.bfloat16],
+                    f"flash_varlen split pair bf16 {what} batch, seed "
+                    f"{seed}: {err} > {BWD_TOL[torch.bfloat16]}")
+            out.append(row)
+            del q, k, v, do, o, lse, delta, dk, dv, dq, dk_ref, dv_ref
+            del dq_ref
+            torch.cuda.empty_cache()
+    return out
 
 
 def varlen_batches(n, device, seed=0):
@@ -4980,6 +5629,23 @@ def main():
                for D in (16, 64, 128) for lens_q, lens_k in VARLEN_EMPTY]
     ragged.append(check_varlen_misaligned(gen, dev))
     torch.cuda.empty_cache()
+    # the bf16 split pair: on exactly summed inputs (the cases the fused
+    # kernel's exact check takes), and over random draws; their own
+    # generators
+    split_gen = torch.Generator(device=dev).manual_seed(2)
+    ragged += [check_varlen_split_exact(4, D, lens_q, lens_k, causal,
+                                        split_gen, dev)
+               for D in (16, 64, 128)
+               for lens_q, lens_k, causal in VARLEN_RAGGED]
+    ragged += [check_varlen_split_exact(16, D, lens, None, causal,
+                                        split_gen, dev)
+               for lens in (VARLEN_README, VARLEN_SERVING)
+               for D in (16, 64, 128) for causal in (True, False)]
+    split_draws = check_varlen_split_draws(dev)
+    for r in split_draws:
+        say(f"[kernel] flash_varlen split pair bf16 {r['batch']} seed "
+            f"{r['seed']}: err {r['err']} (limit "
+            f"{BWD_TOL[torch.bfloat16]})")
     for r in rows:
         say(f"[kernel] {r['name']} {r['dtype']} {r['shape']}: err "
             f"{r['max_abs_err']:.3g} (tol {r['tol']}) ms {r['ms']:.4f} "
@@ -5040,10 +5706,13 @@ def main():
                 f"{r['max_abs_err']:.3g} (tol {r['tol']})"
                 + (f", bitwise on a second run {r['bitwise']}"
                    if r["bitwise"] is not None else ""))
-        elif r["name"] == "flash_varlen_exact":
-            say(f"[kernel] flash_varlen_bwd_fused {r['shape']}, inputs in "
-                f"{{-1, 0, 1}}: dq/dk/dv err {r['dq_dk_dv_err']} (tol "
-                f"{r['tol']})")
+        elif r["name"] in ("flash_varlen_exact",
+                           "flash_varlen_split_exact"):
+            say(f"[kernel] "
+                + ("flash_varlen_bwd_fused" if r["name"] ==
+                   "flash_varlen_exact" else "flash_varlen split pair")
+                + f" {r['shape']}, inputs in {{-1, 0, 1}}: dq/dk/dv err "
+                f"{r['dq_dk_dv_err']} (tol {r['tol']})")
         elif r["name"] == "flash_varlen_misaligned":
             say(f"[kernel] flash_attention_varlen_packed {r['dtype']} "
                 f"{r['shape']}: equal to its aligned copy {r['bitwise']}")
@@ -5241,6 +5910,59 @@ def main():
     add(ls32)
     say(f"[incubate f32 vs cpu] {stack32}")
 
+    mark("14-15 incubate")
+
+    # 17. prefix cache, drafts and admission on GPT-3 1.3B
+    p17, l17, verify_launches = phase17(dev, prompts, new)
+    for l in l17:
+        add(l)
+    for r in p17["verify_kernel"]:
+        say(f"[kernel] {r['name']} {r['dtype']} {r['shape']} (verify): err "
+            f"{r['max_abs_err']:.3g} (tol {r['tol']}) ms {r['ms']:.4f} "
+            f"(device {r['device_ms']}, kernel {r['kernel_device_ms']}) "
+            f"plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']}), {r['launches_a_call']} launch a call, "
+            f"bitwise {r['bitwise']}")
+    for dt, r in p17["runs"].items():
+        say(f"[phase 17 {dt}] {smi}: prefix on/off decode tok/s "
+            f"{r['prefix']['on']['decode_tok_s']:.1f} / "
+            f"{r['prefix']['off']['decode_tok_s']:.1f}, TTFT mean "
+            f"{r['prefix']['on']['ttft_mean_s']:.4f} / "
+            f"{r['prefix']['off']['ttft_mean_s']:.4f} s, peak "
+            f"{r['prefix']['on']['peak_memory_gib']:.3f} / "
+            f"{r['prefix']['off']['peak_memory_gib']:.3f} GiB, "
+            f"divergences {len(r['prefix']['divergences'])}; spec "
+            f"on/off decode tok/s {r['spec']['ngram']['decode_tok_s']:.1f}"
+            f" / {r['spec']['off']['decode_tok_s']:.1f}, decode steps "
+            f"{r['spec']['ngram']['decode_steps']} / "
+            f"{r['spec']['off']['decode_steps']}, accepted "
+            f"{r['spec']['ngram']['accepted']} rejected "
+            f"{r['spec']['ngram']['rejected']}, paged_decode launches "
+            f"{r['spec']['ngram']['paged_decode_launches']} / "
+            f"{r['spec']['off']['paged_decode_launches']}, divergences "
+            f"{len(r['spec']['ngram']['divergences'])}; oracle accepted "
+            f"{r['spec']['oracle']['accepted']} rejected "
+            f"{r['spec']['oracle']['rejected']} in "
+            f"{r['spec']['oracle']['decode_steps']} steps; wrong accepted "
+            f"{r['spec']['wrong']['accepted']} rejected "
+            f"{r['spec']['wrong']['rejected']}; n-gram on span prompts "
+            f"decode tok/s {r['spec']['ngram_span']['decode_tok_s']:.1f} / "
+            f"{r['spec']['span_off']['decode_tok_s']:.1f}, decode steps "
+            f"{r['spec']['ngram_span']['decode_steps']} / "
+            f"{r['spec']['span_off']['decode_steps']}, accepted "
+            f"{r['spec']['ngram_span']['accepted']} rejected "
+            f"{r['spec']['ngram_span']['rejected']}; table check host ms a "
+            f"step prefix on/off "
+            f"{r['prefix']['on']['validate_host_ms_a_step']:.4f} / "
+            f"{r['prefix']['off']['validate_host_ms_a_step']:.4f}, "
+            f"n-gram span "
+            f"{r['spec']['ngram_span']['validate_host_ms_a_step']:.4f}; "
+            f"swap divergences {len(r['swap']['divergences'])}")
+    say(f"[phase 17] paged_decode launches in verify steps: "
+        f"{verify_launches}; int8 spec f32 wo_matmul launches past 8 "
+        f"rows (wo_gemm_tf32): "
+        f"{p17['int8_spec_f32']['wo_launches_past_8_rows']}")
+
     say(f"[main path] launches: {launches}")
     say("[main path] launches by route: " + "; ".join(
         f"{n} {launches[n + '_vec']} vec, "
@@ -5279,7 +6001,24 @@ def main():
                              n, launches)}
                             if "route" not in k and hasattr(
                                 k["counter"], "route_launches") else {})))
-    mark("14-15 incubate, the kernels line")
+    # the paged decode at a verify step's shape (bf16 rows), and the
+    # weight-only GEMM's launches past 8 rows in verify steps
+    for entry in line:
+        if entry["name"] in ("paged_decode", "paged_decode_split"):
+            r = next(x for x in p17["verify_kernel"]
+                     if x["name"] == entry["name"]
+                     and x["dtype"] == "bfloat16")
+            entry["verify_shape"] = dict(
+                {key: r[key] for key in ("shape", "dtype", "max_abs_err",
+                                         "tol", "ms", "device_ms",
+                                         "kernel_device_ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+                launches=(verify_launches if entry["name"] ==
+                          "paged_decode" else 0))
+        if entry["name"] == "wo_gemm_tf32":
+            entry["verify_launches_past_8_rows"] = \
+                p17["int8_spec_f32"]["wo_launches_past_8_rows"]
+    mark("the kernels line")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         dict(device=kind, nvidia_smi=smi, build_s=build_s,
@@ -5293,7 +6032,8 @@ def main():
              ernie_f32_vs_cpu=ernie32, resnet50_bf16=resnet,
              resnet18_f32_vs_cpu=r18, varlen_bf16=varlen,
              varlen_f32_vs_cpu=varlen32, incubate_bf16=stack,
-             incubate_f32_vs_cpu=stack32, launches=launches,
+             incubate_f32_vs_cpu=stack32, phase17=p17,
+             varlen_split_draws=split_draws, launches=launches,
              phase_s=marks, seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")
     say(f"nvidia-smi: {smi}")

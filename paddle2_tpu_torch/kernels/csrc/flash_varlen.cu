@@ -166,8 +166,11 @@ __device__ __forceinline__ void p_ds(const float (&s)[4][4],
     for (int j = 0; j < 4; ++j) {
       const int col = tx + 16 * j;
       const bool ok = live(sSq, sOq, sSk, sOk, row, col, q_rows, k_rows);
-      const float p =
-          (ok && lse != -INFINITY) ? expf(s[i][j] * scale - lse) : 0.f;
+      // rounded as the plain version rounds s * scale (no fused
+      // multiply-add into the exponent's argument)
+      const float p = (ok && lse != -INFINITY)
+                          ? expf(__fmul_rn(s[i][j], scale) - lse)
+                          : 0.f;
       const float ds = p * (dp[i][j] - delta);
       if (sP != nullptr) sP[row * PP + col] = round_t<T>(p);
       sdS[row * PP + col] = round_t<T>(ds);

@@ -18,6 +18,20 @@ counts the distinct decode buckets it has run
 (:attr:`PagedGPTRunner.num_decode_programs`), so the scheduler's bucket
 bound keeps its meaning: the count of distinct decode shapes stays
 within ``len(batch_buckets) * len(page_buckets)``.
+
+Rows of one decode batch may share a block table: a speculative verify
+round brings ``k + 1`` rows of one sequence at positions
+``p0 .. p0 + k``. Each layer scatters every row's K/V before its
+attention reads them, and each row's context length (its position + 1)
+hides the later rows from it, so row ``i`` attends exactly as a plain
+step at ``p0 + i`` would.
+
+The JAX runner passes its weights to compiled programs as arguments and
+swaps them by passing others. The port's steps read the live model, so
+:meth:`PagedGPTRunner.swap_weights` copies the new tensors into the
+model's parameters and buffers in place, after checking every shape and
+dtype (a swap is all or nothing). Two engines built on one model object
+therefore see each other's swaps.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import torch
 
 from .block_cache import PagedKVCache
 from .paged_attention import paged_attention_decode
+from .reliability import WeightSwapError
 
 __all__ = ["PagedGPTRunner", "PREFILL_PAD"]
 
@@ -59,6 +74,43 @@ class PagedGPTRunner:
     @property
     def num_decode_programs(self) -> int:
         return len(self._decode_buckets)
+
+    @staticmethod
+    def state_of(model) -> List[torch.Tensor]:
+        """A model's parameters, then its buffers, in module order: the
+        weight list :meth:`swap_weights` takes and returns."""
+        return list(model.parameters()) + list(model.buffers())
+
+    def weights(self) -> List[torch.Tensor]:
+        """The live weight tensors of the served model."""
+        return self.state_of(self.model)
+
+    @torch.no_grad()
+    def swap_weights(self, tensors) -> List[torch.Tensor]:
+        """Copy ``tensors`` (one a weight of :meth:`weights`, same shape
+        and dtype, on any device) into the live weights in place.
+        Everything is checked before anything is copied: a mismatch
+        raises :class:`~.reliability.WeightSwapError` and changes
+        nothing. Returns copies of the previous weights (the rollback
+        payload)."""
+        live = self.weights()
+        tensors = list(tensors)
+        if len(tensors) != len(live):
+            raise WeightSwapError(f"swap payload has {len(tensors)} "
+                                  f"tensors, the model {len(live)}")
+        for t, new in zip(live, tensors):
+            if not isinstance(new, torch.Tensor):
+                raise WeightSwapError(f"swap payload holds a "
+                                      f"{type(new).__name__}, not a tensor")
+            if tuple(new.shape) != tuple(t.shape) or new.dtype != t.dtype:
+                raise WeightSwapError(
+                    f"swap tensor mismatch: got {tuple(new.shape)}/"
+                    f"{new.dtype}, the model has {tuple(t.shape)}/"
+                    f"{t.dtype}")
+        prev = [t.detach().clone() for t in live]
+        for t, new in zip(live, tensors):
+            t.copy_(new)
+        return prev
 
     @staticmethod
     def pad_len(n: int, max_pos: int) -> int:

@@ -166,6 +166,11 @@ Phases:
   events and device time; and M 8 at up and the head read cold (a new
   weight each call from copies that together pass 100 MB, as a decode
   step meets its 97 weights) against ``torch.mm`` read the same way.
+- ``plain_serving``: the smoke's phase-4 fp serving (GPT-3 1.3B, seed
+  1234, f32 then bf16, no option on), each served twice on one model:
+  decode tokens/s, decode steps, TTFT, the traced step's device time
+  and idle share, and the host time a decode step of the engine's table
+  check where the checkout's ``serve()`` times it.
 """
 
 import argparse
@@ -508,6 +513,41 @@ def paged_decode(cs, torch):
     runs = _serve_int8_bf16(cs, torch)
     print(json.dumps(dict(serve=runs[1])), flush=True)
     return dict(kernels=kernels, serve=runs[1], serve_first=runs[0])
+
+
+def plain_serving(cs, torch):
+    """The smoke's phase-4 fp serving runs (f32, then bf16) on the
+    seed's GPT-3 1.3B, each served twice on one model: ``serve()``'s
+    figures, with the engine's table-check host time a step where the
+    checkout's ``serve()`` times it (None where it does not)."""
+    import numpy as np
+    from paddle2_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle2_tpu_torch.serving import EngineConfig
+    cfg = gpt3_1p3b()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (17, 45, 130, 257, 401, 613, 850, 1000)]
+    model = GPTForCausalLM(cfg, seed=1234)
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            model = model.to(torch.bfloat16)
+        econf = EngineConfig(block_size=16, num_blocks=1024, max_batch=8,
+                             kv_dtype=dtype)
+        runs[dtype] = []
+        for _ in range(2):
+            _, launches, st = cs.serve(model, econf, prompts, 32)
+            prof = st["step_profile"] or {}
+            runs[dtype].append(dict(
+                decode_tok_s=st["decode_tok_s"],
+                decode_steps=st["decode_steps"], decode_s=st["decode_s"],
+                ttft_mean_s=st["ttft_mean_s"],
+                validate_host_ms_a_step=st.get("validate_host_ms_a_step"),
+                paged_decode_launches=launches["paged_decode"],
+                decode_step_device_ms=prof.get("device_ms"),
+                decode_step_idle_share=prof.get("idle_share")))
+            print(json.dumps({dtype: runs[dtype][-1]}), flush=True)
+    return dict(serve=runs)
 
 
 def f32_decode(cs, torch):
@@ -1240,7 +1280,8 @@ def main():
                     choices=("int8_serving", "varlen_step",
                              "varlen_bwd_draws", "norms", "flash_bwd_f32",
                              "train_bf16", "adamw_step", "f32_prefill",
-                             "paged_decode", "ptq_serving", "f32_decode"))
+                             "paged_decode", "ptq_serving", "f32_decode",
+                             "plain_serving"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -1277,6 +1318,8 @@ def main():
         result = ptq_serving(cs, torch)
     elif args.phase == "f32_decode":
         result = f32_decode(cs, torch)
+    elif args.phase == "plain_serving":
+        result = plain_serving(cs, torch)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

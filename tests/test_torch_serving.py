@@ -138,8 +138,6 @@ def test_scheduler_bucket_shapes():
         cfg.page_bucket(9)
     with pytest.raises(ValueError):
         SchedulerConfig(max_batch=8, batch_buckets=(1, 2))
-    with pytest.raises(NotImplementedError):
-        SchedulerConfig(reliability=object())
 
 
 # ------------------------------------------------------------- the engine
@@ -247,9 +245,7 @@ def test_engine_needs_a_device_by_default(models, monkeypatch):
         ServingEngine(tm, EngineConfig(**ENGINE_KW))
 
 
-@pytest.mark.parametrize("option,value", [
-    ("enable_prefix_cache", True), ("spec", object()),
-    ("enable_kv_spill", True), ("reliability", object())])
+@pytest.mark.parametrize("option,value", [("enable_kv_spill", True)])
 def test_unported_options_raise(models, option, value):
     _, tm = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
