@@ -390,6 +390,34 @@ line) when it fails:
     ``paged_decode`` launches, a traced step's idle share, drafting's
     host time a step, and the host time a step of the engine's table
     check (``_validate_tables``; phase 4's runs print it too).
+18. The framework core ("core", run after phase 17): (a) every op case
+    of the CPU tests' tables (``tests/torch_core_table_*.py``) once on
+    cuda:0 against the same op on the CPU, at the tests' tolerances:
+    outputs, dtypes, shapes and, for a differentiable op, the gradients
+    of a random cotangent; and every random draw of the CPU tests on the
+    card (the CPU draw's shape and dtype, equal draws after equal
+    seeds). (b) ``import paddle2_tpu_torch as paddle`` at GPT-3 1.3B's
+    width (2 of 24 layers, bf16, ids [4, 1024] from ``to_tensor`` after
+    ``paddle.seed`` and ``set_device("gpu")``): ``paddle.grad`` of the
+    loss with respect to every parameter twice with
+    ``FLAGS_check_nan_inf`` off and once on: with the backward forced
+    onto the split pair (no atomics) every gradient must rerun bitwise
+    and equal the run with the flag on; on bf16's route (the fused
+    backward, whose dQ atomics add in another order each run) each
+    gradient must move with the flag no more than between the two runs
+    without it plus one bfloat16 step of its magnitude; a hook that
+    turns a block's output gradient into NaN must be reported by the op
+    it ran (``aten.mul``) from autograd's device thread, and an infinite
+    embedding row by ``aten.embedding``. (c) ``paddle.save`` of phase
+    4's GPT-3 1.3B (seed 1234, bf16) to a temporary file, ``paddle.load``
+    into a model of another seed (every leaf bitwise), a copy with one
+    byte flipped raising ``CheckpointCorruptionError``, and the loaded
+    model served through ``ServingEngine`` on phase 4's prompts: its
+    tokens equal phase 4's bf16 run's, or, were a kernel not
+    deterministic, differ first at a near tie of phase 4's bf16 rule;
+    the save and load times and the file size are printed. (b) and (c)
+    launch the flash forward, the fused flash backward and the paged
+    decode.
 
 Phase 12 also holds the bf16 split pair of the packed varlen backward
 (``flash_varlen_dkv_kernel``, ``flash_varlen_dq_kernel``) on inputs
@@ -451,7 +479,8 @@ times (both routes of both directions), bounds and ``F.layer_norm``'s
 
 Each main-path run (the serving runs, the training runs, the ERNIE
 runs, the ResNet runs, the varlen runs, the incubate stack runs, the
-PTQ runs, phase 17's serving runs) starts with every launch count at 0 and is read just after;
+PTQ runs, phase 17's serving runs, phase 18's gradient and serving runs)
+starts with every launch count at 0 and is read just after;
 the kernel checks' launches (and the PTQ phase's one-at-a-time and
 dense replays) are not counted.
 
@@ -474,6 +503,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -481,8 +511,10 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+import paddle2_tpu_torch as paddle
 from paddle2_tpu_torch import amp, flags, jit
 from paddle2_tpu_torch.kernels import _build
+from paddle2_tpu_torch.kernels import flash_attn as flash_attn_mod
 from paddle2_tpu_torch.kernels.flash_attn import (
     bwd_route, flash_bwd, flash_bwd_fused, flash_bwd_reference,
     flash_bwd_split_dkv, flash_bwd_split_dq, flash_fwd, flash_fwd_reference,
@@ -3575,6 +3607,328 @@ def phase17(dev, prompts, new, rng_seed=170):
     return rec, all_launches, verify_launches
 
 
+# ------------------------------------------------------------ phase 18
+# (a) the CPU tests' op tables (tests/torch_core_table_*.py), run on the
+# card against the CPU
+CORE_TABLES = ("math", "manipulation", "linalg", "creation", "logic_misc",
+               "extra")
+# (b) GPT-3 1.3B's width, 24 layers cut to 2, bf16, ids [batch, seq]
+CORE_GRAD = dict(layers=2, batch=4, seq=1024, seed=18)
+
+
+def core_tables():
+    """The op tables of the CPU tests and their JAX-free harness."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import importlib
+    cc = importlib.import_module("torch_core_cases")
+    tables = {n: importlib.import_module(f"torch_core_table_{n}").CASES
+              for n in CORE_TABLES}
+    return cc, tables, importlib.import_module("torch_core_table_random")
+
+
+def core_ops_on_card(dev):
+    """(a) Every case of the CPU tests' op tables once on ``dev`` against
+    the same op on the CPU (values at the tests' tolerances, dtypes,
+    shapes and, for a differentiable op, gradients), and every random
+    draw of the random tests on ``dev``: the CPU draw's shape and dtype,
+    equal draws after equal seeds."""
+    cc, tables, tr = core_tables()
+    rec = dict(cases=0, failures=[], max_err={})
+    for name, cases in tables.items():
+        for case in cases:
+            for dt in case.dtypes:
+                rec["cases"] += 1
+                try:
+                    err = cc.run_on_devices(case, dt, paddle, dev)
+                    key = f"{case.op} {dt}"
+                    rec["max_err"][key] = max(rec["max_err"].get(key, 0.0),
+                                              err)
+                except Exception as e:      # gathered, then gated below
+                    rec["failures"].append(
+                        f"{name}: {case.id} {dt}: {type(e).__name__}: "
+                        f"{str(e)[:400]}")
+    for op, a, kw in tr.DRAWS:
+        rec["cases"] += 1
+        try:
+            outs = []
+            for d in ("cpu", "gpu", "gpu"):
+                paddle.set_device(d)
+                paddle.seed(5)
+                args = [paddle.to_tensor(x) if isinstance(x, np.ndarray)
+                        else x for x in a]
+                outs.append(getattr(paddle, op)(*args, **kw))
+            c, g1, g2 = outs
+            require(g1.device.type == "cuda", "drawn off the card")
+            require(g1.dtype == c.dtype and g1.shape == c.shape,
+                    f"{g1.dtype} {tuple(g1.shape)} on the card, {c.dtype} "
+                    f"{tuple(c.shape)} on the CPU")
+            require(torch.equal(g1, g2), "two draws after seed(5) differ")
+        except Exception as e:
+            rec["failures"].append(f"random: {op} {a!r:.60}: "
+                                   f"{type(e).__name__}: {str(e)[:300]}")
+    paddle.set_device("gpu")
+    return rec
+
+
+def core_grads(model, ids, params):
+    _, loss = model(ids, labels=ids)
+    return loss.detach(), paddle.grad(loss, params)
+
+
+def core_surface(dev):
+    """(b) The public surface at GPT-3 1.3B's width under
+    ``FLAGS_check_nan_inf``: ``paddle.seed``, ``set_device("gpu")``,
+    ``to_tensor`` ids and labels, a 2-layer bf16 ``GPTForCausalLM``;
+    ``paddle.grad`` of the loss with respect to every parameter twice
+    with the flag off and once on, first with the backward forced onto
+    the split pair (no atomics: every gradient bitwise equal with the
+    flag), then on bf16's route, the fused backward (within the rerun
+    spread, see below); then the mode seen in autograd's device thread,
+    and an infinite embedding row named by the first op that saw it.
+    Returns the record and the launches of the gradient runs (a
+    main-path run)."""
+    C = CORE_GRAD
+    paddle.seed(C["seed"])
+    paddle.set_device("gpu")
+    cfg = gpt3_1p3b(num_layers=C["layers"])
+    ids = paddle.to_tensor(np.random.RandomState(C["seed"]).randint(
+        0, cfg.vocab_size, (C["batch"], C["seq"])), dtype="int64")
+    require(ids.device.type == "cuda" and ids.dtype == torch.int32,
+            f"to_tensor gave {ids.dtype} on {ids.device}")
+    model = GPTForCausalLM(cfg, seed=C["seed"]).to(torch.bfloat16)
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    rec = dict(shape=f"B{C['batch']} S{C['seq']} H{cfg.hidden_size} "
+               f"L{C['layers']} bf16")
+    reset_counts()
+
+    def off_off_on():
+        """Gradients twice with the flag off and once with it on, and
+        the seconds of the first and of the last."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs = [core_grads(model, ids, params)]
+        torch.cuda.synchronize()
+        t_off = time.perf_counter() - t0
+        runs.append(core_grads(model, ids, params))
+        flags.set_flags({"check_nan_inf": True})
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(core_grads(model, ids, params))
+            torch.cuda.synchronize()
+            t_on = time.perf_counter() - t0
+        finally:
+            flags.set_flags({"check_nan_inf": False})
+        return runs, t_off, t_on
+
+    # the split backward pair (no atomics): every result reruns
+    # bitwise, so the flag must change none
+    route = flash_attn_mod.bwd_route
+    flash_attn_mod.bwd_route = lambda dtype: "split"
+    try:
+        runs, t_off, t_on = off_off_on()
+    finally:
+        flash_attn_mod.bwd_route = route
+    (l1, g1), (l2, g2), (l3, g3) = runs
+    require(torch.isfinite(l1).item(), "loss not finite")
+    for n, a, b, c in zip(names, g1, g2, g3):
+        require(torch.equal(a, b), f"{n}: the split backward's gradient "
+                f"does not rerun bitwise")
+        require(torch.equal(a, c), f"{n}: with FLAGS_check_nan_inf on the "
+                f"gradient differs by "
+                f"{(a.float() - c.float()).abs().max():.3g}")
+    require(torch.equal(l1, l3), "the loss changed with the flag")
+    rec.update(loss=l1.item(), split_route_bitwise=len(names),
+               grad_s_split=[t_off, t_on])
+    # the bf16 route, the fused backward (flash_bwd_wgmma.cu): its dQ
+    # atomics add in another order each run, so gradients below the top
+    # attention move run to run; the flag must move them no more than a
+    # rerun does, plus one bfloat16 rounding step of their magnitude
+    runs, t_off, t_on = off_off_on()
+    launches = counts()
+    (l1, g1), (l2, g2), (l3, g3) = runs
+    require(torch.equal(l1, l3), "the loss changed with the flag")
+    moved = []
+    for n, a, b, c in zip(names, g1, g2, g3):
+        spread = (a.float() - b.float()).abs().max().item()
+        change = (a.float() - c.float()).abs().max().item()
+        step = a.float().abs().max().item() * 2.0 ** -8
+        if spread or change:
+            moved.append((n, spread, change))
+        require(change <= spread + step, f"{n}: the flag moves the "
+                f"gradient by {change:.3g}, a rerun without it by "
+                f"{spread:.3g} (one bf16 step {step:.3g})")
+    rec.update(fused_bitwise=len(names) - len(moved),
+               fused_moved=moved, grad_s_fused=[t_off, t_on])
+    say(f"[phase 18 b] split backward: {len(names)} of {len(names)} "
+        f"gradients bitwise with the flag on and off (s off / on: "
+        f"{rec['grad_s_split'][0]:.3f} / {rec['grad_s_split'][1]:.3f}); "
+        f"fused backward: {rec['fused_bitwise']} bitwise, rerun spread / "
+        f"flag change of the others: "
+        + "; ".join(f"{n} {sp:.3g} / {ch:.3g}" for n, sp, ch in moved)
+        + f" (s off / on: {t_off:.3f} / {t_on:.3f})")
+    # the mode in autograd's device thread: a hook on a block's output
+    # makes its gradient NaN inside the backward; only an op checked in
+    # that thread can report it
+    main = threading.get_ident()
+    seen = {}
+
+    def poison(g):
+        seen["thread"] = threading.get_ident()
+        return g * float("nan")
+
+    def attach(mod, inputs, out):
+        out.register_hook(poison)
+    h = model.gpt.h[0].register_forward_hook(attach)
+    flags.set_flags({"check_nan_inf": True})
+    try:
+        _, loss = model(ids, labels=ids)
+        try:
+            loss.backward()
+            msg = None
+        except FloatingPointError as e:
+            msg = str(e)
+    finally:
+        flags.set_flags({"check_nan_inf": False})
+        h.remove()
+        model.zero_grad(set_to_none=True)
+    rec["backward_error"] = msg
+    rec["backward_thread_is_main"] = seen.get("thread") == main
+    # the poisoning multiply is the first op to see the NaN; a kernel
+    # wrapper would be the first to report it were the mode not active
+    # in the device thread
+    require(msg is not None and "'aten.mul'" in msg
+            and "in the backward of" in msg,
+            f"the backward's NaN was not reported by its first op: {msg}")
+    require(seen.get("thread") not in (None, main),
+            "the poisoned gradient was not in a device thread")
+    # an infinite embedding row: the lookup is the first op to see it
+    row = int(ids[0, 5])
+    with torch.no_grad():
+        saved = model.gpt.wte.weight[row].clone()
+        model.gpt.wte.weight[row] = float("inf")
+    flags.set_flags({"check_nan_inf": True})
+    try:
+        try:
+            model(ids, labels=ids)
+            msg = None
+        except FloatingPointError as e:
+            msg = str(e)
+    finally:
+        flags.set_flags({"check_nan_inf": False})
+        with torch.no_grad():
+            model.gpt.wte.weight[row] = saved
+    rec["forward_error"] = msg
+    require(msg is not None and "aten.embedding" in msg,
+            f"the infinite row was not reported by the embedding: {msg}")
+    say(f"[phase 18 b] backward: {rec['backward_error']} (thread is the "
+        f"main thread: {rec['backward_thread_is_main']}); forward: "
+        f"{rec['forward_error']}")
+    del model, params, runs, g1, g2, g3
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def core_checkpoint(prompts, new, want_gens):
+    """(c) ``paddle.save`` phase 4's GPT-3 1.3B (seed 1234, bf16) to a
+    temporary file, ``paddle.load`` it into a model of another seed
+    (every leaf bitwise), a copy with one byte flipped must raise
+    ``CheckpointCorruptionError``, and the loaded model serves phase 4's
+    prompts: tokens equal phase 4's bf16 run's, or (a kernel not
+    deterministic from run to run) differ first at a near tie of phase
+    4's bf16 rule. Returns the record and the serving run's launches."""
+    import tempfile
+    from paddle2_tpu_torch.framework.io_state import \
+        CheckpointCorruptionError
+    cfg = gpt3_1p3b()
+    econf = dict(block_size=16, num_blocks=1024, max_batch=8)
+    src = GPTForCausalLM(cfg, seed=1234).to(torch.bfloat16)
+    state = src.state_dict()
+    rec = {}
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as d:
+        path = os.path.join(d, "gpt3_1p3b_bf16.pdparams")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paddle.save(state, path)
+        rec["save_s"] = time.perf_counter() - t0
+        rec["file_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = paddle.load(path)
+        rec["load_s"] = time.perf_counter() - t0
+        require(set(loaded) == set(state), "loaded names differ")
+        model = GPTForCausalLM(cfg, seed=4321).to(torch.bfloat16)
+        model.load_state_dict(loaded)
+        after = model.state_dict()
+        bad = [k for k, v in state.items()
+               if after[k].dtype != v.dtype or not torch.equal(after[k], v)]
+        require(not bad, f"leaves differ after load: {bad[:5]}")
+        rec["leaves"] = len(state)
+        del src, state, loaded, after
+        torch.cuda.empty_cache()
+        broken = os.path.join(d, "broken.pdparams")
+        shutil.copyfile(path, broken)
+        with open(broken, "r+b") as f:
+            f.seek(rec["file_bytes"] // 2)
+            b = f.read(1)
+            f.seek(rec["file_bytes"] // 2)
+            f.write(bytes([b[0] ^ 0x10]))
+        t0 = time.perf_counter()
+        try:
+            paddle.load(broken)
+            err = None
+        except CheckpointCorruptionError as e:
+            err = str(e)
+        rec["corrupt_load_s"] = time.perf_counter() - t0
+        rec["corrupt_error"] = err
+        require(err is not None, "a flipped byte loaded without error")
+    gens, launches, stats = serve(
+        model, EngineConfig(**econf, kv_dtype="bfloat16"), prompts, new)
+    rec["tokens_equal_phase4"] = gens == want_gens
+    rec["decode_tok_s"] = stats["decode_tok_s"]
+    if gens != want_gens:
+        _, ties = dense_check(model, prompts, gens, new, NEAR_TIE_BF16)
+        rec["near_ties"] = ties
+    say(f"[phase 18 c] save {rec['save_s']:.2f} s, load "
+        f"{rec['load_s']:.2f} s, {rec['file_bytes']} bytes, "
+        f"{rec['leaves']} leaves bitwise; flipped byte: "
+        f"{rec['corrupt_error']}; served tokens equal phase 4's: "
+        f"{rec['tokens_equal_phase4']}")
+    del model
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def phase18(dev, prompts, new, want_gens):
+    """Phase 18, "core": (a) the op library on the card, (b) the surface
+    at full width under the finite check, (c) save, load and serve.
+    Returns the record and the main path's launches ((b) and (c))."""
+    rec = {}
+    t0 = time.perf_counter()
+    rec["ops"] = core_ops_on_card(dev)
+    rec["ops_s"] = time.perf_counter() - t0
+    say(f"[phase 18 a] {rec['ops']['cases']} op cases on the card against "
+        f"the CPU in {rec['ops_s']:.1f} s, {len(rec['ops']['failures'])} "
+        f"failures")
+    for f in rec["ops"]["failures"]:
+        say(f"[phase 18 a] FAILED {f}")
+    require(not rec["ops"]["failures"],
+            f"{len(rec['ops']['failures'])} ops differ on the card")
+    t0 = time.perf_counter()
+    rec["surface"], lb = core_surface(dev)
+    rec["surface_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["checkpoint"], lc = core_checkpoint(prompts, new, want_gens)
+    rec["checkpoint_s"] = time.perf_counter() - t0
+    launches = {n: lb[n] + lc[n] for n in lb}
+    for n in ("flash_fwd", "flash_bwd_fused", "paged_decode"):
+        require(launches[n] > 0, f"phase 18 never launched {n}")
+    rec["launches"] = launches
+    return rec, launches
+
+
 def train_setup(layers, device, bf16, seed=0):
     """``bench_gpt``'s default model, optimizer and fused step (the
     ``BENCH_FUSED_OPT=1`` variant), at ``layers`` blocks."""
@@ -5963,6 +6317,15 @@ def main():
         f"rows (wo_gemm_tf32): "
         f"{p17['int8_spec_f32']['wo_launches_past_8_rows']}")
 
+    mark("17 prefix cache, drafts, admission")
+
+    # 18. the framework core: the op library, the surface, save and load
+    p18, l18 = phase18(dev, prompts, new, gens16)
+    add(l18)
+    say(f"[phase 18] {json.dumps({k: v for k, v in p18.items() if k != 'ops'})}")
+
+    mark("18 core")
+
     say(f"[main path] launches: {launches}")
     say("[main path] launches by route: " + "; ".join(
         f"{n} {launches[n + '_vec']} vec, "
@@ -6033,7 +6396,7 @@ def main():
              resnet18_f32_vs_cpu=r18, varlen_bf16=varlen,
              varlen_f32_vs_cpu=varlen32, incubate_bf16=stack,
              incubate_f32_vs_cpu=stack32, phase17=p17,
-             varlen_split_draws=split_draws, launches=launches,
+             varlen_split_draws=split_draws, core=p18, launches=launches,
              phase_s=marks, seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")
     say(f"nvidia-smi: {smi}")

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from . import _build
+from ..ops.dispatch import checks_outputs
 from . import flash_varlen  # noqa: F401  (registers flash_attn_varlen)
 from .flash_attn import SUPPORTED_HEAD_DIMS, flash_attention_bshd
 
@@ -101,6 +102,7 @@ def remat_policy(base: str = "dots") -> Optional[Callable]:
         f"item 2); use 'dots' or 'full'")
 
 
+@checks_outputs("_sdpa_plain")
 def _sdpa_plain(q, k, v, bias=None, causal: bool = False,
                 scale: Optional[float] = None, dropout_p: float = 0.0,
                 generator: Optional[torch.Generator] = None):

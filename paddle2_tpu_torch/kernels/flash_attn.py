@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ..ops.dispatch import checks_outputs
 
 __all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_split_dkv",
@@ -145,6 +146,8 @@ def flash_fwd_reference(q, k, v, scale: float, causal: bool,
     return (o / safe_l).to(q.dtype), lse.squeeze(-1)
 
 
+@checks_outputs("flash_fwd",
+                lambda out, *a, **k: out[0])
 def flash_fwd(q, k, v, scale: Optional[float] = None, causal: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash forward on ``(B, H, S, D)``: returns ``o`` (input dtype)
@@ -290,6 +293,7 @@ def _split_inputs(q, k, v, do):
     return tuple(_build.tma_aligned(t) for t in (q, k, v, do))
 
 
+@checks_outputs("flash_bwd_split_dkv")
 def flash_bwd_split_dkv(q, k, v, do, lse, delta, scale, causal):
     """Kernel 1 of the split route (``_bwd_dkv_kernel``): dK and dV,
     one block per key tile looping over the query tiles; f32 on the
@@ -307,6 +311,7 @@ def flash_bwd_split_dkv(q, k, v, do, lse, delta, scale, causal):
     return dk, dv
 
 
+@checks_outputs("flash_bwd_split_dq")
 def flash_bwd_split_dq(q, k, v, do, lse, delta, scale, causal):
     """Kernel 2 of the split route (``_bwd_dq_kernel``): dQ, one block
     per query tile looping over the key tiles; the same kernel files by
@@ -321,6 +326,7 @@ def flash_bwd_split_dq(q, k, v, do, lse, delta, scale, causal):
     return dq
 
 
+@checks_outputs("flash_bwd_fused")
 def flash_bwd_fused(q, k, v, do, lse, delta, scale, causal):
     """The fused route (``_bwd_fused_1blk_kernel``): dQ, dK and dV from
     one score and probability tile; bf16 on the tensor cores
@@ -359,6 +365,7 @@ def bwd_route(dtype: torch.dtype) -> str:
     return "fused" if dtype == torch.bfloat16 else "split"
 
 
+@checks_outputs("flash_bwd")
 def flash_bwd(q, k, v, o, lse, do, scale: Optional[float] = None,
               causal: bool = False, route: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

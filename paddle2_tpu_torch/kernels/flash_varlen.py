@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ..ops.dispatch import checks_outputs
 
 __all__ = ["flash_varlen_fwd", "flash_varlen_fwd_reference",
            "flash_varlen_bwd_dkv", "flash_varlen_bwd_dkv_reference",
@@ -322,6 +323,8 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@checks_outputs("flash_varlen_fwd",
+                lambda out, *a, **k: out[0])
 def flash_varlen_fwd(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles,
                      scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The varlen forward kernel: ``o`` ``[Tq, H, D]`` in the input dtype
@@ -365,6 +368,7 @@ def _bwd_launch(entry, q, k, v, do, lse, delta, meta, tiles, outs, scale):
     _build.check(lib, err, entry)
 
 
+@checks_outputs("flash_varlen_bwd_dkv")
 def flash_varlen_bwd_dkv(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
                          off_k, k_tiles, scale: float
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -386,6 +390,7 @@ def flash_varlen_bwd_dkv(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
     return dk, dv
 
 
+@checks_outputs("flash_varlen_bwd_dq")
 def flash_varlen_bwd_dq(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
                         off_k, q_tiles, scale: float) -> torch.Tensor:
     """Backward kernel 2 (``_bwd_dq_kernel_varlen``): ``dq``
@@ -406,6 +411,7 @@ def flash_varlen_bwd_dq(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
     return dq
 
 
+@checks_outputs("flash_varlen_bwd_fused")
 def flash_varlen_bwd_fused(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
                            off_k, k_tiles, scale: float
                            ) -> Tuple[torch.Tensor, torch.Tensor,

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..ops.dispatch import checks_outputs
 
 __all__ = ["AdamWScalars", "stage_scalars", "adamw_multi_supported", "adamw_step_multi",
            "adamw_step_multi_reference", "adamw_step",
@@ -192,6 +193,9 @@ def _table(works, grads, ms, vs, lows, decays) -> np.ndarray:
     return descs
 
 
+@checks_outputs("adamw_step_multi",
+                lambda out, works, grads, ms, vs, *a, **k:
+                (works, ms, vs))
 def adamw_step_multi(works, grads, ms, vs, lows, decays,
                      sc: AdamWScalars) -> None:
     """One AdamW step over lists of tensors, in place: for each ``i``,
@@ -300,6 +304,7 @@ def flat_route(*tensors) -> str:
             else "general")
 
 
+@checks_outputs("adamw_flat")
 def adamw_flat(param, grad, m, v, master, sc: AdamWScalars):
     """One flat AdamW step; returns new ``(p, m, v, master)`` (p in
     param's dtype, the rest f32, all of param's shape) and updates

@@ -39,6 +39,7 @@ from typing import Tuple
 import torch
 
 from . import _build, row_vec
+from ..ops.dispatch import checks_outputs
 
 __all__ = ["MAX_H", "supported", "fwd_route", "bwd_route",
            "layer_norm_fwd", "layer_norm_bwd", "layer_norm_fwd_reference",
@@ -119,6 +120,7 @@ def fwd_route(x, weight, bias, y) -> str:
                          weight.data_ptr(), bias.data_ptr(), y.data_ptr())
 
 
+@checks_outputs("layer_norm_fwd")
 def layer_norm_fwd(x, weight, bias, eps: float) -> torch.Tensor:
     """LayerNorm over the last axis; returns y in x's dtype.
     ``layer_norm_fwd.launches`` counts the kernels' launches,
@@ -204,6 +206,7 @@ def bwd_route(x, weight, dy, dx, ws) -> str:
                          ws.data_ptr())
 
 
+@checks_outputs("layer_norm_bwd")
 def layer_norm_bwd(x, weight, dy, eps: float
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dx, dγ, dβ)``: dx in x's dtype, dγ and dβ in γ's.

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..ops.dispatch import checks_outputs
 
 __all__ = ["momentum_multi_supported", "momentum_step_multi",
            "momentum_step", "momentum_step_reference", "MAX_TENSORS"]
@@ -109,6 +110,8 @@ def _refuse(works, grads, vels, lows) -> None:
                          "device")
 
 
+@checks_outputs("momentum_step_multi",
+                lambda out, works, grads, vels, *a, **k: (works, vels))
 def momentum_step_multi(works, grads, vels, lows, wds, lr, momentum,
                         nesterov=False) -> None:
     """One momentum step over lists of tensors, in place: for each

@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 
 from . import _build, row_vec
+from ..ops.dispatch import checks_outputs
 
 __all__ = ["MAX_H", "fwd_route", "bwd_route", "rms_norm_fwd",
            "rms_norm_bwd",
@@ -97,6 +98,7 @@ def fwd_route(x, weight, o, r) -> str:
                          weight.data_ptr(), o.data_ptr(), r.data_ptr())
 
 
+@checks_outputs("rms_norm_fwd")
 def rms_norm_fwd(x, weight, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """RMSNorm over the last axis; returns ``(o, r)``: o in x's dtype and
     shape, r = 1/rms f32 ``[R]``. ``rms_norm_fwd.launches`` counts the
@@ -175,6 +177,7 @@ def bwd_route(x, weight, dout, dx, ws) -> str:
                          ws.data_ptr())
 
 
+@checks_outputs("rms_norm_bwd")
 def rms_norm_bwd(x, weight, r, dout) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dw)`` from x, the weight, the forward's r and the output
     gradient: dx in x's dtype, dw in the weight's.

@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from . import _build, row_vec
+from ..ops.dispatch import checks_outputs
 
 __all__ = ["route", "rope", "rope_reference", "fused_rope"]
 
@@ -93,6 +94,7 @@ def route(x, cos, sin, o) -> str:
                          cos.data_ptr(), sin.data_ptr(), o.data_ptr())
 
 
+@checks_outputs("rope")
 def rope(x, cos, sin, negate_sin: bool = False) -> torch.Tensor:
     """RoPE over ``x [B, S, H, D]``; ``negate_sin`` rotates by ``-sin``
     (the backward). ``rope.launches`` counts the kernels' launches,

@@ -50,6 +50,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import _build
+from ..ops.dispatch import checks_outputs
 
 __all__ = ["channel_absmax", "quantize_channelwise",
            "weight_quant_error_bound", "int8_weight_only_matmul",
@@ -325,6 +326,7 @@ def _plan(dev: torch.device, M: int, K: int, N: int,
     return plan
 
 
+@checks_outputs("int8_weight_only_matmul")
 def int8_weight_only_matmul(x, w_int8, w_scale, bias=None,
                             quant_bits: int = 8) -> torch.Tensor:
     """``x @ dequant(w_int8)`` with per-output-channel scales ``w_scale``

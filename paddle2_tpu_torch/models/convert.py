@@ -78,10 +78,13 @@ def _from_reference(state, linears: Sequence[str], stack: str,
                     stacked: Optional[bool]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for name, arr in state.items():
-        a = np.asarray(arr)
+        # a torch tensor stays one: a bfloat16 leaf (paddle2_tpu_torch.load
+        # of a bfloat16 checkpoint) has no numpy form without ml_dtypes
+        t = (arr.detach() if isinstance(arr, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(np.asarray(arr))))
         if name.replace("__", ".").endswith(tuple(linears)):
-            a = np.swapaxes(a, -1, -2)
-        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+            t = t.transpose(-1, -2)
+        out[name] = t.contiguous()
     is_stacked = any(n.startswith(stack + ".stacked_") for n in out)
     if stacked is None or stacked == is_stacked:
         return out
@@ -91,9 +94,11 @@ def _from_reference(state, linears: Sequence[str], stack: str,
 def gpt_state_from_reference(state: Dict[str, np.ndarray],
                              stacked: Optional[bool] = None
                              ) -> Dict[str, torch.Tensor]:
-    """Map ``{name: ndarray}`` from the JAX model's ``state_dict()``,
-    per-block or stacked, to a state dict for
-    :class:`~.gpt.GPTForCausalLM` (CPU float tensors; ``load_state_dict``
+    """Map ``{name: ndarray or tensor}`` from the JAX model's
+    ``state_dict()`` (as numpy, or as ``paddle2_tpu_torch.load`` reads its
+    checkpoint), per-block or stacked, to a state dict for
+    :class:`~.gpt.GPTForCausalLM` (tensors on the input's device in its
+    dtype, CPU for numpy; ``load_state_dict``
     copies them to the model's device and dtype). ``stacked`` is the
     layout of the result: True for ``[L, ...]`` leaves, False for
     per-block names, None for the layout of ``state``."""

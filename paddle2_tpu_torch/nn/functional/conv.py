@@ -12,6 +12,11 @@ an int, one int per axis, one ``(lo, hi)`` pair per axis given flat
 them. torch pads symmetrically only, so an uneven padding is applied to
 the input first, with zeros. float32 runs in full float32: the package
 turns TF32 off for cuDNN, as the JAX package runs f32 at "highest".
+
+With ``FLAGS_conv_prefer_channels_last`` on, an ``NCHW`` convolution
+with ``groups == 1`` runs in NHWC inside (input and weight in
+``torch.channels_last``) and returns a contiguous ``NCHW`` tensor, as
+the JAX package's flag does (``conv.py:60-66``).
 """
 
 import math
@@ -19,6 +24,8 @@ from typing import List, Sequence, Tuple, Union
 
 import torch
 from torch.nn import functional as TF
+
+from ...flags import flag_value
 
 __all__ = ["conv2d"]
 
@@ -86,5 +93,12 @@ def conv2d(x, weight, bias=None, stride=1, padding: Padding = 0,
         (top, bottom), (left, right) = pads
         x = TF.pad(x, (left, right, top, bottom))
         sym = (0, 0)
+    if (not nhwc and groups == 1
+            and flag_value("conv_prefer_channels_last")):
+        cl = torch.channels_last
+        out = TF.conv2d(x.contiguous(memory_format=cl),
+                        weight.contiguous(memory_format=cl), bias, stride,
+                        sym, dilation, groups)
+        return out.contiguous()
     out = TF.conv2d(x, weight, bias, stride, sym, dilation, groups)
     return out.permute(0, 2, 3, 1) if nhwc else out

@@ -1,0 +1,150 @@
+"""The finite check (``FLAGS_check_nan_inf``) and operand coercion: the
+part of ``paddle2_tpu/ops/dispatch.py`` the port needs now.
+
+**The finite check.** The JAX package checks the forward output of every
+op it dispatches and every gradient its tape computes. The port's models
+call torch directly, not the port's op functions, so the check sits
+under torch: while the flag is on, a ``TorchDispatchMode`` is pushed
+(:class:`FiniteCheckMode`) that checks the floating outputs of every
+aten op the process runs, forward and backward alike (autograd carries
+the mode into its device threads), and raises ``FloatingPointError``
+naming the first op whose output holds a NaN or an infinity. A CUDA
+kernel launched through the C interface (``kernels/_build.py``) is
+invisible to the mode; its wrapper is decorated with
+:func:`checks_outputs`, which, while the flag is on, runs the wrapper
+with the mode suspended and checks the wrapper's outputs, naming the
+kernel. The plain version behind a wrapper (the CPU path) is checked the
+same way, so an internal ``-inf`` mask is not taken for a fault. The
+check reads every output back to the host, one synchronization an op; it
+is off by default, as in the JAX package.
+
+The AMP cast (``dispatch.py:35-60``) comes with ``auto_cast``, and the
+static recorder with ``static/``.
+"""
+
+from __future__ import annotations
+
+import functools
+import threading
+from typing import Any, Callable, Optional
+
+import torch
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
+
+from ..framework import core
+
+__all__ = ["FiniteCheckMode", "check_finite", "checks_outputs",
+           "set_check_nan_inf", "ensure_tensor", "promote"]
+
+# ops whose outputs are uninitialized memory (nothing to check yet)
+_UNCHECKED = frozenset({"empty", "empty_like", "empty_strided",
+                        "new_empty", "new_empty_strided",
+                        "empty_permuted", "resize_", "set_"})
+
+
+def _flat(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return []
+
+
+def check_finite(name: str, out: Any) -> None:
+    """Raise ``FloatingPointError`` naming ``name`` when a floating or
+    complex tensor in ``out`` (a tensor, or nested tuples and lists of
+    them) holds a NaN or an infinity."""
+    for i, t in enumerate(_flat(out)):
+        if not ((t.is_floating_point() or t.is_complex()) and t.numel()
+                and t.device.type != "meta"):
+            continue
+        with _disable_current_modes():      # the check is not checked
+            finite = bool(torch.isfinite(t).all())
+        if not finite:
+            node = getattr(torch._C, "_current_autograd_node", None)
+            node = node() if node is not None else None
+            where = f" in the backward of {node.name()}" if node else ""
+            raise FloatingPointError(
+                f"nan/inf in output {i} of op '{name}'{where} "
+                f"(FLAGS_check_nan_inf is enabled)")
+
+
+class FiniteCheckMode(TorchDispatchMode):
+    """Checks the outputs of every aten op run under it."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        packet = func.overloadpacket
+        if packet.__name__ not in _UNCHECKED:
+            check_finite(str(packet), out)
+        return out
+
+
+_lock = threading.Lock()
+_mode: Optional[FiniteCheckMode] = None
+_checking = False
+
+
+def set_check_nan_inf(on: bool) -> None:
+    """Push (on) or pop (off) the check's dispatch mode in the calling
+    thread; the flag's ``on_change`` hook."""
+    global _mode, _checking
+    with _lock:
+        _checking = bool(on)
+        if on and _mode is None:
+            _mode = FiniteCheckMode()
+            _mode.__enter__()
+        elif not on and _mode is not None:
+            mode, _mode = _mode, None
+            mode.__exit__(None, None, None)
+
+
+def checks_outputs(name: str, pick: Optional[Callable] = None):
+    """Decorator for a kernel wrapper: while ``FLAGS_check_nan_inf`` is
+    on, run it with the dispatch mode suspended and check what it
+    returns (``pick(result, *args, **kwargs)`` where the outputs are not
+    the result, e.g. an in-place step), naming ``name``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _checking:
+                return fn(*args, **kwargs)
+            with _disable_current_modes():
+                out = fn(*args, **kwargs)
+            check_finite(name, out if pick is None
+                         else pick(out, *args, **kwargs))
+            return out
+        return wrapper
+    return deco
+
+
+# ------------------------------------------------------ operand coercion
+
+def ensure_tensor(x: Any, ref: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """A tensor for ``x``: a Python scalar or array takes ``ref``'s device
+    (else the current place) and, as in the JAX package, ``ref``'s dtype
+    where it is an int, or a float beside a floating ``ref``; otherwise
+    the x32 and default-dtype rules."""
+    if isinstance(x, torch.Tensor):
+        return x
+    dtype = None
+    if (ref is not None and isinstance(x, (int, float))
+            and not isinstance(x, bool)):
+        ref_float = ref.is_floating_point() or ref.is_complex()
+        if isinstance(x, int) or ref_float:
+            dtype = ref.dtype
+    place = ref.device if ref is not None else None
+    return core.to_torch_tensor(x, dtype, place)
+
+
+def promote(*ts: torch.Tensor):
+    """The tensors cast to their common dtype (the JAX package's binary
+    promotion: a 0-d tensor promotes like any other, unlike torch's
+    scalar-like rule)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        if t.dtype != dt:
+            dt = torch.promote_types(dt, t.dtype)
+    return tuple(t if t.dtype == dt else t.to(dt) for t in ts)

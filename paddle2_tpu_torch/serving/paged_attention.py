@@ -64,6 +64,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels import _build
+from ..ops.dispatch import checks_outputs
 
 __all__ = ["paged_attention_decode", "paged_decode",
            "paged_decode_split_partials", "paged_attention_reference",
@@ -264,6 +265,7 @@ def paged_attention_split_reference(q, k_pool, v_pool, block_tables,
 
 
 # -------------------------------------------------------------- wrappers
+@checks_outputs("paged_decode")
 def paged_decode(q, k_pool, v_pool, block_tables, ctx_lens, scale: float):
     """Global-softmax decode: ``[B, 1, H, D]``. ``paged_decode.launches``
     counts the kernel's launches."""
@@ -294,6 +296,8 @@ def paged_decode(q, k_pool, v_pool, block_tables, ctx_lens, scale: float):
 paged_decode.launches = 0
 
 
+@checks_outputs("paged_decode_split_partials",
+                lambda out, *a, **k: out[0])
 def paged_decode_split_partials(q, k_pool, v_pool, block_tables, ctx_lens,
                                 scale: float, pages_per_split: int
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -333,6 +337,7 @@ def paged_decode_split_partials(q, k_pool, v_pool, block_tables, ctx_lens,
 paged_decode_split_partials.launches = 0
 
 
+@checks_outputs("paged_attention_decode")
 def paged_attention_decode(q, k_pool, v_pool, block_tables, ctx_lens,
                            scale: Optional[float] = None,
                            pages_per_split: Optional[int] = None):

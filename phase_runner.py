@@ -77,6 +77,12 @@ Phases:
   step's device time and its split by kernel group (RoPE among them),
   and for ERNIE one more traced step's device time of the LayerNorm
   kernels by direction.
+- ``core``: the smoke's phase 18 alone (``chip_smoke.phase18``): the
+  op tables of the CPU tests on the card against the CPU, the surface at
+  GPT-3 1.3B's width under ``FLAGS_check_nan_inf``, and save, load and
+  serve of GPT-3 1.3B in bf16; the tokens to match are those of one
+  ``serve()`` of the same model first (phase 4's bf16 run, rebuilt). Its
+  record, with the phase's seconds.
 - ``flash_bwd_f32``: the f32 flash backward at the training shape (B8
   H16 S1024 D64, causal): the split pair's two wrappers
   (``flash_bwd_split_dkv``, ``flash_bwd_split_dq``) and ``flash_bwd``
@@ -1274,6 +1280,28 @@ def train_bf16(cs, smi):
                 step_profile=run["step_profile"])
 
 
+def core(cs, torch):
+    """The smoke's phase 18 after phase 4's bf16 serving run."""
+    import numpy as np
+    cfg = cs.gpt3_1p3b()
+    rng = np.random.default_rng(0)
+    lens = [17, 45, 130, 257, 401, 613, 850, 1000]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in lens]
+    new = 32
+    model = cs.GPTForCausalLM(cfg, seed=1234).to(torch.bfloat16)
+    gens16, _, _ = cs.serve(model, cs.EngineConfig(
+        block_size=16, num_blocks=1024, max_batch=8, kv_dtype="bfloat16"),
+        prompts, new)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec, launches = cs.phase18(torch.device("cuda:0"), prompts, new, gens16)
+    rec["phase_s"] = time.perf_counter() - t0
+    rec["ops"].pop("max_err")
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", required=True,
@@ -1281,7 +1309,7 @@ def main():
                              "varlen_bwd_draws", "norms", "flash_bwd_f32",
                              "train_bf16", "adamw_step", "f32_prefill",
                              "paged_decode", "ptq_serving", "f32_decode",
-                             "plain_serving"))
+                             "plain_serving", "core"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -1320,6 +1348,8 @@ def main():
         result = f32_decode(cs, torch)
     elif args.phase == "plain_serving":
         result = plain_serving(cs, torch)
+    elif args.phase == "core":
+        result = core(cs, torch)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

@@ -1,6 +1,7 @@
 """The port stands alone: no module of paddle2_tpu_torch, and not
-chip_smoke.py or the port's measuring scripts, imports JAX or the JAX
-package, and importing the port builds and loads no kernel."""
+chip_smoke.py, the port's measuring scripts or the op tables the smoke
+runs on the card, imports JAX, the JAX package or ml_dtypes; importing the port builds and loads no kernel and
+replaces no attribute ``torch.Tensor`` already had."""
 
 import ast
 import subprocess
@@ -12,7 +13,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle2_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "phase_runner.py",
-     ROOT / "variant_harness.py"] + sorted(ROOT.glob("*_variants.py"))
+     ROOT / "variant_harness.py"] + sorted(ROOT.glob("*_variants.py")) + \
+    [ROOT / "tests" / "torch_core_cases.py"] + \
+    sorted((ROOT / "tests").glob("torch_core_table_*.py"))
 
 
 def _imported_modules(path: Path):
@@ -28,8 +31,11 @@ def _imported_modules(path: Path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
+    """No JAX, no JAX package, and no ``ml_dtypes`` (the machine with
+    the card has none)."""
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "paddle2_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "paddle2_tpu",
+                                  "ml_dtypes")]
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -87,3 +93,26 @@ def test_kernel_sources_are_found():
                           "wo_matmul_wgmma", "flash_bwd_tf32x3"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "paddle2_tpu_torch"
+
+
+def test_import_replaces_no_torch_tensor_attribute():
+    """Importing the port adds paddle's names to ``torch.Tensor`` only
+    where torch lacks them: every attribute the class had before is the
+    same object after."""
+    code = """
+import torch
+before = {k: torch.Tensor.__dict__[k] for k in torch.Tensor.__dict__}
+names = set(dir(torch.Tensor))
+import paddle2_tpu_torch
+from paddle2_tpu_torch.framework.tensor import INSTALLED
+after = torch.Tensor.__dict__
+changed = [k for k, v in before.items() if after.get(k) is not v]
+assert not changed, changed
+assert not (set(INSTALLED) & names), set(INSTALLED) & names
+assert {"stop_gradient", "place", "astype"} <= set(INSTALLED)
+print(len(INSTALLED))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) > 100
