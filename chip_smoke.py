@@ -323,12 +323,13 @@ line) when it fails:
     every parameter, m, v and master after both steps to 1e-5 of its
     largest magnitude.
 16. PTQ full-int8 serving at full width (run after phase 4): the seed's
-    GPT-3 1.3B (24 layers, per-block storage) in f32 and in bf16, each
+    GPT-3 1.3B at 8 of its 24 layers (``SERVING_CUT_LAYERS``; per-block
+    storage) in f32 and in bf16, each
     block through ``PTQ(QuantConfig(FakeQuanterWithAbsMaxObserver,
     FakeQuanterChannelWiseAbsMaxObserver)).quantize``, calibrated by one
-    dense forward over each of phase 4's prompts, converted (96
-    ``QuantedInferenceLinear``, checked) and served as in phase 4:
-    ``i8i8_matmul`` launched 96 times a prefill and a decode step (the
+    dense forward over each of phase 4's prompts, converted (4
+    ``QuantedInferenceLinear`` a layer, checked) and served as in phase 4:
+    ``i8i8_matmul`` launched 4 times a layer a prefill and a decode step (the
     prefills' on the prefill kernel, the decode steps' on the decode
     kernel, counted apart), ``wo_matmul`` never, ``flash_fwd`` and
     ``paged_decode`` launched.
@@ -350,14 +351,15 @@ line) when it fails:
     Printed, not gated: decode and prefill tokens/s, TTFT, peak memory,
     a traced decode step's device time by kernel group with the idle
     share, and the tokens that agree with phase 4's fp runs.
-17. Prefix cache, drafts and admission on GPT-3 1.3B (run after phase
+17. Prefix cache, drafts and admission on GPT-3 1.3B at 8 of its 24
+    layers (``SERVING_CUT_LAYERS``; run after phase
     15): the seed's model with ``EngineConfig(block_size=16,
     num_blocks=1024, max_batch=8)``, in bf16 and then in f32, each with
     (a) the prefix cache: 8 requests of one 512-token system prompt (32
     blocks) and private tails of 17..488 tokens, 32 new tokens each; the
     first misses and the other seven hit all 32 shared blocks (fewer
     blocks allocated by exactly 7 x 32), the shared blocks' K and V in
-    all 24 layers stay bitwise as the first prefill wrote them after
+    all its layers stay bitwise as the first prefill wrote them after
     every later round and at the end, ``audit_kv_ledger`` is clean at the
     end, and the tokens equal the cache-off run's but at near ties (the
     dense path's top-2 margin at the first mismatch, phase 4's rule;
@@ -570,8 +572,10 @@ from paddle2_tpu_torch.vision.models import resnet18, resnet50
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): f32 without TF32
 # runs on the CUDA cores; int8 on the tensor cores
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
-            torch.int8: 1979e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+            torch.float32: 67e12, torch.int8: 1979e12}
+# the 2-byte types the tensor-core flash kernels take
+HALF = (torch.bfloat16, torch.float16)
 # dense TF32 on the tensor cores: the f32 split pair's three TF32
 # products per f32 product run at this rate
 TF32_OPS = 494.7e12
@@ -579,6 +583,9 @@ HBM_BYTES_PER_S = 3.35e12
 # f32: sums of up to 2048 terms in another order than the plain
 # version; bf16: outputs and probabilities are rounded to bf16
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# f16: bf16's limits at f16's step (3 more mantissa bits: 2**-11 for
+# 2**-8), here and in BWD_TOL
+TOL[torch.float16] = TOL[torch.bfloat16] / 8
 # the flash backward's dq/dk/dv, absolute below 1 and relative above.
 # bf16: the split pair (CUDA cores, the plain version's summation order)
 # reads 0 at the training shape against the plain version in bf16; the
@@ -587,6 +594,7 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the P/dS rounding reads above the limit under both (checked on every
 # timed run)
 BWD_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
+BWD_TOL[torch.float16] = BWD_TOL[torch.bfloat16] / 8
 # the fused varlen backward (tensor cores, bf16) on random inputs: the
 # share of dq/dk/dv elements that are not the plain f32 sums correctly
 # rounded (varlen_bwd_stats). Its largest error is reported, not gated:
@@ -596,6 +604,12 @@ BWD_TOL = {torch.bfloat16: 5e-3, torch.float32: 1e-4}
 # the smoke's batches); the plain backward without P/dS rounding reads
 # 0.37-0.42 (phase_runner.py --phase varlen_bwd_draws)
 VARLEN_OFF_SHARE = 0.05
+# the f16 fused backwards (dense and varlen) are held by the share above
+# and by their largest error beyond half an f16 step, at bf16's limit:
+# the share alone passes a (batch, head) slice or a tile written wrong
+# (under 1 % of the elements at the training shape). H100: up to 7.2e-4
+# dense and 1.1e-3 varlen; check_flash_bwd_exact holds them bit for bit
+F16_FUSED_MAX = BWD_TOL[torch.bfloat16]
 NEAR_TIE = 1e-3
 # bf16 logits carry bf16 rounding (2**-6 at magnitudes 2..4), and the
 # paged and the dense attention round at different places: a near tie
@@ -812,7 +826,13 @@ FLASH_KERNEL_NAMES = {
     ("flash_bwd_split_dkv", torch.bfloat16): "flash_bwd_dkv_kernel",
     ("flash_bwd_split_dkv", torch.float32): "flash_bwd_dkv_tf32x3_kernel",
     ("flash_bwd_split_dq", torch.bfloat16): "flash_bwd_dq_kernel",
-    ("flash_bwd_split_dq", torch.float32): "flash_bwd_dq_tf32x3_kernel"}
+    ("flash_bwd_split_dq", torch.float32): "flash_bwd_dq_tf32x3_kernel",
+    # f16: the bf16 kernels' templates instantiated for __half, named by
+    # their template argument (the profiler's demangled names)
+    ("flash_fwd", torch.float16): "flash_fwd_wgmma_kernel<__half",
+    ("flash_bwd_fused", torch.float16): "flash_bwd_fused_wgmma_kernel<__half",
+    ("flash_bwd_split_dkv", torch.float16): "flash_bwd_dkv_kernel<__half",
+    ("flash_bwd_split_dq", torch.float16): "flash_bwd_dq_kernel<__half"}
 # the CUDA kernel each varlen wrapper launches, by dtype
 VARLEN_KERNEL_NAMES = {
     ("flash_varlen_fwd", torch.bfloat16): "flash_varlen_fwd_wgmma_kernel",
@@ -822,7 +842,13 @@ VARLEN_KERNEL_NAMES = {
     ("flash_varlen_bwd_dq", torch.bfloat16): "flash_varlen_dq_kernel",
     ("flash_varlen_bwd_dq", torch.float32): "flash_varlen_dq_kernel",
     ("flash_varlen_bwd_fused", torch.bfloat16):
-        "flash_varlen_bwd_fused_wgmma_kernel"}
+        "flash_varlen_bwd_fused_wgmma_kernel",
+    ("flash_varlen_fwd", torch.float16):
+        "flash_varlen_fwd_wgmma_kernel<__half",
+    ("flash_varlen_bwd_dkv", torch.float16): "flash_varlen_dkv_kernel<__half",
+    ("flash_varlen_bwd_dq", torch.float16): "flash_varlen_dq_kernel<__half",
+    ("flash_varlen_bwd_fused", torch.float16):
+        "flash_varlen_bwd_fused_wgmma_kernel<__half"}
 # the f32 kernels on the tensor cores, whose SASS must hold TF32 HMMA:
 # library -> the kernel's name in it and its instantiations (head dims;
 # for the prefill GEMM x's type, the tile it sets and whether x and w are
@@ -880,6 +906,10 @@ I8_WGMMA_LINE_SHAPE = "M1008 K2048 N8192 (up)"
 I8_ROW_NAME = {"mma": "i8i8_matmul", "wgmma": "i8i8_matmul_wgmma"}
 I8_KERNEL_NAMES = {"mma": "i8i8_gemv_mma_kernel",
                    "wgmma": "i8i8_wgmma_kernel"}
+# phases 16 and 17 serve GPT-3 1.3B at full width and this many of its 24
+# layers: cut in PR 23 (from 24) to keep the smoke within its time as
+# phase 19 joined it; their gates count launches by cfg.num_layers
+SERVING_CUT_LAYERS = 8
 # phase 16: PTQ's quanters (per-tensor activations, per-channel weights)
 PTQ_QUANTERS = dict(activation=FakeQuanterWithAbsMaxObserver,
                     weight=FakeQuanterChannelWiseAbsMaxObserver)
@@ -1336,9 +1366,9 @@ def half_step_err(got, ref32):
 def half_step_excess(got, ref32):
     """Each element's error of ``half_step_err``."""
     half = 0.0
-    if got.dtype == torch.bfloat16:
+    if got.dtype in HALF_BITS:
         half = torch.exp2(torch.floor(torch.log2(
-            ref32.abs().clamp_min(1e-30))) - 8)
+            ref32.abs().clamp_min(1e-30))) - HALF_BITS[got.dtype])
     excess = ((got.float() - ref32).abs() - half).clamp_min(0.0)
     return excess / ref32.abs().clamp_min(1.0)
 
@@ -1355,7 +1385,7 @@ def varlen_bwd_stats(got, ref32):
         e = half_step_excess(g, r)
         n += e.numel()
         off += int((e > 0).sum().item())
-        past += int((e > BWD_TOL[torch.bfloat16]).sum().item())
+        past += int((e > BWD_TOL[g.dtype]).sum().item())
         worst = max(worst, e.max().item() if e.numel() else 0.0)
     return dict(max_err=worst, off_share=off / max(n, 1), past_limit=past,
                 elements=n)
@@ -1430,7 +1460,7 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
     shape = (f"B{B} H{H} Sq{Sq} Sk{Sk} D{D} "
              + ("causal" if causal else "non-causal"))
     tol = BWD_TOL[dtype]
-    half_step = dtype == torch.bfloat16
+    half_step = dtype in HALF
 
     def scaled(got):
         # absolute below 1, relative above: one bf16 rounding step of a
@@ -1439,6 +1469,7 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
         return ([(d / r.float().abs().clamp_min(1.0)).max().item()
                  for d, r in zip(diff, ref)], [d.max().item() for d in diff])
     errs, abs_errs, same_dtype, bitwise = {}, {}, {}, None
+    off_share = None
     for route in routes:
         got = flash_bwd(q, k, v, o, lse, do, scale, causal, route=route)
         torch.cuda.synchronize()
@@ -1446,9 +1477,25 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
         errs[route] = ([half_step_err(g, r) for g, r in zip(got, ref32)]
                        if route == "fused" and half_step
                        else same_dtype[route])
-        require(all(e <= tol for e in errs[route]),
-                f"flash_bwd {route} {dname(dtype)} {shape}: dq/dk/dv err "
-                f"{errs[route]} > {tol}")
+        if route == "fused" and dtype == torch.float16:
+            # f16's step is 8 times finer than bf16's, but a dS element
+            # that rounds to its other neighbour (near ties, the tensor
+            # cores' f32 sums in another order) moves a gradient by a
+            # share that shrinks more slowly: gate the share of elements
+            # off the rounded f32 sums, as the fused varlen kernel is
+            # gated, and the largest error at F16_FUSED_MAX
+            off_share = varlen_bwd_stats(got, ref32)["off_share"]
+            require(off_share <= VARLEN_OFF_SHARE,
+                    f"flash_bwd fused float16 {shape}: {off_share} of the "
+                    f"elements are not the plain f32 sums rounded (limit "
+                    f"{VARLEN_OFF_SHARE}; largest error {errs[route]})")
+            require(max(errs[route]) <= F16_FUSED_MAX,
+                    f"flash_bwd fused float16 {shape}: dq/dk/dv err "
+                    f"{errs[route]} > {F16_FUSED_MAX}")
+        else:
+            require(all(e <= tol for e in errs[route]),
+                    f"flash_bwd {route} {dname(dtype)} {shape}: dq/dk/dv "
+                    f"err {errs[route]} > {tol}")
         if route == "split" and dtype == torch.float32:
             # no atomics, a fixed summation order: bitwise reproducible
             again = flash_bwd(q, k, v, o, lse, do, scale, causal,
@@ -1462,7 +1509,7 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
         return [dict(name="flash_bwd", dtype=dname(dtype), shape=shape,
                      dq_dk_dv_err=errs, dq_dk_dv_abs_err=abs_errs,
                      dq_dk_dv_err_same_dtype=same_dtype, tol=tol,
-                     f32_split_bitwise=bitwise)]
+                     fused_off_share=off_share, f32_split_bitwise=bitwise)]
     unrounded = single_pass = None
     if dtype == torch.float32:
         # what a kernel with single-pass TF32 products reads: the f32
@@ -1476,7 +1523,7 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
                 f"flash_bwd float32 {shape}: the plain backward with "
                 f"single-pass TF32 products reads {single_pass}, within the "
                 f"limit {tol}")
-    if dtype == torch.bfloat16:
+    if dtype in HALF:
         # what a kernel that skips the P/dS rounding reads under either
         # metric: the limit must catch it
         plain32 = flash_bwd_reference(q.float(), k.float(), v.float(),
@@ -1484,20 +1531,29 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
         unrounded = dict(
             same_dtype=scaled([t.to(dtype) for t in plain32])[0],
             half_step=[half_step_err(a.to(dtype), b)
-                       for a, b in zip(plain32, ref32)])
+                       for a, b in zip(plain32, ref32)],
+            off_share=varlen_bwd_stats([t.to(dtype) for t in plain32],
+                                       ref32)["off_share"])
         del plain32
-        for metric, e in unrounded.items():
-            require(max(e) > tol,
-                    f"flash_bwd bf16 {shape}: the plain backward without P/dS "
-                    f"rounding reads {e} ({metric}), within the limit {tol}")
+        if dtype == torch.float16:
+            require(unrounded["off_share"] > VARLEN_OFF_SHARE,
+                    f"flash_bwd float16 {shape}: the plain backward without "
+                    f"P/dS rounding reads {unrounded}, within the limit "
+                    f"{VARLEN_OFF_SHARE} (share)")
+        for metric in ("same_dtype", "half_step"):
+            e = unrounded[metric]
+            require(max(e) > tol or dtype == torch.float16,
+                    f"flash_bwd {dname(dtype)} {shape}: the plain backward "
+                    f"without P/dS rounding reads {e} ({metric}), within the "
+                    f"limit {tol}")
         # why the tensor-core route needs the half-step metric: the same
         # backward with float64 sums, against the f32 plain version in
         # bf16, reads past the limit too (one bf16 step where a sum sits
         # on a rounding boundary)
         unrounded["exact_sums_same_dtype"] = scaled(flash_bwd_reference(
             q, k, v, o, lse, do, scale, True, sum_dtype=torch.float64))[0]
-        say(f"[kernel] flash_bwd bf16 {shape}: the plain backward without "
-            f"P/dS rounding, and with float64 sums: {unrounded}")
+        say(f"[kernel] flash_bwd {dname(dtype)} {shape}: the plain backward "
+            f"without P/dS rounding, and with float64 sums: {unrounded}")
     del ref32
     delta = (do.float() * o.float()).sum(-1)
     plain = cuda_ms(lambda: flash_bwd_reference(q, k, v, o, lse, do, scale,
@@ -1540,9 +1596,14 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
         rows.append(dict(name=name, dtype=dname(dtype), shape=shape,
                          max_abs_err=err, scaled_err=scaled_err,
                          same_dtype_err=max(same_dtype[route][outs]),
-                         metric="half_step" if route == "fused" and
-                         half_step else "same_dtype",
-                         tol=tol, unrounded_err=unrounded, ms=ms,
+                         metric=("off_share" if route == "fused" and
+                                 dtype == torch.float16 else "half_step"
+                                 if route == "fused" and half_step
+                                 else "same_dtype"),
+                         off_share=off_share if route == "fused" else None,
+                         tol=(VARLEN_OFF_SHARE if route == "fused" and
+                              dtype == torch.float16 else tol),
+                         unrounded_err=unrounded, ms=ms,
                          device_ms=dev_ms, kernel_device_ms=kern_ms,
                          plain_ms=plain, library_ms=lib,
                          library_device_ms=lib_dev, bound_ms=b_ms,
@@ -3034,9 +3095,10 @@ def ptq_vs_cpu(model, prompts):
 
 
 def serve_ptq(cfg, dtype, econf, prompts, new, fp_gens, tag):
-    """Phase 16, one run: the seed's GPT-3 1.3B in ``dtype`` through PTQ
-    (calibrated on ``prompts``), converted and served: ``i8i8_matmul``
-    launched 96 times a prefill and a decode step and ``wo_matmul``
+    """Phase 16, one run: the seed's GPT-3 1.3B (``cfg``'s depth) in
+    ``dtype`` through PTQ (calibrated on ``prompts``), converted and
+    served: ``i8i8_matmul`` launched 4 times a layer a prefill and a
+    decode step and ``wo_matmul``
     never; the tokens against the dense path fed the served int8 inputs
     (``dense_replay``); in f32 the first-token logits against the CPU
     (``ptq_vs_cpu``). Returns the run's record and its launches."""
@@ -3097,12 +3159,14 @@ def serve_ptq(cfg, dtype, econf, prompts, new, fp_gens, tag):
               free_dense_mismatches=free, launches=lq,
               act_scales_layer0=[model.gpt.h[0].get_submodule(n).act_scale
                                  for n in ("attn.qkv", "attn.out_proj",
-                                           "mlp.up", "mlp.down")],
-              tokens_agreeing_with_fp=sum(
-                  a == b for x, y in zip(g, fp_gens) for a, b in zip(x, y)),
-              prefix_agreeing_with_fp=[
-                  next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
-                       new) for x, y in zip(g, fp_gens)])
+                                           "mlp.up", "mlp.down")])
+    if fp_gens is not None:
+        st.update(tokens_agreeing_with_fp=sum(
+                      a == b for x, y in zip(g, fp_gens)
+                      for a, b in zip(x, y)),
+                  prefix_agreeing_with_fp=[
+                      next((i for i, (a, b) in enumerate(zip(x, y))
+                            if a != b), new) for x, y in zip(g, fp_gens)])
     if dtype == torch.float32:
         st["vs_cpu"] = ptq_vs_cpu(model, prompts[:2])
     sp = st["step_profile"]
@@ -3112,9 +3176,10 @@ def serve_ptq(cfg, dtype, econf, prompts, new, fp_gens, tag):
         f"ms, peak {st['peak_memory_gib']:.2f} GiB; traced decode step "
         f"{sp['device_ms']:.3f} ms of device work, idle share "
         f"{sp['idle_share']:.3f}, by group {json.dumps(sp['by_group'])}; "
-        f"i8i8_matmul launches by kernel {json.dumps(i8_routes)}; "
-        f"tokens agreeing with the fp run {st['tokens_agreeing_with_fp']} of "
-        f"{new * len(prompts)} (information, not gates)")
+        f"i8i8_matmul launches by kernel {json.dumps(i8_routes)}"
+        + (f"; tokens agreeing with the fp run "
+           f"{st['tokens_agreeing_with_fp']} of {new * len(prompts)} "
+           f"(information, not gates)" if fp_gens is not None else ""))
     say(f"[engine {tag}] served tokens == the dense path on the served int8 "
         f"inputs ({st['near_ties']} near ties, smallest replayed margin "
         f"{st['replay_smallest_margin']:.3g}; the dense path alone would "
@@ -3561,12 +3626,13 @@ def check_paged_verify(dtype, gen, dev, rng, split):
 
 def phase17(dev, prompts, new, rng_seed=170):
     """Prefix cache, drafts and admission on GPT-3 1.3B (seed 1234) at
-    full width and depth, bf16 then f32: checks (a)-(d) per dtype on
+    full width and ``SERVING_CUT_LAYERS`` deep, bf16 then f32: checks
+    (a)-(d) per dtype on
     phase 4's ``prompts`` (``new`` tokens each), the int8 weight-only
     verify routes in bf16. Returns the record, the launches of every
     engine run (for the main path's counts) and the paged-decode
     launches in verify steps."""
-    cfg = gpt3_1p3b()
+    cfg = gpt3_1p3b(num_layers=SERVING_CUT_LAYERS)
     econf = dict(block_size=16, num_blocks=1024, max_batch=8)
     gen = torch.Generator(device=dev).manual_seed(rng_seed)
     krng = np.random.default_rng(rng_seed)
@@ -4640,7 +4706,7 @@ def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
                                   scale)
     dq = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta, q_tiles, scale)
     grads = {"split": (dq, dk, dv)}
-    if dtype == torch.bfloat16:
+    if dtype in HALF:
         grads["fused"] = flash_varlen_bwd_fused(q, k, v, do, lse, delta,
                                                 *meta, k_tiles, scale)
     # the plain backward's f32 sums, before the one rounding the kernels
@@ -4685,12 +4751,17 @@ def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
                     f"{lens}: {fused_stats['off_share']} of the elements "
                     f"are not the plain f32 sums rounded (limit "
                     f"{VARLEN_OFF_SHARE}; {fused_stats})")
+            require(dtype != torch.float16 or
+                    fused_stats["max_err"] <= F16_FUSED_MAX,
+                    f"flash_varlen fused backward float16 {shape} {lens}: "
+                    f"largest error {fused_stats['max_err']} > "
+                    f"{F16_FUSED_MAX}")
         else:
             require(max(bwd_err[route].values()) <= tol, f"flash_varlen "
                     f"{route} backward {dname(dtype)} {shape} {lens}: "
                     f"{bwd_err[route]} > {tol}")
     unrounded = None
-    if timed and dtype == torch.bfloat16:
+    if timed and dtype in HALF:
         # what a backward that skips the P/dS rounding reads: the limit
         # must catch it
         up = [t.float() for t in (q, k, v, do)]
@@ -4704,8 +4775,9 @@ def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
                          off_share=varlen_bwd_stats(un, refs)["off_share"])
         require(max(unrounded["max_err"]) > tol and
                 unrounded["off_share"] > VARLEN_OFF_SHARE,
-                f"flash_varlen bf16 {shape}: the plain backward without "
-                f"P/dS rounding reads {unrounded}, within the limits {tol} "
+                f"flash_varlen {dname(dtype)} {shape}: the plain backward "
+                f"without P/dS rounding reads {unrounded}, within the "
+                f"limits {tol} "
                 f"(largest, the split pair's) or {VARLEN_OFF_SHARE} (share, "
                 f"the fused kernel's)")
         del up, un
@@ -4767,7 +4839,7 @@ def check_varlen(dtype, H, D, lens_q, lens_k, causal, gen, dev, timed):
             split_abs["dq"], max(split_err.values()), (lib_bwd, lib_bwd_dev),
             "SDPA backward (dq, dk, dv), block-diagonal causal mask"),
     }
-    if dtype == torch.bfloat16:
+    if dtype in HALF:
         runs["flash_varlen_bwd_fused"] = (
             lambda: flash_varlen_bwd_fused(q, k, v, do, lse, delta, *meta,
                                            k_tiles, scale),
@@ -4822,20 +4894,22 @@ EXACT_TOL = 1e-5
 VARLEN_EMPTY = [([0, 100], [300, 100]), ([20, 0, 6, 30], [8, 5, 10, 0])]
 
 
-def check_varlen_exact(H, D, lens_q, lens_k, causal, gen, dev):
+def check_varlen_exact(H, D, lens_q, lens_k, causal, gen, dev,
+                       dtype=torch.bfloat16):
     """The bf16 fused backward on q, k, v and dO drawn from {-1, 0, 1}:
     every score and dP sum is an integer, exact in any order, so the
     kernel's P and dS round as the plain version's do, and no bf16 flip
     at a rounding boundary (see ``half_step_err``) can hide a pair seen
     twice or not at all: held to ``EXACT_TOL`` of the plain version's
-    f32 sums beyond half a bf16 step."""
+    f32 sums beyond half a step of ``dtype`` (bf16, or f16 for its
+    instantiation)."""
     meta, (q_tiles, k_tiles), keep = varlen_meta(lens_q, lens_k, causal,
                                                  dev)
     Tq, Tk = keep.shape
 
     def draw(T):
         return torch.randint(-1, 2, (T, H, D), generator=gen,
-                             device=dev).to(torch.bfloat16)
+                             device=dev).to(dtype)
     q, do, k, v = draw(Tq), draw(Tq), draw(Tk), draw(Tk)
     scale = 1.0 / D ** 0.5
     o, lse = flash_varlen_fwd(q, k, v, *meta, q_tiles, scale)
@@ -4858,7 +4932,36 @@ def check_varlen_exact(H, D, lens_q, lens_k, causal, gen, dev):
             not got[2][unseen].any().item(), f"flash_varlen_bwd_fused "
             f"{shape}: rows that see no key must give dq = 0, keys no row "
             f"sees dk = dv = 0")
-    return dict(name="flash_varlen_exact", dtype="bfloat16", shape=shape,
+    return dict(name="flash_varlen_exact", dtype=dname(dtype), shape=shape,
+                dq_dk_dv_err=err, tol=EXACT_TOL)
+
+
+def check_flash_bwd_exact(dtype, B, H, S, D, gen, dev):
+    """The dense fused backward on q, k, v and dO drawn from {-1, 0, 1},
+    causal, as ``check_varlen_exact`` holds the varlen one: every score
+    and dP sum is exact in any order, so P and dS round as the plain
+    version's do, and the kernel must equal the plain f32 sums to
+    ``EXACT_TOL`` beyond half a step of ``dtype`` in every (batch, head)
+    slice and tile."""
+    def draw():
+        return torch.randint(-1, 2, (B, H, S, D), generator=gen,
+                             device=dev).to(dtype)
+    q, k, v, do = draw(), draw(), draw(), draw()
+    scale = 1.0 / D ** 0.5
+    o, lse = flash_fwd(q, k, v, scale=scale, causal=True)
+    got = flash_bwd(q, k, v, o, lse, do, scale, True, route="fused")
+    ref = flash_bwd_reference(q, k, v, o, lse, do, scale, True,
+                              out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = {n: half_step_err(g, r) for n, g, r in zip(("dq", "dk", "dv"),
+                                                      got, ref)}
+    shape = f"B{B} H{H} S{S} D{D} causal"
+    require(max(err.values()) <= EXACT_TOL, f"flash_bwd fused "
+            f"{dname(dtype)} {shape}, inputs in {{-1, 0, 1}}: {err} > "
+            f"{EXACT_TOL}")
+    del q, k, v, do, o, lse, got, ref
+    torch.cuda.empty_cache()
+    return dict(name="flash_bwd_exact", dtype=dname(dtype), shape=shape,
                 dq_dk_dv_err=err, tol=EXACT_TOL)
 
 
@@ -5409,6 +5512,659 @@ def stack_f32_vs_cpu(dev):
     return out, launches
 
 
+# ---------------------------------------------------------- phase 19
+# float16 pretraining, Paddle's usual GPT recipe: O2 with dynamic loss
+# scaling, linear warmup into cosine decay, a global-norm clip of 1.0
+AMP_RECIPE = dict(init_loss_scaling=2.0 ** 15, lr=1e-4, T_max=100,
+                  warmup_steps=2, clip=1.0)
+# the resume check's sequence: one 128-key tile, so each dQ element of
+# the fused backward gets one addition and a step is bitwise
+# reproducible (longer rows add the key tiles' shares in a run-dependent
+# order)
+AMP_RESUME = dict(layers=2, batch=2, seq=128)
+AMP_O1 = dict(layers=2, batch=2, seq=256)
+# f16 against the CPU: the loss to 4 f16 steps relative, each gradient
+# to 8 f16 steps of its largest magnitude (the card's flash kernels and
+# the CPU's plain versions round the same values, summing in other
+# orders), as tests/test_torch_amp.py holds the port against JAX
+F16_STEP = 2.0 ** -11
+# the f16 instantiations' names in a trace: demangled, and mangled (as a
+# record may come)
+AMP_F16_KERNELS = {
+    "flash_fwd": ("flash_fwd_wgmma_kernel<__half",
+                  "flash_fwd_wgmma_kernelI6__half"),
+    "flash_bwd_fused": ("flash_bwd_fused_wgmma_kernel<__half",
+                        "flash_bwd_fused_wgmma_kernelI6__half")}
+# every wrapper of the flash kernels that counts its launches by dtype
+DTYPE_COUNTED = (flash_fwd, flash_bwd_fused, flash_bwd_split_dkv,
+                 flash_bwd_split_dq, flash_varlen_fwd, flash_varlen_bwd_fused,
+                 flash_varlen_bwd_dkv, flash_varlen_bwd_dq)
+DTYPE_COUNTED_NAMES = ("flash_fwd", "flash_bwd_fused", "flash_bwd_split_dkv",
+                       "flash_bwd_split_dq", "flash_varlen_fwd",
+                       "flash_varlen_bwd_fused", "flash_varlen_bwd_dkv",
+                       "flash_varlen_bwd_dq")
+
+
+def f16_counts():
+    return {n: fn.dtype_launches[torch.float16]
+            for n, fn in zip(DTYPE_COUNTED_NAMES, DTYPE_COUNTED)}
+
+
+def reset_dtype_counts():
+    for fn in DTYPE_COUNTED:
+        for dt in fn.dtype_launches:
+            fn.dtype_launches[dt] = 0
+
+
+def amp_schedule(lrmod=paddle.optimizer.lr):
+    R = AMP_RECIPE
+    return lrmod.LinearWarmup(lrmod.CosineAnnealingDecay(R["lr"],
+                                                         T_max=R["T_max"]),
+                              warmup_steps=R["warmup_steps"], start_lr=0.0,
+                              end_lr=R["lr"])
+
+
+def amp_setup(layers, device, seed=0, seq=None, o2=True, **scaler_kw):
+    """The bench GPT at ``layers`` blocks as a Paddle user sets up float16
+    training: ``decorate`` O2 (when ``o2``), AdamW with the scheduler,
+    masters, the fused step and the clip, and a ``GradScaler``."""
+    cfg = GPTConfig(vocab_size=TRAIN["vocab"], hidden_size=TRAIN["hidden"],
+                    num_layers=layers, num_heads=TRAIN["heads"],
+                    max_position_embeddings=seq or TRAIN["seq"],
+                    use_recompute=True, recompute_granularity="dots",
+                    stacked_blocks=True, fused_head_loss=True)
+    model = GPTForCausalLM(cfg, device=device, seed=seed)
+    if o2:
+        model = amp.decorate(model, level="O2", dtype="float16")
+    sched = amp_schedule()
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                multi_precision=True, fused=True,
+                grad_clip=paddle.nn.ClipGradByGlobalNorm(AMP_RECIPE["clip"]))
+    scaler = amp.GradScaler(**dict(dict(
+        init_loss_scaling=AMP_RECIPE["init_loss_scaling"]), **scaler_kw))
+    return model, opt, sched, scaler
+
+
+def amp_step(model, opt, sched, scaler, ids, level="O2"):
+    """One step of the recipe; returns the (unscaled) loss, the learning
+    rate the step used and whether the scaler skipped it (the scale
+    backed off)."""
+    lr_used = opt.get_lr()
+    scale = scaler.get_loss_scaling()
+    with amp.auto_cast(level=level, dtype="float16"):
+        _, loss = model(ids, labels=ids)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    sched.step()
+    return loss.detach(), lr_used, scaler.get_loss_scaling() < scale
+
+
+def opt_tensors(opt):
+    """Bitwise copies of every parameter, master, m and v the optimizer
+    holds."""
+    out = []
+    for p in opt._parameter_list():
+        out.append(p.detach().clone())
+        st = opt._states.get(id(p), {})
+        inner = st.get("inner", st)
+        out += [t.detach().clone() for t in (st.get("master"),
+                                             inner.get("m"), inner.get("v"))
+                if t is not None]
+    return out
+
+
+AMP_GROUPS = (("flash", ("flash_",)), ("adamw_step", ("adamw_step",)),
+              ("gemm", ("gemm", "cutlass", "xmma", "sm90_xmma", "nvjet",
+                        "cublas")),
+              ("layer_norm", ("layer_norm", "layernorm")))
+
+
+def amp_train(smi, bf16_bench):
+    """Phase 19 (a): the bench GPT at full width and depth in float16 O2
+    with the recipe, 1 warm-up, 5 timed and 1 traced step. Late in a long
+    run the profiler has been seen to drop records (see device_ms): a
+    traced step whose f16 flash kernels the trace does not show 24 times
+    each is followed by another traced step, up to three; where none
+    shows all 24, ``amp_short_window``'s count must be exact."""
+    T = TRAIN
+    model, opt, sched, scaler = amp_setup(T["layers"], "cuda")
+    n_params = model.num_params()
+    ids = batches(9, T["batch"], "cuda")
+    want_lr = amp_schedule()
+    reset_counts()
+    reset_dtype_counts()
+    torch.cuda.synchronize()
+    steps, times, windows = [], [], []
+    prof = None
+    for i, b in enumerate(ids):
+        traced = i >= 6
+        if traced and windows and all(c == T["layers"]
+                                      for c in windows[-1].values()):
+            break
+        adamw_before = adamw_step.launches
+        t0 = time.perf_counter()
+        if traced:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                # a first record for the window before the step's own
+                torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, lr_used, skipped = amp_step(model, opt, sched, scaler,
+                                                  b)
+                torch.cuda.synchronize()
+            windows.append(f16_kernel_records(prof))
+            flash_keys = {e.key[:90]: e.count for e in prof.key_averages()
+                          if "flash" in e.key}
+        else:
+            loss, lr_used, skipped = amp_step(model, opt, sched, scaler, b)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if 0 < i < 6:
+            times.append(dt)
+        steps.append(dict(loss=float(loss), lr=lr_used, want_lr=want_lr(),
+                          skipped=skipped, scale=scaler.get_loss_scaling(),
+                          adamw_launches=adamw_step.launches - adamw_before))
+        want_lr.step()
+    f16 = f16_counts()
+    launches = counts()
+    n = len(steps)
+    losses = [s["loss"] for s in steps]
+    require(all(np.isfinite(losses)), f"f16 training: non-finite losses "
+            f"{losses}")
+    timed = losses[1:6]
+    require(timed[-1] < timed[0], f"f16 training loss did not fall: "
+            f"{timed}")
+    for i, s in enumerate(steps):
+        require(s["lr"] == s["want_lr"], f"f16 step {i}: the optimizer's "
+                f"learning rate {s['lr']} is not the schedule's "
+                f"{s['want_lr']}")
+        require(s["adamw_launches"] == (0 if s["skipped"] else 1),
+                f"f16 step {i}: {s['adamw_launches']} adamw_step launches, "
+                f"skipped {s['skipped']}")
+    for name in ("flash_fwd", "flash_bwd_fused"):
+        require(f16[name] == n * T["layers"], f"{name}: {f16[name]} f16 "
+                f"launches in {n} f16 steps, want {T['layers']} a step")
+    # the launches are counted exactly by the wrappers above; by name the
+    # trace must show both f16 kernels, all 24 of each in one of three
+    # windows. Where the profiler holds back a record in every window
+    # (seen late in the smoke: 23 forward records of 24 in three windows
+    # running), all but one, and then a shorter window, one step of a
+    # one-block model (traced on every run), must show each exactly once
+    whole = all(c == T["layers"] for c in windows[-1].values())
+    short = amp_short_window()
+    require(whole or (all(c >= T["layers"] - 1
+                          for c in windows[-1].values())
+                      and all(c == 1 for c in short.values())),
+            f"the traced f16 steps' flash kernels by name: {windows}, want "
+            f"{T['layers']} each in one of them (one-block window: "
+            f"{short})")
+    skipped = sum(s["skipped"] for s in steps)
+    step_s = statistics.mean(times)
+    tok_s = T["batch"] * T["seq"] / step_s
+    flops_per_token = 6 * n_params + 12 * T["layers"] * T["seq"] * \
+        T["hidden"]
+    profile = step_profile(prof, None, step_s * 1e3)
+    bench = dict(metric="gpt_lm_train_tokens_per_sec", dtype="float16 O2",
+                 value=tok_s, unit="tokens/s", step_time_s=step_s,
+                 mfu_vs_chip_peak=tok_s * flops_per_token /
+                 PEAK_OPS[torch.float16], model_params_m=n_params / 1e6,
+                 device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                 loss=timed[-1], loss_scale=scaler.get_loss_scaling(),
+                 skipped_steps=skipped)
+    run = dict(bench=bench, bf16_phase5=bf16_bench, steps=steps,
+               step_times_s=times, f16_launches=f16,
+               traced_f16_kernels=windows, traced_window_whole=whole,
+               traced_one_block_window=short,
+               traced_flash_keys=flash_keys,
+               step_profile=profile,
+               device_ms_by_group=device_groups(prof, AMP_GROUPS),
+               adamw_step_launches=launches["adamw_step"])
+    del model, opt
+    torch.cuda.empty_cache()
+    return run, launches
+
+
+def f16_kernel_records(prof):
+    """Each f16 flash kernel's records by name in a profiler window."""
+    keys = {e.key: e.count for e in prof.key_averages()}
+    return {n: sum(c for k, c in keys.items() if any(p in k for p in pats))
+            for n, pats in AMP_F16_KERNELS.items()}
+
+
+def amp_short_window():
+    """One traced step of the recipe on a one-block model at the
+    training batch and length, after an untraced one: each f16 flash
+    kernel's records by name (one each when the trace is whole)."""
+    T = TRAIN
+    model, opt, sched, scaler = amp_setup(1, "cuda", seed=5)
+    ids = batches(2, T["batch"], "cuda")
+    amp_step(model, opt, sched, scaler, ids[0])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        amp_step(model, opt, sched, scaler, ids[1])
+        torch.cuda.synchronize()
+    del model, opt
+    torch.cuda.empty_cache()
+    return f16_kernel_records(prof)
+
+
+def amp_overflow_and_resume():
+    """Phase 19 (b) at 2 layers: a step at a loss scale of 2**60 is
+    skipped and changes nothing, bitwise, launches no adamw_step and
+    halves the scale; forced overflows raise ScaleSaturationError after
+    ``max_consecutive_skips``; and a run saved after 3 steps, loaded into
+    fresh objects, takes 2 more steps bitwise equal to the uninterrupted
+    run's."""
+    import tempfile
+    R = AMP_RESUME
+    out = {}
+    ids = [b[:, :R["seq"]].contiguous()
+           for b in batches(5, R["batch"], "cuda")]
+    model, opt, sched, scaler = amp_setup(R["layers"], "cuda", seed=3,
+                                          seq=R["seq"])
+    amp_step(model, opt, sched, scaler, ids[0])
+    before = opt_tensors(opt)
+    launches_before = adamw_step.launches
+    scaler.set_init_loss_scaling(2.0 ** 60)
+    _, _, skipped = amp_step(model, opt, sched, scaler, ids[1])
+    torch.cuda.synchronize()
+    after = opt_tensors(opt)
+    out["overflow"] = dict(
+        skipped=skipped, unchanged=len(before) == len(after) and all(
+            torch.equal(a, b) for a, b in zip(before, after)),
+        tensors=len(before),
+        adamw_launches=adamw_step.launches - launches_before,
+        scale_after=scaler.get_loss_scaling())
+    require(skipped and out["overflow"]["unchanged"]
+            and out["overflow"]["adamw_launches"] == 0
+            and scaler.get_loss_scaling() == 2.0 ** 59,
+            f"the overflowing f16 step: {out['overflow']}")
+    sat = amp.GradScaler(init_loss_scaling=2.0 ** 60,
+                         max_consecutive_skips=3)
+    raised_at = None
+    for i in range(5):
+        with amp.auto_cast(level="O2", dtype="float16"):
+            _, loss = model(ids[2], labels=ids[2])
+        sat.scale(loss).backward()
+        sat.step(opt)
+        opt.clear_grad()
+        try:
+            sat.update()
+        except amp.ScaleSaturationError:
+            raised_at = i
+            break
+    out["saturation_raised_at_update"] = raised_at
+    require(raised_at == 2, f"ScaleSaturationError after {raised_at} "
+            f"updates, want the 3rd")
+    del model, opt, sat
+    torch.cuda.empty_cache()
+
+    # resume: 3 steps, save, then 2 steps two ways
+    model, opt, sched, scaler = amp_setup(R["layers"], "cuda", seed=4,
+                                          seq=R["seq"])
+    for b in ids[:3]:
+        amp_step(model, opt, sched, scaler, b)
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as d:
+        paths = {k: os.path.join(d, k) for k in ("model.pdparams",
+                                                 "opt.pdopt",
+                                                 "scaler.pdscaler")}
+        paddle.save(model.state_dict(), paths["model.pdparams"])
+        paddle.save(opt.state_dict(), paths["opt.pdopt"])
+        paddle.save(scaler.state_dict(), paths["scaler.pdscaler"])
+        m2, o2, s2, sc2 = amp_setup(R["layers"], "cuda", seed=5,
+                                    seq=R["seq"])
+        m2.load_state_dict(paddle.load(paths["model.pdparams"]))
+        o2.set_state_dict(paddle.load(paths["opt.pdopt"]))
+        sc2.load_state_dict(paddle.load(paths["scaler.pdscaler"]))
+    for b in ids[3:]:
+        la = amp_step(model, opt, sched, scaler, b)[0]
+        lb = amp_step(m2, o2, s2, sc2, b)[0]
+        require(torch.equal(la, lb), f"resumed f16 loss {lb.item()} != "
+                f"uninterrupted {la.item()}")
+    a, b = opt_tensors(opt), opt_tensors(o2)
+    out["resume"] = dict(tensors=len(a), bitwise=len(a) == len(b) and all(
+        torch.equal(x, y) for x, y in zip(a, b)),
+        lr=(opt.get_lr(), o2.get_lr()),
+        scale=(scaler.get_loss_scaling(), sc2.get_loss_scaling()))
+    require(out["resume"]["bitwise"] and o2.get_lr() == opt.get_lr()
+            and sc2.state_dict() == scaler.state_dict(),
+            f"the resumed f16 run differs from the uninterrupted one: "
+            f"{out['resume']}")
+    del model, opt, m2, o2
+    torch.cuda.empty_cache()
+    return out
+
+
+def amp_o1_vs_cpu():
+    """Phase 19 (c): f32 parameters under ``auto_cast(O1, float16)`` at 2
+    layers, batch 2, seq 256 on the card and on the CPU: loss and
+    gradients against the CPU's, the f16 flash kernels launched, white
+    ops' outputs f16 and black ops' f32 (the cast mechanism's record);
+    then the same with ``custom_black_list={"flash_attention"}``
+    launches the f32 kernel."""
+    R = AMP_O1
+    model, _, _, _ = amp_setup(R["layers"], "cuda", seed=6, seq=R["seq"],
+                               o2=False)
+    cpu = copy.deepcopy(model).cpu()
+    ids = batches(1, R["batch"], "cpu")[0][:, :R["seq"]].contiguous()
+    out = {}
+    reset_dtype_counts()
+    before32 = flash_fwd.dtype_launches[torch.float32]
+    grads, secs = [], []
+    for m, x in ((model, ids.cuda()), (cpu, ids)):
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O1", dtype="float16"):
+            with amp.record_casts() as rec:
+                _, loss = m(x, labels=x)
+        loss.backward()
+        grads.append(([p.grad.detach().float().cpu()
+                       for p in m.parameters()], loss.item(), rec))
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out["forward_backward_s"] = dict(card=secs[0], cpu=secs[1])
+    (gc, lc, rec_c), (gh, lh, rec_h) = grads
+    f16 = f16_counts()
+    rel = abs(lc - lh) / abs(lh)
+    gerr = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(gc, gh))
+    white = sorted({(n, str(d)) for n, dts in rec_c for d in dts
+                    if n in amp.amp_lists.WHITE_LIST})
+    black = sorted({(n, str(d)) for n, dts in rec_c for d in dts
+                    if n in amp.amp_lists.BLACK_LIST})
+    out.update(loss_card=lc, loss_cpu=lh, loss_rel_err=rel,
+               grad_rel_err=gerr, white_ops=white, black_ops=black,
+               f16_launches=f16, same_record=[r[0] for r in rec_c] ==
+               [r[0] for r in rec_h])
+    require(rel <= 4 * F16_STEP and gerr <= 8 * F16_STEP,
+            f"O1 f16 card vs CPU: loss {rel}, gradients {gerr} (limits "
+            f"{4 * F16_STEP}, {8 * F16_STEP})")
+    require(f16["flash_fwd"] == R["layers"] and
+            f16["flash_bwd_fused"] == R["layers"],
+            f"O1: the f16 flash kernels' launches {f16}")
+    require(white and all(d == "torch.float16" for _, d in white) and
+            black and all(d == "torch.float32" for _, d in black),
+            f"O1 casts: white {white}, black {black}")
+    require(out["same_record"], "O1: the card and the CPU cast other ops")
+    opt_free = copy.deepcopy(model)
+    with amp.auto_cast(level="O1", dtype="float16",
+                       custom_black_list={"flash_attention"}):
+        opt_free(ids.cuda(), labels=ids.cuda())
+    torch.cuda.synchronize()
+    out["black_flash_f32_launches"] = \
+        flash_fwd.dtype_launches[torch.float32] - before32
+    require(out["black_flash_f32_launches"] == R["layers"],
+            f"custom_black_list={{'flash_attention'}}: "
+            f"{out['black_flash_f32_launches']} f32 flash launches")
+    del model, cpu, opt_free
+    torch.cuda.empty_cache()
+    return out
+
+
+def amp_varlen():
+    """Phase 19 (d): phase 13's packed two-layer stack in O2 float16 with
+    a GradScaler, 3 steps: finite losses, the f16 varlen forward and
+    fused backward twice a step each."""
+    V = VARLEN_TRAIN
+    torch.manual_seed(0)
+    model = PackedModel(V["hidden"], V["heads"], V["layers"]).to("cuda")
+    model = amp.decorate(model, level="O2", dtype="float16")
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True,
+                fused=True)
+    scaler = amp.GradScaler(init_loss_scaling=AMP_RECIPE[
+        "init_loss_scaling"])
+    data = varlen_batches(3, "cuda", seed=1)
+    reset_dtype_counts()
+    losses = []
+    for x, y, cu, max_len in data:
+        with amp.auto_cast(level="O2", dtype="float16"):
+            out = model(x, cu, max_len)
+        loss = ((out.float() - y) ** 2).mean()
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    f16 = f16_counts()
+    rec = dict(losses=losses, f16_launches=f16,
+               tokens=[int(d[2][-1]) for d in data],
+               scale=scaler.get_loss_scaling())
+    require(all(np.isfinite(losses)), f"f16 varlen losses {losses}")
+    for name in ("flash_varlen_fwd", "flash_varlen_bwd_fused"):
+        require(f16[name] == 3 * V["layers"], f"{name}: {f16[name]} f16 "
+                f"launches in 3 steps, want {V['layers']} a step")
+    del model, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+# optimizer -> (learning rate, extra arguments), phase 19 (f); Adagrad
+# starts its accumulator at 0.1 here, and from 0 (its default) in
+# adagrad_default_vs_cpu
+AMP_OPTS = {"SGD": (0.05, {}), "Momentum": (0.05, dict(momentum=0.8)),
+            "Adam": (0.01, {}), "AdamW": (0.01, {}), "Adamax": (0.01, {}),
+            "Adagrad": (0.05, dict(initial_accumulator_value=0.1)),
+            "Adadelta": (0.5, {}),
+            "RMSProp": (0.01, dict(momentum=0.5, centered=True)),
+            "Lamb": (0.01, {}), "Lion": (0.003, {}), "NAdam": (0.01, {}),
+            "RAdam": (0.01, {}), "ASGD": (0.05, dict(batch_num=2)),
+            "Rprop": (0.01, {})}
+# Adagrad from a zero accumulator: its first update is
+# lr * g / (|g| + eps), which swings from 0 to lr across |g| ~ eps =
+# 1e-6, and later ones g_t / sqrt(sum g^2) swing as much where every g
+# so far was small, so a gradient a rounding apart on the two devices
+# (the clip's norm summed in another order, the L2 decay of a bf16
+# parameter a step apart) can move such an element by up to lr. The
+# default run is held on the elements whose update gradient stays at
+# ADAGRAD_G_MIN (100 eps) or more on every step of both devices; the
+# rest are reported by band
+ADAGRAD_G_MIN = 1e-4
+ADAGRAD_BANDS = (0.0, 1e-5, 1e-4, 1e-3)
+
+
+def opt_run(cls, lr, extra, dtype, dev, host, grads, sig, record=None):
+    """``cls`` for ``len(grads)`` steps on copies of ``host`` in ``dtype``
+    on ``dev``, with a global-norm clip and an L2Decay (where it takes
+    one) and masters for bf16 (where it takes them); ``record(i, g)``
+    sees each tensor's update gradient (clip and decay applied) a step.
+    Returns the parameters, then the masters, on the CPU."""
+    ps = [torch.nn.Parameter(t.to(device=dev, dtype=dtype, copy=True))
+          for t in host]
+    kw = dict(extra, grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+    if "weight_decay" in sig:
+        kw["weight_decay"] = paddle.regularizer.L2Decay(0.01)
+    if "multi_precision" in sig and dtype != torch.float32:
+        kw["multi_precision"] = True
+    o = cls(learning_rate=lr, parameters=ps, **kw)
+    if record is not None:
+        # the generic update visits the tensors in order, once a step
+        calls = iter(range(len(grads) * len(ps)))
+        update_one = o._update_one
+
+        def spy(param, grad, state, lr_, step):
+            record(next(calls) % len(ps), grad)
+            return update_one(param, grad, state, lr_, step)
+        o._update_one = spy
+    for gs in grads:
+        for p, g in zip(ps, gs):
+            p.grad = g.to(device=dev, dtype=dtype)
+        o.step()
+    st = [o._states[id(p)].get("master") for p in ps]
+    return ([p.detach().cpu() for p in ps]
+            + [m.cpu() for m in st if m is not None])
+
+
+def adagrad_default_vs_cpu(host, grads, sig):
+    """Adagrad from its default zero accumulator, card against CPU, f32
+    and bf16, as ``amp_optimizers_vs_cpu`` runs it: each element's
+    smallest update gradient over the steps and both devices, the share
+    of elements below 1e-5 (10 eps), the error by band of that gradient
+    (``ADAGRAD_BANDS``), the smallest gradient of the worst element, and
+    the share of the parameters apart after the first step. Held: every
+    element in f32, the elements at ``ADAGRAD_G_MIN`` or above in bf16."""
+    import paddle2_tpu_torch.optimizer as topt
+    out, bad = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        mins = {}
+
+        def record(i, g):
+            g = g.detach().float().abs().cpu()
+            mins[i] = g if i not in mins else torch.minimum(mins[i], g)
+        first = [opt_run(topt.Adagrad, 0.05, {}, dtype, dev, host,
+                         grads[:1], sig) for dev in ("cuda", "cpu")]
+        finals = [opt_run(topt.Adagrad, 0.05, {}, dtype, dev, host, grads,
+                          sig, record) for dev in ("cuda", "cpu")]
+        limit = 1e-5 if dtype == torch.float32 else 3 * 2 ** -8
+        bands = {f">={lo:g}": 0.0 for lo in ADAGRAD_BANDS}
+        small = n = 0
+        worst, worst_g, held, held_n = 0.0, None, 0.0, 0
+        for i, (a, b) in enumerate(zip(*finals)):
+            d = (a.float() - b.float()).abs() / \
+                b.float().abs().max().clamp_min(1e-30)
+            g = mins[i]
+            n += g.numel()
+            small += int((g < 1e-5).sum())
+            for lo, hi in zip(ADAGRAD_BANDS, ADAGRAD_BANDS[1:] + (np.inf,)):
+                m = (g >= lo) & (g < hi)
+                if m.any():
+                    key = f">={lo:g}"
+                    bands[key] = max(bands[key], d[m].max().item())
+            if d.max().item() > worst:
+                worst = d.max().item()
+                worst_g = g.flatten()[d.argmax()].item()
+            keep = g >= (0.0 if dtype == torch.float32 else ADAGRAD_G_MIN)
+            held_n += int(keep.sum())
+            if keep.any():
+                held = max(held, d[keep].max().item())
+        apart = sum(int((a != b).sum()) for a, b in zip(*first)) / n
+        name = f"Adagrad default {dname(dtype)}"
+        out[name] = dict(err=worst, held_err=held, limit=limit,
+                         held_share=held_n / n, small_share=small / n,
+                         err_by_min_grad=bands, worst_min_grad=worst_g,
+                         apart_after_step1=apart)
+        if held > limit:
+            bad.append(f"{name}: {held} > {limit} on the elements held")
+    return out, bad
+
+
+def amp_optimizers_vs_cpu():
+    """Phase 19 (f): each optimizer for 3 steps on the incubate stack's
+    leaves (phase 15's widths), with an L2Decay (where it takes one) and a
+    global-norm clip, on the card and on the CPU from the same
+    parameters and gradients, f32 and bf16 (``multi_precision=True``
+    where the constructor takes it); Adagrad also from its default
+    accumulator (``adagrad_default_vs_cpu``); LBFGS on a quadratic with a
+    closure. f32 tensors (parameters, masters) to 1e-5 of each one's
+    largest magnitude; a bf16 parameter to one bf16 step (2**-8) of its
+    largest magnitude a step, three in all (without a master every op of
+    the update rounds to bf16 on each device, and the card's bf16 sqrt
+    and division may round to the other neighbour); Lion's bf16 sign
+    flips as in tests/test_torch_optimizers_all.py."""
+    import inspect
+    import paddle2_tpu_torch.optimizer as topt
+    host = stack_params(STACK_CHECK, seed=19)
+    rng = np.random.default_rng(19)
+    grads = [[torch.from_numpy((rng.standard_normal(tuple(t.shape)) * 0.05)
+                               .astype(np.float32)) for t in host]
+             for _ in range(3)]
+    worst, bad = {}, []
+    for name, (lr, extra) in AMP_OPTS.items():
+        cls = getattr(topt, name)
+        sig = inspect.signature(cls.__init__).parameters
+        for dtype in (torch.float32, torch.bfloat16):
+            finals = [opt_run(cls, lr, extra, dtype, dev, host, grads, sig)
+                      for dev in ("cuda", "cpu")]
+            errs = []
+            for a, b in zip(*finals):
+                d = (a.float() - b.float()).abs()
+                scale = b.float().abs().max().clamp_min(1e-30)
+                if a.dtype == torch.float32:
+                    errs.append((d.max() / scale).item())
+                    if errs[-1] > 1e-5:
+                        bad.append(f"{name} f32 tensor: {errs[-1]} > 1e-5")
+                elif name == "Lion":
+                    off = (d > 2 ** -8 * scale).float().mean().item()
+                    errs.append(off)
+                    if off > 0.1 or d.max().item() > 2 * lr * 3:
+                        bad.append(f"Lion bf16: {off} of the elements off, "
+                                   f"largest {d.max().item()}")
+                else:
+                    errs.append((d.max() / scale).item())
+                    if errs[-1] > 3 * 2 ** -8:
+                        bad.append(f"{name} bf16: {errs[-1]} > 3 * 2**-8")
+            worst[f"{name} {dname(dtype)}"] = max(errs)
+    default, default_bad = adagrad_default_vs_cpu(
+        host, grads, inspect.signature(topt.Adagrad.__init__).parameters)
+    worst.update(default)
+    bad += default_bad
+    A = torch.from_numpy(rng.standard_normal((8, 5)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(8).astype(np.float32))
+    w0 = torch.from_numpy(rng.standard_normal(5).astype(np.float32))
+    finals = []
+    for dev in ("cuda", "cpu"):
+        w = torch.nn.Parameter(w0.to(dev))
+        o = topt.LBFGS(learning_rate=0.05, parameters=[w], history_size=4)
+        AA, bb = A.to(dev), b.to(dev)
+
+        def closure():
+            o.clear_grad()
+            loss = ((AA @ w - bb) ** 2).sum()
+            loss.backward()
+            return loss
+        for _ in range(3):
+            o.step(closure)
+        finals.append(w.detach().cpu())
+    err = ((finals[0] - finals[1]).abs().max()
+           / finals[1].abs().max()).item()
+    if err > 1e-5:
+        bad.append(f"LBFGS: {err} > 1e-5")
+    worst["LBFGS float32"] = err
+    require(not bad, f"optimizers card vs CPU: {bad}")
+    return worst
+
+
+def phase19(smi, bf16_bench):
+    """Phase 19, "amp": (a) float16 pretraining of the bench GPT, (b)
+    overflow, saturation and resume, (c) O1 against the CPU, (d) packed
+    varlen in float16, (f) every optimizer against the CPU ((e), the f16
+    kernels against their plain versions, is in phases 3 and 12).
+    Returns the record and the main path's launches."""
+    rec = {}
+    rec["train"], launches = amp_train(smi, bf16_bench)
+    b = rec["train"]["bench"]
+    say(f"[phase 19 a] {smi}: f16 O2 tokens/s {b['value']:.1f} step "
+        f"{b['step_time_s'] * 1e3:.2f} ms MFU {b['mfu_vs_chip_peak']:.4f} "
+        f"(989 TFLOP/s), idle "
+        f"{rec['train']['step_profile']['idle_share']:.3f}, loss scale "
+        f"{b['loss_scale']}, skipped {b['skipped_steps']}; bf16 phase 5 "
+        f"tokens/s {bf16_bench['value']:.1f} step "
+        f"{bf16_bench['step_time_s'] * 1e3:.2f} ms MFU "
+        f"{bf16_bench['mfu_vs_chip_peak']:.4f}; device ms by group "
+        f"{json.dumps(rec['train']['device_ms_by_group'])}; f16 flash "
+        f"records by name: {rec['train']['traced_f16_kernels']}, one-block "
+        f"window {rec['train']['traced_one_block_window']}")
+    f16 = rec["train"]["f16_launches"]
+    rec["overflow_resume"] = amp_overflow_and_resume()
+    say(f"[phase 19 b] {json.dumps(rec['overflow_resume'])}")
+    rec["o1_vs_cpu"] = amp_o1_vs_cpu()
+    say(f"[phase 19 c] {json.dumps(rec['o1_vs_cpu'])}")
+    rec["varlen"] = amp_varlen()
+    say(f"[phase 19 d] {json.dumps(rec['varlen'])}")
+    for n, c in rec["varlen"]["f16_launches"].items():
+        f16[n] += c
+    rec["optimizers"] = amp_optimizers_vs_cpu()
+    say(f"[phase 19 f] optimizers card vs CPU, largest error a tensor: "
+        f"{json.dumps(rec['optimizers'])}")
+    rec["main_path_f16_launches"] = f16
+    return rec, launches
+
+
 def kernel_name(mangled):
     """A mangled kernel name as ``name`` or ``name<D>``: the first
     ``<length><identifier>`` in it whose identifier ends in ``_kernel``
@@ -5422,7 +6178,15 @@ def kernel_name(mangled):
         if len(ident) == n and ident.endswith("_kernel") and \
                 re.fullmatch(r"[A-Za-z_]\w*", ident):
             t = re.match(r"ILi(\d+)E", mangled[at + n:])
-            return ident + (f"<{t.group(1)}>" if t else "")
+            if t:
+                return ident + f"<{t.group(1)}>"
+            # templated on the element type and the head dim
+            t = re.match(r"I(13__nv_bfloat16|6__half)Li(\d+)E",
+                         mangled[at + n:])
+            if t:
+                kind = "bf16" if "bfloat" in t.group(1) else "f16"
+                return ident + f"<{kind}, {t.group(2)}>"
+            return ident
     return mangled
 
 
@@ -5450,10 +6214,49 @@ def sass(name):
                                timeout=120).stdout
 
 
+# the flash libraries instantiated for f16 as well as bf16
+F16_WGMMA_LIBRARIES = ("flash_fwd_wgmma", "flash_bwd_wgmma",
+                       "flash_varlen_wgmma", "flash_varlen_bwd_wgmma")
+
+
+def sass_functions(sass_text):
+    """``cuobjdump -sass`` output split by function: mangled name -> its
+    lines."""
+    out, name = {}, None
+    for line in sass_text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return out
+
+
+def hgmma_types(sass_text):
+    """Each element type's kernels in a flash library and their HGMMA
+    instructions' operand types (the suffix after ``.F32``: ``BF16``, or
+    none for f16, SASS's default): {"bf16"|"f16": {suffixes}}, from the
+    kernels' mangled names (``13__nv_bfloat16`` / ``6__half``)."""
+    out = {}
+    for fn, lines in sass_functions(sass_text).items():
+        kind = ("bf16" if "13__nv_bfloat16" in fn else
+                "f16" if "6__half" in fn else None)
+        if kind is None:
+            continue
+        for line in lines:
+            m = re.search(r"HGMMA\.\w+\.F32(\.\w+)?", line)
+            if m:
+                out.setdefault(kind, set()).add(m.group(1) or "")
+    return out
+
+
 def check_wgmma_build():
     """Phase 2 for the tensor-core kernels: each library's SASS holds
     HGMMA (wgmma) instructions, and ptxas's register and spill lines for
-    each of their kernels."""
+    each of their kernels. The four flash libraries hold both
+    instantiations: HGMMA on bf16 operands in the bf16 kernels and on
+    f16 operands (no BF16 suffix) in the f16 ones."""
     out = {}
     for name in WGMMA_LIBRARIES:
         lib, sass_text = sass(name)
@@ -5465,6 +6268,18 @@ def check_wgmma_build():
         require(hgmma > 0, f"{name}: no HGMMA instruction in {lib.name}: "
                 f"the tensor-core kernels do not use wgmma")
         out[name] = dict(hgmma=hgmma, ptxas=report)
+        if name in F16_WGMMA_LIBRARIES:
+            types = hgmma_types(sass_text)
+            say(f"[build] {name}: HGMMA operand types by instantiation "
+                f"{ {k: sorted(v) for k, v in types.items()} }")
+            require(types.get("bf16") and
+                    all("BF16" in t for t in types["bf16"]) and
+                    types.get("f16") and
+                    not any("BF16" in t for t in types["f16"]),
+                    f"{name}: HGMMA operand types {types}: want BF16 in "
+                    f"the bf16 kernels and f16 in the f16 ones")
+            out[name]["hgmma_types"] = {k: sorted(v)
+                                        for k, v in types.items()}
     return out
 
 
@@ -5740,6 +6555,25 @@ def launches_by_route(n, launches):
     return by
 
 
+def f16_entry(rows, n, p19):
+    """A flash kernel's f16 instantiation in the kernels line: its row at
+    the bf16 row's shape (phase 3 or 12) and its f16 launches on the main
+    path (phase 19)."""
+    bf16 = line_row(rows, n)
+    r = next((x for x in rows if x["name"] == n and x["dtype"] == "float16"
+              and x["shape"] == bf16["shape"]), None)
+    out = dict(launches=p19["main_path_f16_launches"][n])
+    if r is not None:
+        out.update({key: r[key] for key in (
+            "shape", "max_abs_err", "tol", "ms", "device_ms",
+            "kernel_device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms") if key in r})
+        for key in ("scaled_err", "metric", "off_share"):
+            if r.get(key) is not None:
+                out[key] = r[key]
+    return out
+
+
 def line_row(rows, n):
     """The row the kernels line reports for kernel ``n``: its main
     path's bf16 shape (the fused AdamW step over the training leaves in
@@ -5857,16 +6691,19 @@ def main():
             for split in (False, True):
                 rows.append(check_paged(dtype, gen, dev, rng, split, label,
                                         ctx, D))
+    # f16 (the bf16 kernels' f16 instantiations) at the serving shapes
+    for S in (128, 1024, 2048):
+        rows.append(check_flash(torch.float16, S, gen, dev))
     torch.cuda.empty_cache()
-    # the fused backward (the bf16 route) at the serving shapes
-    ragged += [r for S in (128, 1024, 2048)
-               for r in check_flash_bwd(torch.bfloat16, 1, 16, S, S, 128,
+    # the fused backward (the bf16 and f16 route) at the serving shapes
+    ragged += [r for dtype in HALF for S in (128, 1024, 2048)
+               for r in check_flash_bwd(dtype, 1, 16, S, S, 128,
                                         gen, dev, timed=False,
                                         routes=("fused",))]
     # the training path's shapes
     T = TRAIN
     hd = T["hidden"] // T["heads"]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         rows.append(check_flash(dtype, T["seq"], gen, dev, B=T["batch"],
                                 D=hd))
         rows += check_flash_bwd(dtype, T["batch"], T["heads"], T["seq"],
@@ -5878,14 +6715,23 @@ def main():
     torch.cuda.empty_cache()
     # the incubate stack's attention (phase 14), bf16
     C = STACK
-    rows.append(check_flash(torch.bfloat16, C["seq"], gen, dev,
-                            B=C["batch"], D=C["hidden"] // C["heads"]))
-    rows += check_flash_bwd(torch.bfloat16, C["batch"], C["heads"],
-                            C["seq"], C["seq"], C["hidden"] // C["heads"],
-                            gen, dev, timed=True, routes=("fused",))
+    for dtype in HALF:
+        rows.append(check_flash(dtype, C["seq"], gen, dev, B=C["batch"],
+                                D=C["hidden"] // C["heads"]))
+        rows += check_flash_bwd(dtype, C["batch"], C["heads"], C["seq"],
+                                C["seq"], C["hidden"] // C["heads"], gen,
+                                dev, timed=True, routes=("fused",))
     torch.cuda.empty_cache()
+    # the f16 fused backward on exact inputs at the training and incubate
+    # shapes (generators of their own: no later draw moves)
+    ragged += [check_flash_bwd_exact(
+        torch.float16, B, H, S, D,
+        torch.Generator(device=dev).manual_seed(230 + i), dev)
+        for i, (B, H, S, D) in enumerate((
+            (T["batch"], T["heads"], T["seq"], hd),
+            (C["batch"], C["heads"], C["seq"], C["hidden"] // C["heads"])))]
     # ragged: lengths around the tensor-core kernels' tiles, Sq < Sk
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for D in (16, 64, 128):
             for Sq, Sk, causal in FLASH_RAGGED:
                 ragged.append(check_flash_ragged(dtype, 2, 4, Sq, Sk, D,
@@ -5955,12 +6801,12 @@ def main():
     mark("3 kernels")
 
     # 12. the packed varlen kernels, into phase 3's rows
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         for lens, D in ((VARLEN_README, 128), (VARLEN_SERVING, 128),
                         (VARLEN_README, 64)):
             rows += check_varlen(dtype, 16, D, lens, None, True, gen, dev,
                                  timed=True)
-    ragged += [r for dtype in (torch.bfloat16, torch.float32)
+    ragged += [r for dtype in (torch.bfloat16, torch.float32, torch.float16)
                for D in (16, 64, 128)
                for lens_q, lens_k, causal in VARLEN_RAGGED
                for r in check_varlen(dtype, 4, D, lens_q, lens_k, causal, gen,
@@ -5981,6 +6827,12 @@ def main():
                for D in (16, 64, 128) for causal in (True, False)]
     ragged += [check_varlen_exact(4, D, lens_q, lens_k, True, gen, dev)
                for D in (16, 64, 128) for lens_q, lens_k in VARLEN_EMPTY]
+    # the f16 instantiation of the fused backward on the same exact cases
+    ragged += [check_varlen_exact(4, D, lens_q, lens_k, causal, gen, dev,
+                                  torch.float16)
+               for D in (16, 64, 128)
+               for lens_q, lens_k, causal in VARLEN_RAGGED + [
+                   (q_, k_, True) for q_, k_ in VARLEN_EMPTY]]
     ragged.append(check_varlen_misaligned(gen, dev))
     torch.cuda.empty_cache()
     # the bf16 split pair: on exactly summed inputs (the cases the fused
@@ -6060,12 +6912,15 @@ def main():
                 f"{r['max_abs_err']:.3g} (tol {r['tol']})"
                 + (f", bitwise on a second run {r['bitwise']}"
                    if r["bitwise"] is not None else ""))
-        elif r["name"] in ("flash_varlen_exact",
+        elif r["name"] in ("flash_varlen_exact", "flash_bwd_exact",
                            "flash_varlen_split_exact"):
             say(f"[kernel] "
-                + ("flash_varlen_bwd_fused" if r["name"] ==
-                   "flash_varlen_exact" else "flash_varlen split pair")
-                + f" {r['shape']}, inputs in {{-1, 0, 1}}: dq/dk/dv err "
+                + {"flash_varlen_exact": "flash_varlen_bwd_fused",
+                   "flash_bwd_exact": "flash_bwd_fused",
+                   "flash_varlen_split_exact": "flash_varlen split pair"}[
+                       r["name"]]
+                + f" {r['dtype']} {r['shape']}, inputs in {{-1, 0, 1}}: "
+                f"dq/dk/dv err "
                 f"{r['dq_dk_dv_err']} (tol {r['tol']})")
         elif r["name"] == "flash_varlen_misaligned":
             say(f"[kernel] flash_attention_varlen_packed {r['dtype']} "
@@ -6171,10 +7026,11 @@ def main():
 
     mark("4 engine")
 
-    # 16. PTQ full-int8 serving at full width
-    for tag, dtype, fp_gens in (("ptq_f32", torch.float32, gens),
-                                ("ptq_bf16", torch.bfloat16, gens16)):
-        runs[tag], lq = serve_ptq(cfg, dtype, econf, prompts, new, fp_gens,
+    # 16. PTQ full-int8 serving at full width, SERVING_CUT_LAYERS deep
+    cut = gpt3_1p3b(num_layers=SERVING_CUT_LAYERS)
+    for tag, dtype in (("ptq_f32", torch.float32),
+                       ("ptq_bf16", torch.bfloat16)):
+        runs[tag], lq = serve_ptq(cut, dtype, econf, prompts, new, None,
                                   tag)
         add(lq)
 
@@ -6326,6 +7182,12 @@ def main():
 
     mark("18 core")
 
+    # 19. mixed precision and the optimizer stack: float16 training
+    p19, l19 = phase19(smi, train_rec["bench"])
+    add(l19)
+
+    mark("19 amp")
+
     say(f"[main path] launches: {launches}")
     say("[main path] launches by route: " + "; ".join(
         f"{n} {launches[n + '_vec']} vec, "
@@ -6363,7 +7225,10 @@ def main():
                          **({"launches_by_route": launches_by_route(
                              n, launches)}
                             if "route" not in k and hasattr(
-                                k["counter"], "route_launches") else {})))
+                                k["counter"], "route_launches") else {}),
+                         **({"f16": f16_entry(rows, n, p19)}
+                            if n in p19["main_path_f16_launches"]
+                            else {})))
     # the paged decode at a verify step's shape (bf16 rows), and the
     # weight-only GEMM's launches past 8 rows in verify steps
     for entry in line:
@@ -6396,7 +7261,8 @@ def main():
              resnet18_f32_vs_cpu=r18, varlen_bf16=varlen,
              varlen_f32_vs_cpu=varlen32, incubate_bf16=stack,
              incubate_f32_vs_cpu=stack32, phase17=p17,
-             varlen_split_draws=split_draws, core=p18, launches=launches,
+             varlen_split_draws=split_draws, core=p18, amp=p19,
+             launches=launches,
              phase_s=marks, seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")
     say(f"nvidia-smi: {smi}")

@@ -50,6 +50,7 @@ from .autograd import grad  # noqa: E402,F401
 
 from . import nn  # noqa: E402,F401
 from . import optimizer  # noqa: E402,F401
+from . import regularizer  # noqa: E402,F401
 from . import amp  # noqa: E402,F401
 from . import jit  # noqa: E402,F401
 from . import vision  # noqa: E402,F401

@@ -10,6 +10,7 @@ selective-checkpoint context from
 
 import torch.utils.checkpoint
 
+from ..amp.casting import bind_amp_state
 from ..kernels.attention import remat_policy
 
 __all__ = ["recompute"]
@@ -19,8 +20,11 @@ def recompute(function, *args, policy=None):
     """Run ``function(*args)`` with activation checkpointing. ``policy``
     is a granularity name: None or "full" keeps only the inputs and
     recomputes the rest in the backward; "dots" also keeps matrix
-    products and the flash op's outputs."""
+    products and the flash op's outputs. Under ``paddle.amp.auto_cast``
+    the forward that the backward re-runs casts as the first run did
+    (:func:`~paddle2_tpu_torch.amp.casting.bind_amp_state`), as the
+    JAX package's remat repeats a traced forward, casts included."""
     context_fn = remat_policy(policy or "full")
     kwargs = {} if context_fn is None else {"context_fn": context_fn}
-    return torch.utils.checkpoint.checkpoint(function, *args,
+    return torch.utils.checkpoint.checkpoint(bind_amp_state(function), *args,
                                              use_reentrant=False, **kwargs)

@@ -20,9 +20,11 @@ than widen it. Loaded leaves are CPU tensors unless ``place=`` is given;
 ``nn.Parameter``, and its saved name as the attribute ``paddle_name``
 (``name`` is torch's own, read-only attribute).
 
-Out of scope: the learning-rate scheduler branch (it comes with the
-schedulers, ROADMAP queue 1 item 2), and the JAX package reading the
-port's files, which would need it to import this module's payload class.
+A learning-rate scheduler saves as ``{"__lr_scheduler__": state}`` and
+loads back as its state dict, in both packages' files.
+
+Out of scope: the JAX package reading the port's files, which would need
+it to import this module's payload class.
 """
 
 from __future__ import annotations
@@ -215,6 +217,8 @@ def _dump_with_integrity(payload: Any, f, protocol: int) -> None:
 
 
 def _to_saveable(obj: Any) -> Any:
+    from ..optimizer.lr import LRScheduler
+
     if isinstance(obj, torch.Tensor):
         t = obj.detach().cpu()
         dtype = None
@@ -226,6 +230,8 @@ def _to_saveable(obj: Any) -> Any:
         return _TensorPayload(arr, getattr(obj, "paddle_name", "") or "",
                               not obj.requires_grad,
                               isinstance(obj, torch.nn.Parameter), dtype)
+    if isinstance(obj, LRScheduler):
+        return {"__lr_scheduler__": _to_saveable(obj.state_dict())}
     if isinstance(obj, dict):
         return {k: _to_saveable(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -366,6 +372,9 @@ def _from_saved(obj: Any, return_numpy: bool, bf16_ids: Set[int],
             raise _bf16_error("an array leaf")
         return _leaf(obj, True, place)
     if isinstance(obj, dict):
+        if set(obj) == {"__lr_scheduler__"}:
+            return _from_saved(obj["__lr_scheduler__"], return_numpy,
+                               bf16_ids, place)
         return {k: _from_saved(v, return_numpy, bf16_ids, place)
                 for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):

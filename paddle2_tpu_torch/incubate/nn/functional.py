@@ -38,6 +38,7 @@ from ...kernels.fused_adamw import fused_adamw as _fused_adamw
 from ...kernels.fused_ce import fused_linear_cross_entropy as _fused_ce
 from ...kernels.fused_rms_norm import fused_rms_norm as _rms_norm
 from ...kernels.fused_rope import fused_rope as _fused_rope
+from ...amp.casting import amp_op
 
 __all__ = ["fused_linear_cross_entropy", "fused_rotary_position_embedding",
            "fused_rms_norm", "fused_adamw_kernel", "swiglu",
@@ -87,6 +88,7 @@ def _gather_rows(table, pos):
     return table[pos]
 
 
+@amp_op("fused_rope")
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None,
                                     use_neox_rotary_style: bool = True,
@@ -147,6 +149,7 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     return tuple(None if t is None else rot_one(t) for t in (q, k, v))
 
 
+@amp_op("fused_rms_norm")
 def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon: float = 1e-6,
                    begin_norm_axis: int = -1, bias=None, residual=None):
     """RMSNorm of ``x + bias + residual`` over the last axis on the
@@ -185,6 +188,7 @@ def fused_adamw_kernel(param, grad, m, v, master, lr, beta1=0.9,
     return tuple(outs)
 
 
+@amp_op("fused_linear_cross_entropy")
 def fused_linear_cross_entropy(x, weight, label, ignore_index: int = -100,
                                reduction: str = "mean", name=None):
     """Cross-entropy of ``softmax(x @ weight)`` without holding the
@@ -195,8 +199,13 @@ def fused_linear_cross_entropy(x, weight, label, ignore_index: int = -100,
     the tokens not ignored, "sum" or "none"."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"unknown reduction {reduction!r}")
-    losses, valid = _fused_ce(x.reshape(-1, x.shape[-1]), weight,
-                              label.reshape(-1), int(ignore_index))
+    # operands of two dtypes (an O2-decorated head under O1: f32 hidden
+    # states over f16 weights) take the promoted type, as the JAX
+    # package's matmul does
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    losses, valid = _fused_ce(x.reshape(-1, x.shape[-1]).to(dt),
+                              weight.to(dt), label.reshape(-1),
+                              int(ignore_index))
     if reduction == "mean":
         return losses.sum() / valid.float().sum().clamp_min(1.0)
     if reduction == "sum":
@@ -238,6 +247,7 @@ def _dropout(a, p, mode, generator):
     return torch.where(keep, a, torch.zeros_like(a))
 
 
+@amp_op("swiglu")
 def swiglu(x, y=None, name=None):
     """``silu(x) * y``; with one input, its last axis split in half."""
     if y is None:
@@ -245,6 +255,7 @@ def swiglu(x, y=None, name=None):
     return F.silu(x) * y
 
 
+@amp_op("fused_matmul_bias")
 def fused_matmul_bias(x, y, bias=None, transpose_x: bool = False,
                       transpose_y: bool = False, name=None):
     """``x @ y + bias``, either operand transposed over its last two
@@ -272,6 +283,7 @@ def fused_linear_activation(x, y, bias=None, trans_x: bool = False,
     return act(fused_matmul_bias(x, y, bias, trans_x, trans_y))
 
 
+@amp_op("fused_bias_act")
 def fused_bias_act(x, bias=None, dequant_scales=None, shift=None,
                    smooth=None, act_method="gelu", compute_dtype="default",
                    quant_scale=-1, quant_round_type=0, quant_max_bound=0,
@@ -285,6 +297,7 @@ def fused_bias_act(x, bias=None, dequant_scales=None, shift=None,
     return act(x)
 
 
+@amp_op("fused_dropout_add")
 def fused_dropout_add(x, y, p=0.5, training: bool = True,
                       mode="upscale_in_train", name=None, *,
                       generator: Optional[torch.Generator] = None):
@@ -295,6 +308,7 @@ def fused_dropout_add(x, y, p=0.5, training: bool = True,
     return _dropout(x, p, mode, generator) + y
 
 
+@amp_op("fused_layer_norm")
 def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5,
                      residual_alpha=1.0, begin_norm_axis=1, bias=None,
                      residual=None, quant_scale=-1, quant_round_type=0,
@@ -359,6 +373,7 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
     return h
 
 
+@amp_op("fused_mha")
 def fused_multi_head_attention(x, qkv_weight, linear_weight,
                                pre_layer_norm: bool = False,
                                pre_ln_scale=None, pre_ln_bias=None,
@@ -438,6 +453,7 @@ def blha_get_max_len(seq_lens_encoder, seq_lens_decoder, batch_size):
     return tuple(out)
 
 
+@amp_op("varlen_mem_eff_attn")
 def variable_length_memory_efficient_attention(query, key, value, seq_lens,
                                                kv_seq_lens, mask=None,
                                                scale=None, causal=False,

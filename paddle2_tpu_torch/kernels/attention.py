@@ -12,8 +12,8 @@ without a mask and without dropout by the same shape rule
 - a shape that ``supported()`` refuses (head dim over 256, a length
   with no 8-row tiling, unequal head counts) takes :func:`_sdpa_plain`
   on both devices, as the JAX package takes XLA;
-- a shape the CUDA kernels take (head dim 16, 64 or 128, float32 or
-  bfloat16, ``Sq <= Sk``) goes through
+- a shape the CUDA kernels take (head dim 16, 64 or 128, float32,
+  bfloat16 or float16, ``Sq <= Sk``) goes through
   :func:`~.flash_attn.flash_attention_bshd`, differentiable, which
   launches the kernels for a CUDA tensor at every length and runs their
   plain versions for a CPU tensor;
@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
 from . import _build
+from ..amp.casting import cast_call
 from ..ops.dispatch import checks_outputs
 from . import flash_varlen  # noqa: F401  (registers flash_attn_varlen)
 from .flash_attn import SUPPORTED_HEAD_DIMS, flash_attention_bshd
@@ -162,10 +163,9 @@ def _kernel_gap(q, k, v) -> Optional[str]:
     inputs, naming the ROADMAP item that ports them; None when they
     do."""
     dtypes = {q.dtype, k.dtype, v.dtype}
-    if not dtypes <= {torch.float32, torch.bfloat16}:
+    if not dtypes <= {torch.float32, torch.bfloat16, torch.float16}:
         return (f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the flash kernels "
-                f"take float32 or bfloat16 (float16 is ROADMAP.md queue 2 "
-                f"A2)")
+                f"take float32, bfloat16 or float16")
     if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
         return (f"head_dim {q.shape[-1]}: the flash kernels take "
                 f"{SUPPORTED_HEAD_DIMS} (the other head dims up to 256 are "
@@ -189,12 +189,23 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     dropout applies only when ``training``, drawing from ``generator``.
     With :func:`flash_enabled` off, every call takes the plain route, as
     the JAX package's ``use_pallas`` sends it to XLA; otherwise a call
-    routes as the module says."""
+    routes as the module says. Under ``paddle.amp.auto_cast`` a call
+    the flash kernels may take casts as the JAX op
+    ``"flash_attention"``, any other as ``"sdpa"`` (both white-listed):
+    the JAX package's names for its Pallas and XLA routes."""
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must lie in [0, 1), got {dropout_p}")
     drop = dropout_p if training else 0.0
-    if attn_mask is None and drop == 0.0 and flash_enabled() \
-            and pallas_supported(query.shape, key.shape):
+    flash = attn_mask is None and drop == 0.0 and flash_enabled() \
+        and pallas_supported(query.shape, key.shape)
+    return cast_call("flash_attention" if flash else "sdpa", _attention,
+                     query, key, value, attn_mask, drop, is_causal, scale,
+                     flash, generator)
+
+
+def _attention(query, key, value, attn_mask, drop, is_causal, scale, flash,
+               generator):
+    if flash:
         gap = _kernel_gap(query, key, value)
         if gap is None:
             return flash_attention_bshd(query, key, value, causal=is_causal,

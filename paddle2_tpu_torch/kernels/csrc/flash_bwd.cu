@@ -1,10 +1,10 @@
 // FlashAttention-2 backward for Hopper (sm_90a), on the CUDA cores.
-// The split pair serves bf16 only (reached by route="split"; bf16's default
-// route is flash_bwd_wgmma.cu's fused kernel), f32's split pair being the
-// tensor-core kernels of flash_bwd_tf32x3.cu; the fused kernel serves f32
-// only, bf16 going to flash_bwd_wgmma.cu. Each entry refuses the dtype it
-// does not serve (cudaErrorInvalidValue), so each dtype and route has
-// exactly one kernel.
+// The split pair serves bf16 and f16 only (reached by route="split";
+// their default route is flash_bwd_wgmma.cu's fused kernel), f32's split
+// pair being the tensor-core kernels of flash_bwd_tf32x3.cu; the fused
+// kernel serves f32 only, bf16 and f16 going to flash_bwd_wgmma.cu. Each
+// entry refuses the dtype it does not serve (cudaErrorInvalidValue), so
+// each dtype and route has exactly one kernel.
 //
 // Replaces three kernels of paddle2_tpu/kernels/pallas_flash.py, driven by
 // `_flash_bwd`:
@@ -19,7 +19,9 @@
 //   dV += P^T dO,  dK += dS^T Q * scale,  dQ += dS K * scale
 // with the causal mask aligned to the bottom right (row r sees keys
 // c <= r + Sk - Sq). As in the Pallas kernels, P and dS are rounded to the
-// input dtype before they enter a product, and every sum is f32.
+// input dtype before they enter a product, and every sum is f32; s * scale
+// is rounded once (__fmul_rn) before lse is subtracted, as the plain
+// version rounds it.
 //
 // The split route is the TPU's: dK/dV with the query tiles innermost, dQ
 // with the key tiles innermost, so no block writes what another block
@@ -49,6 +51,7 @@
 // column reads of a half-warp hit different banks.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -65,6 +68,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -72,6 +76,9 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 // x rounded through T and back: `.astype(q.dtype)` of the Pallas kernels
 template <typename T> __device__ __forceinline__ float round_t(float x) {
@@ -133,7 +140,7 @@ __device__ __forceinline__ void p_ds(const float (&s)[4][4],
       const int gc = k0 + col;
       const bool valid = gr < Sq && gc < Sk && (!causal || gc <= gr + offset);
       const float p = (valid && lse != -INFINITY)
-                          ? expf(s[i][j] * scale - lse) : 0.f;
+                          ? expf(__fmul_rn(s[i][j], scale) - lse) : 0.f;
       const float ds = p * (dp[i][j] - delta);
       if (sP != nullptr) sP[row * PP + col] = round_t<T>(p);
       sdS[row * PP + col] = round_t<T>(ds);
@@ -408,7 +415,7 @@ cudaError_t launch(Which which, const Args& a) {
         a.causal);
     return cudaGetLastError();
   } else {
-    // bf16: the fused route is flash_bwd_fused_wgmma's
+    // bf16 and f16: the fused route is flash_bwd_fused_wgmma's
     if (which == FUSED) return cudaErrorInvalidValue;
     if (which == DQ) {
       constexpr size_t smem = dq_smem<D>();
@@ -448,15 +455,17 @@ cudaError_t dispatch_d(Which which, int D, const Args& a) {
 int run(Which which, int D, int dtype, const Args& a) {
   if (dtype == 0) return dispatch_d<float>(which, D, a);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, a);
+  if (dtype == 2) return dispatch_d<__half>(which, D, a);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/dout [B,H,Sq,D], k/v [B,H,Sk,D] in
-// dtype; lse and delta [B,H,Sq] f32; all contiguous on the current device.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. q/dout [B,H,Sq,D], k/v
+// [B,H,Sk,D] in dtype; lse and delta [B,H,Sq] f32; all contiguous on the
+// current device.
 
-// split route, kernel 1, bf16 only (f32 is flash_bwd_dkv_tf32x3's): dk, dv
+// split route, kernel 1, bf16 and f16 (f32 is flash_bwd_dkv_tf32x3's): dk, dv
 // [B,H,Sk,D] in dtype
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
@@ -468,7 +477,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   return run(DKV, D, dtype, a);
 }
 
-// split route, kernel 2, bf16 only (f32 is flash_bwd_dq_tf32x3's): dq
+// split route, kernel 2, bf16 and f16 (f32 is flash_bwd_dq_tf32x3's): dq
 // [B,H,Sq,D] in dtype
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
@@ -480,8 +489,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   return run(DQ, D, dtype, a);
 }
 
-// fused route, f32 only (bf16 is flash_bwd_fused_wgmma's): dq32 [B,H,Sq,D]
-// f32, zeroed by the caller, accumulated with atomics; dk, dv [B,H,Sk,D]
+// fused route, f32 only (bf16 and f16 are flash_bwd_fused_wgmma's): dq32
+// [B,H,Sq,D] f32, zeroed by the caller, accumulated with atomics; dk, dv
+// [B,H,Sk,D]
 extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq32, void* dk,

@@ -1,9 +1,10 @@
 // Fused FlashAttention backward for Hopper (sm_90a) on the tensor cores,
-// bf16.
+// bf16 and f16 (one kernel template T, instantiated for each).
 //
 // Replaces: paddle2_tpu/kernels/pallas_flash.py `_bwd_fused_1blk_kernel`
-// (the fused route of `_flash_bwd`) for bf16 inputs. f32 inputs, and the
-// split route in both dtypes, keep the CUDA-core kernels of flash_bwd.cu.
+// (the fused route of `_flash_bwd`) for bf16 and f16 inputs. f32 inputs,
+// and the split route in every dtype, keep the CUDA-core kernels of
+// flash_bwd.cu (f32's split pair is flash_bwd_tf32x3.cu's).
 //
 // On contiguous (B, H, S, D) tensors, D in {16, 64, 128}, 1 <= Sq <= Sk,
 // with the saved row log-sum-exp `lse` and delta = rowsum(dO * O) (both
@@ -12,16 +13,20 @@
 //   dS = P * (dO V^T - delta)
 //   dV += P^T dO,  dK += dS^T Q * scale,  dQ += dS K * scale
 // with the causal mask aligned to the bottom right (row r sees keys
-// c <= r + Sk - Sq). As in the Pallas kernel, P and dS are rounded to bf16
-// before each product and every sum is f32. dK and dV are written in
-// bf16; dQ is added into an f32 buffer the caller zeroed, a tile at a
-// time by TMA bulk reductions (cp.reduce.async.bulk.tensor) whose order
+// c <= r + Sk - Sq). As in the Pallas kernel, P and dS are rounded to T
+// before each product and every sum is f32; s * scale is rounded once
+// (__fmul_rn), as the plain version rounds it, before lse is subtracted.
+// In f16 nothing is clamped: under loss scaling dS or dV may overflow
+// f16's 65,504 to inf where the Pallas kernel's casts do, and the loss
+// scaler then skips the step. dK and dV are written in T; dQ is added
+// into an f32 buffer the caller zeroed, a tile at a time by TMA bulk
+// reductions (cp.reduce.async.bulk.tensor) whose order
 // changes from run to run, so dQ is not bitwise deterministic (dK and dV
 // are).
 //
 // What bounds it on the H100: 10 * pairs * D * H * B operations (five
 // products; pairs the (query, key) pairs the mask keeps) against
-// (3 Sq + 4 Sk) * H * D * B bf16 elements moved: operations, on the
+// (3 Sq + 4 Sk) * H * D * B 2-byte elements moved: operations, on the
 // tensor cores, reached only through wgmma.
 //
 // Layout: one block per (b * H + h, 128-key tile), the longest causal
@@ -42,11 +47,11 @@
 //   S^T  = K Q^T    wgmma m64nBQk16, both operands K-major in shared memory
 //   dP^T = V dO^T   the same shape
 //   P^T and dS^T in registers, in f32, P as the plain version computes it
-//                   (expf(s * scale - lse)), then packed to bf16 A fragments
+//                   (expf(s * scale - lse)), then packed to T A fragments
 //   dV += P^T dO    wgmma, A from registers, dO MN-major (transposed)
 //   dK += dS^T Q    the same, with Q: one smem tile serves as K-major
 //                   operand above and MN-major here
-//   dS^T also goes to shared memory in bf16 (128-byte swizzle, two
+//   dS^T also goes to shared memory in T (128-byte swizzle, two
 //   buffers, one named barrier over the 256 consumer threads a tile), and
 //   dQ = dS K       wgmma with A = dS MN-major from that buffer and
 //                   B = K MN-major: at BQ 128 warpgroup w takes query rows
@@ -90,7 +95,7 @@ struct Cfg {
   static_assert(KV_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0, "alignment");
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                  const __grid_constant__ CUtensorMap tk,
@@ -99,8 +104,8 @@ __global__ void __launch_bounds__(NT, 1)
                                  const __grid_constant__ CUtensorMap tdq,
                                  const float* __restrict__ lse,
                                  const float* __restrict__ delta,
-                                 __nv_bfloat16* __restrict__ dk,
-                                 __nv_bfloat16* __restrict__ dv, int Sq,
+                                 T* __restrict__ dk,
+                                 T* __restrict__ dv, int Sq,
                                  int Sk, float scale, int causal) {
   using C = Cfg<D>;
   constexpr int SWE = C::SWE, SWB = C::SWB, NCB = C::NCB, BQ = C::BQ;
@@ -204,7 +209,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int ks = 0; ks < D / 16; ++ks) {
       const int cb = ks * 16 / SWE;
       const uint32_t at = (ks * 16 % SWE) * 2;
-      wgmma_ss<0, 0>(
+      wgmma_ss<0, 0, T>(
           st, make_desc<SWB>(k_base + cb * BKEY * SWB + wg * 64 * SWB + at,
                              8 * SWB),
           make_desc<SWB>(q_base + cb * BQ * SWB + at, 8 * SWB), ks > 0);
@@ -214,7 +219,7 @@ __global__ void __launch_bounds__(NT, 1)
     for (int ks = 0; ks < D / 16; ++ks) {
       const int cb = ks * 16 / SWE;
       const uint32_t at = (ks * 16 % SWE) * 2;
-      wgmma_ss<0, 0>(
+      wgmma_ss<0, 0, T>(
           dp, make_desc<SWB>(v_base + cb * BKEY * SWB + wg * 64 * SWB + at,
                              8 * SWB),
           make_desc<SWB>(do_base + cb * BQ * SWB + at, 8 * SWB), ks > 0);
@@ -233,7 +238,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + col0 + e;
-          float x = st[4 * j + 2 * h + e] * scale;
+          float x = __fmul_rn(st[4 * j + 2 * h + e], scale);
           if (masked) {
             const int key = key0 + 8 * h;
             if (key >= Sk || (causal && key > q0 + c + offset)) x = -INFINITY;
@@ -253,10 +258,10 @@ __global__ void __launch_bounds__(NT, 1)
           dp[i] = st[i] * (dp[i] - tDl[8 * j + col0 + e]);
         }
     uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
-    to_a_frags(st, pa);
-    to_a_frags(dp, dsa);
+    to_a_frags<T>(st, pa);
+    to_a_frags<T>(dp, dsa);
 
-    // dS^T into shared memory, bf16: row = key (of the block's 128),
+    // dS^T into shared memory, T: row = key (of the block's 128),
     // column = query, in column blocks of 64 queries, 128-byte swizzle
     uint8_t* ds_buf = sdS + (it & 1) * C::DS_BYTES;
 #pragma unroll
@@ -268,7 +273,8 @@ __global__ void __launch_bounds__(NT, 1)
         const int cc = c % 64;
         const int off = (c / 64) * (BKEY * 128) + row * 128 +
                         (((cc / 8) ^ (row % 8)) * 16) + (cc % 8) * 2;
-        *reinterpret_cast<uint32_t*>(ds_buf + off) = dsa[j / 2][(j % 2) * 2 + h];
+        *reinterpret_cast<uint32_t*>(ds_buf + off) =
+            dsa[j / 2][(j % 2) * 2 + h];
       }
     fence_proxy_async();
 
@@ -279,10 +285,10 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb) {
         const uint32_t at = cb * BQ * SWB + kk * 16 * SWB;
-        wgmma_rs<1>(dva[cb], pa[kk], make_desc<SWB>(do_base + at, 8 * SWB),
-                    1);
-        wgmma_rs<1>(dka[cb], dsa[kk], make_desc<SWB>(q_base + at, 8 * SWB),
-                    1);
+        wgmma_rs<1, T>(dva[cb], pa[kk],
+                       make_desc<SWB>(do_base + at, 8 * SWB), 1);
+        wgmma_rs<1, T>(dka[cb], dsa[kk],
+                       make_desc<SWB>(q_base + at, 8 * SWB), 1);
       }
     wg_commit();
 
@@ -297,7 +303,7 @@ __global__ void __launch_bounds__(NT, 1)
     wg_fence();
 #pragma unroll
     for (int ks = 0; ks < BKEY / 16; ++ks)
-      wgmma_ss<1, 1>(dqa, make_desc<128>(ds_base + ks * 16 * 128, 8 * 128),
+      wgmma_ss<1, 1, T>(dqa, make_desc<128>(ds_base + ks * 16 * 128, 8 * 128),
                      make_desc<SWB>(kb_base + ks * 16 * SWB, 8 * SWB),
                      ks > 0);
     wg_commit();
@@ -348,46 +354,66 @@ __global__ void __launch_bounds__(NT, 1)
       for (int j = 0; j < SWE / 8; ++j) {
         const int c = cb * SWE + 8 * j + col0;
         const int i = 4 * j + 2 * h;
-        *reinterpret_cast<__nv_bfloat162*>(dk + at + c) =
-            __floats2bfloat162_rn(dka[cb][i] * scale, dka[cb][i + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at + c) =
-            __floats2bfloat162_rn(dva[cb][i], dva[cb][i + 1]);
+        store2<T>(dk + at + c, dka[cb][i] * scale, dka[cb][i + 1] * scale);
+        store2<T>(dv + at + c, dva[cb][i], dva[cb][i + 1]);
       }
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq32, void* dk, void* dv, int B, int H, int Sq,
                    int Sk, float scale, int causal, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv, tdo, tdq;
-  if (!tile_map(&tq, q, B * H, Sq, D, C::SWE, C::BQ) ||
-      !tile_map(&tdo, dout, B * H, Sq, D, C::SWE, C::BQ) ||
-      !tile_map(&tk, k, B * H, Sk, D, C::SWE, BKEY) ||
-      !tile_map(&tv, v, B * H, Sk, D, C::SWE, BKEY) ||
+  constexpr CUtensorMapDataType ty = tma_type<T>();
+  if (!tile_map(&tq, q, B * H, Sq, D, C::SWE, C::BQ, ty) ||
+      !tile_map(&tdo, dout, B * H, Sq, D, C::SWE, C::BQ, ty) ||
+      !tile_map(&tk, k, B * H, Sk, D, C::SWE, BKEY, ty) ||
+      !tile_map(&tv, v, B * H, Sk, D, C::SWE, BKEY, ty) ||
       !f32_map(&tdq, dq32, B * H, Sq, D, C::NQ, 64))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_fused_wgmma_kernel<D>,
+      flash_bwd_fused_wgmma_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Sk + BKEY - 1) / BKEY);
-  flash_bwd_fused_wgmma_kernel<D><<<grid, NT, C::SMEM, stream>>>(
+  flash_bwd_fused_wgmma_kernel<T, D><<<grid, NT, C::SMEM, stream>>>(
       tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Sq,
-      Sk, scale, causal);
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), Sq, Sk, scale, causal);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq32, void* dk, void* dv, int B, int H, int Sq,
+                     int Sk, int D, float scale, int causal,
+                     cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, dout, lse, delta, dq32, dk, dv, B, H,
+                           Sq, Sk, scale, causal, s);
+    case 64:
+      return launch<T, 64>(q, k, v, dout, lse, delta, dq32, dk, dv, B, H,
+                           Sq, Sk, scale, causal, s);
+    case 128:
+      return launch<T, 128>(q, k, v, dout, lse, delta, dq32, dk, dv, B, H,
+                            Sq, Sk, scale, causal, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// flash_bwd_fused's signature; dtype must be 1 (bfloat16). q/dout
-// [B,H,Sq,D], k/v [B,H,Sk,D] bf16, each 16-byte aligned (TMA); lse and
-// delta [B,H,Sq] f32; dq32 [B,H,Sq,D] f32, zeroed by the caller; dk, dv
-// [B,H,Sk,D] bf16; all contiguous on the current device.
+// flash_bwd_fused's signature; dtype 1 (bfloat16) or 2 (float16), others
+// refused. q/dout [B,H,Sq,D], k/v [B,H,Sk,D] in dtype, each 16-byte
+// aligned (TMA); lse and delta [B,H,Sq] f32; dq32 [B,H,Sq,D] f32, zeroed
+// by the caller; dk, dv [B,H,Sk,D] in dtype; all contiguous on the current
+// device.
 extern "C" int flash_bwd_fused_wgmma(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
@@ -395,20 +421,13 @@ extern "C" int flash_bwd_fused_wgmma(const void* q, const void* k,
                                      int H, int Sq, int Sk, int D, int dtype,
                                      float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 1) return cudaErrorInvalidValue;
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, dout, lse, delta, dq32, dk, dv, B, H, Sq,
-                        Sk, scale, causal, s);
-    case 64:
-      return launch<64>(q, k, v, dout, lse, delta, dq32, dk, dv, B, H, Sq,
-                        Sk, scale, causal, s);
-    case 128:
-      return launch<128>(q, k, v, dout, lse, delta, dq32, dk, dv, B, H, Sq,
-                         Sk, scale, causal, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dq32, dk, dv,
+                                   B, H, Sq, Sk, D, scale, causal, s);
+  if (dtype == 2)
+    return launch_d<__half>(q, k, v, dout, lse, delta, dq32, dk, dv, B, H,
+                            Sq, Sk, D, scale, causal, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* error_string(int err) {

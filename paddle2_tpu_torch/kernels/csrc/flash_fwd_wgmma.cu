@@ -1,28 +1,28 @@
-// FlashAttention forward for Hopper (sm_90a) on the tensor cores, bf16.
+// FlashAttention forward for Hopper (sm_90a) on the tensor cores, bf16
+// and f16 (one kernel template, instantiated for each).
 //
 // Replaces: paddle2_tpu/kernels/pallas_flash.py `_fwd_kernel` (tiled
 // online softmax) and `_fwd_kernel_1blk` (whole row in one tile), both
-// driven by `_flash_fwd`, for bf16 inputs. f32 inputs take the 3xTF32
+// driven by `_flash_fwd`, for bf16 and f16 inputs. f32 inputs take the 3xTF32
 // kernel of flash_fwd_tf32x3.cu.
 //
 // Computes, per (batch, head), o = softmax(q k^T * scale) v and the row
-// log-sum-exp, on contiguous (B, H, S, D) tensors, D in {16, 64, 128},
-// 1 <= Sq <= Sk, with the causal mask aligned to the bottom right (row r
-// sees keys c <= r + Sk - Sq). Scores, the running max m and the running
-// sum l are f32; as in the Pallas kernel, p is rounded to bf16 before
-// the p.V product and l sums the unrounded p. Inside the kernel the
-// exponentials are base 2 with scale * log2(e) folded into the scores;
-// lse leaves in natural log. o is bf16, lse f32; rows >= Sq are never
-// written.
+// log-sum-exp, on contiguous (B, H, S, D) tensors, D in {16, 64, 128}, 1 <= Sq
+// <= Sk, with the causal mask aligned to the bottom right (row r sees keys c
+// <= r + Sk - Sq). Scores, the running max m and the running sum l are f32; as
+// in the Pallas kernel, p is rounded to the input type T before the p.V
+// product and l sums the unrounded p (in f16 a p below 2^-14 rounds to a
+// subnormal, as `p.astype(v.dtype)` does). Inside the kernel the exponentials
+// are base 2 with scale * log2(e) folded into the scores; lse leaves in
+// natural log. o is T, lse f32; rows >= Sq are never written.
 //
-// What bounds it on the H100: 4 * pairs * D * H * B operations (pairs
-// the (query, key) pairs the mask keeps) against 2 * (Sq + Sk) * H * D * B
-// bf16 elements moved: operations, at 989 TFLOP/s on the tensor cores,
-// which only wgmma reaches. The design keeps the flash minimum of
-// device-memory traffic (the score matrix never leaves the block; K/V
-// tiles are read once per 128-row query tile) and feeds the tensor cores
-// from shared memory that TMA fills, so no thread spends instructions on
-// copies.
+// What bounds it on the H100: 4 * pairs * D * H * B operations (pairs the
+// (query, key) pairs the mask keeps) against 2 * (Sq + Sk) * H * D * B 2-byte
+// elements moved: operations, at 989 TFLOP/s (bf16 and f16 alike) on the
+// tensor cores, which only wgmma reaches. The design keeps the flash minimum
+// of device-memory traffic (the score matrix never leaves the block; K/V tiles
+// are read once per 128-row query tile) and feeds the tensor cores from shared
+// memory that TMA fills, so no thread spends instructions on copies.
 //
 // Layout: one block per (b * H + h, 128-row query tile), the longest
 // causal tiles launched first. Nine warps: warps 0-7 are two consumer
@@ -37,7 +37,7 @@
 // Per tile, each consumer warpgroup: S = Q K^T as wgmma m64nBKk16 with
 // both operands K-major in shared memory (D / 16 steps); the online
 // softmax on the accumulator in registers (row max and sum over the 4
-// threads of a quad); P packed to bf16 straight from the accumulator
+// threads of a quad); P packed to T straight from the accumulator
 // into wgmma's register A operand (hopper.cuh `to_a_frags`); O += P V as
 // wgmma m64nSWEk16 per 64-column block of V, V MN-major (transposed) from
 // shared memory. Tiles are 32- (D 16) or 128-byte swizzled (hopper.cuh).
@@ -68,12 +68,12 @@ struct Cfg {
   static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "alignment");
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           __nv_bfloat16* __restrict__ o,
+                           T* __restrict__ o,
                            float* __restrict__ lse, int Sq, int Sk,
                            float scale_log2, int causal) {
   using C = Cfg<D>;
@@ -160,9 +160,9 @@ __global__ void __launch_bounds__(NT, 1)
     for (int ks = 0; ks < D / 16; ++ks) {
       const int cb = ks * 16 / SWE;
       const uint32_t at = (ks * 16 % SWE) * 2;
-      wgmma_ss<0, 0>(sc, make_desc<SWB>(q_base + cb * BQ * SWB + at, 8 * SWB),
-                     make_desc<SWB>(k_base + cb * BK * SWB + at, 8 * SWB),
-                     ks > 0);
+      wgmma_ss<0, 0, T>(
+          sc, make_desc<SWB>(q_base + cb * BQ * SWB + at, 8 * SWB),
+          make_desc<SWB>(k_base + cb * BK * SWB + at, 8 * SWB), ks > 0);
     }
     wg_commit();
     wg_wait<0>();
@@ -219,14 +219,14 @@ __global__ void __launch_bounds__(NT, 1)
           for (int e = 0; e < 2; ++e) acc[cb][4 * j + 2 * h + e] *= alpha[h];
 
     uint32_t pa[BK / 16][4];
-    to_a_frags(sc, pa);
+    to_a_frags<T>(sc, pa);
     mbar_wait(&v_full[s], ph);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb)
-        wgmma_rs<1>(acc[cb], pa[kk],
+        wgmma_rs<1, T>(acc[cb], pa[kk],
                     make_desc<SWB>(v_base + cb * BK * SWB + kk * 16 * SWB,
                                    8 * SWB),
                     1);
@@ -249,14 +249,14 @@ __global__ void __launch_bounds__(NT, 1)
     const int row = row0 + 8 * h;
     if (row >= Sq) continue;
     const float inv = l[h] == 0.f ? 1.f : 1.f / l[h];
-    __nv_bfloat16* orow = o + ((long long)bh * Sq + row) * D;
+    T* orow = o + ((long long)bh * Sq + row) * D;
 #pragma unroll
     for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
       for (int j = 0; j < SWE / 8; ++j) {
         const int c = cb * SWE + 8 * j + col0;
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
-            acc[cb][4 * j + 2 * h] * inv, acc[cb][4 * j + 2 * h + 1] * inv);
+        store2<T>(orow + c, acc[cb][4 * j + 2 * h] * inv,
+                  acc[cb][4 * j + 2 * h + 1] * inv);
       }
     if (lane % 4 == 0)
       lse[(long long)bh * Sq + row] =
@@ -264,48 +264,62 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int Sq, int Sk, float scale,
                    int causal, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
-  if (!tile_map(&tq, q, B * H, Sq, D, C::SWE, BQ) ||
-      !tile_map(&tk, k, B * H, Sk, D, C::SWE, C::BK) ||
-      !tile_map(&tv, v, B * H, Sk, D, C::SWE, C::BK))
+  if (!tile_map(&tq, q, B * H, Sq, D, C::SWE, BQ, tma_type<T>()) ||
+      !tile_map(&tk, k, B * H, Sk, D, C::SWE, C::BK, tma_type<T>()) ||
+      !tile_map(&tv, v, B * H, Sk, D, C::SWE, C::BK, tma_type<T>()))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_wgmma_kernel<D><<<grid, NT, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+  flash_fwd_wgmma_kernel<T, D><<<grid, NT, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(lse),
       Sq, Sk, scale * LOG2E, causal);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int B, int H, int Sq, int Sk, int D,
+                     float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal, s);
+    case 64:
+      return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal, s);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal,
+                            s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// flash_fwd's signature; dtype must be 1 (bfloat16). q [B,H,Sq,D], k/v
-// [B,H,Sk,D] bf16, o like q, lse [B,H,Sq] f32, all contiguous on the
-// current device, each 16-byte aligned (TMA).
+// flash_fwd's signature; dtype 1 (bfloat16) or 2 (float16), others
+// refused. q [B,H,Sq,D], k/v [B,H,Sk,D] in dtype, o like q, lse [B,H,Sq]
+// f32, all contiguous on the current device, each 16-byte aligned (TMA).
 extern "C" int flash_fwd_wgmma(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int H, int Sq,
                                int Sk, int D, int dtype, float scale,
                                int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 1) return cudaErrorInvalidValue;
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal, s);
-    case 64:
-      return launch<64>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal, s);
-    case 128:
-      return launch<128>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, D, scale,
+                                   causal, s);
+  if (dtype == 2)
+    return launch_d<__half>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal,
+                            s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* error_string(int err) {

@@ -52,6 +52,7 @@
 // column reads of a half-warp hit different banks.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -66,6 +67,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -73,6 +75,9 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 // x rounded through T and back: `.astype(v.dtype)` of the Pallas kernels
 template <typename T> __device__ __forceinline__ float round_t(float x) {
@@ -566,14 +571,15 @@ cudaError_t dispatch_d(Which which, int D, const Args& a) {
 int run(Which which, int D, int dtype, const Args& a) {
   if (dtype == 0) return dispatch_d<float>(which, D, a);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, a);
+  if (dtype == 2) return dispatch_d<__half>(which, D, a);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/dout/o/dq [Tq, H, D], k/v/dk/dv
-// [Tk, H, D] in dtype; lse, delta [H, Tq] f32; seg_*/off_* int32 [T];
-// q_tiles int32 [ceil(Tq/64), 2] (live key range of each query tile),
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. q/dout/o/dq [Tq, H, D],
+// k/v/dk/dv [Tk, H, D] in dtype; lse, delta [H, Tq] f32; seg_*/off_* int32
+// [T]; q_tiles int32 [ceil(Tq/64), 2] (live key range of each query tile),
 // k_tiles int32 [ceil(Tk/64), 2] (live query range of each key tile); all
 // contiguous on the current device.
 

@@ -1,24 +1,27 @@
 // Packed varlen FlashAttention backward for Hopper (sm_90a) on the tensor
-// cores, bf16: dQ, dK and dV in one kernel.
+// cores, bf16 and f16 (one kernel template T, instantiated for each): dQ,
+// dK and dV in one kernel.
 //
-// Replaces: paddle2_tpu/kernels/pallas_flash.py `_bwd_dkv_kernel_varlen`
-// and `_bwd_dq_kernel_varlen`, the pair `_varlen_bwd` drives under
-// `flash_attention_varlen_packed`, for bf16 inputs. f32 inputs keep the
-// CUDA-core pair of flash_varlen.cu, as the dense route keeps flash_bwd.cu
+// Replaces: paddle2_tpu/kernels/pallas_flash.py `_bwd_dkv_kernel_varlen` and
+// `_bwd_dq_kernel_varlen`, the pair `_varlen_bwd` drives under
+// `flash_attention_varlen_packed`, for bf16 and f16 inputs. f32 inputs keep
+// the CUDA-core pair of flash_varlen.cu, as the dense route keeps flash_bwd.cu
 // for f32.
 //
 // The ragged batch is one packed sequence: q/dO [Tq, H, D], k/v [Tk, H, D],
-// bf16, D in {16, 64, 128}, any Tq and Tk, with an int32 segment id and
+// in T, D in {16, 64, 128}, any Tq and Tk, with an int32 segment id and
 // offset per row; query row r sees key c when seg_q[r] == seg_k[c] and
 // off_k[c] <= off_q[r]. With the forward's lse and delta = rowsum(dO * O)
 // (both [H, Tq] f32, computed outside), per score tile:
 //   P  = exp(Q K^T * scale - lse)      (0 where masked or lse == -inf)
 //   dS = P * (dO V^T - delta)
 //   dV += P^T dO,  dK += dS^T Q * scale,  dQ += dS K * scale
-// As in the Pallas kernels (`_bwd_p_ds`), P and dS are rounded to bf16
-// before each product and every sum is f32. A query row that sees no key
+// As in the Pallas kernels (`_bwd_p_ds`), P and dS are rounded to T
+// before each product and every sum is f32 (in f16 nothing is clamped: a
+// dS or dV past 65,504 is inf where the Pallas kernel's cast makes it
+// so). A query row that sees no key
 // gets dq = 0, a key that no row sees dk = dv = 0. dK and dV are written
-// in bf16, each by the one block that owns the key, so they are bitwise
+// in T, each by the one block that owns the key, so they are bitwise
 // deterministic; dQ is added into an f32 [Tq, H, D] buffer the caller
 // zeroed, a tile at a time by TMA bulk reductions
 // (cp.reduce.async.bulk.tensor) whose order changes from run to run, so
@@ -26,7 +29,7 @@
 //
 // What bounds it on the H100: 10 * pairs * D * H operations (five
 // products; pairs the (query, key) pairs the mask keeps) against
-// (3 Tq + 4 Tk) * H * D bf16 elements moved (q, dO, k, v in; dq, dk, dv
+// (3 Tq + 4 Tk) * H * D 2-byte elements moved (q, dO, k, v in; dq, dk, dv
 // out) plus lse, delta and the metadata: operations, on the tensor cores,
 // reached only through wgmma. The f32 dQ buffer is an implementation
 // choice and is left out of the bound, as in the dense kernel's. At the
@@ -77,10 +80,10 @@
 // Per query tile, each consumer warpgroup (keys k of its 64, queries q):
 //   S^T  = K Q^T    wgmma m64nBQk16, both operands K-major in shared memory
 //   dP^T = V dO^T   the same shape
-//   P^T and dS^T in registers, in f32, then packed to bf16 A fragments
+//   P^T and dS^T in registers, in f32, then packed to T A fragments
 //   dV += P^T dO    wgmma, A from registers, dO MN-major (transposed)
 //   dK += dS^T Q    the same, with Q
-//   dS^T also goes to shared memory in bf16 (128-byte swizzle, two
+//   dS^T also goes to shared memory in T (128-byte swizzle, two
 //   buffers, one named barrier over the 256 threads a tile), and
 //   dQ = dS K       wgmma with A = dS MN-major from that buffer and
 //                   B = K MN-major: at BQ 128 warpgroup w takes query rows
@@ -173,7 +176,7 @@ __global__ void varlen_bwd_order_kernel(const int* __restrict__ k_tiles,
   order[rank] = b;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1)
     flash_varlen_bwd_fused_wgmma_kernel(
         const __grid_constant__ CUtensorMap tq,
@@ -185,7 +188,7 @@ __global__ void __launch_bounds__(NT, 1)
         const int* __restrict__ seg_q, const int* __restrict__ off_q,
         const int* __restrict__ seg_k, const int* __restrict__ off_k,
         const int* __restrict__ k_tiles, const int* __restrict__ order,
-        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+        T* __restrict__ dk, T* __restrict__ dv,
         int Tq, int Tk, int H, float scale) {
   using C = Cfg<D>;
   constexpr int SWE = C::SWE, SWB = C::SWB, NCB = C::NCB, BQ = C::BQ;
@@ -344,7 +347,7 @@ __global__ void __launch_bounds__(NT, 1)
       for (int ks = 0; ks < D / 16; ++ks) {
         const int cb = ks * 16 / SWE;
         const uint32_t at = (ks * 16 % SWE) * 2;
-        wgmma_ss<0, 0>(
+        wgmma_ss<0, 0, T>(
             st,
             make_desc<SWB>(k_base + cb * BKEY * SWB + wg * 64 * SWB + at,
                            8 * SWB),
@@ -355,7 +358,7 @@ __global__ void __launch_bounds__(NT, 1)
       for (int ks = 0; ks < D / 16; ++ks) {
         const int cb = ks * 16 / SWE;
         const uint32_t at = (ks * 16 % SWE) * 2;
-        wgmma_ss<0, 0>(
+        wgmma_ss<0, 0, T>(
             dp,
             make_desc<SWB>(v_base + cb * BKEY * SWB + wg * 64 * SWB + at,
                            8 * SWB),
@@ -394,10 +397,10 @@ __global__ void __launch_bounds__(NT, 1)
             dp[i] = st[i] * (dp[i] - tDl[8 * j + col0 + e]);
           }
       uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
-      to_a_frags(st, pa);
-      to_a_frags(dp, dsa);
+      to_a_frags<T>(st, pa);
+      to_a_frags<T>(dp, dsa);
 
-      // dS^T into shared memory, bf16: row = key (of the block's 128),
+      // dS^T into shared memory, T: row = key (of the block's 128),
       // column = query, in column blocks of 64 queries, 128-byte swizzle
       uint8_t* ds_buf = sdS + (it & 1) * C::DS_BYTES;
 #pragma unroll
@@ -421,9 +424,11 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
         for (int cb = 0; cb < NCB; ++cb) {
           const uint32_t at = cb * BQ * SWB + kk * 16 * SWB;
-          wgmma_rs<1>(dva[cb], pa[kk], make_desc<SWB>(do_base + at, 8 * SWB),
+          wgmma_rs<1, T>(dva[cb], pa[kk],
+                         make_desc<SWB>(do_base + at, 8 * SWB),
                       1);
-          wgmma_rs<1>(dka[cb], dsa[kk], make_desc<SWB>(q_base + at, 8 * SWB),
+          wgmma_rs<1, T>(dka[cb], dsa[kk],
+                         make_desc<SWB>(q_base + at, 8 * SWB),
                       1);
         }
       wg_commit();
@@ -439,7 +444,8 @@ __global__ void __launch_bounds__(NT, 1)
       wg_fence();
 #pragma unroll
       for (int ks = 0; ks < BKEY / 16; ++ks)
-        wgmma_ss<1, 1>(dqa, make_desc<128>(ds_base + ks * 16 * 128, 8 * 128),
+        wgmma_ss<1, 1, T>(dqa,
+                          make_desc<128>(ds_base + ks * 16 * 128, 8 * 128),
                        make_desc<SWB>(kb_base + ks * 16 * SWB, 8 * SWB),
                        ks > 0);
       wg_commit();
@@ -491,15 +497,13 @@ __global__ void __launch_bounds__(NT, 1)
       for (int j = 0; j < SWE / 8; ++j) {
         const int c = cb * SWE + 8 * j + col0;
         const int i = 4 * j + 2 * hh;
-        *reinterpret_cast<__nv_bfloat162*>(dk + at + c) =
-            __floats2bfloat162_rn(dka[cb][i] * scale, dka[cb][i + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at + c) =
-            __floats2bfloat162_rn(dva[cb][i], dva[cb][i + 1]);
+        store2<T>(dk + at + c, dka[cb][i] * scale, dka[cb][i + 1] * scale);
+        store2<T>(dv + at + c, dva[cb][i], dva[cb][i + 1]);
       }
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    const void* seg_q, const void* off_q, const void* seg_k,
@@ -508,14 +512,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv, tdo, tdq;
-  if (!packed_map(&tq, q, Tq, H, D, C::SWE, C::BQ) ||
-      !packed_map(&tdo, dout, Tq, H, D, C::SWE, C::BQ) ||
-      !packed_map(&tk, k, Tk, H, D, C::SWE, BKEY) ||
-      !packed_map(&tv, v, Tk, H, D, C::SWE, BKEY) ||
+  constexpr CUtensorMapDataType ty = tma_type<T>();
+  if (!packed_map(&tq, q, Tq, H, D, C::SWE, C::BQ, ty) ||
+      !packed_map(&tdo, dout, Tq, H, D, C::SWE, C::BQ, ty) ||
+      !packed_map(&tk, k, Tk, H, D, C::SWE, BKEY, ty) ||
+      !packed_map(&tv, v, Tk, H, D, C::SWE, BKEY, ty) ||
       !packed_f32_map(&tdq, dq32, Tq, H, D, C::NQ, 64))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_varlen_bwd_fused_wgmma_kernel<D>,
+      flash_varlen_bwd_fused_wgmma_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   const int nkb = (Tk + BKEY - 1) / BKEY;
@@ -523,51 +528,68 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const int*>(k_tiles), Tk, C::BQ, static_cast<int*>(order));
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   dim3 grid(H, nkb);
-  flash_varlen_bwd_fused_wgmma_kernel<D><<<grid, NT, C::SMEM, stream>>>(
+  flash_varlen_bwd_fused_wgmma_kernel<T, D><<<grid, NT, C::SMEM, stream>>>(
       tq, tk, tv, tdo, tdq, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(seg_q),
       static_cast<const int*>(off_q), static_cast<const int*>(seg_k),
       static_cast<const int*>(off_k), static_cast<const int*>(k_tiles),
-      static_cast<const int*>(order), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Tq, Tk, H, scale);
+      static_cast<const int*>(order), static_cast<T*>(dk),
+      static_cast<T*>(dv), Tq, Tk, H, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     const void* seg_q, const void* off_q, const void* seg_k,
+                     const void* off_k, const void* k_tiles, void* order,
+                     void* dq32, void* dk, void* dv, int Tq, int Tk, int H,
+                     int D, float scale, cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, dout, lse, delta, seg_q, off_q, seg_k,
+                           off_k, k_tiles, order, dq32, dk, dv, Tq, Tk, H,
+                           scale, s);
+    case 64:
+      return launch<T, 64>(q, k, v, dout, lse, delta, seg_q, off_q, seg_k,
+                           off_k, k_tiles, order, dq32, dk, dv, Tq, Tk, H,
+                           scale, s);
+    case 128:
+      return launch<T, 128>(q, k, v, dout, lse, delta, seg_q, off_q, seg_k,
+                            off_k, k_tiles, order, dq32, dk, dv, Tq, Tk, H,
+                            scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // flash_varlen_bwd_dkv's arguments with the dQ pair's outputs beside them;
-// dtype must be 1 (bfloat16). q/dout [Tq, H, D], k/v [Tk, H, D] bf16,
+// dtype 1 (bfloat16) or 2 (float16), others refused. q/dout [Tq, H, D],
+// k/v [Tk, H, D] in dtype,
 // each 16-byte aligned (TMA); lse and delta [H, Tq] f32; seg_*/off_*
 // int32 [T]; k_tiles int32 [ceil(Tk/64), 2]; order int32 [ceil(Tk/128)]
 // scratch; dq32 [Tq, H, D] f32, zeroed by the caller; dk, dv [Tk, H, D]
-// bf16; all contiguous on the current device.
+// in dtype; all contiguous on the current device.
 extern "C" int flash_varlen_bwd_fused_wgmma(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, const void* seg_q, const void* off_q,
     const void* seg_k, const void* off_k, const void* k_tiles, void* order,
     void* dq32, void* dk, void* dv, int Tq, int Tk, int H, int D, int dtype,
     float scale, void* stream) {
-  if (dtype != 1) return cudaErrorInvalidValue;
+  if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
        (uintptr_t)dq32) & 15)
     return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, dout, lse, delta, seg_q, off_q, seg_k,
-                        off_k, k_tiles, order, dq32, dk, dv, Tq, Tk, H,
-                        scale, s);
-    case 64:
-      return launch<64>(q, k, v, dout, lse, delta, seg_q, off_q, seg_k,
-                        off_k, k_tiles, order, dq32, dk, dv, Tq, Tk, H,
-                        scale, s);
-    case 128:
-      return launch<128>(q, k, v, dout, lse, delta, seg_q, off_q, seg_k,
-                         off_k, k_tiles, order, dq32, dk, dv, Tq, Tk, H,
-                         scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16>(q, k, v, dout, lse, delta, seg_q, off_q,
+                                   seg_k, off_k, k_tiles, order, dq32, dk, dv,
+                                   Tq, Tk, H, D, scale, s);
+  return launch_d<__half>(q, k, v, dout, lse, delta, seg_q, off_q, seg_k,
+                          off_k, k_tiles, order, dq32, dk, dv, Tq, Tk, H, D,
+                          scale, s);
 }
 
 extern "C" const char* error_string(int err) {

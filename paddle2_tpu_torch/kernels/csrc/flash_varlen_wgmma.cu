@@ -1,25 +1,25 @@
 // Packed varlen FlashAttention forward for Hopper (sm_90a) on the tensor
-// cores, bf16.
+// cores, bf16 and f16 (one kernel template T, instantiated for each).
 //
 // Replaces: paddle2_tpu/kernels/pallas_flash.py `_fwd_kernel_varlen`,
 // driven by `_varlen_fwd` under `flash_attention_varlen_packed`, for bf16
-// inputs. f32 inputs keep the CUDA-core kernel of flash_varlen.cu, and
+// and f16 inputs. f32 inputs keep the CUDA-core kernel of flash_varlen.cu, and
 // the backward stays the CUDA-core pair there, which reads this kernel's
 // o and lse.
 //
 // The ragged batch is one packed sequence: q [Tq, H, D], k/v [Tk, H, D],
-// bf16, D in {16, 64, 128}, with an int32 segment id and offset per row.
+// in T, D in {16, 64, 128}, with an int32 segment id and offset per row.
 // Query row r sees key c when seg_q[r] == seg_k[c] and off_k[c] <=
 // off_q[r]. Per head: o = softmax(q k^T * scale) v and the row
 // log-sum-exp. Scores, the running max m and the running sum l are f32;
-// as in the Pallas kernel, p is rounded to bf16 before the p.V product
+// as in the Pallas kernel, p is rounded to T before the p.V product
 // and l sums the unrounded p. Inside the kernel the exponentials are base
 // 2 with scale * log2(e) folded into the scores; lse leaves in natural
 // log, [H, Tq] f32, the layout the backward pair reads. A row that sees
 // no key gets o = 0 and lse = -inf.
 //
 // What bounds it on the H100: 4 * pairs * D * H operations (pairs the
-// (query, key) pairs the mask keeps) against 2 * (Tq + Tk) * H * D bf16
+// (query, key) pairs the mask keeps) against 2 * (Tq + Tk) * H * D 2-byte
 // elements moved plus lse and the metadata; at the packed batches of the
 // main path both bounds are ~0.02 ms, and only wgmma reaches the
 // operations' rate. The design is flash_fwd_wgmma.cu's: the score matrix
@@ -61,7 +61,7 @@
 // Per tile, each consumer warpgroup: S = Q K^T as wgmma m64nBKk16 with
 // both operands K-major in shared memory (D / 16 steps); the online
 // softmax on the accumulator in registers (row max and sum over the 4
-// threads of a quad); P packed to bf16 straight from the accumulator
+// threads of a quad); P packed to T straight from the accumulator
 // into wgmma's register A operand (hopper.cuh `to_a_frags`); O += P V as
 // wgmma m64nSWEk16 per 64-column block of V, V MN-major (transposed) from
 // shared memory. Tiles are 32- (D 16) or 128-byte swizzled (hopper.cuh).
@@ -105,14 +105,14 @@ struct Cfg {
   static_assert(OFF_BAR % 8 == 0, "mbarrier alignment");
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1) flash_varlen_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const int* __restrict__ seg_q,
     const int* __restrict__ off_q, const int* __restrict__ seg_k,
     const int* __restrict__ off_k, const int* __restrict__ q_tiles,
-    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Tq, int H,
+    T* __restrict__ o, float* __restrict__ lse, int Tq, int H,
     float scale_log2) {
   using C = Cfg<D>;
   constexpr int SWE = C::SWE, SWB = C::SWB, NCB = C::NCB, BK = C::BK;
@@ -252,7 +252,8 @@ __global__ void __launch_bounds__(NT, 1) flash_varlen_fwd_wgmma_kernel(
     for (int ks = 0; ks < D / 16; ++ks) {
       const int cb = ks * 16 / SWE;
       const uint32_t at = (ks * 16 % SWE) * 2;
-      wgmma_ss<0, 0>(sc, make_desc<SWB>(q_base + cb * BQ * SWB + at, 8 * SWB),
+      wgmma_ss<0, 0, T>(sc,
+                        make_desc<SWB>(q_base + cb * BQ * SWB + at, 8 * SWB),
                      make_desc<SWB>(k_base + cb * BK * SWB + at, 8 * SWB),
                      ks > 0);
     }
@@ -311,14 +312,14 @@ __global__ void __launch_bounds__(NT, 1) flash_varlen_fwd_wgmma_kernel(
             acc[cb][4 * j + 2 * hh + e] *= alpha[hh];
 
     uint32_t pa[BK / 16][4];
-    to_a_frags(sc, pa);
+    to_a_frags<T>(sc, pa);
     mbar_wait(&v_full[s], ph);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int cb = 0; cb < NCB; ++cb)
-        wgmma_rs<1>(acc[cb], pa[kk],
+        wgmma_rs<1, T>(acc[cb], pa[kk],
                     make_desc<SWB>(v_base + cb * BK * SWB + kk * 16 * SWB,
                                    8 * SWB),
                     1);
@@ -341,14 +342,14 @@ __global__ void __launch_bounds__(NT, 1) flash_varlen_fwd_wgmma_kernel(
     const int row = row0 + 8 * hh;
     if (row >= Tq) continue;
     const float inv = l[hh] == 0.f ? 1.f : 1.f / l[hh];
-    __nv_bfloat16* orow = o + ((long long)row * H + h) * D;
+    T* orow = o + ((long long)row * H + h) * D;
 #pragma unroll
     for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
       for (int j = 0; j < SWE / 8; ++j) {
         const int c = cb * SWE + 8 * j + col0;
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
-            acc[cb][4 * j + 2 * hh] * inv, acc[cb][4 * j + 2 * hh + 1] * inv);
+        store2<T>(orow + c, acc[cb][4 * j + 2 * hh] * inv,
+                  acc[cb][4 * j + 2 * hh + 1] * inv);
       }
     if (lane % 4 == 0)
       lse[(long long)h * Tq + row] =
@@ -356,37 +357,59 @@ __global__ void __launch_bounds__(NT, 1) flash_varlen_fwd_wgmma_kernel(
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* seg_q, const void* off_q, const void* seg_k,
                    const void* off_k, const void* q_tiles, void* o, void* lse,
                    int Tq, int Tk, int H, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
-  if (!packed_map(&tq, q, Tq, H, D, C::SWE, BQ) ||
-      !packed_map(&tk, k, Tk, H, D, C::SWE, C::BK) ||
-      !packed_map(&tv, v, Tk, H, D, C::SWE, C::BK))
+  constexpr CUtensorMapDataType ty = tma_type<T>();
+  if (!packed_map(&tq, q, Tq, H, D, C::SWE, BQ, ty) ||
+      !packed_map(&tk, k, Tk, H, D, C::SWE, C::BK, ty) ||
+      !packed_map(&tv, v, Tk, H, D, C::SWE, C::BK, ty))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_varlen_fwd_wgmma_kernel<D>,
+      flash_varlen_fwd_wgmma_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   dim3 grid(H, (Tq + BQ - 1) / BQ);
-  flash_varlen_fwd_wgmma_kernel<D><<<grid, NT, C::SMEM, stream>>>(
+  flash_varlen_fwd_wgmma_kernel<T, D><<<grid, NT, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<const int*>(seg_q),
       static_cast<const int*>(off_q), static_cast<const int*>(seg_k),
       static_cast<const int*>(off_k), static_cast<const int*>(q_tiles),
-      static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), Tq, H,
+      static_cast<T*>(o), static_cast<float*>(lse), Tq, H,
       scale * LOG2E);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const void* seg_q, const void* off_q, const void* seg_k,
+                     const void* off_k, const void* q_tiles, void* o,
+                     void* lse, int Tq, int Tk, int H, int D, float scale,
+                     cudaStream_t s) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles, o,
+                           lse, Tq, Tk, H, scale, s);
+    case 64:
+      return launch<T, 64>(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles, o,
+                           lse, Tq, Tk, H, scale, s);
+    case 128:
+      return launch<T, 128>(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles, o,
+                            lse, Tq, Tk, H, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// flash_varlen_fwd's signature (flash_varlen.cu); dtype must be 1
-// (bfloat16). q/o [Tq, H, D], k/v [Tk, H, D] bf16, lse [H, Tq] f32,
-// seg_*/off_* int32 [T], q_tiles int32 [ceil(Tq/64), 2]; all contiguous on
-// the current device, q/k/v 16-byte aligned (TMA).
+// flash_varlen_fwd's signature (flash_varlen.cu); dtype 1 (bfloat16) or 2
+// (float16), others refused. q/o [Tq, H, D], k/v [Tk, H, D] in dtype, lse [H,
+// Tq] f32, seg_*/off_* int32 [T], q_tiles int32 [ceil(Tq/64), 2]; all
+// contiguous on the current device, q/k/v 16-byte aligned (TMA).
 extern "C" int flash_varlen_fwd_wgmma(const void* q, const void* k,
                                       const void* v, const void* seg_q,
                                       const void* off_q, const void* seg_k,
@@ -394,23 +417,15 @@ extern "C" int flash_varlen_fwd_wgmma(const void* q, const void* k,
                                       void* o, void* lse, int Tq, int Tk,
                                       int H, int D, int dtype, float scale,
                                       void* stream) {
-  if (dtype != 1) return cudaErrorInvalidValue;
+  if (dtype != 1 && dtype != 2) return cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15)
     return cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles, o, lse,
-                        Tq, Tk, H, scale, s);
-    case 64:
-      return launch<64>(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles, o, lse,
-                        Tq, Tk, H, scale, s);
-    case 128:
-      return launch<128>(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles, o,
-                         lse, Tq, Tk, H, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16>(q, k, v, seg_q, off_q, seg_k, off_k,
+                                   q_tiles, o, lse, Tq, Tk, H, D, scale, s);
+  return launch_d<__half>(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles, o,
+                          lse, Tq, Tk, H, D, scale, s);
 }
 
 extern "C" const char* error_string(int err) {

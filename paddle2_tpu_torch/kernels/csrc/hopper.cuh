@@ -5,7 +5,7 @@
 // wgmma instructions themselves, and the host-side encoding of TMA tensor
 // maps.
 //
-// Tiles. A bf16 tile of R rows by D columns lives in shared memory as
+// Tiles. A bf16 or f16 tile of R rows by D columns lives in shared memory as
 // D / SWE column blocks of R rows by SWE elements (SWE = min(D, 64)), one
 // after the other, each row SWE * 2 bytes (32 or 128) and each block
 // swizzled as TMA's CU_TENSOR_MAP_SWIZZLE_32B / _128B writes it: the
@@ -33,9 +33,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -191,132 +194,203 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the same in f16
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The element types of the tensor-core kernels: T is __nv_bfloat16 or
+// __half. `pack2<T>` packs two floats rounded to T; `store2<T>` writes
+// them to two neighbouring elements (4-byte aligned); `tma_type<T>` names
+// T for a TMA tensor map.
+template <typename T>
+constexpr bool is_f16 = std::is_same<T, __half>::value;
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
+}
+
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return is_f16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
 // The m64nNk16 accumulator: thread t of the warpgroup (warp w = t / 32,
 // lane l) holds d[4 j + 2 h + e] at row 16 w + l / 4 + 8 h, column
 // 8 j + 2 (l % 4) + e. The register A operand of m64n*k16 is the same
 // layout for a 16-column slice, so the accumulator's columns
 // 16 kk .. 16 kk + 15 are the A fragment {d[8kk] d[8kk+1]},
-// {d[8kk+2] d[8kk+3]}, {d[8kk+4] d[8kk+5]}, {d[8kk+6] d[8kk+7]}.
-template <int R>
+// {d[8kk+2] d[8kk+3]}, {d[8kk+4] d[8kk+5]}, {d[8kk+6] d[8kk+7]}, each
+// pair rounded to T.
+template <typename T = __nv_bfloat16, int R>
 __device__ __forceinline__ void to_a_frags(const float (&d)[R],
                                            uint32_t (&a)[R / 8][4]) {
 #pragma unroll
   for (int kk = 0; kk < R / 8; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+      a[kk][i] = pack2<T>(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
 // ------------------------------------------------- wgmma instructions
 //
-// bf16 x bf16 -> f32, m64nNk16; TA / TB: 1 = that operand is MN-major
-// (transposed); `accum` 0 overwrites d, 1 adds to it.
+// T x T -> f32, m64nNk16, T bf16 (the default) or f16: the same shapes,
+// shared-memory layouts and rate, the operand type named in the
+// instruction. TA / TB: 1 = that operand is MN-major (transposed);
+// `accum` 0 overwrites d, 1 adds to it.
+
+#define HOPPER_WGMMA_SS_N16(TY)                                            \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                                     \
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                                 \
+      : "l"(da), "l"(db), "r"(accum), "n"(TA), "n"(TB))
+
+#define HOPPER_WGMMA_SS_N64(TY)                                            \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "       \
+      "%26, %27, %28, %29, %30, %31"                                       \
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+        "+f"(d[30]), "+f"(d[31])                                           \
+      : "l"(da), "l"(db), "r"(accum), "n"(TA), "n"(TB))
+
+#define HOPPER_WGMMA_SS_N128(TY)                                           \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"        \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "       \
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "       \
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "       \
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "       \
+      "%62, %63"                                                           \
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),   \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),   \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),   \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),   \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                 \
+      : "l"(da), "l"(db), "r"(accum), "n"(TA), "n"(TB))
+
+#define HOPPER_WGMMA_RS_N16(TY)                                            \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                                     \
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accum),   \
+        "n"(TB))
+
+#define HOPPER_WGMMA_RS_N64(TY)                                            \
+  asm volatile(                                                            \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                         \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "       \
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "       \
+      "%26, %27, %28, %29, %30, %31"                                       \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),        \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),   \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+        "+f"(d[30]), "+f"(d[31])                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accum),   \
+        "n"(TB))
 
 // d[8] (+)= A[64x16] * B[16x16]: A and B from shared memory
-template <int TA, int TB>
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
                                          uint64_t db, int accum) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(accum), "n"(TA), "n"(TB));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_SS_N16("f16");
+  else
+    HOPPER_WGMMA_SS_N16("bf16");
 }
 
 // d[32] (+)= A[64x16] * B[16x64]: A and B from shared memory
-template <int TA, int TB>
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int accum) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accum), "n"(TA), "n"(TB));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_SS_N64("f16");
+  else
+    HOPPER_WGMMA_SS_N64("bf16");
 }
 
 // d[64] (+)= A[64x16] * B[16x128]: A and B from shared memory
-template <int TA, int TB>
+template <int TA, int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accum) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accum), "n"(TA), "n"(TB));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_SS_N128("f16");
+  else
+    HOPPER_WGMMA_SS_N128("bf16");
 }
 
-// d[8] (+)= A[64x16] * B[16x16]: A from registers (bf16 pairs), B
-// from shared memory
-template <int TB>
+// d[8] (+)= A[64x16] * B[16x16]: A from registers (pairs of T), B from
+// shared memory
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[8],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accum) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accum),
-        "n"(TB));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_RS_N16("f16");
+  else
+    HOPPER_WGMMA_RS_N16("bf16");
 }
 
-// d[32] (+)= A[64x16] * B[16x64]: A from registers (bf16 pairs), B
-// from shared memory
-template <int TB>
+// d[32] (+)= A[64x16] * B[16x64]: A from registers (pairs of T), B from
+// shared memory
+template <int TB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int accum) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accum),
-        "n"(TB));
+  if constexpr (is_f16<T>)
+    HOPPER_WGMMA_RS_N64("f16");
+  else
+    HOPPER_WGMMA_RS_N64("bf16");
 }
+
+#undef HOPPER_WGMMA_SS_N16
+#undef HOPPER_WGMMA_SS_N64
+#undef HOPPER_WGMMA_SS_N128
+#undef HOPPER_WGMMA_RS_N16
+#undef HOPPER_WGMMA_RS_N64
 
 // ---------------------------------------------------------------- host
 
@@ -372,24 +446,30 @@ inline CUtensorMapSwizzle swizzle_of(int swe) {
                         : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// A contiguous bf16 (BH, S, D) tensor as a 3-D map (D, S, BH), read in
-// boxes of {swe, rows, 1} with the swizzle of a swe * 2-byte row. Being
-// 3-D, a box past row S of one head reads zeros, not the next head.
+// A contiguous (BH, S, D) tensor of 2-byte elements (`type` bf16, the
+// default, or f16) as a 3-D map (D, S, BH), read in boxes of
+// {swe, rows, 1} with the swizzle of a swe * 2-byte row. Being 3-D, a box
+// past row S of one head reads zeros, not the next head.
 inline bool tile_map(CUtensorMap* map, const void* base, int BH, int S,
-                     int D, int swe, int rows) {
-  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, BH, S, D,
-                   swe, rows, 1, swizzle_of(swe));
+                     int D, int swe, int rows,
+                     CUtensorMapDataType type =
+                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  return encode_3d(map, type, 2, base, BH, S, D, swe, rows, 1,
+                   swizzle_of(swe));
 }
 
-// A contiguous bf16 packed (T, H, D) tensor (rows of every head
-// interleaved, as varlen attention keeps them) as a 3-D map (D, H, T),
-// read in boxes of {swe, 1, rows}: one head's `rows` consecutive rows,
-// landing in shared memory exactly as a tile_map box does. One map serves
-// every head; a box may start at any row, and rows past T read zeros.
+// A contiguous packed (T, H, D) tensor of 2-byte elements (rows of every
+// head interleaved, as varlen attention keeps them) as a 3-D map
+// (D, H, T), read in boxes of {swe, 1, rows}: one head's `rows`
+// consecutive rows, landing in shared memory exactly as a tile_map box
+// does. One map serves every head; a box may start at any row, and rows
+// past T read zeros.
 inline bool packed_map(CUtensorMap* map, const void* base, int T, int H,
-                       int D, int swe, int rows) {
-  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, T, H, D,
-                   swe, 1, rows, swizzle_of(swe));
+                       int D, int swe, int rows,
+                       CUtensorMapDataType type =
+                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  return encode_3d(map, type, 2, base, T, H, D, swe, 1, rows,
+                   swizzle_of(swe));
 }
 
 // A contiguous f32 (BH, S, D) tensor as a 3-D map, boxes of {cols, rows,

@@ -5,19 +5,22 @@ Counterpart of ``paddle2_tpu/kernels/pallas_flash.py`` (``_flash_fwd``,
 ``_flash_bwd``, the ``_flash`` custom_vjp and ``flash_attention_bshd``).
 Which kernel serves which dtype:
 
-- forward: bf16 ``csrc/flash_fwd_wgmma.cu`` (tensor cores: wgmma fed by
-  TMA), f32 ``csrc/flash_fwd_tf32x3.cu`` (tensor cores, error-compensated
+- forward: bf16 and f16 ``csrc/flash_fwd_wgmma.cu`` (tensor cores:
+  wgmma fed by TMA, one kernel template instantiated for each), f32
+  ``csrc/flash_fwd_tf32x3.cu`` (tensor cores, error-compensated
   TF32 on mma.sync: 3 TF32 products per f32 product);
-- fused backward: bf16 ``csrc/flash_bwd_wgmma.cu`` (tensor cores), f32
+- fused backward: bf16 and f16 ``csrc/flash_bwd_wgmma.cu`` (tensor
+  cores), f32
   ``csrc/flash_bwd.cu``'s fused kernel (CUDA cores);
 - split backward pair (dK/dV, then dQ): f32 ``csrc/flash_bwd_tf32x3.cu``
-  (tensor cores, 3xTF32), bf16 ``csrc/flash_bwd.cu`` (CUDA cores).
+  (tensor cores, 3xTF32), bf16 and f16 ``csrc/flash_bwd.cu`` (CUDA
+  cores).
 
 The f32 kernels on the tensor cores share their split, products and
 fragment walks through ``csrc/tf32x3.cuh``. Each source note says what
 bounds it and how it is laid out. One launch counter per wrapper counts
 both of its kernels; ``route_launches`` counts each kernel of the
-forward and of the split pair.
+forward and of the split pair, ``dtype_launches`` each dtype.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel
 or raises. There is no third path: shapes and dtypes the kernels do not
@@ -51,7 +54,8 @@ __all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
            "FWD_ROUTES"]
 
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)
 BWD_ROUTES = ("fused", "split")
 
 _P = ctypes.c_void_p
@@ -77,23 +81,29 @@ _LIBRARIES = {
                          "flash_bwd_dq_tf32x3": _BWD_ARGS + [_P] + _BWD_TAIL},
 }
 # (library, C entry) of the forward by dtype, both on the tensor cores:
-# bf16 on wgmma, f32 in 3xTF32 on mma.sync; FWD_ROUTES names each, whose
-# launches ``flash_fwd.route_launches`` counts
+# bf16 and f16 on wgmma, f32 in 3xTF32 on mma.sync; FWD_ROUTES names each,
+# whose launches ``flash_fwd.route_launches`` counts
 _FWD_ENTRY = {torch.bfloat16: ("flash_fwd_wgmma", "flash_fwd_wgmma"),
+              torch.float16: ("flash_fwd_wgmma", "flash_fwd_wgmma"),
               torch.float32: ("flash_fwd_tf32x3", "flash_fwd_tf32x3")}
-FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
-# (library, C entry) of the fused backward by dtype: bf16 on the tensor
-# cores, f32 on the CUDA cores
+FWD_ROUTES = {torch.bfloat16: "wgmma", torch.float16: "wgmma",
+              torch.float32: "tf32x3"}
+# (library, C entry) of the fused backward by dtype: bf16 and f16 on the
+# tensor cores, f32 on the CUDA cores
 _FUSED_ENTRY = {torch.bfloat16: ("flash_bwd_wgmma", "flash_bwd_fused_wgmma"),
+                torch.float16: ("flash_bwd_wgmma", "flash_bwd_fused_wgmma"),
                 torch.float32: ("flash_bwd", "flash_bwd_fused")}
 # (library, C entry) of each kernel of the split pair, by dtype: f32 on the
-# tensor cores in 3xTF32, bf16 on the CUDA cores; SPLIT_ROUTES names the
-# two kernels of each wrapper, whose launches ``route_launches`` counts
+# tensor cores in 3xTF32, bf16 and f16 on the CUDA cores; SPLIT_ROUTES names
+# the two kernels of each wrapper, whose launches ``route_launches`` counts
 _DKV_ENTRY = {torch.bfloat16: ("flash_bwd", "flash_bwd_dkv"),
+              torch.float16: ("flash_bwd", "flash_bwd_dkv"),
               torch.float32: ("flash_bwd_tf32x3", "flash_bwd_dkv_tf32x3")}
 _DQ_ENTRY = {torch.bfloat16: ("flash_bwd", "flash_bwd_dq"),
+             torch.float16: ("flash_bwd", "flash_bwd_dq"),
              torch.float32: ("flash_bwd_tf32x3", "flash_bwd_dq_tf32x3")}
-SPLIT_ROUTES = {torch.float32: "tf32x3", torch.bfloat16: "cuda_cores"}
+SPLIT_ROUTES = {torch.float32: "tf32x3", torch.bfloat16: "cuda_cores",
+                torch.float16: "cuda_cores"}
 
 
 def _check(q, k, v) -> None:
@@ -111,7 +121,7 @@ def _check(q, k, v) -> None:
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need "
-                         f"float32 or bfloat16 for all three")
+                         f"float32, bfloat16 or float16 for all three")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
 
@@ -176,6 +186,7 @@ def flash_fwd(q, k, v, scale: Optional[float] = None, causal: bool = False
     _build.check(lib, err, entry)
     flash_fwd.launches += 1
     flash_fwd.route_launches[FWD_ROUTES[q.dtype]] += 1
+    flash_fwd.dtype_launches[q.dtype] += 1
     return o, lse
 
 
@@ -297,7 +308,7 @@ def _split_inputs(q, k, v, do):
 def flash_bwd_split_dkv(q, k, v, do, lse, delta, scale, causal):
     """Kernel 1 of the split route (``_bwd_dkv_kernel``): dK and dV,
     one block per key tile looping over the query tiles; f32 on the
-    tensor cores in 3xTF32 (``flash_bwd_tf32x3.cu``), bf16 on the CUDA
+    tensor cores in 3xTF32 (``flash_bwd_tf32x3.cu``), bf16 and f16 on the CUDA
     cores (``flash_bwd.cu``). CUDA tensors only; ``launches`` counts its
     launches, ``route_launches`` those of each kernel (by
     :data:`SPLIT_ROUTES`)."""
@@ -308,6 +319,7 @@ def flash_bwd_split_dkv(q, k, v, do, lse, delta, scale, causal):
                 library)
     flash_bwd_split_dkv.launches += 1
     flash_bwd_split_dkv.route_launches[SPLIT_ROUTES[q.dtype]] += 1
+    flash_bwd_split_dkv.dtype_launches[q.dtype] += 1
     return dk, dv
 
 
@@ -323,19 +335,20 @@ def flash_bwd_split_dq(q, k, v, do, lse, delta, scale, causal):
                 library)
     flash_bwd_split_dq.launches += 1
     flash_bwd_split_dq.route_launches[SPLIT_ROUTES[q.dtype]] += 1
+    flash_bwd_split_dq.dtype_launches[q.dtype] += 1
     return dq
 
 
 @checks_outputs("flash_bwd_fused")
 def flash_bwd_fused(q, k, v, do, lse, delta, scale, causal):
     """The fused route (``_bwd_fused_1blk_kernel``): dQ, dK and dV from
-    one score and probability tile; bf16 on the tensor cores
+    one score and probability tile; bf16 and f16 on the tensor cores
     (``flash_bwd_wgmma.cu``), f32 on the CUDA cores (``flash_bwd.cu``).
     Each block owns a key tile and adds its dQ share into an f32 buffer
     with atomics, which is cast to the input dtype after the kernel. The
     order of those additions changes from run to run, so dQ is not
     bitwise deterministic (dK and dV are)."""
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _HALF:
         q, k, v, do = (_build.tma_aligned(t) for t in (q, k, v, do))
     dq32 = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -343,18 +356,23 @@ def flash_bwd_fused(q, k, v, do, lse, delta, scale, causal):
     _bwd_launch(entry, q, k, v, do, lse, delta, (dq32, dk, dv), scale,
                 causal, library)
     flash_bwd_fused.launches += 1
+    flash_bwd_fused.dtype_launches[q.dtype] += 1
     return dq32.to(q.dtype), dk, dv
 
 
 for _fn in (flash_bwd_split_dkv, flash_bwd_split_dq, flash_bwd_fused):
     _fn.launches = 0
+# each wrapper's launches by dtype, beside its total
+for _fn in (flash_fwd, flash_bwd_split_dkv, flash_bwd_split_dq,
+            flash_bwd_fused):
+    _fn.dtype_launches = dict.fromkeys(_DTYPE_CODE, 0)
 for _fn in (flash_bwd_split_dkv, flash_bwd_split_dq):
     _fn.route_launches = dict.fromkeys(SPLIT_ROUTES.values(), 0)
 
 
 def bwd_route(dtype: torch.dtype) -> str:
     """The backward route the port takes when the caller names none:
-    "fused" for bf16, "split" for f32. PERF.md gives the H100 times at
+    "fused" for bf16 and f16, "split" for f32. PERF.md gives the H100 times at
     the training path's shape that ground the rule: the fused kernel
     does 10 of the split pair's 14 products per tile, and in bf16 it
     runs on the tensor cores (``flash_bwd_wgmma.cu``) where the bf16
@@ -362,7 +380,7 @@ def bwd_route(dtype: torch.dtype) -> str:
     tensor cores in 3xTF32 (``flash_bwd_tf32x3.cu``), where the fused
     kernel stays on the CUDA cores, and it has no atomics, so f32 (the
     precision a run is checked in) stays bitwise reproducible."""
-    return "fused" if dtype == torch.bfloat16 else "split"
+    return "fused" if dtype in _HALF else "split"
 
 
 @checks_outputs("flash_bwd")

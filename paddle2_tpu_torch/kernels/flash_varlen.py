@@ -61,7 +61,8 @@ SUPPORTED_HEAD_DIMS = (16, 64, 128)
 # tile (BQ = BK in csrc/flash_varlen.cu); a block of the tensor-core
 # forward (csrc/flash_varlen_wgmma.cu) takes 128 query rows, two entries
 TILE = 64
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,8 +87,9 @@ _LIBRARIES = {"flash_varlen": _SIGNATURES,
 # the fused kernel's keys a block (csrc/flash_varlen_bwd_wgmma.cu BKEY)
 _FUSED_KEYS = 128
 # (library, C entry) of the forward by dtype: the tensor-core kernel
-# takes bf16, the CUDA-core kernel f32
+# takes bf16 and f16, the CUDA-core kernel f32
 _FWD_ENTRY = {torch.bfloat16: ("flash_varlen_wgmma", "flash_varlen_fwd_wgmma"),
+              torch.float16: ("flash_varlen_wgmma", "flash_varlen_fwd_wgmma"),
               torch.float32: ("flash_varlen", "flash_varlen_fwd")}
 _NEG = float("-inf")
 
@@ -103,8 +105,7 @@ def kernel_gap(q, k, v) -> Optional[str]:
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         return (f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the varlen kernels "
-                f"take float32 or bfloat16 for all three (float16 is "
-                f"ROADMAP.md queue 2 A2)")
+                f"take float32, bfloat16 or float16 for all three")
     return None
 
 
@@ -339,7 +340,7 @@ def flash_varlen_fwd(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles,
         return flash_varlen_fwd_reference(q, k, v, seg_q, off_q, seg_k,
                                           off_k, float(scale))
     Tq, H, D = q.shape
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _HALF:
         _check_tma(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((H, Tq), dtype=torch.float32, device=q.device)
@@ -353,6 +354,7 @@ def flash_varlen_fwd(q, k, v, seg_q, off_q, seg_k, off_k, q_tiles,
             _stream(q))
     _build.check(lib, err, entry)
     flash_varlen_fwd.launches += 1
+    flash_varlen_fwd.dtype_launches[q.dtype] += 1
     return o, lse
 
 
@@ -387,6 +389,7 @@ def flash_varlen_bwd_dkv(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
     _bwd_launch("flash_varlen_bwd_dkv", q, k, v, do, lse, delta, meta,
                 k_tiles, (dk, dv), scale)
     flash_varlen_bwd_dkv.launches += 1
+    flash_varlen_bwd_dkv.dtype_launches[q.dtype] += 1
     return dk, dv
 
 
@@ -408,6 +411,7 @@ def flash_varlen_bwd_dq(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
     _bwd_launch("flash_varlen_bwd_dq", q, k, v, do, lse, delta, meta,
                 q_tiles, (dq,), scale)
     flash_varlen_bwd_dq.launches += 1
+    flash_varlen_bwd_dq.dtype_launches[q.dtype] += 1
     return dq
 
 
@@ -432,9 +436,10 @@ def flash_varlen_bwd_fused(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
                           *meta, k_tiles):
         return flash_varlen_bwd_fused_reference(q, k, v, do, lse, delta,
                                                 *meta, float(scale))
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"the fused varlen backward takes bfloat16, got "
-                         f"{q.dtype} (f32 takes the split route)")
+    if q.dtype not in _HALF:
+        raise ValueError(f"the fused varlen backward takes bfloat16 or "
+                         f"float16, got {q.dtype} (f32 takes the split "
+                         f"route)")
     _check_tma(q, k, v, do)
     Tq, H, D = q.shape
     Tk = k.shape[0]
@@ -452,12 +457,14 @@ def flash_varlen_bwd_fused(q, k, v, do, lse, delta, seg_q, off_q, seg_k,
             Tq, Tk, H, D, _DTYPE_CODE[q.dtype], float(scale), _stream(q))
     _build.check(lib, err, entry)
     flash_varlen_bwd_fused.launches += 1
+    flash_varlen_bwd_fused.dtype_launches[q.dtype] += 1
     return dq32.to(q.dtype), dk, dv
 
 
 for _fn in (flash_varlen_fwd, flash_varlen_bwd_dkv, flash_varlen_bwd_dq,
             flash_varlen_bwd_fused):
     _fn.launches = 0
+    _fn.dtype_launches = dict.fromkeys(_DTYPE_CODE, 0)   # by dtype
 
 
 def varlen_bwd_route(dtype: torch.dtype) -> str:
@@ -467,7 +474,7 @@ def varlen_bwd_route(dtype: torch.dtype) -> str:
     reproducible, the precision a run is checked in). PERF.md gives the
     H100 times that ground the rule. The choice is made before the
     launch; a launch that fails raises."""
-    return "fused" if dtype == torch.bfloat16 else "split"
+    return "fused" if dtype in _HALF else "split"
 
 
 # ----------------------------------------------------- differentiable op
@@ -544,7 +551,7 @@ def flash_attention_varlen_packed(q, k, v, seg_q, off_q, seg_k, off_k,
     if tiles is None:
         tiles = tile_ranges(*meta)
     q, k, v = (t.contiguous() for t in (q, k, v))
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _HALF:
         q, k, v = (_build.tma_aligned(t) for t in (q, k, v))
     o, _ = flash_attn_varlen(q, k, v, *meta, *tiles, float(scale))
     return o

@@ -41,6 +41,7 @@ from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..kernels.attention import scaled_dot_product_attention
 from ..nn import LayerNorm
 from ._scan import StackedLayerStack
+from ..amp.casting import amp_op
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "gpt3_1p3b", "gpt_small", "gpt_tiny"]
@@ -326,6 +327,7 @@ def _promoted(a, b):
     return a.to(dt), b.to(dt)
 
 
+@amp_op("cross_entropy")
 def _cross_entropy(logits, labels, ignore_index: int = -100):
     """Mean cross-entropy over the labels not ignored, as the JAX
     package's ``F.cross_entropy`` computes it (nn/functional/loss.py:33):

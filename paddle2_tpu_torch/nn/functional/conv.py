@@ -26,6 +26,7 @@ import torch
 from torch.nn import functional as TF
 
 from ...flags import flag_value
+from ...amp.casting import amp_op
 
 __all__ = ["conv2d"]
 
@@ -75,6 +76,7 @@ def resolve_padding(padding: Padding, sizes, windows, strides
     raise ValueError(f"bad padding {padding}")
 
 
+@amp_op("conv2d")
 def conv2d(x, weight, bias=None, stride=1, padding: Padding = 0,
            dilation=1, groups: int = 1, data_format: str = "NCHW"
            ) -> torch.Tensor:

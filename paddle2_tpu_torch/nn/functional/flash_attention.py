@@ -37,6 +37,7 @@ from ...kernels.attention import (_sdpa_plain, flash_enabled,
                                   set_flash_enabled)
 from ...kernels.flash_varlen import (flash_attention_varlen_packed,
                                      kernel_gap, tile_ranges)
+from ...amp.casting import amp_op
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flash_attn_qkvpacked",
            "flash_attn_varlen_qkvpacked", "scaled_dot_product_attention",
@@ -98,6 +99,7 @@ def _host_offsets(cu, T: int, what: str) -> np.ndarray:
     return cu
 
 
+@amp_op("flash_attn_unpadded")
 def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                         max_seqlen_q: int, max_seqlen_k: int, scale: float,
                         dropout: float = 0.0, causal: bool = False,
@@ -245,6 +247,7 @@ class sdp_kernel:
         return False
 
 
+@amp_op("flash_attn_unpadded_packed")
 def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
                                 max_seqlen_q, max_seqlen_k, scale,
                                 dropout: float = 0.0, causal: bool = False,
@@ -268,6 +271,7 @@ def _masked_softmax_out(scores, allowed, v, out_dtype, eq):
     return torch.einsum(eq, probs, v.float()).to(out_dtype), lse
 
 
+@amp_op("flashmask_attention")
 def flashmask_attention(query, key, value, startend_row_indices=None,
                         dropout: float = 0.0, causal: bool = False,
                         window_size=None, return_softmax_lse: bool = False,
@@ -331,6 +335,7 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     return res
 
 
+@amp_op("sparse_attention")
 def sparse_attention(query, key, value, sparse_csr_offset,
                      sparse_csr_columns, key_padding_mask=None,
                      attn_mask=None, name=None):

@@ -11,10 +11,12 @@ ROADMAP queue 1 item 2.
 """
 
 import torch
+from ...amp.casting import amp_op
 
 __all__ = ["cross_entropy"]
 
 
+@amp_op("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index: int = -100,
                   reduction: str = "mean", soft_label: bool = False,
                   axis: int = -1, use_softmax: bool = True,

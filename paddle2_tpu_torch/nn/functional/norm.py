@@ -59,6 +59,7 @@ from torch.nn import functional as TF
 
 from ...flags import flag_value
 from ...kernels import fused_layer_norm as _fused
+from ...amp.casting import amp_op
 
 __all__ = ["layer_norm", "batch_norm"]
 
@@ -70,6 +71,7 @@ def _use_fused(x, n_axes, weight, bias) -> bool:
             and _fused.supported(x, weight, bias))
 
 
+@amp_op("layer_norm")
 def layer_norm(x, normalized_shape: Union[int, Sequence[int]], weight=None,
                bias=None, epsilon: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the trailing ``normalized_shape`` axes of ``x``."""
@@ -92,6 +94,7 @@ def layer_norm(x, normalized_shape: Union[int, Sequence[int]], weight=None,
     return out.to(x.dtype)
 
 
+@amp_op("batch_norm")
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training: bool = False, momentum: float = 0.9,
                epsilon: float = 1e-5, data_format: str = "NCHW",

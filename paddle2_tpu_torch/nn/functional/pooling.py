@@ -25,10 +25,12 @@ import torch
 from torch.nn import functional as TF
 
 from .conv import channel_last, resolve_padding, tuplize
+from ...amp.casting import amp_op
 
 __all__ = ["max_pool2d", "adaptive_avg_pool2d"]
 
 
+@amp_op("max_pool2d")
 def max_pool2d(x, kernel_size, stride=None, padding=0,
                return_mask: bool = False, ceil_mode: bool = False,
                data_format: str = "NCHW") -> torch.Tensor:
@@ -58,6 +60,7 @@ def max_pool2d(x, kernel_size, stride=None, padding=0,
     return out.permute(0, 2, 3, 1) if nhwc else out
 
 
+@amp_op("adaptive_avg_pool2d")
 def adaptive_avg_pool2d(x, output_size: Union[int, Sequence[Optional[int]]],
                         data_format: str = "NCHW") -> torch.Tensor:
     """Average over Paddle's adaptive bins, one spatial axis at a time

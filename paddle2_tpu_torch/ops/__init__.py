@@ -2,7 +2,8 @@
 
 Every op of ``creation``, ``math``, ``manipulation``, ``linalg``,
 ``logic``, ``random``, ``extra`` and ``misc`` is re-exported here (and
-from there at the package's top level), and each one that the JAX
+from there at the package's top level), casts under
+``paddle.amp.auto_cast`` as :mod:`.dispatch` says, and each one that the JAX
 package installs as a tensor method becomes a ``torch.Tensor`` method
 where torch lacks the name (``x.concat``, ``x.scale_``, ``x.mean_all``
 ...); a name torch has keeps torch's meaning. Indexing and the
@@ -14,9 +15,12 @@ from __future__ import annotations
 import torch
 
 from . import creation, extra, linalg, logic, manipulation, math, misc, random
-from .dispatch import ensure_tensor
+from .dispatch import cast_op_library, ensure_tensor
 from ..framework import random as _fr
 from ..framework.tensor import install_methods
+
+cast_op_library((creation, math, manipulation, linalg, logic, random, extra,
+                 misc))
 
 from .math import *          # noqa: F401,F403
 from .creation import *      # noqa: F401,F403

@@ -18,13 +18,25 @@ same way, so an internal ``-inf`` mask is not taken for a fault. The
 check reads every output back to the host, one synchronization an op; it
 is off by default, as in the JAX package.
 
-The AMP cast (``dispatch.py:35-60``) comes with ``auto_cast``, and the
-static recorder with ``static/``.
+**The AMP cast** (``dispatch.py:35-60, :170-175``). Under
+``paddle.amp.auto_cast`` each op of the library casts its floating
+tensor arguments by the name the JAX package dispatches it under, with
+the JAX package's rule (:mod:`paddle2_tpu_torch.amp.casting`), and
+runs its body uncast: :func:`cast_op_library` wraps every op of the
+library in :func:`~paddle2_tpu_torch.amp.casting.amp_op`. The name is
+the op's own, but for the ops the JAX package dispatches under another
+(:data:`DISPATCHED_AS`: ``mm`` and ``bmm`` as ``matmul``, ``unbind``
+as ``unstack`` ...; ``pow`` by its exponent, :data:`DISPATCHED_BY`) and
+the ones it runs without its dispatcher
+(:data:`NOT_DISPATCHED`: creation from shapes, random draws, queries,
+in-place fills), which take no cast. The static recorder comes with
+``static/`` (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import functools
+import inspect
 import threading
 from typing import Any, Callable, Optional
 
@@ -32,10 +44,13 @@ import torch
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 
+from ..amp.casting import amp_op, cast_call
 from ..framework import core
 
 __all__ = ["FiniteCheckMode", "check_finite", "checks_outputs",
-           "set_check_nan_inf", "ensure_tensor", "promote"]
+           "set_check_nan_inf", "ensure_tensor", "promote",
+           "cast_op_library", "DISPATCHED_AS", "DISPATCHED_BY",
+           "NOT_DISPATCHED"]
 
 # ops whose outputs are uninitialized memory (nothing to check yet)
 _UNCHECKED = frozenset({"empty", "empty_like", "empty_strided",
@@ -148,3 +163,99 @@ def promote(*ts: torch.Tensor):
         if t.dtype != dt:
             dt = torch.promote_types(dt, t.dtype)
     return tuple(t if t.dtype == dt else t.to(dt) for t in ts)
+
+
+# ------------------------------------------------------------ AMP cast
+
+# ops the JAX package dispatches under another op's name
+DISPATCHED_AS = {
+    "bmm": "matmul", "mm": "matmul", "mv": "matmul",
+    "broadcast_tensors": "expand", "broadcast_to": "expand",
+    "expand_as": "expand", "bucketize": "searchsorted", "chunk": "split",
+    "index_select": "gather", "unbind": "unstack", "view_as": "reshape",
+    "pad_basic": "pad", "ormqr": "householder_product",
+}
+
+# ops the JAX package runs without its dispatcher: no AMP cast
+NOT_DISPATCHED = frozenset({
+    "CUDAPinnedPlace", "LazyGuard", "arange", "as_tensor", "batch",
+    "bernoulli", "bernoulli_", "binomial", "broadcast_shape", "cauchy_",
+    "check_shape", "disable_signal_handler", "dtype", "eig", "eigvals",
+    "empty", "empty_like", "exponential_", "eye", "float8_e4m3fn",
+    "float8_e5m2", "flops", "full", "full_like", "geometric_",
+    "get_cuda_rng_state", "histogram_bin_edges", "histogramdd",
+    "increment", "index_add_", "index_fill_", "index_put_", "is_complex",
+    "is_empty", "is_floating_point", "is_integer", "is_tensor",
+    "linspace", "log_normal", "log_normal_", "logspace", "lu",
+    "lu_unpack", "masked_scatter", "mode", "multinomial", "nonzero",
+    "normal", "normal_", "numel", "ones", "ones_like", "poisson", "rand",
+    "randint", "randint_like", "randn", "randperm", "rank", "reshape_",
+    "scatter_", "set_cuda_rng_state", "set_printoptions", "shape",
+    "squeeze_", "standard_gamma", "standard_normal", "to_tensor",
+    "tolist", "top_p_sampling", "tril_indices", "triu_indices", "uniform",
+    "uniform_", "unique", "unique_consecutive", "unsqueeze_", "where_",
+    "zeros", "zeros_like",
+})
+
+
+def _pow_name(x, y, *args, **kwargs) -> str:
+    """``pow`` dispatches as ``"pow"`` for a Python int exponent and as
+    ``"pow_op"`` otherwise, as in the JAX package (both black-listed)."""
+    return "pow" if isinstance(y, int) and not isinstance(y, bool) \
+        else "pow_op"
+
+
+def _arg(args, kwargs, i, name, default=None):
+    return args[i] if len(args) > i else kwargs.get(name, default)
+
+
+# ops whose JAX name depends on their arguments: op -> name(*args, **kw),
+# None where the JAX op dispatches nothing for those arguments
+DISPATCHED_BY = {
+    "pow": _pow_name,
+    # a tensor of fewer than 2 dims is cloned
+    "t": lambda x, *a, **k: "clone" if getattr(x, "ndim", 2) < 2 else "t",
+    # where(condition) is nonzero's, outside the dispatcher
+    "where": lambda c, *a, **k: None if _arg(a, k, 0, "x") is None and
+    _arg(a, k, 1, "y") is None else "where",
+    # a list or tuple reshapes; a dtype reinterprets
+    "view": lambda x, sd, *a, **k: "reshape" if isinstance(sd, (list, tuple))
+    else "view_dtype",
+    # tensors of two shapes compare unequal without a dispatch
+    "equal_all": lambda x, y, *a, **k: "equal_all" if tuple(
+        getattr(x, "shape", ())) == tuple(getattr(y, "shape", ()))
+    else None,
+    "bitwise_right_shift": lambda x, y, *a, **k: "bitwise_right_shift"
+    if _arg(a, k, 0, "is_arithmetic", True) else
+    "bitwise_right_shift_logical",
+}
+
+
+def _by_args(namer, fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        name = namer(*args, **kwargs)
+        if name is None:
+            return fn(*args, **kwargs)
+        return cast_call(name, fn, *args, **kwargs)
+    wrapper.amp_name = namer
+    return wrapper
+
+
+def cast_op_library(modules) -> None:
+    """Wrap every function each module of ``modules`` exports (its
+    ``__all__``) in :func:`~paddle2_tpu_torch.amp.casting.amp_op`
+    under the name the JAX package dispatches it by, in place, so the
+    package's re-exports, the tensor methods and the calls between ops
+    all cast; an op inside another runs uncast, as it does in the JAX
+    package."""
+    for mod in modules:
+        for name in mod.__all__:
+            fn = getattr(mod, name)
+            if name in NOT_DISPATCHED or not inspect.isfunction(fn) or \
+                    hasattr(fn, "amp_name"):
+                continue
+            if name in DISPATCHED_BY:
+                setattr(mod, name, _by_args(DISPATCHED_BY[name], fn))
+            else:
+                setattr(mod, name, amp_op(DISPATCHED_AS.get(name, name))(fn))

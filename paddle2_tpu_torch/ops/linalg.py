@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..amp.casting import cast_call
 from .dispatch import ensure_tensor, promote
 
 __all__ = ["matmul", "bmm", "mm", "mv", "dot", "norm", "dist", "cond",
@@ -164,9 +165,15 @@ def det(x, name=None):
 
 
 def slogdet(x, name=None):
-    sign, logdet = _wide(lambda a: tuple(torch.linalg.slogdet(a)))(
-        ensure_tensor(x))
-    return torch.stack([sign, logdet], dim=0)
+    """``[sign, logdet]`` stacked. Under AMP it casts as the JAX op's two
+    dispatches do: the determinant as ``"slogdet"``, the stack as
+    ``"stack"``."""
+    sign, logdet = cast_call("slogdet", _wide(
+        lambda a: tuple(torch.linalg.slogdet(a))), ensure_tensor(x))
+    return cast_call("stack", torch.stack, [sign, logdet], dim=0)
+
+
+slogdet.amp_name = "slogdet"      # cast inside: not wrapped again
 
 
 def solve(x, y, name=None):

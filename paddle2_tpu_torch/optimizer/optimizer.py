@@ -5,17 +5,20 @@ The JAX package traces one pure update over all parameters and runs it
 jitted; the port runs the same per-parameter update eagerly, in torch
 ops, and writes the results into the parameters and states. Subclasses
 supply ``_update_one(param, grad, state, lr, step)``. What is carried
-over: parameter groups, the ``(kind, coeff)`` weight decay, the
-multi-precision ``{"master", "inner"}`` state with the explicit f32
-cast of the gradient, decoupled decay, the fused-step routing with its
-per-tensor fallback (for CPU tensors; on the card a tensor the fused
-kernel does not take raises), ``step``/``clear_grad``/``state_dict``.
+over: parameter groups, the ``(kind, coeff)`` weight decay (a float or
+``paddle.regularizer.L1Decay``/``L2Decay``), gradient clipping
+(``grad_clip``, applied to the gradients of the parameters whose
+``need_clip`` is not False before either route's update), a float or an
+:class:`~.lr.LRScheduler` learning rate (``get_lr``, ``set_lr``,
+``set_lr_scheduler``), the multi-precision ``{"master", "inner"}`` state
+with the explicit f32 cast of the gradient, decoupled decay, the
+fused-step routing with its per-tensor fallback (for CPU tensors; on the
+card a tensor the fused kernel does not take raises),
+``step``/``minimize``/``clear_grad`` and ``state_dict`` with the
+scheduler's state under ``"LR_Scheduler"``.
 
 The constructors take the JAX package's parameters in its positional
-order. Not ported yet (ROADMAP queue 1 item 2), and refused with
-``NotImplementedError`` when set: gradient clipping, LR schedulers
-(only a float learning rate is taken), and the options
-:func:`refuse_unported` names.
+order.
 """
 
 from typing import Any, Dict, List
@@ -24,15 +27,33 @@ import numpy as np
 import torch
 
 from ..flags import flag_value
+from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
 
 
-def _clone(state):
+def _clone(state, device=None):
+    """A copy of a state tree, its tensors moved to ``device`` when
+    given."""
     if isinstance(state, dict):
-        return {k: _clone(v) for k, v in state.items()}
-    return state.detach().clone() if isinstance(state, torch.Tensor) \
-        else state
+        return {k: _clone(v, device) for k, v in state.items()}
+    if not isinstance(state, torch.Tensor):
+        return state
+    t = state.detach()
+    if device is not None and t.device != device:
+        return t.to(device)
+    return t.clone()
+
+
+def _clip_arrays(grad_clip, grads, need_clip_flags):
+    """Gradient clipping over the clippable subset (the JAX package's
+    ``_clip_arrays``)."""
+    if grad_clip is None:
+        return grads
+    clipped = iter(grad_clip.apply_arrays(
+        [g for g, c in zip(grads, need_clip_flags) if c]))
+    return [next(clipped) if c else g
+            for g, c in zip(grads, need_clip_flags)]
 
 
 class Optimizer:
@@ -43,15 +64,6 @@ class Optimizer:
         if parameters is None:
             raise ValueError("parameters is required "
                              "(pass model.parameters())")
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "gradient clipping is not ported yet (ROADMAP queue 1 "
-                "item 2)")
-        if isinstance(learning_rate, bool) or \
-                not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "only a float learning rate is taken: LR schedulers are "
-                "not ported yet (ROADMAP queue 1 item 2)")
         self._param_groups: List[Dict[str, Any]] = []
         params_list = list(parameters)
         if params_list and isinstance(params_list[0], dict):
@@ -61,9 +73,10 @@ class Optimizer:
                 self._param_groups.append(g)
         else:
             self._param_groups.append({"params": params_list})
-        self._lr = float(learning_rate)
+        self._lr = learning_rate
         self._name = name
         self._weight_decay = self._wd_value(weight_decay)
+        self._grad_clip = grad_clip
         self._multi_precision = multi_precision
         self._states: Dict[int, Any] = {}
         self._step_count = 0
@@ -82,6 +95,20 @@ class Optimizer:
 
     # -- lr --------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return self._lr()
+        return float(self._lr)
+
+    def set_lr(self, value: float) -> None:
+        if isinstance(self._lr, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._lr = float(value)
+
+    def set_lr_scheduler(self, scheduler: LRScheduler) -> None:
+        self._lr = scheduler
+
+    @property
+    def _learning_rate(self):
         return self._lr
 
     # -- state -----------------------------------------------------------
@@ -173,15 +200,26 @@ class Optimizer:
             return
         decay_flags = tuple(not getattr(p, "no_weight_decay", False)
                             for p in params)
+        need_clip = tuple(bool(getattr(p, "need_clip", True))
+                          for p in params)
+        grads = _clip_arrays(self._grad_clip, [p.grad for p in params],
+                             need_clip)
         update = self._build_update(decay_flags)
         new_params, new_states = update(
-            params, [p.grad for p in params],
-            [self._ensure_state(p) for p in params], self.get_lr(),
-            self._step_count)
+            params, grads, [self._ensure_state(p) for p in params],
+            self.get_lr(), self._step_count)
         for p, np_, ns_ in zip(params, new_params, new_states):
             if np_ is not p:
                 p.copy_(np_)
             self._states[id(p)] = ns_
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()`` and :meth:`step`; returns ``(None,
+        None)`` as the JAX package does."""
+        loss.backward()
+        self.step()
+        return None, None
 
     def clear_grad(self, set_to_zero: bool = False):
         for p in self._parameter_list():
@@ -192,25 +230,41 @@ class Optimizer:
             else:
                 p.grad = None
 
+    clear_gradients = clear_grad
+
     # -- checkpointing ---------------------------------------------------
+    @staticmethod
+    def _state_key(p, idx: int) -> str:
+        """A parameter's key in the state dict: its Paddle name where it
+        carries one (``paddle_name``, which ``paddle.load`` sets), else
+        ``param_<index>`` in parameter order, as the JAX package keys an
+        unnamed parameter."""
+        return getattr(p, "paddle_name", None) or f"param_{idx}"
+
     def state_dict(self) -> Dict[str, Any]:
-        """``_step_count`` and a copy of each parameter's state, keyed
-        ``param_<index>`` in parameter order (torch parameters carry no
-        names)."""
+        """``_step_count``, the scheduler's state (``"LR_Scheduler"``)
+        and a copy of each parameter's state under
+        :meth:`_state_key`."""
         out: Dict[str, Any] = {"_step_count": self._step_count}
+        if isinstance(self._lr, LRScheduler):
+            out["LR_Scheduler"] = self._lr.state_dict()
         for idx, p in enumerate(self._parameter_list()):
             if id(p) in self._states:
-                out[f"param_{idx}"] = _clone(self._states[id(p)])
+                out[self._state_key(p, idx)] = _clone(self._states[id(p)])
         return out
 
     def set_state_dict(self, state_dict: Dict[str, Any]):
-        """Restore copies of the states; a parameter without an entry
-        goes back to uninitialised, as in the JAX package."""
+        """Restore copies of the states on each parameter's device (a
+        loaded file's tensors lie on the CPU); a parameter without an
+        entry goes back to uninitialised, as in the JAX package."""
         self._step_count = int(state_dict.get("_step_count", 0))
+        if isinstance(self._lr, LRScheduler) and \
+                "LR_Scheduler" in state_dict:
+            self._lr.set_state_dict(state_dict["LR_Scheduler"])
         for idx, p in enumerate(self._parameter_list()):
-            key = f"param_{idx}"
+            key = self._state_key(p, idx)
             if key in state_dict:
-                self._states[id(p)] = _clone(state_dict[key])
+                self._states[id(p)] = _clone(state_dict[key], p.device)
             else:
                 self._states.pop(id(p), None)
 
@@ -231,17 +285,7 @@ def refuse_off_cpu(p, l1: bool) -> None:
             f"parameter of shape {tuple(p.shape)} on {p.device} ("
             + ("l1 decay" if l1 else "it needs an f32 update on contiguous "
                "tensors: an f32 parameter or multi_precision=True")
-            + "); pass fused=False (ROADMAP queue 1 item 2)")
-
-
-def refuse_unported(**options) -> None:
-    """Raise for an option of the JAX signature that the port takes but
-    does not implement, when it is set (not None or False)."""
-    for name, value in options.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP queue 1 "
-                f"item 2)")
+            + "); pass fused=False")
 
 
 def _f32_mul(a: float, b: float) -> float:

@@ -71,15 +71,22 @@ def _jax(q, k, v, causal):
 def test_sdpa_outside_the_kernels_matches_jax_on_the_cpu(case, causal):
     """The port's CPU route against the JAX function (XLA on the CPU) on
     shapes the CUDA kernels do not take; no flash kernel's plain
-    version runs."""
+    version runs. float16 (``f16_d64``), which the kernels take since
+    their float16 instantiation, goes through the flash route's plain
+    version and matches the same way."""
     Sq, Sk, D, dtype = CASES[case]
     q, k, v = _qkv(3, Sq, Sk, D, dtype)
     if case == "d32":
         k, v = q, q                      # the queue item's q = k = v
+    ran = []
     with pytest.MonkeyPatch.context() as mp:
+        plain = flash_attn.flash_fwd_reference
         mp.setattr(flash_attn, "flash_fwd_reference",
-                   lambda *a: pytest.fail("the flash route ran"))
+                   lambda *a: ran.append(1) or plain(*a)
+                   if case == "f16_d64"
+                   else pytest.fail("the flash route ran"))
         got = _port(q, k, v, causal)
+    assert bool(ran) == (case == "f16_d64")
     np.testing.assert_allclose(got, _jax(q, k, v, causal),
                                atol=TOL[dtype], rtol=0)
 
@@ -192,12 +199,20 @@ def card(monkeypatch):
 def test_sdpa_outside_the_kernels_raises_on_the_card(card, case, item):
     """On the card a shape the JAX package sends to its kernel and the
     port's kernels do not take raises, naming its queue item; nothing
-    is launched and the plain route does not run."""
+    is launched and the plain route does not run. float16 (``f16_d64``,
+    queue 2 A2, now done) reaches the tensor-core forward's C entry with
+    dtype code 2."""
     Sq, Sk, D, dtype = CASES[case]
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, Sq, Sk, D, dtype))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(attention, "_sdpa_plain",
                    lambda *a, **kw: pytest.fail("the plain route ran"))
+        if item == "A2":
+            attention.scaled_dot_product_attention(q, k, v, is_causal=True)
+            (lib, entry, args), = card
+            assert (lib, entry) == ("flash_fwd_wgmma", "flash_fwd_wgmma")
+            assert args[10] == 2
+            return
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md queue 2 {item}"):
             attention.scaled_dot_product_attention(q, k, v, is_causal=True)

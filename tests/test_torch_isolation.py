@@ -54,12 +54,17 @@ import paddle2_tpu_torch.jit, paddle2_tpu_torch.quantization
 import paddle2_tpu_torch.flags, paddle2_tpu_torch.nn.functional
 import paddle2_tpu_torch.vision.models
 import paddle2_tpu_torch.incubate.nn, paddle2_tpu_torch.incubate.nn.functional
+import paddle2_tpu_torch.amp.casting, paddle2_tpu_torch.amp.grad_scaler
+import paddle2_tpu_torch.amp.amp_lists, paddle2_tpu_torch.optimizer.lr
+import paddle2_tpu_torch.nn.clip, paddle2_tpu_torch.regularizer
 from paddle2_tpu_torch.kernels import _build
 assert not calls, calls
 assert not _build._LIBS
 assert not any(m == "jax" or m.startswith(("jax.", "paddle2_tpu."))
                or m == "paddle2_tpu" for m in sys.modules), \\
     [m for m in sys.modules if "jax" in m or m.startswith("paddle2_tpu.")]
+assert paddle2_tpu_torch.amp.amp_state() is None   # no cast at import
+assert not torch.overrides._get_current_function_mode_stack()
 assert torch.backends.cuda.matmul.allow_tf32 is False
 assert torch.backends.cudnn.allow_tf32 is False
 print("ok")

@@ -22,7 +22,7 @@ import torch
 import paddle2_tpu as paddle
 import paddle2_tpu.optimizer as jopt
 from paddle2_tpu_torch.kernels import fused_adamw
-from paddle2_tpu_torch.optimizer import Adam, AdamW, Momentum, Optimizer
+from paddle2_tpu_torch.optimizer import Adam, AdamW, Momentum
 
 STEPS = 10
 SHAPE = (6, 40)
@@ -220,14 +220,47 @@ def test_param_groups_and_skipped_params():
     assert torch.equal(b, torch.ones(3)) and id(b) not in o._states
 
 
-@pytest.mark.parametrize("kwargs", [dict(grad_clip=object()),
-                                    dict(learning_rate=lambda step: 1e-3)])
+def _adamw_pair(init, grads, **opts):
+    """Ten AdamW steps of the port and of the JAX package from the same
+    parameter and gradients, with ``opts`` (each a factory of the
+    package's module) passed to both constructors."""
+    import paddle2_tpu.nn as jnn
+    import paddle2_tpu_torch as tp
+    outs = []
+    for side in ("jax", "torch"):
+        mods = dict(nn=jnn if side == "jax" else tp.nn,
+                    lr=jopt.lr if side == "jax" else tp.optimizer.lr)
+        kw = {k: v(mods) if callable(v) else v for k, v in opts.items()}
+        kw.setdefault("learning_rate", 1e-2)
+        sched = kw["learning_rate"] if not isinstance(
+            kw["learning_rate"], float) else None
+        if side == "jax":
+            p = paddle.to_tensor(init, stop_gradient=False)
+            o = jopt.AdamW(parameters=[p], **kw)
+        else:
+            p = torch.nn.Parameter(torch.tensor(init))
+            o = AdamW(parameters=[p], **kw)
+        for g in grads:
+            p.grad = paddle.to_tensor(g) if side == "jax" else \
+                torch.tensor(g)
+            o.step()
+            if sched is not None:
+                sched.step()
+        outs.append(np.asarray(p.numpy() if side == "jax"
+                               else p.detach().numpy(), np.float32))
+    return outs
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(grad_clip=lambda m: m["nn"].ClipGradByGlobalNorm(0.5)),
+    dict(learning_rate=lambda m: m["lr"].StepDecay(1e-2, 3, gamma=0.5))])
 def test_unported_options_raise(kwargs):
-    args = dict(learning_rate=1e-3, parameters=[torch.nn.Parameter(
-        torch.ones(2))])
-    args.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AdamW(**args)
+    """Gradient clipping and a scheduler learning rate, which the port
+    refused until it ported them, now hold against the JAX package."""
+    init, grads = _data(13)
+    want, got = _adamw_pair(init, grads, **kwargs)
+    _close(torch.from_numpy(got), want)
+    assert not np.allclose(got, init)
 
 
 def _named_parameters(cls):
@@ -238,12 +271,15 @@ def _named_parameters(cls):
             if n != "self" and p.kind != inspect.Parameter.VAR_KEYWORD]
 
 
-@pytest.mark.parametrize("name", ["Optimizer", "Momentum", "Adam", "AdamW"])
+@pytest.mark.parametrize("name", ["Optimizer", "Momentum", "Adam", "AdamW",
+                                  "SGD", "Adamax", "Adagrad", "Adadelta",
+                                  "RMSProp", "Lamb", "Lion", "NAdam",
+                                  "RAdam", "LBFGS", "ASGD", "Rprop"])
 def test_signatures_match_the_reference(name):
     """The port's constructors take the JAX package's parameters, with
     its defaults, in its positional order (``fused`` last, as there)."""
-    port = {"Optimizer": Optimizer, "Momentum": Momentum, "Adam": Adam,
-            "AdamW": AdamW}[name]
+    import paddle2_tpu_torch.optimizer as topt
+    port = getattr(topt, name)
     assert _named_parameters(port) == _named_parameters(getattr(jopt, name))
 
 
@@ -259,15 +295,21 @@ def test_name_is_taken_and_kept(cls):
 
 def test_positional_arguments_bind_as_in_the_reference():
     """AdamW's 7th positional argument is ``lr_ratio`` and Adam's 8th
-    ``lazy_mode``, as in the JAX package; a set one raises."""
+    ``lazy_mode``, as in the JAX package; both bind, and, as there,
+    change nothing of a dense update: the steps equal the JAX package's
+    with the same positional arguments."""
     params = [torch.nn.Parameter(torch.ones(2))]
-    with pytest.raises(NotImplementedError, match="lr_ratio"):
-        AdamW(1e-3, 0.9, 0.999, 1e-8, params, 0.01, 0.5)
-    with pytest.raises(NotImplementedError, match="lazy_mode"):
-        Adam(1e-3, 0.9, 0.999, 1e-8, params, None, None, True)
+    ratio = lambda p: 0.5  # noqa: E731
+    o = AdamW(1e-3, 0.9, 0.999, 1e-8, params, 0.01, ratio)
+    assert o._lr_ratio is ratio
+    a = Adam(1e-3, 0.9, 0.999, 1e-8, params, None, None, True)
+    assert a._lazy_mode is True
     o = AdamW(1e-3, 0.9, 0.999, 1e-8, params, 0.01, None, None, None,
               False, True, "o")
     assert o._multi_precision is True and o._name == "o"
+    init, grads = _data(14)
+    want, got = _adamw_pair(init, grads, lr_ratio=ratio, lazy_mode=True)
+    _close(torch.from_numpy(got), want)
 
 
 @pytest.mark.parametrize("cls,kwargs", [
@@ -278,6 +320,24 @@ def test_positional_arguments_bind_as_in_the_reference():
     ids=["adam-lazy_mode", "adam-amsgrad", "adamw-lazy_mode",
          "adamw-amsgrad", "adamw-lr_ratio", "adamw-apply_decay_param_fun"])
 def test_unported_reference_options_raise(cls, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 2"):
-        cls(learning_rate=1e-3, parameters=[torch.nn.Parameter(
-            torch.ones(2))], **kwargs)
+    """The options the port refused until it ported them now hold
+    against the JAX package: ten steps with the option equal the JAX
+    optimizer's with it."""
+    init, grads = _data(15)
+    outs = []
+    for side in ("jax", "torch"):
+        if side == "jax":
+            p = paddle.to_tensor(init, stop_gradient=False)
+            o = getattr(jopt, cls.__name__)(learning_rate=1e-2,
+                                            parameters=[p], **kwargs)
+        else:
+            p = torch.nn.Parameter(torch.tensor(init))
+            o = cls(learning_rate=1e-2, parameters=[p], **kwargs)
+        for g in grads:
+            p.grad = paddle.to_tensor(g) if side == "jax" else \
+                torch.tensor(g)
+            o.step()
+        outs.append(np.asarray(p.numpy() if side == "jax"
+                               else p.detach().numpy(), np.float32))
+    _close(torch.from_numpy(outs[1]), outs[0])
+    assert not np.allclose(outs[1], init)

@@ -291,10 +291,12 @@ def test_dropout_takes_the_densify_route_by_its_statistics():
 
 def test_return_softmax_raises_and_unsupported_inputs_raise():
     """``return_softmax`` raises, as in the JAX package. A head dim (32)
-    or a dtype (float16) the varlen kernels do not take computes on the
-    CPU as the JAX function does there (it densifies); on the card (a
-    stand-in: the router told its tensors are there) it raises, naming
-    its ROADMAP queue 2 item. Offsets that do not end at T raise."""
+    the varlen kernels do not take computes on the CPU as the JAX
+    function does there (it densifies); on the card (a stand-in: the
+    router told its tensors are there) it raises, naming its ROADMAP
+    queue 2 item. float16, which the kernels take since their float16
+    instantiation, takes the packed route and matches the JAX function
+    on the CPU too. Offsets that do not end at T raise."""
     q = torch.zeros(4, 1, 16)
     cu = [0, 4]
     with pytest.raises(NotImplementedError, match="return_softmax"):
@@ -317,7 +319,7 @@ def test_return_softmax_raises_and_unsupported_inputs_raise():
             atol=tol, rtol=0)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(_build, "on_cuda", lambda t: True)
-        for D, dtype, _, item in cases:
+        for D, dtype, _, item in cases[:1]:
             z = torch.zeros(4, 1, D, dtype=getattr(torch, dtype))
             with pytest.raises(NotImplementedError,
                                match=f"ROADMAP.md queue 2 {item}"):
