@@ -421,6 +421,37 @@ line) when it fails:
     launch the flash forward, the fused flash backward and the paged
     decode.
 
+19. Mixed precision and the optimizer stack ("amp"): float16 training
+    of the bench GPT, overflow and resume, O1 against the CPU, packed
+    varlen in float16, every optimizer against the CPU.
+20. The ``paddle.nn`` layer surface ("nn"): the default
+    ``nn.Transformer`` (Transformer-base: d_model 512, 8 heads, 6 + 6
+    layers, d_ff 2048, dropout 0.1) built from the public ``nn`` and
+    ``optimizer`` API as a user's script builds it (a shared
+    ``nn.Embedding(37000, 512)`` scaled by sqrt(512) plus sinusoidal
+    positions, ``attn_dropout=0``, a head ``nn.Linear(512, 37000,
+    bias_attr=False)``, ``nn.CrossEntropyLoss(label_smoothing=0.1)``,
+    ``AdamW(NoamDecay(512, 4000), beta2=0.98, epsilon=1e-9,
+    multi_precision=True, fused=True)``), AMP O2 bf16 and
+    ``FLAGS_pallas_layer_norm`` on, trained by the eager loop on one
+    random batch of 32 pairs of 256 + 256 tokens (the causal target
+    mask), the same dropout masks every step: (a) exact launches a
+    step: the flash forward 12 (encoder self-attention and
+    cross-attention; the masked decoder self-attention takes the plain
+    route), its backward 12, the LayerNorm forward and backward 30 each
+    and one ``adamw_step``; (b) 1 warm-up, 5 timed and 1 traced step:
+    target tokens/s, the step time, the device time by kernel group and
+    the idle share; finite losses, the 6th below the 1st; (c) the same
+    construction at 2 + 2 layers, dropout 0, f32, 2 pairs of 64 + 64
+    tokens: one step on the card and on the CPU (the plain versions),
+    the loss and every gradient to 1e-4 of its largest magnitude (at
+    least a thousandth of the model's largest), AdamW's update to 1e-4
+    of the learning rate beyond one f32 step of the weight; then the
+    path's kernels against their plain versions at its shapes (the
+    bf16 flash forward and fused backward at B32 H8 S256 D64 without a
+    mask, the LayerNorm at 8,192 rows of 512 with f32 gamma, the fused
+    AdamW bitwise over the model's 254 leaves, and (c)'s f32 shapes).
+
 Phase 12 also holds the bf16 split pair of the packed varlen backward
 (``flash_varlen_dkv_kernel``, ``flash_varlen_dq_kernel``) on inputs
 from {-1, 0, 1} at the fused kernel's exact cases (to 1e-5 beyond half
@@ -497,8 +528,10 @@ line is ``{"ok": true, "device": {...}}``. A full record of the run is
 written to ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import copy
 import json
+import math
 import os
 import re
 import shutil
@@ -1612,12 +1645,13 @@ def check_flash_bwd(dtype, B, H, Sq, Sk, D, gen, dev, timed,
     return rows
 
 
-def check_adamw(leaves, gen, dev):
+def check_adamw(leaves, gen, dev, timed=True):
     """Three steps of the fused AdamW against the eager chain, bitwise,
-    on parameters of the training path's 16 leaves (``leaves``: shape and
-    O2 dtype of each): all f32, all bf16 with f32 masters, and in their O2
-    dtypes (bf16 parameters with f32 masters and bf16 gradients, f32 where
-    the model keeps f32); one launch a step. Then one step over the 16
+    on parameters of a model's leaves (``leaves``: shape and O2 dtype of
+    each; the training path's 16): all f32, all bf16 with f32 masters,
+    and in their O2 dtypes (bf16 parameters with f32 masters and bf16
+    gradients, f32 where the model keeps f32); one launch a step. Without
+    ``timed`` that check's row alone. Then one step over the 16
     leaves timed in two forms, all f32 (the form of the earlier rows) and
     the O2 form the main path runs: the kernel (one launch), the parent's
     chain of the same step rebuilt (per leaf the gradient widened, a
@@ -1667,6 +1701,12 @@ def check_adamw(leaves, gen, dev):
                         f"{(x.float() - y.float()).abs().max().item()})")
         del inits, pa, pb, oa, ob
         torch.cuda.empty_cache()
+    if not timed:
+        return [dict(name="adamw_step", dtype=", ".join(w for w, _ in cases),
+                     shape=f"{n_leaves} leaves, "
+                     f"{sum(math.prod(sh) for sh in shapes)} elements, 3 "
+                     f"steps, one launch a step", max_abs_err=0.0,
+                     tol="bitwise")]
     rows = []
     sc = stage_scalars(1e-4, 0.9, 0.999, 1e-8, 0.01, 3)
     for form, dtypes in cases[::2]:
@@ -5528,13 +5568,20 @@ AMP_O1 = dict(layers=2, batch=2, seq=256)
 # the CPU's plain versions round the same values, summing in other
 # orders), as tests/test_torch_amp.py holds the port against JAX
 F16_STEP = 2.0 ** -11
-# the f16 instantiations' names in a trace: demangled, and mangled (as a
-# record may come)
+# the f16 instantiations' names in a trace at the training head dim
+# (64): demangled, and mangled (as a record may come)
 AMP_F16_KERNELS = {
-    "flash_fwd": ("flash_fwd_wgmma_kernel<__half",
-                  "flash_fwd_wgmma_kernelI6__half"),
-    "flash_bwd_fused": ("flash_bwd_fused_wgmma_kernel<__half",
-                        "flash_bwd_fused_wgmma_kernelI6__half")}
+    "flash_fwd": ("flash_fwd_wgmma_kernel<__half, 64>",
+                  "flash_fwd_wgmma_kernelI6__halfLi64E"),
+    "flash_bwd_fused": ("flash_bwd_fused_wgmma_kernel<__half, 64>",
+                        "flash_bwd_fused_wgmma_kernelI6__halfLi64E")}
+# the same kernels at the primer's head dim (128), which the names above
+# do not match
+AMP_F16_PRIMER = {
+    "flash_fwd": ("flash_fwd_wgmma_kernel<__half, 128>",
+                  "flash_fwd_wgmma_kernelI6__halfLi128E"),
+    "flash_bwd_fused": ("flash_bwd_fused_wgmma_kernel<__half, 128>",
+                        "flash_bwd_fused_wgmma_kernelI6__halfLi128E")}
 # every wrapper of the flash kernels that counts its launches by dtype
 DTYPE_COUNTED = (flash_fwd, flash_bwd_fused, flash_bwd_split_dkv,
                  flash_bwd_split_dq, flash_varlen_fwd, flash_varlen_bwd_fused,
@@ -5624,10 +5671,11 @@ AMP_GROUPS = (("flash", ("flash_",)), ("adamw_step", ("adamw_step",)),
 def amp_train(smi, bf16_bench):
     """Phase 19 (a): the bench GPT at full width and depth in float16 O2
     with the recipe, 1 warm-up, 5 timed and 1 traced step. Late in a long
-    run the profiler has been seen to drop records (see device_ms): a
-    traced step whose f16 flash kernels the trace does not show 24 times
-    each is followed by another traced step, up to three; where none
-    shows all 24, ``amp_short_window``'s count must be exact."""
+    run the profiler has been seen to drop records (see device_ms), so
+    each traced window starts with ``prime_f16_flash``; a traced step
+    whose f16 flash kernels the trace does not show 24 times each is
+    followed by another traced step, up to three; where none shows all
+    24, ``amp_short_window``'s count must be exact."""
     T = TRAIN
     model, opt, sched, scaler = amp_setup(T["layers"], "cuda")
     n_params = model.num_params()
@@ -5636,7 +5684,7 @@ def amp_train(smi, bf16_bench):
     reset_counts()
     reset_dtype_counts()
     torch.cuda.synchronize()
-    steps, times, windows = [], [], []
+    steps, times, windows, primers = [], [], [], []
     prof = None
     for i, b in enumerate(ids):
         traced = i >= 6
@@ -5648,14 +5696,16 @@ def amp_train(smi, bf16_bench):
         if traced:
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
-                # a first record for the window before the step's own
+                # first records for the window before the step's own
                 torch.ones(1, device="cuda").add_(1)
+                prime_f16_flash()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 loss, lr_used, skipped = amp_step(model, opt, sched, scaler,
                                                   b)
                 torch.cuda.synchronize()
             windows.append(f16_kernel_records(prof))
+            primers.append(f16_kernel_records(prof, AMP_F16_PRIMER))
             flash_keys = {e.key[:90]: e.count for e in prof.key_averages()
                           if "flash" in e.key}
         else:
@@ -5694,13 +5744,14 @@ def amp_train(smi, bf16_bench):
     # running), all but one, and then a shorter window, one step of a
     # one-block model (traced on every run), must show each exactly once
     whole = all(c == T["layers"] for c in windows[-1].values())
-    short = amp_short_window()
+    short, short_primer = amp_short_window()
     require(whole or (all(c >= T["layers"] - 1
                           for c in windows[-1].values())
                       and all(c == 1 for c in short.values())),
             f"the traced f16 steps' flash kernels by name: {windows}, want "
             f"{T['layers']} each in one of them (one-block window: "
-            f"{short})")
+            f"{short}; the primers' records {primers}, {short_primer}; "
+            f"the last window's flash records {flash_keys})")
     skipped = sum(s["skipped"] for s in steps)
     step_s = statistics.mean(times)
     tok_s = T["batch"] * T["seq"] / step_s
@@ -5717,7 +5768,9 @@ def amp_train(smi, bf16_bench):
     run = dict(bench=bench, bf16_phase5=bf16_bench, steps=steps,
                step_times_s=times, f16_launches=f16,
                traced_f16_kernels=windows, traced_window_whole=whole,
+               traced_primer_records=primers,
                traced_one_block_window=short,
+               traced_one_block_primer_records=short_primer,
                traced_flash_keys=flash_keys,
                step_profile=profile,
                device_ms_by_group=device_groups(prof, AMP_GROUPS),
@@ -5727,17 +5780,44 @@ def amp_train(smi, bf16_bench):
     return run, launches
 
 
-def f16_kernel_records(prof):
+def f16_kernel_records(prof, kernels=AMP_F16_KERNELS):
     """Each f16 flash kernel's records by name in a profiler window."""
     keys = {e.key: e.count for e in prof.key_averages()}
     return {n: sum(c for k, c in keys.items() if any(p in k for p in pats))
-            for n, pats in AMP_F16_KERNELS.items()}
+            for n, pats in kernels.items()}
+
+
+def prime_f16_flash():
+    """One launch of each f16 flash kernel at head dim 128 (B1 H1 S128),
+    made inside a profiler window before the step it traces; the counts
+    are left as they were. A run has lost the first record of the f16
+    forward in every window, and that one only (23 of 24 in three
+    windows, 0 of 1 in the one-block window, every backward record
+    there): the primer's records, which ``AMP_F16_KERNELS`` does not
+    match, go first."""
+    saved = ([(k["counter"], k["counter"].launches,
+               dict(getattr(k["counter"], "route_launches", {})))
+              for k in KERNELS.values()],
+             [(fn, dict(fn.dtype_launches)) for fn in DTYPE_COUNTED])
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v, do = (torch.randn(1, 1, 128, 128, device="cuda", generator=gen,
+                               dtype=torch.float16) for _ in range(4))
+    o, lse = flash_fwd(q, k, v)
+    delta = (o.float() * do.float()).sum(-1)
+    flash_bwd_fused(q, k, v, do, lse, delta, 128 ** -0.5, False)
+    for counter, n, routes in saved[0]:
+        counter.launches = n
+        for route, c in routes.items():
+            counter.route_launches[route] = c
+    for fn, by_dtype in saved[1]:
+        fn.dtype_launches.update(by_dtype)
 
 
 def amp_short_window():
     """One traced step of the recipe on a one-block model at the
     training batch and length, after an untraced one: each f16 flash
-    kernel's records by name (one each when the trace is whole)."""
+    kernel's records by name (one each when the trace is whole), and the
+    primer's."""
     T = TRAIN
     model, opt, sched, scaler = amp_setup(1, "cuda", seed=5)
     ids = batches(2, T["batch"], "cuda")
@@ -5746,12 +5826,14 @@ def amp_short_window():
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device="cuda").add_(1)
+        prime_f16_flash()
         torch.cuda.synchronize()
         amp_step(model, opt, sched, scaler, ids[1])
         torch.cuda.synchronize()
     del model, opt
     torch.cuda.empty_cache()
-    return f16_kernel_records(prof)
+    return (f16_kernel_records(prof),
+            f16_kernel_records(prof, AMP_F16_PRIMER))
 
 
 def amp_overflow_and_resume():
@@ -6148,7 +6230,8 @@ def phase19(smi, bf16_bench):
         f"{bf16_bench['mfu_vs_chip_peak']:.4f}; device ms by group "
         f"{json.dumps(rec['train']['device_ms_by_group'])}; f16 flash "
         f"records by name: {rec['train']['traced_f16_kernels']}, one-block "
-        f"window {rec['train']['traced_one_block_window']}")
+        f"window {rec['train']['traced_one_block_window']}, the primers' "
+        f"{rec['train']['traced_primer_records']}")
     f16 = rec["train"]["f16_launches"]
     rec["overflow_resume"] = amp_overflow_and_resume()
     say(f"[phase 19 b] {json.dumps(rec['overflow_resume'])}")
@@ -6162,6 +6245,383 @@ def phase19(smi, bf16_bench):
     say(f"[phase 19 f] optimizers card vs CPU, largest error a tensor: "
         f"{json.dumps(rec['optimizers'])}")
     rec["main_path_f16_launches"] = f16
+    return rec, launches
+
+
+# ------------------------------------------------------------- phase 20
+# the default nn.Transformer (Transformer-base of Vaswani et al. 2017:
+# d_model 512, 8 heads, 6 + 6 layers, d_ff 2048, dropout 0.1) over the
+# paper's shared BPE vocabulary of about 37,000 tokens; 32 pairs of 256
+# source and 256 target tokens a step; NoamDecay's 4000 warm-up steps
+NN_TRANSFORMER = dict(vocab=37000, batch=32, src=256, tgt=256, warmup=4000)
+# the f32 check against the CPU: the same construction at 2 + 2 layers,
+# dropout 0, 2 pairs of 64 + 64 tokens
+NN_TRANSFORMER_F32 = dict(layers=2, batch=2, src=64, tgt=64)
+# phase 20's traced step by kernel group
+NN_GROUPS = (("flash", ("flash_",)),
+             ("layer_norm_fwd", ("layer_norm_fwd",)),
+             ("layer_norm_bwd", ("layer_norm_bwd",)),
+             ("adamw_step", ("adamw_step",)),
+             ("gemm", ("gemm", "cutlass", "xmma", "sm90_xmma", "nvjet",
+                       "cublas")))
+
+
+def sinusoid(length, d):
+    """The paper's positional encodings ``[length, d]``."""
+    pos = np.arange(length)[:, None]
+    ang = pos / np.power(10000.0, 2 * np.arange(d // 2)[None, :] / d)
+    pe = np.zeros((length, d), np.float32)
+    pe[:, 0::2] = np.sin(ang)
+    pe[:, 1::2] = np.cos(ang)
+    return pe
+
+
+class TransformerBase(paddle.nn.Layer):
+    """A translation model as a user's script builds it from the port's
+    public ``nn`` API: one ``nn.Embedding`` shared by source and target,
+    drawn from N(0, d_model**-0.5) (``ParamAttr`` with an initializer)
+    and scaled by sqrt(d_model), so its rows enter at unit scale as in
+    the paper's implementations, plus sinusoidal positions and dropout;
+    ``nn.Transformer`` with its defaults (``attn_dropout=0``); a head
+    ``nn.Linear(d_model, vocab, bias_attr=False)``."""
+
+    def __init__(self, vocab, dropout=0.1, **geometry):
+        super().__init__()
+        self.transformer = paddle.nn.Transformer(
+            dropout=dropout, attn_dropout=0.0, **geometry)
+        d = self.transformer.d_model
+        self.emb = paddle.nn.Embedding(
+            vocab, d, weight_attr=paddle.ParamAttr(
+                initializer=paddle.nn.initializer.Normal(0.0, d ** -0.5)))
+        self.head = paddle.nn.Linear(d, vocab, bias_attr=False)
+        self.register_buffer("pe", paddle.to_tensor(sinusoid(1024, d)),
+                             persistable=False)
+        self._dropout = dropout
+
+    def embed(self, ids):
+        x = self.emb(ids) * math.sqrt(self.transformer.d_model)
+        x = x + self.pe[:ids.shape[1]].astype(x.dtype)
+        return paddle.nn.functional.dropout(x, self._dropout,
+                                            training=self.training)
+
+    def forward(self, src, tgt, tgt_mask):
+        return self.head(self.transformer(self.embed(src), self.embed(tgt),
+                                          tgt_mask=tgt_mask))
+
+
+def nn_transformer_setup(layers, dropout, bf16, seed=20):
+    """The model (weights from ``paddle.seed(seed)`` on the current
+    place), ``nn.CrossEntropyLoss(label_smoothing=0.1)``, ``AdamW`` with
+    the paper's betas and epsilon on ``NoamDecay(512, 4000)``,
+    ``multi_precision`` and ``fused`` (one ``adamw_step`` launch a
+    step), and AMP O2 bf16 when ``bf16``."""
+    paddle.seed(seed)
+    model = TransformerBase(NN_TRANSFORMER["vocab"], dropout,
+                            num_encoder_layers=layers,
+                            num_decoder_layers=layers)
+    if bf16:
+        model = paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+    sched = paddle.optimizer.lr.NoamDecay(512, NN_TRANSFORMER["warmup"])
+    opt = paddle.optimizer.AdamW(
+        learning_rate=sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+        weight_decay=0.0, parameters=model.parameters(),
+        multi_precision=True, fused=True)
+    loss_fn = paddle.nn.CrossEntropyLoss(label_smoothing=0.1)
+    return model, opt, sched, loss_fn
+
+
+def nn_transformer_batch(batch, src, tgt, seed=20):
+    """Random token ids from a seed (no data is downloaded): source,
+    target input and target labels, and the causal target mask."""
+    rng = np.random.default_rng(seed)
+    v = NN_TRANSFORMER["vocab"]
+    ids = [paddle.to_tensor(rng.integers(0, v, (batch, n)).astype(np.int32))
+           for n in (src, tgt, tgt)]
+    return ids + [paddle.nn.Transformer.generate_square_subsequent_mask(tgt)]
+
+
+def nn_transformer_loss(model, loss_fn, src, tgt, lbl, mask):
+    logits = model(src, tgt, mask)
+    # the loss in f32 (the logits are bf16 under O2)
+    return loss_fn(logits.reshape([-1, NN_TRANSFORMER["vocab"]])
+                   .astype("float32"), lbl.reshape([-1]))
+
+
+def nn_transformer_step(model, opt, sched, loss_fn, batch):
+    """The eager Paddle loop: ``loss.backward(); opt.step();
+    opt.clear_grad()`` and the scheduler's step. Every step reseeds, so
+    each draws the same dropout masks on the same batch: the loss moves
+    with the weights alone."""
+    paddle.seed(21)
+    loss = nn_transformer_loss(model, loss_fn, *batch)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    sched.step()
+    return loss
+
+
+def nn_transformer_bf16(smi):
+    """Phase 20 (a)-(b): the default ``nn.Transformer`` trained at full
+    width and depth in bf16 O2 with ``FLAGS_pallas_layer_norm`` on: 1
+    warm-up step, 5 timed steps, 1 traced step. Exact launches a step:
+    the flash forward 12 (6 encoder self-attention, 6 cross-attention;
+    the decoder's masked self-attention takes the plain route), its
+    backward 12, the LayerNorm forward and backward 30 each, one
+    ``adamw_step``. The losses are finite and the 6th below the 1st.
+    Returns the record, the launches and the parameters' shapes and
+    dtypes."""
+    cfg = NN_TRANSFORMER
+    model, opt, sched, loss_fn = nn_transformer_setup(6, 0.1, bf16=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = nn_transformer_batch(cfg["batch"], cfg["src"], cfg["tgt"])
+    route = bwd_route(torch.bfloat16)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [nn_transformer_step(model, opt, sched, loss_fn, batch).item()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loss = nn_transformer_step(model, opt, sched, loss_fn, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        losses.append(nn_transformer_step(model, opt, sched, loss_fn,
+                                          batch).item())
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    steps = 7
+    require(all(np.isfinite(losses)), f"non-finite Transformer loss: "
+            f"{losses}")
+    require(losses[5] < losses[0], f"Transformer: the 6th step's loss "
+            f"{losses[5]} is not below the 1st's {losses[0]}")
+    n_ln = 2 * 6 + 3 * 6
+    want = {"flash_fwd": 12, "layer_norm_fwd": n_ln, "layer_norm_bwd": n_ln,
+            "adamw_step": 1}
+    if route == "fused":
+        want["flash_bwd_fused"] = 12
+    else:
+        want["flash_bwd_split_dkv"] = want["flash_bwd_split_dq"] = 12
+    for n, per_step in want.items():
+        require(launches[n] == steps * per_step,
+                f"Transformer: {n} launched {launches[n]} times in "
+                f"{steps} steps, want {per_step} a step")
+    step_s = statistics.mean(times)
+    tok_s = cfg["batch"] * cfg["tgt"] / step_s
+    return dict(
+        config=dict(cfg, d_model=512, heads=8, layers="6+6", d_ff=2048,
+                    dropout=0.1, params_m=n_params / 1e6),
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+        target_tokens_per_s=tok_s, step_time_s=step_s, step_times_s=times,
+        first_step_s=first_s, losses=losses, backward_route=route,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_step={n: launches[n] / steps for n in KERNELS
+                           if launches[n]},
+        step_profile=step_profile(prof, wall_ms, step_s * 1e3),
+        device_ms_by_group=device_groups(prof, NN_GROUPS)), launches, [
+            (tuple(p.shape), p.dtype) for p in model.parameters()]
+
+
+def rel_errs_floored(pairs):
+    """``[(error, name)]``, largest first: ``|got - want|`` over each
+    ``(name, got, want)`` triple, relative to ``want``'s largest
+    magnitude, floored at a thousandth of the largest magnitude over
+    all of them."""
+    top = max(b.abs().max().item() for _, _, b in pairs)
+    return sorted((((a - b).abs().max() / max(b.abs().max().item(),
+                                              1e-3 * top)).item(), n)
+                  for n, a, b in pairs)[::-1]
+
+
+def nn_transformer_f32_vs_cpu():
+    """Phase 20 (c): the same construction at full width with 2 + 2
+    layers, dropout 0, in f32 with the LayerNorm flag on: one step on
+    the card (the kernels) and the same step on the CPU (their plain
+    versions) from the same weights and ids; each kernel of the path
+    launched. The loss to 1e-4, every gradient to 1e-4 of its largest
+    magnitude, floored at a thousandth of the model's largest (the key
+    projections' biases have a zero gradient but for rounding: softmax
+    ignores a shift shared by a query's logits).
+
+    The AdamW update ``w_after - w_before`` to 1e-4 of the learning rate
+    beyond one f32 step of the weight. Adam's first step moves each
+    weight by ``lr * g / (|g| + eps)``, so the sign of the gradient sets
+    it: where the CPU's gradient lies within the gradient check's limit
+    (rounding noise, which either device may give either sign) the update
+    is held only to Adam's bound, ``|update| <= lr`` beyond that step, and
+    those elements are counted."""
+    c = NN_TRANSFORMER_F32
+    model, opt, sched, loss_fn = nn_transformer_setup(c["layers"], 0.0,
+                                                      bf16=False, seed=22)
+    cpu = copy.deepcopy(model).cpu()
+    cpu_opt = paddle.optimizer.AdamW(
+        learning_rate=paddle.optimizer.lr.NoamDecay(512, 4000), beta1=0.9,
+        beta2=0.98, epsilon=1e-9, weight_decay=0.0,
+        parameters=cpu.parameters(), multi_precision=True, fused=True)
+    batch = nn_transformer_batch(c["batch"], c["src"], c["tgt"], seed=22)
+    route = bwd_route(torch.float32)
+    reset_counts()
+    losses = []
+    for m, b in ((model, batch), (cpu, [t.cpu() for t in batch])):
+        loss = nn_transformer_loss(m, loss_fn, *b)
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    grads = [(n, p.grad.cpu(), q.grad) for (n, p), q in zip(
+        model.named_parameters(), cpu.parameters())]
+    before = [q.detach().clone() for q in cpu.parameters()]
+    lr = opt.get_lr()
+    require(cpu_opt.get_lr() == lr, f"Transformer f32: the learning rates "
+            f"differ: {lr} on the card, {cpu_opt.get_lr()} on the CPU")
+    opt.step()
+    cpu_opt.step()
+    torch.cuda.synchronize()
+    launches = counts()
+    loss_err = abs(losses[0] - losses[1]) / abs(losses[1])
+    grad_errs = rel_errs_floored(grads)
+    grad_err, grad_worst = grad_errs[0]
+    upd = adamw_update_errs(grads, before, [p.detach().cpu() for p in
+                                            model.parameters()],
+                            [q.detach() for q in cpu.parameters()], lr)
+    require(loss_err <= 1e-4, f"Transformer f32 loss, card vs CPU: "
+            f"{losses}")
+    require(grad_err <= 1e-4, f"Transformer f32 gradients, card vs CPU: "
+            f"{grad_err} > 1e-4 of the largest magnitude ({grad_worst})")
+    require(upd["update_err"] <= 1e-4, f"Transformer f32 AdamW update, "
+            f"card vs CPU: {upd['update_err']} of lr {lr} > 1e-4 beyond one "
+            f"f32 step of the weight ({upd['update_worst']})")
+    require(upd["noise_update_over_lr"] <= 1 + 1e-4, f"Transformer f32 "
+            f"AdamW: an element whose gradient is rounding noise moved "
+            f"{upd['noise_update_over_lr']} of lr {lr} "
+            f"({upd['noise_worst']})")
+    kernels = (("flash_bwd_fused",) if route == "fused" else
+               ("flash_bwd_split_dkv", "flash_bwd_split_dq"))
+    for n in ("flash_fwd", "layer_norm_fwd", "layer_norm_bwd",
+              "adamw_step") + kernels:
+        require(launches[n] > 0, f"{n} was not launched by the "
+                f"Transformer f32 run")
+    for n in ("flash_fwd",) + kernels:
+        require(launches.get(F32_TC_ROW.get(n), launches[n]) == launches[n],
+                f"Transformer f32: {n}: {launches[n]} launches, "
+                f"{launches.get(F32_TC_ROW.get(n))} of them its "
+                f"tensor-core kernel's")
+    return dict(losses=losses, loss_rel_err=loss_err, grad_rel_err=grad_err,
+                grad_worst=grad_worst, grad_rel_err_top=grad_errs[:6],
+                lr=lr, **upd, backward_route=route,
+                launches={n: v for n, v in launches.items() if v}), launches
+
+
+def adamw_update_errs(grads, before, card, cpu, lr):
+    """The AdamW first step's update on the card against the CPU's,
+    element by element, in units of ``lr``: ``|d_card - d_cpu|`` less one
+    f32 step of the weight (the update is rounded into it), where the
+    CPU's gradient is past the gradient check's limit (1e-4 of the
+    tensor's largest magnitude, floored at a thousandth of the model's
+    largest: ``rel_errs_floored``'s); ``|d_card|`` less that step where
+    it is within it. ``grads`` holds ``(name, card gradient, CPU
+    gradient)``."""
+    top = max(g.abs().max().item() for _, _, g in grads)
+    err, worst, noise, noise_worst = 0.0, None, 0.0, None
+    n_held = n_noise = n_differ = 0
+    for (name, _, g), w0, wc, wr in zip(grads, before, card, cpu):
+        dc = wc.double() - w0.double()
+        dr = wr.double() - w0.double()
+        _, e = torch.frexp(torch.maximum(w0.abs(), wr.abs()))
+        ulp = torch.ldexp(torch.ones_like(dc), e.long() - 24)
+        held = g.abs() > 1e-4 * max(g.abs().max().item(), 1e-3 * top)
+        n_held += int(held.sum())
+        n_noise += int((~held).sum())
+        n_differ += int((dc != dr).sum())
+        if held.any():
+            e_held = (((dc - dr).abs() - ulp).clamp_min(0)[held].max()
+                      / lr).item()
+            if e_held >= err:
+                err, worst = e_held, name
+        if (~held).any():
+            e_noise = ((dc.abs() - ulp).clamp_min(0)[~held].max()
+                       / lr).item()
+            if e_noise >= noise:
+                noise, noise_worst = e_noise, name
+    return dict(update_err=err, update_worst=worst,
+                update_elements_held=n_held, noise_elements=n_noise,
+                noise_update_over_lr=noise, noise_worst=noise_worst,
+                update_elements_differing=n_differ)
+
+
+def nn_transformer_kernels(leaves, gen, dev):
+    """Phase 20's kernels against their plain versions at the shapes its
+    main path gives them: the flash forward and its backward route in
+    bf16 at B32 H8 S256 D64 without a mask (the encoder's self-attention
+    and the decoder's cross-attention, source and target 256), the
+    LayerNorm forward and backward at 32 x 256 rows of 512 (bf16 x, f32
+    gamma and beta under O2), the fused AdamW over the model's leaves in
+    their O2 dtypes; and (c)'s f32 shapes (B2 H8 S64 D64, 128 rows).
+    Their launches count in no phase's gates."""
+    cfg, c = NN_TRANSFORMER, NN_TRANSFORMER_F32
+    rows = []
+    for dtype, B, S in ((torch.bfloat16, cfg["batch"], cfg["src"]),
+                        (torch.float32, c["batch"], c["src"])):
+        rows.append(check_flash_ragged(dtype, B, 8, S, S, 64, False, gen,
+                                       dev))
+        rows += check_flash_bwd(dtype, B, 8, S, S, 64, gen, dev, timed=False,
+                                routes=(bwd_route(dtype),), causal=False)
+        rows += check_layer_norm(B * S, 512, dtype, torch.float32,
+                                 "Transformer-base", gen, dev, timed=False)
+        torch.cuda.empty_cache()
+    rows += check_adamw(leaves, gen, dev, timed=False)
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def on_card(**flag_values):
+    """The block runs on ``paddle.set_device("gpu")`` with the flags
+    given; the place and the flags' earlier values come back after it."""
+    before_place = paddle.get_device()
+    before = flags.get_flags(list(flag_values))
+    paddle.set_device("gpu")
+    flags.set_flags(flag_values)
+    try:
+        yield
+    finally:
+        flags.set_flags(before)
+        paddle.set_device(before_place)
+
+
+def phase20(smi):
+    """Phase 20, "nn": the ``paddle.nn`` layer surface on the default
+    ``nn.Transformer`` (Transformer-base): (a)-(b) bf16 O2 training at
+    full width and depth, (c) an f32 step against the CPU, then the
+    path's kernels against their plain versions at its shapes. Returns
+    the record and the main path's launches ((a)-(b)'s)."""
+    with on_card(pallas_layer_norm=True):
+        rec, launches, leaves = nn_transformer_bf16(smi)
+        p = rec["step_profile"]
+        say(f"[phase 20 a-b] {smi}: Transformer-base bf16 O2 target "
+            f"tokens/s {rec['target_tokens_per_s']:.1f} step "
+            f"{rec['step_time_s'] * 1e3:.2f} ms device {p['device_ms']:.2f}"
+            f" ms idle {p['idle_share']:.3f} losses {rec['losses']} "
+            f"launches a step {json.dumps(rec['launches_per_step'])} by "
+            f"group {json.dumps(rec['device_ms_by_group'])} top "
+            f"{p['top'][:5]}")
+        torch.cuda.empty_cache()
+        rec["f32_vs_cpu"], _ = nn_transformer_f32_vs_cpu()
+        say(f"[phase 20 c] {json.dumps(rec['f32_vs_cpu'])}")
+        dev = torch.device("cuda:0")
+        rec["kernel_checks"] = nn_transformer_kernels(
+            leaves, torch.Generator(device=dev).manual_seed(20), dev)
+        for r in rec["kernel_checks"]:
+            say(f"[phase 20 kernel] {r['name']} {r['dtype']} {r['shape']}: "
+                f"err {r.get('max_abs_err', r.get('dq_dk_dv_err'))} (tol "
+                f"{r['tol']})")
     return rec, launches
 
 
@@ -7188,6 +7648,12 @@ def main():
 
     mark("19 amp")
 
+    # 20. the nn layer surface: the default nn.Transformer
+    p20, l20 = phase20(smi)
+    add(l20)
+
+    mark("20 nn")
+
     say(f"[main path] launches: {launches}")
     say("[main path] launches by route: " + "; ".join(
         f"{n} {launches[n + '_vec']} vec, "
@@ -7262,6 +7728,7 @@ def main():
              varlen_f32_vs_cpu=varlen32, incubate_bf16=stack,
              incubate_f32_vs_cpu=stack32, phase17=p17,
              varlen_split_draws=split_draws, core=p18, amp=p19,
+             nn_transformer=p20,
              launches=launches,
              phase_s=marks, seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")

@@ -49,6 +49,7 @@ from . import autograd  # noqa: E402,F401
 from .autograd import grad  # noqa: E402,F401
 
 from . import nn  # noqa: E402,F401
+from .nn.layer.layers import ParamAttr  # noqa: E402,F401
 from . import optimizer  # noqa: E402,F401
 from . import regularizer  # noqa: E402,F401
 from . import amp  # noqa: E402,F401

@@ -9,8 +9,6 @@ model's parameters for O2; :class:`GradScaler` is dynamic loss scaling.
 the same names.
 """
 
-from torch import nn
-
 from . import amp_lists
 from .casting import (amp_guard, amp_state, auto_cast, cast_inputs_for_op,
                         record_casts)
@@ -24,9 +22,12 @@ __all__ = ["auto_cast", "amp_guard", "amp_state", "cast_inputs_for_op",
 
 
 def _norm_types():
-    from ..nn import BatchNorm2D
-    return (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm,
-            nn.RMSNorm, BatchNorm2D)
+    """The layers whose own parameters stay f32 at O2: the JAX package's
+    set (``paddle2_tpu/amp/__init__.py:88-96``) over the port's classes.
+    The instance norms are not in it, so they are cast, as in JAX."""
+    from ..nn.layer.norm import (_BatchNormBase, GroupNorm, LayerNorm,
+                                 RMSNorm)
+    return (_BatchNormBase, LayerNorm, GroupNorm, RMSNorm)
 
 
 def decorate(models, optimizers=None, level: str = "O2",

@@ -22,6 +22,7 @@ XPU place raises, since the port runs on NVIDIA GPUs.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Any, Optional, Union
 
@@ -210,6 +211,23 @@ def current_place() -> Place:
 
 def current_device() -> torch.device:
     return current_place().torch_device()
+
+
+@contextlib.contextmanager
+def place_scope(device: Union[str, Place, torch.device]):
+    """The current place is ``device`` inside the block (for a model
+    that builds its layers on a device it was given), the one before
+    after it."""
+    global _current_place
+    place = _place_of(device)
+    place.torch_device()
+    with _device_lock:
+        before, _current_place = _current_place, place
+    try:
+        yield place
+    finally:
+        with _device_lock:
+            _current_place = before
 
 
 def get_device() -> str:

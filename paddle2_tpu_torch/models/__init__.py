@@ -1,6 +1,6 @@
 from .convert import (ernie_state_from_reference, gpt_state_from_reference,
                       load_quanted_reference, load_weight_only_reference,
-                      resnet_state_from_reference)
+                      nn_state_from_reference, resnet_state_from_reference)
 from .ernie import (ErnieConfig, ErnieForSequenceClassification, ErnieLayer,
                     ErnieModel, ErnieSelfAttention, ernie3_base, ernie_tiny)
 from .gpt import (GPTAttention, GPTBlock, GPTConfig, GPTForCausalLM,
@@ -12,4 +12,4 @@ __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "ErnieForSequenceClassification", "ernie3_base", "ernie_tiny",
            "gpt_state_from_reference", "ernie_state_from_reference",
            "resnet_state_from_reference", "load_weight_only_reference",
-           "load_quanted_reference"]
+           "load_quanted_reference", "nn_state_from_reference"]

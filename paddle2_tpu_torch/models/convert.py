@@ -1,5 +1,13 @@
-"""Carry a JAX-package GPT's, ERNIE's or ResNet's weights into the port.
+"""Carry a JAX-package GPT's, ERNIE's or ResNet's weights, or any JAX
+``nn.Layer``'s, into the port.
 
+A JAX ``nn.Layer`` maps onto the port's twin (the same construction
+with ``paddle2_tpu_torch.nn``) name for name and shape for shape: both
+packages' ``nn.Linear`` store ``[in, out]``, so
+:func:`nn_state_from_reference` transposes nothing, and the twin's
+``set_state_dict`` takes its result as it is.
+
+The port's GPT, ERNIE and ResNet are built on torch layers instead.
 The JAX package's ``nn.Linear`` stores its weight ``[in, out]``;
 ``torch.nn.Linear`` stores ``[out, in]``, so linear weights swap their
 last two axes (``[L, in, out]`` -> ``[L, out, in]`` for stacked leaves).
@@ -38,7 +46,7 @@ from ..quantization import (QuantedInferenceLinear, WeightOnlyLinear,
 
 __all__ = ["gpt_state_from_reference", "ernie_state_from_reference",
            "resnet_state_from_reference", "load_weight_only_reference",
-           "load_quanted_reference"]
+           "load_quanted_reference", "nn_state_from_reference"]
 
 _GPT_LINEARS = ("attn.qkv.weight", "attn.out_proj.weight", "mlp.up.weight",
                 "mlp.down.weight", "lm_head.weight")
@@ -182,3 +190,15 @@ def load_quanted_reference(model, state: Dict[str, np.ndarray],
     _swap_in_payloads(model, state, lambda path, w, s, b:
                       QuantedInferenceLinear(w, s, b, act_scales[path]))
     return model
+
+
+def nn_state_from_reference(layer) -> Dict[str, np.ndarray]:
+    """A JAX ``nn.Layer``'s ``state_dict()`` as numpy arrays under the
+    same names, in the same order and with no transposes (bfloat16
+    values as float32; ``set_state_dict`` casts to each target's
+    dtype)."""
+    out = {}
+    for name, t in layer.state_dict().items():
+        a = np.asarray(t.numpy())
+        out[name] = a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+    return out

@@ -42,7 +42,7 @@ from ..device import resolve_device
 from ..kernels.attention import scaled_dot_product_attention
 from ..nn import LayerNorm
 from ._scan import StackedLayerStack
-from .gpt import _cross_entropy
+from .gpt import _cross_entropy, _layer_norm
 
 __all__ = ["ErnieConfig", "ErnieSelfAttention", "ErnieLayer", "ErnieModel",
            "ErnieForSequenceClassification", "ernie3_base", "ernie_tiny"]
@@ -101,10 +101,10 @@ class ErnieLayer(nn.Module):
         super().__init__()
         eps = cfg.layer_norm_epsilon
         self.attn = ErnieSelfAttention(cfg, **factory)
-        self.ln_1 = LayerNorm(cfg.hidden_size, eps=eps, **factory)
+        self.ln_1 = _layer_norm(cfg.hidden_size, eps, **factory)
         self.up = nn.Linear(cfg.hidden_size, cfg.ffn_size, **factory)
         self.down = nn.Linear(cfg.ffn_size, cfg.hidden_size, **factory)
-        self.ln_2 = LayerNorm(cfg.hidden_size, eps=eps, **factory)
+        self.ln_2 = _layer_norm(cfg.hidden_size, eps, **factory)
         self.drop = nn.Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, x, attn_bias=None):
@@ -122,7 +122,7 @@ class ErnieModel(nn.Module):
         self.pos_emb = nn.Embedding(cfg.max_position_embeddings, h,
                                     **factory)
         self.type_emb = nn.Embedding(cfg.type_vocab_size, h, **factory)
-        self.emb_ln = LayerNorm(h, eps=cfg.layer_norm_epsilon, **factory)
+        self.emb_ln = _layer_norm(h, cfg.layer_norm_epsilon, **factory)
         self.drop = nn.Dropout(cfg.hidden_dropout_prob)
         self.layers = nn.ModuleList(ErnieLayer(cfg, **factory)
                                     for _ in range(cfg.num_layers))

@@ -37,6 +37,7 @@ from torch.nn import functional as F
 
 from ..device import resolve_device
 from ..distributed.recompute import recompute
+from ..framework import core
 from ..incubate.nn.functional import fused_linear_cross_entropy
 from ..kernels.attention import scaled_dot_product_attention
 from ..nn import LayerNorm
@@ -45,6 +46,14 @@ from ..amp.casting import amp_op
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "gpt3_1p3b", "gpt_small", "gpt_tiny"]
+
+
+def _layer_norm(h, epsilon, device, dtype=None):
+    """The port's ``LayerNorm(h, epsilon)`` built on ``device`` (in
+    ``dtype`` when given), where the model's torch layers are built."""
+    with core.place_scope(device):
+        ln = LayerNorm(h, epsilon)
+    return ln if dtype is None else ln.to(dtype=dtype)
 
 
 @dataclass
@@ -132,9 +141,9 @@ class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, **factory):
         super().__init__()
         eps = cfg.layer_norm_epsilon
-        self.ln_1 = LayerNorm(cfg.hidden_size, eps=eps, **factory)
+        self.ln_1 = _layer_norm(cfg.hidden_size, eps, **factory)
         self.attn = GPTAttention(cfg, **factory)
-        self.ln_2 = LayerNorm(cfg.hidden_size, eps=eps, **factory)
+        self.ln_2 = _layer_norm(cfg.hidden_size, eps, **factory)
         self.mlp = GPTMLP(cfg, **factory)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
 
@@ -160,7 +169,7 @@ class GPTModel(nn.Module):
         self.drop = nn.Dropout(cfg.hidden_dropout_prob)
         self.h = nn.ModuleList(GPTBlock(cfg, **factory)
                                for _ in range(cfg.num_layers))
-        self.ln_f = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_epsilon,
+        self.ln_f = _layer_norm(cfg.hidden_size, cfg.layer_norm_epsilon,
                               **factory)
 
     def _embed(self, input_ids, position_offset: int):

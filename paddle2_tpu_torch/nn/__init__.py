@@ -1,16 +1,39 @@
-"""Neural-network layers of the port: what its models need beyond
-``torch.nn``, and gradient clipping (``ClipGradBy*``,
-``clip_grad_norm_``, ``clip_grad_value_``); the rest of the JAX
-package's ``nn`` is ROADMAP queue 1 item 2."""
+"""``paddle.nn`` of the port: the counterpart of
+``paddle2_tpu/nn/__init__.py``.
 
-from . import functional
-from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
-                   clip_grad_norm_, clip_grad_value_)
-from .conv import Conv2D
-from .norm import BatchNorm2D, LayerNorm
-from .pooling import AdaptiveAvgPool2D, MaxPool2D
+``Layer`` (a ``torch.nn.Module`` with Paddle's surface), ``ParamAttr``,
+the initializers, the activation, common, norm, container, loss and
+Transformer layers, and gradient clipping. Of the conv and pooling
+layers only ``Conv2D``, ``MaxPool2D`` and ``AdaptiveAvgPool2D`` are
+ported so far; the rest of them, the RNN layers, ``decode`` and
+``nn.utils`` are ROADMAP queue 1 item 2.
+"""
 
-__all__ = ["LayerNorm", "BatchNorm2D", "Conv2D", "MaxPool2D",
-           "AdaptiveAvgPool2D", "functional", "ClipGradByValue",
-           "ClipGradByNorm", "ClipGradByGlobalNorm", "clip_grad_norm_",
-           "clip_grad_value_"]
+from . import initializer  # noqa: F401  (before the layers, as in JAX)
+from .layer.layers import Layer, ParamAttr  # noqa: F401
+from . import functional  # noqa: F401
+from .layer import activation as _activation
+from .layer import common as _common
+from .layer import container as _container
+from .layer import conv as _conv
+from .layer import loss as _loss
+from .layer import norm as _norm
+from .layer import pooling as _pooling
+from .layer import transformer as _transformer
+from .layer.common import *        # noqa: F401,F403
+from .layer.conv import *          # noqa: F401,F403
+from .layer.norm import *          # noqa: F401,F403
+from .layer.pooling import *       # noqa: F401,F403
+from .layer.activation import *    # noqa: F401,F403
+from .layer.container import *     # noqa: F401,F403
+from .layer.transformer import *   # noqa: F401,F403
+from .layer.loss import *          # noqa: F401,F403
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                   ClipGradByValue, clip_grad_norm_, clip_grad_value_)
+
+__all__ = (["initializer", "Layer", "ParamAttr", "functional"]
+           + _common.__all__ + _conv.__all__ + _norm.__all__
+           + _pooling.__all__ + _activation.__all__ + _container.__all__
+           + _transformer.__all__ + _loss.__all__
+           + ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+              "clip_grad_norm_", "clip_grad_value_"])

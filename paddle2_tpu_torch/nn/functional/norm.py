@@ -1,5 +1,9 @@
-"""``layer_norm`` and ``batch_norm``: the counterparts of
-``paddle2_tpu/nn/functional/norm.py:72-131`` and ``:23-69``.
+"""Normalization functionals: the counterpart of
+``paddle2_tpu/nn/functional/norm.py``. ``instance_norm``,
+``group_norm``, ``local_response_norm`` and ``rms_norm`` are the JAX
+package's XLA functions in torch, in the input dtype as there
+(``rms_norm`` in f32, cast back); ``layer_norm`` and ``batch_norm``
+are described below (``:72-131`` and ``:23-69`` there).
 
 ``batch_norm`` is the JAX function op for op, not
 ``torch.nn.functional.batch_norm``, for two reasons. The running
@@ -61,7 +65,8 @@ from ...flags import flag_value
 from ...kernels import fused_layer_norm as _fused
 from ...amp.casting import amp_op
 
-__all__ = ["layer_norm", "batch_norm"]
+__all__ = ["batch_norm", "layer_norm", "instance_norm", "group_norm",
+           "local_response_norm", "rms_norm"]
 
 
 def _use_fused(x, n_axes, weight, bias) -> bool:
@@ -124,3 +129,74 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                                + (1 - momentum) * mean)
             running_var.copy_(momentum * running_var + (1 - momentum) * var)
     return out.to(x.dtype)
+
+
+def _channel_shape(x, ch):
+    shape = [1] * x.ndim
+    shape[ch] = x.shape[ch]
+    return shape
+
+
+def _affine(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+@amp_op("rms_norm")
+def rms_norm(x, weight=None, epsilon=1e-6, name=None) -> torch.Tensor:
+    """RMSNorm over the last axis in f32 (as the JAX function, for bf16
+    stability), cast back to the input dtype."""
+    h = x.float()
+    out = h * torch.rsqrt((h * h).mean(-1, keepdim=True) + epsilon)
+    if weight is not None:
+        out = out * weight.float()
+    return out.to(x.dtype)
+
+
+@amp_op("instance_norm")
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-05,
+                  data_format="NCHW", name=None) -> torch.Tensor:
+    """Each sample's channels normalized over their spatial axes (the
+    running statistics are taken and, as in the JAX function, unused)."""
+    ch = 1 if data_format.startswith("NC") else x.ndim - 1
+    axes = tuple(range(2, x.ndim)) if ch == 1 else tuple(range(1, x.ndim - 1))
+    mean = x.mean(axes, keepdim=True)
+    var = x.var(axes, keepdim=True, correction=0)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    return _affine(out, weight, bias, _channel_shape(x, ch)).to(x.dtype)
+
+
+@amp_op("group_norm")
+def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
+               data_format="NCHW", name=None) -> torch.Tensor:
+    channel_last = not data_format.startswith("NC")
+    a = x.movedim(-1, 1) if channel_last else x
+    n, c = a.shape[0], a.shape[1]
+    g = a.reshape(n, num_groups, c // num_groups, *a.shape[2:])
+    axes = tuple(range(2, g.ndim))
+    mean = g.mean(axes, keepdim=True)
+    var = g.var(axes, keepdim=True, correction=0)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(a.shape)
+    out = _affine(out, weight, bias, _channel_shape(out, 1))
+    if channel_last:
+        out = out.movedim(1, -1)
+    return out.to(x.dtype)
+
+
+@amp_op("local_response_norm")
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None) -> torch.Tensor:
+    """``x / (k + alpha * s / size) ** beta``, ``s`` the sum of squares
+    over a window of ``size`` channels (zero-padded, ``size // 2``
+    before)."""
+    ch = 1 if data_format.startswith("NC") else x.ndim - 1
+    half = size // 2
+    pad = [0, 0] * (x.ndim - 1 - ch) + [half, size - half - 1]
+    sq = TF.pad(x * x, pad)
+    c = x.shape[ch]
+    s = sum(sq.narrow(ch, j, c) for j in range(size))
+    return x / torch.pow(k + alpha * s / size, beta)

@@ -179,6 +179,7 @@ DISPATCHED_AS = {
 # ops the JAX package runs without its dispatcher: no AMP cast
 NOT_DISPATCHED = frozenset({
     "CUDAPinnedPlace", "LazyGuard", "arange", "as_tensor", "batch",
+    "create_parameter",
     "bernoulli", "bernoulli_", "binomial", "broadcast_shape", "cauchy_",
     "check_shape", "disable_signal_handler", "dtype", "eig", "eigvals",
     "empty", "empty_like", "exponential_", "eye", "float8_e4m3fn",

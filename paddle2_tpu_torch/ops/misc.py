@@ -1,6 +1,5 @@
 """The rest of the top-level surface: the counterpart of
-``paddle2_tpu/ops/misc.py``. ``create_parameter`` waits for
-``nn.initializer`` (ROADMAP queue 1 item 2)."""
+``paddle2_tpu/ops/misc.py``."""
 
 from __future__ import annotations
 
@@ -15,7 +14,8 @@ __all__ = ["dtype", "float8_e4m3fn", "float8_e5m2", "rank", "shape",
            "add_n", "reverse", "histogram_bin_edges", "is_complex",
            "is_integer", "is_floating_point", "get_cuda_rng_state",
            "set_cuda_rng_state", "set_printoptions",
-           "disable_signal_handler", "CUDAPinnedPlace", "check_shape",
+           "disable_signal_handler", "CUDAPinnedPlace", "create_parameter",
+           "check_shape",
            "reduce_as", "as_strided", "diagonal_scatter", "LazyGuard",
            "batch", "flops"]
 
@@ -124,6 +124,16 @@ class CUDAPinnedPlace(core.Place):
 
     def torch_device(self) -> torch.device:
         return torch.device("cpu")
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """A parameter of its own, made as ``Layer.create_parameter`` makes
+    one (on the current place; ``attr=False`` gives None)."""
+    from ..nn.layer.layers import Layer
+    return Layer().create_parameter(list(shape), attr=attr, dtype=dtype,
+                                    is_bias=is_bias,
+                                    default_initializer=default_initializer)
 
 
 def check_shape(x):

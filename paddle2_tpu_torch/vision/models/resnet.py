@@ -20,12 +20,14 @@ in training mode, as the JAX package's layers do. ``pretrained=True``
 raises: the port downloads nothing.
 """
 
+import contextlib
 import math
 
 import torch
 from torch import nn
 
 from ...device import resolve_device
+from ...framework import core
 from ...nn import AdaptiveAvgPool2D, BatchNorm2D, Conv2D, MaxPool2D
 
 __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
@@ -33,6 +35,15 @@ __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
            "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
            "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
            "wide_resnet50_2", "wide_resnet101_2"]
+
+
+def _built_on(factory):
+    """The port's layers (``Conv2D``, ``BatchNorm2D``) take no device:
+    they are built on the current place, which this makes the device
+    the torch layers of the model get."""
+    dev = factory.get("device")
+    return (core.place_scope(dev) if dev is not None
+            else contextlib.nullcontext())
 
 
 class BasicBlock(nn.Module):
@@ -43,17 +54,18 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
                  base_width=64, dilation=1, norm_layer=None, **factory):
         super().__init__()
-        norm_layer = norm_layer or BatchNorm2D
-        if groups != 1 or base_width != 64:
-            raise ValueError("BasicBlock only supports groups=1, "
-                             "base_width=64")
-        self.conv1 = Conv2D(inplanes, planes, 3, stride=stride, padding=1,
-                            bias_attr=False, **factory)
-        self.bn1 = norm_layer(planes, **factory)
-        self.relu = nn.ReLU()
-        self.conv2 = Conv2D(planes, planes, 3, padding=1, bias_attr=False,
-                            **factory)
-        self.bn2 = norm_layer(planes, **factory)
+        with _built_on(factory):
+            norm_layer = norm_layer or BatchNorm2D
+            if groups != 1 or base_width != 64:
+                raise ValueError("BasicBlock only supports groups=1, "
+                                 "base_width=64")
+            self.conv1 = Conv2D(inplanes, planes, 3, stride=stride,
+                                padding=1, bias_attr=False)
+            self.bn1 = norm_layer(planes)
+            self.relu = nn.ReLU()
+            self.conv2 = Conv2D(planes, planes, 3, padding=1,
+                                bias_attr=False)
+            self.bn2 = norm_layer(planes)
         self.downsample = downsample
         self.stride = stride
 
@@ -74,17 +86,19 @@ class BottleneckBlock(nn.Module):
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
                  base_width=64, dilation=1, norm_layer=None, **factory):
         super().__init__()
-        norm_layer = norm_layer or BatchNorm2D
-        width = int(planes * (base_width / 64.0)) * groups
-        self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False, **factory)
-        self.bn1 = norm_layer(width, **factory)
-        self.conv2 = Conv2D(width, width, 3, stride=stride, padding=dilation,
-                            groups=groups, dilation=dilation,
-                            bias_attr=False, **factory)
-        self.bn2 = norm_layer(width, **factory)
-        self.conv3 = Conv2D(width, planes * self.expansion, 1,
-                            bias_attr=False, **factory)
-        self.bn3 = norm_layer(planes * self.expansion, **factory)
+        with _built_on(factory):
+            norm_layer = norm_layer or BatchNorm2D
+            width = int(planes * (base_width / 64.0)) * groups
+            self.conv1 = Conv2D(inplanes, width, 1, bias_attr=False)
+            self.bn1 = norm_layer(width)
+            self.conv2 = Conv2D(width, width, 3, stride=stride,
+                                padding=dilation, groups=groups,
+                                dilation=dilation,
+                                bias_attr=False)
+            self.bn2 = norm_layer(width)
+            self.conv3 = Conv2D(width, planes * self.expansion, 1,
+                                bias_attr=False)
+            self.bn3 = norm_layer(planes * self.expansion)
         self.relu = nn.ReLU()
         self.downsample = downsample
         self.stride = stride
@@ -122,21 +136,21 @@ class ResNet(nn.Module):
         self._norm_layer = BatchNorm2D
         self.inplanes = 64
         self.dilation = 1
-
-        self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
-                            bias_attr=False, **factory)
-        self.bn1 = self._norm_layer(self.inplanes, **factory)
-        self.relu = nn.ReLU()
-        self.maxpool = MaxPool2D(kernel_size=3, stride=2, padding=1)
-        self.layer1 = self._make_layer(block, 64, layers[0], factory)
-        self.layer2 = self._make_layer(block, 128, layers[1], factory, 2)
-        self.layer3 = self._make_layer(block, 256, layers[2], factory, 2)
-        self.layer4 = self._make_layer(block, 512, layers[3], factory, 2)
-        if with_pool:
-            self.avgpool = AdaptiveAvgPool2D((1, 1))
-        if num_classes > 0:
-            self.fc = nn.Linear(512 * block.expansion, num_classes,
-                                **factory)
+        with _built_on(factory):
+            self.conv1 = Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                                bias_attr=False)
+            self.bn1 = self._norm_layer(self.inplanes)
+            self.relu = nn.ReLU()
+            self.maxpool = MaxPool2D(kernel_size=3, stride=2, padding=1)
+            self.layer1 = self._make_layer(block, 64, layers[0], factory)
+            self.layer2 = self._make_layer(block, 128, layers[1], factory, 2)
+            self.layer3 = self._make_layer(block, 256, layers[2], factory, 2)
+            self.layer4 = self._make_layer(block, 512, layers[3], factory, 2)
+            if with_pool:
+                self.avgpool = AdaptiveAvgPool2D((1, 1))
+            if num_classes > 0:
+                self.fc = nn.Linear(512 * block.expansion, num_classes,
+                                    **factory)
         self._init_weights(torch.Generator(device=device).manual_seed(seed))
 
     def _make_layer(self, block, planes, blocks, factory, stride=1):
@@ -145,8 +159,8 @@ class ResNet(nn.Module):
         if stride != 1 or self.inplanes != planes * block.expansion:
             downsample = nn.Sequential(
                 Conv2D(self.inplanes, planes * block.expansion, 1,
-                       stride=stride, bias_attr=False, **factory),
-                norm_layer(planes * block.expansion, **factory))
+                       stride=stride, bias_attr=False),
+                norm_layer(planes * block.expansion))
         layers = [block(self.inplanes, planes, stride, downsample,
                         self.groups, self.base_width, self.dilation,
                         norm_layer, **factory)]

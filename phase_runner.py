@@ -83,6 +83,13 @@ Phases:
   serve of GPT-3 1.3B in bf16; the tokens to match are those of one
   ``serve()`` of the same model first (phase 4's bf16 run, rebuilt). Its
   record, with the phase's seconds.
+- ``nn_transformer``: the smoke's phase 20 (a)-(b) alone
+  (``chip_smoke.nn_transformer_bf16``): the default ``nn.Transformer``
+  (Transformer-base) trained in bf16 O2 with ``FLAGS_pallas_layer_norm``
+  on, 32 pairs of 256 + 256 tokens, 1 warm-up, 5 timed and 1 traced
+  step, with that checkout's launch gates: target tokens/s, the step
+  time, the losses, the traced step's device time, idle share and
+  device time by kernel group.
 - ``flash_bwd_f32``: the f32 flash backward at the training shape (B8
   H16 S1024 D64, causal): the split pair's two wrappers
   (``flash_bwd_split_dkv``, ``flash_bwd_split_dq``) and ``flash_bwd``
@@ -1302,6 +1309,18 @@ def core(cs, torch):
     return rec
 
 
+def nn_transformer(cs, torch, smi):
+    """The smoke's phase 20 (a)-(b) alone: the default ``nn.Transformer``
+    trained in bf16 O2 with ``FLAGS_pallas_layer_norm`` on, with that
+    checkout's launch gates."""
+    with cs.on_card(pallas_layer_norm=True):
+        rec, launches, _ = cs.nn_transformer_bf16(smi)
+    rec["launches"] = {n: v for n, v in launches.items() if v}
+    for key in ("device", "nvidia_smi"):     # the line's own
+        rec.pop(key)
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", required=True,
@@ -1309,7 +1328,7 @@ def main():
                              "varlen_bwd_draws", "norms", "flash_bwd_f32",
                              "train_bf16", "adamw_step", "f32_prefill",
                              "paged_decode", "ptq_serving", "f32_decode",
-                             "plain_serving", "core"))
+                             "plain_serving", "core", "nn_transformer"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -1350,6 +1369,8 @@ def main():
         result = plain_serving(cs, torch)
     elif args.phase == "core":
         result = core(cs, torch)
+    elif args.phase == "nn_transformer":
+        result = nn_transformer(cs, torch, smi)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parents[1]
 OP_MODULES = ("creation", "math", "manipulation", "linalg", "logic",
               "random", "extra", "misc")
 # ops that wait on a later ROADMAP item (listed there with the reason)
-WAITING = {"create_parameter"}
+WAITING = set()
 
 
 def _name(dt):
@@ -245,5 +245,5 @@ def test_top_level_names():
     # subsystems not yet ported are absent, not stubs
     for n in ("io", "metric", "hapi", "Model", "static", "profiler",
               "fft", "sparse", "inference", "DataParallel", "summary",
-              "ParamAttr", "linalg", "create_parameter"):
+              "linalg"):
         assert not hasattr(tp, n), n

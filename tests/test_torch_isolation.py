@@ -15,7 +15,8 @@ PORT_FILES = sorted((ROOT / "paddle2_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "phase_runner.py",
      ROOT / "variant_harness.py"] + sorted(ROOT.glob("*_variants.py")) + \
     [ROOT / "tests" / "torch_core_cases.py"] + \
-    sorted((ROOT / "tests").glob("torch_core_table_*.py"))
+    sorted((ROOT / "tests").glob("torch_core_table_*.py")) + \
+    sorted((ROOT / "tests").glob("torch_nn_table_*.py"))
 
 
 def _imported_modules(path: Path):
@@ -57,6 +58,7 @@ import paddle2_tpu_torch.incubate.nn, paddle2_tpu_torch.incubate.nn.functional
 import paddle2_tpu_torch.amp.casting, paddle2_tpu_torch.amp.grad_scaler
 import paddle2_tpu_torch.amp.amp_lists, paddle2_tpu_torch.optimizer.lr
 import paddle2_tpu_torch.nn.clip, paddle2_tpu_torch.regularizer
+import paddle2_tpu_torch.nn.initializer, paddle2_tpu_torch.nn.layer.transformer
 from paddle2_tpu_torch.kernels import _build
 assert not calls, calls
 assert not _build._LIBS

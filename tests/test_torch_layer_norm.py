@@ -26,6 +26,7 @@ import torch
 from paddle2_tpu.kernels import pallas_ln
 from paddle2_tpu.kernels.pallas_flash import _interpret_default
 from paddle2_tpu_torch import flags, jit
+from paddle2_tpu_torch.framework.core import place_scope
 from paddle2_tpu_torch.kernels import _build
 from paddle2_tpu_torch.kernels import fused_layer_norm as fln
 from paddle2_tpu_torch.models import GPTForCausalLM, gpt_tiny
@@ -183,7 +184,8 @@ def test_flag_routes_layer_norm(monkeypatch, dtype):
 
 
 def test_layer_norm_module_takes_the_flag(flag_on):
-    ln = LayerNorm(64, eps=1e-5)
+    with place_scope("cpu"):
+        ln = LayerNorm(64, epsilon=1e-5)
     x = torch.randn(2, 3, 64, generator=torch.Generator().manual_seed(0))
     y = ln(x)
     y.sum().backward()

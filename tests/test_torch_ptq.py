@@ -40,6 +40,7 @@ from paddle2_tpu.models.gpt import gpt_tiny as jax_tiny
 from paddle2_tpu.serving import EngineConfig as JaxEngineConfig
 from paddle2_tpu.serving import ServingEngine as JaxEngine
 from paddle2_tpu_torch import nn as tnn
+from paddle2_tpu_torch.framework.core import place_scope
 from paddle2_tpu_torch import quantization as tq
 from paddle2_tpu_torch.models import (GPTForCausalLM, gpt_state_from_reference,
                                       gpt_tiny, load_quanted_reference)
@@ -149,8 +150,10 @@ def _conv_nets(seed=0):
     paddle.seed(seed)
     jm = jnn.Sequential(jnn.Conv2D(3, 4, 3, padding=1), jnn.ReLU(),
                         jnn.Conv2D(4, 2, 3, stride=2))
-    tm = torch.nn.Sequential(tnn.Conv2D(3, 4, 3, padding=1),
-                             torch.nn.ReLU(), tnn.Conv2D(4, 2, 3, stride=2))
+    with place_scope("cpu"):
+        tm = torch.nn.Sequential(tnn.Conv2D(3, 4, 3, padding=1),
+                                 torch.nn.ReLU(),
+                                 tnn.Conv2D(4, 2, 3, stride=2))
     tm.load_state_dict({k: torch.from_numpy(np.asarray(v.numpy()))
                         for k, v in jm.state_dict().items()})
     return jm, tm
@@ -216,8 +219,9 @@ def test_add_type_config_picks_the_layer_type():
     act, w = cfg.quanter_for(torch.nn.Linear(2, 3))
     assert act is tq.FakeQuanterWithAbsMaxObserver
     assert w is tq.FakeQuanterChannelWiseAbsMaxObserver
-    assert cfg.quanter_for(tnn.Conv2D(1, 1, 1)) == (
-        tq.FakeQuanterWithAbsMaxObserver, None)
+    with place_scope("cpu"):
+        conv = tnn.Conv2D(1, 1, 1)
+    assert cfg.quanter_for(conv) == (tq.FakeQuanterWithAbsMaxObserver, None)
 
 
 # ------------------------------------------------------------------- PTQ

@@ -40,6 +40,7 @@ from paddle2_tpu.vision.models import resnet18 as jax_resnet18
 from paddle2_tpu.vision.models import resnet50 as jax_resnet50
 from paddle2_tpu_torch import amp, flags, jit
 from paddle2_tpu_torch import nn as tnn
+from paddle2_tpu_torch.framework.core import place_scope
 from paddle2_tpu_torch.kernels import fused_momentum as fm
 from paddle2_tpu_torch.models import resnet_state_from_reference
 from paddle2_tpu_torch.nn import functional as F
@@ -266,33 +267,57 @@ def test_cross_entropy_matches_jax(label_shape, dt):
 
 @pytest.mark.parametrize("kwargs", [
     dict(soft_label=True), dict(reduction="sum"), dict(label_smoothing=0.1),
-    dict(weight=torch.ones(10)), dict(use_softmax=False), dict(axis=0)],
+    dict(weight=np.linspace(0.5, 2.0, 10).astype(np.float32)),
+    dict(use_softmax=False), dict(axis=0)],
     ids=["soft", "sum", "smoothing", "weight", "no_softmax", "axis0"])
 def test_cross_entropy_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        F.cross_entropy(torch.zeros(4, 10), torch.zeros(4, dtype=torch.int32),
-                        **kwargs)
+    """The options once refused here are ported: each matches the JAX
+    function, loss and input gradient, in f32 (the name is kept from
+    when they raised)."""
+    rng = np.random.default_rng(4)
+    logits = rng.normal(size=(4, 10)).astype(np.float32)
+    if kwargs.get("soft_label"):
+        labels = rng.dirichlet(np.ones(10), size=4).astype(np.float32)
+    elif kwargs.get("axis") == 0:
+        labels = rng.integers(0, 4, size=(10,)).astype(np.int32)
+    else:
+        labels = rng.integers(0, 10, size=(4,)).astype(np.int32)
+    if kwargs.get("use_softmax") is False:
+        logits = rng.dirichlet(np.ones(10), size=4).astype(np.float32)
+    w = kwargs.get("weight")
+    jkw = dict(kwargs, **({} if w is None else dict(weight=Tensor(w))))
+    tkw = dict(kwargs, **({} if w is None else
+                          dict(weight=torch.from_numpy(w))))
+    jl, tl = Tensor(labels), torch.from_numpy(labels)
+    _check(lambda a: JF.cross_entropy(a, jl, **jkw),
+           lambda a: F.cross_entropy(a, tl, **tkw), [logits], ["float32"],
+           (), 1e-5)
 
 
 def test_layers_keep_the_jax_constructors():
-    conv = tnn.Conv2D(4, 6, 3, stride=2, padding=1, bias_attr=False)
-    assert conv.bias is None and tuple(conv.weight.shape) == (6, 4, 3, 3)
-    assert conv.weight.abs().max() <= 1 / np.sqrt(4 * 9)
-    assert tnn.Conv2D(4, 6, (3, 1), groups=2).weight.shape == (6, 2, 3, 1)
-    bn = tnn.BatchNorm2D(8)
-    assert (bn._momentum, bn._epsilon) == (0.9, 1e-5)
-    assert torch.equal(bn.weight, torch.ones(8))
-    assert torch.equal(bn.bias, torch.zeros(8))
-    assert dict(bn.named_buffers()).keys() == {"_mean", "_variance"}
-    assert torch.equal(bn._mean, torch.zeros(8))
-    assert torch.equal(bn._variance, torch.ones(8))
-    x = torch.randn(1, 3, 8, 8)
-    assert tnn.MaxPool2D(3, 2, 1)(x).shape == (1, 3, 4, 4)
-    assert tnn.AdaptiveAvgPool2D((1, 1))(x).shape == (1, 3, 1, 1)
-    with pytest.raises(NotImplementedError):
-        tnn.Conv2D(4, 6, 3, padding_mode="reflect")
-    with pytest.raises(NotImplementedError):
-        F.max_pool2d(x, 2, return_mask=True)
+    """The layers' Paddle constructors (built on the CPU, which the
+    port's layers ask for as the current place)."""
+    with place_scope("cpu"):
+        conv = tnn.Conv2D(4, 6, 3, stride=2, padding=1, bias_attr=False)
+        assert conv.bias is None
+        assert tuple(conv.weight.shape) == (6, 4, 3, 3)
+        assert conv.weight.abs().max() <= 1 / np.sqrt(4 * 9)
+        assert tnn.Conv2D(4, 6, (3, 1), groups=2).weight.shape == \
+            (6, 2, 3, 1)
+        bn = tnn.BatchNorm2D(8)
+        assert (bn._momentum, bn._epsilon) == (0.9, 1e-5)
+        assert torch.equal(bn.weight, torch.ones(8))
+        assert torch.equal(bn.bias, torch.zeros(8))
+        assert dict(bn.named_buffers()).keys() == {"_mean", "_variance"}
+        assert torch.equal(bn._mean, torch.zeros(8))
+        assert torch.equal(bn._variance, torch.ones(8))
+        x = torch.randn(1, 3, 8, 8)
+        assert tnn.MaxPool2D(3, 2, 1)(x).shape == (1, 3, 4, 4)
+        assert tnn.AdaptiveAvgPool2D((1, 1))(x).shape == (1, 3, 1, 1)
+        with pytest.raises(NotImplementedError):
+            tnn.Conv2D(4, 6, 3, padding_mode="reflect")
+        with pytest.raises(NotImplementedError):
+            F.max_pool2d(x, 2, return_mask=True)
 
 
 def _pair(make_jax, make_torch, seed=0):

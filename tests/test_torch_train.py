@@ -30,6 +30,7 @@ from paddle2_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from paddle2_tpu.models.gpt import gpt_tiny as jax_tiny
 from paddle2_tpu.nn import functional as JF
 from paddle2_tpu_torch import amp, jit
+from paddle2_tpu_torch.framework.core import place_scope
 from paddle2_tpu_torch.kernels import flash_attn
 from paddle2_tpu_torch.models import (GPTForCausalLM, gpt_state_from_reference,
                                       gpt_tiny)
@@ -251,7 +252,8 @@ def test_layer_norm_numerics_match_jax(dtype):
     want = JF.layer_norm(paddle.to_tensor(x).astype(dtype), 32,
                          weight=paddle.to_tensor(w),
                          bias=paddle.to_tensor(b), epsilon=1e-5)
-    ln = LayerNorm(32, eps=1e-5)
+    with place_scope("cpu"):
+        ln = LayerNorm(32, epsilon=1e-5)
     with torch.no_grad():
         ln.weight.copy_(torch.from_numpy(w))
         ln.bias.copy_(torch.from_numpy(b))

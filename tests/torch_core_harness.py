@@ -90,6 +90,13 @@ def build_kwargs(kwargs, dtype, side):
             for k, v in kwargs.items()}
 
 
+def resolve(pkg, op: str):
+    """``pkg``'s op by its dotted path (``"nn.functional.relu"``)."""
+    for part in op.split("."):
+        pkg = getattr(pkg, part)
+    return pkg
+
+
 def run_case(case: Case, dtype: str):
     rng = np.random.default_rng(seed_of(case))
     args = list(case.make(rng))
@@ -101,8 +108,8 @@ def run_case(case: Case, dtype: str):
     ta, tl = build(args, dtype, "torch", grad_ids)
     jk = build_kwargs(case.kwargs, dtype, "jax")
     tk = build_kwargs(case.kwargs, dtype, "torch")
-    jout = getattr(jp, case.op)(*ja, **jk)
-    tout = getattr(tp, case.op)(*ta, **tk)
+    jout = resolve(jp, case.op)(*ja, **jk)
+    tout = resolve(tp, case.op)(*ta, **tk)
     if case.post is not None:
         jout, tout = case.post(jout, jp), case.post(tout, tp)
     if case.shape_only:
