@@ -451,6 +451,38 @@ line) when it fails:
     bf16 flash forward and fused backward at B32 H8 S256 D64 without a
     mask, the LayerNorm at 8,192 rows of 512 with f32 gamma, the fused
     AdamW bitwise over the model's 254 leaves, and (c)'s f32 shapes).
+21. The rest of ``paddle.nn`` and the vision zoo ("vision and rnn"):
+    (a) ``paddle.vision.models.densenet121()`` (1000 classes, 7,978,856
+    parameters in 364 tensors) on ``bench_resnet50``'s recipe: AMP O2
+    bf16, batch 128 at 224x224, ``Momentum(0.1, 0.9,
+    multi_precision=True)`` with ``FLAGS_fused_optimizer_step`` on,
+    through ``jit.train_step``, 1 warm-up, 5 timed and 1 traced step:
+    finite losses, ``momentum_step`` exactly twice a step (256 tensors a
+    launch) and no other kernel; images/s, the step time, device time by
+    kernel group, the idle share and peak memory. (b) Phase 10's
+    ResNet-50 run with ``FLAGS_conv_prefer_channels_last`` on (the NHWC
+    ``conv2d``), one ``momentum_step`` a step, its figures beside phase
+    10's. (c) Every case of the nn tables the CPU tests hold the port to
+    (``tests/torch_nn_table_functional.py``, ``torch_nn_table_layers.py``,
+    ``torch_nn_table_spatial_rnn.py``) on the card against the CPU,
+    forward, buffers and gradients, f32 and bf16; then an f32
+    ``densenet121(num_classes=10)`` at 64x64, batch 4, two
+    ``Momentum(fused=True)`` steps on the card and on the CPU in eval
+    mode (losses 1e-4 relative, first-step gradients 1e-4 of each
+    gradient's largest magnitude), the same in training mode recorded
+    beside an f64 CPU twin (chaotic in f32: not gated). (d) The medium
+    PTB LSTM LM of Zaremba et al. 2014 (10,000 words, 650 units, 2
+    layers, dropout 0.5, 35 steps, batch 20, clip 5) in f32 on synthetic
+    tokens with ``AdamW`` on the fused flag: ``adamw_step`` exactly once
+    a step, tokens/s, device time by group; beam search (beam 10, 35
+    steps) over its two trained cells on the card and on the CPU: equal
+    ids, or at the step where they part the two candidates' CPU scores
+    within 1e-5 relative; an f32 step at hidden 64, vocabulary 200
+    against the CPU (loss 1e-5, gradients 1e-4). Then the path's kernels
+    at its shapes: ``momentum_step`` over DenseNet-121's 364 tensors
+    (two launches) and ``adamw_step`` over the LM's 11, bitwise, timed
+    against their plain versions and ``torch._fused_sgd_`` /
+    ``torch._fused_adamw_``.
 
 Phase 12 also holds the bf16 split pair of the packed varlen backward
 (``flash_varlen_dkv_kernel``, ``flash_varlen_dq_kernel``) on inputs
@@ -512,7 +544,8 @@ times (both routes of both directions), bounds and ``F.layer_norm``'s
 
 Each main-path run (the serving runs, the training runs, the ERNIE
 runs, the ResNet runs, the varlen runs, the incubate stack runs, the
-PTQ runs, phase 17's serving runs, phase 18's gradient and serving runs)
+PTQ runs, phase 17's serving runs, phase 18's gradient and serving runs,
+phase 20's and phase 21's training runs)
 starts with every launch count at 0 and is read just after;
 the kernel checks' launches (and the PTQ phase's one-at-a-time and
 dense replays) are not counted.
@@ -548,6 +581,7 @@ from torch.nn import functional as F
 
 import paddle2_tpu_torch as paddle
 from paddle2_tpu_torch import amp, flags, jit
+from paddle2_tpu_torch.framework import core
 from paddle2_tpu_torch.kernels import _build
 from paddle2_tpu_torch.kernels import flash_attn as flash_attn_mod
 from paddle2_tpu_torch.kernels.flash_attn import (
@@ -569,7 +603,8 @@ from paddle2_tpu_torch.kernels.fused_layer_norm import (
     bwd_blocks, layer_norm_bwd, layer_norm_bwd_reference, layer_norm_fwd,
     layer_norm_fwd_reference)
 from paddle2_tpu_torch.kernels.fused_momentum import (
-    momentum_step, momentum_step_multi, momentum_step_reference)
+    MAX_TENSORS as MAX_MOMENTUM_TENSORS, momentum_step, momentum_step_multi,
+    momentum_step_reference)
 from paddle2_tpu_torch.kernels import fused_rms_norm as frn
 from paddle2_tpu_torch.kernels import quant_matmul
 from paddle2_tpu_torch.kernels.fused_rms_norm import (
@@ -601,7 +636,7 @@ from paddle2_tpu_torch.serving.paged_attention import (
     _merge_splits, cluster_plan, paged_attention_reference,
     paged_attention_split_reference, paged_decode,
     paged_decode_split_partials)
-from paddle2_tpu_torch.vision.models import resnet18, resnet50
+from paddle2_tpu_torch.vision.models import densenet121, resnet18, resnet50
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): f32 without TF32
 # runs on the CUDA cores; int8 on the tensor cores
@@ -1157,7 +1192,8 @@ def device_ms(fn, kernel, iters=10, per_call=None):
     ``kernel``. With ``per_call``, the launches of ``kernel`` one call
     makes, a window that holds fewer of them (late in a long run the
     profiler has been seen to drop records) is taken again, up to three
-    windows; if none is whole, both times are None (not measured)."""
+    windows, then once with a primer call first; if none is whole, both
+    times are None (not measured)."""
     tries = 3
     fn()
     torch.cuda.synchronize()
@@ -1173,8 +1209,29 @@ def device_ms(fn, kernel, iters=10, per_call=None):
                 iters * per_call:
             return (sum(e.device_time_total for e in evs) / iters / 1e3,
                     sum(e.device_time_total for e in ours) / iters / 1e3)
+    # some windows lose the first record of a kernel library: one more
+    # window whose first call is a primer, of which the last iters *
+    # per_call records of ``kernel`` are taken, and every kernel from
+    # the first of those on
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters + 1):
+            fn()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    ours = [e for e in dev if kernel in e.name]
+    want = iters * per_call
+    if len(ours) >= want:
+        first = ours[-want].time_range.start
+        return (sum(e.time_range.elapsed_us() for e in dev
+                    if e.time_range.start >= first) / iters / 1e3,
+                sum(e.time_range.elapsed_us() for e in ours[-want:])
+                / iters / 1e3)
     say(f"[profiler] {kernel}: fewer than {iters * per_call} launches "
-        f"recorded in each of {tries} windows: device time not measured")
+        f"recorded in each of {tries} windows and in a primed one: device "
+        f"time not measured")
     return None, None
 
 
@@ -1771,22 +1828,24 @@ def check_adamw(leaves, gen, dev, timed=True):
     return rows
 
 
-def check_momentum(shapes, o2_dtypes, gen, dev):
+def check_momentum(shapes, o2_dtypes, gen, dev, model="ResNet-50"):
     """Three steps of the fused Momentum against the eager chain,
-    bitwise, on parameters of ResNet-50's 161 shapes: f32 plain, f32
-    Nesterov, f32 with L2 decay 1e-4, bf16 with f32 masters, and the
-    mixed list of ResNet-50 under O2 (``o2_dtypes``: bf16 convolutions
-    and fc with f32 masters, f32 BatchNorm); each step one launch. Then
-    one multi-tensor step over f32 state of all 161 (what a training
-    step runs) timed: the kernel, its plain version, and
-    ``torch._fused_sgd_`` (dampening 0: the same function) over the same
-    lists, by CUDA events and by device time."""
+    bitwise, on parameters of ``model``'s shapes (ResNet-50's 161 in
+    phase 3, DenseNet-121's 364 in phase 21: two launches a step): f32
+    plain, f32 Nesterov, f32 with L2 decay 1e-4, bf16 with f32 masters,
+    and the mixed list of the model under O2 (``o2_dtypes``: bf16
+    convolutions and fc with f32 masters, f32 BatchNorm); each step
+    one launch per 256 tensors. Then one multi-tensor step over f32
+    state of all of them (what a training step runs) timed: the kernel,
+    its plain version, and ``torch._fused_sgd_`` (dampening 0: the same
+    function) over the same lists, by CUDA events and by device time."""
     n_leaves = len(shapes)
+    per_step = -(-n_leaves // MAX_MOMENTUM_TENSORS)
     cases = [("f32", [torch.float32] * n_leaves, False, 0.0),
              ("f32 nesterov", [torch.float32] * n_leaves, True, 0.0),
              ("f32 L2 1e-4", [torch.float32] * n_leaves, False, 1e-4),
              ("bf16 + f32 masters", [torch.bfloat16] * n_leaves, False, 0.0),
-             ("ResNet-50 O2 list", o2_dtypes, False, 1e-4)]
+             (f"{model} O2 list", o2_dtypes, False, 1e-4)]
     for what, dtypes, nesterov, wd in cases:
         inits = [torch.randn(sh, generator=gen, device=dev).to(dt)
                  for sh, dt in zip(shapes, dtypes)]
@@ -1810,10 +1869,10 @@ def check_momentum(shapes, o2_dtypes, gen, dev):
             oa.step()
             ob.step()
         torch.cuda.synchronize()
-        require(momentum_step.launches - before == 3,
+        require(momentum_step.launches - before == 3 * per_step,
                 f"the fused Momentum ({what}) launched the kernel "
                 f"{momentum_step.launches - before} times in 3 steps, want "
-                f"one a step")
+                f"{per_step} a step")
         for i, (a, b) in enumerate(zip(pa, pb)):
             sa, sb = oa._states[id(a)], ob._states[id(b)]
             pairs = [("param", a, b)]
@@ -1840,7 +1899,8 @@ def check_momentum(shapes, o2_dtypes, gen, dev):
         for leaf in zip(P, G, V):
             momentum_step_reference(*leaf, lr, mom, False, 0.0)
     ms = cuda_ms(run)
-    dev_ms, kern_ms = device_ms(run, "momentum_step_kernel", per_call=1)
+    dev_ms, kern_ms = device_ms(run, "momentum_step_kernel",
+                                per_call=per_step)
     # the wrapper's host time (checks, the descriptor table, the launch),
     # which the CUDA-event time holds beside the kernel's
     host = []
@@ -1863,8 +1923,9 @@ def check_momentum(shapes, o2_dtypes, gen, dev):
     # and p, v written
     b_ms, b_by = bound(4.0 * N, 20.0 * N, torch.float32)
     return dict(name="momentum_step", dtype="float32",
-                shape=f"{n_leaves} ResNet-50 parameters, {N} f32 elements "
-                f"(largest {max(p.numel() for p in P)}), one launch",
+                shape=f"{n_leaves} {model} parameters, {N} f32 elements "
+                f"(largest {max(p.numel() for p in P)}), {per_step} "
+                f"launch{'es' if per_step > 1 else ''}",
                 max_abs_err=0.0, tol="bitwise", ms=ms, device_ms=dev_ms,
                 kernel_device_ms=kern_ms, host_ms=statistics.median(host),
                 plain_ms=plain_ms, library_ms=lib,
@@ -4489,9 +4550,11 @@ def resnet50_bf16(smi):
     ``torch.backends.cudnn.benchmark`` on (two more warm-up steps absorb
     its autotuning), for the record."""
     R = RESNET
-    model = amp.decorate(resnet50(num_classes=R["classes"], seed=0),
-                         level="O2", dtype="bfloat16")
-    n_params = model.num_params()
+    paddle.seed(0)
+    with core.place_scope("gpu"):
+        model = amp.decorate(resnet50(num_classes=R["classes"]),
+                             level="O2", dtype="bfloat16")
+    n_params = sum(p.numel() for p in model.parameters())
     n_tensors = len(list(model.parameters()))
     step = resnet_step(model)
     data = resnet_batches(7, R["batch"], R["size"], R["classes"], "cuda",
@@ -4583,7 +4646,9 @@ def resnet18_f32_vs_cpu():
     recorded beside: a ReLU input within f32 rounding of 0 flips its
     unit between two f32 runs of the gradients."""
     C = RESNET_CHECK
-    model = resnet18(num_classes=C["classes"], seed=0)
+    paddle.seed(0)
+    with core.place_scope("gpu"):
+        model = resnet18(num_classes=C["classes"])
     cpu = copy.deepcopy(model).cpu()
     f64 = copy.deepcopy(cpu).double()
     step = resnet_step(model, fused=True)
@@ -6625,6 +6690,553 @@ def phase20(smi):
     return rec, launches
 
 
+# ------------------------------------------------------------- phase 21
+# (d) the "medium" PTB language model of Zaremba et al. 2014
+# (arXiv:1409.2329; PaddleNLP's examples/language_model/rnnlm builds the
+# same): 10,000 words, 650 units, 2 LSTM layers, dropout 0.5, 35 steps
+# unrolled, batch 20, gradients clipped at global norm 5. The data is
+# synthetic tokens from the seed (PTB is not in the repository); the
+# optimizer is AdamW (the paper's SGD has no kernel of its own here)
+LSTM_LM = dict(vocab=10000, hidden=650, layers=2, dropout=0.5, steps=35,
+               batch=20, clip=5.0, lr=1e-3, seed=21)
+# the f32 check against the CPU at a small width, dropout off (the card
+# and the CPU draw different masks)
+LSTM_LM_CHECK = dict(vocab=200, hidden=64, layers=2, dropout=0.0,
+                     steps=12, batch=4, clip=5.0, lr=1e-3, seed=21)
+# the beam search over the trained cells: 4 sequences primed on 35
+# tokens each, beam 10, at most 35 steps
+BEAM = dict(batch=4, beam=10, max_step_num=35, start=0, end=1)
+# where the card's and the CPU's tokens part at a step (the same
+# history before it), the CPU's scores of the two candidates that part
+# must be within this, relative: f32 noise (a score sums up to 35
+# log-probabilities, ~-9.2 each for an LM that has learnt little)
+BEAM_MARGIN = 1e-5
+# (c) DenseNet-121 in f32 against the CPU
+DENSENET_CHECK = dict(batch=4, size=64, classes=10)
+LSTM_GROUPS = (("adamw_step", ("adamw_step",)),
+               ("gemm", ("gemm", "cutlass", "xmma", "sm90_xmma", "nvjet",
+                         "cublas")),
+               ("reduction", ("reduce_kernel",)))
+# (c) the JAX-free case tables the CPU tests hold the port to, by module
+# and name: the functionals (run by run_on_devices) and the layers (run
+# by run_layer_on_devices)
+NN_CASE_TABLES = (("torch_nn_table_functional",
+                   ("ACTIVATIONS", "COMMON", "SPATIAL", "NORM", "LOSSES",
+                    "EXTRA")),
+                  ("torch_nn_table_spatial_rnn",
+                   ("CONV", "POOL", "VISION_OPS")))
+NN_LAYER_TABLES = (("torch_nn_table_layers",
+                    ("ACTIVATION_LAYERS", "COMMON_LAYERS", "NORM_LAYERS",
+                     "LOSS_LAYERS")),
+                   ("torch_nn_table_spatial_rnn",
+                    ("CONV_LAYERS", "POOL_LAYERS", "RNN_LAYERS")))
+
+
+def densenet121_bf16(smi):
+    """Phase 21 (a): ``paddle.vision.models.densenet121()`` at full width
+    and depth (1000 classes, 7,978,856 parameters in 364 tensors) on
+    ``bench_resnet50``'s recipe: AMP O2 bf16, batch 128 at 224x224
+    (``resnet_batches``), ``Momentum(0.1, 0.9, multi_precision=True)``
+    with ``FLAGS_fused_optimizer_step`` on, through ``jit.train_step``:
+    1 warm-up step, 5 timed steps, 1 traced step. Every loss finite;
+    ``momentum_step`` exactly twice a step (364 tensors at 256 a launch)
+    and no other kernel of the port. Returns the record, the launches
+    and the parameters' shapes and O2 dtypes."""
+    R = RESNET
+    paddle.seed(0)
+    with core.place_scope("gpu"):
+        model = amp.decorate(densenet121(num_classes=R["classes"]),
+                             level="O2", dtype="bfloat16")
+    n_params = sum(p.numel() for p in model.parameters())
+    leaves = [(tuple(p.shape), p.dtype) for p in model.parameters()]
+    per_step = -(-len(leaves) // MAX_MOMENTUM_TENSORS)
+    require(len(leaves) == 364 and per_step == 2,
+            f"DenseNet-121 has {len(leaves)} parameter tensors, "
+            f"{per_step} launches a step")
+    step = resnet_step(model)
+    data = resnet_batches(7, R["batch"], R["size"], R["classes"], "cuda",
+                          torch.bfloat16)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = float(step(*data[0]))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses, times = [], []
+    for img, lbl in data[1:6]:
+        t0 = time.perf_counter()
+        loss = step(img, lbl)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced = float(step(*data[6]))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    steps = 7
+    require(all(np.isfinite([warm, traced] + losses)),
+            f"non-finite DenseNet-121 loss: {[warm] + losses + [traced]}")
+    for n in KERNELS:
+        want = per_step if n == "momentum_step" else 0
+        require(launches[n] == steps * want,
+                f"DenseNet-121: {n} launched {launches[n]} times in {steps} "
+                f"steps, want {want} a step")
+    step_s = statistics.mean(times)
+    return dict(
+        config=dict(batch=R["batch"], image=R["size"],
+                    classes=R["classes"], params=n_params,
+                    param_tensors=len(leaves)),
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+        images_per_s=R["batch"] / step_s, step_time_s=step_s,
+        step_times_s=times, first_step_s=first_s, warmup_loss=warm,
+        losses=losses, traced_loss=traced,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_step={n: launches[n] / steps for n in KERNELS
+                           if launches[n]},
+        step_profile=step_profile(prof, wall_ms, step_s * 1e3),
+        device_ms_by_group=device_groups(prof)), launches, leaves
+
+
+def densenet121_f32_vs_cpu():
+    """Phase 21 (c): ``densenet121(num_classes=10)`` in f32, 64x64, batch
+    4, ``Momentum(fused=True)``: two ``train_step`` calls on the card and
+    on the CPU (plain versions) from the same weights and images. In
+    training mode the last dense block normalises 4 values a channel
+    (2x2, batch 4) and the f32 arithmetic is chaotic: the CPU's own f32
+    gradients land up to 36 % of the largest magnitude from an f64 run
+    of the same model. So the gated run is in eval mode (BatchNorm on
+    its running statistics; f32 against f64 reads ~1e-6): the losses to
+    1e-4 relative, the first step's gradients to 1e-4 of each gradient's
+    largest magnitude, ``momentum_step`` twice a step on the card. The
+    training-mode run is recorded beside, card and CPU against an f64
+    CPU twin, ungated."""
+    C = DENSENET_CHECK
+    paddle.seed(0)
+    with core.place_scope("gpu"):
+        model = densenet121(num_classes=C["classes"])
+    data = resnet_batches(2, C["batch"], C["size"], C["classes"], "cpu")
+    rec = {}
+    for mode in ("eval", "train"):
+        card = copy.deepcopy(model)
+        cpu = copy.deepcopy(model).cpu()
+        f64 = copy.deepcopy(cpu).double()
+        nets = (card, cpu, f64)
+        for m in nets:
+            m.train() if mode == "train" else m.eval()
+        steps = [resnet_step(m, fused=True) for m in nets]
+        reset_counts()
+        losses = [[], [], []]
+        for i, (img, lbl) in enumerate(data):
+            for k, (m, st) in enumerate(zip(nets, steps)):
+                x = img.cuda() if k == 0 else \
+                    (img.double() if k == 2 else img)
+                losses[k].append(float(st(x, lbl.cuda() if k == 0
+                                          else lbl)))
+            if i == 0:
+                grad = [max(
+                    ((p.grad.cpu().double() - q.grad.double()).abs().max()
+                     / q.grad.double().abs().max().clamp_min(1e-30)).item()
+                    for p, q in zip(a.parameters(), b.parameters()))
+                    for a, b in ((card, cpu), (cpu, f64))]
+        launches = counts()
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[0], losses[1])]
+        rec[mode] = dict(losses_card=losses[0], losses_cpu=losses[1],
+                         losses_cpu_f64=losses[2], loss_rel_err=rel,
+                         grad_rel_err=grad[0],
+                         cpu_f32_vs_f64_grad_rel_err=grad[1],
+                         momentum_step_launches=launches["momentum_step"])
+        del card, cpu, f64, nets, steps
+        torch.cuda.empty_cache()
+    ev = rec["eval"]
+    require(max(ev["loss_rel_err"]) <= 1e-4,
+            f"DenseNet-121 f32 eval-mode losses, card vs CPU: "
+            f"{ev['loss_rel_err']} > 1e-4")
+    require(ev["grad_rel_err"] <= 1e-4,
+            f"DenseNet-121 f32 eval-mode gradients, card vs CPU: "
+            f"{ev['grad_rel_err']} > 1e-4 of the largest magnitude (the "
+            f"CPU's f32 against f64: {ev['cpu_f32_vs_f64_grad_rel_err']})")
+    require(ev["momentum_step_launches"] == 4,
+            f"DenseNet-121: momentum_step launched "
+            f"{ev['momentum_step_launches']} times in 2 steps, want 2 a "
+            f"step")
+    return rec
+
+
+def nn_tables_on_card(dev):
+    """Phase 21 (c): every case of the nn tables the CPU tests hold the
+    port to (the layer surface's functionals and layers, the conv, pooling,
+    vision-op and recurrent ones) on ``dev`` against the same call on
+    the CPU: forward, dtypes, buffers and gradients, f32 and bf16, at the
+    tests' tolerances."""
+    cc = core_tables()[0]
+    import importlib
+    rec = dict(cases=0, failures=[], max_err={})
+
+    def run(what, fn, items):
+        for item in items:
+            for dt in item.dtypes:
+                rec["cases"] += 1
+                try:
+                    err = fn(item, dt, paddle, dev)
+                    key = f"{item.id} {dt}"
+                    rec["max_err"][key] = err
+                except Exception as e:      # gathered, then gated below
+                    rec["failures"].append(
+                        f"{what}: {item.id} {dt}: {type(e).__name__}: "
+                        f"{str(e)[:400]}")
+    for mod, names in NN_CASE_TABLES:
+        m = importlib.import_module(mod)
+        for name in names:
+            run(f"{mod}.{name}", cc.run_on_devices, getattr(m, name))
+    for mod, names in NN_LAYER_TABLES:
+        m = importlib.import_module(mod)
+        for name in names:
+            run(f"{mod}.{name}", cc.run_layer_on_devices, getattr(m, name))
+    paddle.set_device("gpu")
+    return rec
+
+
+class LSTMLM(paddle.nn.Layer):
+    """The PTB language model of ``LSTM_LM``: embedding, dropout, a
+    stacked ``nn.LSTM`` (dropout between its layers), dropout, the
+    output projection."""
+
+    def __init__(self, vocab, hidden, layers, dropout):
+        super().__init__()
+        self.embedding = paddle.nn.Embedding(vocab, hidden)
+        self.lstm = paddle.nn.LSTM(hidden, hidden, num_layers=layers,
+                                   dropout=dropout)
+        self.dropout = paddle.nn.Dropout(dropout)
+        self.fc = paddle.nn.Linear(hidden, vocab)
+
+    def forward(self, ids, states=None):
+        out, final = self.lstm(self.dropout(self.embedding(ids)), states)
+        return self.fc(self.dropout(out)), final
+
+
+class StackedCells(paddle.nn.Layer):
+    """The LM's trained ``LSTMCell``s as one cell for the decoder: the
+    states are one ``(h, c)`` pair a layer."""
+
+    def __init__(self, cells):
+        super().__init__()
+        self.cells = paddle.nn.LayerList(cells)
+
+    def forward(self, x, states):
+        new = []
+        for cell, st in zip(self.cells, states):
+            x, st = cell(x, st)
+            new.append(st)
+        return x, tuple(new)
+
+
+def lstm_lm_setup(cfg, device):
+    paddle.seed(cfg["seed"])
+    with core.place_scope(device):
+        model = LSTMLM(cfg["vocab"], cfg["hidden"], cfg["layers"],
+                       cfg["dropout"])
+    opt = AdamW(cfg["lr"], parameters=model.parameters())
+    return model, opt
+
+
+def lstm_lm_batches(cfg, n, seed=0):
+    """``n`` batches of ``[batch, steps + 1]`` synthetic tokens (inputs
+    and the next-token labels)."""
+    rs = np.random.RandomState(seed)
+    return [torch.as_tensor(rs.randint(0, cfg["vocab"], (
+        cfg["batch"], cfg["steps"] + 1)).astype(np.int64))
+        for _ in range(n)]
+
+
+def lstm_lm_loss(model, tokens):
+    logits, _ = model(tokens[:, :-1])
+    return cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         tokens[:, 1:].reshape(-1))
+
+
+def lstm_lm_step(model, opt, tokens, clip):
+    loss = lstm_lm_loss(model, tokens)
+    loss.backward()
+    paddle.nn.utils.clip_grad_norm_(model.parameters(), clip)
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+class RecordingBeamSearch(paddle.nn.BeamSearchDecoder):
+    """``BeamSearchDecoder`` that keeps, a step, the tokens, the parents
+    and every candidate's score."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.record = []
+
+    def _scores(self, logits, log_probs, finished):
+        self._last = super()._scores(logits, log_probs, finished)
+        return self._last
+
+    def step(self, time, tokens, states, log_probs, finished):
+        out = super().step(time, tokens, states, log_probs, finished)
+        self.record.append((out[0].cpu(), out[4].cpu(), self._last.cpu()))
+        return out
+
+
+def lstm_lm_decode(model, prime, device):
+    """``dynamic_decode`` of a ``BeamSearchDecoder`` over the model's
+    two trained cells, from the states the LM leaves after ``prime``:
+    the ids, the lengths and the decoder's per-step record (tokens,
+    parents, top-k margins)."""
+    cells = StackedCells([r.cell for r in model.lstm.rnns])
+    with torch.no_grad():
+        _, final = model(prime.to(device))
+        dec = RecordingBeamSearch(cells, BEAM["start"], BEAM["end"],
+                                  BEAM["beam"],
+                                  embedding_fn=model.embedding,
+                                  output_fn=model.fc)
+        ids, lens = paddle.nn.dynamic_decode(
+            dec, inits=tuple((h, c) for h, c in final),
+            max_step_num=BEAM["max_step_num"], return_length=True)
+    return ids.cpu(), lens.cpu(), dec.record
+
+
+def lstm_lm_train(smi):
+    """Phase 21 (d): the LSTM LM at ``LSTM_LM``'s size in f32 with
+    ``FLAGS_fused_optimizer_step`` on (AdamW's step one ``adamw_step``
+    launch over the 11 tensors): 1 warm-up, 5 timed and 1 traced step,
+    every loss finite, ``adamw_step`` exactly once a step and no other
+    kernel. Returns the record, the launches and the trained model."""
+    cfg = LSTM_LM
+    model, opt = lstm_lm_setup(cfg, "gpu")
+    n_params = sum(p.numel() for p in model.parameters())
+    leaves = [(tuple(p.shape), p.dtype) for p in model.parameters()]
+    data = [b.cuda() for b in lstm_lm_batches(cfg, 7)]
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [lstm_lm_step(model, opt, data[0], cfg["clip"]).item()]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    times = []
+    for b in data[1:6]:
+        t0 = time.perf_counter()
+        loss = lstm_lm_step(model, opt, b, cfg["clip"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        losses.append(lstm_lm_step(model, opt, data[6], cfg["clip"]).item())
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    steps = 7
+    require(all(np.isfinite(losses)), f"non-finite LSTM LM loss: {losses}")
+    for n in KERNELS:
+        want = 1 if n == "adamw_step" else 0
+        require(launches[n] == steps * want,
+                f"LSTM LM: {n} launched {launches[n]} times in {steps} "
+                f"steps, want {want} a step")
+    step_s = statistics.mean(times)
+    return dict(
+        config=dict(cfg, params=n_params, param_tensors=len(leaves)),
+        device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+        tokens_per_s=cfg["batch"] * cfg["steps"] / step_s,
+        step_time_s=step_s, step_times_s=times, first_step_s=first_s,
+        losses=losses,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_step={n: launches[n] / steps for n in KERNELS
+                           if launches[n]},
+        step_profile=step_profile(prof, wall_ms, step_s * 1e3),
+        device_ms_by_group=device_groups(prof, LSTM_GROUPS)), launches, \
+        model, leaves
+
+
+def beam_search_vs_cpu(model):
+    """Phase 21 (d): beam search over the trained LM's cells on the card
+    and on a CPU copy: the ids and lengths equal, or, where a step's
+    tokens or parents part, that step's top-k margin on the CPU below
+    ``BEAM_MARGIN``. Each such step is recorded."""
+    model.eval()
+    cpu = copy.deepcopy(model).cpu()
+    prime = lstm_lm_batches(dict(LSTM_LM, batch=BEAM["batch"]), 1,
+                            seed=7)[0][:, :-1]
+    ids, lens, rec = lstm_lm_decode(model, prime, "cuda")
+    ids_c, lens_c, rec_c = lstm_lm_decode(cpu, prime, "cpu")
+    parted = []
+    V = LSTM_LM["vocab"]
+    for t, ((tok, par, _), (tok_c, par_c, sc_c)) in enumerate(
+            zip(rec, rec_c)):
+        if torch.equal(tok, tok_c) and torch.equal(par, par_c):
+            continue
+        # the same history up to step t: each parted row's first
+        # candidate that differs, scored on the CPU against the CPU's own
+        flat = (par.long() * V + tok.reshape(par.shape).long())
+        flat_c = (par_c.long() * V + tok_c.reshape(par_c.shape).long())
+        for b in range(flat.shape[0]):
+            k = (flat[b] != flat_c[b]).nonzero()
+            if not len(k):
+                continue
+            k = int(k[0])
+            mine, theirs = sc_c[b, flat[b, k]], sc_c[b, flat_c[b, k]]
+            parted.append(dict(step=t, row=b, beam=k,
+                               cpu_score=theirs.item(),
+                               card_choice_cpu_score=mine.item(),
+                               rel_margin=((theirs - mine).abs()
+                                           / theirs.abs()).item()))
+        break
+    same = torch.equal(ids, ids_c) and torch.equal(lens, lens_c) and \
+        len(rec) == len(rec_c)
+    require(same or (parted and all(p["rel_margin"] < BEAM_MARGIN
+                                    for p in parted)),
+            f"beam search ids differ from the CPU's with no near tie: "
+            f"{parted}")
+    return dict(ids_equal=same, steps=len(rec), steps_cpu=len(rec_c),
+                parted=parted, ids_shape=list(ids.shape),
+                lengths=lens.tolist())
+
+
+def lstm_lm_f32_vs_cpu():
+    """Phase 21 (d): one step of the LM at ``LSTM_LM_CHECK``'s size on the
+    card and on a CPU copy (plain versions): the loss to 1e-5 relative
+    and every gradient to 1e-4 of its largest magnitude."""
+    cfg = LSTM_LM_CHECK
+    model, _ = lstm_lm_setup(cfg, "gpu")
+    cpu = copy.deepcopy(model).cpu()
+    tokens = lstm_lm_batches(cfg, 1)[0]
+    lc = lstm_lm_loss(model, tokens.cuda())
+    lc.backward()
+    lh = lstm_lm_loss(cpu, tokens)
+    lh.backward()
+    rel = abs(lc.item() - lh.item()) / abs(lh.item())
+    grad = max(((p.grad.cpu() - q.grad).abs().max()
+                / q.grad.abs().max().clamp_min(1e-30)).item()
+               for p, q in zip(model.parameters(), cpu.parameters()))
+    require(rel <= 1e-5, f"LSTM LM f32 loss, card vs CPU: {rel} > 1e-5")
+    require(grad <= 1e-4, f"LSTM LM f32 gradients, card vs CPU: {grad} > "
+            f"1e-4 of the largest magnitude")
+    return dict(loss_card=lc.item(), loss_cpu=lh.item(), loss_rel_err=rel,
+                grad_rel_err=grad)
+
+
+def vision_rnn_kernels(dense_leaves, lm_leaves, gen, dev):
+    """Phase 21's kernels against their plain versions at the shapes its
+    main paths give them: the fused Momentum over DenseNet-121's 364
+    tensors (two launches a step; O2 dtypes as (a) trains them) and the
+    fused AdamW over the LSTM LM's 11 f32 tensors, both bitwise against
+    the eager chains and timed (the kernel, its plain version, and
+    ``torch._fused_sgd_`` / ``torch._fused_adamw_`` over the same
+    tensors). Their launches count in no phase's gates."""
+    rows = [check_momentum([sh for sh, _ in dense_leaves],
+                           [dt for _, dt in dense_leaves], gen, dev,
+                           model="DenseNet-121")]
+    torch.cuda.empty_cache()
+    rows += check_adamw(lm_leaves, gen, dev)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase21(smi, resnet_nchw):
+    """Phase 21, "vision and rnn": (a) DenseNet-121 trained at full width
+    and depth through ``momentum_step``; (b) ResNet-50 as phase 10 with
+    ``FLAGS_conv_prefer_channels_last`` on, beside phase 10's NCHW
+    figures (``resnet_nchw``); (c) the nn case tables and an f32
+    DenseNet-121 against the CPU; (d) the LSTM LM through ``adamw_step``,
+    beam search against the CPU and a small f32 step against the CPU;
+    then the path's kernels at its shapes. Returns the record and the
+    main paths' launches ((a), (b) and (d)'s training steps)."""
+    t0 = time.perf_counter()
+    launches = {n: 0 for n in KERNELS}
+
+    def add(l):
+        for n, c in l.items():
+            launches[n] += c
+    rec = {}
+    with on_card(fused_optimizer_step=True):
+        rec["densenet121_bf16"], l, dense_leaves = densenet121_bf16(smi)
+        add(l)
+        r = rec["densenet121_bf16"]
+        say(f"[phase 21 a] {smi}: DenseNet-121 bf16 O2 images/s "
+            f"{r['images_per_s']:.1f} step {r['step_time_s'] * 1e3:.2f} ms "
+            f"device {r['step_profile']['device_ms']:.2f} ms idle "
+            f"{r['step_profile']['idle_share']:.3f} peak "
+            f"{r['peak_memory_gib']:.2f} GiB losses {r['losses']} launches "
+            f"a step {json.dumps(r['launches_per_step'])} by group "
+            f"{json.dumps(r['device_ms_by_group'])}")
+        torch.cuda.empty_cache()
+    with on_card(fused_optimizer_step=True, conv_prefer_channels_last=True):
+        nhwc, l = resnet50_bf16(smi)
+        add(l)
+    rec["resnet50_nhwc"] = nhwc
+    rec["resnet50_nchw_phase10"] = dict(
+        images_per_s=resnet_nchw["bench"]["value"],
+        step_time_s=resnet_nchw["bench"]["step_time_s"],
+        device_ms_by_group=resnet_nchw["device_ms_by_group"],
+        device_ms=resnet_nchw["step_profile"]["device_ms"])
+    say(f"[phase 21 b] {smi}: ResNet-50 bf16 O2 images/s NHWC "
+        f"{nhwc['bench']['value']:.1f} (phase 10 NCHW "
+        f"{resnet_nchw['bench']['value']:.1f}), step "
+        f"{nhwc['bench']['step_time_s'] * 1e3:.2f} ms (NCHW "
+        f"{resnet_nchw['bench']['step_time_s'] * 1e3:.2f} ms), device "
+        f"{nhwc['step_profile']['device_ms']:.2f} ms (NCHW "
+        f"{resnet_nchw['step_profile']['device_ms']:.2f} ms), by group "
+        f"{json.dumps(nhwc['device_ms_by_group'])} (NCHW "
+        f"{json.dumps(resnet_nchw['device_ms_by_group'])})")
+    torch.cuda.empty_cache()
+    with on_card():
+        dev = torch.device("cuda:0")
+        tables = nn_tables_on_card(dev)
+        rec["tables"] = dict(cases=tables["cases"],
+                             failures=tables["failures"],
+                             largest_err=max(tables["max_err"].values(),
+                                             default=0.0))
+        say(f"[phase 21 c] nn tables on the card: {tables['cases']} cases, "
+            f"{len(tables['failures'])} failures, largest output error "
+            f"{rec['tables']['largest_err']:.3g}")
+        for f in tables["failures"]:
+            say(f"[phase 21 c] FAILED {f}")
+        require(not tables["failures"], f"{len(tables['failures'])} nn "
+                f"table cases differ between the card and the CPU")
+        rec["densenet121_f32_vs_cpu"] = densenet121_f32_vs_cpu()
+        say(f"[phase 21 c] DenseNet-121 f32 vs CPU: "
+            f"{json.dumps(rec['densenet121_f32_vs_cpu'])}")
+    with on_card(fused_optimizer_step=True):
+        lm, l, model, lm_leaves = lstm_lm_train(smi)
+        add(l)
+        rec["lstm_lm"] = lm
+        say(f"[phase 21 d] {smi}: LSTM LM f32 tokens/s "
+            f"{lm['tokens_per_s']:.1f} step {lm['step_time_s'] * 1e3:.2f} ms "
+            f"device {lm['step_profile']['device_ms']:.2f} ms idle "
+            f"{lm['step_profile']['idle_share']:.3f} losses {lm['losses']} "
+            f"launches a step {json.dumps(lm['launches_per_step'])} by group "
+            f"{json.dumps(lm['device_ms_by_group'])}")
+        rec["beam_search"] = beam_search_vs_cpu(model)
+        say(f"[phase 21 d] beam search vs CPU: "
+            f"{json.dumps(rec['beam_search'])}")
+        del model
+        rec["lstm_lm_f32_vs_cpu"] = lstm_lm_f32_vs_cpu()
+        say(f"[phase 21 d] LSTM LM f32 vs CPU: "
+            f"{json.dumps(rec['lstm_lm_f32_vs_cpu'])}")
+        torch.cuda.empty_cache()
+        rec["kernel_checks"] = vision_rnn_kernels(
+            dense_leaves, lm_leaves,
+            torch.Generator(device=dev).manual_seed(21), dev)
+        for r in rec["kernel_checks"]:
+            say(f"[phase 21 kernel] {smi}: {r['name']} {r['dtype']} "
+                f"{r['shape']}: err {r['max_abs_err']} ({r['tol']}) ms "
+                f"{r['ms']:.4f} kernel device {r['kernel_device_ms']} plain "
+                f"{r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}) library {r['library_ms']}")
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"[phase 21] {rec['seconds']:.1f} s")
+    return rec, launches
+
+
 def kernel_name(mangled):
     """A mangled kernel name as ``name`` or ``name<D>``: the first
     ``<length><identifier>`` in it whose identifier ends in ``_kernel``
@@ -7207,7 +7819,8 @@ def main():
               train_setup(T["layers"], dev, bf16=True)[0].parameters()]
     rows += check_adamw(leaves, gen, dev)
     torch.cuda.empty_cache()
-    o2 = amp.decorate(resnet50(device=dev), level="O2", dtype="bfloat16")
+    with core.place_scope(dev):
+        o2 = amp.decorate(resnet50(), level="O2", dtype="bfloat16")
     rows.append(check_momentum([tuple(p.shape) for p in o2.parameters()],
                                [p.dtype for p in o2.parameters()], gen, dev))
     del o2
@@ -7654,6 +8267,13 @@ def main():
 
     mark("20 nn")
 
+    # 21. the rest of nn and the vision zoo: DenseNet-121, ResNet-50 in
+    # NHWC, the LSTM LM and beam search
+    p21, l21 = phase21(smi, resnet)
+    add(l21)
+
+    mark("21 vision and rnn")
+
     say(f"[main path] launches: {launches}")
     say("[main path] launches by route: " + "; ".join(
         f"{n} {launches[n + '_vec']} vec, "
@@ -7728,7 +8348,7 @@ def main():
              varlen_f32_vs_cpu=varlen32, incubate_bf16=stack,
              incubate_f32_vs_cpu=stack32, phase17=p17,
              varlen_split_draws=split_draws, core=p18, amp=p19,
-             nn_transformer=p20,
+             nn_transformer=p20, vision_rnn=p21,
              launches=launches,
              phase_s=marks, seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")

@@ -194,18 +194,19 @@ def amp_op(name: str) -> Callable:
 
 
 _T = torch.Tensor
-# the torch functions the port's models (GPT, ERNIE, ResNet, a packed
-# stack of flash_attn_unpadded layers) call directly in their forwards,
-# by the JAX op each one is (``x + y`` comes as ``Tensor.add``); every
-# other op of those forwards is an :func:`amp_op`. A model's forward
-# reaches each entry (tests/test_torch_amp.py)
+# the torch functions the port's models (GPT, ERNIE, a packed stack of
+# flash_attn_unpadded layers; the vision models' residual ``+``) call
+# directly in their forwards, by the JAX op each one is (``x + y`` comes
+# as ``Tensor.add``); every other op of those forwards is an
+# :func:`amp_op` (the ``nn`` layers' functionals among them). A model's
+# forward reaches each entry (tests/test_torch_amp.py)
 TORCH_NAMES = {
     # white
     F.linear: "linear",
     torch.matmul: "matmul",     # GPT's fake-quantized head
     # neither: cast at O2 only
     F.embedding: "embedding", _T.add: "add", F.dropout: "dropout",
-    F.gelu: "gelu", F.relu: "relu", torch.tanh: "tanh",
+    F.gelu: "gelu", torch.tanh: "tanh",
 }
 
 

@@ -128,10 +128,10 @@ def resnet_state_from_reference(state: Dict[str, np.ndarray]
                                 ) -> Dict[str, torch.Tensor]:
     """Map ``{name: ndarray}`` from the JAX package's ResNet
     ``state_dict()`` (parameters and the BatchNorm buffers) to a state
-    dict for :class:`paddle2_tpu_torch.vision.models.ResNet`: ``fc``'s
-    weight swaps ``[in, out]`` to ``[out, in]``; everything else passes
-    unchanged."""
-    return _from_reference(state, ("fc.weight",), "", stacked=None)
+    dict for :class:`paddle2_tpu_torch.vision.models.ResNet`: the port's
+    ResNet is an ``nn.Layer`` with the JAX names and shapes, so every
+    entry passes unchanged (as tensors)."""
+    return _from_reference(state, (), "", stacked=None)
 
 
 def _swap_in_payloads(model, state: Dict[str, np.ndarray], make) -> None:

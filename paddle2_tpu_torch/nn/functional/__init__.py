@@ -3,10 +3,8 @@
 activation, common, conv, pooling, norm and loss functionals,
 ``scaled_dot_product_attention``, the flash helpers (and, as in the JAX
 package, ``flash_attention`` the module), the extra losses, the
-in-place activations and ``sequence_mask``/``diag_embed``. Of the conv
-and pooling functionals only ``conv2d``, ``max_pool2d`` and
-``adaptive_avg_pool2d`` are ported so far, and ``vision_ops`` not yet
-(ROADMAP queue 1 item 2)."""
+in-place activations, ``affine_grid``/``grid_sample`` and
+``sequence_mask``/``diag_embed``."""
 
 import torch
 from torch.nn import functional as _TF
@@ -14,13 +12,16 @@ from torch.nn import functional as _TF
 from ...framework import core as _core
 from . import activation as _activation
 from . import common as _common
+from . import conv as _conv
 from . import extra_losses as _extra_losses
 from . import loss as _loss
 from . import norm as _norm
+from . import pooling as _pooling
+from . import vision_ops as _vision_ops
 from .activation import *      # noqa: F401,F403
 from .common import *          # noqa: F401,F403
-from .conv import conv2d       # noqa: F401
-from .pooling import adaptive_avg_pool2d, max_pool2d  # noqa: F401
+from .conv import *            # noqa: F401,F403
+from .pooling import *         # noqa: F401,F403
 from .norm import *            # noqa: F401,F403
 from .loss import *            # noqa: F401,F403
 from ...kernels.attention import scaled_dot_product_attention  # noqa: F401
@@ -32,6 +33,7 @@ from .flash_attention import (flashmask_attention,  # noqa: F401
 # (callers write ``F.flash_attention.flash_attention(...)``)
 from . import flash_attention  # noqa: E402,F401
 from .extra_losses import *    # noqa: F401,F403
+from .vision_ops import *      # noqa: F401,F403
 
 
 # the in-place activations the JAX package adds beside relu_ and
@@ -83,11 +85,10 @@ _INPLACE = ["elu_", "hardtanh_", "leaky_relu_", "tanh_", "thresholded_relu_",
             "relu6_", "sigmoid_"]
 
 __all__ = (_activation.__all__ + _common.__all__
-           + ["conv2d", "max_pool2d", "adaptive_avg_pool2d"]
-           + _norm.__all__ + _loss.__all__
+           + _conv.__all__ + _pooling.__all__ + _norm.__all__ + _loss.__all__
            + ["scaled_dot_product_attention", "flashmask_attention",
               "sparse_attention", "flash_attn_qkvpacked",
               "flash_attn_unpadded", "flash_attn_varlen_qkvpacked",
               "sdp_kernel", "flash_attention"]
-           + _extra_losses.__all__ + _INPLACE
+           + _extra_losses.__all__ + _vision_ops.__all__ + _INPLACE
            + ["sequence_mask", "diag_embed"])

@@ -1,6 +1,6 @@
-"""Vision models of the port (counterpart of ``paddle2_tpu.vision``):
-the ResNet family so far; the other models, datasets and transforms are
-ROADMAP queue 1 item 2."""
+"""Vision of the port (counterpart of ``paddle2_tpu.vision``): the model
+zoo; ``ops``, the transforms and the datasets are ROADMAP queue 1 item
+9."""
 
 from . import models
 

@@ -90,6 +90,13 @@ Phases:
   step, with that checkout's launch gates: target tokens/s, the step
   time, the losses, the traced step's device time, idle share and
   device time by kernel group.
+- ``vision_rnn``: the smoke's phase 21 alone (``chip_smoke.phase21``),
+  after phase 10's NCHW ResNet-50 run that (b) is recorded beside:
+  DenseNet-121 in bf16 O2 through ``momentum_step``, ResNet-50 with
+  ``FLAGS_conv_prefer_channels_last`` on, the nn case tables and an f32
+  DenseNet-121 against the CPU, the LSTM LM through ``adamw_step``, beam
+  search and a small f32 LM step against the CPU, and the path's
+  kernels at its shapes. Its record, with the phase's seconds.
 - ``flash_bwd_f32``: the f32 flash backward at the training shape (B8
   H16 S1024 D64, causal): the split pair's two wrappers
   (``flash_bwd_split_dkv``, ``flash_bwd_split_dq``) and ``flash_bwd``
@@ -1321,6 +1328,16 @@ def nn_transformer(cs, torch, smi):
     return rec
 
 
+def vision_rnn(cs, torch, smi):
+    """The smoke's phase 21 after phase 10's ResNet-50 run."""
+    with cs.on_card(fused_optimizer_step=True):
+        resnet, _ = cs.resnet50_bf16(smi)
+    torch.cuda.empty_cache()
+    rec, launches = cs.phase21(smi, resnet)
+    rec["launches"] = {n: v for n, v in launches.items() if v}
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", required=True,
@@ -1328,7 +1345,8 @@ def main():
                              "varlen_bwd_draws", "norms", "flash_bwd_f32",
                              "train_bf16", "adamw_step", "f32_prefill",
                              "paged_decode", "ptq_serving", "f32_decode",
-                             "plain_serving", "core", "nn_transformer"))
+                             "plain_serving", "core", "nn_transformer",
+                             "vision_rnn"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -1371,6 +1389,8 @@ def main():
         result = core(cs, torch)
     elif args.phase == "nn_transformer":
         result = nn_transformer(cs, torch, smi)
+    elif args.phase == "vision_rnn":
+        result = vision_rnn(cs, torch, smi)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

@@ -236,6 +236,7 @@ def _torch_names_reached():
     from paddle2_tpu_torch.models import (ErnieForSequenceClassification,
                                           ernie_tiny)
     from paddle2_tpu_torch.nn.functional import flash_attn_unpadded
+    from paddle2_tpu_torch.framework.core import place_scope
     from paddle2_tpu_torch.vision.models import resnet18
     reached = set()
 
@@ -256,6 +257,8 @@ def _torch_names_reached():
             o, _ = flash_attn_unpadded(qkv[:, 0], qkv[:, 1], qkv[:, 2], cu,
                                        cu, 7, 7, 0.25, causal=True)
             return x + self.out(o.reshape(x.shape[0], 32))
+    with place_scope("cpu"):
+        resnet18_on_cpu = resnet18(num_classes=10)
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, 128, (2, 16)))
     img = torch.from_numpy(np.random.default_rng(1).standard_normal(
@@ -272,7 +275,7 @@ def _torch_names_reached():
     runs += [(ErnieForSequenceClassification(ernie_tiny(), device="cpu",
                                              seed=1),
               lambda m: m(ids)[0]),
-             (resnet18(num_classes=10, device="cpu"), lambda m: m(img)),
+             (resnet18_on_cpu, lambda m: m(img)),
              (Packed(), lambda m: m(x, cu))]
     prev = casting.TORCH_NAMES
     casting.TORCH_NAMES = Spy(prev)

@@ -59,6 +59,15 @@ import paddle2_tpu_torch.amp.casting, paddle2_tpu_torch.amp.grad_scaler
 import paddle2_tpu_torch.amp.amp_lists, paddle2_tpu_torch.optimizer.lr
 import paddle2_tpu_torch.nn.clip, paddle2_tpu_torch.regularizer
 import paddle2_tpu_torch.nn.initializer, paddle2_tpu_torch.nn.layer.transformer
+import paddle2_tpu_torch.nn.utils, paddle2_tpu_torch.nn.decode
+import paddle2_tpu_torch.nn.utils_mod, paddle2_tpu_torch.nn.layer.rnn
+import paddle2_tpu_torch.nn.functional.vision_ops
+import paddle2_tpu_torch.vision.models.resnet, paddle2_tpu_torch.vision.models.vgg
+import paddle2_tpu_torch.vision.models.small
+import paddle2_tpu_torch.vision.models.mobilenet
+import paddle2_tpu_torch.vision.models.densenet
+import paddle2_tpu_torch.vision.models.inception_shuffle
+import paddle2_tpu_torch.vision.models._utils
 from paddle2_tpu_torch.kernels import _build
 assert not calls, calls
 assert not _build._LIBS

@@ -3,7 +3,9 @@ pooling / cross-entropy and paddle2_tpu_torch.vision.models.resnet)
 against the JAX package on the same numpy inputs, on the CPU: each
 functional forward and gradient in f32 and bf16, ``amp.decorate`` at O2
 on the new layers, resnet18's loss, gradients and BatchNorm buffers
-(weights carried across by ``resnet_state_from_reference``), five
+(the JAX weights carried across by ``resnet_state_from_reference``,
+which passes them as they are: the port's ResNet is an ``nn.Layer``
+with the JAX names and shapes), five
 ``jit.train_step`` losses under ``FLAGS_fused_optimizer_step`` with
 ``Momentum(multi_precision=True)``, and resnet50's names, shapes, size
 and an f32 forward.
@@ -32,6 +34,7 @@ import pytest
 import torch
 
 import paddle2_tpu as paddle
+import paddle2_tpu_torch as tp
 import paddle2_tpu.nn.functional as JF
 import paddle2_tpu.optimizer as jopt
 from paddle2_tpu import flags as jflags
@@ -47,6 +50,7 @@ from paddle2_tpu_torch.nn import functional as F
 from paddle2_tpu_torch.optimizer import Momentum
 from paddle2_tpu_torch.vision.models import (BottleneckBlock, ResNet,
                                              resnet18, resnet50)
+from torch_core_harness import port_on_cpu  # noqa: F401
 
 BF16_STEP = 2.0 ** -8
 
@@ -317,7 +321,8 @@ def test_layers_keep_the_jax_constructors():
         with pytest.raises(NotImplementedError):
             tnn.Conv2D(4, 6, 3, padding_mode="reflect")
         with pytest.raises(NotImplementedError):
-            F.max_pool2d(x, 2, return_mask=True)
+            F.max_pool2d(x.permute(0, 2, 3, 1), 2, return_mask=True,
+                         data_format="NHWC")
 
 
 def _pair(make_jax, make_torch, seed=0):
@@ -342,7 +347,7 @@ def test_amp_o2_keeps_batch_norm_f32():
     BatchNorm parameter, and the buffers, in f32: the dtypes of the JAX
     package's ``amp.decorate``, name by name."""
     jm, tm = _pair(lambda: jax_resnet18(num_classes=10),
-                   lambda: resnet18(num_classes=10, device="cpu"))
+                   lambda: resnet18(num_classes=10))
     jm = paddle.amp.decorate(jm, level="O2", dtype="bfloat16")
     tm = amp.decorate(tm, level="O2", dtype="bfloat16")
     jdt = {n: str(p._data.dtype) for n, p in jm.named_parameters()}
@@ -355,7 +360,7 @@ def test_amp_o2_keeps_batch_norm_f32():
 
 def test_resnet18_loss_grads_and_buffers_match_jax():
     jm, tm = _pair(lambda: jax_resnet18(num_classes=10),
-                   lambda: resnet18(num_classes=10, device="cpu"))
+                   lambda: resnet18(num_classes=10))
     img, lbl = _images(4, 32, 10)
     jloss = JF.cross_entropy(jm(Tensor(img)).astype("float32"), Tensor(lbl))
     jloss.backward()
@@ -369,8 +374,7 @@ def test_resnet18_loss_grads_and_buffers_match_jax():
     names = [n for n, _ in tm.named_parameters()]
     assert names == list(jgrads)
     for n, p in tm.named_parameters():
-        want = jgrads[n].T if n == "fc.weight" else jgrads[n]
-        _near(p.grad.numpy(), want, 1e-3)     # see the module docstring
+        _near(p.grad.numpy(), jgrads[n], 1e-3)  # see the module docstring
     jbufs = {n: np.asarray(b.numpy()) for n, b in jm.named_buffers()}
     tbufs = dict(tm.named_buffers())
     assert tbufs.keys() == jbufs.keys()
@@ -404,7 +408,7 @@ def test_train_step_losses_track_jax(fused_flag, monkeypatch, bf16):
     monkeypatch.setattr(fm, "momentum_step_reference",
                         lambda *a: calls.append(1) or plain(*a))
     jm, tm = _pair(lambda: jax_resnet18(num_classes=10),
-                   lambda: resnet18(num_classes=10, device="cpu"))
+                   lambda: resnet18(num_classes=10))
     if bf16:
         jm = paddle.amp.decorate(jm, level="O2", dtype="bfloat16")
         tm = amp.decorate(tm, level="O2", dtype="bfloat16")
@@ -442,8 +446,10 @@ def test_train_step_updates_batch_norm_buffers_once():
     into every ``_mean``/``_variance`` exactly once (bitwise what one
     training-mode forward of a copy does); in eval mode it leaves them
     as they are."""
-    model = resnet18(num_classes=10, device="cpu", seed=2)
-    twin = resnet18(num_classes=10, device="cpu", seed=2)
+    tp.seed(2)
+    model = resnet18(num_classes=10)
+    tp.seed(2)
+    twin = resnet18(num_classes=10)
     step = jit.train_step(lambda i, l: F.cross_entropy(model(i), l),
                           Momentum(parameters=model.parameters()))
     img, lbl = (torch.from_numpy(a) for a in _images(2, 32, 10))
@@ -459,19 +465,18 @@ def test_train_step_updates_batch_norm_buffers_once():
 
 
 def test_resnet50_names_shapes_and_size_match_jax():
-    """Every parameter and buffer name and shape (``fc.weight``
-    transposed), 25,557,032 parameters in 161 tensors, 53 convolutions
-    and 53 BatchNorms."""
+    """Every parameter and buffer name and shape, in the JAX order,
+    25,557,032 parameters in 161 tensors, 53 convolutions and 53
+    BatchNorms."""
     paddle.seed(0)
     jm = jax_resnet50(num_classes=1000)
     jstate = {n: tuple(v.shape) for n, v in jm.state_dict().items()}
-    tm = resnet50(num_classes=1000, device="cpu")
+    tm = resnet50(num_classes=1000)
     tstate = {n: tuple(v.shape) for n, v in tm.state_dict().items()}
-    assert sorted(tstate) == sorted(jstate)      # the order may differ
+    assert list(tstate) == list(jstate)
     for n, shape in tstate.items():
-        want = jstate[n][::-1] if n == "fc.weight" else jstate[n]
-        assert shape == want, n
-    assert tm.num_params() == 25_557_032
+        assert shape == jstate[n], n
+    assert sum(p.numel() for p in tm.parameters()) == 25_557_032
     assert len(list(tm.parameters())) == 161
     assert sum(isinstance(m, tnn.Conv2D) for m in tm.modules()) == 53
     assert sum(isinstance(m, tnn.BatchNorm2D) for m in tm.modules()) == 53
@@ -484,7 +489,7 @@ def test_resnet50_forward_matches_jax():
     training mode the last stage would normalize 2 values a channel,
     which leaves nothing to compare."""
     jm, tm = _pair(lambda: jax_resnet50(num_classes=1000),
-                   lambda: resnet50(num_classes=1000, device="cpu"))
+                   lambda: resnet50(num_classes=1000))
     jm.eval()
     tm.eval()
     img, _ = _images(2, 32, 1000, seed=1)
@@ -496,12 +501,13 @@ def test_resnet50_forward_matches_jax():
 
 def test_model_entry_points():
     with pytest.raises(ValueError, match="pretrained"):
-        resnet18(pretrained=True, device="cpu")
-    m = ResNet(BottleneckBlock, 50, num_classes=0, with_pool=False,
-               device="cpu")
+        resnet18(pretrained=True)
+    m = ResNet(BottleneckBlock, 50, num_classes=0, with_pool=False)
     assert not hasattr(m, "fc") and not hasattr(m, "avgpool")
     assert m(torch.zeros(1, 3, 32, 32)).shape == (1, 2048, 1, 1)
-    a = resnet18(num_classes=10, device="cpu", seed=3)
-    b = resnet18(num_classes=10, device="cpu", seed=3)
+    tp.seed(3)
+    a = resnet18(num_classes=10)
+    tp.seed(3)
+    b = resnet18(num_classes=10)
     assert all(torch.equal(p, q) for p, q in zip(a.parameters(),
                                                  b.parameters()))

@@ -184,6 +184,13 @@ def _torch_args(paddle, args, dtype, device, grad_ids):
     return out, leaves
 
 
+def resolve(pkg, op: str):
+    """``pkg``'s op by its dotted path (``"nn.functional.relu"``)."""
+    for part in op.split("."):
+        pkg = getattr(pkg, part)
+    return pkg
+
+
 def _on(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device)
@@ -211,7 +218,7 @@ def run_on_devices(case: Case, dtype: str, paddle, device) -> float:
         a, leaves = _torch_args(paddle, args, dtype, dev, grad_ids)
         kw = {k: _torch_args(paddle, [v], dtype, dev, set())[0][0]
               for k, v in case.kwargs.items()}
-        out = getattr(paddle, case.op)(*a, **kw)
+        out = resolve(paddle, case.op)(*a, **kw)
         if case.post is not None:
             out = case.post(out, paddle)
         grads = None
@@ -247,4 +254,83 @@ def run_on_devices(case: Case, dtype: str, paddle, device) -> float:
                 assert a is None and b is None, f"{case.id} grad {i}"
                 continue
             assert_same(a, b, tol, f"{case.id} grad {i}")
+    return err
+
+
+def run_layer_on_devices(entry, dtype: str, paddle, device) -> float:
+    """A layer table entry (``torch_nn_table_layers.L``) on ``device``
+    against the same layer on the CPU: the layer built on each device
+    from the same arguments with the CPU twin's state, the same inputs
+    (float ones in ``dtype``, lists as tuples), and the same outputs,
+    buffers and gradients of every float input and trainable parameter
+    (at ``TOL`` or the entry's tolerance). Returns the largest absolute
+    difference of the outputs."""
+    rng = np.random.default_rng(zlib.crc32(entry.id.encode()))
+    arrays = [m(rng) for m in entry.inputs]
+    grad_ids = set(range(len(arrays)) if entry.grad_inputs is None
+                   else entry.grad_inputs)
+    tol = {**TOL, **entry.tol}
+    runs, state = [], None
+    for dev in ("cpu", device):
+        paddle.set_device("cpu" if dev == "cpu" else "gpu:%d" % (
+            torch.device(dev).index or 0))
+        kw = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+              else v for k, v in entry.kwargs.items()}
+        layer = getattr(paddle.nn, entry.name)(*entry.args, **kw)
+        if state is None:
+            state = {k: v.detach().clone() for k, v in
+                     layer.state_dict().items()}
+        else:
+            layer.set_state_dict(state)
+        if dtype != "float32":
+            layer.to(dtype=dtype)
+        if not entry.train:
+            layer.eval()
+        leaves = []
+
+        def make(a, rg):
+            t = torch.from_numpy(a).to(dev)
+            if a.dtype.kind != "f":
+                return t
+            t = t.to(getattr(torch, dtype)).requires_grad_(rg)
+            if rg:
+                leaves.append(t)
+            return t
+        ins = [tuple(make(x, i in grad_ids) for x in a)
+               if isinstance(a, list) else make(a, i in grad_ids)
+               for i, a in enumerate(arrays)]
+        out = layer(*ins)
+        params = [p for p in layer.parameters() if p.requires_grad]
+        diff = [o for o in flat(out) if isinstance(o, torch.Tensor)
+                and o.requires_grad]
+        grads = None
+        if diff:
+            crng = np.random.default_rng(1)
+            cots = [torch.from_numpy(crng.standard_normal(
+                tuple(o.shape)).astype(np.float32)).to(dev, o.dtype)
+                for o in diff]
+            grads = torch.autograd.grad(diff, leaves + params, cots,
+                                        allow_unused=True)
+        runs.append((out, dict(layer.named_buffers()), grads))
+    (cpu_out, cpu_buf, cpu_g), (dev_out, dev_buf, dev_g) = runs
+    for o in flat(dev_out):
+        if isinstance(o, torch.Tensor):
+            assert o.device.type == torch.device(device).type, \
+                f"{entry.id}: an output on {o.device}"
+    got = _on(dev_out, "cpu")
+    assert_same(got, cpu_out, tol, entry.id)
+    for name, b in cpu_buf.items():
+        assert_same(dev_buf[name].cpu(), b, tol, f"{entry.id} buffer {name}")
+    if cpu_g is not None:
+        for i, (a, b) in enumerate(zip(_on(dev_g, "cpu"), cpu_g)):
+            if a is None or b is None:
+                assert a is None and b is None, f"{entry.id} grad {i}"
+                continue
+            assert_same(a, b, tol, f"{entry.id} grad {i}")
+    err = 0.0
+    for a, b in zip(flat(got), flat(cpu_out)):
+        if isinstance(a, torch.Tensor) and a.is_floating_point() and \
+                a.numel():
+            d = (a.detach().float() - b.detach().float()).abs()
+            err = max(err, float(d.nan_to_num(0.0).max()))
     return err

@@ -17,7 +17,7 @@ import paddle2_tpu as jp
 import paddle2_tpu_torch as tp
 from torch_core_cases import (TOL, Case, Raw, _is_float_np, as_np,
                               assert_same, dtype_name, flat, is_tensor,
-                              seed_of)
+                              resolve, seed_of)
 
 
 @pytest.fixture(autouse=True)
@@ -88,13 +88,6 @@ def build_kwargs(kwargs, dtype, side):
     make = _jax_tensor if side == "jax" else _torch_tensor
     return {k: make(v, dtype, False) if isinstance(v, np.ndarray) else v
             for k, v in kwargs.items()}
-
-
-def resolve(pkg, op: str):
-    """``pkg``'s op by its dotted path (``"nn.functional.relu"``)."""
-    for part in op.split("."):
-        pkg = getattr(pkg, part)
-    return pkg
 
 
 def run_case(case: Case, dtype: str):

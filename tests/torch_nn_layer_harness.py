@@ -15,7 +15,8 @@ import torch
 import paddle2_tpu as jp
 import paddle2_tpu_torch as tp
 from paddle2_tpu_torch.models import nn_state_from_reference
-from torch_core_cases import TOL, as_np, assert_same, dtype_name, flat
+from torch_core_cases import (TOL, as_np, assert_same, dtype_name, flat,
+                              is_tensor)
 
 
 def layer_params(entries):
@@ -70,20 +71,25 @@ def run_layer(entry, dtype):
     grad_ids = set(range(len(arrays)) if entry.grad_inputs is None
                    else entry.grad_inputs)
     jin, tin, jleaves, tleaves = [], [], [], []
+
+    def make(a, rg):
+        if a.dtype.kind != "f":
+            return jp.to_tensor(a), torch.from_numpy(a)
+        j = jp.to_tensor(a).astype(dtype)
+        j.stop_gradient = not rg
+        t = torch.from_numpy(a).to(getattr(torch, dtype))
+        t.requires_grad_(rg)
+        if rg:
+            jleaves.append(j)
+            tleaves.append(t)
+        return j, t
     for i, a in enumerate(arrays):
-        if a.dtype.kind == "f":
-            rg = i in grad_ids
-            j = jp.to_tensor(a).astype(dtype)
-            j.stop_gradient = not rg
-            t = torch.from_numpy(a).to(getattr(torch, dtype))
-            t.requires_grad_(rg)
-            if rg:
-                jleaves.append(j)
-                tleaves.append(t)
-        else:
-            j, t = jp.to_tensor(a), torch.from_numpy(a)
-        jin.append(j)
-        tin.append(t)
+        # a list of arrays is a tuple argument (an LSTM's (h, c))
+        pairs = [make(x, i in grad_ids) for x in a] \
+            if isinstance(a, list) else [make(a, i in grad_ids)]
+        j, t = zip(*pairs)
+        jin.append(tuple(j) if isinstance(a, list) else j[0])
+        tin.append(tuple(t) if isinstance(a, list) else t[0])
     jparams = [p for p in jl.parameters() if not p.stop_gradient]
     tparams = [p for p in tl.parameters() if p.requires_grad]
     assert len(jparams) == len(tparams), entry.id
@@ -94,8 +100,10 @@ def run_layer(entry, dtype):
     for name, b in jl.named_buffers():
         assert_same(dict(tl.named_buffers())[name], b, tol,
                     f"{entry.id} buffer {name}")
-    jo = [o for o in flat(jout) if not o.stop_gradient]
-    to = [o for o in flat(tout) if o.requires_grad]
+    floats = ("float32", "bfloat16", "float16")
+    jo = [o for o in flat(jout) if is_tensor(o) and not o.stop_gradient
+          and dtype_name(o) in floats]
+    to = [o for o in flat(tout) if is_tensor(o) and o.requires_grad]
     assert len(jo) == len(to), entry.id
     if not jo:
         return
