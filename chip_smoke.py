@@ -483,6 +483,30 @@ line) when it fails:
     (two launches) and ``adamw_step`` over the LM's 11, bitwise, timed
     against their plain versions and ``torch._fused_sgd_`` /
     ``torch._fused_adamw_``.
+22. Observability and remat ("observability and remat"): (a) phase 5's
+    bench GPT (hidden 1024, 24 layers, seq 1024, batch 8, AMP O2 bf16,
+    the chunked fused head, ``AdamW(multi_precision=True, fused=True)``
+    through ``jit.train_step``) from one seed, 1 warm-up and 3 timed
+    steps under each remat policy: "dots", "dots_plus",
+    "dots_plus_ln", "offload", "full" and "search" (the plan it resolves
+    on this card, printed, trained with). Step 1's loss must be equal
+    across policies (the forward does not depend on the policy), the
+    later steps within 1e-2 relative of "dots"'s; a step launches
+    ``flash_fwd`` once a layer (twice under "full", which recomputes
+    it), ``flash_bwd_fused`` once a layer and ``adamw_step`` once;
+    "offload" must move bytes into pinned host memory. Each policy's
+    tokens/s and ``max_memory_allocated``, and one more traced step's
+    device time by kernel group and idle share. (b) The "dots" run with
+    ``PADDLE_METRICS_DIR`` set to a temporary directory: the port's
+    ``tools.perf_doctor`` must count its 4 step records and B·S tokens
+    each; its tokens/s is printed beside the synchronised figure (the
+    hooks time the host). (c) One "dots" step priced by
+    ``observability.cost_model.program_cost``: its FLOPs within 5 % of
+    ``bench.py``'s ``(6·N + 12·L·S·H)·tokens``, the ratio and the MFU
+    of the timed steps against 989 TFLOP/s. (d) ``FLAGS_check_nan_inf``
+    on: ``max_pool2d(..., ceil_mode=True)`` and the causal
+    ``flash_attention(..., return_softmax=True)`` on the card return
+    the CPU's values.
 
 Phase 12 also holds the bf16 split pair of the packed varlen backward
 (``flash_varlen_dkv_kernel``, ``flash_varlen_dq_kernel``) on inputs
@@ -545,7 +569,7 @@ times (both routes of both directions), bounds and ``F.layer_norm``'s
 Each main-path run (the serving runs, the training runs, the ERNIE
 runs, the ResNet runs, the varlen runs, the incubate stack runs, the
 PTQ runs, phase 17's serving runs, phase 18's gradient and serving runs,
-phase 20's and phase 21's training runs)
+phase 20's and phase 21's training runs, each of phase 22's policies)
 starts with every launch count at 0 and is read just after;
 the kernel checks' launches (and the PTQ phase's one-at-a-time and
 dense replays) are not counted.
@@ -571,6 +595,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -583,6 +608,11 @@ import paddle2_tpu_torch as paddle
 from paddle2_tpu_torch import amp, flags, jit
 from paddle2_tpu_torch.framework import core
 from paddle2_tpu_torch.kernels import _build
+from paddle2_tpu_torch.kernels import attention as remat_attention
+from paddle2_tpu_torch.observability import metrics as obs_metrics
+from paddle2_tpu_torch.observability.cost_model import (chip_peak,
+                                                        program_cost)
+from paddle2_tpu_torch.tools import perf_doctor
 from paddle2_tpu_torch.kernels import flash_attn as flash_attn_mod
 from paddle2_tpu_torch.kernels.flash_attn import (
     bwd_route, flash_bwd, flash_bwd_fused, flash_bwd_reference,
@@ -4096,13 +4126,14 @@ def phase18(dev, prompts, new, want_gens):
     return rec, launches
 
 
-def train_setup(layers, device, bf16, seed=0):
+def train_setup(layers, device, bf16, seed=0, granularity="dots"):
     """``bench_gpt``'s default model, optimizer and fused step (the
-    ``BENCH_FUSED_OPT=1`` variant), at ``layers`` blocks."""
+    ``BENCH_FUSED_OPT=1`` variant), at ``layers`` blocks, under the remat
+    ``granularity`` (``BENCH_REMAT``)."""
     cfg = GPTConfig(vocab_size=TRAIN["vocab"], hidden_size=TRAIN["hidden"],
                     num_layers=layers, num_heads=TRAIN["heads"],
                     max_position_embeddings=TRAIN["seq"],
-                    use_recompute=True, recompute_granularity="dots",
+                    use_recompute=True, recompute_granularity=granularity,
                     stacked_blocks=True, fused_head_loss=True)
     model = GPTForCausalLM(cfg, device=device, seed=seed)
     if bf16:
@@ -7237,6 +7268,217 @@ def phase21(smi, resnet_nchw):
     return rec, launches
 
 
+# ------------------------------------------------------------ phase 22
+REMAT_POLICIES = ("dots", "dots_plus", "dots_plus_ln", "offload", "full",
+                  "search")
+# 1 warm-up and 3 timed steps a policy, then 1 traced step
+REMAT_STEPS = 4
+# phase 5's kernel groups, and the copies to and from the host
+REMAT_GROUPS = STACK_GROUPS + (("memcpy", ("memcpy",)),)
+# bench.py's formula against the FLOPs the counter finds in one step
+COST_MODEL_TOL = 0.05
+
+
+def remat_train(gran, ids, metrics_dir=None):
+    """Phase 22 (a): the bench GPT under the remat policy ``gran``,
+    ``REMAT_STEPS`` steps (the first a warm-up) on the batches ``ids``,
+    each step synchronised, with the metrics plane on around them when
+    ``metrics_dir`` is given; then one traced step (its device time by
+    kernel group and the idle share against the timed steps). Returns
+    the record, the launches, and the model and step (for (c))."""
+    T = TRAIN
+    model, step = train_setup(T["layers"], "cuda", bf16=True,
+                              granularity=gran)
+    plan = model.gpt.remat_plan(T["batch"], T["seq"])
+    offloaded = remat_attention.offload_to_host.bytes
+    if metrics_dir is not None:
+        os.environ[obs_metrics.METRICS_DIR_ENV] = metrics_dir
+        obs_metrics.enable(rank=0, flush_steps=1)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    try:
+        for b in ids:
+            t0 = time.perf_counter()
+            loss = step(b, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+    finally:
+        if metrics_dir is not None:
+            obs_metrics.disable()
+            del os.environ[obs_metrics.METRICS_DIR_ENV]
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.mean(times[1:])
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        traced = float(step(ids[-1], ids[-1]))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    steps = REMAT_STEPS + 1
+    require(all(np.isfinite(losses + [traced])),
+            f"{gran}: non-finite losses {losses + [traced]}")
+    L = T["layers"]
+    want = {"flash_fwd": 2 * L if gran == "full" else L,
+            "flash_bwd_fused": L, "adamw_step": 1}
+    for n, per_step in want.items():
+        require(launches[n] == steps * per_step,
+                f"{gran}: {n} launched {launches[n]} times in {steps} "
+                f"steps, want {per_step} a step")
+    rec = dict(losses=losses, traced_loss=traced, step_times_s=times,
+               step_time_s=step_s,
+               tokens_per_s=T["batch"] * T["seq"] / step_s,
+               max_memory_allocated=peak,
+               step_profile=step_profile(prof, wall_ms, step_s * 1e3),
+               device_ms_by_group=device_groups(prof, REMAT_GROUPS),
+               launches_per_step={n: launches[n] / steps for n in want},
+               offloaded_bytes=(remat_attention.offload_to_host.bytes
+                                - offloaded))
+    if plan is not None:
+        rec["plan"] = dict(policy=plan.policy, granularity=plan.granularity,
+                           fits=plan.fits, total_bytes=plan.total_bytes,
+                           overhead_s=plan.overhead_s,
+                           budget_bytes=plan.budget_bytes)
+    return rec, launches, model, step
+
+
+def finite_check_on_card(dev="cuda"):
+    """Phase 22 (d): the two routes that build their own ``-inf`` pads
+    and masks, under ``FLAGS_check_nan_inf`` on ``dev`` and on the CPU:
+    both must return, with the CPU's values."""
+    rs = np.random.RandomState(0)
+    x = rs.randn(1, 2, 5, 5).astype(np.float32)
+    q = rs.randn(1, 8, 2, 16).astype(np.float32)
+    out = []
+    flags.set_flags({"check_nan_inf": True})
+    try:
+        for where in (dev, "cpu"):
+            tx = torch.from_numpy(x).to(where)
+            tq = torch.from_numpy(q).to(where)
+            pooled = paddle.nn.functional.max_pool2d(tx, 2, 2,
+                                                     ceil_mode=True)
+            o, sm = fa.flash_attention(tq, tq, tq, causal=True,
+                                       return_softmax=True)
+            out.append([t.cpu() for t in (pooled, o, sm)])
+    finally:
+        flags.set_flags({"check_nan_inf": False})
+    errs = [float((a - b).abs().max()) for a, b in zip(*out)]
+    require(tuple(out[0][0].shape) == (1, 2, 3, 3),
+            f"max_pool2d(ceil_mode=True) gave {out[0][0].shape}")
+    # f32 on the card: the flash forward's 3xTF32 sums (TOL) and torch's
+    # own pooling and softmax
+    require(max(errs) <= TOL[torch.float32],
+            f"the card's values under the check differ from the CPU's: "
+            f"{errs}")
+    return dict(pool_shape=list(out[0][0].shape), max_abs_err=errs)
+
+
+def phase22(smi):
+    """Phase 22, "observability and remat": (a) the bench GPT under each
+    remat policy; (b) the "dots" run through the metrics plane and
+    ``tools.perf_doctor``; (c) one "dots" step priced by the cost model;
+    (d) the finite check's own infinities on the card. Returns the
+    record and the main path's launches (the policies' training
+    steps)."""
+    t_start = time.perf_counter()
+    T = TRAIN
+    tokens = T["batch"] * T["seq"]
+    launches = {n: 0 for n in KERNELS}
+    ids = batches(REMAT_STEPS, T["batch"], "cuda")
+    rec = {"policies": {}}
+    mdir = tempfile.mkdtemp(prefix="metrics_")
+    try:
+        for gran in REMAT_POLICIES:
+            r, l, model, step = remat_train(
+                gran, ids, metrics_dir=mdir if gran == "dots" else None)
+            for n, c in l.items():
+                launches[n] += c
+            rec["policies"][gran] = r
+            if gran == "dots":
+                # (b) the stream the dots steps wrote, through the doctor
+                streams = perf_doctor.load_streams(mdir)
+                doc = perf_doctor.summarize(streams)
+                steps = streams[0]["steps"]
+                require(len(steps) == REMAT_STEPS and all(
+                    s.get("tokens") == tokens for s in steps),
+                    f"perf_doctor read {len(steps)} step records, tokens "
+                    f"{[s.get('tokens') for s in steps]}; want "
+                    f"{REMAT_STEPS} of {tokens}")
+                require(doc["aggregate"]["steps"] == REMAT_STEPS - 1,
+                        f"perf_doctor counts {doc['aggregate']['steps']} "
+                        f"steps past its warm-up, want {REMAT_STEPS - 1}")
+                rec["perf_doctor"] = dict(
+                    steps=len(steps), tokens_a_step=tokens,
+                    tokens_per_s=doc["aggregate"].get(
+                        "tokens_per_s_total"),
+                    breakdown_pct=doc["aggregate"].get("breakdown_pct"),
+                    synchronised_tokens_per_s=r["tokens_per_s"])
+                # (c) one more step, priced by the cost model
+                n_params = model.num_params()
+                cost = program_cost(step, (ids[0], ids[0]))
+                bench_flops = (6 * n_params + 12 * T["layers"] * T["seq"]
+                               * T["hidden"]) * tokens
+                ratio = cost["flops"] / bench_flops
+                rec["cost_model"] = dict(
+                    flops=cost["flops"], bench_formula_flops=bench_flops,
+                    ratio=ratio, flops_by_op={k: v for k, v in cost.items()
+                                              if k != "flops"},
+                    mfu=cost["flops"] / (r["step_time_s"] * PEAK_OPS[
+                        torch.bfloat16]),
+                    chip_peak=list(chip_peak()))
+                require(abs(ratio - 1.0) <= COST_MODEL_TOL,
+                        f"program_cost counts {cost['flops']:.4g} FLOPs a "
+                        f"step, {ratio:.4f} x bench.py's formula "
+                        f"(limit {COST_MODEL_TOL})")
+            del model, step
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(mdir, ignore_errors=True)
+    dots = rec["policies"]["dots"]["losses"]
+    first = {g: r["losses"][0] for g, r in rec["policies"].items()}
+    require(len(set(first.values())) == 1,
+            f"step 1's loss differs across policies: {first}")
+    diffs = {g: max(abs(a - b) / abs(b) for a, b in
+                    zip(r["losses"][1:], dots[1:]))
+             for g, r in rec["policies"].items()}
+    rec["largest_rel_diff_vs_dots"] = diffs
+    require(max(diffs.values()) <= 1e-2,
+            f"steps 2-{REMAT_STEPS} part from dots's by {diffs}")
+    require(rec["policies"]["offload"]["offloaded_bytes"] > 0,
+            "offload moved no bytes into pinned host memory")
+    rec["finite_check"] = finite_check_on_card()
+    for g, r in rec["policies"].items():
+        say(f"[phase 22 a] {smi}: {g}: tokens/s {r['tokens_per_s']:.1f} "
+            f"step {r['step_time_s'] * 1e3:.2f} ms, traced step: device "
+            f"{r['step_profile']['device_ms']:.2f} ms idle "
+            f"{r['step_profile']['idle_share']:.3f} by group "
+            f"{json.dumps(r['device_ms_by_group'])}; max_memory_allocated "
+            f"{r['max_memory_allocated'] / 2 ** 30:.3f} GiB losses "
+            f"{r['losses']} (largest difference from dots after step 1: "
+            f"{diffs[g]:.3g}) launches a step "
+            f"{json.dumps(r['launches_per_step'])}"
+            + (f" offloaded {r['offloaded_bytes']} bytes to pinned host "
+               f"memory" if g == "offload" else "")
+            + (f" plan {json.dumps(r['plan'])}" if "plan" in r else ""))
+    d = rec["perf_doctor"]
+    say(f"[phase 22 b] perf_doctor: {d['steps']} steps of "
+        f"{d['tokens_a_step']} tokens, tokens/s {d['tokens_per_s']} (host "
+        f"clock) against {d['synchronised_tokens_per_s']:.1f} "
+        f"(synchronised), breakdown {json.dumps(d['breakdown_pct'])}")
+    c = rec["cost_model"]
+    say(f"[phase 22 c] {smi}: program_cost {c['flops']:.6g} FLOPs a step, "
+        f"{c['ratio']:.4f} x bench.py's {c['bench_formula_flops']:.6g}; MFU "
+        f"{c['mfu']:.4f} of 989 TFLOP/s; by op {json.dumps(c['flops_by_op'])}")
+    say(f"[phase 22 d] FLAGS_check_nan_inf on the card: "
+        f"{json.dumps(rec['finite_check'])}")
+    rec["seconds"] = time.perf_counter() - t_start
+    say(f"[phase 22] {rec['seconds']:.1f} s")
+    return rec, launches
+
+
 def kernel_name(mangled):
     """A mangled kernel name as ``name`` or ``name<D>``: the first
     ``<length><identifier>`` in it whose identifier ends in ``_kernel``
@@ -8274,6 +8516,14 @@ def main():
 
     mark("21 vision and rnn")
 
+    # 22. observability and remat: the bench GPT under each remat policy,
+    # the metrics plane read by perf_doctor, the cost model, the finite
+    # check on the card
+    p22, l22 = phase22(smi)
+    add(l22)
+
+    mark("22 observability and remat")
+
     say(f"[main path] launches: {launches}")
     say("[main path] launches by route: " + "; ".join(
         f"{n} {launches[n + '_vec']} vec, "
@@ -8348,7 +8598,7 @@ def main():
              varlen_f32_vs_cpu=varlen32, incubate_bf16=stack,
              incubate_f32_vs_cpu=stack32, phase17=p17,
              varlen_split_draws=split_draws, core=p18, amp=p19,
-             nn_transformer=p20, vision_rnn=p21,
+             nn_transformer=p20, vision_rnn=p21, observability_remat=p22,
              launches=launches,
              phase_s=marks, seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")

@@ -15,9 +15,13 @@ of the JAX package's ``fault_tolerance.numerics`` helpers, in torch's
 multi-tensor ops). Across processes the flag is reduced by
 :func:`all_reduce_found_inf`, the identity on one process: its
 collective comes with data parallelism (ROADMAP queue 1 item 6). The
-flight-recorder, metrics and chaos hooks of the JAX scaler come with
-fault tolerance and observability (items 4 and 7), and
-``note_fused_step`` with ``train_step(reliability=)`` (item 7).
+metrics hooks of the JAX scaler are kept (``paddle2_tpu/amp/
+grad_scaler.py:160-163, :200``): :meth:`GradScaler.update` adds one to
+the ``amp_skipped_steps_total`` counter for a skipped step and sets the
+``amp_loss_scale`` gauge, on the metrics plane when it is on
+(:mod:`paddle2_tpu_torch.observability.metrics`). Its flight-recorder
+and chaos hooks come with fault tolerance, and ``note_fused_step`` with
+``train_step(reliability=)`` (both ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from ..observability import metrics as _metrics
 
 __all__ = ["GradScaler", "ScaleSaturationError", "grads_nonfinite_flag",
            "flag_to_host", "all_reduce_found_inf"]
@@ -180,6 +186,7 @@ class GradScaler:
             self._cycle_found_inf = False
             return
         if self._cycle_found_inf:
+            _metrics.inc("amp_skipped_steps_total")
             self._consecutive_skips += 1
             if self._consecutive_skips >= self._max_consecutive_skips:
                 raise ScaleSaturationError(
@@ -204,6 +211,7 @@ class GradScaler:
                 self._good_steps = 0
         self._opt_state.clear()
         self._cycle_found_inf = False
+        _metrics.set_gauge("amp_loss_scale", self._scale)
 
     def state_dict(self) -> Dict:
         return {"scale": self._scale, "incr_ratio": self._incr_ratio,

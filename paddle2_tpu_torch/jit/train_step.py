@@ -22,17 +22,40 @@ writes its captured buffers back once
 (``paddle2_tpu/jit/train_step.py:148,308-309``); in eval mode they are
 read, not written. The step leaves the modules' mode to the caller.
 
+**Metrics.** While the metrics plane is on
+(:mod:`paddle2_tpu_torch.observability.metrics`), a call runs inside
+its ``phase("compute")`` and then closes the step window with
+``step_end(tokens=, samples=)``, by the JAX step's rule
+(``paddle2_tpu/jit/train_step.py:285-298, :315-341``): the first tensor
+argument gives ``samples`` (its leading dimension) and, when it is
+2-D of int16/int32/int64 (token ids; int8 never is), ``tokens`` = B·S.
+The hooks read nothing off the device and add no synchronization, so
+``compute_s`` is the host's time to enqueue the step on a CUDA card, as
+it is the JAX step's dispatch time. The JAX step's compile counter
+(``train_step_compiles_total``) and program-cache gauge
+(``train_step_program_cache_size``) have no counterpart in an eager
+step and are not written. With the plane off a hook costs one
+attribute load. ``collect_cost = True`` runs each call under
+:func:`~paddle2_tpu_torch.observability.cost_model.program_cost` and
+keeps its result as ``last_cost`` (``cost_model.step_cost_of_program``
+reads it).
+
 Not ported yet, and refused: optimizer wrappers (ZeRO sharding,
-gradient accumulation; ROADMAP queue 1 item 6), the reliability plane
-and ``instrument=`` (queue 1 items 4 and 7). There is no CUDA-graph
-capture of the step yet (PERF.md, open questions).
+gradient accumulation; ROADMAP queue 1 item 6), and the reliability
+plane with ``instrument=``, the JAX step's in-program sentinel and
+chaos seam (queue 1 item 7). There is no CUDA-graph capture of the
+step yet (PERF.md, open questions).
 """
 
 from typing import Any, Callable, Optional, Sequence
 
 import torch
 
+from ..observability import metrics as _metrics
 from ..optimizer import Optimizer
+
+# token ids: 2-D tensors of these types (int8 is a quantized payload)
+_TOKEN_DTYPES = (torch.int16, torch.int32, torch.int64)
 
 __all__ = ["train_step", "TrainStepProgram"]
 
@@ -49,11 +72,34 @@ class TrainStepProgram:
                 f"ported yet (ROADMAP queue 1 item 6)")
         if instrument:
             raise NotImplementedError(
-                "instrument= is not ported yet (ROADMAP queue 1 item 4)")
+                "instrument= (the reliability plane's in-program sentinel) "
+                "is not ported yet (ROADMAP queue 1 item 7)")
         self.fn = fn
         self.optimizer = optimizer
+        self.collect_cost = False
+        self.last_cost: Optional[dict] = None
 
     def __call__(self, *args, **kwargs) -> torch.Tensor:
+        pl = _metrics._ACTIVE
+        if pl is not None:
+            pl.phase_enter("compute")
+        try:
+            if self.collect_cost:
+                from ..observability.cost_model import program_cost
+                out = []
+                self.last_cost = program_cost(
+                    lambda: out.append(self._step(*args, **kwargs)), ())
+                loss = out[0]
+            else:
+                loss = self._step(*args, **kwargs)
+        finally:
+            if pl is not None:
+                pl.phase_exit()
+        if pl is not None:
+            _note_step_metrics(pl, args)
+        return loss
+
+    def _step(self, *args, **kwargs) -> torch.Tensor:
         params = [p for p in self.optimizer._parameter_list()
                   if p.requires_grad]
         for p in params:
@@ -66,6 +112,19 @@ class TrainStepProgram:
                 p.grad = torch.zeros_like(p)
         self.optimizer.step()
         return loss.detach()
+
+
+def _note_step_metrics(pl, args) -> None:
+    """Close the step window with what the host knows of the batch (the
+    JAX step's rule): ``samples`` from the first tensor argument's
+    leading dimension, ``tokens`` = B·S when it is 2-D token ids."""
+    tokens = samples = None
+    first = next((a for a in args if isinstance(a, torch.Tensor)), None)
+    if first is not None and first.dim():
+        samples = int(first.shape[0])
+        if first.dim() == 2 and first.dtype in _TOKEN_DTYPES:
+            tokens = int(first.shape[0]) * int(first.shape[1])
+    pl.step_end(tokens=tokens, samples=samples)
 
 
 def train_step(fn: Callable, optimizer, layers: Optional[Sequence] = None,

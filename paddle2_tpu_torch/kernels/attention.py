@@ -36,9 +36,12 @@ by its statistics.
 import functools
 import math
 import threading
+from collections import defaultdict
 from typing import Callable, Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
@@ -48,7 +51,8 @@ from ..ops.dispatch import checks_outputs
 from . import flash_varlen  # noqa: F401  (registers flash_attn_varlen)
 from .flash_attn import SUPPORTED_HEAD_DIMS, flash_attention_bshd
 
-__all__ = ["scaled_dot_product_attention", "remat_policy", "flash_enabled",
+__all__ = ["scaled_dot_product_attention", "remat_policy", "remat_tag",
+           "saves", "offload_to_host", "POLICIES", "flash_enabled",
            "set_flash_enabled", "pallas_supported"]
 
 # the JAX package's Pallas flash tiling (pallas_flash.py:38-39, :53-62,
@@ -71,36 +75,175 @@ def set_flash_enabled(flag: bool) -> None:
     _flash_tls.enabled = bool(flag)
 
 
-def _dots_policy(ctx, op, *args, **kwargs):
-    """"dots": keep the outputs of matrix products without batch
-    dimensions (``mm``/``addmm``, as JAX's
-    ``dots_with_no_batch_dims_saveable``) and of the flash ops, dense and
-    varlen (their ``(o, lse)``, as the JAX package's
-    ``flash_out``/``flash_lse`` names); recompute everything else, the
-    fused LayerNorm op among it, as the JAX package's remat re-runs its
-    Pallas LayerNorm."""
-    if op in (_aten.mm.default, _aten.addmm.default,
-              torch.ops.paddle2_tpu_torch.flash_attn.default,
-              torch.ops.paddle2_tpu_torch.flash_attn_varlen.default):
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
+# the ops whose outputs each policy keeps; the JAX policies keep tensors
+# by name (checkpoint_name), torch's selective checkpoint decides by op
+_DOTS = frozenset({_aten.mm.default, _aten.addmm.default,
+                   torch.ops.paddle2_tpu_torch.flash_attn.default,
+                   torch.ops.paddle2_tpu_torch.flash_attn_varlen.default})
+_GELU = _aten.gelu.default
+POLICIES = ("dots", "dots_plus", "dots_plus_ln", "offload")
+
+
+@torch.library.custom_op("paddle2_tpu_torch::remat_tag", mutates_args=(),
+                         schema="(Tensor x, str name) -> Tensor")
+def _remat_tag(x, name):
+    return x.clone()
+
+
+@_remat_tag.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_remat_tag.register_autograd(lambda ctx, g: (g, None),
+                             setup_context=lambda ctx, inputs, output: None)
+_TAG = torch.ops.paddle2_tpu_torch.remat_tag.default
+
+
+def remat_tag(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` named ``name`` for the remat policies, as the JAX package's
+    ``checkpoint_name``: a copy (a custom op may not return an alias of
+    its input), whose gradient passes through. The GPT blocks tag their
+    LayerNorm outputs ``"ln_out"`` under "dots_plus_ln": under AMP O2
+    the LayerNorm is several ops, none of which is its output alone."""
+    return _TAG(x, name)
+
+
+def saves(base: str, op, *args) -> bool:
+    """Whether the remat policy ``base`` keeps the output of ``op``
+    (called with ``args``) for the backward, where the others are
+    recomputed. Which ops stand for the JAX package's names
+    (``kernels/attention.py:53-95`` there):
+
+    - "dots" (``dots_with_no_batch_dims_saveable`` with ``flash_out``,
+      ``flash_lse``): ``aten.mm`` and ``aten.addmm`` (the 2-D products:
+      ``nn.Linear`` flattens its input), and the flash ops, dense and
+      varlen (their ``(o, lse)``);
+    - "dots_plus" (+ ``mlp_gelu``): also ``aten.gelu``, whose only use
+      in a GPT block is the MLP's, so the op saves the tensor the JAX
+      tag names;
+    - "dots_plus_ln" (+ ``ln_out``): also :func:`remat_tag` named
+      ``"ln_out"`` (the GPT blocks tag both LayerNorm outputs);
+    - "offload": the "dots" outputs, kept in pinned host memory
+      (:func:`remat_policy`). The JAX policy also offloads its gelu and
+      LayerNorm names; the search's "offload_dots" candidate
+      (``incubate/autotune.py``) charges the dots alone, as here.
+
+    In eager torch the recompute re-runs the block's forward in order and
+    skips only the kept ops, so a kept LayerNorm output saves the
+    backward its tag's copy, not the LayerNorm's own ops."""
+    if op in _DOTS:
+        return True
+    if base in ("dots_plus", "dots_plus_ln") and op is _GELU:
+        return True
+    return base == "dots_plus_ln" and op is _TAG and args[1] == "ln_out"
+
+
+def _policy(base, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if saves(base, op, *args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+class _OnHost:
+    __slots__ = ("host", "device")
+
+    def __init__(self, host, device):
+        self.host, self.device = host, device
+
+
+def offload_to_host(t):
+    """A kept output on its way out of the card: an asynchronous copy
+    into pinned host memory on the current stream (``torch.empty(...,
+    pin_memory=True)`` raises where memory cannot be pinned). A CPU
+    tensor is on the host already and is kept as it is.
+    ``offload_to_host.bytes`` counts the bytes copied out."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    if t.device.type != "cuda":
+        return t.detach()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    offload_to_host.bytes += host.numel() * host.element_size()
+    return _OnHost(host, t.device)
+
+
+offload_to_host.bytes = 0
+
+
+def _load(x):
+    """A kept output on its way back: an asynchronous host-to-device
+    copy on the current stream."""
+    if isinstance(x, _OnHost):
+        return x.host.to(x.device, non_blocking=True)
+    return x
+
+
+class _OffloadKeep(TorchDispatchMode):
+    """The forward of an "offload" region: the kept outputs go to the
+    host, by op and in order."""
+
+    def __init__(self, kept):
+        super().__init__()
+        self.kept = kept
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if saves("offload", func, *args):
+            self.kept[func].append(tree_map(offload_to_host, out))
+        return out
+
+
+class _OffloadRestore(TorchDispatchMode):
+    """The recompute of an "offload" region: a kept op returns its
+    output copied back from the host and does not run."""
+
+    def __init__(self, kept):
+        super().__init__()
+        self.kept = kept
+        self.seen = defaultdict(int)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if saves("offload", func, *args):
+            i = self.seen[func]
+            self.seen[func] += 1
+            return tree_map(_load, self.kept[func][i])
+        return func(*args, **(kwargs or {}))
+
+
+def _offload_contexts():
+    kept = defaultdict(list)
+    return _OffloadKeep(kept), _OffloadRestore(kept)
 
 
 def remat_policy(base: str = "dots") -> Optional[Callable]:
     """The ``context_fn`` that ``torch.utils.checkpoint.checkpoint``
-    takes for a granularity: "dots" is the selective policy above;
-    "full" and "nothing" mean full recompute (None: checkpoint saves
-    the block's inputs only). The JAX package's other policies
-    ("dots_plus", "dots_plus_ln", "offload", "search") are not ported
-    yet (ROADMAP queue 1 item 2)."""
+    takes for a granularity: "dots", "dots_plus" and "dots_plus_ln" are
+    selective policies (:func:`saves`); "offload" keeps what "dots" keeps
+    in pinned host memory instead of on the card, through a pair of
+    dispatch modes of its own (torch's selective checkpoint holds its
+    outputs in a cache that ``saved_tensors_hooks`` does not reach):
+    copied out asynchronously as the forward makes them, back as the
+    recompute reaches them, on the current stream; on the CPU it keeps
+    them as they are and computes what "dots" computes. "full" and
+    "nothing" mean full recompute (None: checkpoint saves the block's
+    inputs only). "search" is resolved per batch shape by the model
+    (``GPTConfig(recompute_granularity="search")``, through
+    :func:`paddle2_tpu_torch.incubate.autotune.search_remat_policy`)
+    into one of these and has no policy of its own."""
     if base in ("full", "nothing"):
         return None
-    if base == "dots":
+    if base == "offload":
+        return _offload_contexts
+    if base in POLICIES:
         return functools.partial(create_selective_checkpoint_contexts,
-                                 _dots_policy)
-    raise NotImplementedError(
-        f"remat granularity {base!r} is not ported yet (ROADMAP queue 1 "
-        f"item 2); use 'dots' or 'full'")
+                                 functools.partial(_policy, base))
+    if base == "search":
+        raise ValueError(
+            "remat granularity 'search' is resolved per (batch, seq) by "
+            "the model (GPTConfig.recompute_granularity='search', "
+            "incubate.autotune.search_remat_policy), not by remat_policy")
+    raise ValueError(f"unknown remat granularity {base!r}: one of "
+                     f"{POLICIES + ('full', 'nothing', 'search')}")
 
 
 @checks_outputs("_sdpa_plain")

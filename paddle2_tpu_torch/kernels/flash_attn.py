@@ -42,6 +42,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ..ops.dispatch import checks_outputs
@@ -49,7 +50,8 @@ from ..ops.dispatch import checks_outputs
 __all__ = ["flash_fwd", "flash_fwd_reference", "flash_bwd",
            "flash_bwd_reference", "flash_bwd_split_dkv",
            "flash_bwd_split_dq", "flash_bwd_fused", "bwd_route",
-           "flash_attn", "flash_attention_bshd", "SUPPORTED_HEAD_DIMS",
+           "flash_attn", "flash_attn_bwd", "attention_flops",
+           "flash_attention_bshd", "SUPPORTED_HEAD_DIMS",
            "tf32_round", "tf32_split", "tf32_matmul", "SPLIT_ROUTES",
            "FWD_ROUTES"]
 
@@ -437,15 +439,57 @@ def _flash_attn_setup(ctx, inputs, output):
     ctx.scale, ctx.causal = scale, causal
 
 
+@torch.library.custom_op(
+    "paddle2_tpu_torch::flash_attn_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+           "Tensor do, float scale, bool causal) -> (Tensor, Tensor, Tensor)")
+def flash_attn_bwd(q, k, v, o, lse, do, scale, causal):
+    """The backward of :func:`flash_attn` as one op, so that a
+    ``FlopCounterMode`` counts it by its formula: ``(dq, dk, dv)`` from
+    :func:`flash_bwd`."""
+    return flash_bwd(q, k, v, o, lse, do, scale=scale, causal=causal)
+
+
+@flash_attn_bwd.register_fake
+def _(q, k, v, o, lse, do, scale, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def _flash_attn_backward(ctx, do, _dlse):
     q, k, v, o, lse = ctx.saved_tensors
-    dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(),
-                           scale=ctx.scale, causal=ctx.causal)
+    dq, dk, dv = flash_attn_bwd(q, k, v, o, lse, do.contiguous(),
+                                ctx.scale, ctx.causal)
     return dq, dk, dv, None, None
 
 
 flash_attn.register_autograd(_flash_attn_backward,
                              setup_context=_flash_attn_setup)
+
+
+def attention_flops(B: int, H: int, Sq: int, Sk: int, D: int, Dv: int,
+                    backward: bool = False) -> int:
+    """Operations of attention over the whole ``Sq x Sk`` square, causal
+    or not, as ``bench.py``'s ``12·L·S·H`` term and torch's own SDPA
+    formulas count them: the forward's two products (``QKᵀ`` and
+    ``PV``); the backward's five (the recomputed ``QKᵀ``, ``dO·Vᵀ``,
+    ``Pᵀ·dO``, ``dS·K`` and ``dSᵀ·Q``), which is what the flash
+    backward kernels compute."""
+    qk, pv = 2 * B * H * Sq * Sk * D, 2 * B * H * Sq * Sk * Dv
+    return 2 * qk + 3 * pv if backward else qk + pv
+
+
+@register_flop_formula(torch.ops.paddle2_tpu_torch.flash_attn)
+def _flash_attn_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    B, H, Sq, D = q_shape
+    return attention_flops(B, H, Sq, k_shape[2], D, v_shape[3])
+
+
+@register_flop_formula(torch.ops.paddle2_tpu_torch.flash_attn_bwd)
+def _flash_attn_bwd_flops(q_shape, k_shape, v_shape, *args,
+                          **kwargs) -> int:
+    B, H, Sq, D = q_shape
+    return attention_flops(B, H, Sq, k_shape[2], D, v_shape[3],
+                           backward=True)
 
 
 def flash_attention_bshd(q, k, v, causal: bool = False,

@@ -44,15 +44,18 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from ..ops.dispatch import checks_outputs
+from .flash_attn import attention_flops
 
 __all__ = ["flash_varlen_fwd", "flash_varlen_fwd_reference",
            "flash_varlen_bwd_dkv", "flash_varlen_bwd_dkv_reference",
            "flash_varlen_bwd_dq", "flash_varlen_bwd_dq_reference",
            "flash_varlen_bwd_fused", "flash_varlen_bwd_fused_reference",
            "varlen_bwd_route", "tile_ranges", "flash_attn_varlen",
+           "flash_attn_varlen_bwd",
            "flash_attention_varlen_packed", "kernel_gap",
            "SUPPORTED_HEAD_DIMS", "TILE"]
 
@@ -509,26 +512,79 @@ def _varlen_setup(ctx, inputs, output):
     ctx.scale = scale
 
 
-def _varlen_backward(ctx, do, _dlse):
-    q, k, v, o, lse, seg_q, off_q, seg_k, off_k, q_tiles, k_tiles = \
-        ctx.saved_tensors
-    do = do.contiguous()
+@torch.library.custom_op(
+    "paddle2_tpu_torch::flash_attn_varlen_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+           "Tensor do, Tensor seg_q, Tensor off_q, Tensor seg_k, "
+           "Tensor off_k, Tensor q_tiles, Tensor k_tiles, float scale) "
+           "-> (Tensor, Tensor, Tensor)")
+def flash_attn_varlen_bwd(q, k, v, o, lse, do, seg_q, off_q, seg_k, off_k,
+                          q_tiles, k_tiles, scale):
+    """The backward of :func:`flash_attn_varlen` as one op, so that a
+    ``FlopCounterMode`` counts it by its formula: ``delta =
+    rowsum(dO∘O)`` in f32, then the route :func:`varlen_bwd_route`
+    names. Returns ``(dq, dk, dv)``."""
     delta = (do.float() * o.float()).sum(-1).t().contiguous()
     meta = (seg_q, off_q, seg_k, off_k)
     if varlen_bwd_route(q.dtype) == "fused":
-        dq, dk, dv = flash_varlen_bwd_fused(
+        return flash_varlen_bwd_fused(
             q, k, v, _build.tma_aligned(do), lse, delta, *meta, k_tiles,
-            ctx.scale)
-    else:
-        dk, dv = flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta,
-                                      k_tiles, ctx.scale)
-        dq = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta, q_tiles,
-                                 ctx.scale)
+            scale)
+    dk, dv = flash_varlen_bwd_dkv(q, k, v, do, lse, delta, *meta,
+                                  k_tiles, scale)
+    dq = flash_varlen_bwd_dq(q, k, v, do, lse, delta, *meta, q_tiles,
+                             scale)
+    return dq, dk, dv
+
+
+@flash_attn_varlen_bwd.register_fake
+def _(q, k, v, o, lse, do, *args):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _varlen_backward(ctx, do, _dlse):
+    q, k, v, o, lse, *meta = ctx.saved_tensors
+    dq, dk, dv = flash_attn_varlen_bwd(q, k, v, o, lse, do.contiguous(),
+                                       *meta, ctx.scale)
     return (dq, dk, dv) + (None,) * 7
 
 
 flash_attn_varlen.register_autograd(_varlen_backward,
                                     setup_context=_varlen_setup)
+
+
+def _sequence_pairs(seg_q, seg_k) -> int:
+    """Σ over the packed sequences of ``len_q · len_k``: the full square
+    of each (one read of the segment counts from the device)."""
+    n = int(max(int(seg_q.max()), int(seg_k.max()))) + 1 \
+        if seg_q.numel() and seg_k.numel() else 0
+    if n == 0:
+        return 0
+    nq = torch.bincount(seg_q.long(), minlength=n)
+    nk = torch.bincount(seg_k.long(), minlength=n)
+    return int((nq * nk).sum())
+
+
+def _varlen_flops(q, k, v, seg_q, seg_k, backward: bool) -> int:
+    """:func:`~.flash_attn.attention_flops` over each packed sequence's
+    full square (B = H = 1 there, times the heads and the pairs)."""
+    pairs = _sequence_pairs(seg_q, seg_k)
+    H, D, Dv = q.shape[1], q.shape[2], v.shape[2]
+    return H * attention_flops(1, 1, pairs, 1, D, Dv, backward=backward)
+
+
+@register_flop_formula(torch.ops.paddle2_tpu_torch.flash_attn_varlen,
+                       get_raw=True)
+def _flash_attn_varlen_flops(q, k, v, seg_q, off_q, seg_k, off_k, *args,
+                             **kwargs) -> int:
+    return _varlen_flops(q, k, v, seg_q, seg_k, backward=False)
+
+
+@register_flop_formula(torch.ops.paddle2_tpu_torch.flash_attn_varlen_bwd,
+                       get_raw=True)
+def _flash_attn_varlen_bwd_flops(q, k, v, o, lse, do, seg_q, off_q, seg_k,
+                                 off_k, *args, **kwargs) -> int:
+    return _varlen_flops(q, k, v, seg_q, seg_k, backward=True)
 
 
 def flash_attention_varlen_packed(q, k, v, seg_q, off_q, seg_k, off_k,

@@ -673,11 +673,12 @@ def _collective(name: str):
     def fn(*args, **kwargs):
         raise NotImplementedError(
             f"{name} is not ported yet: it waits for the distributed core "
-            f"(ROADMAP queue 1 item 6) and the cost model's collective "
-            f"traffic (queue 1 item 4)")
+            f"(ROADMAP queue 1 item 6); the cost model's collective "
+            f"traffic it prices with is ported (queue 1 item 4, "
+            f"observability.cost_model.CollectiveTraffic)")
     fn.__name__ = name
     fn.__doc__ = (f"``{name}`` of the JAX package; raises until ROADMAP "
-                  f"queue 1 items 6 and 4 land.")
+                  f"queue 1 item 6 lands.")
     return fn
 
 

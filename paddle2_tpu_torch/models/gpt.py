@@ -7,8 +7,11 @@ maps onto this one name for name (see :mod:`.convert`).
 
 Trains and serves, on one device: no tensor, sequence or context
 parallelism yet. Training adds remat (``use_recompute`` with
-``recompute_granularity`` "full" or "dots", through
-``torch.utils.checkpoint``), stacked ``[L, ...]`` block storage
+``recompute_granularity`` "full", "dots", "dots_plus", "dots_plus_ln",
+"offload" or "search", through ``torch.utils.checkpoint`` and
+:func:`paddle2_tpu_torch.kernels.attention.remat_policy`; "search"
+resolves one of them per batch shape, see :meth:`GPTModel.remat_plan`),
+stacked ``[L, ...]`` block storage
 (``stacked_blocks``, :mod:`._scan`) and the chunked fused LM-head loss
 (``fused_head_loss``), and the int8 head fake-quantized per vocab
 channel (``quantized_lm_head``). Attention runs through
@@ -27,7 +30,9 @@ across with :func:`~.convert.gpt_state_from_reference`.
 
 from __future__ import annotations
 
+import functools
 import math
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -39,7 +44,7 @@ from ..device import resolve_device
 from ..distributed.recompute import recompute
 from ..framework import core
 from ..incubate.nn.functional import fused_linear_cross_entropy
-from ..kernels.attention import scaled_dot_product_attention
+from ..kernels.attention import remat_tag, scaled_dot_product_attention
 from ..nn import LayerNorm
 from ._scan import StackedLayerStack
 from ..amp.casting import amp_op
@@ -71,8 +76,19 @@ class GPTConfig:
     tie_word_embeddings: bool = True
     use_recompute: bool = False
     # "full" keeps each block's input only; "dots" also keeps matrix
-    # products and the flash op's (o, lse) (kernels.attention.remat_policy)
+    # products and the flash op's (o, lse); "dots_plus" also the MLP's
+    # gelu output, "dots_plus_ln" also both LayerNorm outputs; "offload"
+    # keeps what "dots" keeps in pinned host memory
+    # (kernels.attention.remat_policy); "search" resolves the policy of
+    # least modeled overhead that fits remat_budget_gb, per (batch, seq)
+    # (incubate.autotune.search_remat_policy)
     recompute_granularity: str = "full"
+    # the memory budget "search" must fit (params + grads + optimizer
+    # state + saved activations, by the cost model's accounting), in GB
+    # of 1e9 bytes. None: $PADDLE_REMAT_BUDGET_GB, else the card's own
+    # memory (cost_model.chip_hbm_gb: its total_memory); on the CPU one
+    # of the two must be given
+    remat_budget_gb: Optional[float] = None
     # one [L, ...] parameter per block leaf (models/_scan.py)
     stacked_blocks: bool = False
     # forward(labels=...) returns (None, loss) through the chunked fused
@@ -147,14 +163,24 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(cfg, **factory)
         self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, tag_ln: bool = False):
+        """``tag_ln`` names both LayerNorm outputs ``"ln_out"``
+        (:func:`~paddle2_tpu_torch.kernels.attention.remat_tag`, a copy)
+        for the "dots_plus_ln" policy, as the JAX block tags them."""
+        ln_1, ln_2 = self.ln_1, self.ln_2
+        if tag_ln:
+            def ln_1(h):
+                return remat_tag(self.ln_1(h), "ln_out")
+
+            def ln_2(h):
+                return remat_tag(self.ln_2(h), "ln_out")
         if cache is not None:
-            a, new_cache = self.attn(self.ln_1(x), cache=cache)
+            a, new_cache = self.attn(ln_1(x), cache=cache)
             x = x + self.dropout(a)
-            x = x + self.dropout(self.mlp(self.ln_2(x)))
+            x = x + self.dropout(self.mlp(ln_2(x)))
             return x, new_cache
-        x = x + self.dropout(self.attn(self.ln_1(x)))
-        return x + self.dropout(self.mlp(self.ln_2(x)))
+        x = x + self.dropout(self.attn(ln_1(x)))
+        return x + self.dropout(self.mlp(ln_2(x)))
 
 
 class GPTModel(nn.Module):
@@ -171,6 +197,64 @@ class GPTModel(nn.Module):
                                for _ in range(cfg.num_layers))
         self.ln_f = _layer_norm(cfg.hidden_size, cfg.layer_norm_epsilon,
                               **factory)
+        # "search": plans resolved per (batch, seq) by the cost-model
+        # searcher; parameters owned outside the trunk (an untied
+        # lm_head) that the budget's fixed bytes must count
+        self._remat_plans: dict = {}
+        self._remat_fixed_params_extra = 0
+
+    # -- remat policy resolution ----------------------------------------
+    def _resolved_remat(self, batch: int, seq: int):
+        """(use_recompute, granularity) for this forward. Non-"search"
+        configs pass through; "search" resolves (and caches) a
+        :class:`~paddle2_tpu_torch.incubate.autotune.RematPlan` for the
+        (batch, seq) shape: a pure function of the config, the budget
+        and the card's rates."""
+        cfg = self.cfg
+        if not cfg.use_recompute:
+            return False, cfg.recompute_granularity
+        if cfg.recompute_granularity != "search":
+            return True, cfg.recompute_granularity
+        plan = self.remat_plan(batch, seq)
+        return plan.use_recompute, plan.granularity
+
+    def _remat_budget_gb(self) -> float:
+        budget = self.cfg.remat_budget_gb
+        if budget is None:
+            budget = os.environ.get("PADDLE_REMAT_BUDGET_GB")
+        if budget is not None:
+            return float(budget)
+        dev = self.wte.weight.device
+        if dev.type != "cuda":
+            raise ValueError(
+                "recompute_granularity='search' needs a memory budget off "
+                "a CUDA card: set GPTConfig.remat_budget_gb or "
+                "PADDLE_REMAT_BUDGET_GB")
+        from ..observability.cost_model import chip_hbm_gb
+        return chip_hbm_gb(dev)
+
+    def remat_plan(self, batch: int, seq: int):
+        """The searched plan for a shape (resolved and cached on first
+        use), or None unless the granularity is "search". The fixed
+        bytes are the JAX package's rule: every trained parameter as
+        bf16 weight + bf16 gradient + f32 master + two f32 Adam moments
+        (the multi-precision AdamW the bench trains with)."""
+        cfg = self.cfg
+        if not (cfg.use_recompute and cfg.recompute_granularity == "search"):
+            return None
+        key = (int(batch), int(seq))
+        plan = self._remat_plans.get(key)
+        if plan is None:
+            from ..incubate import autotune
+            n_params = (sum(p.numel() for p in self.parameters())
+                        + int(self._remat_fixed_params_extra))
+            plan = autotune.search_remat_policy(
+                hidden=cfg.hidden_size, num_layers=cfg.num_layers,
+                num_heads=cfg.num_heads, seq=seq, batch=batch,
+                ffn=cfg.ffn_size, budget_bytes=self._remat_budget_gb() * 1e9,
+                fixed_bytes=float(n_params) * (2.0 + 2.0 + 3 * 4.0))
+            self._remat_plans[key] = plan
+        return plan
 
     def _embed(self, input_ids, position_offset: int):
         s = input_ids.shape[1]
@@ -180,15 +264,18 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids):
         x = self._embed(input_ids, 0)
-        cfg = self.cfg
-        remat = (cfg.recompute_granularity
-                 if cfg.use_recompute and self.training else None)
+        remat = None
+        if self.training:
+            use, gran = self._resolved_remat(*input_ids.shape)
+            remat = gran if use else None
+        tag = {"tag_ln": True} if remat == "dots_plus_ln" else {}
         if isinstance(self.h, StackedLayerStack):
-            x = self.h(x, remat=remat)
+            x = self.h(x, remat=remat, **tag)
         else:
             for block in self.h:
-                x = block(x) if remat is None else \
-                    recompute(block, x, policy=remat)
+                run = functools.partial(block, **tag)
+                x = run(x) if remat is None else \
+                    recompute(run, x, policy=remat)
         return self.ln_f(x)
 
     def blocks(self):
@@ -241,6 +328,9 @@ class GPTForCausalLM(nn.Module):
         self.lm_head = (None if cfg.tie_word_embeddings else
                         nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                   bias=False, **factory))
+        if self.lm_head is not None:
+            self.gpt._remat_fixed_params_extra = sum(
+                p.numel() for p in self.lm_head.parameters())
         self._init_weights(torch.Generator(device=device).manual_seed(seed))
         if cfg.stacked_blocks:
             self.gpt.h = StackedLayerStack(list(self.gpt.h))

@@ -38,6 +38,7 @@ from ...kernels.attention import (_sdpa_plain, flash_enabled,
 from ...kernels.flash_varlen import (flash_attention_varlen_packed,
                                      kernel_gap, tile_ranges)
 from ...amp.casting import amp_op
+from ...ops.dispatch import checks_outputs
 
 __all__ = ["flash_attention", "flash_attn_unpadded", "flash_attn_qkvpacked",
            "flash_attn_varlen_qkvpacked", "scaled_dot_product_attention",
@@ -62,20 +63,25 @@ def flash_attention(query, key, value, dropout: float = 0.0,
     out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
                                        is_causal=causal, training=training,
                                        generator=generator)
-    softmax = None
-    if return_softmax:
-        with torch.no_grad():
-            qh = query.transpose(1, 2).float()
-            kh = key.transpose(1, 2).float()
-            s = torch.matmul(qh, kh.transpose(-1, -2)) \
-                / math.sqrt(query.shape[-1])
-            if causal:
-                t_q, t_k = s.shape[-2], s.shape[-1]
-                keep = torch.ones(t_q, t_k, dtype=torch.bool,
-                                  device=s.device).tril(diagonal=t_k - t_q)
-                s = s.masked_fill(~keep, _NEG)
-            softmax = torch.softmax(s, dim=-1)
+    softmax = _softmax_of(query, key, causal) if return_softmax else None
     return out, softmax
+
+
+@checks_outputs("flash_attention_softmax")
+@torch.no_grad()
+def _softmax_of(query, key, causal):
+    """The f32 probabilities of :func:`flash_attention`, the causal mask
+    a ``-inf`` fill, run out of sight of ``FLAGS_check_nan_inf``, which
+    checks the probabilities."""
+    qh = query.transpose(1, 2).float()
+    kh = key.transpose(1, 2).float()
+    s = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(query.shape[-1])
+    if causal:
+        t_q, t_k = s.shape[-2], s.shape[-1]
+        keep = torch.ones(t_q, t_k, dtype=torch.bool,
+                          device=s.device).tril(diagonal=t_k - t_q)
+        s = s.masked_fill(~keep, _NEG)
+    return torch.softmax(s, dim=-1)
 
 
 def flash_attn_qkvpacked(qkv, dropout: float = 0.0, causal: bool = False,
@@ -148,13 +154,16 @@ def _densify_rows(cu, lens, S, T):
     return np.where(pos < lens[:, None], cu[:-1, None] + pos, T)
 
 
+@checks_outputs("flash_attn_unpadded")
 def _unpadded_densify(q, k, v, cu_q, cu_k, len_q, len_k, Sq, Sk, scale,
                       causal, dropout_p, generator):
     """The JAX package's densify route (``flash_attention.py:117-163``):
     one gather per tensor into ``[B, S, H, D]``, a ``[B, 1, Sq, Sk]``
     bias of 0 and -inf (the key must be real and, under causal, at or
     left of the row's bottom-right diagonal), the plain attention, and
-    one gather back to the packed query rows."""
+    one gather back to the packed query rows. Under
+    ``FLAGS_check_nan_inf`` it runs with the check suspended and its
+    output is checked."""
     dev = q.device
 
     def pad_one(a, cu, lens, S):
@@ -260,9 +269,13 @@ def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
                                **kwargs)
 
 
+@checks_outputs("masked_softmax", lambda out, *a, **k: out[0])
 def _masked_softmax_out(scores, allowed, v, out_dtype, eq):
     """Softmax of ``scores`` where ``allowed`` (a row with nothing
-    allowed gives 0, not NaN) times ``v``; returns (out, lse)."""
+    allowed gives 0, not NaN) times ``v``; returns (out, lse). The
+    ``-inf`` fill runs out of sight of ``FLAGS_check_nan_inf``, which
+    checks ``out``: the ``lse`` of a row with nothing allowed is
+    ``-inf`` by design."""
     scores = scores.masked_fill(~allowed, _NEG)
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.exp(scores - lse[..., None])

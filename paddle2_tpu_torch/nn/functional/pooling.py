@@ -12,7 +12,8 @@ each function's contract:
 - max pooling: padded elements never win (XLA starts from ``-inf``), and
   a tie's gradient goes to the first tap, as ``reduce_window``'s and
   torch's ``max_pool`` give it. torch takes symmetric padding up to half
-  the window; any other padding is applied first, with ``-inf``;
+  the window; any other padding is applied first, with ``-inf``, out
+  of sight of ``FLAGS_check_nan_inf``, which checks the pool's output;
 - ``return_mask=True`` (``_max_pool_with_mask``, ``:205-269``) stacks the
   windows' taps, in float32 padded with ``finfo(float32).min``, takes
   their max and the first tap that holds it, and gives the tap's flat
@@ -48,6 +49,7 @@ from .conv import (channel_last, from_channels_first, resolve_padding,
                    to_channels_first, torch_pad, tuplize)
 from ...amp.casting import amp_op, cast_call
 from ...framework import random as _random
+from ...ops.dispatch import checks_outputs
 
 __all__ = ["avg_pool1d", "avg_pool2d", "avg_pool3d", "max_pool1d",
            "max_pool2d", "max_pool3d", "adaptive_avg_pool1d",
@@ -89,9 +91,18 @@ def _max_pool(x, kernel_size, stride, padding, n, ceil_mode, data_format):
     if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, kernel)):
         out = _MAX_POOL[n](x, kernel, stride, tuple(lo for lo, _ in pads))
     else:
-        out = _MAX_POOL[n](TF.pad(x, torch_pad(pads), value=-math.inf),
-                           kernel, stride)
+        out = _max_pool_inf_padded(x, kernel, stride, pads, n)
     return from_channels_first(out, cl)
+
+
+@checks_outputs("max_pool")
+def _max_pool_inf_padded(x, kernel, stride, pads, n):
+    """The pool over ``x`` padded first with ``-inf``. Under
+    ``FLAGS_check_nan_inf`` it runs with the check suspended and only
+    its output is checked, so the pad is not taken for a fault; a
+    finite pad would change the max of a window that sees no input."""
+    return _MAX_POOL[n](TF.pad(x, torch_pad(pads), value=-math.inf),
+                        kernel, stride)
 
 
 def _max_pool_with_mask(x, kernel_size, stride, padding, n, ceil_mode,

@@ -14,7 +14,12 @@ invisible to the mode; its wrapper is decorated with
 :func:`checks_outputs`, which, while the flag is on, runs the wrapper
 with the mode suspended and checks the wrapper's outputs, naming the
 kernel. The plain version behind a wrapper (the CPU path) is checked the
-same way, so an internal ``-inf`` mask is not taken for a fault. The
+same way, so an internal ``-inf`` mask is not taken for a fault, and so
+is every plain route that builds its own ``-inf`` pad or mask (max
+pooling's uneven pads, ``flash_attention``'s probabilities, the
+densified varlen route, ``flashmask_attention`` and
+``sparse_attention``, the plain split-K paged decode): as in the JAX
+package, which checks the ops it dispatches and not their insides. The
 check reads every output back to the host, one synchronization an op; it
 is off by default, as in the JAX package.
 

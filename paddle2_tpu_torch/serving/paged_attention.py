@@ -250,11 +250,13 @@ def _merge_splits(o_parts, m, l, out_dtype):
     return (o / l_safe[..., None]).to(out_dtype)
 
 
+@checks_outputs("paged_attention_split_reference")
 def paged_attention_split_reference(q, k_pool, v_pool, block_tables,
                                     ctx_lens, scale: Optional[float] = None,
                                     pages_per_split: int = 1):
     """Plain split-K path: plain partials, then :func:`_merge_splits`.
-    Returns ``[B, 1, H, D]``."""
+    Returns ``[B, 1, H, D]``. Its ``-inf`` masks run out of sight of
+    ``FLAGS_check_nan_inf``, which checks the result."""
     _check(q, k_pool, v_pool, block_tables, ctx_lens)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])

@@ -21,8 +21,11 @@ deterministic; time enters only through the caller's ``now`` stamps.
   decode steps, so a swap launches nothing new and changes no decode
   bucket.
 
-The flight-recorder, metrics and tracing hooks of the JAX module wait
-for the observability plane (ROADMAP queue 1, item 4).
+The metrics and tracing planes exist
+(:mod:`paddle2_tpu_torch.observability`); the JAX module's hooks into
+them, its flight-recorder events and the tracing spans' producer
+(``flight_record`` feeding ``tracing.serving_span``) come with the
+serving hooks (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations

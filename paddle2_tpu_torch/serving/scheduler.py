@@ -29,8 +29,10 @@ deterministic:
   missing blocks against the free list, then publishes the prompt's
   full blocks for later arrivals.
 
-The metrics, flight-recorder and tracing hooks wait for the
-observability plane (ROADMAP queue 1, item 4).
+The metrics and tracing planes exist
+(:mod:`paddle2_tpu_torch.observability`); the scheduler's metrics,
+flight-recorder and tracing hooks come with the serving hooks (ROADMAP
+queue 1 item 5).
 """
 
 from __future__ import annotations

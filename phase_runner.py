@@ -97,6 +97,14 @@ Phases:
   DenseNet-121 against the CPU, the LSTM LM through ``adamw_step``, beam
   search and a small f32 LM step against the CPU, and the path's
   kernels at its shapes. Its record, with the phase's seconds.
+- ``obs_remat``: the smoke's phase 22 alone (``chip_smoke.phase22``):
+  the bench GPT under each remat policy ("dots", "dots_plus",
+  "dots_plus_ln", "offload", "full", "search"), 1 warm-up, 3 timed and
+  1 traced step each with that checkout's gates, the "dots" steps' metrics
+  stream through ``tools.perf_doctor``, one step priced by
+  ``observability.cost_model.program_cost``, and
+  ``FLAGS_check_nan_inf`` on the card. Its record, with the phase's
+  seconds.
 - ``flash_bwd_f32``: the f32 flash backward at the training shape (B8
   H16 S1024 D64, causal): the split pair's two wrappers
   (``flash_bwd_split_dkv``, ``flash_bwd_split_dq``) and ``flash_bwd``
@@ -1338,6 +1346,13 @@ def vision_rnn(cs, torch, smi):
     return rec
 
 
+def obs_remat(cs, smi):
+    """The smoke's phase 22 alone."""
+    rec, launches = cs.phase22(smi)
+    rec["launches"] = {n: v for n, v in launches.items() if v}
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", required=True,
@@ -1346,7 +1361,7 @@ def main():
                              "train_bf16", "adamw_step", "f32_prefill",
                              "paged_decode", "ptq_serving", "f32_decode",
                              "plain_serving", "core", "nn_transformer",
-                             "vision_rnn"))
+                             "vision_rnn", "obs_remat"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -1391,6 +1406,8 @@ def main():
         result = nn_transformer(cs, torch, smi)
     elif args.phase == "vision_rnn":
         result = vision_rnn(cs, torch, smi)
+    elif args.phase == "obs_remat":
+        result = obs_remat(cs, smi)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

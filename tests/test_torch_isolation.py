@@ -68,6 +68,10 @@ import paddle2_tpu_torch.vision.models.mobilenet
 import paddle2_tpu_torch.vision.models.densenet
 import paddle2_tpu_torch.vision.models.inception_shuffle
 import paddle2_tpu_torch.vision.models._utils
+import paddle2_tpu_torch.observability, paddle2_tpu_torch.incubate.autotune
+import paddle2_tpu_torch.tools, paddle2_tpu_torch.tools.perf_doctor
+import paddle2_tpu_torch.tools.serve_doctor
+import paddle2_tpu_torch.tools.flight_doctor
 from paddle2_tpu_torch.kernels import _build
 assert not calls, calls
 assert not _build._LIBS
