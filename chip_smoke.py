@@ -507,6 +507,40 @@ line) when it fails:
     on: ``max_pool2d(..., ceil_mode=True)`` and the causal
     ``flash_attention(..., return_softmax=True)`` on the card return
     the CPU's values.
+23. The fleet ("fleet"): GPT-3 1.3B (24 layers, bf16, seed 1234), every
+    engine on the one model (``FLEET_ECONF``: block 16, 768 blocks, max
+    batch 8), prompts of a 1,024-token prefix and an 8-token tail. (a)
+    The host tier (``enable_kv_spill``, a prefix cache of 64 blocks):
+    two prefixes alternate, one request at a time, 16 new tokens each,
+    so each admission spills the other prefix and each later request of
+    a prefix promotes its 64 blocks from host memory; its tokens equal
+    an engine without the tier's but at bf16 near ties; host fetches;
+    each spill-fetch span ends exactly ``host_blocks x block_bytes /
+    host_link_bps`` after it starts; ``audit_kv_ledger(..., host_tier=)``
+    clean after every decode round; then ``corrupt_spill_block:1``: the
+    CRC drops the scribbled block, the next request of that prefix
+    prefills whole, its tokens still equal. (b) Four engines under
+    ``EngineFailoverRouter``: ``simulate_router`` over a seeded
+    ``poisson_trace`` of 64 requests in 4 cohorts of a 256-token prefix
+    (prompts 256-1,024 tokens, 32 new), with a ``FleetKVRegistry`` and
+    as independent caches: the tokens equal request by request but at
+    near ties; KV bytes a request for both. (c) The peer tier's decision
+    for a 1,024- and a 64-token prefix at the default link and at
+    ``LinkModel(dcn_gbps=400, dcn_latency_us=10)``: each decision,
+    ``t_fetch`` and ``t_prefill`` (modeled) printed, the tokens equal
+    but at near ties whichever way it went. (d) Failover: on engine 1 a
+    prefix request finishes, a filler's admission spills the prefix to
+    its host tier and two requests of the prefix queue behind it;
+    ``kill_engine:20:1`` kills engine 1 mid-decode; with migration (the
+    registry at 400 GB/s) and with every migration dropped
+    (``drop_migration``): both runs' tokens equal the clean run's but at
+    near ties, each MTTR (modeled) printed; the migration run writes a
+    flight dump and a trace directory, and ``tools.serve_doctor`` finds
+    every request's decomposition exact in integer picoseconds and
+    ``tools.flight_doctor`` reads the failure and the migration. Each
+    part's decode steps are timed and its 20th traced (device time by
+    kernel group; host share against the mean untraced step); the
+    phase's ``flash_fwd`` and ``paged_decode`` launches must be above 0.
 
 Phase 12 also holds the bf16 split pair of the packed varlen backward
 (``flash_varlen_dkv_kernel``, ``flash_varlen_dq_kernel``) on inputs
@@ -569,7 +603,8 @@ times (both routes of both directions), bounds and ``F.layer_norm``'s
 Each main-path run (the serving runs, the training runs, the ERNIE
 runs, the ResNet runs, the varlen runs, the incubate stack runs, the
 PTQ runs, phase 17's serving runs, phase 18's gradient and serving runs,
-phase 20's and phase 21's training runs, each of phase 22's policies)
+phase 20's and phase 21's training runs, each of phase 22's policies,
+phase 23's whole run but the dense path its near ties are judged on)
 starts with every launch count at 0 and is read just after;
 the kernel checks' launches (and the PTQ phase's one-at-a-time and
 dense replays) are not counted.
@@ -660,8 +695,18 @@ from paddle2_tpu_torch import quantization
 from paddle2_tpu_torch.quantization import (
     PTQ, FakeQuanterChannelWiseAbsMaxObserver, FakeQuanterWithAbsMaxObserver,
     QuantConfig, QuantedInferenceLinear, weight_only_quantize)
-from paddle2_tpu_torch.serving import (EngineConfig, ServingEngine,
-                                       SpeculativeConfig, audit_kv_ledger)
+from paddle2_tpu_torch.serving import (
+    EngineConfig, EngineFailoverRouter, FleetKVRegistry, ServingEngine,
+    SpeculativeConfig, audit_kv_ledger, poisson_trace, simulate_router,
+    simulate_serving)
+from paddle2_tpu_torch.distributed.fault_tolerance import chaos as port_chaos
+from paddle2_tpu_torch.distributed.fault_tolerance import (
+    flight_recorder as port_flight)
+from paddle2_tpu_torch.observability import tracing as port_tracing
+from paddle2_tpu_torch.observability.cost_model import (
+    DEFAULT_DCN_LATENCY_US, LinkModel)
+from paddle2_tpu_torch.tools import flight_doctor as port_flight_doctor
+from paddle2_tpu_torch.tools import serve_doctor as port_serve_doctor
 from paddle2_tpu_torch.serving.paged_attention import (
     _merge_splits, cluster_plan, paged_attention_reference,
     paged_attention_split_reference, paged_decode,
@@ -2880,9 +2925,9 @@ def serve(model, econf, prompts, new_tokens, probe=None):
     validate = dict(s=0.0)
     checked = eng._validate_tables
 
-    def timed_check(active):
+    def timed_check(active, now=None):
         t0 = time.perf_counter()
-        out = checked(active)
+        out = checked(active, now=now)
         validate["s"] += time.perf_counter() - t0
         return out
     eng._validate_tables = timed_check
@@ -7915,6 +7960,454 @@ def line_row(rows, n):
     return next(r for r in rows if wanted(r))
 
 
+# ------------------------------------------------------------- phase 23
+# the fleet: GPT-3 1.3B (24 layers, bf16, seed 1234). Its prompts are a
+# 1,024-token prefix (64 blocks of 16) and an 8-token tail, so that a
+# prompt's full blocks are its prefix's alone
+FLEET_PREFIX, FLEET_TAIL, FLEET_NEW = 1024, 8, 16
+FLEET_ECONF = dict(block_size=16, num_blocks=768, max_batch=8,
+                   kv_dtype="bfloat16")
+FLEET_TIERED = dict(enable_prefix_cache=True, enable_kv_spill=True)
+# (b): 64 requests in 4 prefix cohorts of 256 tokens, tails of 0, 384
+# and 768 tokens (prompts of 256..1,024), 32 new tokens each, arriving
+# at this rate (a second, modeled)
+FLEET_REQUESTS, FLEET_COHORT, FLEET_GEN, FLEET_RATE = 64, 256, 32, 1000.0
+FLEET_TAILS = (0, 384, 768)
+# (c) and (d): the faster cross-node link the peer tier is also priced at
+FLEET_FAST_LINK = dict(dcn_gbps=400.0, dcn_latency_us=10.0)
+# (d): engine 1 dies at its 20th decode step
+FLEET_KILL = "kill_engine:20:1"
+
+
+def fleet_engine(model, **over):
+    return ServingEngine(model, EngineConfig(**{**FLEET_ECONF, **over}))
+
+
+def fleet_prompt(rng, V, head, n_tail=FLEET_TAIL):
+    return head + rng.integers(0, V, size=n_tail).tolist()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are not the main path's (the dense path that a
+    near tie is judged on): every launch count is as it was after."""
+    saved = [(k["counter"].launches,
+              dict(getattr(k["counter"], "route_launches", {})))
+             for k in KERNELS.values()]
+    try:
+        yield
+    finally:
+        for k, (n, routes) in zip(KERNELS.values(), saved):
+            k["counter"].launches = n
+            if routes:
+                k["counter"].route_launches.update(routes)
+
+
+def fleet_ledger(eng):
+    return audit_kv_ledger(
+        eng.allocator, [s.table.blocks for s in eng.scheduler.running()],
+        prefix_cache=eng.prefix_cache, host_tier=eng.host_tier)
+
+
+class PartProfile:
+    """Phase 17's trace over one part of phase 23: every decode step of
+    every engine is timed (synchronised), and the ``traced``-th step
+    that runs is traced with torch.profiler for its device time; the
+    idle (host) share is taken against the mean untraced step. Also the
+    part's wall time."""
+
+    def __init__(self, traced=20):
+        self.traced, self.n = traced, 0
+        self.walls, self.profile = [], None
+
+    def __enter__(self):
+        self.orig = ServingEngine.decode_once
+        prof_self = self
+
+        def timed(eng, now=0.0):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if prof_self.n == prof_self.traced:
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    out = prof_self.orig(eng, now)
+                    torch.cuda.synchronize()
+                if out is not None:
+                    prof_self.profile = decode_step_profile(
+                        prof, time.perf_counter() - t0)
+                    prof_self.profile["batch"] = out["n_active"]
+            else:
+                out = prof_self.orig(eng, now)
+                torch.cuda.synchronize()
+                if out is not None:
+                    prof_self.walls.append(time.perf_counter() - t0)
+            if out is not None:
+                prof_self.n += 1
+            return out
+        ServingEngine.decode_once = timed
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self.t0
+        ServingEngine.decode_once = self.orig
+        return False
+
+    def record(self):
+        rec = dict(part_wall_s=self.wall_s, decode_steps=self.n,
+                   step=self.profile)
+        if self.profile is not None and self.walls:
+            step_ms = 1e3 * statistics.mean(self.walls)
+            rec.update(untraced_step_ms=step_ms,
+                       host_share=1.0 - self.profile["device_ms"] / step_ms)
+        return rec
+
+
+def fleet_host_tier(model, tdir):
+    """(a) One engine with the host tier and a prefix cache of 64 blocks:
+    two 1,024-token prefixes alternate, one request at a time, so each
+    admission spills the other prefix to host memory and the next
+    request of a prefix promotes all 64 of its blocks back. Gates: the
+    tokens equal an engine without the tier's, at near ties; host
+    fetches; each spill-fetch span ends exactly ``host_blocks x
+    block_bytes / host_link_bps`` after it starts; the ledger audits
+    clean after every decode round. Then ``corrupt_spill_block:1``: the
+    CRC rejects the scribbled block, the next request of that prefix
+    prefills whole, and its tokens still match."""
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(231)
+    heads = [rng.integers(0, V, size=FLEET_PREFIX).tolist()
+             for _ in range(2)]
+    prompts = [fleet_prompt(rng, V, heads[i % 2]) for i in range(8)]
+    # a second apart on the modeled clock: each drains before the next
+    trace = [dict(arrival_t=float(i), prompt=p, max_new_tokens=FLEET_NEW)
+             for i, p in enumerate(prompts)]
+    plain = fleet_engine(model)
+    simulate_serving(plain, [dict(r) for r in trace])
+    want = [plain.sequence(i).generated for i in range(len(trace))]
+    del plain
+    tiered = fleet_engine(model, **FLEET_TIERED,
+                          prefix_cache_blocks=FLEET_PREFIX // 16)
+    audits = []
+    step = tiered.decode_once
+
+    def audited(now=0.0):
+        out = step(now)
+        audits.append(fleet_ledger(tiered))
+        return out
+    tiered.decode_once = audited
+    port_tracing.enable(tdir, rank=0)
+    try:
+        rep = simulate_serving(tiered, [dict(r) for r in trace[:6]])
+        port_chaos.arm("corrupt_spill_block:1")
+        rep_chaos = simulate_serving(tiered, [dict(r) for r in trace[6:]])
+        fired = port_chaos.fired_log()
+    finally:
+        port_chaos.disarm()
+        port_tracing.flush()
+        port_tracing.disable()
+        del tiered.decode_once
+    got = [tiered.sequence(i).generated for i in range(len(trace))]
+    with uncounted():
+        div = first_divergences(model, prompts, got, want, NEAR_TIE_BF16)
+    pc, tier = tiered.prefix_cache, tiered.host_tier
+    spans = [r for r in port_tracing.load_trace_dir(tdir)
+             if r["event"] == "spill_fetch"]
+    charge_exact = [r["end"] == r["t"] + (r["host_blocks"]
+                                          * tiered.cache.block_bytes
+                                          / tiered.host_link_bps)
+                    for r in spans]
+    last = tiered.sequence(len(trace) - 1)
+    rec = dict(host_fetches=pc.host_fetches, spills=pc.spills,
+               host_tier_blocks=len(tier), corrupt_drops=tier.corrupt_drops,
+               fired=fired, fetch_spans=len(spans),
+               charge_exact=all(charge_exact),
+               block_bytes=tiered.cache.block_bytes,
+               host_link_bps=tiered.host_link_bps,
+               fetch_s_a_block=tiered.cache.block_bytes
+               / tiered.host_link_bps,
+               audits=len(audits), divergences=div,
+               last_request_cached_tokens=last.prefix_cached_tokens,
+               modeled=dict(tokens_per_s=rep.tokens_per_s,
+                            mean_ttft_s=rep.mean_ttft_s,
+                            chaos_tokens_per_s=rep_chaos.tokens_per_s))
+    require(pc.host_fetches >= 4 * FLEET_PREFIX // 16,
+            f"(a) host fetches {pc.host_fetches}")
+    require(spans and all(charge_exact), f"(a) spill-fetch charges "
+            f"{charge_exact} over {len(spans)} spans")
+    require(len(audits) > 0, "(a) no decode round audited")
+    require([k for k, _ in fired] == ["corrupt_spill_block"] and
+            tier.corrupt_drops == 1 and last.prefix_cached_tokens == 0,
+            f"(a) corrupt spill: fired {fired}, drops {tier.corrupt_drops}"
+            f", cached {last.prefix_cached_tokens}")
+    return rec
+
+
+def fleet_trace(V):
+    rng = np.random.default_rng(232)
+    heads = [rng.integers(0, V, size=FLEET_COHORT).tolist()
+             for _ in range(4)]
+    trace = poisson_trace(FLEET_REQUESTS, FLEET_RATE, FLEET_TAILS,
+                          [FLEET_GEN], V, seed=233)
+    for i, r in enumerate(trace):
+        r["prompt"] = heads[i % 4] + r["prompt"]
+    return trace
+
+
+def fleet_economics(model):
+    """(b) Four engines under ``EngineFailoverRouter``: with a
+    ``FleetKVRegistry`` (prefix affinity, the peer tier at the default
+    link) against the same engines as independent caches (least-loaded
+    routing), on one seeded trace. Gates: the tokens equal, request by
+    request, at near ties; KV bytes a request for both."""
+    V = model.cfg.vocab_size
+    trace = fleet_trace(V)
+    runs = {}
+    for tag in ("independent", "registry"):
+        engines = [fleet_engine(model, **FLEET_TIERED) for _ in range(4)]
+        reg = FleetKVRegistry(engines) if tag == "registry" else None
+        router = EngineFailoverRouter(engines, probe_interval_s=1e-4,
+                                      kv_registry=reg)
+        rep = simulate_router(router, [dict(r) for r in trace])
+        # the router takes an engine's death for a failover: a kernel's
+        # fault must fail the phase instead
+        require(not any(e.failed for e in engines), f"(b) {tag}: "
+                f"{[e.fail_reason for e in engines if e.failed]}")
+        require(rep.completed == FLEET_REQUESTS, f"(b) {tag}: "
+                f"{rep.completed} of {FLEET_REQUESTS} completed")
+        runs[tag] = dict(
+            tokens=[router.sequence(r).generated for r in rep.rids],
+            homes=[router.home_of(r) for r in rep.rids],
+            report={k: getattr(rep, k) for k in (
+                "kv_bytes_per_request", "kv_allocated_blocks",
+                "prefix_hits", "prefix_misses", "kv_fetch_peer_blocks",
+                "kv_spilled_blocks", "tokens_per_s", "mean_ttft_s",
+                "p99_ttft_s", "decode_steps", "makespan_s")},
+            decisions=list(reg.decisions) if reg else [])
+        del engines, router
+        torch.cuda.empty_cache()
+    prompts = [r["prompt"] for r in trace]
+    with uncounted():
+        div = first_divergences(model, prompts, runs["registry"]["tokens"],
+                                runs["independent"]["tokens"],
+                                NEAR_TIE_BF16)
+    for r in runs.values():
+        del r["tokens"]
+    return dict(runs=runs, divergences=div)
+
+
+def fleet_peer(model):
+    """(c) The peer tier's decision for a 1,024-token and a 64-token
+    prefix, at the default link and at 400 GB/s with 10 us: engine 0
+    holds the prefix, engine 1 serves it, fetching or prefilling as the
+    registry decides (its runner prices the prefix's prefill from the
+    configuration). Gate: its tokens equal engine 0's, at near ties, whichever
+    way the decision went."""
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(234)
+    out = []
+    for link_name, link in (
+            ("default", LinkModel(dcn_latency_us=DEFAULT_DCN_LATENCY_US)),
+            ("400 GB/s", LinkModel(**FLEET_FAST_LINK))):
+        for n in (FLEET_PREFIX, 64):
+            p = fleet_prompt(rng, V, rng.integers(0, V, size=n).tolist())
+            e0, e1 = (fleet_engine(model, **FLEET_TIERED)
+                      for _ in range(2))
+            reg = FleetKVRegistry([e0, e1], link=link)
+            rids = []
+            for e in (e0, e1):
+                rids.append(e.submit(p, FLEET_NEW))
+                step = 0
+                while not e.idle():
+                    e.tick(now=float(step))
+                    step += 1
+            got = [e.sequence(r).generated for e, r in zip((e0, e1), rids)]
+            with uncounted():
+                div = first_divergences(model, [p], got[1:], got[:1],
+                                        NEAR_TIE_BF16)
+            d = reg.decisions[-1]
+            out.append(dict(link=link_name, prefix_tokens=n,
+                            fetched=d["fetch"], blocks=d["blocks"],
+                            t_fetch_s=d["t_fetch"],
+                            t_prefill_s=d["t_prefill"],
+                            peer_fetch_blocks=e1.prefix_cache.peer_fetches,
+                            divergences=div))
+            say(f"[phase 23 c] {link_name}: a {n}-token prefix "
+                f"({d['blocks']} blocks): "
+                f"{'fetch' if d['fetch'] else 'prefill'}, t_fetch "
+                f"{d['t_fetch']:.3e} s, t_prefill {d['t_prefill']:.3e} s "
+                f"(modeled)")
+            del e0, e1
+    return out
+
+
+def fleet_failover(model, tdir, fdir):
+    """(d) Four engines (max batch 1, a prefix cache of 64 blocks, the
+    registry at 400 GB/s): on engine 1 a prefix request finishes, a
+    64-block filler's admission spills the prefix to its host tier, and
+    two requests of the prefix queue behind the filler; ``kill_engine``
+    kills engine 1 at its 20th decode step. The adopters migrate the
+    prefix from the dead engine's host tier (run "migrate") or, with
+    every migration dropped, prefill again (run "dropped"). Gates: both
+    runs' tokens equal the clean run's, at near ties; the migration run
+    migrates and the dropped run does not. The migration run writes a
+    flight dump and a trace directory: ``tools.serve_doctor`` finds
+    every request's decomposition exact and ``tools.flight_doctor``
+    reads the failure and the migration."""
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(235)
+    head = rng.integers(0, V, size=FLEET_PREFIX).tolist()
+    filler = rng.integers(0, V, size=FLEET_PREFIX + FLEET_TAIL).tolist()
+    trace = [dict(arrival_t=0.0, session="q", max_new_tokens=FLEET_NEW,
+                  prompt=rng.integers(0, V, size=FLEET_COHORT).tolist()),
+             dict(arrival_t=1e-6, session="p", max_new_tokens=8,
+                  prompt=fleet_prompt(rng, V, head)),
+             dict(arrival_t=2e-6, session="p", max_new_tokens=48,
+                  prompt=filler)]
+    trace += [dict(arrival_t=3e-6 + i * 1e-6, session="p",
+                   max_new_tokens=FLEET_NEW,
+                   prompt=fleet_prompt(rng, V, head)) for i in range(2)]
+    runs = {}
+    for tag, spec in (("clean", None), ("migrate", FLEET_KILL),
+                      ("dropped", FLEET_KILL
+                       + ";drop_migration:1;drop_migration:2")):
+        engines = [fleet_engine(model, **FLEET_TIERED, max_batch=1,
+                                prefix_cache_blocks=FLEET_PREFIX // 16)
+                   for _ in range(4)]
+        reg = FleetKVRegistry(engines, link=LinkModel(**FLEET_FAST_LINK))
+        router = EngineFailoverRouter(engines, probe_interval_s=1e-4,
+                                      kv_registry=reg)
+        if tag == "migrate":
+            flight = port_flight.enable(fdir, rank=0, install_hooks=False)
+            port_tracing.enable(tdir, rank=0)
+        if spec:
+            port_chaos.arm(spec)
+        try:
+            rep = simulate_router(router, [dict(r) for r in trace])
+            fired = port_chaos.fired_log()
+        finally:
+            port_chaos.disarm()
+            if tag == "migrate":
+                dump = port_flight.dump("fleet phase: failover drill")
+                port_flight.disable()
+                port_tracing.flush()
+                port_tracing.disable()
+        reasons = [e.fail_reason for e in engines]
+        require(reasons == [None] * 4 if spec is None else
+                reasons == [None, "chaos:kill_engine", None, None],
+                f"(d) {tag}: engine failures {reasons}")
+        require(rep.completed == len(trace), f"(d) {tag}: {rep.completed} "
+                f"of {len(trace)} completed")
+        runs[tag] = dict(
+            tokens=[router.sequence(r).generated for r in rep.rids],
+            failovers=rep.failovers, mttr_s=rep.mttr_s,
+            recovered=rep.recovered_seqs, migrations=rep.kv_migrations,
+            migrated_blocks=rep.kv_migrated_blocks,
+            declined=rep.kv_migrations_declined,
+            fetch_peer_blocks=rep.kv_fetch_peer_blocks,
+            fired=[k for k, _ in fired])
+        del engines, router, reg
+        torch.cuda.empty_cache()
+    prompts = [r["prompt"] for r in trace]
+    for tag in ("migrate", "dropped"):
+        r = runs[tag]
+        require(r["failovers"] == 1 and "kill_engine" in r["fired"],
+                f"(d) {tag}: {r['failovers']} failovers, fired {r['fired']}")
+        with uncounted():
+            r["divergences"] = first_divergences(
+                model, prompts, r["tokens"], runs["clean"]["tokens"],
+                NEAR_TIE_BF16)
+    require(runs["migrate"]["migrations"] >= 1,
+            f"(d) no migration: {runs['migrate']}")
+    require(runs["dropped"]["migrations"] == 0 and
+            runs["dropped"]["fired"].count("drop_migration") >= 1,
+            f"(d) dropped: {runs['dropped']}")
+    for r in runs.values():
+        del r["tokens"]
+    # the migration run's evidence, through the port's doctors
+    doc = port_serve_doctor.summarize(port_serve_doctor._load(tdir))
+    require(doc["finished"] == len(trace) and
+            not doc["exactness"]["violations"] and all(
+                c["exact"] for c in doc["decompositions"].values()
+                if c["finished"]),
+            f"(d) serve_doctor: {doc['finished']} finished, violations "
+            f"{doc['exactness']['violations']}")
+    diag = port_flight_doctor.diagnose(port_flight_doctor.load_dumps(fdir))
+    counts = diag["serving"]["counts"]
+    require(all(counts.get(e) for e in ("engine_failed", "failover",
+                                        "migrate")),
+            f"(d) flight_doctor serving counts {counts}")
+    runs["doctors"] = dict(
+        flight_dump=dump, serving_counts=counts,
+        finished=doc["finished"], exact=True,
+        tail_owner=doc["tail"]["owner_label"],
+        counters=doc["counters"])
+    return runs
+
+
+def phase23(smi):
+    """Phase 23, "fleet": GPT-3 1.3B (all 24 layers, bf16, seed 1234) on
+    one card, every engine on one model: (a) the host tier, (b) a
+    four-engine fleet's economics, (c) the peer tier's decisions, (d)
+    failover with and without KV migration. Each part's decode steps
+    are timed and one is traced (``PartProfile``). Returns the record
+    and the launches (all main path)."""
+    t_start = time.perf_counter()
+    model = GPTForCausalLM(gpt3_1p3b(), seed=1234).to(torch.bfloat16)
+    tmp = tempfile.mkdtemp(prefix="fleet_")
+    reset_counts()
+    rec = dict(parts={})
+    try:
+        for name, fn in (
+                ("a host tier", lambda: fleet_host_tier(
+                    model, os.path.join(tmp, "trace_a"))),
+                ("b fleet economics", lambda: fleet_economics(model)),
+                ("c peer tier", lambda: fleet_peer(model)),
+                ("d failover", lambda: fleet_failover(
+                    model, os.path.join(tmp, "trace_d"),
+                    os.path.join(tmp, "flight")))):
+            with PartProfile() as part:
+                out = fn()
+            prof = part.record()
+            rec["parts"][name] = dict(out=out, profile=prof)
+            say(f"[phase 23 {name}] {smi}: {prof['part_wall_s']:.1f} s, "
+                f"{prof['decode_steps']} decode steps; traced step "
+                f"(batch {prof['step']['batch']}) device "
+                f"{prof['step']['device_ms']:.3f} ms against "
+                f"{prof['untraced_step_ms']:.3f} ms untraced, host share "
+                f"{prof['host_share']:.3f}; by group "
+                f"{prof['step']['by_group']}")
+            if name[0] == "b":
+                out = dict(out, runs={k: dict(v, decisions=dict(
+                    priced=len(v["decisions"]),
+                    fetched=sum(d["fetch"] for d in v["decisions"])))
+                    for k, v in out["runs"].items()})
+                rec["parts"][name]["out"] = out
+            say(f"[phase 23 {name}] {out}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = counts()
+    for n in ("flash_fwd", "paged_decode"):
+        require(launches[n] > 0, f"phase 23 never launched {n}")
+    rec["launches"] = {n: v for n, v in launches.items() if v}
+    say(f"[phase 23] launches: flash_fwd {launches['flash_fwd']}, "
+        f"paged_decode {launches['paged_decode']}")
+    b = rec["parts"]["b fleet economics"]["out"]["runs"]
+    say(f"[phase 23] {smi}: KV bytes a request, independent caches "
+        f"{b['independent']['report']['kv_bytes_per_request']:.0f}, "
+        f"registry {b['registry']['report']['kv_bytes_per_request']:.0f}; "
+        f"MTTR (modeled) with migration "
+        f"{rec['parts']['d failover']['out']['migrate']['mttr_s']:.3e} s, "
+        f"migration dropped "
+        f"{rec['parts']['d failover']['out']['dropped']['mttr_s']:.3e} s")
+    del model
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_start
+    return rec, launches
+
+
 def main():
     t_run = time.perf_counter()
     # seconds from the start at the end of each phase (against the run's
@@ -8524,6 +9017,13 @@ def main():
 
     mark("22 observability and remat")
 
+    # 23. the fleet: the host tier, four engines under the router and
+    # the registry, the peer tier's decisions, failover with migration
+    p23, l23 = phase23(smi)
+    add(l23)
+
+    mark("23 fleet")
+
     say(f"[main path] launches: {launches}")
     say("[main path] launches by route: " + "; ".join(
         f"{n} {launches[n + '_vec']} vec, "
@@ -8599,6 +9099,7 @@ def main():
              incubate_f32_vs_cpu=stack32, phase17=p17,
              varlen_split_draws=split_draws, core=p18, amp=p19,
              nn_transformer=p20, vision_rnn=p21, observability_remat=p22,
+             fleet=p23,
              launches=launches,
              phase_s=marks, seconds=time.perf_counter() - t_run), indent=1))
     say(f"[done] {time.perf_counter() - t_run:.1f} s")

@@ -26,9 +26,9 @@ components prove that no interval was counted twice or lost.
 
 Time enters ONLY through the caller's ``t=`` stamps: a simulator
 passes its virtual clock (traces are then bit-stable across runs), a
-live engine its wall clock. The port's serving producers (the engine's
-spans through :func:`serving_span`) come with the serving hooks
-(ROADMAP queue 1 item 5); until then records come from callers.
+live engine its wall clock. The port's producers are the serving
+plane's spans (scheduler, engine, router, hot swap), which
+``serving.reliability.flight_record`` hands to :func:`serving_span`.
 
 Overhead contract (the metrics plane's): when the plane is off, every
 module-level hook is ONE module-attribute load (``if _ACTIVE is None:

@@ -2,21 +2,25 @@
 CUDA kernels. Counterpart of ``paddle2_tpu.serving``.
 
 Ported: the engine and its scheduler, the paged KV cache with refcounted
-copy-on-write blocks and the prefix cache, speculative decoding
-(``spec``), admission control with priority shedding, deadlines and an
-SLO ledger (``reliability``), engine failure, recovery and adoption,
-and weight hot swap (:class:`HotSwapController`). Names are exported in
-the JAX package's order, the port's own after them.
+copy-on-write blocks, the prefix cache and its host tier
+(:class:`HostKVTier`), speculative decoding (``spec``), admission
+control with priority shedding, deadlines and an SLO ledger
+(``reliability``), engine failure, recovery and adoption, weight hot
+swap (:class:`HotSwapController`), the serving simulator
+(``simulate``: :func:`simulate_serving`,
+:func:`simulate_predictor_baseline`, :func:`simulate_router`), the
+failover router (:class:`EngineFailoverRouter`) and the fleet's peer KV
+tier (:class:`FleetKVRegistry`), with the metrics, flight-recorder,
+tracing and chaos hooks. Names are exported in the JAX package's order,
+the port's own after them.
 
-Not ported yet, each with its ROADMAP serving-queue item: the host tier
-and fleet KV (``HostKVTier``, ``FleetKVRegistry``, item 3), the serving
-simulator and its failover router (``serving/simulate.py``), artifact
-load (item 6) and the observability hooks (item 7).
+Not ported yet: loading a saved artifact (ROADMAP serving queue, item
+6).
 """
 
 from .block_cache import (BlockAllocator, BlockTable, PagedKVCache,
-                          PrefixCache, audit_kv_ledger, blocks_for_tokens,
-                          GARBAGE_BLOCK)
+                          PrefixCache, HostKVTier, audit_kv_ledger,
+                          blocks_for_tokens, GARBAGE_BLOCK)
 from .block_cache import OutOfBlocksError, BlockFreeError
 from .paged_attention import (paged_attention_decode,
                               paged_attention_reference,
@@ -33,11 +37,16 @@ from .scheduler import (Request, Sequence, SeqState,
                         ContinuousBatchingScheduler, SchedulerConfig)
 from .engine import ServingEngine, EngineConfig
 from .model_runner import PREFILL_PAD, PagedGPTRunner
+from .simulate import (ServingSimReport, simulate_serving,
+                       simulate_predictor_baseline, poisson_trace,
+                       diurnal_poisson_trace,
+                       EngineFailoverRouter, RouterSimReport,
+                       simulate_router, FleetKVRegistry)
 
 __all__ = [
     "BlockAllocator", "BlockTable", "PagedKVCache", "PrefixCache",
-    "audit_kv_ledger", "blocks_for_tokens", "GARBAGE_BLOCK",
-    "OutOfBlocksError", "BlockFreeError",
+    "HostKVTier", "audit_kv_ledger", "blocks_for_tokens",
+    "GARBAGE_BLOCK", "OutOfBlocksError", "BlockFreeError",
     "paged_attention_decode", "paged_attention_reference",
     "paged_attention_split_reference", "gathered_dense_kv",
     "SpeculativeConfig", "ngram_draft", "accept_drafts",
@@ -48,6 +57,11 @@ __all__ = [
     "Request", "Sequence", "SeqState", "ContinuousBatchingScheduler",
     "SchedulerConfig",
     "ServingEngine", "EngineConfig",
+    "ServingSimReport", "simulate_serving", "simulate_predictor_baseline",
+    "poisson_trace", "diurnal_poisson_trace",
+    "EngineFailoverRouter", "RouterSimReport", "simulate_router",
+    "FleetKVRegistry",
+    # the port's own
     "PREFILL_PAD", "PagedGPTRunner", "paged_decode",
     "paged_decode_split_partials",
 ]

@@ -40,12 +40,20 @@ private tail), so sharing is read-only:
 * :func:`audit_kv_ledger` checks that every usable block is owned
   exactly once.
 
-The host tier (``HostKVTier``), spill and peer fetch wait for ROADMAP
-queue 1 item 5, serving item 3.
+**Tiers.** :class:`HostKVTier` is the host-memory rung of the HBM ->
+host -> peer KV ladder: when the prefix cache would discard a cold
+block, its K/V bytes are copied to host memory first (numpy arrays, as
+in the JAX package, so a payload crosses between the packages), CRC
+stamped, and a later hit on that prefix promotes them back into a fresh
+device block instead of prefilling again. A peer source (the fleet's
+``serving.simulate.FleetKVRegistry``) extends a miss from another
+engine's tiers. The device-byte movers are the engine's
+(:meth:`PrefixCache.set_spill_io`).
 """
 
 from __future__ import annotations
 
+import zlib
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -53,10 +61,8 @@ import numpy as np
 import torch
 
 __all__ = ["BlockAllocator", "BlockTable", "PagedKVCache", "PrefixCache",
-           "audit_kv_ledger", "blocks_for_tokens", "GARBAGE_BLOCK",
-           "OutOfBlocksError", "BlockFreeError"]
-
-_SPILL_ITEM = "ROADMAP serving queue, item 3 (KV spill / host tier)"
+           "HostKVTier", "audit_kv_ledger", "blocks_for_tokens",
+           "GARBAGE_BLOCK", "OutOfBlocksError", "BlockFreeError"]
 
 # physical block id every padded/inactive batch row writes into
 GARBAGE_BLOCK = 0
@@ -332,6 +338,12 @@ class PagedKVCache:
     def bytes_for_blocks(self, n_blocks: int) -> int:
         return n_blocks * self.block_bytes
 
+    def contiguous_bytes(self, batch: int, max_seq_len: int) -> int:
+        """What a contiguous max-length cache would reserve for ``batch``
+        sequences (the paged-versus-contiguous comparator)."""
+        return (2 * self.num_layers * batch * max_seq_len * self.num_heads
+                * self.head_dim * self.k.element_size())
+
     @staticmethod
     def scatter_decode(pool, layer: int, phys, slot, new_kv) -> None:
         """In place: ``pool[layer, phys[b], slot[b]] = new_kv[b]``.
@@ -372,22 +384,123 @@ class PagedKVCache:
         return g.reshape(-1, *g.shape[2:])
 
 
+class HostKVTier:
+    """Host-memory spill tier for cold prefix blocks.
+
+    The second rung of the HBM -> host -> peer-DCN KV ladder: when the
+    allocator's reclaimer would DISCARD a cold cached prefix block,
+    the block's raw K/V bytes are copied here first — keyed by the
+    SAME chained prefix-tuple key the :class:`PrefixCache` uses, so a
+    later hit on the spilled prefix fetches the bytes back instead of
+    re-prefilling. Host entries are BYTES, not allocator block ids:
+    the allocator's ownership invariant (free + referenced == usable,
+    every block owned exactly once) is untouched by spilling, which is
+    what keeps ``rebuild_free_list`` auditable across tiers.
+
+    Every payload is stamped with a CRC at spill time and verified at
+    fetch: a scribbled spill (chaos ``corrupt_spill_block``, a real
+    host-DMA fault) is DROPPED at fetch, so the consumer falls back to
+    re-prefill — corruption can cost time, never correctness. The tier
+    keeps its own LRU ledger; ``capacity_blocks`` bounds occupancy
+    (oldest spills evicted — the ladder's final discard)."""
+
+    def __init__(self, capacity_blocks: Optional[int] = None):
+        # key -> (k_bytes, v_bytes, crc); _lru tracks recency
+        self._entries: Dict[tuple, Tuple[np.ndarray, np.ndarray, int]] = {}
+        self._lru: "OrderedDict[tuple, None]" = OrderedDict()
+        self.capacity_blocks = capacity_blocks
+        self.spilled = 0          # put()s (blocks entering the tier)
+        self.fetched = 0          # pop()s (blocks promoted back to HBM)
+        self.evictions = 0        # LRU discards past capacity
+        self.corrupt_drops = 0    # CRC mismatches dropped at get()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key) -> bool:
+        return key in self._entries
+
+    @staticmethod
+    def _crc(k_np: np.ndarray, v_np: np.ndarray) -> int:
+        return zlib.crc32(v_np.tobytes(), zlib.crc32(k_np.tobytes()))
+
+    def put(self, key: tuple, k_np: np.ndarray, v_np: np.ndarray) -> None:
+        """Spill one block's K/V bytes under ``key`` (host-owned
+        copies; the CRC is stamped from the copies so a later fetch
+        verifies exactly what was stored)."""
+        k = np.array(k_np, copy=True)
+        v = np.array(v_np, copy=True)
+        self._entries[key] = (k, v, self._crc(k, v))
+        self._lru[key] = None
+        self._lru.move_to_end(key)
+        self.spilled += 1
+        while self.capacity_blocks is not None and \
+                len(self._entries) > self.capacity_blocks:
+            old, _ = self._lru.popitem(last=False)
+            del self._entries[old]
+            self.evictions += 1
+
+    def get(self, key: tuple
+            ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Verified, NON-destructive read. A CRC mismatch drops the
+        entry and returns None — the caller re-prefills; serving a
+        scribbled payload would be silent KV corruption."""
+        ent = self._entries.get(key)
+        if ent is None:
+            return None
+        k, v, crc = ent
+        if self._crc(k, v) != crc:
+            del self._entries[key]
+            del self._lru[key]
+            self.corrupt_drops += 1
+            return None
+        self._lru.move_to_end(key)
+        return k, v
+
+    def pop(self, key: tuple) -> None:
+        """Retire ``key`` after a successful promotion back to HBM —
+        a prefix lives in exactly one tier at a time."""
+        if key in self._entries:
+            del self._entries[key]
+            del self._lru[key]
+            self.fetched += 1
+
+    def keys(self) -> List[tuple]:
+        return list(self._entries)
+
+    def corrupt_one(self) -> Optional[tuple]:
+        """Chaos helper (``corrupt_spill_block``): flip one byte of
+        the OLDEST entry's K payload, keeping the stored CRC — the
+        next ``get`` must detect it. Returns the key hit (None when
+        the tier is empty). Deterministic: oldest entry, first byte."""
+        for key in self._lru:
+            k, v, crc = self._entries[key]
+            k = np.array(k, copy=True)
+            raw = k.view(np.uint8).reshape(-1)
+            raw[0] ^= 0xFF
+            self._entries[key] = (k, v, crc)
+            return key
+        return None
+
+
 def audit_kv_ledger(allocator: BlockAllocator, live_block_lists,
                     prefix_cache: Optional["PrefixCache"] = None,
-                    host_tier=None) -> Dict[str, int]:
-    """Ownership audit of the device tier: every usable block is owned
-    exactly once, on the free list or referenced with a refcount equal
-    to its claim multiplicity over the live tables and the prefix
-    cache's holds, and ``free + claimed == usable``. Raises
-    :class:`BlockFreeError` on a violation; returns the census.
-    ``host_tier`` must be None (the host tier is not ported)."""
-    if host_tier is not None:
-        raise NotImplementedError(f"the host tier is not ported yet "
-                                  f"({_SPILL_ITEM})")
+                    in_migration=(), host_tier: Optional[HostKVTier] = None
+                    ) -> Dict[str, int]:
+    """Cross-tier ownership audit: every usable block is
+    owned EXACTLY once — on the free list, or referenced with a
+    refcount equal to its claim multiplicity across the live tables,
+    the prefix cache's own holds, and any in-migration claim list —
+    and ``free + claimed == usable``. Host-tier entries are byte
+    payloads, never allocator ids, so they cannot alias device blocks
+    by construction; the audit reports their count so the property
+    test can close the whole ladder. Raises :class:`BlockFreeError`
+    on any violation; returns the tier census when clean."""
     claims: Dict[int, int] = {}
     lists = [list(l) for l in live_block_lists]
     if prefix_cache is not None:
         lists.append(prefix_cache.held_blocks())
+    lists.append(list(in_migration))
     for lst in lists:
         for b in lst:
             b = int(b)
@@ -399,13 +512,13 @@ def audit_kv_ledger(allocator: BlockAllocator, live_block_lists,
     if len(set(free)) != len(free):
         raise BlockFreeError("free list holds a duplicate id")
     for b in free:
-        if not 0 < b < allocator.num_blocks:
+        if not (0 < b < allocator.num_blocks):
             raise BlockFreeError(f"free list holds bad id {b}")
         if b in claims:
             raise BlockFreeError(
-                f"block {b} is both free and claimed: owned twice")
+                f"block {b} is both free and claimed — owned twice")
     for b, c in claims.items():
-        if not 0 < b < allocator.num_blocks:
+        if not (0 < b < allocator.num_blocks):
             raise BlockFreeError(f"claim on out-of-range block {b}")
         if allocator.refcount(b) != c:
             raise BlockFreeError(
@@ -415,12 +528,14 @@ def audit_kv_ledger(allocator: BlockAllocator, live_block_lists,
         if b not in claims:
             raise BlockFreeError(
                 f"block {b} allocated (rc={allocator._rc[b]}) but "
-                f"claimed by no table or cache")
+                f"claimed by no table, cache, or migration")
     if len(free) + len(claims) != usable:
         raise BlockFreeError(
             f"ledger does not close: {len(free)} free + {len(claims)} "
             f"claimed != {usable} usable")
-    return {"free": len(free), "claimed": len(claims)}
+    return {"free": len(free), "claimed": len(claims),
+            "host_tier": len(host_tier) if host_tier is not None else 0,
+            "in_migration": len(list(in_migration))}
 
 
 class PrefixCache:
@@ -443,28 +558,54 @@ class PrefixCache:
     """
 
     def __init__(self, allocator: BlockAllocator,
-                 max_blocks: Optional[int] = None, host_tier=None):
-        if host_tier is not None:
-            raise NotImplementedError(f"PrefixCache(host_tier=...) is not "
-                                      f"ported yet ({_SPILL_ITEM})")
+                 max_blocks: Optional[int] = None,
+                 host_tier: Optional[HostKVTier] = None):
         self._alloc = allocator
         self.block_size = allocator.block_size
-        # prefix-key tuple -> block id; _lru orders them oldest first
+        # prefix-key tuple -> block id; _lru tracks use recency for
+        # reclaim order (oldest first)
         self._entries: Dict[tuple, int] = {}
         self._lru: "OrderedDict[tuple, int]" = OrderedDict()
         self.max_blocks = max_blocks
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        # tiering: the host spill tier and the device-byte movers
+        # (engine-installed: gather(block) -> (k, v) host arrays,
+        # scatter(block, k, v) writes them back), and a peer source
+        # (fleet-installed: missing keys -> payloads + modeled DCN
+        # seconds). All None: the device tier alone.
+        self.host_tier = host_tier
+        self._gather = None
+        self._scatter = None
+        self._peer_fetch = None
+        self.host_fetches = 0
+        self.peer_fetches = 0
+        self.spills = 0
+        # per-lookup attribution for the admission path's stall
+        # accounting (the engine charges spill_fetch_s from these)
+        self.last_host_fetched = 0
+        self.last_peer_fetched = 0
+        self.last_peer_fetch_s = 0.0
         allocator.set_reclaimer(self)
 
     def set_spill_io(self, gather, scatter) -> None:
-        raise NotImplementedError(f"spill I/O is not ported yet "
-                                  f"({_SPILL_ITEM})")
+        """Install the device-byte movers the spill tier rides on:
+        ``gather(block) -> (k_np, v_np)`` and
+        ``scatter(block, k_np, v_np)`` (the engine owns the pools —
+        they are reassigned after every donated program, so the cache
+        must go through closures, not a pool reference)."""
+        self._gather = gather
+        self._scatter = scatter
 
     def set_peer_source(self, fetch) -> None:
-        raise NotImplementedError(f"peer fetch is not ported yet "
-                                  f"({_SPILL_ITEM})")
+        """Install the fleet's peer tier: ``fetch(missing_keys) ->
+        (payloads, modeled_seconds)`` returns device bytes for a
+        leading run of ``missing_keys`` from ONE peer over DCN — or
+        ``([], 0.0)`` when no peer holds them or the modeled transfer
+        loses to modeled re-prefill (the registry owns that cost-model
+        decision)."""
+        self._peer_fetch = fetch
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -474,33 +615,149 @@ class PrefixCache:
         return [tuple(tokens[:(i + 1) * bs])
                 for i in range(len(tokens) // bs)]
 
-    def lookup(self, tokens, share: bool = True) -> Tuple[List[int], int]:
+    # -- lookup / insert -------------------------------------------------
+    def lookup(self, tokens, share: bool = True
+               ) -> Tuple[List[int], int]:
         """Longest cached block-aligned prefix of ``tokens`` ->
-        ``(blocks, n_cached_tokens)``. ``share=True`` (the commit path)
-        adds the caller's reference to every returned block and counts
-        a hit or a miss; ``share=False`` only looks."""
+        ``(blocks, n_cached_tokens)``. With ``share=True`` (the commit
+        path) every returned block gains this sequence's reference and
+        the hit/miss ledger advances; ``share=False`` peeks (admission
+        feasibility checks)."""
+        keys = self._keys(tokens)
         blocks: List[int] = []
-        for key in self._keys(tokens):
+        for key in keys:
             b = self._entries.get(key)
             if b is None:
                 break
             blocks.append(b)
             if share:
                 self._lru.move_to_end(key)
+        self.last_host_fetched = 0
+        self.last_peer_fetched = 0
+        self.last_peer_fetch_s = 0.0
         if share:
             if blocks:
+                # share the HBM chain FIRST: the fetch loops below
+                # allocate, which may trigger reclaim — the
+                # requester's references pin these blocks (refcount 2)
+                # so the reclaimer cannot evict them mid-lookup
                 self._alloc.share(blocks)
+            self._fetch_host(keys, blocks)
+            self._fetch_peer(keys, blocks)
+            if blocks:
                 self.hits += 1
             else:
                 self.misses += 1
         return blocks, len(blocks) * self.block_size
 
+    def _adopt_fetched(self, key: tuple, payload) -> Optional[int]:
+        """Promote one fetched payload into a fresh HBM block owned by
+        the cache (allocate's reference) AND shared to the requester.
+        Returns the block id, or None when the pool cannot cover it
+        (the caller stops fetching — re-prefill covers the rest)."""
+        if self._scatter is None:
+            return None
+        try:
+            nb = self._alloc.allocate(1)[0]
+        except OutOfBlocksError:
+            return None
+        self._scatter(nb, payload[0], payload[1])
+        self._entries[key] = nb
+        self._lru[key] = nb
+        self._alloc.share([nb])
+        return nb
+
+    def _fetch_host(self, keys: List[tuple], blocks: List[int]) -> int:
+        """Extend a commit-path lookup's chain from the host tier:
+        verified payloads are scattered back into fresh HBM blocks
+        (spill-tier promotion). Stops at the first miss, CRC drop, or
+        allocation failure — everything past that re-prefills."""
+        if self.host_tier is None:
+            return 0
+        fetched = 0
+        for key in keys[len(blocks):]:
+            payload = self.host_tier.get(key)
+            if payload is None:
+                break
+            nb = self._adopt_fetched(key, payload)
+            if nb is None:
+                break
+            self.host_tier.pop(key)
+            blocks.append(nb)
+            fetched += 1
+        self.host_fetches += fetched
+        self.last_host_fetched = fetched
+        return fetched
+
+    def _fetch_peer(self, keys: List[tuple], blocks: List[int]) -> int:
+        """Extend the chain from a peer engine over DCN (the fleet
+        registry's cost-model decision already chose transfer over
+        re-prefill when this returns payloads)."""
+        if self._peer_fetch is None:
+            return 0
+        missing = keys[len(blocks):]
+        if not missing:
+            return 0
+        payloads, seconds = self._peer_fetch(missing)
+        if not payloads:
+            return 0
+        fetched = 0
+        for key, payload in zip(missing, payloads):
+            nb = self._adopt_fetched(key, payload)
+            if nb is None:
+                break
+            blocks.append(nb)
+            fetched += 1
+        if fetched:
+            self.peer_fetches += fetched
+            self.last_peer_fetched = fetched
+            # a partial promotion pays for the blocks it landed
+            self.last_peer_fetch_s = float(seconds) * (fetched
+                                                       / len(payloads))
+        return fetched
+
+    def cached_prefix_tokens(self, tokens) -> int:
+        """Read-only: the longest block-aligned prefix of ``tokens``
+        servable WITHOUT recompute from this engine's tiers (HBM chain
+        + host-tier extension). No references taken, no fetches — the
+        prefix-affinity router and the peer advertisement both consult
+        this."""
+        n = 0
+        for key in self._keys(tokens):
+            if key in self._entries or (self.host_tier is not None
+                                        and key in self.host_tier):
+                n += 1
+            else:
+                break
+        return n * self.block_size
+
+    def export_chain(self, keys: List[tuple]
+                     ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Gather the payload bytes for a leading run of ``keys`` this
+        engine holds (HBM first, then host tier) — the peer-fetch /
+        migration SOURCE side. Stops at the first miss or corrupt
+        spill. Copies leave the local tiers untouched."""
+        out: List[Tuple[np.ndarray, np.ndarray]] = []
+        for key in keys:
+            b = self._entries.get(key)
+            if b is not None and self._gather is not None:
+                out.append(self._gather(b))
+                continue
+            payload = (self.host_tier.get(key)
+                       if self.host_tier is not None else None)
+            if payload is None:
+                break
+            out.append(payload)
+        return out
+
     def insert(self, tokens, blocks: List[int],
                n_prefix_tokens: Optional[int] = None) -> int:
-        """Cache the full blocks covering ``tokens[:n_prefix_tokens]``
-        (default all) of a table. Prefixes already cached are skipped.
-        Each new block gains the cache's own reference. Returns the
-        count of blocks newly cached."""
+        """Register the FULL blocks covering ``tokens[:n_prefix]``
+        (default: the whole list) from a just-prefilled table. Already
+        -cached prefixes are skipped (the owning sequence simply keeps
+        its private copy — correct either way, the cached block serves
+        future lookups). Each newly cached block gains the cache's own
+        reference. Returns how many blocks were newly cached."""
         n = len(tokens) if n_prefix_tokens is None \
             else min(int(n_prefix_tokens), len(tokens))
         added = 0
@@ -512,25 +769,44 @@ class PrefixCache:
             self._entries[key] = b
             self._lru[key] = b
             added += 1
-        if self.max_blocks is not None and \
-                len(self._entries) > self.max_blocks:
+        if self.max_blocks is not None and len(self._entries) > \
+                self.max_blocks:
             self.reclaim(len(self._entries) - self.max_blocks)
         return added
 
+    # -- accounting ------------------------------------------------------
     def held_blocks(self) -> List[int]:
-        """Every block the cache holds a reference on (one claim list
-        for ``rebuild_free_list`` and :func:`audit_kv_ledger`)."""
+        """Every block the cache itself holds a reference on — ONE
+        claim list for ``rebuild_free_list`` (the cache is a survivor
+        too)."""
         return list(self._entries.values())
 
+    def holds(self, block: int) -> bool:
+        return int(block) in set(self._entries.values())
+
+    def shared_bytes(self, block_bytes: int) -> int:
+        """KV bytes currently deduplicated: for every cached block,
+        each reference beyond the first would have been a private copy
+        without the cache."""
+        return sum(max(self._alloc.refcount(b) - 1, 0)
+                   for b in self._entries.values()) * int(block_bytes)
+
+    # -- reclaim (the allocator hook) ------------------------------------
     def reclaimable(self) -> int:
-        """Cached blocks whose only reference is the cache's."""
+        """Blocks the cache could hand back RIGHT NOW: cached blocks
+        whose only reference is the cache's own."""
         return sum(1 for b in self._entries.values()
                    if self._alloc.refcount(b) == 1)
 
     def reclaim(self, n: int) -> int:
-        """Evict up to ``n`` reclaimable blocks, least recently used
-        first, skipping blocks live sequences still share. Returns how
-        many were freed."""
+        """Evict up to ``n`` reclaimable blocks, least-recently-used
+        first; blocks still shared with live sequences are skipped
+        (deferred until their last release). With a host tier wired,
+        eviction prefers SPILL over discard: the block's
+        bytes move to host memory under the same prefix key before the
+        HBM block returns to the free list, so cache pressure degrades
+        to a fetch, not a recompute. Returns how many were actually
+        freed."""
         if n <= 0:
             return 0
         freed = 0
@@ -540,6 +816,10 @@ class PrefixCache:
             b = self._entries[key]
             if self._alloc.refcount(b) != 1:
                 continue
+            if self.host_tier is not None and self._gather is not None:
+                k_np, v_np = self._gather(b)
+                self.host_tier.put(key, k_np, v_np)
+                self.spills += 1
             del self._entries[key]
             del self._lru[key]
             self._alloc.free([b])

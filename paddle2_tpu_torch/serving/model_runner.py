@@ -32,17 +32,46 @@ swaps them by passing others. The port's steps read the live model, so
 model's parameters and buffers in place, after checking every shape and
 dtype (a swap is all or nothing). Two engines built on one model object
 therefore see each other's swaps.
+
+**Costs.** :meth:`PagedGPTRunner.prefill_cost` and
+:meth:`~PagedGPTRunner.decode_cost` give the JAX runner's per-program
+cost dicts, keyed by padded prompt length and by (batch, pages) bucket.
+The JAX runner reads them from XLA's analysis of each compiled program;
+the port works them out from the configuration, for any key, without
+running anything (:meth:`~PagedGPTRunner.prefill_cost_of`,
+:meth:`~PagedGPTRunner.decode_cost_of`):
+
+* ``"flops"``: what ``observability.cost_model.program_cost``
+  (``FlopCounterMode``) counts for the call: the matmuls by their
+  shapes, ``2·(4h² + 2·h·ffn)`` a row and a layer, the head,
+  ``2·h·V`` a row it is applied to, and the flash forward
+  (``kernels.flash_attn.attention_flops``) or the paged decode
+  (``paged_attention.paged_attention_flops``) a layer by its op's
+  formula;
+* ``"bytes accessed"``: the port's stand-in for XLA's count, the bytes
+  the call must move, with ``s`` the KV dtype's item size::
+
+      every parameter and buffer read once
+      + decode (B rows, P pages): L·B·P·bs·H·D·2·s  (K/V pages read)
+                                + L·B·H·D·2·s       (K/V rows written)
+                                + B·V·s             (logits)
+      + prefill (T padded tokens): L·T·H·D·2·s      (K/V rows written)
+                                 + V·s              (the last logits)
+
+Without the bytes term a decode step, bound by HBM, would be priced by
+its FLOPs alone.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels.flash_attn import attention_flops
 from .block_cache import PagedKVCache
-from .paged_attention import paged_attention_decode
+from .paged_attention import paged_attention_decode, paged_attention_flops
 from .reliability import WeightSwapError
 
 __all__ = ["PagedGPTRunner", "PREFILL_PAD"]
@@ -57,7 +86,7 @@ class PagedGPTRunner:
     Greedy (argmax) decoding, as in the JAX package."""
 
     def __init__(self, model, num_heads: int, head_dim: int,
-                 split_pages: Optional[int] = None):
+                 split_pages: Optional[int] = None, block_size: int = 16):
         self.model = model
         model.eval()
         self.num_heads = int(num_heads)
@@ -65,7 +94,11 @@ class PagedGPTRunner:
         # split-K width for the paged-attention kernel (None = the
         # shared-memory fit dispatch of paged_attention_decode)
         self.split_pages = split_pages
+        # the KV cache's block size, which a decode bucket's cost reads
+        self.block_size = int(block_size)
         self._decode_buckets: Set[Tuple[int, int]] = set()
+        # cost dicts already worked out, by key
+        self._costs: Dict[tuple, dict] = {}
 
     @property
     def device(self) -> torch.device:
@@ -120,6 +153,80 @@ class PagedGPTRunner:
     def prefill_padded_len(self, n: int) -> int:
         return self.pad_len(n, self.model.cfg.max_position_embeddings)
 
+    # -- costs ---------------------------------------------------------
+    def _param_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.weights())
+
+    def _kv_token_bytes(self) -> int:
+        """K and V of one token over every layer."""
+        cfg = self.model.cfg
+        item = self.model.gpt.wte.weight.element_size()
+        return 2 * cfg.num_layers * self.num_heads * self.head_dim * item
+
+    def prefill_bytes(self, padded_len: int) -> float:
+        cfg = self.model.cfg
+        item = self.model.gpt.wte.weight.element_size()
+        return float(self._param_bytes()
+                     + padded_len * self._kv_token_bytes()
+                     + cfg.vocab_size * item)
+
+    def decode_bytes(self, batch: int, n_pages: int,
+                     block_size: int) -> float:
+        cfg = self.model.cfg
+        item = self.model.gpt.wte.weight.element_size()
+        return float(self._param_bytes()
+                     + batch * (n_pages * block_size + 1)
+                     * self._kv_token_bytes()
+                     + batch * cfg.vocab_size * item)
+
+    def _block_flops(self, rows: int) -> int:
+        """The matmuls of ``rows`` tokens through every block."""
+        cfg = self.model.cfg
+        h, ffn = cfg.hidden_size, cfg.ffn_size
+        return rows * cfg.num_layers * 2 * (4 * h * h + 2 * h * ffn)
+
+    def prefill_cost_of(self, padded_len: int) -> dict:
+        """The cost dict of a prefill of ``padded_len`` tokens: every
+        token through the blocks, the head on the last one, the flash
+        forward over the ``T x T`` square a layer, and
+        :meth:`prefill_bytes`."""
+        key = ("prefill", int(padded_len))
+        if key not in self._costs:
+            cfg, T = self.model.cfg, int(padded_len)
+            flops = (self._block_flops(T) + 2 * cfg.hidden_size
+                     * cfg.vocab_size + cfg.num_layers * attention_flops(
+                         1, self.num_heads, T, T, self.head_dim,
+                         self.head_dim))
+            self._costs[key] = {"flops": float(flops),
+                                "bytes accessed": self.prefill_bytes(T)}
+        return self._costs[key]
+
+    def decode_cost_of(self, batch: int, n_pages: int,
+                       block_size: int) -> dict:
+        """The cost dict of a decode at bucket ``(batch, n_pages)``: each
+        row through the blocks and the head, the paged decode's formula
+        a layer, and :meth:`decode_bytes`."""
+        key = ("decode", int(batch), int(n_pages), int(block_size))
+        if key not in self._costs:
+            cfg = self.model.cfg
+            flops = (self._block_flops(batch) + batch * 2 * cfg.hidden_size
+                     * cfg.vocab_size + cfg.num_layers * paged_attention_flops(
+                         batch, self.num_heads, n_pages, block_size,
+                         self.head_dim, self.split_pages))
+            self._costs[key] = {
+                "flops": float(flops),
+                "bytes accessed": self.decode_bytes(batch, n_pages,
+                                                    block_size)}
+        return self._costs[key]
+
+    def prefill_cost(self, padded_len: int) -> dict:
+        return self.prefill_cost_of(padded_len)
+
+    def decode_cost(self, bucket: Tuple[int, int]) -> dict:
+        batch, n_pages = bucket
+        return self.decode_cost_of(batch, n_pages, self.block_size)
+
+    # -- steps -----------------------------------------------------------
     @torch.inference_mode()
     def prefill(self, token_ids: List[int]):
         """Run one sequence's prompt; returns ``(first_token, k_stack,

@@ -53,6 +53,21 @@ bf16 at 2e-2).
 Precondition: ``ctx_lens >= 1`` for every row that is read (the
 engine's padded rows have context 1 on the garbage block). The kernel
 writes zeros for a zero context.
+
+**The counted op.** :func:`paged_attention_op` is
+:func:`paged_attention_decode` registered as the custom op
+``paddle2_tpu_torch::paged_attention`` with a flop formula
+(:func:`paged_attention_flops`), so that
+``torch.utils.flop_counter.FlopCounterMode`` (the cost model's
+``program_cost``) counts a decode the same on the card, where the
+kernel is a C call it cannot see into, and on the CPU, where it would
+otherwise count the plain version's products. The serving runner calls
+:func:`paged_attention_decode` itself (an op's dispatch costs host time
+on every call) and prices its steps by the same formula. The formula
+is those products: ``QKᵀ`` over every key slot of the table, padded pages
+included, and ``PV`` over as many, rounded up to whole splits on the
+split route (as the plain split version pads its last split):
+``2·B·H·block_size·D·(pages + pv_pages)``.
 """
 
 from __future__ import annotations
@@ -63,13 +78,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from torch.utils.flop_counter import register_flop_formula
+
 from ..kernels import _build
 from ..ops.dispatch import checks_outputs
 
-__all__ = ["paged_attention_decode", "paged_decode",
+__all__ = ["paged_attention_op", "paged_attention_flops",
+           "paged_attention_decode", "paged_decode",
            "paged_decode_split_partials", "paged_attention_reference",
            "paged_attention_split_reference", "gathered_dense_kv",
            "decode_scratch_smem_bytes", "fits_single_softmax",
+           "route_pages_per_split",
            "auto_pages_per_split", "cluster_plan", "SMEM_BYTES",
            "TARGET_KEYS", "MAX_CLUSTER"]
 
@@ -339,6 +358,16 @@ def paged_decode_split_partials(q, k_pool, v_pool, block_tables, ctx_lens,
 paged_decode_split_partials.launches = 0
 
 
+def route_pages_per_split(n_pages: int, block_size: int, head_dim: int,
+                          pages_per_split: Optional[int] = None) -> int:
+    """The pages of one split that :func:`paged_attention_decode` runs
+    (``n_pages`` or more: the global route)."""
+    if pages_per_split is None:
+        return (n_pages if fits_single_softmax(n_pages, block_size, head_dim)
+                else auto_pages_per_split(n_pages, block_size, head_dim))
+    return max(1, min(int(pages_per_split), n_pages))
+
+
 @checks_outputs("paged_attention_decode")
 def paged_attention_decode(q, k_pool, v_pool, block_tables, ctx_lens,
                            scale: Optional[float] = None,
@@ -360,11 +389,7 @@ def paged_attention_decode(q, k_pool, v_pool, block_tables, ctx_lens,
     n_pages = block_tables.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    if pages_per_split is None:
-        pps = (n_pages if fits_single_softmax(n_pages, bs, D)
-               else auto_pages_per_split(n_pages, bs, D))
-    else:
-        pps = max(1, min(int(pages_per_split), n_pages))
+    pps = route_pages_per_split(n_pages, bs, D, pages_per_split)
     if pps < n_pages:
         o, m, l = paged_decode_split_partials(q, k_pool, v_pool,
                                               block_tables, ctx_lens,
@@ -372,3 +397,44 @@ def paged_attention_decode(q, k_pool, v_pool, block_tables, ctx_lens,
         return _merge_splits(o, m, l, q.dtype)[:, None]
     return paged_decode(q, k_pool, v_pool, block_tables, ctx_lens,
                         float(scale))
+
+
+# -------------------------------------------------- the counted op
+@torch.library.custom_op(
+    "paddle2_tpu_torch::paged_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k_pool, Tensor v_pool, Tensor block_tables, "
+           "Tensor ctx_lens, float scale, int? pages_per_split) -> Tensor")
+def paged_attention_op(q, k_pool, v_pool, block_tables, ctx_lens, scale,
+                    pages_per_split):
+    """:func:`paged_attention_decode` as one op, so that a
+    ``FlopCounterMode`` counts it by :func:`paged_attention_flops`
+    wherever it runs. ``scale`` is explicit."""
+    return paged_attention_decode(q, k_pool, v_pool, block_tables,
+                                  ctx_lens, scale=scale,
+                                  pages_per_split=pages_per_split)
+
+
+@paged_attention_op.register_fake
+def _(q, k_pool, v_pool, block_tables, ctx_lens, scale, pages_per_split):
+    return torch.empty_like(q)
+
+
+def paged_attention_flops(B: int, H: int, n_pages: int, block_size: int,
+                          D: int, pages_per_split: Optional[int] = None
+                          ) -> int:
+    """Operations of one paged decode over the whole table, as the plain
+    versions' two einsums count them: ``QKᵀ`` at every key slot of
+    ``n_pages`` pages, and ``PV`` at as many, rounded up to whole splits
+    on the split route."""
+    pps = route_pages_per_split(n_pages, block_size, D, pages_per_split)
+    pv_pages = n_pages if pps >= n_pages else -(-n_pages // pps) * pps
+    return 2 * B * H * block_size * D * (n_pages + pv_pages)
+
+
+@register_flop_formula(torch.ops.paddle2_tpu_torch.paged_attention)
+def _paged_attention_flops(q_shape, k_shape, v_shape, t_shape, c_shape,
+                           scale, pages_per_split, *args, **kwargs) -> int:
+    B, _, H, D = q_shape
+    return paged_attention_flops(B, H, t_shape[1], k_shape[1], D,
+                                 pages_per_split)
+

@@ -20,12 +20,9 @@ deterministic; time enters only through the caller's ``now`` stamps.
   copies the new weights into the live parameters in place between
   decode steps, so a swap launches nothing new and changes no decode
   bucket.
-
-The metrics and tracing planes exist
-(:mod:`paddle2_tpu_torch.observability`); the JAX module's hooks into
-them, its flight-recorder events and the tracing spans' producer
-(``flight_record`` feeding ``tracing.serving_span``) come with the
-serving hooks (ROADMAP queue 1 item 5).
+* **Spans** (:func:`flight_record`): the one emitter of every serving
+  span (scheduler, engine, router, hot swap), into the flight ring and
+  the request-tracing plane at once.
 """
 
 from __future__ import annotations
@@ -36,7 +33,26 @@ from typing import Callable, List, Optional, Sequence as Seq
 __all__ = ["ServingError", "RequestRejected", "QueueFullError",
            "PromptTooLongError", "DeadlineExceeded", "EngineFailedError",
            "WeightSwapError", "ReliabilityConfig", "SLOConfig",
-           "HotSwapController"]
+           "HotSwapController", "flight_record"]
+
+
+def flight_record(**fields) -> None:
+    """One shared emitter for every serving flight-recorder span
+    (``kind="serving"``): the scheduler, the engine, the router and the
+    hot swap all go through here, so the span format has one owner.
+    Spans that carry a clock stamp (``t=``) and a trace id (``tid=`` /
+    ``tids=``) also go to the request-tracing plane
+    (:func:`~paddle2_tpu_torch.observability.tracing.serving_span`), so
+    the flight ring, the per-request traces and the chrome view share
+    one set of instrumentation sites and event names. Each plane is one
+    attribute load when it is off."""
+    from ..distributed.fault_tolerance import flight_recorder
+    from ..observability import tracing
+    # None-valued fields (an unstamped clock, an untraced request) are
+    # dropped rather than written as nulls in every dump
+    fields = {k: v for k, v in fields.items() if v is not None}
+    flight_recorder.record("serving", **fields)
+    tracing.serving_span(fields)
 
 
 # ---------------------------------------------------------------- errors
@@ -131,10 +147,18 @@ class HotSwapController:
     serve distinct model objects: the first stage would swap every
     engine sharing one, and a shared model raises ``ValueError``. Each
     stage keeps a copy of its engine's previous weights on the device
-    (the rollback payload) for as long as the controller lives."""
+    (the rollback payload) for as long as the controller lives.
+
+    ``source`` (``{"session", "generation", "step"}``, the shape of the
+    JAX package's ``CheckpointManager.swap_source()``) names the
+    checkpoint lineage of the new weights: every hot-swap span (stage,
+    commit, canary failed, rollback, and the engine's ``hot_swap`` span
+    that reaches each in-flight request's trace) carries its restart
+    generation."""
 
     def __init__(self, engines: Seq, new_weights,
-                 verify: Optional[Callable] = None):
+                 verify: Optional[Callable] = None,
+                 source: Optional[dict] = None):
         self.engines = list(engines)
         models = [id(e.runner.model) for e in self.engines]
         if len(set(models)) != len(models):
@@ -142,9 +166,26 @@ class HotSwapController:
                              "staged swap would reach both at once")
         self.new_weights = new_weights
         self.verify = verify
+        self.source = dict(source) if source else None
         self._prev = {}              # engine index -> pre-swap weights
         self.staged: List[int] = []
         self.state = "pending"       # rolling | committed | rolled_back
+
+    def _record(self, event: str, **fields) -> None:
+        # the lineage flattened into the span, so that a field scan of a
+        # dump finds it
+        if self.source is not None:
+            fields.setdefault("generation", self.source.get("generation"))
+            fields.setdefault("ckpt_step", self.source.get("step"))
+            fields.setdefault("session", self.source.get("session"))
+        flight_record(event=event, **fields)
+
+    def _commit(self, now: float) -> None:
+        """The one owner of the commit transition (idempotent)."""
+        if self.state != "committed":
+            self.state = "committed"
+            self._record("hot_swap_commit", t=now,
+                         stages=len(self.staged))
 
     def _done_staging(self) -> bool:
         return all(i in self._prev or getattr(e, "failed", False)
@@ -160,17 +201,21 @@ class HotSwapController:
         for idx, eng in enumerate(self.engines):
             if idx in self._prev or getattr(eng, "failed", False):
                 continue
-            self._prev[idx] = eng.swap_weights(self.new_weights, now=now)
+            self._prev[idx] = eng.swap_weights(self.new_weights, now=now,
+                                               source=self.source)
             self.staged.append(idx)
+            self._record("hot_swap_stage", engine=idx, t=now,
+                         stage=len(self.staged))
             if self.verify is not None and not self.verify(eng):
+                self._record("hot_swap_canary_failed", engine=idx, t=now)
                 self.rollback(now)
                 return idx
             if self._done_staging():
-                self.state = "committed"
+                self._commit(now)
             return idx
         if self.staged:
             # a fleet that was wholly dead never reports a commit
-            self.state = "committed"
+            self._commit(now)
         return None
 
     def rollback(self, now: float = 0.0) -> List[int]:
@@ -187,4 +232,5 @@ class HotSwapController:
             eng.swap_weights(self._prev[idx], now=now)
             rolled.append(idx)
         self.state = "rolled_back"
+        self._record("hot_swap_rollback", t=now, engines=rolled)
         return rolled

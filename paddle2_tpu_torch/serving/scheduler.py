@@ -27,12 +27,16 @@ deterministic:
 * **Prefix cache** (engine-installed): admission looks the prompt up,
   shares the cached blocks into the new table and counts only the
   missing blocks against the free list, then publishes the prompt's
-  full blocks for later arrivals.
+  full blocks for later arrivals. Blocks the lookup promoted from the
+  host tier or fetched from a peer are recorded on the sequence
+  (``kv_fetched_host``, ``kv_fetched_peer``, ``kv_peer_fetch_s``) for
+  the engine to price; a sequence whose migrated KV is still on the wire
+  (``kv_ready_t``) holds the head of the queue until it lands.
 
-The metrics and tracing planes exist
-(:mod:`paddle2_tpu_torch.observability`); the scheduler's metrics,
-flight-recorder and tracing hooks come with the serving hooks (ROADMAP
-queue 1 item 5).
+Scheduler decisions (admit, evict, requeue, shed, spill) land in the
+flight ring and the tracing plane through ``reliability.flight_record``,
+and its counters (sheds, prefix hits and misses, SLO verdicts) in the
+metrics plane: one attribute load each when the plane is off.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from typing import List, Optional, Tuple
 from .block_cache import (BlockAllocator, BlockTable, OutOfBlocksError,
                           blocks_for_tokens)
 from .reliability import (DeadlineExceeded, QueueFullError,
-                          ReliabilityConfig, ServingError)
+                          ReliabilityConfig, ServingError,
+                          flight_record as _flight_record)
 
 __all__ = ["Request", "Sequence", "SeqState", "SchedulerConfig",
            "ContinuousBatchingScheduler"]
@@ -88,6 +93,20 @@ class Sequence:
         # leading tokens whose KV came from the prefix cache at the last
         # admission (the engine scatters only past them)
         self.prefix_cached_tokens = 0
+        # tier attribution of the last admission: the cached blocks
+        # promoted from the host tier and fetched from a peer, and the
+        # peer transfer's modeled seconds (the engine prices the
+        # spill-fetch stall from these)
+        self.kv_fetched_host = 0
+        self.kv_fetched_peer = 0
+        self.kv_peer_fetch_s = 0.0
+        # earliest stamp migrated KV is on the device (a failover
+        # migration's transfer lands here; admission waits for it)
+        self.kv_ready_t = 0.0
+        # when the prefill of the last admission completes (the
+        # caller's prefill lane); the sequence joins decode steps from
+        # then on
+        self.ready_at = 0.0
 
     def check(self) -> "Sequence":
         """Raise the typed error a shed recorded; returns self when
@@ -191,6 +210,7 @@ class ContinuousBatchingScheduler:
         self.reliability = config.reliability or ReliabilityConfig()
         # the engine's prefix cache (None: no sharing)
         self.prefix_cache = None
+        self.engine_id = 0          # mirrored by the owning engine
         self.waiting: List[Sequence] = []
         self._running: List[Sequence] = []      # admission order
         self.finished: List[Sequence] = []
@@ -236,32 +256,48 @@ class ContinuousBatchingScheduler:
                     f"{seq.priority}")
             self._shed(victim, QueueFullError(
                 f"shed (priority {victim.priority}) for arrival req "
-                f"{seq.req_id} (priority {seq.priority})"))
+                f"{seq.req_id} (priority {seq.priority})"),
+                now=seq.request.arrival_t)
         self.waiting.append(seq)
 
-    def requeue_front(self, seq: Sequence) -> None:
+    def requeue_front(self, seq: Sequence, now: Optional[float] = None,
+                      cause: str = "evict") -> None:
         """Put a previously admitted sequence back at the FRONT of the
         queue, past the admission bound: preempted work resumes before
-        new arrivals."""
+        new arrivals. ``now`` and ``cause`` stamp the requeue span."""
         seq.state = SeqState.WAITING
         self.waiting.insert(0, seq)
+        _flight_record(event="requeue", req=seq.req_id,
+                       tid=seq.trace_id, t=now, cause=cause,
+                       engine=self.engine_id, tokens=len(seq.tokens))
 
     # -- load shedding ---------------------------------------------------
-    def _shed(self, seq: Sequence, err: ServingError) -> None:
+    def _shed(self, seq: Sequence, err: ServingError,
+              now: Optional[float] = None) -> None:
         self.waiting.remove(seq)
-        self.mark_shed(seq, err)
+        self.mark_shed(seq, err, now=now)
 
-    def mark_shed(self, seq: Sequence, err: ServingError) -> None:
+    def mark_shed(self, seq: Sequence, err: ServingError,
+                  now: Optional[float] = None) -> None:
         """Shed a sequence that is not in the waiting queue (an adopted
         arrival that the bounded queue refuses)."""
+        from ..observability import metrics
         seq.state = SeqState.SHED
         seq.error = err
         self.shed.append(seq)
         self.total_shed += 1
-        if isinstance(err, DeadlineExceeded):
+        reason = ("deadline" if isinstance(err, DeadlineExceeded)
+                  else "overload")
+        metrics.inc("serving_shed_total", reason=reason)
+        if reason == "deadline":
             self.deadline_shed += 1
+            metrics.inc("serving_deadline_exceeded_total")
         if self.reliability.slo is not None:
-            self.slo_bad += 1
+            # a shed request used error budget without an answer
+            self._note_slo_verdict(False)
+        _flight_record(event="shed", req=seq.req_id, tid=seq.trace_id,
+                       t=now, reason=reason, engine=self.engine_id,
+                       priority=seq.priority)
 
     def expire_deadlines(self, now: float) -> List[Sequence]:
         """Shed every never-admitted waiting sequence whose deadline lies
@@ -272,7 +308,7 @@ class ContinuousBatchingScheduler:
         for s in expired:
             self._shed(s, DeadlineExceeded(
                 f"req {s.req_id} deadline {s.deadline_t:.6f} < now "
-                f"{now:.6f} before admission"))
+                f"{now:.6f} before admission"), now=now)
         return expired
 
     # -- admission -------------------------------------------------------
@@ -284,7 +320,8 @@ class ContinuousBatchingScheduler:
         are shed first. Admitted sequences get their blocks here; the
         engine prefills them and marks them RUNNING. A request whose
         blocks cannot be covered blocks the queue (skipping it would
-        starve long prompts)."""
+        starve long prompts), as does one whose migrated KV lands after
+        ``now`` (``kv_ready_t``)."""
         self.expire_deadlines(now)
         admitted: List[Sequence] = []
         budget = self.config.prefill_budget_tokens or float("inf")
@@ -293,6 +330,10 @@ class ContinuousBatchingScheduler:
         while self.waiting:
             seq = self.waiting[0]
             if len(self._running) + len(admitted) >= self.config.max_batch:
+                break
+            if seq.kv_ready_t > now:
+                # migrated KV still on the wire: admitting now would
+                # prefill positions the migration covers
                 break
             need_tokens = len(seq.tokens)
             cached: List[int] = []
@@ -308,12 +349,29 @@ class ContinuousBatchingScheduler:
                 break                      # head-of-line until blocks free
             self.waiting.pop(0)
             seq.prefix_cached_tokens = 0
+            seq.kv_fetched_host = 0
+            seq.kv_fetched_peer = 0
+            seq.kv_peer_fetch_s = 0.0
             shared: List[int] = []
+            spills_before = (self.prefix_cache.spills
+                             if self.prefix_cache is not None else 0)
             if self.prefix_cache is not None:
+                from ..observability import metrics
                 shared, n_cached = self.prefix_cache.lookup(seq.tokens)
                 if shared:
                     seq.table.attach_shared(shared)
                     seq.prefix_cached_tokens = n_cached
+                    seq.kv_fetched_host = \
+                        self.prefix_cache.last_host_fetched
+                    seq.kv_fetched_peer = \
+                        self.prefix_cache.last_peer_fetched
+                    seq.kv_peer_fetch_s = \
+                        self.prefix_cache.last_peer_fetch_s
+                    metrics.inc("serving_prefix_hits_total")
+                    metrics.inc("serving_prefix_hit_blocks_total",
+                                len(shared))
+                else:
+                    metrics.inc("serving_prefix_misses_total")
             try:
                 seq.table.ensure_capacity(need_tokens + 1)
             except OutOfBlocksError:
@@ -333,8 +391,22 @@ class ContinuousBatchingScheduler:
                 self.prefix_cache.insert(seq.request.prompt,
                                          seq.table.blocks,
                                          len(seq.request.prompt))
+                spilled = self.prefix_cache.spills - spills_before
+                if spilled:
+                    # this admission's allocations pushed cold cached
+                    # blocks down to the host tier
+                    _flight_record(event="kv_spill", req=seq.req_id,
+                                   tid=seq.trace_id, t=now,
+                                   engine=self.engine_id,
+                                   blocks=spilled)
             spent += need_tokens
             admitted.append(seq)
+            _flight_record(event="admit", req=seq.req_id,
+                           tid=seq.trace_id, t=now, tokens=need_tokens,
+                           engine=self.engine_id,
+                           blocks=len(seq.table.blocks),
+                           shared_blocks=(len(seq.table.blocks)
+                                          - need_blocks) or None)
         return admitted
 
     def mark_running(self, seq: Sequence) -> None:
@@ -342,13 +414,15 @@ class ContinuousBatchingScheduler:
         self._running.append(seq)
 
     def reserve_decode_slots(self, seqs: Optional[List[Sequence]] = None,
+                             now: Optional[float] = None,
                              slots: Optional[List[int]] = None
                              ) -> List[Sequence]:
         """Make sure every sequence in ``seqs`` (default: all running)
         has block slots for the tokens the next decode step appends,
         ``slots[i]`` for sequence ``i`` (default 1; a verify round
         reserves ``1 + len(drafts)``), evicting LIFO on exhaustion.
-        Returns the evicted sequences (already requeued at the front)."""
+        Returns the evicted sequences (already requeued at the front).
+        ``now`` stamps the eviction spans."""
         victims: List[Sequence] = []
         todo = list(self._running) if seqs is None else list(seqs)
         want = [1] * len(todo) if slots is None else \
@@ -366,18 +440,22 @@ class ContinuousBatchingScheduler:
                 i += 1
             except OutOfBlocksError:
                 victim = self._running[-1]
-                self._evict(victim)
+                self._evict(victim, now=now)
                 victims.append(victim)
         return victims
 
-    def _evict(self, seq: Sequence) -> None:
+    def _evict(self, seq: Sequence, now: Optional[float] = None) -> None:
         self._running.remove(seq)
         seq.table.release()
         seq.evictions += 1
         self.total_evictions += 1
-        self.requeue_front(seq)
+        _flight_record(event="evict", req=seq.req_id, tid=seq.trace_id,
+                       t=now, engine=self.engine_id,
+                       evictions=seq.evictions)
+        self.requeue_front(seq, now=now, cause="evict")
 
-    def requeue_corrupt(self, seq: Sequence) -> None:
+    def requeue_corrupt(self, seq: Sequence,
+                        now: Optional[float] = None) -> None:
         """Pull a RUNNING sequence whose block table cannot be trusted:
         the table is rebound, not released (freeing corrupt ids could
         free a live block twice). The caller rebuilds the allocator from
@@ -385,7 +463,7 @@ class ContinuousBatchingScheduler:
         self._running.remove(seq)
         seq.rebind(self.allocator)
         seq.recoveries += 1
-        self.requeue_front(seq)
+        self.requeue_front(seq, now=now, cause="corrupt")
 
     def finish(self, seq: Sequence, now: float = 0.0) -> None:
         self._running.remove(seq)
@@ -394,14 +472,19 @@ class ContinuousBatchingScheduler:
         seq.finish_t = now
         self.finished.append(seq)
         self._note_slo(seq, now)
+        _flight_record(event="finish", req=seq.req_id, tid=seq.trace_id,
+                       t=now, engine=self.engine_id,
+                       tokens=len(seq.generated))
 
     # -- SLO ledger ------------------------------------------------------
     def _note_slo(self, seq: Sequence, now: float) -> None:
         """Judge one finished request against the SLO targets (TTFT,
-        TPOT, end to end) on the caller's clock."""
+        TPOT, end to end) on the caller's clock; each dimension's
+        verdict goes to the metrics plane."""
         slo = self.reliability.slo
         if slo is None:
             return
+        from ..observability import metrics
         arrival = seq.request.arrival_t
         first = seq.first_token_t if seq.first_token_t is not None else now
         gen = len(seq.generated)
@@ -409,12 +492,25 @@ class ContinuousBatchingScheduler:
                 "tpot": (slo.tpot_target_s,
                          (now - first) / (gen - 1) if gen > 1 else 0.0),
                 "e2e": (slo.e2e_target_s, now - arrival)}
-        good = all(value <= target for target, value in dims.values()
-                   if target is not None)
+        good = True
+        for name, (target, value) in dims.items():
+            if target is None:
+                continue
+            ok = value <= target
+            good = good and ok
+            metrics.inc("serving_slo_checks_total", slo=name,
+                        verdict="good" if ok else "bad")
+        self._note_slo_verdict(good)
+
+    def _note_slo_verdict(self, good: bool) -> None:
+        from ..observability import metrics
         if good:
             self.slo_good += 1
+            metrics.inc("serving_slo_good_total")
         else:
             self.slo_bad += 1
+            metrics.inc("serving_slo_bad_total")
+        metrics.set_gauge("serving_slo_burn_rate", self.slo_burn_rate())
 
     def slo_burn_rate(self) -> float:
         """``bad_fraction / error_budget`` (0 before any verdict; 0

@@ -105,6 +105,11 @@ Phases:
   ``observability.cost_model.program_cost``, and
   ``FLAGS_check_nan_inf`` on the card. Its record, with the phase's
   seconds.
+- ``fleet``: the smoke's phase 23 alone (``chip_smoke.phase23``):
+  GPT-3 1.3B (24 layers, bf16) on one card through the host tier, a
+  four-engine fleet under the router and the registry, the peer tier's
+  decisions at two links, and failover with and without KV migration,
+  with that checkout's gates. Its record, with the phase's seconds.
 - ``flash_bwd_f32``: the f32 flash backward at the training shape (B8
   H16 S1024 D64, causal): the split pair's two wrappers
   (``flash_bwd_split_dkv``, ``flash_bwd_split_dq``) and ``flash_bwd``
@@ -1353,6 +1358,12 @@ def obs_remat(cs, smi):
     return rec
 
 
+def fleet(cs, smi):
+    """The smoke's phase 23 alone."""
+    rec, _ = cs.phase23(smi)
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", required=True,
@@ -1361,7 +1372,7 @@ def main():
                              "train_bf16", "adamw_step", "f32_prefill",
                              "paged_decode", "ptq_serving", "f32_decode",
                              "plain_serving", "core", "nn_transformer",
-                             "vision_rnn", "obs_remat"))
+                             "vision_rnn", "obs_remat", "fleet"))
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="")
     ap.add_argument("--draws", type=int, default=8,
@@ -1408,6 +1419,8 @@ def main():
         result = vision_rnn(cs, torch, smi)
     elif args.phase == "obs_remat":
         result = obs_remat(cs, smi)
+    elif args.phase == "fleet":
+        result = fleet(cs, smi)
     else:
         result = varlen_bwd_draws(cs, torch, args.draws)
     line = json.dumps(dict(phase=args.phase, tag=args.tag, root=str(root),

@@ -72,6 +72,11 @@ import paddle2_tpu_torch.observability, paddle2_tpu_torch.incubate.autotune
 import paddle2_tpu_torch.tools, paddle2_tpu_torch.tools.perf_doctor
 import paddle2_tpu_torch.tools.serve_doctor
 import paddle2_tpu_torch.tools.flight_doctor
+import paddle2_tpu_torch.distributed.fault_tolerance
+import paddle2_tpu_torch.distributed.fault_tolerance.chaos
+import paddle2_tpu_torch.distributed.fault_tolerance.flight_recorder
+import paddle2_tpu_torch.distributed.fault_tolerance.health
+import paddle2_tpu_torch.serving.simulate
 from paddle2_tpu_torch.kernels import _build
 assert not calls, calls
 assert not _build._LIBS

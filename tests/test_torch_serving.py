@@ -247,9 +247,21 @@ def test_engine_needs_a_device_by_default(models, monkeypatch):
 
 @pytest.mark.parametrize("option,value", [("enable_kv_spill", True)])
 def test_unported_options_raise(models, option, value):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(tm, **{option: value})
+    """Once refused, now ported: ``enable_kv_spill`` builds the host
+    tier, as the JAX engine does, only beside a prefix cache (alone it
+    changes nothing), with its capacity and the host link's rate."""
+    jm, tm = models
+    eng = _engine(tm, **{option: value})
+    jeng = JaxEngine(jm, config=JaxEngineConfig(**ENGINE_KW,
+                                                **{option: value}))
+    assert eng.host_tier is None and jeng.host_tier is None
+    over = {option: value, "enable_prefix_cache": True,
+            "host_tier_blocks": 5, "host_link_gbps": 2.5}
+    eng = _engine(tm, **over)
+    jeng = JaxEngine(jm, config=JaxEngineConfig(**ENGINE_KW, **over))
+    assert eng.host_tier.capacity_blocks == jeng.host_tier.capacity_blocks
+    assert eng.prefix_cache.host_tier is eng.host_tier
+    assert eng.host_link_bps == jeng.host_link_bps == 2.5e9
 
 
 def test_artifact_path_and_dtype_mismatch_raise(models):

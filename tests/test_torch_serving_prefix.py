@@ -251,16 +251,40 @@ def test_shared_block_eviction_deferred():
 
 
 def test_unported_tiers_raise():
-    a = BlockAllocator(8, 4)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        PrefixCache(a, host_tier=object())
-    c = PrefixCache(a)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        c.set_spill_io(None, None)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        c.set_peer_source(None)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        audit_kv_ledger(a, [], host_tier=object())
+    """Once refused, now ported: a host tier, spill I/O and a peer
+    source wire into the prefix cache, and the audit counts the tier,
+    as in the JAX package: a reclaim spills, a lookup promotes back
+    from the host tier, then extends from the peer."""
+    from paddle2_tpu.serving import HostKVTier as JaxTier
+    from paddle2_tpu_torch.serving import HostKVTier
+    out = []
+    for alloc_cls, cache_cls, tier_cls, audit in (
+            (JaxAllocator, JaxPrefixCache, JaxTier, jax_audit),
+            (BlockAllocator, PrefixCache, HostKVTier, audit_kv_ledger)):
+        a = alloc_cls(8, 4)
+        tier = tier_cls()
+        c = cache_cls(a, host_tier=tier)
+        store = {}
+        c.set_spill_io(lambda b: store[b],
+                       lambda b, k, v: store.__setitem__(b, (k, v)))
+        peer = [(np.full(2, 7.0), np.full(2, 8.0))]
+        c.set_peer_source(lambda keys: (peer, 0.5))
+        t = alloc_cls.allocate(a, 2)
+        for i, b in enumerate(t):
+            store[b] = (np.full(2, float(i)), np.full(2, -float(i)))
+        toks = list(range(12))
+        c.insert(toks[:8], t)
+        a.free(t)
+        assert c.reclaim(2) == 2 and len(tier) == 2
+        census = audit(a, [], prefix_cache=c, host_tier=tier,
+                       in_migration=())
+        blocks, n = c.lookup(toks)
+        out.append((census, n, c.spills, c.host_fetches, c.peer_fetches,
+                    c.last_peer_fetch_s, [store[b][0].tolist()
+                                          for b in blocks]))
+        audit(a, [blocks], prefix_cache=c, host_tier=tier)
+    assert out[0] == out[1]
+    assert out[1][1:6] == (12, 2, 2, 1, 0.5)
 
 
 def test_audit_kv_ledger_matches_jax_and_catches_leaks():

@@ -132,3 +132,82 @@ def lockstep(jeng, teng, trace, arrive_every=0, max_rounds=500,
 
 def generated(eng, rids):
     return [eng.sequence(r).generated for r in rids]
+
+
+# ---------------------------------------------------- costs and programs
+# One cost table for both packages' runners: the JAX runner prices a
+# program by XLA's analysis, the port's by its reckoning from the
+# configuration, so a test that compares clocks, tier decisions or
+# reports across the packages gives both this table. Every key is
+# priced, run or not, as the port's runner prices it.
+def prefill_table(padded):
+    return {"flops": 1e6 * padded, "bytes accessed": 4e4 * padded}
+
+
+def decode_table(batch, pages):
+    return {"flops": 2e5 * batch + 1e4 * batch * pages,
+            "bytes accessed": 2e6 + 1e4 * batch * pages}
+
+
+def patch_costs(*engs):
+    """Point every engine's runner at the shared cost table. The JAX
+    runner's own analysis (a compile a key) is skipped; its batch-1
+    baseline program is priced from the table by its table's shape, the
+    port's by ``decode_cost_of``."""
+    for e in engs:
+        r = e.runner
+        r.prefill_cost = lambda p: prefill_table(int(p))
+        r.decode_cost = lambda b: decode_table(*b)
+        if hasattr(r, "_cost_of"):           # the JAX runner
+            r._cost_of = (lambda fn, args: decode_table(*args[-1].shape)
+                          if len(args) == 6 else {})
+        else:
+            r.decode_cost_of = lambda b, p, bs: decode_table(b, p)
+    return engs
+
+
+class _SharedPrograms(dict):
+    """A JAX runner's program cache that draws on a store shared by the
+    runners of one model (weights are the programs' arguments, so one
+    compiled program serves them all); ``len`` counts the keys this
+    runner used, as its own cache would."""
+
+    def __init__(self, store):
+        super().__init__()
+        self.store = store
+
+    def get(self, key, default=None):
+        fn = self.store.get(key)
+        if fn is None:
+            return default
+        dict.__setitem__(self, key, fn)
+        return fn
+
+    def __setitem__(self, key, fn):
+        self.store[key] = fn
+        dict.__setitem__(self, key, fn)
+
+
+_JAX_PROGRAMS = {}
+
+
+def share_jax_programs(*engs):
+    """Let JAX engines on one model reuse each other's compiled prefill
+    and decode programs (each runner would otherwise compile its own)."""
+    for e in engs:
+        r = e.runner
+        key = (id(r.model), e.cache.block_size, r.split_pages, r.interpret)
+        dec, pre = _JAX_PROGRAMS.setdefault(key, ({}, {}))
+        r._decode_programs = _SharedPrograms(dec)
+        r._prefill_programs = _SharedPrograms(pre)
+    return engs
+
+
+def one_thread():
+    """For a module-scoped fixture: torch on one thread while a module's
+    gpt_tiny engines run (their ops are too small to split, and the
+    suite's workers share the cores), restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
